@@ -1,0 +1,26 @@
+"""Architecture registry (port of ``repro/configs``).
+
+Every config module exposes ``full_spec()``, ``smoke_spec()``, ``PLAN``
+and ``SMOKE_PLAN``.  This slice ports qwen3-14b; the other nine
+architectures of the JAX registry follow with their block kinds.
+"""
+from __future__ import annotations
+
+import importlib
+
+ARCH_IDS = ("qwen3_14b",)
+
+_ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
+
+
+def resolve(arch: str) -> str:
+    key = _ALIASES.get(arch, arch)
+    if key not in ARCH_IDS:
+        raise KeyError(f"unknown or not yet ported arch {arch!r}; "
+                       f"ported: {sorted(_ALIASES)}")
+    return key
+
+
+def get(arch: str):
+    """Return the config module for an arch id (dash or underscore form)."""
+    return importlib.import_module(f"repro_torch.configs.{resolve(arch)}")

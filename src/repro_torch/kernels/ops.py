@@ -1,0 +1,36 @@
+"""Dispatch for the attention kernels (port of ``repro/kernels/ops.py``).
+
+Dispatch goes by device and by nothing else: a CUDA tensor goes to the
+hand-written kernel, a CPU tensor to the kernel's plain PyTorch version.
+There is no environment gate and no fallback — a kernel that cannot
+launch raises.  The TPU wrapper padded Sq/Sk up to block multiples; the
+CUDA flash kernel masks its ragged edge itself, so no padding copy is
+made here.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import paged_attention as _paged
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = -1):
+    """q: (B, Sq, H, Dh); k, v: (B, Sk, KV, Dh) -> (B, Sq, H, Dh)."""
+    if q.device.type == "cuda":
+        return _flash.flash_attention(q, k, v, causal=causal, window=window)
+    return _flash.flash_attention_plain(q, k, v, causal=causal, window=window)
+
+
+def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
+                    window: int = -1, k_scale=None, v_scale=None):
+    """Decode (q (B, H, Dh)) or verify (q (B, Q, H, Dh)) attention over a
+    paged pool; see :func:`repro_torch.kernels.paged_attention.paged_attention`.
+    """
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError(
+            "int8 paged pools (k_scale / v_scale) come with the "
+            "quantization slice of the port")
+    if q.device.type == "cuda":
+        return _paged.paged_attention(q, k_pages, v_pages, block_tables,
+                                      lengths, window=window)
+    return _paged.paged_attention_plain(q, k_pages, v_pages, block_tables,
+                                        lengths, window=window)

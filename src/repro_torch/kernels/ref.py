@@ -1,0 +1,76 @@
+"""Naive PyTorch oracles for the attention kernels (port of
+``repro/kernels/ref.py``).
+
+Deliberately the O(S²) formulations: independent of the CUDA kernels,
+of their plain versions and of the blockwise twins in models/nn.py, so a
+bug in shared tiling logic cannot hide.  Softmax in f32, ``-inf``
+masking, outputs in q.dtype.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def attention_ref(q, k, v, *, causal: bool = True, window: int = -1):
+    """q: (B, Sq, H, Dh); k, v: (B, Sk, KV, Dh) with H % KV == 0."""
+    b, sq, h, dh = q.shape
+    kv = k.shape[2]
+    if kv != h:
+        k = k.repeat_interleave(h // kv, dim=2)
+        v = v.repeat_interleave(h // kv, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(dh)
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(k.shape[1], device=q.device)[None, :]
+    mask = torch.ones(sq, k.shape[1], dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window > 0:
+        mask &= (qpos - kpos) < window
+    s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    return out.to(q.dtype)
+
+
+def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths, *,
+                        window: int = -1):
+    """Attention over a paged KV pool, decode or verify.
+
+    q: (B, H, Dh) decode, or (B, Q, H, Dh) with the Q queries at
+    positions ``lengths - Q .. lengths - 1`` (causal among themselves);
+    k_pages, v_pages: (P, page, KV, Dh); block_tables: (B, n_pages)
+    page ids (-1 = unallocated); lengths: (B,) valid keys.  Gathers every
+    table entry into a dense (B, n_pages·page, KV, Dh) slab, masks the
+    invalid keys and runs the naive f32 softmax.  The JAX oracle covers
+    Q = 1 only; Q > 1 is the port's addition.
+    """
+    squeeze = q.dim() == 3
+    if squeeze:
+        q = q[:, None]
+    b, ql, h, dh = q.shape
+    n_pool, page, kv, _ = k_pages.shape
+    n_pages = block_tables.shape[1]
+    tab = block_tables.long()
+    safe = tab.clamp(0, n_pool - 1)
+    k = k_pages[safe].reshape(b, n_pages * page, kv, dh).float()
+    v = v_pages[safe].reshape(b, n_pages * page, kv, dh).float()
+    if kv != h:
+        k = k.repeat_interleave(h // kv, dim=2)
+        v = v.repeat_interleave(h // kv, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k) / math.sqrt(dh)
+    kpos = torch.arange(n_pages * page, device=q.device)
+    qpos = (lengths.long()[:, None] - ql
+            + torch.arange(ql, device=q.device)[None, :])      # (B, Q)
+    mask = kpos[None, None, :] <= qpos[:, :, None]             # (B, Q, K)
+    mask &= (tab >= 0).repeat_interleave(page, dim=1)[:, None, :]
+    if window > 0:
+        mask &= (qpos[:, :, None] - kpos[None, None, :]) < window
+    s = s.masked_fill(~mask[:, None], float("-inf"))
+    p = torch.softmax(s, dim=-1).nan_to_num(0.0)
+    # zero the values of keys no query sees: a dead page may hold
+    # garbage (even NaN), and 0 * NaN would poison the weighted sum
+    v = v.masked_fill(~mask.any(dim=1)[:, :, None, None], 0.0)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v).to(q.dtype)
+    return out[:, 0] if squeeze else out

@@ -1,0 +1,296 @@
+"""Layers of the dense decoder (port of ``repro/models/nn.py``).
+
+Plain functions on tensors, in the JAX package's layouts: activations
+(B, S, d), q (B, S, H, Dh), ``wq`` (d, H, Dh), ``wo`` (H·Dh, d).  The
+port runs one device per stage group, so there are no tensor-parallel
+collectives.  Per-layer scalars (window, rope theta) are Python numbers
+on the host: the JAX package traces them as data because every stage
+runs one SPMD program, the port runs each stage's layers itself.
+
+Caches are updated in place.  The JAX code is functional
+(``dynamic_update_slice`` + ``where``) and XLA updates in place under
+buffer donation; a literal port would copy a whole KV pool at every
+layer of every tick, gigabytes at full width.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops as kernel_ops
+
+# Sequence-length product above which attention over a cache switches to
+# the blockwise twin to keep activation memory O(S · block).
+_FLASH_THRESHOLD = 4 * 1024 * 1024
+_FLASH_BLOCK = 1024
+_INVALID_POS = -(10 ** 9)   # sentinel for padded / not-yet-written KV slots
+NEG_INF = -1e30
+
+
+# --------------------------------------------------------------------------
+# Norms
+# --------------------------------------------------------------------------
+
+def rmsnorm(x, scale, eps: float = 1e-6):
+    """Normalize in f32, cast back, then scale (the JAX order of ops)."""
+    h = x.float()
+    var = (h * h).mean(dim=-1, keepdim=True)
+    return (h * torch.rsqrt(var + eps)).to(x.dtype) * scale
+
+
+def layernorm(x, scale, bias, eps: float = 1e-5):
+    h = x.float()
+    mu = h.mean(dim=-1, keepdim=True)
+    var = ((h - mu) ** 2).mean(dim=-1, keepdim=True)
+    return ((h - mu) * torch.rsqrt(var + eps)).to(x.dtype) * scale + bias
+
+
+def apply_norm(p, x, kind: str):
+    if kind == "rmsnorm":
+        return rmsnorm(x, p["scale"])
+    return layernorm(x, p["scale"], p["bias"])
+
+
+# --------------------------------------------------------------------------
+# Rotary embeddings (neox rotate-half; chatglm "2d" = half-rotary)
+# --------------------------------------------------------------------------
+
+def rope_frequencies(d_rot: int, theta: float, device=None):
+    exponent = torch.arange(0, d_rot, 2, dtype=torch.float32,
+                            device=device) / d_rot
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                        device=device), exponent)
+
+
+def apply_rope(q, k, positions, theta: float, *, rope_2d: bool = False):
+    """q: (B,S,H,Dh), k: (B,S,KV,Dh), positions: (B,S) int; angles in f32."""
+    dh = q.shape[-1]
+    d_rot = dh // 2 if rope_2d else dh
+    inv = rope_frequencies(d_rot, theta, q.device)
+    ang = positions.float()[..., None] * inv                # (B,S,d_rot/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+
+    def rot(x):
+        rx, keep = x[..., :d_rot], x[..., d_rot:]
+        x1, x2 = rx[..., : d_rot // 2], rx[..., d_rot // 2:]
+        out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                        dim=-1).to(x.dtype)
+        return torch.cat([out, keep], dim=-1) if rope_2d else out
+
+    return rot(q), rot(k)
+
+
+# --------------------------------------------------------------------------
+# Attention (GQA + qk-norm + sliding window + dense or paged KV cache)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AttnStatic:
+    """Static attention configuration for one device."""
+
+    n_heads_local: int
+    n_kv_local: int
+    d_head: int
+    kv_sharded: bool
+    kv_groups_per_device: int
+    qk_norm: bool
+    rope_2d: bool
+    causal: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class PageRow:
+    """One microbatch slot's page table, shared by all its paged layers.
+
+    ``ids`` are the page ids on the host (-1 = unallocated): the write
+    addresses, read without a device sync.  ``ids_dev`` is the same row
+    on the device (the prefill gather); ``lane_tables`` (rows, n_pages)
+    int32 addresses the pool flattened as ``(pool_pages·rows, page, KV,
+    Dh)`` — entry ``pid·rows + lane``, a view with no copy — and
+    ``lengths`` (rows,) int32 is every lane's key count for the paged
+    kernel.  Built once per step by :func:`page_row`.
+    """
+
+    ids: np.ndarray
+    ids_dev: torch.Tensor
+    lane_tables: torch.Tensor
+    lengths: torch.Tensor
+
+
+def page_row(ids, rows: int, n_keys: int, device) -> PageRow:
+    """The :class:`PageRow` of a slot whose lanes hold ``n_keys`` keys."""
+    ids = np.asarray(ids, np.int32)
+    lane = np.arange(rows, dtype=np.int64)[:, None]
+    lanes = np.where(ids[None, :] >= 0, ids[None, :] * rows + lane, -1)
+    return PageRow(
+        ids=ids,
+        ids_dev=torch.from_numpy(ids.copy()).to(device),
+        lane_tables=torch.from_numpy(lanes.astype(np.int32)).to(device),
+        lengths=torch.full((rows,), n_keys, dtype=torch.int32, device=device))
+
+
+def _attn_mask(q_pos, k_pos, window: int, causal: bool):
+    """(Q, K) bool mask from positions and a window (<= 0: global)."""
+    dq = q_pos[:, None] - k_pos[None, :]
+    m = (dq >= 0) if causal else torch.ones_like(dq, dtype=torch.bool)
+    if window > 0:
+        m = m & (dq < window)
+    return m & (k_pos > _INVALID_POS // 2)[None, :]
+
+
+def _sdpa_naive(q, k, v, mask):
+    """q (B,Sq,H,Dh), k/v (B,Sk,H,Dh), mask broadcastable to (B,H,Sq,Sk)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)
+
+
+def _sdpa_flash(q, k, v, q_pos, k_pos, window: int, causal: bool,
+                block: int = _FLASH_BLOCK):
+    """Blockwise (flash) attention in plain PyTorch: O(S·block) memory.
+
+    Twin of the JAX package's ``_sdpa_flash_jnp``: loops over KV blocks
+    carrying running (max, sum, acc).  q (B,Sq,H,Dh), k/v (B,Sk,H,Dh).
+    """
+    b, sq, h, dh = q.shape
+    sk = k.shape[1]
+    scale = 1.0 / math.sqrt(dh)
+    m_run = torch.full((b, h, sq), float("-inf"), device=q.device)
+    l_run = torch.zeros((b, h, sq), device=q.device)
+    acc = torch.zeros((b, h, sq, dh), device=q.device)
+    for lo in range(0, sk, block):
+        kb, vb, kp = k[:, lo:lo + block], v[:, lo:lo + block], k_pos[lo:lo + block]
+        s = torch.einsum("bqhd,bkhd->bhqk", q, kb).float() * scale
+        s = torch.where(_attn_mask(q_pos, kp, window, causal)[None, None],
+                        s, NEG_INF)
+        m_new = torch.maximum(m_run, s.amax(dim=-1))
+        alpha = torch.exp(m_run - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l_run = l_run * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p.to(vb.dtype), vb).float()
+        m_run = m_new
+    out = acc / l_run.clamp_min(1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def attention(p, x, st: AttnStatic, *, positions, window: int, theta: float,
+              kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              cache_pos: int = 0, paged_kv=None):
+    """Self-attention of x (B, S, d); returns (B, S, d).
+
+    ``kv_cache``: this slot's dense (k, v) cache views (B, L, KV, Dh),
+    written in place.  ``paged_kv``: ``(k_pool, v_pool, row)`` with the
+    stage's pools (pool_pages, B, page, KV, Dh), written in place, and
+    the slot's :class:`PageRow`.  ``cache_pos`` is the host position of
+    the first query.  Neither: the cache-less causal forward, which runs
+    the flash kernel.  The engine runs only valid (microbatch, stage)
+    cells — bubbles are skipped — so the JAX ``valid`` write gate is the
+    engine's skip, and writes here are gated by page liveness only.
+    """
+    b, s, _ = x.shape
+    hd = st.n_heads_local * st.d_head
+    q = (x @ p["wq"].reshape(x.shape[-1], hd)).view(b, s, st.n_heads_local,
+                                                    st.d_head)
+    kvd = st.n_kv_local * st.d_head
+    k = (x @ p["wk"].reshape(x.shape[-1], kvd)).view(b, s, st.n_kv_local,
+                                                     st.d_head)
+    v = (x @ p["wv"].reshape(x.shape[-1], kvd)).view(b, s, st.n_kv_local,
+                                                     st.d_head)
+    if st.qk_norm:
+        q = rmsnorm(q, p["q_norm"])
+        k = rmsnorm(k, p["k_norm"])
+    q, k = apply_rope(q, k, positions, theta, rope_2d=st.rope_2d)
+    wo = p["wo"]
+
+    if paged_kv is not None:
+        assert kv_cache is None
+        k_pool, v_pool, row = paged_kv
+        n_pool, _, ps, n_kv, dh = k_pool.shape
+        L = len(row.ids) * ps
+        if s == 1:
+            # decode: key t lands at offset (cache_pos + t) % ps of the
+            # slot's page (cache_pos + t) // ps
+            pid = int(row.ids[cache_pos // ps])
+            if pid >= 0:
+                k_pool[pid, :, cache_pos % ps] = k[:, 0]
+                v_pool[pid, :, cache_pos % ps] = v[:, 0]
+            if st.causal:
+                # paged kernel over the (page, lane)-flattened pool: lane
+                # l of page pid is flat page pid·b + l, every lane holds
+                # cache_pos + 1 keys (row.lengths)
+                out = kernel_ops.paged_attention(
+                    q[:, 0], k_pool.reshape(n_pool * b, ps, n_kv, dh),
+                    v_pool.reshape(n_pool * b, ps, n_kv, dh),
+                    row.lane_tables, row.lengths, window=window)
+                return out.reshape(b, s, hd) @ wo
+        else:
+            # prefill: write the fresh slab page by page; unallocated
+            # pages of ragged slots are skipped
+            for ii in range(-(-s // ps)):
+                lo = ii * ps
+                width = min(ps, s - lo)
+                pid = int(row.ids[cache_pos // ps + ii])
+                if pid >= 0:
+                    k_pool[pid, :, :width] = k[:, lo:lo + width]
+                    v_pool[pid, :, :width] = v[:, lo:lo + width]
+        # gather the table into a dense slab; masked entries contribute
+        # exact zeros, as on the dense path
+        safe = row.ids_dev.long().clamp(0, n_pool - 1)
+        k = k_pool[safe].transpose(0, 1).reshape(b, L, n_kv, dh)
+        v = v_pool[safe].transpose(0, 1).reshape(b, L, n_kv, dh)
+        j = torch.arange(L, device=x.device)
+        alive = (row.ids_dev >= 0).repeat_interleave(ps)
+        k_pos = torch.where((j < cache_pos + s) & alive, j, _INVALID_POS)
+    elif kv_cache is not None:
+        ck, cv = kv_cache
+        L = ck.shape[1]
+        j = torch.arange(L, device=x.device)
+        if s == 1:
+            # decode: ring-buffer write (an append for full-length caches)
+            ck[:, cache_pos % L] = k[:, 0]
+            cv[:, cache_pos % L] = v[:, 0]
+            k_pos = cache_pos - torch.remainder(cache_pos - j, L)
+            k_pos = torch.where(k_pos >= 0, k_pos, _INVALID_POS)
+        else:
+            ck[:, cache_pos:cache_pos + s] = k
+            cv[:, cache_pos:cache_pos + s] = v
+            k_pos = torch.where(j < cache_pos + s, j, _INVALID_POS)
+        k, v = ck, cv
+    elif st.causal:
+        # cache-less causal forward: the flash kernel (GQA inside)
+        out = kernel_ops.flash_attention(q, k, v, causal=True, window=window)
+        return out.reshape(b, s, hd) @ wo
+    else:
+        k_pos = positions[0]
+
+    groups = st.n_heads_local // k.shape[2]
+    k = k.repeat_interleave(groups, dim=2)
+    v = v.repeat_interleave(groups, dim=2)
+    q_pos = positions[0]
+    if s * k.shape[1] <= _FLASH_THRESHOLD:
+        mask = _attn_mask(q_pos, k_pos, window, st.causal)
+        out = _sdpa_naive(q, k, v, mask[None, None])
+    else:
+        out = _sdpa_flash(q, k, v, q_pos, k_pos, window, st.causal)
+    return out.reshape(b, s, hd) @ wo
+
+
+# --------------------------------------------------------------------------
+# Dense FFN (SwiGLU / GELU)
+# --------------------------------------------------------------------------
+
+def mlp(p, x, act: str):
+    if act == "silu":
+        h = F.silu(x @ p["w1"]) * (x @ p["w3"])
+    else:
+        h = F.gelu(x @ p["w1"], approximate="tanh")
+    return h @ p["w2"]

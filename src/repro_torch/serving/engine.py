@@ -1,0 +1,250 @@
+"""Table-driven pipelined serving: prefill and decode as clients of the
+``serve_1f`` schedule (port of ``repro/serving/engine.py``).
+
+The engine walks the schedule's forward and exit tables tick by tick;
+no tick/stage index arithmetic lives here.  In this slice every stage
+runs on one device, stage after stage within a tick.  The JAX engine
+hands hidden states downstream with a ``ppermute``, so stage s + 1 at
+tick t reads what stage s sent at tick t − 1; the sequential loop
+double-buffers that hand-off.  Bubble cells (``F_MB < 0``) are skipped —
+JAX computes garbage there and never writes it — so a decode step runs
+each microbatch through each layer exactly once.
+
+KV state is stacked like the JAX engine's: dense caches
+``(n_chunks, R, rows, cache_len, KV, Dh)`` per layer, or page pools
+``(n_chunks, pool_pages, rows, page, KV, Dh)`` per layer plus one
+host-side :class:`PageAllocator` whose (R, max_pages) table indexes
+every layer's pool.  Both are written in place.  Cache positions live in
+the host mirror ``_pos``: no per-layer device sync.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.schedule import (F_FROM_EMBEDS, F_MB, ServingSchedule,
+                                       fit_serving_microbatches,
+                                       make_serving_schedule)
+from repro_torch.models import lm_head
+from repro_torch.models import spec as spec_lib
+from repro_torch.models.init import init_params, params_from_numpy
+from repro_torch.models.nn import page_row
+from repro_torch.models.stage import (StageStatics, init_stage_state,
+                                      make_statics, stage_fwd, stage_params)
+from repro_torch.parallel.plan import ParallelismPlan
+from repro_torch.serving.allocator import CacheExhausted, PageAllocator
+
+__all__ = ["CacheExhausted", "EngineSession", "build_serving"]
+
+
+@dataclasses.dataclass
+class EngineSession:
+    """One serving session over the ``serve_1f`` schedule.
+
+    ``start`` initializes parameters and KV state, ``load_params``
+    installs a numpy parameter tree in the JAX layout, ``prefill`` runs
+    the pipelined prompt pass and ``decode`` one pipelined decode step;
+    both return the next token of every row, (R · rows,) int32 on the
+    device.  ``last_hidden`` keeps the hidden state exiting the pipe at
+    each row's last position, (R · rows, 1, d), for callers that check
+    logits.
+    """
+
+    spec: spec_lib.ModelSpec
+    plan: ParallelismPlan
+    sched: ServingSchedule
+    statics: StageStatics
+    device: torch.device
+    compute_dtype: torch.dtype
+    cache_len: int
+    rows: int                      # rows per microbatch slot
+    paged: Optional[Dict[str, int]] = None
+    params: Any = None
+    cache: Optional[Dict] = None   # dense KV, {'layer_i': {"kv": (k, v)}}
+    pages: Optional[Dict] = None   # paged KV, {'layer_i': (k_pool, v_pool)}
+    last_hidden: Optional[torch.Tensor] = None
+    _stage_params: List[Dict] = dataclasses.field(default_factory=list)
+    _alloc: Optional[PageAllocator] = None
+    _pos: Any = None               # host cache position per slot
+
+    @property
+    def n_slots(self) -> int:
+        return self.sched.n_microbatches
+
+    def start(self, seed: int = 0) -> "EngineSession":
+        """Initialize (or reset) parameters from ``seed`` and zero the KV
+        state."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        self._set_params(init_params(self.spec, self.plan, gen,
+                                     self.compute_dtype))
+        R, S = self.n_slots, self.sched.n_stages
+        st = self.statics
+        if self.paged is None:
+            self.cache = init_stage_state(
+                st, self.rows, [self.cache_len] * len(st.program),
+                self.compute_dtype, self.device, lead=(S, R))
+        else:
+            shape = (S, self.paged["pool_pages"], self.rows,
+                     self.paged["page_size"], st.attn.n_kv_local,
+                     st.attn.d_head)
+            self.pages = {
+                f"layer_{i}": (torch.zeros(shape, dtype=self.compute_dtype,
+                                           device=self.device),
+                               torch.zeros(shape, dtype=self.compute_dtype,
+                                           device=self.device))
+                for i in range(len(st.program))}
+            self._alloc = PageAllocator(self.paged["pool_pages"], R,
+                                        self.paged["max_pages"],
+                                        self.paged["page_size"])
+        self._pos = np.zeros(R, np.int64)
+        return self
+
+    def load_params(self, params_host) -> "EngineSession":
+        """Install a numpy parameter tree in the JAX package's layout
+        (``jax.tree.map(np.asarray, params)``), cast to the compute dtype."""
+        if self._pos is None:
+            raise RuntimeError("call start() before load_params()")
+        self._set_params(params_from_numpy(params_host, self.device,
+                                           self.compute_dtype))
+        return self
+
+    def _set_params(self, params) -> None:
+        self.params = params
+        self._stage_params = [stage_params(params, s)
+                              for s in range(self.sched.n_stages)]
+
+    def prefill(self, batch) -> torch.Tensor:
+        """Pipelined prefill; ``batch["tokens"]`` is (R, rows, S) ints."""
+        if self._pos is None:
+            self.start()
+        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        R, qlen = self.n_slots, tokens.shape[2]
+        if tokens.shape[:2] != (R, self.rows) or qlen > self.cache_len:
+            raise ValueError(
+                f"tokens {tuple(tokens.shape)} must be (R={R}, rows="
+                f"{self.rows}, S <= cache_len={self.cache_len})")
+        if self._alloc is not None:
+            for r in range(R):
+                self._alloc.alloc_slot(r, qlen)
+        self._pos[:] = 0
+        embeds = lm_head.embed_tokens(self.params["embed"], tokens,
+                                      self.compute_dtype)
+        nxt = self._round(embeds)
+        self._pos[:] = qlen
+        return nxt
+
+    def decode(self, tokens) -> torch.Tensor:
+        """One pipelined decode step; ``tokens`` is (R · rows,) ints."""
+        if self._pos is None:
+            raise ValueError("decode() before start(): call start() and "
+                             "prefill() first")
+        if self._alloc is not None:
+            # allocate on page-boundary crossing, after finding every slot
+            # at capacity; the pool holds every slot's max_pages, so it
+            # cannot run dry
+            slots = range(self.n_slots)
+            over = [r for r in slots if self._pos[r] >= self.cache_len]
+            if over:
+                raise CacheExhausted(
+                    f"slots {over} are at paged KV capacity "
+                    f"(cache_len={self.cache_len} tokens)", slots=over)
+            for r in slots:
+                self._alloc.extend_slot(r, int(self._pos[r]) + 1)
+        tokens = torch.as_tensor(tokens, device=self.device)
+        embeds = lm_head.embed_tokens(
+            self.params["embed"], tokens.reshape(self.n_slots, self.rows, 1),
+            self.compute_dtype)
+        nxt = self._round(embeds)
+        self._pos += 1
+        return nxt
+
+    def _round(self, embeds) -> torch.Tensor:
+        """Walk the forward / exit tables over ``embeds`` (R, rows, qlen,
+        d); return the greedy next token of every row."""
+        R, S = self.n_slots, self.sched.n_stages
+        qlen = embeds.shape[2]
+        tabs = self.sched.tables()
+        rows_pr = None
+        if self._alloc is not None:
+            rows_pr = [page_row(self._alloc.tables[m], self.rows,
+                                int(self._pos[m]) + qlen, self.device)
+                       for m in range(R)]
+        exits: List[Optional[torch.Tensor]] = [None] * R
+        recv: List[Optional[torch.Tensor]] = [None] * S
+        for t in range(self.sched.n_ticks):
+            sent: List[Optional[torch.Tensor]] = [None] * S
+            for s in range(S):
+                m = int(tabs.fwd[t, s, F_MB])
+                if m < 0:
+                    continue                       # bubble
+                x = embeds[m] if tabs.fwd[t, s, F_FROM_EMBEDS] else recv[s - 1]
+                pos = int(self._pos[m])
+                positions = torch.arange(pos, pos + qlen, device=self.device
+                                         ).expand(self.rows, qlen)
+                state = paged = None
+                if self.cache is not None:
+                    state = {name: {"kv": (c["kv"][0][s, m], c["kv"][1][s, m])}
+                             for name, c in self.cache.items()}
+                else:
+                    paged = {"pools": {name: (kp[s], vp[s]) for name, (kp, vp)
+                                       in self.pages.items()},
+                             "row": rows_pr[m]}
+                sent[s] = stage_fwd(
+                    self._stage_params[s], x, self.statics,
+                    positions=positions,
+                    windows=self.params["layer_windows"][s],
+                    thetas=self.params["layer_thetas"][s],
+                    state=state, cache_pos=pos, paged=paged)
+            m_exit = int(tabs.exit_mb[t])
+            if m_exit >= 0:
+                exits[m_exit] = sent[S - 1]
+            recv = sent
+        h = torch.stack(exits)[:, :, -1:].reshape(R * self.rows, 1, -1)
+        self.last_hidden = h
+        fn = self.params["final_norm"]
+        return lm_head.sample_greedy(self.params["head"], fn["scale"], h,
+                                     norm_kind=self.spec.norm,
+                                     norm_bias=fn.get("bias"),
+                                     vocab=self.spec.vocab)
+
+
+def build_serving(spec: spec_lib.ModelSpec, plan: ParallelismPlan, *,
+                  cache_len: int, global_batch: int,
+                  compute_dtype=torch.bfloat16, page_size: int = 0,
+                  device=None) -> EngineSession:
+    """A serving session for ``plan``'s ``serve_1f`` schedule, all stages
+    on ``device`` (default ``cuda``; raises without a card).
+
+    ``global_batch`` rows split into R = fit(plan.decode_microbatches)
+    microbatch slots.  ``page_size > 0`` keeps every attention layer's KV
+    in a block-paged pool of R · cache_len / page_size pages (the dense
+    capacity) and runs decode attention through the paged kernel.
+    """
+    dev = resolve_device(device)
+    if plan.tp != 1:
+        raise ValueError(f"tp={plan.tp}: the port runs one device per "
+                         "stage group (tp=1) in this slice")
+    if page_size and cache_len % page_size:
+        raise ValueError(f"cache_len={cache_len} must be a multiple of "
+                         f"page_size={page_size}")
+    if compute_dtype == torch.float32 and dev.type == "cuda":
+        # fp32 parity with the JAX reference needs full-precision products
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    R = fit_serving_microbatches(plan.decode_microbatches, global_batch, 1)
+    sched = make_serving_schedule(plan, R)
+    sched.validate()
+    statics = make_statics(spec, plan)
+    paged = None
+    if page_size:
+        max_pages = cache_len // page_size
+        paged = {"page_size": page_size, "max_pages": max_pages,
+                 "pool_pages": R * max_pages}
+    return EngineSession(spec=spec, plan=plan, sched=sched, statics=statics,
+                         device=dev, compute_dtype=compute_dtype,
+                         cache_len=cache_len, rows=global_batch // R,
+                         paged=paged)

@@ -1,0 +1,209 @@
+"""The port's model layer against the JAX package on the same numpy
+weights: norms, RoPE, the parameter tree, ``full_transformer``, and the
+paged attention dispatch (the lane-mapping regression)."""
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.kernels import ops as jops
+from repro.models import init as jinit
+from repro.models import lm_head as jlm
+from repro.models import nn as jnn
+from repro.models import stage as jstage
+from repro.parallel.mesh import ParallelismPlan as JPlan
+from repro_torch import configs as tconfigs
+from repro_torch.models import init as tinit
+from repro_torch.models import lm_head as tlm
+from repro_torch.models import nn as tnn
+from repro_torch.models import stage as tstage
+from repro_torch.models.spec import BlockSpec
+from repro_torch.parallel.plan import ParallelismPlan as TPlan
+
+ATOL, RTOL = 2e-4, 1e-3          # model-level fp32 (tests/test_kernels.py)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_params(pp, seed=3):
+    """JAX-initialized numpy weights of the qwen3 smoke spec (shared)."""
+    spec = jconfigs.get("qwen3-14b").smoke_spec()
+    plan = JPlan(pp=pp, tp=1, microbatches=1, remat=False)
+    params, _ = jinit.init_params(spec, plan, jax.random.key(seed),
+                                  jnp.float32)
+    return jax.tree.map(np.asarray, params), plan
+
+
+def test_rmsnorm_and_rope_match_jax():
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 5, 4, 16)).astype(np.float32)
+    k = rng.standard_normal((2, 5, 2, 16)).astype(np.float32)
+    scale = rng.standard_normal(16).astype(np.float32)
+    pos = np.broadcast_to(np.arange(7, 12), (2, 5)).astype(np.int32)
+    np.testing.assert_allclose(
+        tnn.rmsnorm(torch.from_numpy(x), torch.from_numpy(scale)).numpy(),
+        np.asarray(jnn.rmsnorm(jnp.asarray(x), jnp.asarray(scale))),
+        atol=1e-6, rtol=1e-6)
+    for rope_2d in (False, True):
+        tq, tk = tnn.apply_rope(torch.from_numpy(x), torch.from_numpy(k),
+                                torch.from_numpy(pos), 1e6, rope_2d=rope_2d)
+        jq, jk = jnn.apply_rope(jnp.asarray(x), jnp.asarray(k),
+                                jnp.asarray(pos), jnp.float32(1e6),
+                                rope_2d=rope_2d)
+        np.testing.assert_allclose(tq.numpy(), np.asarray(jq), atol=1e-5)
+        np.testing.assert_allclose(tk.numpy(), np.asarray(jk), atol=1e-5)
+
+
+def test_init_tree_matches_jax_keys_and_shapes():
+    spec = tconfigs.get("qwen3-14b").smoke_spec()
+    plan = TPlan(pp=2, tp=1)
+    mine = tinit.init_params(spec, plan, torch.Generator().manual_seed(0),
+                             torch.float32)
+    ref, _ = _jax_params(2)
+
+    def shapes(tree):
+        if isinstance(tree, dict):
+            return {k: shapes(v) for k, v in tree.items()}
+        return tuple(np.shape(tree))
+
+    assert shapes(mine) == shapes(ref)
+    conv = tinit.params_from_numpy(ref, "cpu", torch.float32)
+    assert shapes(conv) == shapes(ref)
+    assert conv["layer_windows"] == ref["layer_windows"].tolist()
+    np.testing.assert_array_equal(
+        conv["stages"]["layer_1"]["mlp"]["w2"].numpy(),
+        ref["stages"]["layer_1"]["mlp"]["w2"])
+
+
+@pytest.mark.parametrize("pp", [1, 2])
+def test_full_transformer_matches_jax(pp):
+    jspec = jconfigs.get("qwen3-14b").smoke_spec()
+    tspec = tconfigs.get("qwen3-14b").smoke_spec()
+    params, jplan = _jax_params(pp)
+    rng = np.random.default_rng(pp)
+    x = rng.standard_normal((2, 24, jspec.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(24), (2, 24)).astype(np.int32)
+    jst = jstage.make_statics(jspec, jplan, tokens_per_mb=48)
+    want, _ = jstage.full_transformer(jax.tree.map(jnp.asarray, params),
+                                      jnp.asarray(x), jst,
+                                      positions=jnp.asarray(pos))
+    tst = tstage.make_statics(tspec, TPlan(pp=pp, tp=1))
+    tp = tinit.params_from_numpy(params, "cpu", torch.float32)
+    got = tstage.full_transformer(tp, torch.from_numpy(x), tst,
+                                  positions=torch.from_numpy(pos))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=RTOL)
+    # the head agrees too: greedy tokens from the same hidden state
+    fn = tp["final_norm"]
+    np.testing.assert_array_equal(
+        tlm.sample_greedy(tp["head"], fn["scale"], got,
+                          vocab=tspec.vocab).numpy(),
+        np.asarray(jlm.sample_greedy(
+            jnp.asarray(params["head"]),
+            jnp.asarray(params["final_norm"]["scale"]), want,
+            vocab=jspec.vocab)))
+
+
+def test_make_statics_rejects_unported_block_kinds():
+    spec = tconfigs.get("qwen3-14b").smoke_spec()
+    moe = dataclasses.replace(spec, blocks=tuple(
+        BlockSpec(mixer="attn", ffn="moe") for _ in spec.blocks))
+    with pytest.raises(NotImplementedError):
+        tstage.make_statics(moe, TPlan(pp=1, tp=1))
+
+
+@pytest.mark.parametrize("rows", [1, 2, 3])
+def test_paged_decode_dispatch_matches_jax_gather_path(rows):
+    """Lane-mapping regression.  One paged decode call (pool of 8 pages,
+    page 16, 4 heads over 2 KV heads, Dh 16, table [5, 2, -1, -1],
+    cache_pos 20) with ``rows`` rows per slot: the port's paged dispatch
+    (flattened pool, entries pid·rows + lane) against the JAX default
+    jnp gather path, outputs and written pools.  The JAX Pallas dispatch
+    (nn.py:405-410) flattens the pool lane-major and disagrees for
+    rows > 1; the port must not copy that."""
+    rng = np.random.default_rng(rows)
+    n_pool, page, h, kv, dh, d = 8, 16, 4, 2, 16, 32
+    st_kw = dict(n_heads_local=h, n_kv_local=kv, d_head=dh, kv_sharded=True,
+                 kv_groups_per_device=0, qk_norm=True, rope_2d=False)
+    p = {"wq": rng.standard_normal((d, h, dh)) * 0.3,
+         "wk": rng.standard_normal((d, kv, dh)) * 0.3,
+         "wv": rng.standard_normal((d, kv, dh)) * 0.3,
+         "wo": rng.standard_normal((h * dh, d)) * 0.3,
+         "q_norm": rng.standard_normal(dh), "k_norm": rng.standard_normal(dh)}
+    p = {k: v.astype(np.float32) for k, v in p.items()}
+    x = rng.standard_normal((rows, 1, d)).astype(np.float32)
+    kp = rng.standard_normal((n_pool, rows, page, kv, dh)).astype(np.float32)
+    vp = rng.standard_normal((n_pool, rows, page, kv, dh)).astype(np.float32)
+    table = np.array([5, 2, -1, -1], np.int32)
+    cache_pos = 20
+    pos = np.full((rows, 1), cache_pos, np.int32)
+
+    assert not jops.use_pallas()
+    jout, (jk, jv) = jnn.attention(
+        {k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x),
+        jnn.AttnStatic(**st_kw), positions=jnp.asarray(pos),
+        window=jnp.int32(-1), theta=jnp.float32(1e4), tp_axis=None,
+        cache_pos=jnp.int32(cache_pos),
+        paged_kv=((jnp.asarray(kp), jnp.asarray(vp)), jnp.asarray(table),
+                  jnp.bool_(True)))
+    tk, tv = torch.from_numpy(kp.copy()), torch.from_numpy(vp.copy())
+    row = tnn.page_row(table, rows, cache_pos + 1, "cpu")
+    tout = tnn.attention({k: torch.from_numpy(v) for k, v in p.items()},
+                         torch.from_numpy(x), tnn.AttnStatic(**st_kw),
+                         positions=torch.from_numpy(pos), window=-1,
+                         theta=1e4, cache_pos=cache_pos,
+                         paged_kv=(tk, tv, row))
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), atol=2e-5,
+                               rtol=1e-3)
+    np.testing.assert_allclose(tk.numpy(), np.asarray(jk), atol=1e-6)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=1e-6)
+    assert not np.allclose(tk.numpy(), kp)      # the token was written
+
+
+def test_blockwise_twin_matches_jax_twin_and_naive():
+    """``_sdpa_flash`` (taken above 4M query·key pairs) against the JAX
+    ``_sdpa_flash_jnp`` and the naive path, over a cache-style k_pos with
+    unwritten slots."""
+    rng = np.random.default_rng(9)
+    q = rng.standard_normal((2, 6, 4, 8)).astype(np.float32)
+    k = rng.standard_normal((2, 40, 4, 8)).astype(np.float32)
+    v = rng.standard_normal((2, 40, 4, 8)).astype(np.float32)
+    q_pos = np.arange(30, 36, dtype=np.int32)
+    k_pos = np.where(np.arange(40) < 36, np.arange(40),
+                     tnn._INVALID_POS).astype(np.int32)
+    for window in (-1, 9):
+        want = jnn._sdpa_flash_jnp(*(jnp.asarray(a) for a in
+                                     (q, k, v, q_pos, k_pos)),
+                                   jnp.int32(window), True, block=16)
+        tq, tk, tv, tqp, tkp = (torch.from_numpy(a) for a in
+                                (q, k, v, q_pos, k_pos))
+        got = tnn._sdpa_flash(tq, tk, tv, tqp, tkp, window, True, block=16)
+        naive = tnn._sdpa_naive(tq, tk, tv, tnn._attn_mask(
+            tqp, tkp, window, True)[None, None])
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                                   rtol=1e-3)
+        np.testing.assert_allclose(got.numpy(), naive.numpy(), atol=2e-5,
+                                   rtol=1e-3)
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_layernorm_and_mlp_match_jax(act):
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, 3, 16)).astype(np.float32)
+    p = {k: (rng.standard_normal(s) * 0.3).astype(np.float32)
+         for k, s in (("w1", (16, 24)), ("w2", (24, 16)), ("w3", (16, 24)))}
+    scale, bias = (rng.standard_normal(16).astype(np.float32)
+                   for _ in range(2))
+    t = lambda a: torch.from_numpy(a)
+    np.testing.assert_allclose(
+        tnn.mlp({k: t(v) for k, v in p.items()}, t(x), act).numpy(),
+        np.asarray(jnn.mlp({k: jnp.asarray(v) for k, v in p.items()},
+                           jnp.asarray(x), act, None)), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(
+        tnn.layernorm(t(x), t(scale), t(bias)).numpy(),
+        np.asarray(jnn.layernorm(jnp.asarray(x), jnp.asarray(scale),
+                                 jnp.asarray(bias))), atol=1e-5, rtol=1e-5)
