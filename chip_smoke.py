@@ -8,7 +8,8 @@ Phases (any failure raises and the script exits non-zero):
 1. build — compile every CUDA kernel of ``src/repro_torch/kernels/csrc``
    from the checkout's sources (one nvcc per source, in parallel);
 2. kernels — each kernel against its plain PyTorch version on the card,
-   at the main path's shapes, in bf16 and f32, with stated tolerances;
+   at the main paths' shapes, in bf16 and f32, with stated tolerances
+   (wkv6 with and without a start state, plus a strong-decay case);
 3. serve — qwen3-14b at full width (d 5120, 40 heads, 8 KV heads, Dh 128,
    d_ff 17408, vocab 151936), bf16, random seeded weights, ``serve_1f``
    with pp = 2 on the one card: R = 4 slots × 2 rows, prefill 512,
@@ -17,11 +18,24 @@ Phases (any failure raises and the script exits non-zero):
    sequence.  Launch counters are zeroed before and read after each;
 4. consistency — fp32 at full width and 2 layers: the paged engine's
    hidden states and pools against the dense-cache engine's, and
-   ``full_transformer`` logits against the engine's last-position logits.
+   ``full_transformer`` logits against the engine's last-position logits;
+5. serve rwkv6 — rwkv6-1.6b at full width (d 2048, 24 layers, 32 heads
+   of 64, d_ff 7168, vocab 65536), bf16, random seeded weights,
+   ``serve_1f`` with pp = 8 on the one card: R = 4 slots × 8 rows,
+   prefill 1024, 32 decode steps, every layer's WKV through the wkv6
+   kernel from the slot's recurrent state; then a ``torch.profiler``
+   breakdown of one more decode step by kernel;
+6. reference rwkv6 — ``full_transformer`` (wkv6 from a zero state) over
+   the served sequence: the served tokens must be its greedy tokens at
+   every generated position of every row;
+7. consistency rwkv6 — fp32 at full width and 2 layers: the engine's
+   last-position logits against ``full_transformer``'s.
 
-Prints one ``kernels`` JSON line (launches, errors, times, bounds), the
-card's name and power limit, and last ``{"ok": true, "device": ...}``.
-Exits non-zero without a CUDA device.
+Launch counters are zeroed before and read after each main path (phases
+3, 5 and 6).  Prints a ``profile`` JSON line, one ``kernels`` JSON line
+(launches, errors, times, bounds), the card's name and power limit, and
+last ``{"ok": true, "device": ...}``.  Exits non-zero without a CUDA
+device.
 """
 from __future__ import annotations
 
@@ -50,6 +64,17 @@ CACHE_LEN = 1024
 PAGE = 16
 R_SLOTS, ROWS = 4, 2
 TOL = {"float32": (2e-5, 1e-3), "bfloat16": (2e-2, 1e-2)}  # (atol, rtol)
+# rwkv6 serving: R slots × rows, prompt and decode lengths
+RWKV_SLOTS, RWKV_ROWS = 4, 8
+RWKV_PREFILL, RWKV_DECODE = 1024, 32
+RWKV_H, RWKV_DH = 32, 64
+# bf16 greedy agreement: logits come out of a bf16 product, so near the
+# maximum (~4 at these random weights) they are quantized in steps of
+# 1/64..1/32, and the served path and full_transformer round their
+# products differently.  A served token must be a greedy token of the
+# reference up to this margin (~3-6 steps); a wrong state moves logits
+# by their spread (~0.9).
+RWKV_TIE = 0.1
 
 
 def log(msg: str) -> None:
@@ -69,6 +94,24 @@ def check_close(name, got, want, atol, rtol):
     return float(err.max().item())
 
 
+def counters():
+    """The launch counter of every kernel wrapper, by kernel name."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import wkv6 as wk
+    return {"paged_attention": pa.paged_attention,
+            "flash_attention": fa.flash_attention, "wkv6": wk.wkv6}
+
+
+def reset_counts() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in counters().items()}
+
+
 def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     """Mean device time of ``fn`` over ``iters`` calls (CUDA events)."""
     import torch
@@ -83,6 +126,29 @@ def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int, kernel: str = "") -> float:
+    """Device time per call of ``fn`` from ``torch.profiler``: the summed
+    time of the CUDA kernels whose name holds ``kernel`` (every kernel
+    when empty), over ``iters`` calls.  Unlike CUDA events around a run
+    of calls, it leaves out the host's launch pace, which sets the
+    events' time when a call's device work is a few microseconds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if kernel in e.key
+              and str(getattr(e, "device_type", "")).endswith("CUDA")
+              and e.self_device_time_total > 0]
+    if not events:
+        raise AssertionError(f"the profiler saw no device time for "
+                             f"{kernel or 'any kernel'}")
+    return sum(e.self_device_time_total for e in events) / 1e3 / iters
 
 
 # --------------------------------------------------------------------------
@@ -206,6 +272,63 @@ def phase_kernels(device):
     return errs
 
 
+def wkv6_inputs(dtype, device, b, s, seed, decay=None, with_state=True):
+    """r, k, v, w (B, S, 32, 64) and u (32, 64) in ``dtype`` (decays in
+    (0.49, 0.99), or constant ``decay``) and an f32 start state or None."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    shape = (b, s, RWKV_H, RWKV_DH)
+    rnd = lambda *sh: torch.randn(sh, generator=g, device=device)
+    w = (torch.sigmoid(rnd(*shape)) * 0.5 + 0.49 if decay is None
+         else torch.full(shape, decay, device=device))
+    args = [rnd(*shape), 0.5 * rnd(*shape), rnd(*shape), w,
+            0.1 * rnd(RWKV_H, RWKV_DH)]
+    s0 = rnd(b, RWKV_H, RWKV_DH, RWKV_DH) if with_state else None
+    return [a.to(dtype) for a in args], s0
+
+
+def wkv6_check(name, args, s0, atol, rtol):
+    """Kernel against plain on the same inputs (each advances its own
+    copy of the state); returns the larger max |err| of y and s_last."""
+    import torch
+    from repro_torch.kernels import wkv6 as wk
+    y, s_last = wk.wkv6(*args, None if s0 is None else s0.clone())
+    want_y, want_s = wk.wkv6_plain(*args, None if s0 is None else s0.clone())
+    torch.cuda.synchronize()
+    return max(check_close(f"{name} y", y, want_y, atol, rtol),
+               check_close(f"{name} state", s_last, want_s, atol, rtol))
+
+
+def phase_wkv6_kernel(device):
+    """wkv6 against its plain version at the rwkv6 serve path's shapes:
+    prefill (8, 1024, 32, 64) and decode (8, 1, 32, 64), with and without
+    a start state, bf16 and f32; then constant decay 0.5 over 256 steps
+    from a state, where the TPU kernel's chunked form sits at the edge of
+    f32 overflow."""
+    import torch
+    err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        atol, rtol = TOL[str(dtype).split(".")[-1]]
+        for s in (RWKV_PREFILL, 1):
+            for with_state in (False, True):
+                args, s0 = wkv6_inputs(dtype, device, RWKV_ROWS, s,
+                                       seed=s + with_state,
+                                       with_state=with_state)
+                e = wkv6_check(f"wkv6 {dtype} S={s} s0={with_state}", args,
+                               s0, atol, rtol)
+                err = max(err, e)
+                log(f"[kernels] wkv6 {str(dtype)[6:]} B={RWKV_ROWS} S={s} "
+                    f"H={RWKV_H} Dh={RWKV_DH} s0={with_state}: max|err| "
+                    f"{e:.3e} (atol {atol}, rtol {rtol})")
+        args, s0 = wkv6_inputs(dtype, device, RWKV_ROWS, 256, seed=7,
+                               decay=0.5)
+        e = wkv6_check(f"wkv6 {dtype} strong decay", args, s0, atol, rtol)
+        err = max(err, e)
+        log(f"[kernels] wkv6 {str(dtype)[6:]} strong decay w=0.5 S=256 "
+            f"s0=True: finite, max|err| {e:.3e} (atol {atol}, rtol {rtol})")
+    return err
+
+
 # --------------------------------------------------------------------------
 # phase 3: full-width serving
 # --------------------------------------------------------------------------
@@ -232,7 +355,7 @@ def phase_serve(device, spec, plan):
     rng = np.random.default_rng(SEED)
     prompts = rng.integers(0, spec.vocab, (R_SLOTS, ROWS, PREFILL)
                            ).astype(np.int32)
-    pa.paged_attention.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     nxt = session.prefill({"tokens": prompts})
     torch.cuda.synchronize()
@@ -251,9 +374,11 @@ def phase_serve(device, spec, plan):
             raise AssertionError(f"decode step {i}: paged kernel launched "
                                  f"{grew} times, expected {per_step}")
         toks.append(nxt)
-    launches = pa.paged_attention.launches
-    if launches != per_step * N_DECODE:
-        raise AssertionError(f"paged kernel launched {launches} times")
+    counts = read_counts()
+    launches = counts["paged_attention"]
+    if counts != {"paged_attention": per_step * N_DECODE,
+                  "flash_attention": 0, "wkv6": 0}:
+        raise AssertionError(f"launches on the qwen3 serve path: {counts}")
     toks = torch.stack(toks).cpu().numpy()
     if not ((toks >= 0) & (toks < spec.vocab)).all():
         raise AssertionError("served token ids outside the vocabulary")
@@ -269,9 +394,9 @@ def phase_serve(device, spec, plan):
         "decode_tokens_per_s": R_SLOTS * ROWS * 1e3 / ms}
 
 
-def reference_forward(session, prompts, toks):
-    """``full_transformer`` over prompt + fed tokens; returns the f32
-    last-position logits (B, Vpad)."""
+def reference_logits(session, prompts, toks, n_last: int = 1):
+    """``full_transformer`` over prompt + fed tokens; f32 logits at the
+    last ``n_last`` positions, (rows, n_last, Vpad)."""
     import torch
     from repro_torch.models import lm_head
     from repro_torch.models.stage import full_transformer
@@ -283,23 +408,26 @@ def reference_forward(session, prompts, toks):
     pos = torch.arange(seq.shape[1], device=dev).expand(seq.shape[0], -1)
     h = full_transformer(p, x, session.statics, positions=pos)
     fn = p["final_norm"]
-    return lm_head.last_logits(p["head"], fn["scale"], h[:, -1:],
-                               norm_kind=session.spec.norm,
-                               norm_bias=fn.get("bias"),
-                               vocab=session.spec.vocab)
+    return torch.stack([
+        lm_head.last_logits(p["head"], fn["scale"], h[:, t:t + 1],
+                            norm_kind=session.spec.norm,
+                            norm_bias=fn.get("bias"),
+                            vocab=session.spec.vocab)
+        for t in range(seq.shape[1] - n_last, seq.shape[1])], dim=1)
 
 
 def phase_reference(session, prompts, toks):
     """The flash kernel's main path: full_transformer over the served
     sequence at full width."""
     import torch
-    from repro_torch.kernels import flash_attention as fa
-    fa.flash_attention.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
-    logits = reference_forward(session, prompts, toks)
+    logits = reference_logits(session, prompts, toks)[:, -1]
     torch.cuda.synchronize()
-    launches = fa.flash_attention.launches
-    if launches != session.spec.n_layers:
+    counts = read_counts()
+    launches = counts["flash_attention"]
+    if counts["paged_attention"] or counts["wkv6"] \
+            or launches != session.spec.n_layers:
         raise AssertionError(f"flash kernel launched {launches} times, "
                              f"expected {session.spec.n_layers}")
     if not torch.isfinite(logits).all():
@@ -359,7 +487,7 @@ def phase_consistency(device, spec, plan, n_decode=6):
                     atol, rtol))
     if not (paged._pos == dense._pos).all():
         raise AssertionError("paged and dense positions differ")
-    logits_ref = reference_forward(paged, prompts, toks["paged"])
+    logits_ref = reference_logits(paged, prompts, toks["paged"])[:, -1]
     fn = paged.params["final_norm"]
     from repro_torch.models import lm_head
     logits_eng = lm_head.last_logits(paged.params["head"], fn["scale"],
@@ -372,6 +500,204 @@ def phase_consistency(device, spec, plan, n_decode=6):
         f"(atol/rtol {atol}); full_transformer vs engine logits "
         f"{err_l:.3e} (atol/rtol 1e-3); paged/dense tokens agree on "
         f"{same:.3f}")
+
+
+# --------------------------------------------------------------------------
+# phases 5-7: rwkv6-1.6b serving, reference and consistency
+# --------------------------------------------------------------------------
+
+def tensor_bytes(tree) -> int:
+    """Bytes of every tensor in a tree of dicts, tuples and lists."""
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    items = tree.values() if isinstance(tree, dict) else tree
+    return sum(tensor_bytes(v) for v in items
+               if isinstance(v, (dict, tuple, list)) or torch.is_tensor(v))
+
+
+def profile_decode_step(session, nxt, step_ms):
+    """torch.profiler over one decode step: device time by kernel, the
+    device's idle share against the unprofiled step time, and two byte
+    bounds of the step over the HBM rate: the schedule as run (``serve_1f``
+    walks the R microbatches one after another, each reading every stage
+    weight) and the weight-once floor; both add the head and the
+    recurrent state read and written once."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        session.decode(nxt)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if str(getattr(e, "device_type", "")).endswith("CUDA")
+              and e.self_device_time_total > 0]
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+    if dev_ms <= 0:
+        raise AssertionError("the profiler saw no device time")
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
+    wkv = [e for e in events if "wkv6_kernel" in e.key]
+    weights = tensor_bytes(session._stage_params)
+    rest = tensor_bytes(session.params["head"]) + 2 * tensor_bytes(
+        session.cache)
+    return {"model": session.spec.name, "step_ms_unprofiled": step_ms,
+            "device_ms": dev_ms, "idle_share": 1 - dev_ms / step_ms,
+            "stage_weight_gb": weights / 1e9, "head_and_state_gb": rest / 1e9,
+            "bound_as_run_ms": 1e3 * (session.n_slots * weights + rest)
+            / HBM_BYTES_PER_S,
+            "bound_weight_once_ms": 1e3 * (weights + rest) / HBM_BYTES_PER_S,
+            "kernel_launches": sum(e.count for e in events),
+            "wkv6_calls": sum(e.count for e in wkv),
+            "wkv6_ms_per_call": (sum(e.self_device_time_total for e in wkv)
+                                 / 1e3 / max(1, sum(e.count for e in wkv))),
+            "by_kernel": [{"name": e.key[:80],
+                           "ms": e.self_device_time_total / 1e3,
+                           "calls": e.count} for e in top]}
+
+
+def phase_serve_rwkv(device, spec, plan):
+    """Serve rwkv6 in bf16 at full width: prefill then RWKV_DECODE steps,
+    every layer's WKV through the kernel from the slot's state."""
+    import torch
+    from repro_torch.serving.engine import build_serving
+    n_rows = RWKV_SLOTS * RWKV_ROWS
+    session = build_serving(spec, plan,
+                            cache_len=RWKV_PREFILL + RWKV_DECODE,
+                            global_batch=n_rows,
+                            compute_dtype=torch.bfloat16, device=device)
+    t0 = time.perf_counter()
+    session.start(SEED)
+    torch.cuda.synchronize()
+    state_mb = sum(t.numel() * t.element_size() for layer in
+                   session.cache.values() for leaf in layer.values()
+                   for t in (leaf if isinstance(leaf, tuple) else (leaf,))
+                   ) / 1e6
+    log(f"[serve-rwkv] {spec.name}: {spec.n_layers} layers, d "
+        f"{spec.d_model}, {session.statics.rwkv.n_heads_local} heads of "
+        f"{spec.rwkv.head_dim}, d_ff {spec.d_ff}, "
+        f"vocab {spec.vocab}; pp={plan.pp} R={session.n_slots} rows="
+        f"{session.rows}; weights initialized in "
+        f"{time.perf_counter() - t0:.2f}s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+        f"recurrent state {state_mb:.1f} MB")
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, spec.vocab, (RWKV_SLOTS, RWKV_ROWS,
+                                           RWKV_PREFILL)).astype(np.int32)
+    per_pass = spec.n_layers * session.n_slots
+    reset_counts()
+    t0 = time.perf_counter()
+    nxt = session.prefill({"tokens": prompts})
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    toks, step_s = [nxt], []
+    for i in range(RWKV_DECODE):
+        before = read_counts()["wkv6"]
+        t0 = time.perf_counter()
+        nxt = session.decode(nxt)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        if read_counts()["wkv6"] - before != per_pass:
+            raise AssertionError(f"decode step {i}: wkv6 launched "
+                                 f"{read_counts()['wkv6'] - before} times, "
+                                 f"expected {per_pass}")
+        toks.append(nxt)
+    counts = read_counts()
+    if counts != {"paged_attention": 0, "flash_attention": 0,
+                  "wkv6": per_pass * (1 + RWKV_DECODE)}:
+        raise AssertionError(f"launches on the rwkv6 serve path: {counts}")
+    toks = torch.stack(toks).cpu().numpy()
+    if not ((toks >= 0) & (toks < spec.vocab)).all():
+        raise AssertionError("served token ids outside the vocabulary")
+    ms = 1e3 * float(np.mean(step_s))
+    log(f"[serve-rwkv] prefill {RWKV_PREFILL} tokens x {n_rows} rows: "
+        f"{t_prefill:.3f}s ({n_rows * RWKV_PREFILL / t_prefill:.0f} "
+        f"tokens/s); decode {RWKV_DECODE} steps: {ms:.2f} ms/step "
+        f"(min {1e3 * min(step_s):.2f}, max {1e3 * max(step_s):.2f}), "
+        f"{n_rows * 1e3 / ms:.1f} tokens/s; wkv6 launches "
+        f"{counts['wkv6']} = {spec.n_layers} layers x R {session.n_slots} "
+        f"x (1 prefill + {RWKV_DECODE} decode steps)")
+    prof = profile_decode_step(session, nxt, ms)
+    log(f"[profile] {spec.name} decode step: {prof['device_ms']:.2f} ms of "
+        f"device kernels in a {ms:.2f} ms step, idle share "
+        f"{prof['idle_share']:.3f}, {prof['kernel_launches']} launches; "
+        f"wkv6 {prof['wkv6_calls']} calls, "
+        f"{1e3 * prof['wkv6_ms_per_call']:.2f} us each; byte bound of the "
+        f"schedule as run {prof['bound_as_run_ms']:.3f} ms, weight-once "
+        f"floor {prof['bound_weight_once_ms']:.3f} ms")
+    return session, prompts, toks, counts["wkv6"], prof, {
+        "prefill_s": t_prefill, "decode_ms_per_step": ms,
+        "decode_tokens_per_s": n_rows * 1e3 / ms}
+
+
+def phase_reference_rwkv(session, prompts, toks):
+    """The wkv6 kernel from a zero state: full_transformer over the served
+    sequence in bf16; at every generated position of every row the served
+    token must be the reference's greedy token, up to bf16 near-ties
+    (its reference logit within RWKV_TIE of the maximum)."""
+    import torch
+    reset_counts()
+    t0 = time.perf_counter()
+    logits = reference_logits(session, prompts, toks, n_last=toks.shape[0])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if counts != {"paged_attention": 0, "flash_attention": 0,
+                  "wkv6": session.spec.n_layers}:
+        raise AssertionError(f"launches in rwkv6 full_transformer: {counts}")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("non-finite rwkv6 reference logits")
+    served = torch.from_numpy(toks.T.astype(np.int64)).to(logits.device)
+    greedy = logits.argmax(-1)
+    agree = (greedy == served)
+    gap = logits.amax(-1) - logits.gather(-1, served[..., None])[..., 0]
+    top2 = logits.topk(2, dim=-1).values
+    ties = (top2[..., 0] - top2[..., 1]) <= RWKV_TIE
+    log(f"[reference-rwkv] full_transformer bf16 over {prompts.shape[-1]} + "
+        f"{toks.shape[0] - 1} tokens x {served.shape[0]} rows: "
+        f"{time.perf_counter() - t0:.3f}s, wkv6 launches {counts['wkv6']}; "
+        f"greedy tokens equal the served ones at "
+        f"{int(agree.sum())}/{agree.numel()} positions in "
+        f"{int(agree.all(-1).sum())}/{agree.shape[0]} whole rows; the rest "
+        f"are near-ties: largest logit gap of a served token below the "
+        f"reference max {gap.max().item():.4f} (limit {RWKV_TIE}); "
+        f"{int(ties.sum())} positions have a top-2 gap <= {RWKV_TIE}; "
+        f"logits at the max up to {top2[..., 0].max().item():.3f}")
+    if (gap > RWKV_TIE).any():
+        raise AssertionError(
+            f"served tokens are not full_transformer's greedy tokens at "
+            f"{int((gap > RWKV_TIE).sum())} of {agree.numel()} positions "
+            f"(logit gap up to {gap.max().item():.4f} > {RWKV_TIE})")
+    return counts["wkv6"]
+
+
+def phase_consistency_rwkv(device, spec, plan, n_decode=6):
+    """fp32, full width, 2 layers: engine vs full_transformer logits."""
+    import torch
+    from repro_torch.models import lm_head
+    from repro_torch.serving.engine import build_serving
+    rng = np.random.default_rng(SEED + 1)
+    prompts = rng.integers(0, spec.vocab, (RWKV_SLOTS, RWKV_ROWS,
+                                           RWKV_PREFILL)).astype(np.int32)
+    s = build_serving(spec, plan, cache_len=RWKV_PREFILL + n_decode,
+                      global_batch=RWKV_SLOTS * RWKV_ROWS,
+                      compute_dtype=torch.float32, device=device).start(SEED)
+    nxt = s.prefill({"tokens": prompts})
+    ts = [nxt]
+    for _ in range(n_decode):
+        nxt = s.decode(nxt)
+        ts.append(nxt)
+    toks = torch.stack(ts).cpu().numpy()
+    ref = reference_logits(s, prompts, toks)[:, -1]
+    fn = s.params["final_norm"]
+    eng = lm_head.last_logits(s.params["head"], fn["scale"], s.last_hidden,
+                              norm_kind=spec.norm, norm_bias=fn.get("bias"),
+                              vocab=spec.vocab)
+    err = check_close("rwkv6 full_transformer vs engine logits", eng, ref,
+                      1e-3, 1e-3)
+    log(f"[consistency-rwkv] fp32 {spec.n_layers} layers at full width, "
+        f"pp={plan.pp}, {RWKV_SLOTS * RWKV_ROWS} rows, prefill "
+        f"{RWKV_PREFILL} + {n_decode} decodes: full_transformer vs engine "
+        f"logits {err:.3e} (atol/rtol 1e-3)")
 
 
 # --------------------------------------------------------------------------
@@ -420,6 +746,7 @@ def kernel_records(device, errs, launches):
     f_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     f_bound = 1e3 * max(f_flops / PEAK_FLOPS["bfloat16"],
                         f_bytes / HBM_BYTES_PER_S)
+    w = wkv6_record(device, errs["wkv6"], launches["wkv6"])
     return [
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -439,7 +766,73 @@ def kernel_records(device, errs, launches):
          "bound_by": ("operations" if f_flops / PEAK_FLOPS["bfloat16"]
                       >= f_bytes / HBM_BYTES_PER_S else "bytes"),
          "library_ms": f_lib},
+        w,
     ]
+
+
+def wkv6_bytes_flops(args, s0):
+    """Bytes the call must move (r, k, v, w, u read, y written, the state
+    read and written, or only written from a zero start) and its 4·Dh²
+    operations per token and head."""
+    r = args[0]
+    b, s, h, dh = r.shape
+    esz = r.element_size()
+    state = b * h * dh * dh * 4
+    nbytes = (5 * r.numel() + args[4].numel()) * esz + state * (
+        1 if s0 is None else 2)
+    return nbytes, 4 * b * s * h * dh * dh
+
+
+def wkv6_record(device, err, launches):
+    """wkv6 at the serve path's shapes, bf16, from a state: the prefill
+    call (8, 1024, 32, 64), whose 176 MB exceed L2, timed with CUDA
+    events; and the decode call (8, 1, 32, 64), cycling enough states
+    (4.2 MB each) to fill L2 four times, as the step finds each slot's
+    state cold, timed as device time (:func:`device_ms`): its few
+    microseconds are less than the wrapper's host time."""
+    import torch
+    from repro_torch.kernels import wkv6 as wk
+    bf16 = torch.bfloat16
+    args, s0 = wkv6_inputs(bf16, device, RWKV_ROWS, RWKV_PREFILL, seed=11)
+    ms = time_ms(lambda: wk.wkv6(*args, s0), iters=20)
+    plain = time_ms(lambda: wk.wkv6_plain(*args, s0), iters=3, warmup=1)
+    nbytes, flops = wkv6_bytes_flops(args, s0)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS["bfloat16"]
+    dargs, _ = wkv6_inputs(bf16, device, RWKV_ROWS, 1, seed=12,
+                           with_state=False)
+    state_bytes = RWKV_ROWS * RWKV_H * RWKV_DH * RWKV_DH * 4
+    n_sets = -(-4 * L2_BYTES // state_bytes)
+    states = [torch.randn((RWKV_ROWS, RWKV_H, RWKV_DH, RWKV_DH),
+                          device=device) for _ in range(n_sets)]
+    it = {"i": 0}
+
+    def run(fn):
+        def call():
+            fn(*dargs, states[it["i"] % n_sets])
+            it["i"] += 1
+        return call
+
+    d_ms = device_ms(run(wk.wkv6), 4 * n_sets, "wkv6_kernel")
+    d_plain = device_ms(run(wk.wkv6_plain), n_sets)
+    d_bytes, d_flops = wkv6_bytes_flops(dargs, states[0])
+    d_bound = 1e3 * max(d_bytes / HBM_BYTES_PER_S,
+                        d_flops / PEAK_FLOPS["bfloat16"])
+    return {"name": "wkv6", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+            "replaces": "src/repro/kernels/wkv6.py:32",
+            "launches": launches["serve"] + launches["full_transformer"],
+            "launches_by_path": launches,
+            "max_abs_err": err, "tolerance": TOL, "ms": ms,
+            "plain_ms": plain, "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None,
+            "shape": [RWKV_ROWS, RWKV_PREFILL, RWKV_H, RWKV_DH],
+            "decode_ms": d_ms, "decode_plain_ms": d_plain,
+            "decode_bound_ms": d_bound,
+            "decode_bound_by": ("bytes" if d_bytes / HBM_BYTES_PER_S
+                                >= d_flops / PEAK_FLOPS["bfloat16"]
+                                else "operations")}
 
 
 def main() -> int:
@@ -456,6 +849,7 @@ def main() -> int:
 
     phase_build()
     errs = phase_kernels(device)
+    errs["wkv6"] = phase_wkv6_kernel(device)
 
     cfg = configs.get("qwen3-14b")
     full = cfg.full_spec()
@@ -469,10 +863,27 @@ def main() -> int:
     short = dataclasses.replace(full, name="qwen3-14b-2l", n_layers=2,
                                 blocks=full.blocks[:2])
     phase_consistency(device, short, plan)
+    torch.cuda.empty_cache()
+
+    cfg = configs.get("rwkv6-1.6b")
+    full = cfg.full_spec()
+    plan = cfg.PLAN.with_(tp=1, decode_microbatches=RWKV_SLOTS)
+    session, prompts, toks, wkv_serve, prof, serve_rwkv = phase_serve_rwkv(
+        device, full, plan)
+    wkv_ref = phase_reference_rwkv(session, prompts, toks)
+    del session
+    torch.cuda.empty_cache()
+
+    short = dataclasses.replace(full, name="rwkv6-1.6b-2l", n_layers=2,
+                                blocks=full.blocks[:2])
+    phase_consistency_rwkv(device, short, plan.with_(pp=2))
 
     records = kernel_records(device, errs, {
-        "paged_attention": paged_launches, "flash_attention": flash_launches})
-    log(f"[done] {time.perf_counter() - t_start:.1f}s; serve {serve}")
+        "paged_attention": paged_launches, "flash_attention": flash_launches,
+        "wkv6": {"serve": wkv_serve, "full_transformer": wkv_ref}})
+    log(f"[done] {time.perf_counter() - t_start:.1f}s; serve qwen3 {serve}; "
+        f"serve rwkv6 {serve_rwkv}")
+    print(json.dumps({"profile": prof}))
     print(json.dumps({"kernels": records}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

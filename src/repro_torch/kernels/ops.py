@@ -1,16 +1,17 @@
-"""Dispatch for the attention kernels (port of ``repro/kernels/ops.py``).
+"""Dispatch for the kernels (port of ``repro/kernels/ops.py``).
 
 Dispatch goes by device and by nothing else: a CUDA tensor goes to the
 hand-written kernel, a CPU tensor to the kernel's plain PyTorch version.
 There is no environment gate and no fallback — a kernel that cannot
 launch raises.  The TPU wrapper padded Sq/Sk up to block multiples; the
 CUDA flash kernel masks its ragged edge itself, so no padding copy is
-made here.
+made here, and the WKV6 kernel takes any S unpadded.
 """
 from __future__ import annotations
 
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_attention as _paged
+from repro_torch.kernels import wkv6 as _wkv6
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = -1):
@@ -34,3 +35,11 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
                                       lengths, window=window)
     return _paged.paged_attention_plain(q, k_pages, v_pages, block_tables,
                                         lengths, window=window)
+
+
+def wkv6(r, k, v, w, u, s0=None):
+    """RWKV6 WKV, r/k/v/w (B, S, H, Dh), u (H, Dh); with ``s0`` the state
+    advances in place.  See :func:`repro_torch.kernels.wkv6.wkv6`."""
+    if r.device.type == "cuda":
+        return _wkv6.wkv6(r, k, v, w, u, s0)
+    return _wkv6.wkv6_plain(r, k, v, w, u, s0)

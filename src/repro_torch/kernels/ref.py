@@ -1,10 +1,9 @@
-"""Naive PyTorch oracles for the attention kernels (port of
-``repro/kernels/ref.py``).
+"""Naive PyTorch oracles for the kernels (port of ``repro/kernels/ref.py``).
 
-Deliberately the O(S²) formulations: independent of the CUDA kernels,
-of their plain versions and of the blockwise twins in models/nn.py, so a
-bug in shared tiling logic cannot hide.  Softmax in f32, ``-inf``
-masking, outputs in q.dtype.
+Deliberately the O(S²) attention formulations and the step-by-step WKV6
+recurrence: independent of the CUDA kernels and of the blockwise twins
+in models/nn.py, so a bug in shared tiling logic cannot hide.  Softmax
+in f32, ``-inf`` masking, outputs in q.dtype.
 """
 from __future__ import annotations
 
@@ -74,3 +73,27 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths, *,
     v = v.masked_fill(~mask.any(dim=1)[:, :, None, None], 0.0)
     out = torch.einsum("bhqk,bkhd->bqhd", p, v).to(q.dtype)
     return out[:, 0] if squeeze else out
+
+
+def wkv6_ref(r, k, v, w, u, s0=None):
+    """RWKV6 WKV recurrence, step by step (the paper's definition).
+
+    r, k, v, w: (B, S, H, Dh); w is the per-channel decay in (0, 1];
+    u: (H, Dh) bonus; s0: optional (B, H, Dh, Dh) start state (zero when
+    None), left untouched.  Returns (y (B, S, H, Dh) in r.dtype,
+    s_last (B, H, Dh, Dh) f32); arithmetic in f32:
+
+        y_t = r_t · (S_{t-1} + diag(u) k_t v_tᵀ)
+        S_t = diag(w_t) S_{t-1} + k_t v_tᵀ
+    """
+    b, s, h, dh = r.shape
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
+    uf = u.float()[None, :, :, None]
+    state = (torch.zeros((b, h, dh, dh), dtype=torch.float32,
+                         device=r.device) if s0 is None else s0.float())
+    ys = []
+    for t in range(s):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]      # (B,H,Dh,Dh)
+        ys.append(torch.einsum("bhd,bhde->bhe", rf[:, t], state + uf * kv))
+        state = wf[:, t, :, :, None] * state + kv
+    return torch.stack(ys, dim=1).to(r.dtype), state

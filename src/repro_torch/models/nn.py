@@ -1,4 +1,4 @@
-"""Layers of the dense decoder (port of ``repro/models/nn.py``).
+"""Layers of the dense decoder and of RWKV6 (port of ``repro/models/nn.py``).
 
 Plain functions on tensors, in the JAX package's layouts: activations
 (B, S, d), q (B, S, H, Dh), ``wq`` (d, H, Dh), ``wo`` (H·Dh, d).  The
@@ -7,10 +7,10 @@ collectives.  Per-layer scalars (window, rope theta) are Python numbers
 on the host: the JAX package traces them as data because every stage
 runs one SPMD program, the port runs each stage's layers itself.
 
-Caches are updated in place.  The JAX code is functional
-(``dynamic_update_slice`` + ``where``) and XLA updates in place under
-buffer donation; a literal port would copy a whole KV pool at every
-layer of every tick, gigabytes at full width.
+Caches and recurrent states are updated in place.  The JAX code is
+functional (``dynamic_update_slice`` + ``where``) and XLA updates in
+place under buffer donation; a literal port would copy a whole KV pool
+at every layer of every tick, gigabytes at full width.
 """
 from __future__ import annotations
 
@@ -54,6 +54,16 @@ def apply_norm(p, x, kind: str):
     if kind == "rmsnorm":
         return rmsnorm(x, p["scale"])
     return layernorm(x, p["scale"], p["bias"])
+
+
+def groupnorm_heads(x, scale, bias, eps: float = 1e-5):
+    """GroupNorm over the head dim of (B, S, H, Dh) -> (B, S, H·Dh)."""
+    h = x.float()
+    mu = h.mean(dim=-1, keepdim=True)
+    var = ((h - mu) ** 2).mean(dim=-1, keepdim=True)
+    b, s, nh, dh = x.shape
+    out = ((h - mu) * torch.rsqrt(var + eps)).reshape(b, s, nh * dh)
+    return out.to(x.dtype) * scale + bias
 
 
 # --------------------------------------------------------------------------
@@ -294,3 +304,76 @@ def mlp(p, x, act: str):
     else:
         h = F.gelu(x @ p["w1"], approximate="tanh")
     return h @ p["w2"]
+
+
+# --------------------------------------------------------------------------
+# RWKV6 (Finch): time-mix with data-dependent decay + channel-mix
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class RWKVStatic:
+    """Static time-mix configuration for one device.  The JAX static also
+    carries the TPU kernel's chunk length; the CUDA kernel is stepwise
+    and has none."""
+
+    n_heads_local: int
+    d_head: int
+
+
+def _token_shift(x, prev=None):
+    """x_{t-1} per position; ``prev`` (B, d) carries the last token of the
+    previous call (zero without one)."""
+    if prev is None:
+        return F.pad(x, (0, 0, 1, 0))[:, : x.shape[1]]
+    return torch.cat([prev[:, None], x], dim=1)[:, : x.shape[1]]
+
+
+def rwkv_time_mix(p, x, rst: RWKVStatic, state=None):
+    """RWKV6 time-mix of x (B, S, d); returns (B, S, d).
+
+    ``state``: this slot's ``(x_prev (B, d), wkv (B, H, Dh, Dh) f32)``
+    views, read as the start and advanced in place (the WKV kernel
+    writes its last state over ``wkv``).  Without a state the WKV runs
+    from zero, as the TPU kernel does.  Every path goes through
+    ``ops.wkv6``: the CUDA kernel on the card.
+    """
+    prev_tok, s0 = state if state is not None else (None, None)
+    dx = _token_shift(x, prev_tok) - x
+    xxx = x + dx * p["maa_x"]
+    low = torch.tanh(xxx @ p["tmix_w1"])                     # (B,S,5·r)
+    low = low.reshape(*low.shape[:-1], 5, -1)
+    mids = torch.einsum("bsfr,frd->bsfd", low, p["tmix_w2"])  # (B,S,5,d)
+    mw, mk, mv, mr, mg = mids.unbind(dim=2)
+    xw = x + dx * (p["maa_w"] + mw)
+    xk = x + dx * (p["maa_k"] + mk)
+    xv = x + dx * (p["maa_v"] + mv)
+    xr = x + dx * (p["maa_r"] + mr)
+    xg = x + dx * (p["maa_g"] + mg)
+
+    b, s, _ = x.shape
+    h, dh = rst.n_heads_local, rst.d_head
+    r = (xr @ p["wr"]).view(b, s, h, dh)
+    k = (xk @ p["wk"]).view(b, s, h, dh)
+    v = (xv @ p["wv"]).view(b, s, h, dh)
+    g = F.silu(xg @ p["wg"])
+    # w0 is f32 (as in the JAX init): the decay logit is formed in f32
+    dec = p["w0"] + torch.tanh(xw @ p["decay_w1"]) @ p["decay_w2"]
+    w = torch.exp(-torch.exp(dec.float())).view(b, s, h, dh).to(r.dtype)
+    y, _ = kernel_ops.wkv6(r, k, v, w, p["u"].view(h, dh), s0)
+    if prev_tok is not None:
+        prev_tok.copy_(x[:, -1])
+    y = groupnorm_heads(y, p["gn_scale"], p["gn_bias"])
+    return (y * g) @ p["wo"]
+
+
+def rwkv_channel_mix(p, x, state=None):
+    """RWKV6 channel-mix of x (B, S, d); ``state`` is this slot's x_prev
+    (B, d) view, read and advanced in place."""
+    dx = _token_shift(x, state) - x
+    xk = x + dx * p["maa_k"]
+    xr = x + dx * p["maa_r"]
+    k = torch.square(F.relu(xk @ p["wk"]))
+    out = torch.sigmoid(xr @ p["wr_gate"]) * (k @ p["wv"])
+    if state is not None:
+        state.copy_(x[:, -1])
+    return out

@@ -2,8 +2,9 @@
 
 A stage runs ``layers_per_stage`` blocks (the validated stage program).
 :func:`stage_fwd` takes one stage's parameters — the stage-stacked tree
-already indexed at that stage — and this slice's block kinds, attention
-+ dense FFN with pre-norm residuals.
+already indexed at that stage — and the ported block kinds with pre-norm
+residuals: attention or RWKV6 time-mix as the mixer, a dense FFN or RWKV6
+channel-mix as the FFN.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import torch
 
 from repro_torch.models import nn
 from repro_torch.models import spec as spec_lib
-from repro_torch.models.init import attn_static
+from repro_torch.models.init import attn_static, rwkv_static
 from repro_torch.parallel.plan import ParallelismPlan
 
 
@@ -26,19 +27,26 @@ class StageStatics:
     plan: ParallelismPlan
     program: Tuple[spec_lib.BlockSpec, ...]
     attn: Optional[nn.AttnStatic]
+    rwkv: Optional[nn.RWKVStatic]
 
 
 def make_statics(spec: spec_lib.ModelSpec,
                  plan: ParallelismPlan) -> StageStatics:
     program = spec.stage_program(plan.pp)
-    bad = [b for b in program
-           if b.mixer != "attn" or b.ffn != "dense" or b.cross_attn]
+    bad = [b for b in program if b.mixer not in ("attn", "rwkv")
+           or b.ffn not in ("dense", "rwkv_cmix") or b.cross_attn]
     if bad:
         raise NotImplementedError(
-            f"{spec.name}: block kinds {sorted(set((b.mixer, b.ffn) for b in bad))} "
-            "are not ported yet (attention + dense FFN only)")
-    return StageStatics(spec=spec, plan=plan, program=program,
-                        attn=attn_static(spec, plan.tp))
+            f"{spec.name}: block kinds "
+            f"{sorted(set((b.mixer, b.ffn, b.cross_attn) for b in bad))} are "
+            "not ported yet (MoE, Mamba and cross-attention blocks are still "
+            "to port)")
+    has_attn = any(b.mixer == "attn" for b in program)
+    has_rwkv = any(b.mixer == "rwkv" for b in program)
+    return StageStatics(
+        spec=spec, plan=plan, program=program,
+        attn=attn_static(spec, plan.tp) if has_attn else None,
+        rwkv=rwkv_static(spec, plan.tp) if has_rwkv else None)
 
 
 def stage_params(params, s: int):
@@ -55,46 +63,72 @@ def stage_fwd(sp, x, st: StageStatics, *, positions, windows, thetas,
     """Run one stage over its blocks; returns the stage's output.
 
     sp: ``stage_params(params, s)``; windows / thetas: this stage's
-    [lps] host lists.  state: optional ``{'layer_i': {"kv": (k, v)}}``
-    dense cache views of one microbatch slot; paged: optional
-    ``{"pools": {'layer_i': (k_pool, v_pool)}, "row": PageRow}``.  Caches
-    are written in place.
+    [lps] host lists.  state: optional ``{'layer_i': {...}}`` views of
+    one microbatch slot's state, as :func:`init_stage_state` lays it out
+    (dense ``"kv"`` caches, ``"tmix"`` / ``"cmix"`` recurrent states);
+    paged: optional ``{"pools": {'layer_i': (k_pool, v_pool)}, "row":
+    PageRow}`` for the attention layers whose KV is paged.  Caches and
+    recurrent states are written in place.
     """
-    for i in range(len(st.program)):
+    for i, blk in enumerate(st.program):
         name = f"layer_{i}"
         lp = sp[name]
-        kv = state[name]["kv"] if state is not None else None
-        pg = None
-        if paged is not None and name in paged["pools"]:
-            pg = (*paged["pools"][name], paged["row"])
+        ls = state[name] if state is not None else {}
         h = nn.apply_norm(lp["norm1"], x, st.spec.norm)
-        x = x + nn.attention(lp["attn"], h, st.attn, positions=positions,
-                             window=windows[i], theta=thetas[i],
-                             kv_cache=kv, cache_pos=cache_pos, paged_kv=pg)
+        if blk.mixer == "attn":
+            pg = None
+            if paged is not None and name in paged["pools"]:
+                pg = (*paged["pools"][name], paged["row"])
+            x = x + nn.attention(lp["attn"], h, st.attn, positions=positions,
+                                 window=windows[i], theta=thetas[i],
+                                 kv_cache=ls.get("kv"), cache_pos=cache_pos,
+                                 paged_kv=pg)
+        else:
+            x = x + nn.rwkv_time_mix(lp["tmix"], h, st.rwkv,
+                                     state=ls.get("tmix"))
         h = nn.apply_norm(lp["norm2"], x, st.spec.norm)
-        x = x + nn.mlp(lp["mlp"], h, st.spec.act)
+        if blk.ffn == "dense":
+            x = x + nn.mlp(lp["mlp"], h, st.spec.act)
+        else:
+            x = x + nn.rwkv_channel_mix(lp["cmix"], h, state=ls.get("cmix"))
     return x
 
 
 def init_stage_state(st: StageStatics, batch_local: int, cache_lens,
-                     dtype, device, lead=()) -> Dict:
-    """Zero dense KV caches ``{'layer_i': {"kv": (k, v)}}``, each
-    ``lead + (batch_local, cache_lens[i], KV, Dh)``."""
+                     dtype, device, lead=(), paged_layers=()) -> Dict:
+    """Zero serving state ``{'layer_i': {...}}`` with leading dims
+    ``lead``: ``"kv"`` = (k, v) dense caches ``lead + (batch_local,
+    cache_lens[i], KV, Dh)`` for attention layers not in
+    ``paged_layers``; ``"tmix"`` = (x_prev ``lead + (batch_local, d)``,
+    wkv ``lead + (batch_local, H, Dh, Dh)`` f32) for RWKV time-mix;
+    ``"cmix"`` = x_prev ``lead + (batch_local, d)`` for channel-mix."""
+    lead = tuple(lead)
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(lead + (batch_local,) + shape, dtype=dt,
+                           device=device)
+
     out: Dict = {}
     for i, blk in enumerate(st.program):
         s: Dict = {}
-        if blk.mixer == "attn":
-            shape = tuple(lead) + (batch_local, cache_lens[i],
-                                   st.attn.n_kv_local, st.attn.d_head)
-            s["kv"] = (torch.zeros(shape, dtype=dtype, device=device),
-                       torch.zeros(shape, dtype=dtype, device=device))
+        if blk.mixer == "attn" and i not in paged_layers:
+            shape = (cache_lens[i], st.attn.n_kv_local, st.attn.d_head)
+            s["kv"] = (zeros(*shape), zeros(*shape))
+        elif blk.mixer == "rwkv":
+            rs = st.rwkv
+            s["tmix"] = (zeros(st.spec.d_model),
+                         zeros(rs.n_heads_local, rs.d_head, rs.d_head,
+                               dt=torch.float32))
+        if blk.ffn == "rwkv_cmix":
+            s["cmix"] = zeros(st.spec.d_model)
         out[f"layer_{i}"] = s
     return out
 
 
 def full_transformer(params, x, st: StageStatics, *, positions):
-    """Run all pp stages sequentially on one device (the cache-less
-    causal forward: every attention layer runs the flash kernel)."""
+    """Run all pp stages sequentially on one device, with no state: every
+    attention layer runs the flash kernel, every RWKV time-mix the WKV6
+    kernel from a zero state."""
     for s in range(st.plan.pp):
         x = stage_fwd(stage_params(params, s), x, st, positions=positions,
                       windows=params["layer_windows"][s],

@@ -10,12 +10,18 @@ double-buffers that hand-off.  Bubble cells (``F_MB < 0``) are skipped —
 JAX computes garbage there and never writes it — so a decode step runs
 each microbatch through each layer exactly once.
 
-KV state is stacked like the JAX engine's: dense caches
-``(n_chunks, R, rows, cache_len, KV, Dh)`` per layer, or page pools
-``(n_chunks, pool_pages, rows, page, KV, Dh)`` per layer plus one
-host-side :class:`PageAllocator` whose (R, max_pages) table indexes
-every layer's pool.  Both are written in place.  Cache positions live in
-the host mirror ``_pos``: no per-layer device sync.
+Per-slot state is stacked like the JAX engine's, ``(n_chunks, R, rows,
+...)`` per leaf: dense KV caches ``(..., cache_len, KV, Dh)`` for
+attention layers, and RWKV6 recurrent state — time-mix ``(x_prev (...,
+d), wkv (..., H, Dh, Dh) f32)`` and channel-mix ``x_prev (..., d)``.
+With paging, attention KV moves into page pools ``(n_chunks,
+pool_pages, rows, page, KV, Dh)`` per layer plus one host-side
+:class:`PageAllocator` whose (R, max_pages) table indexes every layer's
+pool; recurrent state stays dense, as in JAX.  Each cell gets its slot's
+views (``[s, m]``), fixed at ``start``, and everything is written in
+place.  A prefill reads the recurrent state the slot holds, as the JAX
+engine's does: only ``start`` zeroes it.  Cache positions live in the
+host mirror ``_pos``: no per-layer device sync.
 """
 from __future__ import annotations
 
@@ -45,7 +51,8 @@ __all__ = ["CacheExhausted", "EngineSession", "build_serving"]
 class EngineSession:
     """One serving session over the ``serve_1f`` schedule.
 
-    ``start`` initializes parameters and KV state, ``load_params``
+    ``start`` initializes parameters and zeroes the per-slot state,
+    ``load_params``
     installs a numpy parameter tree in the JAX layout, ``prefill`` runs
     the pipelined prompt pass and ``decode`` one pipelined decode step;
     both return the next token of every row, (R · rows,) int32 on the
@@ -64,10 +71,13 @@ class EngineSession:
     rows: int                      # rows per microbatch slot
     paged: Optional[Dict[str, int]] = None
     params: Any = None
-    cache: Optional[Dict] = None   # dense KV, {'layer_i': {"kv": (k, v)}}
+    # per-slot state, {'layer_i': {"kv" | "tmix" | "cmix": ...}}
+    cache: Optional[Dict] = None
     pages: Optional[Dict] = None   # paged KV, {'layer_i': (k_pool, v_pool)}
     last_hidden: Optional[torch.Tensor] = None
     _stage_params: List[Dict] = dataclasses.field(default_factory=list)
+    _views: List[List[Dict]] = dataclasses.field(default_factory=list)
+    _pools: List[Dict] = dataclasses.field(default_factory=list)
     _alloc: Optional[PageAllocator] = None
     _pos: Any = None               # host cache position per slot
 
@@ -76,18 +86,22 @@ class EngineSession:
         return self.sched.n_microbatches
 
     def start(self, seed: int = 0) -> "EngineSession":
-        """Initialize (or reset) parameters from ``seed`` and zero the KV
-        state."""
+        """Initialize (or reset) parameters from ``seed`` and zero the
+        per-slot state (KV caches or pools, recurrent state)."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self._set_params(init_params(self.spec, self.plan, gen,
                                      self.compute_dtype))
         R, S = self.n_slots, self.sched.n_stages
         st = self.statics
-        if self.paged is None:
-            self.cache = init_stage_state(
-                st, self.rows, [self.cache_len] * len(st.program),
-                self.compute_dtype, self.device, lead=(S, R))
-        else:
+        paged_layers = [i for i, b in enumerate(st.program)
+                        if b.mixer == "attn"] if self.paged else []
+        self.cache = init_stage_state(
+            st, self.rows, [self.cache_len] * len(st.program),
+            self.compute_dtype, self.device, lead=(S, R),
+            paged_layers=paged_layers)
+        self._views = [[_slot_view(self.cache, s, m) for m in range(R)]
+                       for s in range(S)]
+        if self.paged is not None:
             shape = (S, self.paged["pool_pages"], self.rows,
                      self.paged["page_size"], st.attn.n_kv_local,
                      st.attn.d_head)
@@ -96,7 +110,9 @@ class EngineSession:
                                            device=self.device),
                                torch.zeros(shape, dtype=self.compute_dtype,
                                            device=self.device))
-                for i in range(len(st.program))}
+                for i in paged_layers}
+            self._pools = [{name: (kp[s], vp[s]) for name, (kp, vp)
+                            in self.pages.items()} for s in range(S)]
             self._alloc = PageAllocator(self.paged["pool_pages"], R,
                                         self.paged["max_pages"],
                                         self.paged["page_size"])
@@ -185,20 +201,15 @@ class EngineSession:
                 pos = int(self._pos[m])
                 positions = torch.arange(pos, pos + qlen, device=self.device
                                          ).expand(self.rows, qlen)
-                state = paged = None
-                if self.cache is not None:
-                    state = {name: {"kv": (c["kv"][0][s, m], c["kv"][1][s, m])}
-                             for name, c in self.cache.items()}
-                else:
-                    paged = {"pools": {name: (kp[s], vp[s]) for name, (kp, vp)
-                                       in self.pages.items()},
-                             "row": rows_pr[m]}
+                paged = None
+                if self.pages is not None:
+                    paged = {"pools": self._pools[s], "row": rows_pr[m]}
                 sent[s] = stage_fwd(
                     self._stage_params[s], x, self.statics,
                     positions=positions,
                     windows=self.params["layer_windows"][s],
                     thetas=self.params["layer_thetas"][s],
-                    state=state, cache_pos=pos, paged=paged)
+                    state=self._views[s][m], cache_pos=pos, paged=paged)
             m_exit = int(tabs.exit_mb[t])
             if m_exit >= 0:
                 exits[m_exit] = sent[S - 1]
@@ -212,6 +223,15 @@ class EngineSession:
                                      vocab=self.spec.vocab)
 
 
+def _slot_view(tree, s: int, m: int):
+    """Stage ``s``, slot ``m``'s views of the ``(S, R, ...)`` state tree."""
+    if isinstance(tree, dict):
+        return {k: _slot_view(v, s, m) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_slot_view(v, s, m) for v in tree)
+    return tree[s, m]
+
+
 def build_serving(spec: spec_lib.ModelSpec, plan: ParallelismPlan, *,
                   cache_len: int, global_batch: int,
                   compute_dtype=torch.bfloat16, page_size: int = 0,
@@ -222,7 +242,9 @@ def build_serving(spec: spec_lib.ModelSpec, plan: ParallelismPlan, *,
     ``global_batch`` rows split into R = fit(plan.decode_microbatches)
     microbatch slots.  ``page_size > 0`` keeps every attention layer's KV
     in a block-paged pool of R · cache_len / page_size pages (the dense
-    capacity) and runs decode attention through the paged kernel.
+    capacity) and runs decode attention through the paged kernel.  A
+    model without attention layers has nothing to page: its recurrent
+    state stays dense whatever ``page_size`` says.
     """
     dev = resolve_device(device)
     if plan.tp != 1:
@@ -240,7 +262,7 @@ def build_serving(spec: spec_lib.ModelSpec, plan: ParallelismPlan, *,
     sched.validate()
     statics = make_statics(spec, plan)
     paged = None
-    if page_size:
+    if page_size and statics.attn is not None:
         max_pages = cache_len // page_size
         paged = {"page_size": page_size, "max_pages": max_pages,
                  "pool_pages": R * max_pages}

@@ -6,9 +6,9 @@ package, so it runs on a machine that has only PyTorch:
 
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-The shapes mirror tests/test_kernels.py's PAGED_CASES and FLASH_CASES;
-inputs come from a seeded numpy generator, NaN sits in unreferenced
-pages and past each row's length.
+The shapes mirror tests/test_kernels.py's PAGED_CASES, FLASH_CASES and
+WKV_CASES; inputs come from a seeded numpy generator, NaN sits in
+unreferenced pages and past each row's length.
 """
 import numpy as np
 import pytest
@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import paged_attention as tpa
+from repro_torch.kernels import wkv6 as twkv
 
 PAGED = [  # b, h, kv, dh, page, n_pages, window
     (2, 4, 2, 64, 16, 8, -1), (3, 4, 4, 32, 16, 4, -1),
@@ -27,6 +28,10 @@ FLASH = [  # b, sq, sk, h, kv, dh, causal, window
     (2, 100, 100, 2, 1, 32, True, -1), (1, 256, 256, 8, 2, 128, False, -1),
     (1, 64, 192, 2, 2, 16, True, 48), (1, 192, 192, 2, 2, 64, True, 200),
     (2, 64, 64, 4, 1, 8, True, 1), (2, 528, 528, 40, 8, 128, True, -1)]
+WKV = [  # b, s, h, dh
+    (2, 64, 2, 16), (1, 128, 4, 32), (2, 100, 2, 8), (1, 64, 2, 64),
+    (1, 32, 1, 4), (2, 17, 2, 32), (8, 1, 32, 64),       # rwkv6 decode
+    (8, 1024, 32, 64)]                                  # rwkv6 prefill
 TOL = {torch.float32: (2e-5, 1e-3), torch.bfloat16: (2e-2, 1e-2)}
 
 
@@ -109,3 +114,67 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         tfa.flash_attention(q, q[:, :, :3].contiguous(),
                             q[:, :, :3].contiguous())
+
+
+def _wkv_args(b, s, h, dh, dtype, device, seed, decay=None):
+    rng = np.random.default_rng(seed)
+    shape = (b, s, h, dh)
+    w = (0.5 / (1 + np.exp(-rng.standard_normal(shape))) + 0.49
+         if decay is None else np.full(shape, decay))
+    arrs = (rng.standard_normal(shape), 0.5 * rng.standard_normal(shape),
+            rng.standard_normal(shape), w, 0.1 * rng.standard_normal((h, dh)))
+    f = lambda a: torch.from_numpy(a).to(device=device, dtype=dtype)
+    s0 = torch.from_numpy(rng.standard_normal((b, h, dh, dh))).to(
+        device=device, dtype=torch.float32)
+    return [f(a) for a in arrs], s0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,dh", WKV)
+def test_wkv6_kernel_matches_plain(cuda, b, s, h, dh, dtype, with_state):
+    args, s0 = _wkv_args(b, s, h, dh, dtype, cuda, seed=s * h + dh)
+    before = twkv.wkv6.launches
+    got_s0 = s0.clone() if with_state else None
+    y, s_last = twkv.wkv6(*args, got_s0)
+    assert twkv.wkv6.launches == before + 1
+    if with_state:
+        assert s_last is got_s0        # advanced in place
+    want_y, want_s = twkv.wkv6_plain(*args, s0.clone() if with_state
+                                     else None)
+    atol, rtol = TOL[dtype]
+    assert torch.isfinite(y).all() and torch.isfinite(s_last).all()
+    torch.testing.assert_close(y.float(), want_y.float(), atol=atol,
+                               rtol=rtol)
+    torch.testing.assert_close(s_last, want_s, atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decay", [0.5, 0.4, 1e-8])
+def test_wkv6_kernel_stays_finite_at_strong_decay(cuda, decay):
+    """Constant strong decay over 256 steps from a state, where the
+    chunked TPU form overflows f32: finite, and equal to the plain
+    version."""
+    args, s0 = _wkv_args(2, 256, 4, 64, torch.float32, cuda, seed=3,
+                         decay=decay)
+    y, s_last = twkv.wkv6(*args, s0.clone())
+    want_y, want_s = twkv.wkv6_plain(*args, s0.clone())
+    assert torch.isfinite(y).all() and torch.isfinite(s_last).all()
+    atol, rtol = TOL[torch.float32]
+    torch.testing.assert_close(y, want_y, atol=atol, rtol=rtol)
+    torch.testing.assert_close(s_last, want_s, atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_wkv6_kernel_rejects_what_it_does_not_take(cuda):
+    args, s0 = _wkv_args(1, 2, 2, 8, torch.float32, cuda, seed=1)
+    with pytest.raises(TypeError):                      # mixed dtypes
+        twkv.wkv6(*args[:4], args[4].to(torch.bfloat16))
+    with pytest.raises(TypeError):                      # bf16 state
+        twkv.wkv6(*args, s0.to(torch.bfloat16))
+    with pytest.raises(ValueError):                     # not contiguous
+        twkv.wkv6(*(a.transpose(1, 2) for a in args[:4]), args[4])
+    with pytest.raises(ValueError):                     # Dh 6
+        twkv.wkv6(*(a[..., :6].contiguous() for a in args[:4]),
+                  args[4][:, :6].contiguous())

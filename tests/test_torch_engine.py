@@ -6,9 +6,13 @@ Both engines serve the same numpy weights.  The weights are rescaled
 that greedy tokens depend on attention: at the JAX init scale the token
 embedding dominates the residual stream and tokens barely see attention
 (checked here by perturbing one attention weight).  The comparison
-covers page pools / dense caches and positions, not only tokens.
+covers page pools / dense caches and positions, not only tokens.  The
+rwkv6 smoke spec (attention-free) is rescaled the same way on its
+time-mix and channel-mix output projections, and compares its recurrent
+states.
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +22,8 @@ import torch
 
 from repro import configs as jconfigs
 from repro.launch.mesh import make_host_mesh
+from repro.models import lm_head as jlm
+from repro.models import stage as jstage
 from repro.models.init import init_params as jax_init_params
 from repro.parallel.mesh import ParallelismPlan as JPlan
 from repro.parallel.mesh import split_model_axis
@@ -248,5 +254,160 @@ def test_serve_cli_runs_on_cpu(capsys):
     serve.main(["--arch", "qwen3-14b", "--smoke", "--device", "cpu",
                 "--page-size", "16", "--batch", "4", "--prefill", "8",
                 "--tokens", "3", "--cache-len", "32"])
+    out = capsys.readouterr().out
+    assert "serve_1f (S=2 R=4" in out and "decoded 3 steps x 4 seqs" in out
+
+
+# --------------------------------------------------------------------------
+# rwkv6: recurrent per-slot state through the same engine
+# --------------------------------------------------------------------------
+
+RWKV_TOL = 1e-4
+
+
+def _rwkv_weights(jspec, pp=1):
+    """JAX-initialized numpy weights of an rwkv spec, rescaled so that
+    tokens see the time-mix (same factors as :func:`_weights`)."""
+    params, _ = jax_init_params(jspec, JPlan(pp=pp, tp=1), jax.random.key(7),
+                                jnp.float32)
+    params = jax.tree.map(lambda a: np.array(a), params)
+    params["embed"] *= 0.05
+    for lp in params["stages"].values():
+        lp["tmix"]["wo"] *= 40.0
+        lp["cmix"]["wv"] *= 10.0
+    return params
+
+
+def _state_np(tree):
+    """{'layer_i': {"tmix": (x_prev, wkv), "cmix": x_prev}} as numpy."""
+    return jax.tree.map(lambda a: np.array(a), tree)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_rwkv_run():
+    """The JAX engine on the rwkv6 smoke spec, fp32, pp 1: tokens and
+    states after prefill + N_DEC decodes, then after a second prefill of
+    other prompts on the same session; plus the JAX ``full_transformer``
+    last-position hidden state over the served sequence (the JAX engine
+    keeps none)."""
+    jspec = jconfigs.get("rwkv6-1.6b").smoke_spec()
+    params = _rwkv_weights(jspec)
+    mesh = split_model_axis(make_host_mesh(data=1, model=1), 1, 1)
+    jplan = JPlan(pp=1, tp=1, microbatches=R, decode_microbatches=R,
+                  schedule="serve_1f")
+    js = jax_build_serving(jspec, jplan, mesh, cache_len=CACHE,
+                           global_batch=R * ROWS, prefill_len=PREFILL,
+                           compute_dtype=jnp.float32)
+    js.start(jax.random.key(0))
+    js.load_params(params)
+    prompts = _prompts(jspec.vocab)
+    nxt = js.prefill({"tokens": jnp.asarray(prompts)})
+    toks = [np.asarray(nxt)]
+    for _ in range(N_DEC):
+        nxt = js.decode(nxt)
+        toks.append(np.asarray(nxt))
+    toks = np.stack(toks)
+    state = _state_np(js.state["cache"])
+    seq = np.concatenate([prompts.reshape(R * ROWS, PREFILL),
+                          toks[:-1].T], axis=1)
+    st = jstage.make_statics(jspec, jplan, tokens_per_mb=seq.size)
+    jp = jax.tree.map(jnp.asarray, params)
+    pos = np.broadcast_to(np.arange(seq.shape[1]), seq.shape)
+    h, _ = jstage.full_transformer(
+        jp, jlm.embed_tokens(jp["embed"], jnp.asarray(seq)), st,
+        positions=jnp.asarray(pos))
+    hidden = np.asarray(h[:, -1:])
+    prompts2 = _prompts(jspec.vocab, seed=11)
+    toks2 = np.asarray(js.prefill({"tokens": jnp.asarray(prompts2)}))
+    state2 = _state_np(js.state["cache"])
+    return {"spec": jspec, "params": params, "prompts": prompts,
+            "toks": toks, "state": state, "hidden": hidden,
+            "prompts2": prompts2, "toks2": toks2, "state2": state2}
+
+
+def _assert_rwkv_state(sess, want, tol=RWKV_TOL):
+    for name, layer in want.items():
+        got = sess.cache[name]
+        assert set(got) == set(layer) == {"tmix", "cmix"}
+        pairs = list(zip(got["tmix"], layer["tmix"]))
+        pairs.append((got["cmix"], layer["cmix"]))
+        for g, w in pairs:
+            assert tuple(g.shape) == w.shape
+            np.testing.assert_allclose(g.numpy(), w, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("page_size", [0, PAGE])
+def test_rwkv_engine_matches_jax_engine(page_size):
+    """Tokens, recurrent states and the last hidden state after prefill +
+    6 decodes.  The model has no attention layer, so ``page_size`` has
+    nothing to page: the state stays dense and the run is the same."""
+    ref = _jax_rwkv_run()
+    spec = _port_spec(ref["spec"])
+    sess, toks, hidden = _serve_port(spec, ref["params"], 1, page_size,
+                                     ref["prompts"])
+    assert sess.paged is None and sess.pages is None and sess._alloc is None
+    np.testing.assert_array_equal(toks, ref["toks"])
+    _assert_rwkv_state(sess, ref["state"])
+    np.testing.assert_allclose(hidden[-1].numpy(), ref["hidden"],
+                               atol=RWKV_TOL, rtol=RWKV_TOL)
+    np.testing.assert_array_equal(sess._pos, PREFILL + N_DEC)
+
+
+def test_rwkv_second_prefill_continues_recurrent_state_as_jax_does():
+    """A second ``prefill`` on a session reads the recurrent state the
+    slots hold (token shift and WKV start from it), as the JAX engine's
+    does; it is not a fresh session's prefill."""
+    ref = _jax_rwkv_run()
+    spec = _port_spec(ref["spec"])
+    sess, _, _ = _serve_port(spec, ref["params"], 1, 0, ref["prompts"])
+    toks2 = sess.prefill({"tokens": ref["prompts2"]}).numpy()
+    np.testing.assert_array_equal(toks2, ref["toks2"])
+    _assert_rwkv_state(sess, ref["state2"])
+    fresh = build_serving(spec, TPlan(pp=1, tp=1, decode_microbatches=R),
+                          cache_len=CACHE, global_batch=R * ROWS,
+                          compute_dtype=torch.float32, device="cpu").start()
+    fresh.load_params(ref["params"])
+    fresh.prefill({"tokens": ref["prompts2"]})
+    wkv, wkv_fresh = (s.cache["layer_0"]["tmix"][1] for s in (sess, fresh))
+    assert not torch.allclose(wkv, wkv_fresh, atol=1e-3)
+
+
+def test_rwkv_pp2_equals_pp1_bit_for_bit():
+    ref = _jax_rwkv_run()
+    spec = _port_spec(ref["spec"])
+    p2 = _restack(ref["params"], 1, 2)
+    s1, t1, h1 = _serve_port(spec, ref["params"], 1, 0, ref["prompts"])
+    s2, t2, h2 = _serve_port(spec, p2, 2, 0, ref["prompts"])
+    assert s2.sched.n_stages == 2 and s2.sched.n_ticks == R + 1
+    np.testing.assert_array_equal(t1, t2)
+    for a, b in zip(h1, h2):
+        assert torch.equal(a, b)
+    lps = spec.n_layers // 2
+    for i in range(spec.n_layers):
+        st, name = divmod(i, lps)
+        got = s2.cache[f"layer_{name}"]
+        want = s1.cache[f"layer_{i}"]
+        for g, w in zip((*got["tmix"], got["cmix"]),
+                        (*want["tmix"], want["cmix"])):
+            assert torch.equal(g[st], w[0])
+
+
+def test_rwkv_tokens_depend_on_time_mix():
+    """At the rescaled weights the greedy tokens see the time-mix: one
+    flipped time-mix value projection changes them (at the JAX init
+    scale they do not, ROADMAP Queue 3)."""
+    ref = _jax_rwkv_run()
+    spec = _port_spec(ref["spec"])
+    bumped = _map(np.copy, ref["params"])
+    bumped["stages"]["layer_1"]["tmix"]["wv"] *= -1.0
+    _, other, _ = _serve_port(spec, bumped, 1, 0, ref["prompts"])
+    assert (other != ref["toks"]).any()
+
+
+def test_serve_cli_runs_rwkv6_on_cpu(capsys):
+    from repro_torch.launch import serve
+    serve.main(["--arch", "rwkv6-1.6b", "--smoke", "--device", "cpu",
+                "--batch", "4", "--prefill", "8", "--tokens", "3",
+                "--cache-len", "32"])
     out = capsys.readouterr().out
     assert "serve_1f (S=2 R=4" in out and "decoded 3 steps x 4 seqs" in out

@@ -207,3 +207,140 @@ def test_layernorm_and_mlp_match_jax(act):
         tnn.layernorm(t(x), t(scale), t(bias)).numpy(),
         np.asarray(jnn.layernorm(jnp.asarray(x), jnp.asarray(scale),
                                  jnp.asarray(bias))), atol=1e-5, rtol=1e-5)
+
+
+# --------------------------------------------------------------------------
+# RWKV6 (rwkv6-1.6b): group norm, time-mix, channel-mix, init, full forward
+# --------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _jax_rwkv_params(pp, seed=4):
+    """JAX-initialized numpy weights of the rwkv6 smoke spec (shared)."""
+    spec = jconfigs.get("rwkv6-1.6b").smoke_spec()
+    plan = JPlan(pp=pp, tp=1, microbatches=1, remat=False)
+    params, _ = jinit.init_params(spec, plan, jax.random.key(seed),
+                                  jnp.float32)
+    return jax.tree.map(np.asarray, params), plan
+
+
+def _tmix_params(rng, d, h, lora=4, dlora=8):
+    """Random time-mix weights (no stage dim) with decays spread over
+    (0.07, 0.95): w0 ~ U(-3, 1) before exp(-exp(.))."""
+    g = lambda *s, scale=0.3: (scale * rng.standard_normal(s)).astype(
+        np.float32)
+    p = {f"maa_{n}": rng.uniform(0, 1, d).astype(np.float32)
+         for n in ("x", "w", "k", "v", "r", "g")}
+    p.update(tmix_w1=g(d, 5 * lora), tmix_w2=g(5, lora, d),
+             wr=g(d, d), wk=g(d, d), wv=g(d, d), wg=g(d, d), wo=g(d, d),
+             w0=rng.uniform(-3, 1, d).astype(np.float32),
+             decay_w1=g(d, dlora), decay_w2=g(dlora, d), u=g(d),
+             gn_scale=1 + g(d), gn_bias=g(d))
+    return p
+
+
+def test_groupnorm_heads_matches_jax():
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((2, 5, 4, 8)).astype(np.float32)
+    scale, bias = (rng.standard_normal(32).astype(np.float32)
+                   for _ in range(2))
+    np.testing.assert_allclose(
+        tnn.groupnorm_heads(*(torch.from_numpy(a) for a in (x, scale, bias))
+                            ).numpy(),
+        np.asarray(jnn.groupnorm_heads(*(jnp.asarray(a)
+                                         for a in (x, scale, bias)))),
+        atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("seq", [1, 9])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_rwkv_time_and_channel_mix_match_jax(seq, with_state):
+    """Time-mix and channel-mix against JAX on one numpy tree: without a
+    state (the cache-less forward, zero token shift and WKV start) and
+    from a state (the engine's prefill, seq 9, and decode, seq 1), whose
+    in-place update must equal the JAX new state."""
+    rng = np.random.default_rng(seq + 10 * with_state)
+    b, d, h, dh, ff = 2, 32, 4, 8, 48
+    tp = _tmix_params(rng, d, h)
+    cp = {"maa_k": rng.uniform(0, 1, d).astype(np.float32),
+          "maa_r": rng.uniform(0, 1, d).astype(np.float32),
+          "wk": (0.3 * rng.standard_normal((d, ff))).astype(np.float32),
+          "wv": (0.3 * rng.standard_normal((ff, d))).astype(np.float32),
+          "wr_gate": (0.3 * rng.standard_normal((d, d))).astype(np.float32)}
+    x = rng.standard_normal((b, seq, d)).astype(np.float32)
+    tstate = cstate = None
+    if with_state:
+        tstate = (rng.standard_normal((b, d)).astype(np.float32),
+                  (0.5 * rng.standard_normal((b, h, dh, dh))).astype(
+                      np.float32))
+        cstate = rng.standard_normal((b, d)).astype(np.float32)
+    t = lambda a: torch.from_numpy(a.copy())
+    jt = lambda tree: jax.tree.map(jnp.asarray, tree)
+
+    jout, jnew = jnn.rwkv_time_mix(jt(tp), jnp.asarray(x),
+                                   jnn.RWKVStatic(h, dh), None, jt(tstate))
+    mine_state = None if tstate is None else tuple(t(a) for a in tstate)
+    tout = tnn.rwkv_time_mix({k: t(v) for k, v in tp.items()}, t(x),
+                             tnn.RWKVStatic(h, dh), state=mine_state)
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), atol=ATOL,
+                               rtol=RTOL)
+    if with_state:
+        for got, want in zip(mine_state, jnew):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       atol=ATOL, rtol=RTOL)
+
+    jout, jnew = jnn.rwkv_channel_mix(jt(cp), jnp.asarray(x), None,
+                                      jt(cstate))
+    mine = None if cstate is None else t(cstate)
+    tout = tnn.rwkv_channel_mix({k: t(v) for k, v in cp.items()}, t(x),
+                                state=mine)
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), atol=ATOL,
+                               rtol=RTOL)
+    if with_state:
+        np.testing.assert_allclose(mine.numpy(), np.asarray(jnew), atol=0)
+
+
+def test_rwkv_init_tree_matches_jax_keys_shapes_and_f32_decay():
+    spec = tconfigs.get("rwkv6-1.6b").smoke_spec()
+    mine = tinit.init_params(spec, TPlan(pp=2, tp=1),
+                             torch.Generator().manual_seed(0),
+                             torch.bfloat16)
+    ref, _ = _jax_rwkv_params(2)
+
+    def shapes(tree):
+        if isinstance(tree, dict):
+            return {k: shapes(v) for k, v in tree.items()}
+        return tuple(np.shape(tree))
+
+    assert shapes(mine) == shapes(ref)
+    conv = tinit.params_from_numpy(ref, "cpu", torch.bfloat16)
+    assert shapes(conv) == shapes(ref)
+    for tree in (mine, conv):
+        tm = tree["stages"]["layer_1"]["tmix"]
+        assert tm["w0"].dtype == torch.float32        # as in the JAX init
+        assert tm["wr"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        conv["stages"]["layer_1"]["tmix"]["w0"].numpy(),
+        ref["stages"]["layer_1"]["tmix"]["w0"])
+    w0 = mine["stages"]["layer_0"]["tmix"]["w0"]
+    assert abs(w0.mean().item() + 3.9) < 0.1 and 0.1 < w0.std().item() < 0.3
+
+
+@pytest.mark.parametrize("pp", [1, 2])
+def test_rwkv_full_transformer_matches_jax(pp):
+    jspec = jconfigs.get("rwkv6-1.6b").smoke_spec()
+    tspec = tconfigs.get("rwkv6-1.6b").smoke_spec()
+    params, jplan = _jax_rwkv_params(pp)
+    rng = np.random.default_rng(20 + pp)
+    x = rng.standard_normal((2, 21, jspec.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(21), (2, 21)).astype(np.int32)
+    jst = jstage.make_statics(jspec, jplan, tokens_per_mb=42)
+    want, _ = jstage.full_transformer(jax.tree.map(jnp.asarray, params),
+                                      jnp.asarray(x), jst,
+                                      positions=jnp.asarray(pos))
+    tst = tstage.make_statics(tspec, TPlan(pp=pp, tp=1))
+    assert tst.attn is None and tst.rwkv == tnn.RWKVStatic(8, 8)
+    tp = tinit.params_from_numpy(params, "cpu", torch.float32)
+    got = tstage.full_transformer(tp, torch.from_numpy(x), tst,
+                                  positions=torch.from_numpy(pos))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=RTOL)

@@ -53,6 +53,26 @@ def test_qwen3_config_matches_jax():
         tconfigs.get("gemma3-4b")
 
 
+def test_rwkv6_config_matches_jax():
+    j, t = jconfigs.get("rwkv6-1.6b"), tconfigs.get("rwkv6-1.6b")
+    for fn in ("full_spec", "smoke_spec"):
+        assert dataclasses.asdict(getattr(t, fn)()) == \
+            dataclasses.asdict(getattr(j, fn)())
+    for plan in ("PLAN", "SMOKE_PLAN"):
+        assert dataclasses.asdict(getattr(t, plan)) == \
+            dataclasses.asdict(getattr(j, plan))
+    for alias in ("rwkv6_1b6", "rwkv6-1b6"):
+        assert tconfigs.get(alias) is t
+    full = t.full_spec()
+    assert full.d_model // full.rwkv.head_dim == full.n_heads == 32
+    # the chip_smoke.py plan: serve_1f over all 24 layers in 8 stages
+    sched = tsched.make_serving_schedule(
+        t.PLAN.with_(tp=1, decode_microbatches=4), 4)
+    sched.validate()
+    assert (sched.n_stages, sched.n_microbatches, sched.n_ticks) == (8, 4, 11)
+    assert full.layers_per_stage(8) == 3
+
+
 def test_stage_decomposition_matches_jax():
     jspec_, tspec_ = (m.get("qwen3-14b").full_spec() for m in (jconfigs,
                                                                 tconfigs))
