@@ -9,7 +9,8 @@ Phases (any failure raises and the script exits non-zero):
    from the checkout's sources (one nvcc per source, in parallel);
 2. kernels — each kernel against its plain PyTorch version on the card,
    at the main paths' shapes, in bf16 and f32, with stated tolerances
-   (wkv6 with and without a start state, plus a strong-decay case);
+   (wkv6 and mamba_scan with and without a start state, plus a
+   strong-decay case for wkv6);
 3. serve — qwen3-14b at full width (d 5120, 40 heads, 8 KV heads, Dh 128,
    d_ff 17408, vocab 151936), bf16, random seeded weights, ``serve_1f``
    with pp = 2 on the one card: R = 4 slots × 2 rows, prefill 512,
@@ -29,13 +30,30 @@ Phases (any failure raises and the script exits non-zero):
    the served sequence: the served tokens must be its greedy tokens at
    every generated position of every row;
 7. consistency rwkv6 — fp32 at full width and 2 layers: the engine's
-   last-position logits against ``full_transformer``'s.
+   last-position logits against ``full_transformer``'s;
+8. serve jamba — jamba-v0.1-52b at full width (d 4096, 32 heads / 8 KV
+   heads of 128, d_ff 14336, 16 experts top-2 of 14336, Mamba d_state
+   16, d_conv 4, expand 2, vocab 65536), cut to its first 16 of 32
+   layers (two periods of 7 Mamba + 1 attention mixers, 4 MoE + 4 dense
+   FFNs), bf16, ``serve_1f`` with pp = 2: R = 4 slots × 2 rows, prefill
+   1024 (MoE capacity 320), cache_len 2048, page 16, 16 decode steps;
+   every Mamba layer call through the mamba_scan kernel from the slot's
+   state, the attention layers' decode through the paged kernel; then a
+   ``torch.profiler`` breakdown of one more decode step;
+9. reference jamba — per slot, ``full_transformer`` (flash + mamba_scan
+   from zero) over that slot's prompts with the engine's statics: its
+   greedy token at the last prompt position must be the served first
+   token, up to bf16 near-ties;
+10. consistency jamba — fp32 at full width and 2 layers (Mamba + MoE,
+   attention + dense): the paged engine against the dense-cache engine
+   (tokens, hidden states, pools, conv tails, SSM states) and the
+   engine's prefill logits against ``full_transformer``'s.
 
 Launch counters are zeroed before and read after each main path (phases
-3, 5 and 6).  Prints a ``profile`` JSON line, one ``kernels`` JSON line
-(launches, errors, times, bounds), the card's name and power limit, and
-last ``{"ok": true, "device": ...}``.  Exits non-zero without a CUDA
-device.
+3, 5, 6, 8 and 9).  Prints a ``profile`` JSON line per recurrent model,
+one ``kernels`` JSON line (launches, errors, times, bounds), the card's
+name and power limit, and last ``{"ok": true, "device": ...}``.  Exits
+non-zero without a CUDA device.
 """
 from __future__ import annotations
 
@@ -75,6 +93,16 @@ RWKV_H, RWKV_DH = 32, 64
 # reference up to this margin (~3-6 steps); a wrong state moves logits
 # by their spread (~0.9).
 RWKV_TIE = 0.1
+# jamba serving: 16 of 32 layers at full width (all 32 are 103 GB in
+# bf16), R slots × rows, prompt, cache and decode lengths
+JAMBA_LAYERS = 16
+JAMBA_SLOTS, JAMBA_ROWS = 4, 2
+JAMBA_PREFILL, JAMBA_CACHE, JAMBA_DECODE = 1024, 2048, 16
+MAMBA_CI, MAMBA_N = 8192, 16
+# H100 SXM exp rate, informational beside the bound: 16 ex2 results per
+# clock per SM (CUDA C++ Programming Guide, arithmetic instruction
+# throughput, compute capability 9.0) x 132 SMs x the 1.98 GHz boost clock
+SFU_EXP_PER_S = 16 * 132 * 1.98e9
 
 
 def log(msg: str) -> None:
@@ -97,10 +125,12 @@ def check_close(name, got, want, atol, rtol):
 def counters():
     """The launch counter of every kernel wrapper, by kernel name."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import wkv6 as wk
     return {"paged_attention": pa.paged_attention,
-            "flash_attention": fa.flash_attention, "wkv6": wk.wkv6}
+            "flash_attention": fa.flash_attention, "wkv6": wk.wkv6,
+            "mamba_scan": ms.mamba_scan}
 
 
 def reset_counts() -> None:
@@ -329,6 +359,56 @@ def phase_wkv6_kernel(device):
     return err
 
 
+def mamba_inputs(dtype, device, b, s, seed, with_state=True):
+    """u, dt (B, S, 8192), B, C (B, S, 16) in ``dtype``; A = -exp(A_log)
+    with the init's A_log = log(1..16) per channel, D ~ N(0, 1) (f32);
+    dt the softplus of a normal; an f32 start state or None."""
+    import torch
+    import torch.nn.functional as F
+    g = torch.Generator(device=device).manual_seed(seed)
+    rnd = lambda *sh: torch.randn(sh, generator=g, device=device)
+    a_log = torch.log(torch.arange(1, MAMBA_N + 1, dtype=torch.float32,
+                                   device=device)).expand(MAMBA_CI, MAMBA_N)
+    u = rnd(b, s, MAMBA_CI)
+    dt = F.softplus(rnd(b, s, MAMBA_CI))
+    bm, cm = rnd(b, s, MAMBA_N), rnd(b, s, MAMBA_N)
+    args = [u.to(dtype), dt.to(dtype), -torch.exp(a_log).contiguous(),
+            bm.to(dtype), cm.to(dtype), rnd(MAMBA_CI)]
+    h0 = rnd(b, MAMBA_CI, MAMBA_N) if with_state else None
+    return args, h0
+
+
+def phase_mamba_kernel(device):
+    """mamba_scan against its plain version at the jamba serve path's
+    shapes: prefill (2, 1024, 8192, N 16) and decode (2, 1, 8192), with
+    and without a start state, bf16 and f32.  Returns the largest max
+    |err| and the max |err| of every case."""
+    import torch
+    from repro_torch.kernels import mamba_scan as ms
+    cases = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        atol, rtol = TOL[str(dtype).split(".")[-1]]
+        for s in (JAMBA_PREFILL, 1):
+            for with_state in (False, True):
+                args, h0 = mamba_inputs(dtype, device, JAMBA_ROWS, s,
+                                        seed=30 + s + with_state,
+                                        with_state=with_state)
+                name = f"{str(dtype)[6:]} S={s} h0={with_state}"
+                got = ms.mamba_scan(*args, None if h0 is None else h0.clone())
+                want = ms.mamba_scan_plain(*args, None if h0 is None
+                                           else h0.clone())
+                torch.cuda.synchronize()
+                e = max(check_close(f"mamba_scan {name} y", got[0], want[0],
+                                    atol, rtol),
+                        check_close(f"mamba_scan {name} state", got[1],
+                                    want[1], atol, rtol))
+                cases[name] = e
+                log(f"[kernels] mamba_scan {str(dtype)[6:]} B={JAMBA_ROWS} "
+                    f"S={s} Ci={MAMBA_CI} N={MAMBA_N} h0={with_state}: "
+                    f"max|err| {e:.3e} (atol {atol}, rtol {rtol})")
+    return max(cases.values()), cases
+
+
 # --------------------------------------------------------------------------
 # phase 3: full-width serving
 # --------------------------------------------------------------------------
@@ -377,7 +457,7 @@ def phase_serve(device, spec, plan):
     counts = read_counts()
     launches = counts["paged_attention"]
     if counts != {"paged_attention": per_step * N_DECODE,
-                  "flash_attention": 0, "wkv6": 0}:
+                  "flash_attention": 0, "wkv6": 0, "mamba_scan": 0}:
         raise AssertionError(f"launches on the qwen3 serve path: {counts}")
     toks = torch.stack(toks).cpu().numpy()
     if not ((toks >= 0) & (toks < spec.vocab)).all():
@@ -397,12 +477,19 @@ def phase_serve(device, spec, plan):
 def reference_logits(session, prompts, toks, n_last: int = 1):
     """``full_transformer`` over prompt + fed tokens; f32 logits at the
     last ``n_last`` positions, (rows, n_last, Vpad)."""
+    seq = np.concatenate([prompts.reshape(-1, prompts.shape[-1]),
+                          toks[:-1].T], axis=1)
+    return sequence_logits(session, seq, n_last)
+
+
+def sequence_logits(session, seq, n_last: int = 1):
+    """``full_transformer`` over the token rows ``seq`` (rows, S) in one
+    call, with the session's statics; f32 logits at the last ``n_last``
+    positions, (rows, n_last, Vpad)."""
     import torch
     from repro_torch.models import lm_head
     from repro_torch.models.stage import full_transformer
     p, dev = session.params, session.device
-    seq = np.concatenate([prompts.reshape(-1, prompts.shape[-1]),
-                          toks[:-1].T], axis=1)
     seq_t = torch.from_numpy(seq).to(dev)
     x = lm_head.embed_tokens(p["embed"], seq_t, session.compute_dtype)
     pos = torch.arange(seq.shape[1], device=dev).expand(seq.shape[0], -1)
@@ -426,7 +513,7 @@ def phase_reference(session, prompts, toks):
     torch.cuda.synchronize()
     counts = read_counts()
     launches = counts["flash_attention"]
-    if counts["paged_attention"] or counts["wkv6"] \
+    if counts["paged_attention"] or counts["wkv6"] or counts["mamba_scan"] \
             or launches != session.spec.n_layers:
         raise AssertionError(f"flash kernel launched {launches} times, "
                              f"expected {session.spec.n_layers}")
@@ -506,23 +593,29 @@ def phase_consistency(device, spec, plan, n_decode=6):
 # phases 5-7: rwkv6-1.6b serving, reference and consistency
 # --------------------------------------------------------------------------
 
+def leaves(tree) -> list:
+    """Every tensor in a tree of dicts, tuples and lists."""
+    import torch
+    if torch.is_tensor(tree):
+        return [tree]
+    items = tree.values() if isinstance(tree, dict) else tree
+    return [t for v in items if isinstance(v, (dict, tuple, list))
+            or torch.is_tensor(v) for t in leaves(v)]
+
+
 def tensor_bytes(tree) -> int:
     """Bytes of every tensor in a tree of dicts, tuples and lists."""
-    import torch
-    if isinstance(tree, torch.Tensor):
-        return tree.numel() * tree.element_size()
-    items = tree.values() if isinstance(tree, dict) else tree
-    return sum(tensor_bytes(v) for v in items
-               if isinstance(v, (dict, tuple, list)) or torch.is_tensor(v))
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
 
 
-def profile_decode_step(session, nxt, step_ms):
-    """torch.profiler over one decode step: device time by kernel, the
-    device's idle share against the unprofiled step time, and two byte
-    bounds of the step over the HBM rate: the schedule as run (``serve_1f``
-    walks the R microbatches one after another, each reading every stage
-    weight) and the weight-once floor; both add the head and the
-    recurrent state read and written once."""
+def profile_decode_step(session, nxt, step_ms, kernels=("wkv6",)):
+    """torch.profiler over one decode step: device time by kernel (calls
+    and time per call of each of ``kernels``), the device's idle share
+    against the unprofiled step time, and two byte bounds of the step
+    over the HBM rate: the schedule as run (``serve_1f`` walks the R
+    microbatches one after another, each reading every stage weight) and
+    the weight-once floor; both add the head and the recurrent state
+    read and written once."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -537,23 +630,26 @@ def profile_decode_step(session, nxt, step_ms):
     if dev_ms <= 0:
         raise AssertionError("the profiler saw no device time")
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
-    wkv = [e for e in events if "wkv6_kernel" in e.key]
     weights = tensor_bytes(session._stage_params)
     rest = tensor_bytes(session.params["head"]) + 2 * tensor_bytes(
         session.cache)
-    return {"model": session.spec.name, "step_ms_unprofiled": step_ms,
-            "device_ms": dev_ms, "idle_share": 1 - dev_ms / step_ms,
-            "stage_weight_gb": weights / 1e9, "head_and_state_gb": rest / 1e9,
-            "bound_as_run_ms": 1e3 * (session.n_slots * weights + rest)
-            / HBM_BYTES_PER_S,
-            "bound_weight_once_ms": 1e3 * (weights + rest) / HBM_BYTES_PER_S,
-            "kernel_launches": sum(e.count for e in events),
-            "wkv6_calls": sum(e.count for e in wkv),
-            "wkv6_ms_per_call": (sum(e.self_device_time_total for e in wkv)
-                                 / 1e3 / max(1, sum(e.count for e in wkv))),
-            "by_kernel": [{"name": e.key[:80],
-                           "ms": e.self_device_time_total / 1e3,
-                           "calls": e.count} for e in top]}
+    out = {"model": session.spec.name, "step_ms_unprofiled": step_ms,
+           "device_ms": dev_ms, "idle_share": 1 - dev_ms / step_ms,
+           "stage_weight_gb": weights / 1e9, "head_and_state_gb": rest / 1e9,
+           "bound_as_run_ms": 1e3 * (session.n_slots * weights + rest)
+           / HBM_BYTES_PER_S,
+           "bound_weight_once_ms": 1e3 * (weights + rest) / HBM_BYTES_PER_S,
+           "kernel_launches": sum(e.count for e in events)}
+    for name in kernels:
+        ev = [e for e in events if f"{name}_kernel" in e.key]
+        calls = sum(e.count for e in ev)
+        out[f"{name}_calls"] = calls
+        out[f"{name}_ms_per_call"] = (sum(e.self_device_time_total
+                                          for e in ev) / 1e3 / max(1, calls))
+    out["by_kernel"] = [{"name": e.key[:80],
+                         "ms": e.self_device_time_total / 1e3,
+                         "calls": e.count} for e in top]
+    return out
 
 
 def phase_serve_rwkv(device, spec, plan):
@@ -604,7 +700,7 @@ def phase_serve_rwkv(device, spec, plan):
         toks.append(nxt)
     counts = read_counts()
     if counts != {"paged_attention": 0, "flash_attention": 0,
-                  "wkv6": per_pass * (1 + RWKV_DECODE)}:
+                  "wkv6": per_pass * (1 + RWKV_DECODE), "mamba_scan": 0}:
         raise AssertionError(f"launches on the rwkv6 serve path: {counts}")
     toks = torch.stack(toks).cpu().numpy()
     if not ((toks >= 0) & (toks < spec.vocab)).all():
@@ -642,7 +738,7 @@ def phase_reference_rwkv(session, prompts, toks):
     torch.cuda.synchronize()
     counts = read_counts()
     if counts != {"paged_attention": 0, "flash_attention": 0,
-                  "wkv6": session.spec.n_layers}:
+                  "wkv6": session.spec.n_layers, "mamba_scan": 0}:
         raise AssertionError(f"launches in rwkv6 full_transformer: {counts}")
     if not torch.isfinite(logits).all():
         raise AssertionError("non-finite rwkv6 reference logits")
@@ -701,6 +797,240 @@ def phase_consistency_rwkv(device, spec, plan, n_decode=6):
 
 
 # --------------------------------------------------------------------------
+# phases 8-10: jamba-v0.1-52b serving, reference and consistency
+# --------------------------------------------------------------------------
+
+def jamba_cut(spec, blocks, name):
+    """``spec`` at full width with only ``blocks`` (a cut of depth)."""
+    return dataclasses.replace(spec, name=name, n_layers=len(blocks),
+                               blocks=tuple(blocks))
+
+
+def n_blocks(spec, mixer):
+    return sum(b.mixer == mixer for b in spec.blocks)
+
+
+def phase_serve_jamba(device, spec, plan):
+    """Serve jamba in bf16 at full width and 16 of its 32 layers (all 32
+    are 51.57 B parameters, 103 GB in bf16, more than the card's 80 GB;
+    16 are 26.05 B with embedding and head, ~52 GB): prefill then
+    JAMBA_DECODE steps.  Every Mamba layer call runs the mamba_scan
+    kernel from the slot's state, every attention layer's decode the
+    paged kernel; MoE capacity comes from the prefill (prefill_len)."""
+    import torch
+    from repro_torch.serving.engine import build_serving
+    n_rows = JAMBA_SLOTS * JAMBA_ROWS
+    session = build_serving(spec, plan, cache_len=JAMBA_CACHE,
+                            global_batch=n_rows, compute_dtype=torch.bfloat16,
+                            page_size=PAGE, prefill_len=JAMBA_PREFILL,
+                            device=device)
+    t0 = time.perf_counter()
+    session.start(SEED)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(
+        [session.params["embed"], session.params["head"],
+         session._stage_params]))
+    st = session.statics
+    log(f"[serve-jamba] {spec.name}: {spec.n_layers} layers "
+        f"({n_blocks(spec, 'mamba')} Mamba, {n_blocks(spec, 'attn')} "
+        f"attention), d {spec.d_model}, heads {spec.n_heads}/{spec.n_kv} of "
+        f"{spec.d_head}, d_ff {spec.d_ff}, {spec.moe.n_experts} experts "
+        f"top-{spec.moe.top_k} of {spec.moe.d_expert} (capacity "
+        f"{st.moe.capacity}), Mamba Ci {st.mamba.d_inner_local} N "
+        f"{st.mamba.d_state} dt_rank {st.mamba.dt_rank}, vocab {spec.vocab}; "
+        f"pp={plan.pp} R={session.n_slots} rows={session.rows}; "
+        f"{n_params / 1e9:.2f} B parameters initialized in "
+        f"{time.perf_counter() - t0:.2f}s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated")
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, spec.vocab, (JAMBA_SLOTS, JAMBA_ROWS,
+                                           JAMBA_PREFILL)).astype(np.int32)
+    per_pass = n_blocks(spec, "mamba") * session.n_slots
+    per_step_paged = n_blocks(spec, "attn") * session.n_slots
+    reset_counts()
+    t0 = time.perf_counter()
+    nxt = session.prefill({"tokens": prompts})
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    toks, step_s = [nxt], []
+    for i in range(JAMBA_DECODE):
+        before = read_counts()
+        t0 = time.perf_counter()
+        nxt = session.decode(nxt)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        after = read_counts()
+        grew = {k: after[k] - before[k] for k in after}
+        if grew != {"paged_attention": per_step_paged, "flash_attention": 0,
+                    "wkv6": 0, "mamba_scan": per_pass}:
+            raise AssertionError(f"decode step {i}: launches {grew}")
+        toks.append(nxt)
+    counts = read_counts()
+    if counts != {"paged_attention": per_step_paged * JAMBA_DECODE,
+                  "flash_attention": 0, "wkv6": 0,
+                  "mamba_scan": per_pass * (1 + JAMBA_DECODE)}:
+        raise AssertionError(f"launches on the jamba serve path: {counts}")
+    toks = torch.stack(toks).cpu().numpy()
+    if not ((toks >= 0) & (toks < spec.vocab)).all():
+        raise AssertionError("served token ids outside the vocabulary")
+    session._alloc.check()
+    ms = 1e3 * float(np.mean(step_s))
+    log(f"[serve-jamba] prefill {JAMBA_PREFILL} tokens x {n_rows} rows: "
+        f"{t_prefill:.3f}s ({n_rows * JAMBA_PREFILL / t_prefill:.0f} "
+        f"tokens/s); decode {JAMBA_DECODE} steps: {ms:.2f} ms/step "
+        f"(min {1e3 * min(step_s):.2f}, max {1e3 * max(step_s):.2f}), "
+        f"{n_rows * 1e3 / ms:.1f} tokens/s; mamba_scan launches "
+        f"{counts['mamba_scan']} = {n_blocks(spec, 'mamba')} Mamba layers x "
+        f"R {session.n_slots} x (1 prefill + {JAMBA_DECODE} decode steps); "
+        f"paged launches {counts['paged_attention']} = "
+        f"{n_blocks(spec, 'attn')} attention layers x R {session.n_slots} x "
+        f"{JAMBA_DECODE} decode steps")
+    prof = profile_decode_step(session, nxt, ms,
+                               kernels=("mamba_scan", "paged_attention"))
+    log(f"[profile] {spec.name} decode step: {prof['device_ms']:.2f} ms of "
+        f"device kernels in a {ms:.2f} ms step, idle share "
+        f"{prof['idle_share']:.3f}, {prof['kernel_launches']} launches; "
+        f"mamba_scan {prof['mamba_scan_calls']} calls, "
+        f"{1e3 * prof['mamba_scan_ms_per_call']:.2f} us each; paged "
+        f"{prof['paged_attention_calls']} calls, "
+        f"{1e3 * prof['paged_attention_ms_per_call']:.2f} us each; byte "
+        f"bound of the schedule as run {prof['bound_as_run_ms']:.3f} ms, "
+        f"weight-once floor {prof['bound_weight_once_ms']:.3f} ms")
+    return session, prompts, toks, counts, prof, {
+        "prefill_s": t_prefill, "decode_ms_per_step": ms,
+        "decode_tokens_per_s": n_rows * 1e3 / ms,
+        "params_b": n_params / 1e9}
+
+
+def slot_prefill_logits(session, prompts):
+    """Per slot, ``full_transformer`` over that slot's prompt rows (the
+    same tokens per call, hence the same MoE capacity and drops as the
+    engine's prefill microbatch); f32 logits at the last prompt position,
+    (R · rows, Vpad) in the engine's row order."""
+    import torch
+    return torch.cat([sequence_logits(session, slot)[:, -1]
+                      for slot in prompts])
+
+
+def phase_reference_jamba(session, prompts, toks):
+    """The flash and mamba_scan kernels from a zero state: per slot,
+    ``full_transformer`` over the slot's prompts in bf16 with the
+    engine's statics.  Its greedy token at the last prompt position must
+    be the served first token, up to bf16 near-ties (its reference logit
+    within RWKV_TIE of the maximum).  Decode positions are not compared:
+    a longer ``full_transformer`` pass routes more tokens per call, so
+    its MoE capacity and drops differ from the engine's."""
+    import torch
+    spec = session.spec
+    reset_counts()
+    t0 = time.perf_counter()
+    logits = slot_prefill_logits(session, prompts)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {"paged_attention": 0, "wkv6": 0,
+            "flash_attention": n_blocks(spec, "attn") * prompts.shape[0],
+            "mamba_scan": n_blocks(spec, "mamba") * prompts.shape[0]}
+    if counts != want:
+        raise AssertionError(f"launches in jamba full_transformer: {counts}, "
+                             f"expected {want}")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("non-finite jamba reference logits")
+    served = torch.from_numpy(toks[0].astype(np.int64)).to(logits.device)
+    agree = logits.argmax(-1) == served
+    gap = logits.amax(-1) - logits.gather(-1, served[:, None])[:, 0]
+    top2 = logits.topk(2, dim=-1).values
+    log(f"[reference-jamba] full_transformer bf16 per slot over "
+        f"{prompts.shape[1]} rows x {prompts.shape[2]} tokens: "
+        f"{time.perf_counter() - t0:.3f}s, flash launches "
+        f"{counts['flash_attention']}, mamba_scan launches "
+        f"{counts['mamba_scan']}; greedy token at the last prompt position "
+        f"equals the served first token on {int(agree.sum())}/"
+        f"{agree.numel()} rows; largest logit gap of a served token below "
+        f"the reference max {gap.max().item():.4f} (limit {RWKV_TIE}); top-2 "
+        f"gaps {[round(v, 4) for v in (top2[:, 0] - top2[:, 1]).tolist()]}")
+    if (gap > RWKV_TIE).any():
+        raise AssertionError(
+            f"served first tokens are not full_transformer's greedy tokens "
+            f"on {int((gap > RWKV_TIE).sum())} of {agree.numel()} rows "
+            f"(logit gap up to {gap.max().item():.4f} > {RWKV_TIE})")
+    return counts
+
+
+def phase_consistency_jamba(device, spec, plan, n_decode=6):
+    """fp32, full width, 2 layers (Mamba + MoE, then attention + dense):
+    the paged engine against the dense-cache engine after prefill +
+    ``n_decode`` decodes (tokens, last hidden states, KV pages against
+    dense caches, conv tails and SSM states, within 1e-5), and the
+    paged engine's prefill logits against ``full_transformer``'s with
+    the engine's statics (within 1e-3)."""
+    import torch
+    from repro_torch.models import lm_head
+    from repro_torch.serving.engine import build_serving
+    rng = np.random.default_rng(SEED + 1)
+    prompts = rng.integers(0, spec.vocab, (JAMBA_SLOTS, JAMBA_ROWS,
+                                           JAMBA_PREFILL)).astype(np.int32)
+    sessions, hidden, toks = {}, {}, {}
+    for kind, page in (("paged", PAGE), ("dense", 0)):
+        s = build_serving(spec, plan, cache_len=JAMBA_CACHE,
+                          global_batch=JAMBA_SLOTS * JAMBA_ROWS,
+                          compute_dtype=torch.float32, page_size=page,
+                          prefill_len=JAMBA_PREFILL, device=device
+                          ).start(SEED)
+        nxt = s.prefill({"tokens": prompts})
+        if kind == "paged":
+            fn = s.params["final_norm"]
+            eng_logits = lm_head.last_logits(s.params["head"], fn["scale"],
+                                             s.last_hidden, vocab=spec.vocab)
+        hs, ts = [s.last_hidden.clone()], [nxt]
+        for _ in range(n_decode):
+            nxt = s.decode(nxt)
+            hs.append(s.last_hidden.clone())
+            ts.append(nxt)
+        sessions[kind], hidden[kind] = s, hs
+        toks[kind] = torch.stack(ts).cpu().numpy()
+    if not (toks["paged"] == toks["dense"]).all():
+        raise AssertionError("paged and dense jamba tokens differ")
+    tol = 1e-5
+    err_h = max(check_close(f"jamba hidden step {i}", a, b, tol, tol)
+                for i, (a, b) in enumerate(zip(hidden["paged"],
+                                               hidden["dense"])))
+    paged, dense = sessions["paged"], sessions["dense"]
+    n_keys = JAMBA_PREFILL + n_decode
+    err_kv = 0.0
+    for name, (kp, vp) in paged.pages.items():
+        for pool, cache in zip((kp, vp), dense.cache[name]["kv"]):
+            for m in range(JAMBA_SLOTS):
+                ids = torch.from_numpy(paged._alloc.tables[m]).long()
+                ids = ids[ids >= 0].to(device)
+                got = pool[:, ids].transpose(1, 2).reshape(
+                    pool.shape[0], JAMBA_ROWS, -1,
+                    *pool.shape[-2:])[:, :, :n_keys]
+                err_kv = max(err_kv, check_close(
+                    f"jamba {name} slot {m} pool", got,
+                    cache[:, m, :, :n_keys], tol, tol))
+    err_ssm, h_max = 0.0, 0.0
+    for name, layer in dense.cache.items():
+        for i, (g, w) in enumerate(zip(paged.cache[name].get("ssm", ()),
+                                       layer.get("ssm", ()))):
+            err_ssm = max(err_ssm, check_close(
+                f"jamba {name} ssm[{i}]", g, w, tol, tol))
+            h_max = max(h_max, w.abs().max().item())
+    if not (paged._pos == dense._pos).all():
+        raise AssertionError("paged and dense positions differ")
+    ref_logits = slot_prefill_logits(paged, prompts)
+    err_l = check_close("jamba full_transformer vs engine prefill logits",
+                        eng_logits, ref_logits, 1e-3, 1e-3)
+    log(f"[consistency-jamba] fp32 {spec.n_layers} layers "
+        f"({[(b.mixer, b.ffn) for b in spec.blocks]}) at full width, "
+        f"pp={plan.pp}, {JAMBA_SLOTS * JAMBA_ROWS} rows, prefill "
+        f"{JAMBA_PREFILL} + {n_decode} decodes: paged vs dense tokens equal, "
+        f"hidden max|err| {err_h:.3e}, pools vs dense caches {err_kv:.3e}, "
+        f"conv tails and SSM states {err_ssm:.3e} (largest state entry "
+        f"{h_max:.3e}; atol/rtol {tol}); full_transformer vs engine prefill "
+        f"logits {err_l:.3e} (atol/rtol 1e-3)")
+
+
+# --------------------------------------------------------------------------
 # the kernels line
 # --------------------------------------------------------------------------
 
@@ -747,11 +1077,13 @@ def kernel_records(device, errs, launches):
     f_bound = 1e3 * max(f_flops / PEAK_FLOPS["bfloat16"],
                         f_bytes / HBM_BYTES_PER_S)
     w = wkv6_record(device, errs["wkv6"], launches["wkv6"])
+    mb = mamba_record(device, errs["mamba_scan"], launches["mamba_scan"])
     return [
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:51",
-         "launches": launches["paged_attention"],
+         "launches": sum(launches["paged_attention"].values()),
+         "launches_by_path": launches["paged_attention"],
          "max_abs_err": errs["paged_attention"], "tolerance": TOL, "ms": p_ms,
          "plain_ms": p_plain, "bound_ms": p_bound,
          "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
@@ -760,13 +1092,15 @@ def kernel_records(device, errs, launches):
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:39",
-         "launches": launches["flash_attention"],
+         "launches": sum(launches["flash_attention"].values()),
+         "launches_by_path": launches["flash_attention"],
          "max_abs_err": errs["flash_attention"], "tolerance": TOL, "ms": f_ms,
          "plain_ms": f_plain, "bound_ms": f_bound,
          "bound_by": ("operations" if f_flops / PEAK_FLOPS["bfloat16"]
                       >= f_bytes / HBM_BYTES_PER_S else "bytes"),
          "library_ms": f_lib},
         w,
+        mb,
     ]
 
 
@@ -821,7 +1155,7 @@ def wkv6_record(device, err, launches):
     return {"name": "wkv6", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/wkv6.cu",
             "replaces": "src/repro/kernels/wkv6.py:32",
-            "launches": launches["serve"] + launches["full_transformer"],
+            "launches": sum(launches.values()),
             "launches_by_path": launches,
             "max_abs_err": err, "tolerance": TOL, "ms": ms,
             "plain_ms": plain, "bound_ms": 1e3 * max(t_bytes, t_ops),
@@ -833,6 +1167,77 @@ def wkv6_record(device, err, launches):
             "decode_bound_by": ("bytes" if d_bytes / HBM_BYTES_PER_S
                                 >= d_flops / PEAK_FLOPS["bfloat16"]
                                 else "operations")}
+
+
+def mamba_bytes_flops(args, h0):
+    """Bytes the call must move (u, dt, B, C, A, D read, y written, the
+    state read and written, or only written from a zero start), its f32
+    operations (6 per state entry and token: dt·A, the decay FMA,
+    dt·u·B, the C FMA; 3 per channel and token: dt·u and the D FMA) and
+    its exps (one per state entry and token)."""
+    u, _, a = args[:3]
+    b, s, ci = u.shape
+    n = a.shape[1]
+    esz = u.element_size()
+    state = b * ci * n * 4
+    nbytes = (3 * u.numel() + 2 * b * s * n) * esz + (ci * n + ci) * 4 \
+        + state * (1 if h0 is None else 2)
+    return nbytes, b * s * ci * (6 * n + 3), b * s * ci * n
+
+
+def mamba_record(device, err, launches):
+    """mamba_scan at the jamba serve path's shapes and dtype (the engine
+    calls it in f32, from the slot's state): the prefill call (2, 1024,
+    8192, N 16), whose 201 MB of u, dt and y exceed L2 four times, timed
+    with CUDA events; and the decode call (2, 1, 8192), cycling enough
+    states (1 MB each) to fill L2 four times, as the step finds each
+    slot's state cold, timed as device time (:func:`device_ms`)."""
+    import torch
+    from repro_torch.kernels import mamba_scan as ms
+    f32 = torch.float32
+    args, h0 = mamba_inputs(f32, device, JAMBA_ROWS, JAMBA_PREFILL, seed=41)
+    t_ms = time_ms(lambda: ms.mamba_scan(*args, h0), iters=20)
+    plain = time_ms(lambda: ms.mamba_scan_plain(*args, h0), iters=3,
+                    warmup=1)
+    nbytes, flops, exps = mamba_bytes_flops(args, h0)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS["float32"]
+    dargs, _ = mamba_inputs(f32, device, JAMBA_ROWS, 1, seed=42,
+                            with_state=False)
+    state_bytes = JAMBA_ROWS * MAMBA_CI * MAMBA_N * 4
+    n_sets = -(-4 * L2_BYTES // state_bytes)
+    states = [torch.randn((JAMBA_ROWS, MAMBA_CI, MAMBA_N), device=device)
+              for _ in range(n_sets)]
+    it = {"i": 0}
+
+    def run(fn):
+        def call():
+            fn(*dargs, states[it["i"] % n_sets])
+            it["i"] += 1
+        return call
+
+    d_ms = device_ms(run(ms.mamba_scan), 4 * n_sets, "mamba_scan_kernel")
+    d_plain = device_ms(run(ms.mamba_scan_plain), n_sets)
+    d_bytes, d_flops, d_exps = mamba_bytes_flops(dargs, states[0])
+    d_tb, d_to = d_bytes / HBM_BYTES_PER_S, d_flops / PEAK_FLOPS["float32"]
+    return {"name": "mamba_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+            "replaces": "src/repro/kernels/mamba_scan.py:31",
+            "launches": sum(launches.values()),
+            "launches_by_path": launches,
+            "max_abs_err": err[0], "max_abs_err_by_case": err[1],
+            "tolerance": TOL, "ms": t_ms, "plain_ms": plain,
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None,
+            "shape": [JAMBA_ROWS, JAMBA_PREFILL, MAMBA_CI, MAMBA_N],
+            "dtype": "float32", "bytes": nbytes, "flops": flops,
+            "bytes_bound_ms": 1e3 * t_bytes, "flops_bound_ms": 1e3 * t_ops,
+            "exps": exps, "exp_ms_at_sfu_rate": 1e3 * exps / SFU_EXP_PER_S,
+            "decode_ms": d_ms, "decode_plain_ms": d_plain,
+            "decode_bound_ms": 1e3 * max(d_tb, d_to),
+            "decode_bound_by": "bytes" if d_tb >= d_to else "operations",
+            "decode_exps": d_exps}
 
 
 def main() -> int:
@@ -850,6 +1255,7 @@ def main() -> int:
     phase_build()
     errs = phase_kernels(device)
     errs["wkv6"] = phase_wkv6_kernel(device)
+    errs["mamba_scan"] = phase_mamba_kernel(device)
 
     cfg = configs.get("qwen3-14b")
     full = cfg.full_spec()
@@ -877,13 +1283,37 @@ def main() -> int:
     short = dataclasses.replace(full, name="rwkv6-1.6b-2l", n_layers=2,
                                 blocks=full.blocks[:2])
     phase_consistency_rwkv(device, short, plan.with_(pp=2))
+    torch.cuda.empty_cache()
+
+    cfg = configs.get("jamba-v0.1-52b")
+    full = cfg.full_spec()
+    cut = jamba_cut(full, full.blocks[:JAMBA_LAYERS],
+                    f"jamba-v0.1-52b-{JAMBA_LAYERS}l")
+    plan = cfg.PLAN.with_(pp=2, tp=1, decode_microbatches=JAMBA_SLOTS)
+    session, prompts, toks, jamba_counts, prof_jamba, serve_jamba = \
+        phase_serve_jamba(device, cut, plan)
+    jamba_ref = phase_reference_jamba(session, prompts, toks)
+    del session
+    torch.cuda.empty_cache()
+
+    phase_consistency_jamba(device, jamba_cut(full, full.blocks[3:5],
+                                              "jamba-v0.1-52b-2l"),
+                            plan.with_(pp=1))
+    torch.cuda.empty_cache()
 
     records = kernel_records(device, errs, {
-        "paged_attention": paged_launches, "flash_attention": flash_launches,
-        "wkv6": {"serve": wkv_serve, "full_transformer": wkv_ref}})
+        "paged_attention": {"qwen3_serve": paged_launches,
+                            "jamba_serve": jamba_counts["paged_attention"]},
+        "flash_attention": {
+            "qwen3_full_transformer": flash_launches,
+            "jamba_full_transformer": jamba_ref["flash_attention"]},
+        "wkv6": {"serve": wkv_serve, "full_transformer": wkv_ref},
+        "mamba_scan": {"serve": jamba_counts["mamba_scan"],
+                       "full_transformer": jamba_ref["mamba_scan"]}})
     log(f"[done] {time.perf_counter() - t_start:.1f}s; serve qwen3 {serve}; "
-        f"serve rwkv6 {serve_rwkv}")
+        f"serve rwkv6 {serve_rwkv}; serve jamba {serve_jamba}")
     print(json.dumps({"profile": prof}))
+    print(json.dumps({"profile": prof_jamba}))
     print(json.dumps({"kernels": records}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -5,11 +5,13 @@ hand-written kernel, a CPU tensor to the kernel's plain PyTorch version.
 There is no environment gate and no fallback — a kernel that cannot
 launch raises.  The TPU wrapper padded Sq/Sk up to block multiples; the
 CUDA flash kernel masks its ragged edge itself, so no padding copy is
-made here, and the WKV6 kernel takes any S unpadded.
+made here, and the WKV6 and selective-scan kernels take any S unpadded
+(the TPU wrapper's w = 1 and dt = 0 padding is not needed).
 """
 from __future__ import annotations
 
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import mamba_scan as _mamba
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import wkv6 as _wkv6
 
@@ -43,3 +45,12 @@ def wkv6(r, k, v, w, u, s0=None):
     if r.device.type == "cuda":
         return _wkv6.wkv6(r, k, v, w, u, s0)
     return _wkv6.wkv6_plain(r, k, v, w, u, s0)
+
+
+def mamba_scan(u, dt, A, B, C, D, h0=None):
+    """Mamba-1 selective scan, u/dt (B, S, Ci), A (Ci, N), B/C (B, S, N),
+    D (Ci,); with ``h0`` (B, Ci, N) f32 the state advances in place.  See
+    :func:`repro_torch.kernels.mamba_scan.mamba_scan`."""
+    if u.device.type == "cuda":
+        return _mamba.mamba_scan(u, dt, A, B, C, D, h0)
+    return _mamba.mamba_scan_plain(u, dt, A, B, C, D, h0)

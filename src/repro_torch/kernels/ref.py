@@ -1,7 +1,7 @@
 """Naive PyTorch oracles for the kernels (port of ``repro/kernels/ref.py``).
 
 Deliberately the O(S²) attention formulations and the step-by-step WKV6
-recurrence: independent of the CUDA kernels and of the blockwise twins
+and selective-scan recurrences: independent of the CUDA kernels and of the blockwise twins
 in models/nn.py, so a bug in shared tiling logic cannot hide.  Softmax
 in f32, ``-inf`` masking, outputs in q.dtype.
 """
@@ -97,3 +97,27 @@ def wkv6_ref(r, k, v, w, u, s0=None):
         ys.append(torch.einsum("bhd,bhde->bhe", rf[:, t], state + uf * kv))
         state = wf[:, t, :, :, None] * state + kv
     return torch.stack(ys, dim=1).to(r.dtype), state
+
+
+def mamba_scan_ref(u, dt, A, B, C, D, h0=None):
+    """Diagonal selective-SSM recurrence (Mamba-1), step by step.
+
+    u, dt: (B, S, Ci); A: (Ci, N); B, C: (B, S, N); D: (Ci,); h0:
+    optional (B, Ci, N) start state (zero when None), left untouched.
+    Returns (y (B, S, Ci) in u.dtype, h_last (B, Ci, N) f32); arithmetic
+    in f32:
+
+        h_t = exp(dt_t ⊙ A) ⊙ h_{t-1} + (dt_t u_t) ⊗ B_t
+        y_t = h_t · C_t + D ⊙ u_t
+    """
+    b, s, ci = u.shape
+    uf, dtf, bf, cf = (t.float() for t in (u, dt, B, C))
+    af, df = A.float(), D.float()
+    h = (torch.zeros((b, ci, A.shape[-1]), dtype=torch.float32,
+                     device=u.device) if h0 is None else h0.float())
+    ys = []
+    for t in range(s):
+        da = torch.exp(dtf[:, t, :, None] * af)                # (B,Ci,N)
+        h = da * h + (dtf[:, t] * uf[:, t])[..., None] * bf[:, t, None, :]
+        ys.append(torch.einsum("bcn,bn->bc", h, cf[:, t]) + df * uf[:, t])
+    return torch.stack(ys, dim=1).to(u.dtype), h

@@ -6,8 +6,13 @@ versions of the kernels).  ``--smoke`` serves the architecture's small
 smoke spec in fp32; otherwise the full spec in bf16, every stage of the
 plan on one device.
 
+``--prefill`` is also the prompt length the session is sized for
+(``prefill_len``: it sets the MoE expert capacity).
+
   python -m repro_torch.launch.serve --arch qwen3-14b --page-size 16
   python -m repro_torch.launch.serve --arch qwen3-14b --smoke --device cpu
+  python -m repro_torch.launch.serve --arch jamba-v0.1-52b --smoke \
+      --device cpu --page-size 16
 """
 from __future__ import annotations
 
@@ -51,7 +56,8 @@ def main(argv=None):
     plan = plan.with_(tp=1)
     session = build_serving(spec, plan, cache_len=args.cache_len,
                             global_batch=args.batch, compute_dtype=dtype,
-                            page_size=args.page_size, device=device)
+                            page_size=args.page_size,
+                            prefill_len=args.prefill, device=device)
     print(f"serve schedule: {session.sched.name} (S={session.sched.n_stages} "
           f"R={session.n_slots}, {session.sched.n_ticks} ticks/pass) on "
           f"{device}")

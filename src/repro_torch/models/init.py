@@ -6,8 +6,9 @@ stacked with a leading [pp] stage dim under ``params["stages"]
 sit outside the pipeline.  ``layer_windows`` / ``layer_thetas`` are
 [pp][lps] Python lists: static per layer, read on the host.  So a JAX
 tree carries over leaf for leaf (:func:`params_from_numpy`).  Ported
-block kinds: attention + dense FFN, and RWKV6 time-mix + channel-mix;
-MoE, Mamba and cross-attention blocks come later.
+block kinds: attention, RWKV6 time-mix or Mamba as the mixer; a dense
+FFN, RWKV6 channel-mix or MoE (without shared experts) as the FFN.
+Cross-attention blocks come later.
 """
 from __future__ import annotations
 
@@ -18,11 +19,12 @@ import numpy as np
 import torch
 
 from repro_torch.models import spec as spec_lib
-from repro_torch.models.nn import AttnStatic, RWKVStatic
+from repro_torch.models.nn import (AttnStatic, MambaStatic, MoEStatic,
+                                   RWKVStatic)
 
 _STATIC_KEYS = ("layer_windows", "layer_thetas")
 # leaves the JAX init keeps in f32 whatever the compute dtype
-_F32_KEYS = ("w0",)
+_F32_KEYS = ("w0", "dt_bias", "A_log", "D")
 
 
 def padded_vocab(vocab: int, multiple: int = 128) -> int:
@@ -43,6 +45,27 @@ def attn_static(spec: spec_lib.ModelSpec, tp: int,
         d_head=spec.d_head, kv_sharded=kv_sharded,
         kv_groups_per_device=groups_per_dev, qk_norm=spec.qk_norm,
         rope_2d=spec.rope_2d, causal=causal)
+
+
+def moe_static(spec: spec_lib.ModelSpec, tp: int, tokens_per_mb: int,
+               capacity_factor: float = 1.25) -> MoEStatic:
+    """Per-expert capacity ceil(T·k / E · factor), at least 4, for
+    ``tokens_per_mb`` tokens per microbatch call (the JAX rule)."""
+    m = spec.moe
+    assert m.n_experts % tp == 0, (spec.name, m.n_experts, tp)
+    cap = max(int(np.ceil(tokens_per_mb * m.top_k / m.n_experts
+                          * capacity_factor)), 4)
+    return MoEStatic(n_experts=m.n_experts, n_local=m.n_experts // tp,
+                     top_k=m.top_k, capacity=cap, n_shared=m.n_shared)
+
+
+def mamba_static(spec: spec_lib.ModelSpec, tp: int) -> MambaStatic:
+    ms = spec.mamba
+    d_inner = ms.expand * spec.d_model
+    assert d_inner % tp == 0, (spec.name, d_inner, tp)
+    dt_rank = ms.dt_rank or -(-spec.d_model // 16)
+    return MambaStatic(d_inner_local=d_inner // tp, d_state=ms.d_state,
+                       d_conv=ms.d_conv, dt_rank=dt_rank)
 
 
 def rwkv_static(spec: spec_lib.ModelSpec, tp: int) -> RWKVStatic:
@@ -97,12 +120,48 @@ def _rwkv_cmix_init(spec, pp, gen, dtype, out_scale):
     }
 
 
+def _moe_init(spec, pp, gen, dtype, out_scale):
+    d, m = spec.d_model, spec.moe
+    if m.n_shared:
+        raise NotImplementedError(
+            "shared experts (deepseek) come with the deepseek slice of the "
+            "port")
+    return {
+        "router": _dense(gen, (pp, d, m.n_experts), dtype),
+        "w1": _dense(gen, (pp, m.n_experts, d, m.d_expert), dtype),
+        "w2": _dense(gen, (pp, m.n_experts, m.d_expert, d), dtype, out_scale),
+        "w3": _dense(gen, (pp, m.n_experts, d, m.d_expert), dtype),
+    }
+
+
+def _mamba_init(spec, pp, gen, dtype, out_scale):
+    d, ms, dev = spec.d_model, spec.mamba, gen.device
+    ci = ms.expand * d
+    dt_rank = ms.dt_rank or -(-d // 16)
+    a = torch.arange(1, ms.d_state + 1, dtype=torch.float32, device=dev)
+    lo, hi = math.log(1e-3), math.log(1e-1)
+    dt0 = torch.rand((pp, ci), generator=gen, device=dev) * (hi - lo) + lo
+    return {
+        "in_x": _dense(gen, (pp, d, ci), dtype),
+        "in_z": _dense(gen, (pp, d, ci), dtype),
+        "conv_w": _dense(gen, (pp, ci, ms.d_conv), dtype, 0.1),
+        "x_proj": _dense(gen, (pp, ci, dt_rank + 2 * ms.d_state), dtype),
+        "dt_proj": _dense(gen, (pp, dt_rank, ci), dtype, dt_rank ** -0.5),
+        # softplus⁻¹ of dt ~ logU(1e-3, 1e-1); f32, as in the JAX init
+        "dt_bias": torch.log(torch.expm1(torch.exp(dt0))),
+        "A_log": torch.log(a).expand(pp, ci, ms.d_state).contiguous(),
+        "D": torch.ones((pp, ci), dtype=torch.float32, device=dev),
+        "out_proj": _dense(gen, (pp, ci, d), dtype, out_scale),
+    }
+
+
 def init_params(spec: spec_lib.ModelSpec, plan, gen: torch.Generator,
                 dtype=torch.bfloat16) -> Dict:
     """Random parameters on ``gen``'s device, drawn from ``gen``.
 
     Same scales as the JAX init (embed 1.0, projections 0.02, output
-    projections 0.02/√(2L), RWKV decay bias w0 ~ -3.9 + 0.2·N in f32);
+    projections 0.02/√(2L), RWKV decay bias w0 ~ -3.9 + 0.2·N in f32,
+    Mamba conv 0.1, dt_proj dt_rank^-½ and f32 dt_bias / A_log / D);
     the random numbers differ from JAX's, so a
     test that compares the two packages hands both one numpy tree.
     """
@@ -121,13 +180,15 @@ def init_params(spec: spec_lib.ModelSpec, plan, gen: torch.Generator,
     }
     stages: Dict = {}
     for i, blk in enumerate(program):
-        if (blk.mixer not in ("attn", "rwkv") or blk.cross_attn
-                or blk.ffn not in ("dense", "rwkv_cmix")):
+        if (blk.mixer not in ("attn", "rwkv", "mamba") or blk.cross_attn
+                or blk.ffn not in ("dense", "rwkv_cmix", "moe")):
             raise NotImplementedError(
-                f"block {blk} is not ported yet (MoE, Mamba and "
-                "cross-attention blocks are still to port)")
+                f"block {blk} is not ported yet (cross-attention and "
+                "mixer- or FFN-less blocks are still to port)")
         lp: Dict = {"norm1": _norm_init((pp, d), spec.norm, dtype, dev)}
-        if blk.mixer == "attn":
+        if blk.mixer == "mamba":
+            lp["mamba"] = _mamba_init(spec, pp, gen, dtype, out_scale)
+        elif blk.mixer == "attn":
             attn = {"wq": _dense(gen, (pp, d, h, dh), dtype),
                     "wk": _dense(gen, (pp, d, kv, dh), dtype),
                     "wv": _dense(gen, (pp, d, kv, dh), dtype),
@@ -145,6 +206,8 @@ def init_params(spec: spec_lib.ModelSpec, plan, gen: torch.Generator,
             if spec.act == "silu":
                 mlp["w3"] = _dense(gen, (pp, d, ff), dtype)
             lp["mlp"] = mlp
+        elif blk.ffn == "moe":
+            lp["moe"] = _moe_init(spec, pp, gen, dtype, out_scale)
         else:
             lp["cmix"] = _rwkv_cmix_init(spec, pp, gen, dtype, out_scale)
         stages[f"layer_{i}"] = lp
@@ -159,8 +222,9 @@ def params_from_numpy(tree, device, dtype) -> Dict:
     """The port's tree from a JAX parameter tree taken to numpy
     (``jax.tree.map(np.asarray, params)``): a leaf-for-leaf copy, float
     leaves cast to ``dtype`` on ``device``; the per-layer window / theta
-    arrays become host lists, and the RWKV decay bias ``w0`` stays f32
-    as the JAX engine keeps it."""
+    arrays become host lists, and the leaves the JAX engine keeps in f32
+    (the RWKV decay bias ``w0``; Mamba's ``dt_bias``, ``A_log`` and
+    ``D``) stay f32."""
     def conv(key, node):
         if isinstance(node, dict):
             return {k: conv(k, v) for k, v in node.items()}

@@ -1,4 +1,5 @@
-"""Layers of the dense decoder and of RWKV6 (port of ``repro/models/nn.py``).
+"""Layers of the dense decoder, RWKV6 and jamba (Mamba + MoE) (port of
+``repro/models/nn.py``).
 
 Plain functions on tensors, in the JAX package's layouts: activations
 (B, S, d), q (B, S, H, Dh), ``wq`` (d, H, Dh), ``wo`` (H·Dh, d).  The
@@ -304,6 +305,156 @@ def mlp(p, x, act: str):
     else:
         h = F.gelu(x @ p["w1"], approximate="tanh")
     return h @ p["w2"]
+
+
+# --------------------------------------------------------------------------
+# Mixture of Experts (GShard-style capacity dispatch)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MoEStatic:
+    n_experts: int
+    n_local: int               # experts on this device
+    top_k: int
+    capacity: int              # per-expert token slots
+    n_shared: int
+
+
+def moe_dispatch_indices(gate_idx, n_experts: int, capacity: int):
+    """Sort-based dispatch of the flat (N·K,) expert ids, JAX's rule:
+    a stable argsort by expert, each pair's position among its expert's
+    pairs in flat (token·K + choice) order, kept while the position is
+    below ``capacity``.  Returns (slot_id, keep) with slot_id =
+    expert·capacity + position, clipped to the expert's last slot for a
+    dropped pair (which must then write and read nothing)."""
+    nk = gate_idx.shape[0]
+    order = torch.argsort(gate_idx, stable=True)
+    sorted_e = gate_idx[order]
+    counts = torch.bincount(gate_idx, minlength=n_experts)
+    starts = torch.cumsum(counts, 0) - counts
+    pos_in_e = torch.arange(nk, device=gate_idx.device) - starts[sorted_e]
+    keep_sorted = pos_in_e < capacity
+    slot_sorted = sorted_e * capacity + pos_in_e.clamp(max=capacity - 1)
+    slot = torch.empty_like(slot_sorted)
+    keep = torch.empty_like(keep_sorted)
+    slot[order] = slot_sorted
+    keep[order] = keep_sorted
+    return slot, keep
+
+
+def moe(p, x, ms: MoEStatic, act: str):
+    """MoE FFN of x (B, S, d); returns (out (B, S, d), aux_loss).
+
+    Routing and the drop rule are the JAX package's: f32 softmax over
+    ``x @ router``, top-k renormalized, capacity dispatch by
+    :func:`moe_dispatch_indices` over the flat (token·K + choice) order.
+    The expert products run over the whole (E, capacity, d) buffer, as
+    JAX does (at decode most rows are empty).  The scatter is not JAX's:
+    the JAX buffer write ``.at[slot].set`` also writes a zero row for
+    every dropped pair into the slot of its expert's last kept pair, so
+    on overflow that kept token loses its expert output (ROADMAP Queue
+    3).  Here only kept pairs write and read the buffer: every kept pair
+    contributes its gate-weighted output, a dropped pair nothing.  A
+    token's K contributions are summed in choice order in x's dtype, as
+    JAX's ``.at[token_of].add`` does.
+    """
+    if ms.n_shared:
+        raise NotImplementedError(
+            "shared experts (deepseek) come with the deepseek slice of the "
+            "port")
+    b, s, d = x.shape
+    n, k, e = b * s, ms.top_k, ms.n_experts
+    xf = x.reshape(n, d)
+    logits = (xf @ p["router"]).float()                       # (N, E)
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_i = torch.topk(probs, k, dim=-1)               # (N, K)
+    top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    # Switch-style load-balancing auxiliary loss
+    me = probs.mean(dim=0)
+    ce = F.one_hot(top_i[:, 0], e).float().mean(dim=0)
+    aux = e * (me * ce).sum()
+
+    slot, keep = moe_dispatch_indices(top_i.reshape(-1), e, ms.capacity)
+    token_of = torch.arange(n, device=x.device).repeat_interleave(k)
+    buf = x.new_zeros((e * ms.capacity, d))
+    buf[slot[keep]] = xf[token_of[keep]]
+    buf = buf.view(e, ms.capacity, d)
+    if act == "silu":
+        h = F.silu(torch.bmm(buf, p["w1"])) * torch.bmm(buf, p["w3"])
+    else:
+        h = F.gelu(torch.bmm(buf, p["w1"]), approximate="tanh")
+    y = torch.bmm(h, p["w2"]).view(e * ms.capacity, d)
+
+    w = top_p.reshape(-1).to(x.dtype)[:, None]
+    gathered = torch.where(keep[:, None], y[slot] * w, 0).view(n, k, d)
+    out = gathered[:, 0]
+    for j in range(1, k):
+        out = out + gathered[:, j]
+    return out.view(b, s, d), aux
+
+
+# --------------------------------------------------------------------------
+# Mamba (selective state space; jamba's mixer)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MambaStatic:
+    """Static Mamba configuration for one device.  The JAX static also
+    carries the jnp twin's chunk length; the CUDA kernel is stepwise and
+    has none."""
+
+    d_inner_local: int
+    d_state: int
+    d_conv: int
+    dt_rank: int
+
+
+def _causal_conv1d(x, w):
+    """Depthwise causal conv via shifts; x: (B, S, C), w: (C, K).  The
+    shifted terms are summed in the JAX order (last tap first)."""
+    k = w.shape[-1]
+    out = x * w[:, -1]
+    for i in range(1, k):
+        shifted = F.pad(x, (0, 0, i, 0))[:, : x.shape[1]]
+        out = out + shifted * w[:, -1 - i]
+    return out
+
+
+def mamba_block(p, x, ms: MambaStatic, state=None):
+    """Mamba mixer of x (B, S, d); returns (B, S, d).
+
+    ``state``: this slot's ``(conv_tail (B, d_conv-1, Ci) in x's dtype,
+    h (B, Ci, N) f32)`` views, read as the start and advanced in place:
+    the tail by ``copy_``, h by the scan kernel.  The conv reads the
+    held tail concatenated before the new inputs, so a prompt shorter
+    than d_conv - 1 keeps part of the old tail, as in JAX.  Without a
+    state the conv is zero-padded and the scan starts from zero.  Every
+    call goes through ``ops.mamba_scan`` (the CUDA kernel on the card),
+    with JAX's casts: xc, dt, B and C enter the scan in f32 and y is cast
+    back to x's dtype before the ``silu(z)`` gate.
+    """
+    xi = x @ p["in_x"]                                       # (B, S, Ci)
+    z = x @ p["in_z"]
+    if state is not None:
+        conv_tail, h0 = state
+        xi_cat = torch.cat([conv_tail, xi], dim=1)
+        xc = _causal_conv1d(xi_cat, p["conv_w"])[:, -xi.shape[1]:]
+        conv_tail.copy_(xi_cat[:, -(ms.d_conv - 1):])
+    else:
+        h0 = None
+        xc = _causal_conv1d(xi, p["conv_w"])
+    xc = F.silu(xc)
+    proj = xc @ p["x_proj"]                                  # (B,S,R+2N)
+    dt_in, bm, cm = torch.split(proj, [ms.dt_rank, ms.d_state, ms.d_state],
+                                dim=-1)
+    # dt_bias is f32 (as in the JAX init): dt is formed in f32
+    dt = F.softplus(dt_in @ p["dt_proj"] + p["dt_bias"])
+    A = -torch.exp(p["A_log"].float())
+    y, _ = kernel_ops.mamba_scan(
+        xc.float().contiguous(), dt.float().contiguous(), A,
+        bm.float().contiguous(), cm.float().contiguous(), p["D"], h0)
+    return (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]
 
 
 # --------------------------------------------------------------------------

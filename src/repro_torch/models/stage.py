@@ -3,8 +3,8 @@
 A stage runs ``layers_per_stage`` blocks (the validated stage program).
 :func:`stage_fwd` takes one stage's parameters — the stage-stacked tree
 already indexed at that stage — and the ported block kinds with pre-norm
-residuals: attention or RWKV6 time-mix as the mixer, a dense FFN or RWKV6
-channel-mix as the FFN.
+residuals: attention, RWKV6 time-mix or Mamba as the mixer; a dense FFN,
+RWKV6 channel-mix or MoE as the FFN.
 """
 from __future__ import annotations
 
@@ -15,7 +15,8 @@ import torch
 
 from repro_torch.models import nn
 from repro_torch.models import spec as spec_lib
-from repro_torch.models.init import attn_static, rwkv_static
+from repro_torch.models.init import (attn_static, mamba_static,
+                                     moe_static, rwkv_static)
 from repro_torch.parallel.plan import ParallelismPlan
 
 
@@ -28,25 +29,40 @@ class StageStatics:
     program: Tuple[spec_lib.BlockSpec, ...]
     attn: Optional[nn.AttnStatic]
     rwkv: Optional[nn.RWKVStatic]
+    moe: Optional[nn.MoEStatic]
+    mamba: Optional[nn.MambaStatic]
 
 
-def make_statics(spec: spec_lib.ModelSpec,
-                 plan: ParallelismPlan) -> StageStatics:
+def make_statics(spec: spec_lib.ModelSpec, plan: ParallelismPlan,
+                 tokens_per_mb: Optional[int] = None) -> StageStatics:
+    """The stage statics; ``tokens_per_mb`` (tokens per microbatch call)
+    sizes the MoE capacity and is required when the program has MoE
+    FFNs: the same value gives the same capacity, hence the same drops,
+    as the JAX package."""
     program = spec.stage_program(plan.pp)
-    bad = [b for b in program if b.mixer not in ("attn", "rwkv")
-           or b.ffn not in ("dense", "rwkv_cmix") or b.cross_attn]
+    bad = [b for b in program if b.mixer not in ("attn", "rwkv", "mamba")
+           or b.ffn not in ("dense", "rwkv_cmix", "moe") or b.cross_attn]
     if bad:
         raise NotImplementedError(
             f"{spec.name}: block kinds "
             f"{sorted(set((b.mixer, b.ffn, b.cross_attn) for b in bad))} are "
-            "not ported yet (MoE, Mamba and cross-attention blocks are still "
-            "to port)")
-    has_attn = any(b.mixer == "attn" for b in program)
-    has_rwkv = any(b.mixer == "rwkv" for b in program)
+            "not ported yet (cross-attention and mixer- or FFN-less blocks "
+            "are still to port)")
+    has = lambda kind: any(kind in (b.mixer, b.ffn) for b in program)
+    if has("moe") and spec.moe.n_shared:
+        raise NotImplementedError(
+            f"{spec.name}: shared experts (deepseek) come with the deepseek "
+            "slice of the port")
+    if has("moe") and tokens_per_mb is None:
+        raise ValueError(f"{spec.name} has MoE FFNs: make_statics needs "
+                         "tokens_per_mb to size the expert capacity")
     return StageStatics(
         spec=spec, plan=plan, program=program,
-        attn=attn_static(spec, plan.tp) if has_attn else None,
-        rwkv=rwkv_static(spec, plan.tp) if has_rwkv else None)
+        attn=attn_static(spec, plan.tp) if has("attn") else None,
+        rwkv=rwkv_static(spec, plan.tp) if has("rwkv") else None,
+        moe=(moe_static(spec, plan.tp, tokens_per_mb) if has("moe")
+             else None),
+        mamba=mamba_static(spec, plan.tp) if has("mamba") else None)
 
 
 def stage_params(params, s: int):
@@ -65,7 +81,8 @@ def stage_fwd(sp, x, st: StageStatics, *, positions, windows, thetas,
     sp: ``stage_params(params, s)``; windows / thetas: this stage's
     [lps] host lists.  state: optional ``{'layer_i': {...}}`` views of
     one microbatch slot's state, as :func:`init_stage_state` lays it out
-    (dense ``"kv"`` caches, ``"tmix"`` / ``"cmix"`` recurrent states);
+    (dense ``"kv"`` caches, ``"tmix"`` / ``"cmix"`` / ``"ssm"`` recurrent
+    states);
     paged: optional ``{"pools": {'layer_i': (k_pool, v_pool)}, "row":
     PageRow}`` for the attention layers whose KV is paged.  Caches and
     recurrent states are written in place.
@@ -83,12 +100,17 @@ def stage_fwd(sp, x, st: StageStatics, *, positions, windows, thetas,
                                  window=windows[i], theta=thetas[i],
                                  kv_cache=ls.get("kv"), cache_pos=cache_pos,
                                  paged_kv=pg)
+        elif blk.mixer == "mamba":
+            x = x + nn.mamba_block(lp["mamba"], h, st.mamba,
+                                   state=ls.get("ssm"))
         else:
             x = x + nn.rwkv_time_mix(lp["tmix"], h, st.rwkv,
                                      state=ls.get("tmix"))
         h = nn.apply_norm(lp["norm2"], x, st.spec.norm)
         if blk.ffn == "dense":
             x = x + nn.mlp(lp["mlp"], h, st.spec.act)
+        elif blk.ffn == "moe":
+            x = x + nn.moe(lp["moe"], h, st.moe, st.spec.act)[0]
         else:
             x = x + nn.rwkv_channel_mix(lp["cmix"], h, state=ls.get("cmix"))
     return x
@@ -101,7 +123,9 @@ def init_stage_state(st: StageStatics, batch_local: int, cache_lens,
     cache_lens[i], KV, Dh)`` for attention layers not in
     ``paged_layers``; ``"tmix"`` = (x_prev ``lead + (batch_local, d)``,
     wkv ``lead + (batch_local, H, Dh, Dh)`` f32) for RWKV time-mix;
-    ``"cmix"`` = x_prev ``lead + (batch_local, d)`` for channel-mix."""
+    ``"cmix"`` = x_prev ``lead + (batch_local, d)`` for channel-mix;
+    ``"ssm"`` = (conv_tail ``lead + (batch_local, d_conv - 1, Ci)``, h
+    ``lead + (batch_local, Ci, N)`` f32) for Mamba."""
     lead = tuple(lead)
 
     def zeros(*shape, dt=dtype):
@@ -114,6 +138,11 @@ def init_stage_state(st: StageStatics, batch_local: int, cache_lens,
         if blk.mixer == "attn" and i not in paged_layers:
             shape = (cache_lens[i], st.attn.n_kv_local, st.attn.d_head)
             s["kv"] = (zeros(*shape), zeros(*shape))
+        elif blk.mixer == "mamba":
+            ms = st.mamba
+            s["ssm"] = (zeros(ms.d_conv - 1, ms.d_inner_local),
+                        zeros(ms.d_inner_local, ms.d_state,
+                              dt=torch.float32))
         elif blk.mixer == "rwkv":
             rs = st.rwkv
             s["tmix"] = (zeros(st.spec.d_model),
@@ -128,7 +157,10 @@ def init_stage_state(st: StageStatics, batch_local: int, cache_lens,
 def full_transformer(params, x, st: StageStatics, *, positions):
     """Run all pp stages sequentially on one device, with no state: every
     attention layer runs the flash kernel, every RWKV time-mix the WKV6
-    kernel from a zero state."""
+    kernel and every Mamba mixer the selective-scan kernel from a zero
+    state.  MoE capacity is ``st.moe``'s: pass the statics whose
+    ``tokens_per_mb`` is this call's B·S to see the same drops as one
+    engine microbatch of the same tokens."""
     for s in range(st.plan.pp):
         x = stage_fwd(stage_params(params, s), x, st, positions=positions,
                       windows=params["layer_windows"][s],

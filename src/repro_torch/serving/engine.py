@@ -12,16 +12,18 @@ each microbatch through each layer exactly once.
 
 Per-slot state is stacked like the JAX engine's, ``(n_chunks, R, rows,
 ...)`` per leaf: dense KV caches ``(..., cache_len, KV, Dh)`` for
-attention layers, and RWKV6 recurrent state — time-mix ``(x_prev (...,
-d), wkv (..., H, Dh, Dh) f32)`` and channel-mix ``x_prev (..., d)``.
-With paging, attention KV moves into page pools ``(n_chunks,
-pool_pages, rows, page, KV, Dh)`` per layer plus one host-side
-:class:`PageAllocator` whose (R, max_pages) table indexes every layer's
-pool; recurrent state stays dense, as in JAX.  Each cell gets its slot's
-views (``[s, m]``), fixed at ``start``, and everything is written in
-place.  A prefill reads the recurrent state the slot holds, as the JAX
-engine's does: only ``start`` zeroes it.  Cache positions live in the
-host mirror ``_pos``: no per-layer device sync.
+attention layers; RWKV6 recurrent state — time-mix ``(x_prev (..., d),
+wkv (..., H, Dh, Dh) f32)`` and channel-mix ``x_prev (..., d)``; and
+Mamba state ``(conv_tail (..., d_conv - 1, Ci), h (..., Ci, N) f32)``.
+A hybrid model (jamba) holds both kinds, layer by layer.  With paging,
+attention KV moves into page pools ``(n_chunks, pool_pages, rows, page,
+KV, Dh)`` per layer plus one host-side :class:`PageAllocator` whose (R,
+max_pages) table indexes every layer's pool; recurrent state stays
+dense, as in JAX.  Each cell gets its slot's views (``[s, m]``), fixed
+at ``start``, and everything is written in place.  A prefill reads the
+recurrent state the slot holds, as the JAX engine's does: only
+``start`` zeroes it.  Cache positions live in the host mirror
+``_pos``: no per-layer device sync.
 """
 from __future__ import annotations
 
@@ -71,7 +73,7 @@ class EngineSession:
     rows: int                      # rows per microbatch slot
     paged: Optional[Dict[str, int]] = None
     params: Any = None
-    # per-slot state, {'layer_i': {"kv" | "tmix" | "cmix": ...}}
+    # per-slot state, {'layer_i': {"kv" | "tmix" | "cmix" | "ssm": ...}}
     cache: Optional[Dict] = None
     pages: Optional[Dict] = None   # paged KV, {'layer_i': (k_pool, v_pool)}
     last_hidden: Optional[torch.Tensor] = None
@@ -235,16 +237,21 @@ def _slot_view(tree, s: int, m: int):
 def build_serving(spec: spec_lib.ModelSpec, plan: ParallelismPlan, *,
                   cache_len: int, global_batch: int,
                   compute_dtype=torch.bfloat16, page_size: int = 0,
-                  device=None) -> EngineSession:
+                  prefill_len: int = 0, device=None) -> EngineSession:
     """A serving session for ``plan``'s ``serve_1f`` schedule, all stages
     on ``device`` (default ``cuda``; raises without a card).
 
     ``global_batch`` rows split into R = fit(plan.decode_microbatches)
-    microbatch slots.  ``page_size > 0`` keeps every attention layer's KV
-    in a block-paged pool of R · cache_len / page_size pages (the dense
-    capacity) and runs decode attention through the paged kernel.  A
-    model without attention layers has nothing to page: its recurrent
-    state stays dense whatever ``page_size`` says.
+    microbatch slots.  ``prefill_len`` is the prompt length the session
+    is sized for, as in the JAX engine: the statics see
+    ``rows · max(prefill_len, 1)`` tokens per microbatch call, which
+    sets the MoE expert capacity (the same capacity, hence the same
+    drops, as the JAX engine's).  ``page_size > 0`` keeps every
+    attention layer's KV in a block-paged pool of R · cache_len /
+    page_size pages (the dense capacity) and runs decode attention
+    through the paged kernel.  Recurrent state (RWKV6, Mamba) stays
+    dense whatever ``page_size`` says; a model without attention layers
+    has nothing to page.
     """
     dev = resolve_device(device)
     if plan.tp != 1:
@@ -260,7 +267,9 @@ def build_serving(spec: spec_lib.ModelSpec, plan: ParallelismPlan, *,
     R = fit_serving_microbatches(plan.decode_microbatches, global_batch, 1)
     sched = make_serving_schedule(plan, R)
     sched.validate()
-    statics = make_statics(spec, plan)
+    rows = global_batch // R
+    statics = make_statics(spec, plan,
+                           tokens_per_mb=rows * max(prefill_len, 1))
     paged = None
     if page_size and statics.attn is not None:
         max_pages = cache_len // page_size
@@ -268,5 +277,4 @@ def build_serving(spec: spec_lib.ModelSpec, plan: ParallelismPlan, *,
                  "pool_pages": R * max_pages}
     return EngineSession(spec=spec, plan=plan, sched=sched, statics=statics,
                          device=dev, compute_dtype=compute_dtype,
-                         cache_len=cache_len, rows=global_batch // R,
-                         paged=paged)
+                         cache_len=cache_len, rows=rows, paged=paged)

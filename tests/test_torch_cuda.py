@@ -6,8 +6,8 @@ package, so it runs on a machine that has only PyTorch:
 
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-The shapes mirror tests/test_kernels.py's PAGED_CASES, FLASH_CASES and
-WKV_CASES; inputs come from a seeded numpy generator, NaN sits in
+The shapes mirror tests/test_kernels.py's PAGED_CASES, FLASH_CASES,
+WKV_CASES and MAMBA_CASES; inputs come from a seeded numpy generator, NaN sits in
 unreferenced pages and past each row's length.
 """
 import numpy as np
@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import mamba_scan as tms
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import wkv6 as twkv
 
@@ -32,6 +33,11 @@ WKV = [  # b, s, h, dh
     (2, 64, 2, 16), (1, 128, 4, 32), (2, 100, 2, 8), (1, 64, 2, 64),
     (1, 32, 1, 4), (2, 17, 2, 32), (8, 1, 32, 64),       # rwkv6 decode
     (8, 1024, 32, 64)]                                  # rwkv6 prefill
+MAMBA = [  # b, s, ci, n: S not a multiple of the 64-token chunk or of the
+           # 16-token register batch, Ci not a multiple of 128
+    (2, 64, 32, 8), (1, 128, 64, 16), (2, 100, 48, 4), (1, 48, 512, 16),
+    (3, 77, 200, 16), (1, 1, 130, 8), (2, 1, 8192, 16),    # jamba decode
+    (2, 1024, 8192, 16)]                                  # jamba prefill
 TOL = {torch.float32: (2e-5, 1e-3), torch.bfloat16: (2e-2, 1e-2)}
 
 
@@ -178,3 +184,85 @@ def test_wkv6_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):                     # Dh 6
         twkv.wkv6(*(a[..., :6].contiguous() for a in args[:4]),
                   args[4][:, :6].contiguous())
+
+
+def _mamba_args(b, s, ci, n, dtype, device, seed):
+    """u, dt (softplus of a normal, x0.3), B, C in ``dtype``; A = -exp of
+    a normal x0.3 and D f32; an f32 start state."""
+    rng = np.random.default_rng(seed)
+    f = lambda a, dt=dtype: torch.from_numpy(np.asarray(a, np.float32)).to(
+        device=device, dtype=dt)
+    u = f(rng.standard_normal((b, s, ci)))
+    dt = f(0.3 * np.log1p(np.exp(rng.standard_normal((b, s, ci)))))
+    A = f(-np.exp(0.3 * rng.standard_normal((ci, n))), torch.float32)
+    B = f(rng.standard_normal((b, s, n)))
+    C = f(rng.standard_normal((b, s, n)))
+    D = f(rng.standard_normal(ci), torch.float32)
+    h0 = f(rng.standard_normal((b, ci, n)), torch.float32)
+    return [u, dt, A, B, C, D], h0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,ci,n", MAMBA)
+def test_mamba_scan_kernel_matches_plain(cuda, b, s, ci, n, dtype,
+                                         with_state):
+    args, h0 = _mamba_args(b, s, ci, n, dtype, cuda, seed=s * ci + n)
+    before = tms.mamba_scan.launches
+    got_h0 = h0.clone() if with_state else None
+    y, h_last = tms.mamba_scan(*args, got_h0)
+    assert tms.mamba_scan.launches == before + 1
+    if with_state:
+        assert h_last is got_h0        # advanced in place
+    want_y, want_h = tms.mamba_scan_plain(*args, h0.clone() if with_state
+                                          else None)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and h_last.dtype == torch.float32
+    atol, rtol = TOL[dtype]
+    assert torch.isfinite(y).all() and torch.isfinite(h_last).all()
+    torch.testing.assert_close(y.float(), want_y.float(), atol=atol,
+                               rtol=rtol)
+    torch.testing.assert_close(h_last, want_h, atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_mamba_scan_kernel_continues_a_state_in_place(cuda):
+    """A prefill split into a prefix, three one-token decode steps and the
+    rest, each continuing the state in place, equals one pass."""
+    args, h0 = _mamba_args(2, 150, 300, 16, torch.float32, cuda, seed=4)
+    y_all, h_all = tms.mamba_scan(*args, h0.clone())
+    u, dt, A, B, C, D = args
+    state = h0.clone()
+    ys = []
+    for lo, hi in ((0, 70), (70, 71), (71, 72), (72, 73), (73, 150)):
+        y, h = tms.mamba_scan(u[:, lo:hi].contiguous(),
+                              dt[:, lo:hi].contiguous(), A,
+                              B[:, lo:hi].contiguous(),
+                              C[:, lo:hi].contiguous(), D, state)
+        assert h is state
+        ys.append(y)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(torch.cat(ys, dim=1), y_all, atol=1e-6,
+                               rtol=1e-6)
+    torch.testing.assert_close(state, h_all, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.cuda
+def test_mamba_scan_kernel_rejects_what_it_does_not_take(cuda):
+    args, h0 = _mamba_args(2, 4, 8, 4, torch.float32, cuda, seed=1)
+    u, dt, A, B, C, D = args
+    with pytest.raises(TypeError):                      # mixed dtypes
+        tms.mamba_scan(u, dt.to(torch.bfloat16), A, B, C, D)
+    with pytest.raises(TypeError):                      # bf16 A
+        tms.mamba_scan(u, dt, A.to(torch.bfloat16), B, C, D)
+    with pytest.raises(TypeError):                      # bf16 state
+        tms.mamba_scan(*args, h0.to(torch.bfloat16))
+    with pytest.raises(ValueError):                     # not contiguous
+        tms.mamba_scan(u.transpose(0, 1), dt.transpose(0, 1), A,
+                       B.transpose(0, 1), C.transpose(0, 1), D)
+    with pytest.raises(ValueError):                     # N 3
+        tms.mamba_scan(u, dt, A[:, :3].contiguous(),
+                       B[..., :3].contiguous(), C[..., :3].contiguous(), D)
+    with pytest.raises(ValueError):                     # CPU state
+        tms.mamba_scan(*args, h0.cpu())

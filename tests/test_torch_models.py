@@ -109,11 +109,21 @@ def test_full_transformer_matches_jax(pp):
 
 
 def test_make_statics_rejects_unported_block_kinds():
+    """Cross-attention blocks and shared experts are not ported yet; MoE
+    blocks (ported) need the tokens per microbatch that size capacity."""
     spec = tconfigs.get("qwen3-14b").smoke_spec()
-    moe = dataclasses.replace(spec, blocks=tuple(
-        BlockSpec(mixer="attn", ffn="moe") for _ in spec.blocks))
+    xattn = dataclasses.replace(spec, blocks=tuple(
+        BlockSpec(mixer="attn", ffn="dense", cross_attn=True)
+        for _ in spec.blocks))
     with pytest.raises(NotImplementedError):
-        tstage.make_statics(moe, TPlan(pp=1, tp=1))
+        tstage.make_statics(xattn, TPlan(pp=1, tp=1))
+    jamba = tconfigs.get("jamba-v0.1-52b").smoke_spec()
+    with pytest.raises(ValueError, match="tokens_per_mb"):
+        tstage.make_statics(jamba, TPlan(pp=1, tp=1))
+    shared = dataclasses.replace(jamba, moe=dataclasses.replace(
+        jamba.moe, n_shared=1, d_shared=32))
+    with pytest.raises(NotImplementedError, match="deepseek"):
+        tstage.make_statics(shared, TPlan(pp=1, tp=1), tokens_per_mb=8)
 
 
 @pytest.mark.parametrize("rows", [1, 2, 3])
@@ -339,6 +349,98 @@ def test_rwkv_full_transformer_matches_jax(pp):
                                       positions=jnp.asarray(pos))
     tst = tstage.make_statics(tspec, TPlan(pp=pp, tp=1))
     assert tst.attn is None and tst.rwkv == tnn.RWKVStatic(8, 8)
+    tp = tinit.params_from_numpy(params, "cpu", torch.float32)
+    got = tstage.full_transformer(tp, torch.from_numpy(x), tst,
+                                  positions=torch.from_numpy(pos))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=RTOL)
+
+
+# --------------------------------------------------------------------------
+# jamba (Mamba + MoE + attention): init, statics, full forward
+# --------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _jax_jamba_params(pp, seed=5):
+    """JAX-initialized numpy weights of the jamba smoke spec (shared)."""
+    spec = jconfigs.get("jamba-v0.1-52b").smoke_spec()
+    plan = JPlan(pp=pp, tp=1, microbatches=1, remat=False)
+    params, _ = jinit.init_params(spec, plan, jax.random.key(seed),
+                                  jnp.float32)
+    return jax.tree.map(np.asarray, params), plan
+
+
+def test_jamba_init_tree_matches_jax_keys_shapes_and_f32_leaves():
+    spec = tconfigs.get("jamba-v0.1-52b").smoke_spec()
+    mine = tinit.init_params(spec, TPlan(pp=2, tp=1),
+                             torch.Generator().manual_seed(0),
+                             torch.bfloat16)
+    ref, _ = _jax_jamba_params(2)
+
+    def shapes(tree):
+        if isinstance(tree, dict):
+            return {k: shapes(v) for k, v in tree.items()}
+        return tuple(np.shape(tree))
+
+    assert shapes(mine) == shapes(ref)
+    conv = tinit.params_from_numpy(ref, "cpu", torch.bfloat16)
+    assert shapes(conv) == shapes(ref)
+    for tree in (mine, conv):
+        mb = tree["stages"]["layer_1"]["mamba"]
+        for key in ("dt_bias", "A_log", "D"):     # f32, as in the JAX init
+            assert mb[key].dtype == torch.float32, key
+        assert mb["in_x"].dtype == torch.bfloat16
+        assert tree["stages"]["layer_1"]["moe"]["w1"].dtype == torch.bfloat16
+    for key in ("dt_bias", "A_log", "D"):
+        np.testing.assert_array_equal(
+            conv["stages"]["layer_2"]["mamba"][key].numpy(),
+            ref["stages"]["layer_2"]["mamba"][key])
+    mb = mine["stages"]["layer_1"]["mamba"]
+    dt = torch.nn.functional.softplus(mb["dt_bias"])
+    assert 1e-3 <= dt.min().item() and dt.max().item() <= 0.1 + 1e-6
+    np.testing.assert_allclose(mb["A_log"][0, 0].numpy(),
+                               np.log(np.arange(1, 5)), rtol=1e-6)
+
+
+def test_jamba_statics_match_jax():
+    jspec = jconfigs.get("jamba-v0.1-52b").full_spec()
+    tspec = tconfigs.get("jamba-v0.1-52b").full_spec()
+    for pp, tokens in ((2, 2048), (4, 1), (1, 16)):
+        jst = jstage.make_statics(jspec, JPlan(pp=pp, tp=1),
+                                  tokens_per_mb=tokens)
+        tst = tstage.make_statics(tspec, TPlan(pp=pp, tp=1),
+                                  tokens_per_mb=tokens)
+        assert dataclasses.asdict(tst.moe) == dataclasses.asdict(jst.moe)
+        want = dataclasses.asdict(jst.mamba)
+        want.pop("chunk")          # the jnp twin's chunk: no CUDA analogue
+        assert dataclasses.asdict(tst.mamba) == want
+    assert tst.attn is not None and tst.rwkv is None
+    st = tstage.make_statics(tspec, TPlan(pp=2, tp=1), tokens_per_mb=2048)
+    assert st.moe.capacity == 320 and st.mamba.d_inner_local == 8192
+    assert st.mamba.dt_rank == 256
+
+
+@pytest.mark.parametrize("pp", [1, 2])
+def test_jamba_full_transformer_matches_jax(pp):
+    """Mamba + MoE + attention blocks, no state, against JAX with the
+    same statics.  tokens_per_mb is twice the call's B·S, so capacity
+    (1.25 · B·S · 2 · k / E) is above B·S and no expert can overflow:
+    the JAX MoE scatter fault cannot show (tests/test_torch_moe.py)."""
+    jspec = jconfigs.get("jamba-v0.1-52b").smoke_spec()
+    tspec = tconfigs.get("jamba-v0.1-52b").smoke_spec()
+    params, jplan = _jax_jamba_params(pp)
+    rng = np.random.default_rng(30 + pp)
+    b, s = 2, 13
+    x = rng.standard_normal((b, s, jspec.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(s), (b, s)).astype(np.int32)
+    jst = jstage.make_statics(jspec, jplan, tokens_per_mb=2 * b * s)
+    assert jst.moe.capacity >= b * s
+    want, _ = jstage.full_transformer(jax.tree.map(jnp.asarray, params),
+                                      jnp.asarray(x), jst,
+                                      positions=jnp.asarray(pos))
+    tst = tstage.make_statics(tspec, TPlan(pp=pp, tp=1),
+                              tokens_per_mb=2 * b * s)
+    assert tst.moe.capacity == jst.moe.capacity
     tp = tinit.params_from_numpy(params, "cpu", torch.float32)
     got = tstage.full_transformer(tp, torch.from_numpy(x), tst,
                                   positions=torch.from_numpy(pos))

@@ -73,6 +73,28 @@ def test_rwkv6_config_matches_jax():
     assert full.layers_per_stage(8) == 3
 
 
+def test_jamba_config_matches_jax():
+    j, t = (m.get("jamba-v0.1-52b") for m in (jconfigs, tconfigs))
+    for fn in ("full_spec", "smoke_spec"):
+        assert dataclasses.asdict(getattr(t, fn)()) == \
+            dataclasses.asdict(getattr(j, fn)())
+    for plan in ("PLAN", "SMOKE_PLAN"):
+        assert dataclasses.asdict(getattr(t, plan)) == \
+            dataclasses.asdict(getattr(j, plan))
+    for alias in ("jamba_v01_52b", "jamba-v01-52b"):
+        assert tconfigs.get(alias) is t
+    full = t.full_spec()
+    # the chip_smoke.py cut: the first two periods of 8, one per stage
+    cut = dataclasses.replace(full, n_layers=16, blocks=full.blocks[:16])
+    prog = cut.stage_program(2)
+    assert [(b.mixer, b.ffn) for b in prog] == [
+        ("mamba", "dense"), ("mamba", "moe"), ("mamba", "dense"),
+        ("mamba", "moe"), ("attn", "dense"), ("mamba", "moe"),
+        ("mamba", "dense"), ("mamba", "moe")]
+    assert [(b.mixer, b.ffn) for b in full.blocks[3:5]] == [
+        ("mamba", "moe"), ("attn", "dense")]
+
+
 def test_stage_decomposition_matches_jax():
     jspec_, tspec_ = (m.get("qwen3-14b").full_spec() for m in (jconfigs,
                                                                 tconfigs))
