@@ -47,13 +47,22 @@ Phases (any failure raises and the script exits non-zero):
 10. consistency jamba — fp32 at full width and 2 layers (Mamba + MoE,
    attention + dense): the paged engine against the dense-cache engine
    (tokens, hidden states, pools, conv tails, SSM states) and the
-   engine's prefill logits against ``full_transformer``'s.
+   engine's prefill logits against ``full_transformer``'s;
+11. serve quantized — phase 3's configuration with int8 weights
+   (per-output-channel scales, dequantized at each matmul) and int8
+   paged KV (per-(page, KV head) scales): memory against phase 3's,
+   prefill and decode times, every decode's attention through the int8
+   page walk, a profiled decode step, greedy agreement with phase 3;
+12. consistency quantized — fp32 at full width and 2 layers, int8 / int8:
+   the same session on the card and on the CPU (the int8 kernel against
+   the plain path, every int8 page write included).
 
+Phase 2 also holds the int8-pool paged kernel against its plain version.
 Launch counters are zeroed before and read after each main path (phases
-3, 5, 6, 8 and 9).  Prints a ``profile`` JSON line per recurrent model,
-one ``kernels`` JSON line (launches, errors, times, bounds), the card's
-name and power limit, and last ``{"ok": true, "device": ...}``.  Exits
-non-zero without a CUDA device.
+3, 5, 6, 8, 9 and 11).  Prints a ``profile`` JSON line for rwkv6, jamba
+and quantized qwen3, one ``kernels`` JSON line (launches, errors, times,
+bounds), the card's name and power limit, and last ``{"ok": true,
+"device": ...}``.  Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
 
@@ -99,6 +108,11 @@ JAMBA_LAYERS = 16
 JAMBA_SLOTS, JAMBA_ROWS = 4, 2
 JAMBA_PREFILL, JAMBA_CACHE, JAMBA_DECODE = 1024, 2048, 16
 MAMBA_CI, MAMBA_N = 8192, 16
+# quantized consistency (card vs CPU): slots x ROWS rows, a prompt that
+# leaves a page partly filled, cache_len; scale planes may differ by half
+# an int8 step of their page's absmax
+QUANT_SLOTS, QUANT_PREFILL, QUANT_CACHE = 1, 40, 128
+SCALE_RTOL = 0.5 / 127
 # H100 SXM exp rate, informational beside the bound: 16 ex2 results per
 # clock per SM (CUDA C++ Programming Guide, arithmetic instruction
 # throughput, compute capability 9.0) x 132 SMs x the 1.98 GHz boost clock
@@ -123,23 +137,28 @@ def check_close(name, got, want, atol, rtol):
 
 
 def counters():
-    """The launch counter of every kernel wrapper, by kernel name."""
+    """(wrapper, attribute) of every launch counter, by kernel name: each
+    wrapper's ``launches``; the paged wrapper counts its int8-pool
+    variant apart, in ``launches_int8``."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import wkv6 as wk
-    return {"paged_attention": pa.paged_attention,
-            "flash_attention": fa.flash_attention, "wkv6": wk.wkv6,
-            "mamba_scan": ms.mamba_scan}
+    return {"paged_attention": (pa.paged_attention, "launches"),
+            "paged_attention_int8": (pa.paged_attention, "launches_int8"),
+            "flash_attention": (fa.flash_attention, "launches"),
+            "wkv6": (wk.wkv6, "launches"),
+            "mamba_scan": (ms.mamba_scan, "launches")}
 
 
 def reset_counts() -> None:
-    for fn in counters().values():
-        fn.launches = 0
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in counters().items()}
+    return {name: getattr(fn, attr)
+            for name, (fn, attr) in counters().items()}
 
 
 def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
@@ -239,10 +258,10 @@ def paged_inputs(dtype, device, q_len, lengths, seed, n_copies=1):
     return sets, tab, lens
 
 
-def paged_bytes_flops(q, kp, tables, lengths, window):
-    """Bytes the call must move (q, live K/V pages, tables, lengths, out)
-    and the operations it does on the keys this run's data makes
-    visible."""
+def paged_bytes_flops(q, kp, tables, lengths, window, scales=False):
+    """Bytes the call must move (q, live K/V pages and, for int8 pools,
+    their (page, KV head) f32 scales, tables, lengths, out) and the
+    operations it does on the keys this run's data makes visible."""
     b, ql, h, dh = q.shape
     page, kv = kp.shape[1], kp.shape[2]
     esz = q.element_size()
@@ -254,7 +273,9 @@ def paged_bytes_flops(q, kp, tables, lengths, window):
         for qi in range(ql):
             qpos = ln - ql + qi
             pairs += qpos + 1 - (max(0, qpos - window + 1) if window > 0 else 0)
-    kv_bytes = 2 * pages * page * kv * dh * esz
+    kv_bytes = 2 * pages * page * kv * dh * kp.element_size()
+    if scales:
+        kv_bytes += 2 * pages * kv * 4
     nbytes = 2 * q.numel() * esz + kv_bytes + tables.numel() * 4 + b * 4
     return nbytes, 4 * pairs * h * dh
 
@@ -300,6 +321,69 @@ def phase_kernels(device):
                 f"window={window}: max|err| {e:.3e} (atol {atol}, rtol {rtol})")
     log("[kernels] " + json.dumps({"max_abs_err": errs, "tolerance": TOL}))
     return errs
+
+
+def paged_int8_inputs(q_dtype, device, q_len, lengths, seed, n_copies=1):
+    """The main-path paged call over int8 pools: :func:`paged_inputs`'s
+    f32 pools quantized per (page, KV head), q in ``q_dtype``.  Pages no
+    table references hold random int8 payloads and NaN scales (garbage
+    the page walk must skip); keys past a length quantize from 0.
+    Returns the sets ``(q, kq, vq, ks, vs)``, the tables, the lengths and
+    the first set's f32 pools (NaN where unreferenced)."""
+    import torch
+    from repro_torch.quant import quantize_kv_page_batched
+    sets, tab, lens = paged_inputs(torch.float32, device, q_len, lengths,
+                                   seed, n_copies)
+    live = torch.zeros(sets[0][1].shape[0], dtype=torch.bool, device=device)
+    live[tab[tab >= 0].long()] = True
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    out = []
+    for q, kp, vp in sets:
+        pools = []
+        for p in (kp, vp):
+            qp, sc = quantize_kv_page_batched(torch.nan_to_num(p))
+            qp[~live] = torch.randint(-127, 128, qp[~live].shape,
+                                      generator=g, device=device,
+                                      dtype=torch.int8)
+            sc[~live] = float("nan")
+            pools.append((qp, sc))
+        (kq, ks), (vq, vs) = pools
+        out.append((q.to(q_dtype), kq, vq, ks, vs))
+    return out, tab, lens, sets[0][1:]
+
+
+def phase_paged_int8_kernel(device):
+    """The int8-pool paged kernel against its plain version at qwen3-14b
+    shapes (40 heads / 8 KV heads, Dh 128, page 16), Q = 1 and 5, global
+    and windowed, q in bf16 and f32, within TOL; and against the plain
+    version over the unquantized pools within 0.05 (int8 rounding, the
+    bound of tests/test_quant.py)."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    err, err_full = 0.0, 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        atol, rtol = TOL[str(dtype).split(".")[-1]]
+        for q_len, window, lengths in ((1, -1, [PREFILL + 5, PREFILL + 16]),
+                                       (5, -1, [300, PREFILL + 16]),
+                                       (1, 100, [PREFILL + 9, 77]),
+                                       (5, 40, [PREFILL + 3, 129])):
+            sets, tab, lens, (kp, vp) = paged_int8_inputs(
+                dtype, device, q_len, lengths, seed=q_len * 11 + window)
+            q, kq, vq, ks, vs = sets[0]
+            kw = dict(window=window, k_scale=ks, v_scale=vs)
+            got = pa.paged_attention(q, kq, vq, tab, lens, **kw)
+            want = pa.paged_attention_plain(q, kq, vq, tab, lens, **kw)
+            full = pa.paged_attention_plain(q, kp, vp, tab, lens,
+                                            window=window)
+            torch.cuda.synchronize()
+            name = f"paged int8 {str(dtype)[6:]} Q={q_len} w={window}"
+            e = check_close(name, got, want, atol, rtol)
+            ef = check_close(f"{name} vs unquantized", got, full, 0.05, 0.05)
+            err, err_full = max(err, e), max(err_full, ef)
+            log(f"[kernels] {name} lengths={lengths}: max|err| {e:.3e} "
+                f"(atol {atol}, rtol {rtol}); vs the unquantized pools "
+                f"{ef:.3e} (atol/rtol 0.05)")
+    return err, err_full
 
 
 def wkv6_inputs(dtype, device, b, s, seed, decay=None, with_state=True):
@@ -457,7 +541,8 @@ def phase_serve(device, spec, plan):
     counts = read_counts()
     launches = counts["paged_attention"]
     if counts != {"paged_attention": per_step * N_DECODE,
-                  "flash_attention": 0, "wkv6": 0, "mamba_scan": 0}:
+                  "paged_attention_int8": 0, "flash_attention": 0,
+                  "wkv6": 0, "mamba_scan": 0}:
         raise AssertionError(f"launches on the qwen3 serve path: {counts}")
     toks = torch.stack(toks).cpu().numpy()
     if not ((toks >= 0) & (toks < spec.vocab)).all():
@@ -471,7 +556,9 @@ def phase_serve(device, spec, plan):
         f"{N_DECODE} steps")
     return session, prompts, toks, launches, {
         "prefill_s": t_prefill, "decode_ms_per_step": ms,
-        "decode_tokens_per_s": R_SLOTS * ROWS * 1e3 / ms}
+        "decode_tokens_per_s": R_SLOTS * ROWS * 1e3 / ms,
+        "weight_bytes": tensor_bytes(session.params),
+        "pool_bytes": tensor_bytes(session.pages)}
 
 
 def reference_logits(session, prompts, toks, n_last: int = 1):
@@ -513,7 +600,8 @@ def phase_reference(session, prompts, toks):
     torch.cuda.synchronize()
     counts = read_counts()
     launches = counts["flash_attention"]
-    if counts["paged_attention"] or counts["wkv6"] or counts["mamba_scan"] \
+    if counts["paged_attention"] or counts["paged_attention_int8"] \
+            or counts["wkv6"] or counts["mamba_scan"] \
             or launches != session.spec.n_layers:
         raise AssertionError(f"flash kernel launched {launches} times, "
                              f"expected {session.spec.n_layers}")
@@ -699,7 +787,8 @@ def phase_serve_rwkv(device, spec, plan):
                                  f"expected {per_pass}")
         toks.append(nxt)
     counts = read_counts()
-    if counts != {"paged_attention": 0, "flash_attention": 0,
+    if counts != {"paged_attention": 0, "paged_attention_int8": 0,
+                  "flash_attention": 0,
                   "wkv6": per_pass * (1 + RWKV_DECODE), "mamba_scan": 0}:
         raise AssertionError(f"launches on the rwkv6 serve path: {counts}")
     toks = torch.stack(toks).cpu().numpy()
@@ -737,8 +826,9 @@ def phase_reference_rwkv(session, prompts, toks):
     logits = reference_logits(session, prompts, toks, n_last=toks.shape[0])
     torch.cuda.synchronize()
     counts = read_counts()
-    if counts != {"paged_attention": 0, "flash_attention": 0,
-                  "wkv6": session.spec.n_layers, "mamba_scan": 0}:
+    if counts != {"paged_attention": 0, "paged_attention_int8": 0,
+                  "flash_attention": 0, "wkv6": session.spec.n_layers,
+                  "mamba_scan": 0}:
         raise AssertionError(f"launches in rwkv6 full_transformer: {counts}")
     if not torch.isfinite(logits).all():
         raise AssertionError("non-finite rwkv6 reference logits")
@@ -861,13 +951,14 @@ def phase_serve_jamba(device, spec, plan):
         step_s.append(time.perf_counter() - t0)
         after = read_counts()
         grew = {k: after[k] - before[k] for k in after}
-        if grew != {"paged_attention": per_step_paged, "flash_attention": 0,
+        if grew != {"paged_attention": per_step_paged,
+                    "paged_attention_int8": 0, "flash_attention": 0,
                     "wkv6": 0, "mamba_scan": per_pass}:
             raise AssertionError(f"decode step {i}: launches {grew}")
         toks.append(nxt)
     counts = read_counts()
     if counts != {"paged_attention": per_step_paged * JAMBA_DECODE,
-                  "flash_attention": 0, "wkv6": 0,
+                  "paged_attention_int8": 0, "flash_attention": 0, "wkv6": 0,
                   "mamba_scan": per_pass * (1 + JAMBA_DECODE)}:
         raise AssertionError(f"launches on the jamba serve path: {counts}")
     toks = torch.stack(toks).cpu().numpy()
@@ -927,7 +1018,7 @@ def phase_reference_jamba(session, prompts, toks):
     logits = slot_prefill_logits(session, prompts)
     torch.cuda.synchronize()
     counts = read_counts()
-    want = {"paged_attention": 0, "wkv6": 0,
+    want = {"paged_attention": 0, "paged_attention_int8": 0, "wkv6": 0,
             "flash_attention": n_blocks(spec, "attn") * prompts.shape[0],
             "mamba_scan": n_blocks(spec, "mamba") * prompts.shape[0]}
     if counts != want:
@@ -1031,6 +1122,192 @@ def phase_consistency_jamba(device, spec, plan, n_decode=6):
 
 
 # --------------------------------------------------------------------------
+# phases 11-12: quantized qwen3-14b serving and consistency
+# --------------------------------------------------------------------------
+
+def phase_serve_quant(device, spec, plan, ref_toks, ref_serve):
+    """Phase 3's configuration with int8 weights and int8 paged KV: the
+    same seed draws the same bf16 weights, quantized leaf by leaf; every
+    attention layer's decode runs the int8 page walk.  Prints memory
+    against phase 3's, the step, a profiled decode step and the greedy
+    agreement with phase 3's bf16 tokens (informative: random weights at
+    full width are full of near-ties)."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.serving.engine import build_serving
+    session = build_serving(spec, plan, cache_len=CACHE_LEN,
+                            global_batch=R_SLOTS * ROWS,
+                            compute_dtype=torch.bfloat16, page_size=PAGE,
+                            weight_dtype="int8", kv_dtype="int8",
+                            device=device)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    session.start(SEED)
+    torch.cuda.synchronize()
+    w_bytes, p_bytes = tensor_bytes(session.params), tensor_bytes(
+        session.pages)
+    log(f"[serve-quant] {spec.name}: {spec.n_layers} layers, int8 weights, "
+        f"int8 paged KV; pp={plan.pp} R={session.n_slots} rows="
+        f"{session.rows}; weights drawn in bf16 and quantized in "
+        f"{time.perf_counter() - t0:.2f}s (peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB); weights "
+        f"{w_bytes / 1e9:.2f} GB (bf16 {ref_serve['weight_bytes'] / 1e9:.2f} "
+        f"GB, x{ref_serve['weight_bytes'] / w_bytes:.2f}), pools + scales "
+        f"{p_bytes / 1e9:.3f} GB (bf16 {ref_serve['pool_bytes'] / 1e9:.3f} "
+        f"GB, x{ref_serve['pool_bytes'] / p_bytes:.2f})")
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, spec.vocab, (R_SLOTS, ROWS, PREFILL)
+                           ).astype(np.int32)
+    per_step = spec.n_layers * session.n_slots
+    reset_counts()
+    t0 = time.perf_counter()
+    nxt = session.prefill({"tokens": prompts})
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    toks, step_s = [nxt], []
+    for i in range(N_DECODE):
+        before = pa.paged_attention.launches_int8
+        t0 = time.perf_counter()
+        nxt = session.decode(nxt)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        grew = pa.paged_attention.launches_int8 - before
+        if grew != per_step:
+            raise AssertionError(f"quantized decode step {i}: int8 paged "
+                                 f"kernel launched {grew} times, expected "
+                                 f"{per_step}")
+        toks.append(nxt)
+    counts = read_counts()
+    if counts != {"paged_attention": 0,
+                  "paged_attention_int8": per_step * N_DECODE,
+                  "flash_attention": 0, "wkv6": 0, "mamba_scan": 0}:
+        raise AssertionError(f"launches on the quantized serve path: "
+                             f"{counts}")
+    toks = torch.stack(toks).cpu().numpy()
+    if not ((toks >= 0) & (toks < spec.vocab)).all():
+        raise AssertionError("served token ids outside the vocabulary")
+    session._alloc.check()
+    ms = 1e3 * float(np.mean(step_s))
+    agree = float((toks == ref_toks).mean())
+    log(f"[serve-quant] prefill {PREFILL} tokens x {R_SLOTS * ROWS} rows: "
+        f"{t_prefill:.3f}s (bf16 {ref_serve['prefill_s']:.3f}s); decode "
+        f"{N_DECODE} steps: {ms:.2f} ms/step (min {1e3 * min(step_s):.2f}, "
+        f"max {1e3 * max(step_s):.2f}; bf16 "
+        f"{ref_serve['decode_ms_per_step']:.2f}), "
+        f"{R_SLOTS * ROWS * 1e3 / ms:.1f} tokens/s; int8 paged launches "
+        f"{counts['paged_attention_int8']} = {spec.n_layers} layers x R "
+        f"{session.n_slots} x {N_DECODE} steps; greedy tokens equal phase "
+        f"3's bf16 tokens on {agree:.3f} of {toks.size} (not asserted)")
+    prof = profile_decode_step(session, nxt, ms, kernels=("paged_attention",))
+    log(f"[profile] {spec.name} int8/int8 decode step: "
+        f"{prof['device_ms']:.2f} ms of device kernels in a {ms:.2f} ms "
+        f"step, idle share {prof['idle_share']:.3f}, "
+        f"{prof['kernel_launches']} launches; paged int8 "
+        f"{prof['paged_attention_calls']} calls, "
+        f"{1e3 * prof['paged_attention_ms_per_call']:.2f} us each; byte "
+        f"bound of the schedule as run {prof['bound_as_run_ms']:.3f} ms; "
+        f"top kernels (ms, calls): "
+        f"{[(k['name'][:60], round(k['ms'], 3), k['calls']) for k in prof['by_kernel']]}")
+    return counts["paged_attention_int8"], prof, {
+        "prefill_s": t_prefill, "decode_ms_per_step": ms,
+        "decode_tokens_per_s": R_SLOTS * ROWS * 1e3 / ms,
+        "weight_bytes": w_bytes, "pool_bytes": p_bytes,
+        "greedy_agreement_with_bf16": agree}
+
+
+def to_device(tree, device):
+    """A tree of dicts, tuples and lists with its tensors on ``device``."""
+    import torch
+    if torch.is_tensor(tree):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(to_device(v, device) for v in tree)
+    return tree
+
+
+def phase_consistency_quant(device, spec, plan, n_decode=4):
+    """fp32, full width, 2 layers, int8 weights and int8 paged KV: one
+    session on the card (the int8 page walk) and the same session on the
+    CPU (the plain version and the same int8 writes), started from the
+    card's quantized weights, served the same prompts.  A 40-token prompt
+    leaves page 2 partly filled, so every decode requantizes it.  One
+    slot and four decodes keep the CPU half near 15 s: each round
+    dequantizes the 2 layers and the 0.78 B-parameter head on the CPU.
+
+    Tolerances, from one int8 step: tokens and positions equal.
+    Payloads within one step: f32 sums that differ in order (cuBLAS
+    against the CPU's GEMMs over d 5120) can put a value on the other
+    side of a rounding edge.  Scale planes within half a step of their
+    page's absmax (rtol 0.5 / 127): a scale is the page's f32 absmax /
+    127, which the same f32 noise moves by far less.  Hidden states
+    within half an int8 step of their own largest magnitude (max |h| /
+    254): a payload one step off moves one key or value by one step of
+    its page, far less than that."""
+    import torch
+    from repro_torch.serving.engine import build_serving
+    rng = np.random.default_rng(SEED + 2)
+    prompts = rng.integers(0, spec.vocab, (QUANT_SLOTS, ROWS, QUANT_PREFILL)
+                           ).astype(np.int32)
+    plan = plan.with_(decode_microbatches=QUANT_SLOTS)
+    kw = dict(cache_len=QUANT_CACHE, global_batch=QUANT_SLOTS * ROWS,
+              compute_dtype=torch.float32, page_size=PAGE,
+              weight_dtype="int8", kv_dtype="int8")
+    card = build_serving(spec, plan, device=device, **kw).start(SEED)
+    host = build_serving(spec, plan, device="cpu", **kw).reset_state()
+    host.set_params(to_device(card.params, "cpu"))
+    runs, times = {}, {}
+    for name, s in (("cuda", card), ("cpu", host)):
+        t0 = time.perf_counter()
+        nxt = s.prefill({"tokens": prompts})
+        hs, ts = [s.last_hidden.cpu()], [nxt.cpu()]
+        for _ in range(n_decode):
+            nxt = s.decode(nxt)
+            hs.append(s.last_hidden.cpu())
+            ts.append(nxt.cpu())
+        times[name] = time.perf_counter() - t0
+        runs[name] = (torch.stack(ts).numpy(), hs)
+    if not (runs["cuda"][0] == runs["cpu"][0]).all():
+        raise AssertionError("quantized tokens differ between the card and "
+                             "the CPU")
+    if not (card._pos == host._pos).all():
+        raise AssertionError("quantized positions differ")
+    if not (card._alloc.tables == host._alloc.tables).all():
+        raise AssertionError("page tables differ")
+    n_diff, n_all, err_s = 0, 0, 0.0
+    for name, pools in host.pages.items():
+        got = card.pages[name]
+        for g, w in zip(got[:2], pools[:2]):
+            d = (g.cpu().int() - w.int()).abs()
+            if d.max() > 1:
+                raise AssertionError(f"{name} payloads differ by "
+                                     f"{int(d.max())} int8 steps")
+            n_diff += int((d > 0).sum())
+            n_all += d.numel()
+        for i, (g, w) in enumerate(zip(got[2:], pools[2:])):
+            check_close(f"{name} scale plane {i}", g.cpu(), w, 0.0,
+                        SCALE_RTOL)
+            err_s = max(err_s, ((g.cpu() - w).abs() / w.abs()).max().item())
+    h_max = max(h.abs().max().item() for h in runs["cpu"][1])
+    h_tol = h_max / 254
+    err_h = max(check_close(f"quantized hidden step {i}", a, b, h_tol, 0.0)
+                for i, (a, b) in enumerate(zip(runs["cuda"][1],
+                                               runs["cpu"][1])))
+    log(f"[consistency-quant] fp32 {spec.n_layers} layers at full width, "
+        f"int8 weights + int8 paged KV, {QUANT_SLOTS} x {ROWS} rows, "
+        f"prefill {QUANT_PREFILL} + {n_decode} decodes, card vs CPU: tokens "
+        f"and positions equal; payloads one step apart at {n_diff} of "
+        f"{n_all} entries ({n_diff / n_all:.2e}); scale planes max rel err "
+        f"{err_s:.3e} (rtol {SCALE_RTOL:.3e}); hidden max|err| {err_h:.3e} (atol {h_tol:.3e} = max "
+        f"|h| {h_max:.3f} / 254); card {times['cuda']:.2f}s, CPU "
+        f"{times['cpu']:.2f}s")
+    return {"payload_share_one_step": n_diff / n_all, "scale_err": err_s,
+            "hidden_err": err_h, "hidden_tol": h_tol,
+            "cpu_s": times["cpu"]}
+
+
+# --------------------------------------------------------------------------
 # the kernels line
 # --------------------------------------------------------------------------
 
@@ -1061,6 +1338,9 @@ def kernel_records(device, errs, launches):
     p_plain = time_ms(run(pa.paged_attention_plain))
     nbytes, flops = paged_bytes_flops(sets[0][0], sets[0][1], tab, lengths, -1)
     p_bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["bfloat16"])
+    del sets
+    p8 = paged_int8_record(device, errs["paged_attention_int8"],
+                           launches["paged_attention_int8"], lengths)
     # flash, the main path's full_transformer call
     g = torch.Generator(device=device).manual_seed(2)
     b, s = R_SLOTS * ROWS, PREFILL + N_DECODE
@@ -1089,6 +1369,7 @@ def kernel_records(device, errs, launches):
          "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                       >= flops / PEAK_FLOPS["bfloat16"] else "operations"),
          "library_ms": None},
+        p8,
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:39",
@@ -1102,6 +1383,46 @@ def kernel_records(device, errs, launches):
         w,
         mb,
     ]
+
+
+def paged_int8_record(device, err, launches, lengths):
+    """The int8 page walk at the quantized serve path's decode call: bf16
+    q (2, 40, 128), int8 pools with f32 scales, PREFILL + N_DECODE keys
+    a row.  A call reads ~2.2 MB of live int8 pages, so enough input sets
+    are cycled that they fill L2 four times over and come from HBM."""
+    from repro_torch.kernels import paged_attention as pa
+    import torch
+    live = 2 * sum(-(-n // PAGE) for n in lengths) * PAGE * 8 * 128
+    n_sets = -(-4 * L2_BYTES // live)
+    sets, tab, lens, _ = paged_int8_inputs(torch.bfloat16, device, 1,
+                                           lengths, seed=6, n_copies=n_sets)
+    it = {"i": 0}
+
+    def run(fn):
+        def call():
+            q, kq, vq, ks, vs = sets[it["i"] % n_sets]
+            it["i"] += 1
+            fn(q, kq, vq, tab, lens, k_scale=ks, v_scale=vs)
+        return call
+
+    ms = time_ms(run(pa.paged_attention))
+    plain = time_ms(run(pa.paged_attention_plain))
+    nbytes, flops = paged_bytes_flops(sets[0][0], sets[0][1], tab, lengths,
+                                      -1, scales=True)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS["float32"]
+    return {"name": "paged_attention_int8", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention.py:51",
+            "launches": sum(launches.values()),
+            "launches_by_path": launches, "max_abs_err": err[0],
+            "max_abs_err_vs_unquantized": err[1], "tolerance": TOL,
+            "ms": ms, "plain_ms": plain,
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "bytes": nbytes, "flops": flops,
+            "shape": {"q": list(sets[0][0].shape),
+                      "pool": list(sets[0][1].shape), "lengths": lengths}}
 
 
 def wkv6_bytes_flops(args, s0):
@@ -1256,6 +1577,7 @@ def main() -> int:
     errs = phase_kernels(device)
     errs["wkv6"] = phase_wkv6_kernel(device)
     errs["mamba_scan"] = phase_mamba_kernel(device)
+    errs["paged_attention_int8"] = phase_paged_int8_kernel(device)
 
     cfg = configs.get("qwen3-14b")
     full = cfg.full_spec()
@@ -1263,6 +1585,7 @@ def main() -> int:
     session, prompts, toks, paged_launches, serve = phase_serve(
         device, full, plan)
     flash_launches = phase_reference(session, prompts, toks)
+    qwen_toks = toks
     del session
     torch.cuda.empty_cache()
 
@@ -1301,9 +1624,21 @@ def main() -> int:
                             plan.with_(pp=1))
     torch.cuda.empty_cache()
 
+    cfg = configs.get("qwen3-14b")
+    full = cfg.full_spec()
+    plan = cfg.PLAN.with_(tp=1, decode_microbatches=R_SLOTS)
+    int8_launches, prof_quant, serve_quant = phase_serve_quant(
+        device, full, plan, qwen_toks, serve)
+    torch.cuda.empty_cache()
+    short = dataclasses.replace(full, name="qwen3-14b-2l", n_layers=2,
+                                blocks=full.blocks[:2])
+    consistency_quant = phase_consistency_quant(device, short, plan)
+    torch.cuda.empty_cache()
+
     records = kernel_records(device, errs, {
         "paged_attention": {"qwen3_serve": paged_launches,
                             "jamba_serve": jamba_counts["paged_attention"]},
+        "paged_attention_int8": {"qwen3_quant_serve": int8_launches},
         "flash_attention": {
             "qwen3_full_transformer": flash_launches,
             "jamba_full_transformer": jamba_ref["flash_attention"]},
@@ -1311,9 +1646,12 @@ def main() -> int:
         "mamba_scan": {"serve": jamba_counts["mamba_scan"],
                        "full_transformer": jamba_ref["mamba_scan"]}})
     log(f"[done] {time.perf_counter() - t_start:.1f}s; serve qwen3 {serve}; "
-        f"serve rwkv6 {serve_rwkv}; serve jamba {serve_jamba}")
+        f"serve rwkv6 {serve_rwkv}; serve jamba {serve_jamba}; serve qwen3 "
+        f"int8/int8 {serve_quant}; consistency int8/int8 "
+        f"{consistency_quant}")
     print(json.dumps({"profile": prof}))
     print(json.dumps({"profile": prof_jamba}))
+    print(json.dumps({"profile": prof_quant}))
     print(json.dumps({"kernels": records}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -24,11 +24,23 @@
 // the PV product.  A masked key contributes an exact zero (its product
 // is skipped, never 0 * NaN): an unallocated or partly written page may
 // hold NaN.
+//
+// int8 pools (the TPU kernel's quantized branch): the pool element type
+// is int8_t and two (P, KV) f32 scale planes ride beside the pools,
+// read with the same table entry as the page.  K and V are dequantized
+// in f32 (int8 · scale) as they are staged into shared memory, which
+// holds f32 for either pool type, so the shared-memory size is the
+// same; q is converted to f32, and the value dtype is f32, so p is not
+// rounded before the PV product.  The output is in q's dtype.  A dead
+// page's payload and scale are never read: the page-level test skips
+// it before staging.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -38,6 +50,9 @@ constexpr int kThreads = 128;
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(int8_t x) {
+  return static_cast<float>(x);
 }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
@@ -53,16 +68,21 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, int window) {
   return kpos <= qpos && (window <= 0 || qpos - kpos < window);
 }
 
-template <typename T>
+// T: q and output type; TP: pool element type (T, or int8_t with the
+// scale planes k_scale / v_scale, (P, KV) f32; null for float pools).
+template <typename T, typename TP>
 __global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const T* __restrict__ q,       // (B, Q, H, Dh)
-                       const T* __restrict__ k_pages, // (P, page, KV, Dh)
-                       const T* __restrict__ v_pages,
+paged_attention_kernel(const T* __restrict__ q,        // (B, Q, H, Dh)
+                       const TP* __restrict__ k_pages, // (P, page, KV, Dh)
+                       const TP* __restrict__ v_pages,
+                       const float* __restrict__ k_scale,  // (P, KV) or null
+                       const float* __restrict__ v_scale,
                        const int* __restrict__ tables,  // (B, n_pages)
                        const int* __restrict__ lengths, // (B,)
                        T* __restrict__ out,             // (B, Q, H, Dh)
                        int q_len, int n_heads, int n_kv, int d_head,
                        int page, int n_pages, int window, float scale) {
+  constexpr bool kInt8 = std::is_same<TP, int8_t>::value;
   const int b = blockIdx.x;
   const int kvh = blockIdx.y;
   const int group = n_heads / n_kv;
@@ -105,11 +125,21 @@ paged_attention_kernel(const T* __restrict__ q,       // (B, Q, H, Dh)
     if (!live) continue;
 
     const int64_t base = static_cast<int64_t>(pid) * page * n_kv * d_head;
+    float k_sc = 1.f, v_sc = 1.f;
+    if constexpr (kInt8) {
+      k_sc = k_scale[static_cast<int64_t>(pid) * n_kv + kvh];
+      v_sc = v_scale[static_cast<int64_t>(pid) * n_kv + kvh];
+    }
     for (int e = threadIdx.x; e < page * d_head; e += blockDim.x) {
       const int t = e / d_head, d = e % d_head;
       const int64_t off = base + (static_cast<int64_t>(t) * n_kv + kvh) * d_head + d;
-      ks[t * ldk + d] = to_f32(k_pages[off]);
-      vs[e] = to_f32(v_pages[off]);
+      if constexpr (kInt8) {   // dequantize in f32 while staging
+        ks[t * ldk + d] = to_f32(k_pages[off]) * k_sc;
+        vs[e] = to_f32(v_pages[off]) * v_sc;
+      } else {
+        ks[t * ldk + d] = to_f32(k_pages[off]);
+        vs[e] = to_f32(v_pages[off]);
+      }
     }
     __syncthreads();
 
@@ -138,7 +168,8 @@ paged_attention_kernel(const T* __restrict__ q,       // (B, Q, H, Dh)
         const float p = visible(qpos, i * page + t, window)
                             ? expf(pr[t] - m_new) : 0.f;
         sum += p;
-        pr[t] = to_f32(from_f32<T>(p));   // p in the value dtype for PV
+        // p in the value dtype for PV: T for float pools, f32 for int8
+        pr[t] = kInt8 ? p : to_f32(from_f32<T>(p));
       }
       m_run[r] = m_new;
       l_run[r] = l_run[r] * a + sum;
@@ -166,13 +197,13 @@ paged_attention_kernel(const T* __restrict__ q,       // (B, Q, H, Dh)
   }
 }
 
-template <typename T>
+template <typename T, typename TP>
 int launch(const void* q, const void* k_pages, const void* v_pages,
-           const void* tables, const void* lengths, void* out, int batch,
-           int q_len, int n_heads, int n_kv, int d_head, int page,
-           int n_pages, int window, float scale, size_t smem,
-           cudaStream_t stream) {
-  auto kernel = paged_attention_kernel<T>;
+           const void* k_scale, const void* v_scale, const void* tables,
+           const void* lengths, void* out, int batch, int q_len, int n_heads,
+           int n_kv, int d_head, int page, int n_pages, int window,
+           float scale, size_t smem, cudaStream_t stream) {
+  auto kernel = paged_attention_kernel<T, TP>;
   if (smem > 48 * 1024) {   // above 48 KB only after an explicit opt-in
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -180,8 +211,9 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   kernel<<<dim3(batch, n_kv), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), static_cast<const int*>(tables),
+      static_cast<const T*>(q), static_cast<const TP*>(k_pages),
+      static_cast<const TP*>(v_pages), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<const int*>(tables),
       static_cast<const int*>(lengths), static_cast<T*>(out), q_len, n_heads,
       n_kv, d_head, page, n_pages, window, scale);
   return static_cast<int>(cudaGetLastError());
@@ -192,7 +224,8 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
 extern "C" {
 
 // Bytes of dynamic shared memory one block needs (the wrapper checks it
-// against the card's limit before launching).
+// against the card's limit before launching).  Pages are staged in f32
+// whatever the pool type, so int8 pools need the same bytes.
 size_t paged_attention_smem_bytes(int q_len, int group, int d_head, int page) {
   const size_t rows = static_cast<size_t>(q_len) * group;
   return sizeof(float) * (2 * rows * d_head + page * (d_head + 1)
@@ -210,13 +243,38 @@ int paged_attention_launch(int dtype, const void* q, const void* k_pages,
       paged_attention_smem_bytes(q_len, n_heads / n_kv, d_head, page);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, k_pages, v_pages, tables, lengths, out, batch,
-                         q_len, n_heads, n_kv, d_head, page, n_pages, window,
-                         scale, smem, s);
+    return launch<float, float>(q, k_pages, v_pages, nullptr, nullptr,
+                                tables, lengths, out, batch, q_len, n_heads,
+                                n_kv, d_head, page, n_pages, window, scale,
+                                smem, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k_pages, v_pages, tables, lengths, out,
-                                 batch, q_len, n_heads, n_kv, d_head, page,
-                                 n_pages, window, scale, smem, s);
+    return launch<__nv_bfloat16, __nv_bfloat16>(
+        q, k_pages, v_pages, nullptr, nullptr, tables, lengths, out, batch,
+        q_len, n_heads, n_kv, d_head, page, n_pages, window, scale, smem, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// int8 pools with (P, KV) f32 scale planes; dtype (0 = float32,
+// 1 = bfloat16) is q's and the output's.  Returns a cudaError_t.
+int paged_attention_int8_launch(int dtype, const void* q, const void* k_pages,
+                                const void* v_pages, const void* k_scale,
+                                const void* v_scale, const void* tables,
+                                const void* lengths, void* out, int batch,
+                                int q_len, int n_heads, int n_kv, int d_head,
+                                int page, int n_pages, int window,
+                                float scale, void* stream) {
+  const size_t smem =
+      paged_attention_smem_bytes(q_len, n_heads / n_kv, d_head, page);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float, int8_t>(q, k_pages, v_pages, k_scale, v_scale,
+                                 tables, lengths, out, batch, q_len, n_heads,
+                                 n_kv, d_head, page, n_pages, window, scale,
+                                 smem, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, int8_t>(
+        q, k_pages, v_pages, k_scale, v_scale, tables, lengths, out, batch,
+        q_len, n_heads, n_kv, d_head, page, n_pages, window, scale, smem, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

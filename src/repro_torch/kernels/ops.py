@@ -26,17 +26,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = -1):
 def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
                     window: int = -1, k_scale=None, v_scale=None):
     """Decode (q (B, H, Dh)) or verify (q (B, Q, H, Dh)) attention over a
-    paged pool; see :func:`repro_torch.kernels.paged_attention.paged_attention`.
+    paged pool; ``k_scale`` / ``v_scale`` (P, KV) f32 come with int8
+    pools.  See :func:`repro_torch.kernels.paged_attention.paged_attention`.
     """
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "int8 paged pools (k_scale / v_scale) come with the "
-            "quantization slice of the port")
     if q.device.type == "cuda":
         return _paged.paged_attention(q, k_pages, v_pages, block_tables,
-                                      lengths, window=window)
+                                      lengths, window=window,
+                                      k_scale=k_scale, v_scale=v_scale)
     return _paged.paged_attention_plain(q, k_pages, v_pages, block_tables,
-                                        lengths, window=window)
+                                        lengths, window=window,
+                                        k_scale=k_scale, v_scale=v_scale)
 
 
 def wkv6(r, k, v, w, u, s0=None):

@@ -7,8 +7,10 @@ Pallas TPU kernel).  Keys and values live in a pool ``(P, page, KV, Dh)``
 and each row owns an ordered list of page ids (its table row, -1 =
 unallocated); the Q queries of a row sit at positions
 ``lengths - Q .. lengths - 1`` (Q = 1 decode, Q > 1 verify, causal
-among themselves).  The int8-pool variant of the TPU kernel comes with
-the quantization slice.
+among themselves).  int8 pools carry (P, KV) f32 scale planes
+(``k_scale`` / ``v_scale``), one per page and KV head, as the TPU
+kernel's quantized branch does; launches of that variant are counted
+apart, in ``paged_attention.launches_int8``.
 """
 from __future__ import annotations
 
@@ -25,13 +27,15 @@ _SMEM_LIMIT = 232448          # bytes of shared memory a Hopper block can use
 
 
 def paged_attention_plain(q, k_pages, v_pages, block_tables, lengths, *,
-                          window: int = -1):
+                          window: int = -1, k_scale=None, v_scale=None):
     """The kernel's arithmetic in plain PyTorch (CPU tests, card checks).
 
     Gathers each row's table into a dense slab, scores in f32 with
     masked scores -1e30, rounds p to the value dtype before the PV
     product, and zeroes the values of keys no query sees (a dead page may
-    hold NaN).  Same arguments and result as :func:`paged_attention`.
+    hold NaN).  int8 pools are dequantized in f32 with their pages'
+    scales as they are gathered, so the value dtype, and p, is f32.
+    Same arguments and result as :func:`paged_attention`.
     """
     squeeze = q.dim() == 3
     if squeeze:
@@ -42,8 +46,13 @@ def paged_attention_plain(q, k_pages, v_pages, block_tables, lengths, *,
     group = h // kv
     tab = block_tables.long()
     safe = tab.clamp(0, n_pool - 1)
-    k = k_pages[safe].reshape(b, n_pages * page, kv, dh)
-    v = v_pages[safe].reshape(b, n_pages * page, kv, dh)
+    k = k_pages[safe]                                # (B, n, page, KV, Dh)
+    v = v_pages[safe]
+    if k_scale is not None:
+        k = k.float() * k_scale[safe][:, :, None, :, None]
+        v = v.float() * v_scale[safe][:, :, None, :, None]
+    k = k.reshape(b, n_pages * page, kv, dh)
+    v = v.reshape(b, n_pages * page, kv, dh)
     kpos = torch.arange(n_pages * page, device=q.device)
     qpos = (lengths.long()[:, None] - ql
             + torch.arange(ql, device=q.device)[None, :])      # (B, Q)
@@ -72,17 +81,45 @@ def _bind():
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
                        + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        fn8 = lib.paged_attention_int8_launch
+        fn8.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+                        + [ctypes.c_int] * 8
+                        + [ctypes.c_float, ctypes.c_void_p])
+        fn8.restype = ctypes.c_int
         lib.paged_attention_smem_bytes.argtypes = [ctypes.c_int] * 4
         lib.paged_attention_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 
+def _check_scales(k_pages, k_scale, v_scale, device):
+    """int8 pools need both (P, KV) f32 scale planes; float pools none."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass both k_scale and v_scale, or neither")
+    if k_scale is None:
+        if k_pages.dtype == torch.int8:
+            raise TypeError("int8 pools need k_scale and v_scale")
+        return ()
+    if k_pages.dtype != torch.int8:
+        raise TypeError(f"k_scale / v_scale come with int8 pools, got "
+                        f"{k_pages.dtype} pools")
+    want = (k_pages.shape[0], k_pages.shape[2])
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if tuple(t.shape) != want or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be (P, KV) = {want} float32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+        if t.device != device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {device}")
+    return (k_scale, v_scale)
+
+
 def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
-                    window: int = -1):
+                    window: int = -1, k_scale=None, v_scale=None):
     """Launch the CUDA kernel on PyTorch's current stream.
 
     q: (B, H, Dh) or (B, Q, H, Dh), float32 or bfloat16, contiguous;
-    k_pages, v_pages: (P, page, KV, Dh) of q's dtype, contiguous;
+    k_pages, v_pages: (P, page, KV, Dh) of q's dtype, contiguous, or
+    int8 with ``k_scale`` / ``v_scale`` (P, KV) float32 (the int8
+    variant, counted in ``paged_attention.launches_int8``);
     block_tables: (B, n_pages) int32; lengths: (B,) int32, each at least
     Q; window: Python int (<= 0 means global).  Returns the query shape
     in q's dtype.  All tensors on one CUDA device; anything else raises.
@@ -105,10 +142,13 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
     if any(t.device != q.device for t in tensors) or q.device.type != "cuda":
         raise ValueError("paged_attention's kernel takes CUDA tensors on "
                          "one device")
-    if q.dtype not in _DTYPES or k_pages.dtype != q.dtype \
-            or v_pages.dtype != q.dtype:
-        raise TypeError(f"q and pools must share float32 or bfloat16, got "
-                        f"{q.dtype}, {k_pages.dtype}, {v_pages.dtype}")
+    scales = _check_scales(k_pages, k_scale, v_scale, q.device)
+    pool_dtype = torch.int8 if scales else q.dtype
+    if q.dtype not in _DTYPES or k_pages.dtype != pool_dtype \
+            or v_pages.dtype != pool_dtype:
+        raise TypeError(f"q must be float32 or bfloat16 and the pools of "
+                        f"its dtype (or int8 with scales), got {q.dtype}, "
+                        f"{k_pages.dtype}, {v_pages.dtype}")
     if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError("block_tables and lengths must be int32")
     if not all(t.is_contiguous() for t in tensors):
@@ -119,16 +159,28 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
         raise ValueError(f"Q·G={ql * h // kv} rows × Dh={dh} need {smem} "
                          f"bytes of shared memory (limit {_SMEM_LIMIT})")
     out = torch.empty_like(q4)
-    err = lib.paged_attention_launch(
-        _DTYPES[q.dtype], q4.data_ptr(), k_pages.data_ptr(),
-        v_pages.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), b, ql, h, kv, dh, page, block_tables.shape[1],
-        int(window), 1.0 / math.sqrt(dh), _build.stream_handle(q.device))
+    shape = (b, ql, h, kv, dh, page, block_tables.shape[1], int(window),
+             1.0 / math.sqrt(dh), _build.stream_handle(q.device))
+    if scales:
+        err = lib.paged_attention_int8_launch(
+            _DTYPES[q.dtype], q4.data_ptr(), k_pages.data_ptr(),
+            v_pages.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+            block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            *shape)
+    else:
+        err = lib.paged_attention_launch(
+            _DTYPES[q.dtype], q4.data_ptr(), k_pages.data_ptr(),
+            v_pages.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
+            out.data_ptr(), *shape)
     if err:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err}")
-    paged_attention.launches += 1
+    if scales:
+        paged_attention.launches_int8 += 1
+    else:
+        paged_attention.launches += 1
     return out[:, 0] if squeeze else out
 
 
 paged_attention.launches = 0
+paged_attention.launches_int8 = 0

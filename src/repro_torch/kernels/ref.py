@@ -34,7 +34,7 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = -1):
 
 
 def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths, *,
-                        window: int = -1):
+                        window: int = -1, k_scale=None, v_scale=None):
     """Attention over a paged KV pool, decode or verify.
 
     q: (B, H, Dh) decode, or (B, Q, H, Dh) with the Q queries at
@@ -44,6 +44,9 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths, *,
     table entry into a dense (B, n_pages·page, KV, Dh) slab, masks the
     invalid keys and runs the naive f32 softmax.  The JAX oracle covers
     Q = 1 only; Q > 1 is the port's addition.
+
+    int8 pools: ``k_scale`` / ``v_scale`` (P, KV) f32 per-page scales
+    dequantize the whole pool up front, as the JAX oracle does.
     """
     squeeze = q.dim() == 3
     if squeeze:
@@ -51,6 +54,10 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths, *,
     b, ql, h, dh = q.shape
     n_pool, page, kv, _ = k_pages.shape
     n_pages = block_tables.shape[1]
+    if k_scale is not None:
+        k_pages = k_pages.float() * k_scale[:, None, :, None]
+    if v_scale is not None:
+        v_pages = v_pages.float() * v_scale[:, None, :, None]
     tab = block_tables.long()
     safe = tab.clamp(0, n_pool - 1)
     k = k_pages[safe].reshape(b, n_pages * page, kv, dh).float()

@@ -13,6 +13,8 @@ plan on one device.
   python -m repro_torch.launch.serve --arch qwen3-14b --smoke --device cpu
   python -m repro_torch.launch.serve --arch jamba-v0.1-52b --smoke \
       --device cpu --page-size 16
+  python -m repro_torch.launch.serve --arch qwen3-14b --smoke \
+      --device cpu --page-size 16 --weight-dtype int8 --kv-dtype int8
 """
 from __future__ import annotations
 
@@ -42,6 +44,15 @@ def main(argv=None):
     ap.add_argument("--page-size", type=int, default=0,
                     help="paged KV page size in tokens (0 = dense; must "
                          "divide --cache-len)")
+    ap.add_argument("--weight-dtype", type=str, default=None,
+                    choices=[None, "fp32", "bf16", "int8", "fp8"],
+                    help="weight storage dtype: int8/fp8 store matmul "
+                         "weights quantized with per-output-channel "
+                         "scales, dequantized on the fly")
+    ap.add_argument("--kv-dtype", type=str, default=None,
+                    choices=[None, "fp32", "bf16", "int8"],
+                    help="KV-cache storage dtype; int8 needs --page-size "
+                         "> 0 (per-page scales live in the page pools)")
     ap.add_argument("--device", type=str, default="cuda")
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds the weights and the prompts")
@@ -57,7 +68,9 @@ def main(argv=None):
     session = build_serving(spec, plan, cache_len=args.cache_len,
                             global_batch=args.batch, compute_dtype=dtype,
                             page_size=args.page_size,
-                            prefill_len=args.prefill, device=device)
+                            prefill_len=args.prefill,
+                            weight_dtype=args.weight_dtype,
+                            kv_dtype=args.kv_dtype, device=device)
     print(f"serve schedule: {session.sched.name} (S={session.sched.n_stages} "
           f"R={session.n_slots}, {session.sched.n_ticks} ticks/pass) on "
           f"{device}")
@@ -65,6 +78,9 @@ def main(argv=None):
         print(f"paged KV: page_size={session.paged['page_size']} "
               f"max_pages/slot={session.paged['max_pages']} "
               f"pool_pages={session.paged['pool_pages']}")
+    if args.weight_dtype or args.kv_dtype:
+        print(f"storage dtypes: weights={args.weight_dtype or 'compute'} "
+              f"kv={args.kv_dtype or 'compute'}")
     session.start(args.seed)
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, spec.vocab, (session.n_slots, session.rows,

@@ -7,13 +7,24 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import nn
+from repro_torch.quant import is_quantized, maybe_dequant
 
 NEG_INF = -1e30
 
 
 def embed_tokens(embed, tokens, dtype=None):
-    """embed: (Vpad, d); tokens: (..., S) int -> (..., S, d)."""
-    out = F.embedding(tokens.long(), embed)
+    """embed: (Vpad, d); tokens: (..., S) int -> (..., S, d).
+
+    A quantized embed gathers the int8/fp8 rows and their per-row scales
+    and multiplies only the gathered slice: the full-precision table
+    never exists.
+    """
+    idx = tokens.long()
+    if is_quantized(embed):
+        out = (F.embedding(idx, embed["q"]).float()
+               * F.embedding(idx, embed["scale"]))
+    else:
+        out = F.embedding(idx, embed)
     return out if dtype is None else out.to(dtype)
 
 
@@ -27,7 +38,7 @@ def last_logits(head, final_norm_scale, h, *, norm_kind: str = "rmsnorm",
         h = nn.rmsnorm(h, final_norm_scale)
     else:
         h = nn.layernorm(h, final_norm_scale, norm_bias)
-    logits = (h[:, -1] @ head).float()
+    logits = (h[:, -1] @ maybe_dequant(head, h.dtype)).float()
     if vocab is not None and vocab < logits.shape[-1]:
         logits[:, vocab:] = NEG_INF
     return logits

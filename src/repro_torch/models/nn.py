@@ -12,6 +12,11 @@ Caches and recurrent states are updated in place.  The JAX code is
 functional (``dynamic_update_slice`` + ``where``) and XLA updates in
 place under buffer donation; a literal port would copy a whole KV pool
 at every layer of every tick, gigabytes at full width.
+
+Quantized weights (``repro_torch.quant``) are dequantized at each
+matmul site of attention, the dense FFN and the MoE experts, as in JAX;
+int8 paged pools carry per-(page, KV head) f32 scale planes and are
+requantized page by page where a key is written.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.quant import maybe_dequant, quantize_kv_page_batched
 
 # Sequence-length product above which attention over a cache switches to
 # the blockwise twin to keep activation memory O(S · block).
@@ -199,50 +205,76 @@ def attention(p, x, st: AttnStatic, *, positions, window: int, theta: float,
     """Self-attention of x (B, S, d); returns (B, S, d).
 
     ``kv_cache``: this slot's dense (k, v) cache views (B, L, KV, Dh),
-    written in place.  ``paged_kv``: ``(k_pool, v_pool, row)`` with the
-    stage's pools (pool_pages, B, page, KV, Dh), written in place, and
-    the slot's :class:`PageRow`.  ``cache_pos`` is the host position of
-    the first query.  Neither: the cache-less causal forward, which runs
-    the flash kernel.  The engine runs only valid (microbatch, stage)
-    cells — bubbles are skipped — so the JAX ``valid`` write gate is the
-    engine's skip, and writes here are gated by page liveness only.
+    written in place; a cache of another dtype than x is read as JAX
+    promotes it, and the attention output is cast back to x's dtype
+    before ``wo`` (JAX lets a wider output promote the residual).
+    ``paged_kv``: ``(k_pool, v_pool, row)`` with the stage's pools
+    (pool_pages, B, page, KV, Dh), or ``(k_pool, v_pool, k_scale,
+    v_scale, row)`` for int8 pools with their (pool_pages, B, KV) f32
+    scale planes, written in place, and the slot's :class:`PageRow`.
+    ``cache_pos`` is the host position of the first query.  Neither: the
+    cache-less causal forward, which runs the flash kernel.  The engine
+    runs only valid (microbatch, stage) cells — bubbles are skipped — so
+    the JAX ``valid`` write gate is the engine's skip, and writes here
+    are gated by page liveness only.
     """
     b, s, _ = x.shape
+    d = x.shape[-1]
     hd = st.n_heads_local * st.d_head
-    q = (x @ p["wq"].reshape(x.shape[-1], hd)).view(b, s, st.n_heads_local,
-                                                    st.d_head)
     kvd = st.n_kv_local * st.d_head
-    k = (x @ p["wk"].reshape(x.shape[-1], kvd)).view(b, s, st.n_kv_local,
-                                                     st.d_head)
-    v = (x @ p["wv"].reshape(x.shape[-1], kvd)).view(b, s, st.n_kv_local,
-                                                     st.d_head)
+    wq = maybe_dequant(p["wq"], x.dtype).reshape(d, hd)
+    q = (x @ wq).view(b, s, st.n_heads_local, st.d_head)
+    wk = maybe_dequant(p["wk"], x.dtype).reshape(d, kvd)
+    k = (x @ wk).view(b, s, st.n_kv_local, st.d_head)
+    wv = maybe_dequant(p["wv"], x.dtype).reshape(d, kvd)
+    v = (x @ wv).view(b, s, st.n_kv_local, st.d_head)
     if st.qk_norm:
         q = rmsnorm(q, p["q_norm"])
         k = rmsnorm(k, p["k_norm"])
     q, k = apply_rope(q, k, positions, theta, rope_2d=st.rope_2d)
-    wo = p["wo"]
+
+    def project_out(o):
+        return o.reshape(b, s, hd).to(x.dtype) @ maybe_dequant(p["wo"],
+                                                               x.dtype)
 
     if paged_kv is not None:
         assert kv_cache is None
-        k_pool, v_pool, row = paged_kv
+        *pools, row = paged_kv
+        kq = len(pools) == 4          # int8 pools carry scale planes
+        k_pool, v_pool = pools[:2]
+        ks_pool, vs_pool = pools[2:] if kq else (None, None)
         n_pool, _, ps, n_kv, dh = k_pool.shape
         L = len(row.ids) * ps
         if s == 1:
             # decode: key t lands at offset (cache_pos + t) % ps of the
             # slot's page (cache_pos + t) // ps
             pid = int(row.ids[cache_pos // ps])
-            if pid >= 0:
+            if pid >= 0 and kq:
+                _write_token_int8(k_pool, ks_pool, pid, cache_pos % ps,
+                                  k[:, 0])
+                _write_token_int8(v_pool, vs_pool, pid, cache_pos % ps,
+                                  v[:, 0])
+            elif pid >= 0:
                 k_pool[pid, :, cache_pos % ps] = k[:, 0]
                 v_pool[pid, :, cache_pos % ps] = v[:, 0]
             if st.causal:
                 # paged kernel over the (page, lane)-flattened pool: lane
                 # l of page pid is flat page pid·b + l, every lane holds
-                # cache_pos + 1 keys (row.lengths)
+                # cache_pos + 1 keys (row.lengths); the scale planes
+                # flatten the same way
+                ks = vs = None
+                if kq:
+                    ks = ks_pool.reshape(n_pool * b, n_kv)
+                    vs = vs_pool.reshape(n_pool * b, n_kv)
                 out = kernel_ops.paged_attention(
                     q[:, 0], k_pool.reshape(n_pool * b, ps, n_kv, dh),
                     v_pool.reshape(n_pool * b, ps, n_kv, dh),
-                    row.lane_tables, row.lengths, window=window)
-                return out.reshape(b, s, hd) @ wo
+                    row.lane_tables, row.lengths, window=window,
+                    k_scale=ks, v_scale=vs)
+                return project_out(out)
+        elif kq:
+            _write_slab_int8(k_pool, ks_pool, row.ids, cache_pos, k)
+            _write_slab_int8(v_pool, vs_pool, row.ids, cache_pos, v)
         else:
             # prefill: write the fresh slab page by page; unallocated
             # pages of ragged slots are skipped
@@ -253,11 +285,17 @@ def attention(p, x, st: AttnStatic, *, positions, window: int, theta: float,
                 if pid >= 0:
                     k_pool[pid, :, :width] = k[:, lo:lo + width]
                     v_pool[pid, :, :width] = v[:, lo:lo + width]
-        # gather the table into a dense slab; masked entries contribute
-        # exact zeros, as on the dense path
+        # gather the table into a dense slab (int8 pages dequantized in
+        # f32, int8 · f32 promoting, and cast to q's dtype, as JAX reads
+        # them); masked entries contribute exact zeros, as on the dense
+        # path
         safe = row.ids_dev.long().clamp(0, n_pool - 1)
-        k = k_pool[safe].transpose(0, 1).reshape(b, L, n_kv, dh)
-        v = v_pool[safe].transpose(0, 1).reshape(b, L, n_kv, dh)
+        k, v = k_pool[safe], v_pool[safe]
+        if kq:
+            k = (k * ks_pool[safe][:, :, None, :, None]).to(q.dtype)
+            v = (v * vs_pool[safe][:, :, None, :, None]).to(q.dtype)
+        k = k.transpose(0, 1).reshape(b, L, n_kv, dh)
+        v = v.transpose(0, 1).reshape(b, L, n_kv, dh)
         j = torch.arange(L, device=x.device)
         alive = (row.ids_dev >= 0).repeat_interleave(ps)
         k_pos = torch.where((j < cache_pos + s) & alive, j, _INVALID_POS)
@@ -275,11 +313,15 @@ def attention(p, x, st: AttnStatic, *, positions, window: int, theta: float,
             ck[:, cache_pos:cache_pos + s] = k
             cv[:, cache_pos:cache_pos + s] = v
             k_pos = torch.where(j < cache_pos + s, j, _INVALID_POS)
-        k, v = ck, cv
+        # a cache re-typed by the kv dtype is read as JAX's einsums
+        # promote it: scores in the wider of q's and the cache's dtypes,
+        # p cast to the cache's dtype for the PV product
+        ct = torch.promote_types(q.dtype, ck.dtype)
+        q, k, v = q.to(ct), ck.to(ct), cv
     elif st.causal:
         # cache-less causal forward: the flash kernel (GQA inside)
         out = kernel_ops.flash_attention(q, k, v, causal=True, window=window)
-        return out.reshape(b, s, hd) @ wo
+        return project_out(out)
     else:
         k_pos = positions[0]
 
@@ -292,7 +334,37 @@ def attention(p, x, st: AttnStatic, *, positions, window: int, theta: float,
         out = _sdpa_naive(q, k, v, mask[None, None])
     else:
         out = _sdpa_flash(q, k, v, q_pos, k_pos, window, st.causal)
-    return out.reshape(b, s, hd) @ wo
+    return project_out(out)
+
+
+def _write_token_int8(pool, spool, pid: int, off: int, new):
+    """int8 decode write of one key per lane, ``new`` (B, KV, Dh), at
+    offset ``off`` of page ``pid``: dequantize the whole page, insert
+    the key, requantize the page and its scales (the JAX order; one
+    scale per page stays valid under any new key's magnitude)."""
+    page = pool[pid] * spool[pid][:, None, :, None]     # f32 (promotes)
+    page[:, off] = new.float()
+    pool[pid], spool[pid] = quantize_kv_page_batched(page)
+
+
+def _write_slab_int8(pool, spool, ids, cache_pos: int, new):
+    """int8 prefill write of the slab ``new`` (B, S, KV, Dh) from the
+    page-aligned ``cache_pos``: every page the slab touches is built
+    fresh, zero past the slab's end, and quantized (as JAX's per-page
+    write, over all pages at once); unallocated pages are skipped."""
+    b, s, n_kv, dh = new.shape
+    ps = pool.shape[2]
+    n = -(-s // ps)
+    pids = np.asarray(ids[cache_pos // ps:cache_pos // ps + n], np.int64)
+    pages = new.new_zeros((b, n * ps, n_kv, dh), dtype=torch.float32)
+    pages[:, :s] = new.float()
+    pages = pages.view(b, n, ps, n_kv, dh).transpose(0, 1)
+    q, scale = quantize_kv_page_batched(pages.reshape(n * b, ps, n_kv, dh))
+    live = np.flatnonzero(pids >= 0)
+    dst = torch.from_numpy(pids[live]).to(pool.device)
+    src = torch.from_numpy(live).to(pool.device)
+    pool[dst] = q.view(n, b, ps, n_kv, dh)[src]
+    spool[dst] = scale.view(n, b, n_kv)[src]
 
 
 # --------------------------------------------------------------------------
@@ -300,11 +372,12 @@ def attention(p, x, st: AttnStatic, *, positions, window: int, theta: float,
 # --------------------------------------------------------------------------
 
 def mlp(p, x, act: str):
+    w1 = maybe_dequant(p["w1"], x.dtype)
     if act == "silu":
-        h = F.silu(x @ p["w1"]) * (x @ p["w3"])
+        h = F.silu(x @ w1) * (x @ maybe_dequant(p["w3"], x.dtype))
     else:
-        h = F.gelu(x @ p["w1"], approximate="tanh")
-    return h @ p["w2"]
+        h = F.gelu(x @ w1, approximate="tanh")
+    return h @ maybe_dequant(p["w2"], x.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -380,11 +453,13 @@ def moe(p, x, ms: MoEStatic, act: str):
     buf = x.new_zeros((e * ms.capacity, d))
     buf[slot[keep]] = xf[token_of[keep]]
     buf = buf.view(e, ms.capacity, d)
+    w1 = maybe_dequant(p["w1"], x.dtype)
     if act == "silu":
-        h = F.silu(torch.bmm(buf, p["w1"])) * torch.bmm(buf, p["w3"])
+        h = F.silu(torch.bmm(buf, w1)) * torch.bmm(
+            buf, maybe_dequant(p["w3"], x.dtype))
     else:
-        h = F.gelu(torch.bmm(buf, p["w1"]), approximate="tanh")
-    y = torch.bmm(h, p["w2"]).view(e * ms.capacity, d)
+        h = F.gelu(torch.bmm(buf, w1), approximate="tanh")
+    y = torch.bmm(h, maybe_dequant(p["w2"], x.dtype)).view(e * ms.capacity, d)
 
     w = top_p.reshape(-1).to(x.dtype)[:, None]
     gathered = torch.where(keep[:, None], y[slot] * w, 0).view(n, k, d)

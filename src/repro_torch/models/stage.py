@@ -66,7 +66,8 @@ def make_statics(spec: spec_lib.ModelSpec, plan: ParallelismPlan,
 
 
 def stage_params(params, s: int):
-    """Stage ``s``'s view of the stage-stacked ``params["stages"]`` tree."""
+    """Stage ``s``'s view of the stage-stacked ``params["stages"]`` tree
+    (a quantized leaf gives stage ``s`` of its payload and its scale)."""
     def take(node):
         if isinstance(node, dict):
             return {k: take(v) for k, v in node.items()}
@@ -84,8 +85,10 @@ def stage_fwd(sp, x, st: StageStatics, *, positions, windows, thetas,
     (dense ``"kv"`` caches, ``"tmix"`` / ``"cmix"`` / ``"ssm"`` recurrent
     states);
     paged: optional ``{"pools": {'layer_i': (k_pool, v_pool)}, "row":
-    PageRow}`` for the attention layers whose KV is paged.  Caches and
-    recurrent states are written in place.
+    PageRow}`` for the attention layers whose KV is paged; int8 pools
+    are ``(k_pool, v_pool, k_scale, v_scale)``.  Caches and recurrent
+    states are written in place.  Quantized ``{"q", "scale"}`` weights
+    are dequantized at their matmul sites (``models/nn.py``).
     """
     for i, blk in enumerate(st.program):
         name = f"layer_{i}"

@@ -19,8 +19,13 @@ A hybrid model (jamba) holds both kinds, layer by layer.  With paging,
 attention KV moves into page pools ``(n_chunks, pool_pages, rows, page,
 KV, Dh)`` per layer plus one host-side :class:`PageAllocator` whose (R,
 max_pages) table indexes every layer's pool; recurrent state stays
-dense, as in JAX.  Each cell gets its slot's views (``[s, m]``), fixed
-at ``start``, and everything is written in place.  A prefill reads the
+dense, as in JAX.  Quantized storage (``build_serving(weight_dtype=,
+kv_dtype=)``, ``repro_torch.quant``): int8 / fp8 matmul weights with
+per-output-channel scales, dequantized at each matmul site; int8 page
+pools with per-(page, KV head) f32 scale planes ``(n_chunks,
+pool_pages, rows, KV)``; or dense caches re-typed to fp32 / bf16.
+Each cell gets its slot's views (``[s, m]``), fixed at ``start``, and
+everything is written in place.  A prefill reads the
 recurrent state the slot holds, as the JAX engine's does: only
 ``start`` zeroes it.  Cache positions live in the host mirror
 ``_pos``: no per-layer device sync.
@@ -33,7 +38,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import quant, resolve_device
 from repro_torch.core.schedule import (F_FROM_EMBEDS, F_MB, ServingSchedule,
                                        fit_serving_microbatches,
                                        make_serving_schedule)
@@ -53,9 +58,9 @@ __all__ = ["CacheExhausted", "EngineSession", "build_serving"]
 class EngineSession:
     """One serving session over the ``serve_1f`` schedule.
 
-    ``start`` initializes parameters and zeroes the per-slot state,
-    ``load_params``
-    installs a numpy parameter tree in the JAX layout, ``prefill`` runs
+    ``start`` initializes parameters and zeroes the per-slot state
+    (``reset_state``), ``load_params`` installs a numpy parameter tree in
+    the JAX layout (``set_params`` one in the port's), ``prefill`` runs
     the pipelined prompt pass and ``decode`` one pipelined decode step;
     both return the next token of every row, (R · rows,) int32 on the
     device.  ``last_hidden`` keeps the hidden state exiting the pipe at
@@ -72,10 +77,13 @@ class EngineSession:
     cache_len: int
     rows: int                      # rows per microbatch slot
     paged: Optional[Dict[str, int]] = None
+    weight_dtype: Optional[str] = None   # "int8" / "fp8": quantized weights
+    kv_dtype: Optional[str] = None       # "int8": int8 pools; "fp32"/"bf16"
     params: Any = None
     # per-slot state, {'layer_i': {"kv" | "tmix" | "cmix" | "ssm": ...}}
     cache: Optional[Dict] = None
-    pages: Optional[Dict] = None   # paged KV, {'layer_i': (k_pool, v_pool)}
+    # paged KV, {'layer_i': (k_pool, v_pool)}, int8: (k, v, k_scale, v_scale)
+    pages: Optional[Dict] = None
     last_hidden: Optional[torch.Tensor] = None
     _stage_params: List[Dict] = dataclasses.field(default_factory=list)
     _views: List[List[Dict]] = dataclasses.field(default_factory=list)
@@ -87,34 +95,61 @@ class EngineSession:
     def n_slots(self) -> int:
         return self.sched.n_microbatches
 
+    @property
+    def cache_dtype(self) -> torch.dtype:
+        """Dtype of the dense state: a "fp32" / "bf16" kv dtype re-types
+        it wholesale; "int8" leaves the dense leftovers (recurrent state)
+        in compute dtype, as JAX does."""
+        return {"fp32": torch.float32, "bf16": torch.bfloat16}.get(
+            self.kv_dtype, self.compute_dtype)
+
     def start(self, seed: int = 0) -> "EngineSession":
         """Initialize (or reset) parameters from ``seed`` and zero the
-        per-slot state (KV caches or pools, recurrent state)."""
+        per-slot state (KV caches or pools, recurrent state).  Weights
+        are drawn at the compute dtype and then quantized leaf by leaf
+        (``weight_dtype``), so the largest transient is one leaf's f32
+        copy; int8 pools start at zero with scale planes of 1, so an
+        untouched page dequantizes to exact zeros."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        self._set_params(init_params(self.spec, self.plan, gen,
-                                     self.compute_dtype))
+        self.set_params(quant.quantize_params(
+            init_params(self.spec, self.plan, gen, self.compute_dtype),
+            self.weight_dtype))
+        return self.reset_state()
+
+    def reset_state(self) -> "EngineSession":
+        """Zero the per-slot state (KV caches or pools, recurrent state)
+        and the positions; the parameters stay."""
         R, S = self.n_slots, self.sched.n_stages
         st = self.statics
         paged_layers = [i for i, b in enumerate(st.program)
                         if b.mixer == "attn"] if self.paged else []
         self.cache = init_stage_state(
             st, self.rows, [self.cache_len] * len(st.program),
-            self.compute_dtype, self.device, lead=(S, R),
+            self.cache_dtype, self.device, lead=(S, R),
             paged_layers=paged_layers)
         self._views = [[_slot_view(self.cache, s, m) for m in range(R)]
                        for s in range(S)]
         if self.paged is not None:
+            kv8 = self.kv_dtype == "int8"
             shape = (S, self.paged["pool_pages"], self.rows,
                      self.paged["page_size"], st.attn.n_kv_local,
                      st.attn.d_head)
-            self.pages = {
-                f"layer_{i}": (torch.zeros(shape, dtype=self.compute_dtype,
-                                           device=self.device),
-                               torch.zeros(shape, dtype=self.compute_dtype,
-                                           device=self.device))
-                for i in paged_layers}
-            self._pools = [{name: (kp[s], vp[s]) for name, (kp, vp)
-                            in self.pages.items()} for s in range(S)]
+
+            def pools():
+                dt = torch.int8 if kv8 else self.cache_dtype
+                out = [torch.zeros(shape, dtype=dt, device=self.device)
+                       for _ in range(2)]
+                if kv8:
+                    out += [torch.ones(shape[:3] + shape[4:5],
+                                       dtype=torch.float32,
+                                       device=self.device)
+                            for _ in range(2)]
+                return tuple(out)
+
+            self.pages = {f"layer_{i}": pools() for i in paged_layers}
+            self._pools = [{name: tuple(t[s] for t in pool)
+                            for name, pool in self.pages.items()}
+                           for s in range(S)]
             self._alloc = PageAllocator(self.paged["pool_pages"], R,
                                         self.paged["max_pages"],
                                         self.paged["page_size"])
@@ -123,17 +158,23 @@ class EngineSession:
 
     def load_params(self, params_host) -> "EngineSession":
         """Install a numpy parameter tree in the JAX package's layout
-        (``jax.tree.map(np.asarray, params)``), cast to the compute dtype."""
+        (``jax.tree.map(np.asarray, params)``): cast to the compute dtype
+        (the f32 leaves stay f32), then quantized when the session was
+        built with ``weight_dtype``, as the JAX engine does."""
         if self._pos is None:
             raise RuntimeError("call start() before load_params()")
-        self._set_params(params_from_numpy(params_host, self.device,
-                                           self.compute_dtype))
-        return self
+        return self.set_params(quant.quantize_params(
+            params_from_numpy(params_host, self.device, self.compute_dtype),
+            self.weight_dtype))
 
-    def _set_params(self, params) -> None:
+    def set_params(self, params) -> "EngineSession":
+        """Install a tree already in the port's layout, dtypes and storage
+        (quantized leaves as they are) and on this session's device, such
+        as another session's ``params`` moved here."""
         self.params = params
         self._stage_params = [stage_params(params, s)
                               for s in range(self.sched.n_stages)]
+        return self
 
     def prefill(self, batch) -> torch.Tensor:
         """Pipelined prefill; ``batch["tokens"]`` is (R, rows, S) ints."""
@@ -237,7 +278,9 @@ def _slot_view(tree, s: int, m: int):
 def build_serving(spec: spec_lib.ModelSpec, plan: ParallelismPlan, *,
                   cache_len: int, global_batch: int,
                   compute_dtype=torch.bfloat16, page_size: int = 0,
-                  prefill_len: int = 0, device=None) -> EngineSession:
+                  prefill_len: int = 0, weight_dtype: Optional[str] = None,
+                  kv_dtype: Optional[str] = None,
+                  device=None) -> EngineSession:
     """A serving session for ``plan``'s ``serve_1f`` schedule, all stages
     on ``device`` (default ``cuda``; raises without a card).
 
@@ -252,8 +295,26 @@ def build_serving(spec: spec_lib.ModelSpec, plan: ParallelismPlan, *,
     through the paged kernel.  Recurrent state (RWKV6, Mamba) stays
     dense whatever ``page_size`` says; a model without attention layers
     has nothing to page.
+
+    ``weight_dtype`` ("int8" / "fp8") stores the attention, FFN, expert,
+    embedding and head matmul weights quantized with per-output-channel
+    scales, dequantized at each matmul site.  ``kv_dtype`` is the KV
+    storage dtype: "fp32" / "bf16" re-type the dense state, "int8" keeps
+    the page pools as int8 payloads with per-(page, KV head) f32 scale
+    planes (it needs ``page_size > 0``), read by the paged kernel's int8
+    page walk.  Both default to the unquantized behaviour; the checks
+    and messages are the JAX engine's.
     """
     dev = resolve_device(device)
+    if weight_dtype is not None and weight_dtype not in quant.WEIGHT_DTYPES:
+        raise ValueError(f"weight_dtype={weight_dtype!r} not in "
+                         f"{quant.WEIGHT_DTYPES}")
+    if kv_dtype is not None and kv_dtype not in quant.KV_DTYPES:
+        raise ValueError(f"kv_dtype={kv_dtype!r} not in {quant.KV_DTYPES}")
+    if kv_dtype == "int8" and not page_size:
+        raise ValueError(
+            "kv_dtype='int8' requires the paged cache (page_size > 0): "
+            "the per-page scale planes live alongside the page pools")
     if plan.tp != 1:
         raise ValueError(f"tp={plan.tp}: the port runs one device per "
                          "stage group (tp=1) in this slice")
@@ -277,4 +338,5 @@ def build_serving(spec: spec_lib.ModelSpec, plan: ParallelismPlan, *,
                  "pool_pages": R * max_pages}
     return EngineSession(spec=spec, plan=plan, sched=sched, statics=statics,
                          device=dev, compute_dtype=compute_dtype,
-                         cache_len=cache_len, rows=rows, paged=paged)
+                         cache_len=cache_len, rows=rows, paged=paged,
+                         weight_dtype=weight_dtype, kv_dtype=kv_dtype)

@@ -7,8 +7,10 @@ package, so it runs on a machine that has only PyTorch:
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 The shapes mirror tests/test_kernels.py's PAGED_CASES, FLASH_CASES,
-WKV_CASES and MAMBA_CASES; inputs come from a seeded numpy generator, NaN sits in
-unreferenced pages and past each row's length.
+WKV_CASES and MAMBA_CASES, and tests/test_quant.py's int8 paged matrix;
+inputs come from a seeded numpy generator, NaN sits in unreferenced
+pages and past each row's length (int8 pools: random payloads and NaN /
+inf scales in unreferenced pages).
 """
 import numpy as np
 import pytest
@@ -18,6 +20,7 @@ from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import mamba_scan as tms
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import wkv6 as twkv
+from repro_torch.quant import quantize_kv_page_batched
 
 PAGED = [  # b, h, kv, dh, page, n_pages, window
     (2, 4, 2, 64, 16, 8, -1), (3, 4, 4, 32, 16, 4, -1),
@@ -29,6 +32,11 @@ FLASH = [  # b, sq, sk, h, kv, dh, causal, window
     (2, 100, 100, 2, 1, 32, True, -1), (1, 256, 256, 8, 2, 128, False, -1),
     (1, 64, 192, 2, 2, 16, True, 48), (1, 192, 192, 2, 2, 64, True, 200),
     (2, 64, 64, 4, 1, 8, True, 1), (2, 528, 528, 40, 8, 128, True, -1)]
+PAGED_INT8 = [  # b, h, kv, dh, page, n_pages, window: tests/test_quant.py's
+               # int8 matrix, then qwen3-14b decode, global and windowed
+    (2, 4, 2, 64, 16, 8, -1), (2, 8, 2, 64, 64, 4, -1),
+    (2, 4, 2, 64, 16, 8, 20), (2, 40, 8, 128, 16, 64, -1),
+    (2, 40, 8, 128, 16, 64, 100)]
 WKV = [  # b, s, h, dh
     (2, 64, 2, 16), (1, 128, 4, 32), (2, 100, 2, 8), (1, 64, 2, 64),
     (1, 32, 1, 4), (2, 17, 2, 32), (8, 1, 32, 64),       # rwkv6 decode
@@ -90,6 +98,103 @@ def test_paged_kernel_matches_plain(cuda, b, h, kv, dh, page, n_pages,
     if q_len == 1:
         got3 = tpa.paged_attention(args[0][:, 0], *args[1:], window=window)
         assert torch.equal(got3, got[:, 0])
+
+
+def _paged_int8_args(b, h, kv, dh, page, n_pages, q_len, dtype, device,
+                     seed):
+    """q, int8 pools, tables, lengths and (P, KV) scales, plus the f32
+    pools they quantize; spare pages hold random int8 payloads and NaN /
+    inf scales, garbage the kernel must skip."""
+    rng = np.random.default_rng(seed)
+    n_pool = b * n_pages + 3
+    q = torch.from_numpy(rng.standard_normal((b, q_len, h, dh))).to(
+        device=device, dtype=dtype)
+    kp, vp = (torch.from_numpy(rng.standard_normal(
+        (n_pool, page, kv, dh))).to(device=device, dtype=torch.float32)
+        for _ in range(2))
+    lengths = rng.integers(q_len, n_pages * page + 1, b).astype(np.int32)
+    tables = np.full((b, n_pages), -1, np.int32)
+    perm, used = rng.permutation(n_pool), 0
+    for r in range(b):
+        need = -(-int(lengths[r]) // page)
+        tables[r, :need] = perm[used:used + need]
+        used += need
+    (kq, ks), (vq, vs) = (quantize_kv_page_batched(p) for p in (kp, vp))
+    spare = torch.from_numpy(np.setdiff1d(
+        np.arange(n_pool), tables[tables >= 0])).to(device)
+    for pool in (kq, vq):
+        pool[spare] = torch.from_numpy(rng.integers(
+            -127, 128, pool[spare].shape).astype(np.int8)).to(device)
+    ks[spare], vs[spare] = float("nan"), float("inf")
+    tab = torch.from_numpy(tables).to(device)
+    lens = torch.from_numpy(lengths).to(device)
+    return (q, kq, vq, tab, lens), dict(k_scale=ks, v_scale=vs), (kp, vp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q_len", [1, 5])
+@pytest.mark.parametrize("b,h,kv,dh,page,n_pages,window", PAGED_INT8)
+def test_paged_int8_kernel_matches_plain(cuda, b, h, kv, dh, page, n_pages,
+                                         window, q_len, dtype):
+    args, scales, (kp, vp) = _paged_int8_args(
+        b, h, kv, dh, page, n_pages, q_len, dtype, cuda,
+        seed=b * h + page + q_len)
+    before = (tpa.paged_attention.launches,
+              tpa.paged_attention.launches_int8)
+    got = tpa.paged_attention(*args, window=window, **scales)
+    want = tpa.paged_attention_plain(*args, window=window, **scales)
+    assert (tpa.paged_attention.launches,
+            tpa.paged_attention.launches_int8) == (before[0], before[1] + 1)
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    # within int8 rounding of the unquantized pools (tests/test_quant.py)
+    full = tpa.paged_attention_plain(args[0].float(), kp, vp, *args[3:],
+                                     window=window)
+    torch.testing.assert_close(got.float(), full, atol=0.05, rtol=0.05)
+
+
+@pytest.mark.cuda
+def test_paged_int8_dead_page_garbage_does_not_reach_the_output(cuda):
+    args, scales, _ = _paged_int8_args(3, 8, 2, 64, 16, 6, 1,
+                                       torch.float32, cuda, seed=4)
+    got = tpa.paged_attention(*args, window=20, **scales)
+    live = args[3][args[3] >= 0].long()
+    spare = torch.ones(args[1].shape[0], dtype=torch.bool, device=cuda)
+    spare[live] = False
+    clean = [t.clone() for t in (args[1], args[2])]
+    for t in clean:
+        t[spare] = 0
+    sc = {k: v.clone() for k, v in scales.items()}
+    for v in sc.values():
+        v[spare] = 1.0
+    again = tpa.paged_attention(args[0], *clean, *args[3:], window=20, **sc)
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_paged_int8_rejects_what_it_does_not_take(cuda):
+    args, scales, (kp, vp) = _paged_int8_args(2, 4, 2, 64, 16, 4, 1,
+                                              torch.float32, cuda, seed=1)
+    q, kq, vq, tab, lens = args
+    ks, vs = scales["k_scale"], scales["v_scale"]
+    with pytest.raises(ValueError):            # one scale plane only
+        tpa.paged_attention(*args, k_scale=ks)
+    with pytest.raises(TypeError):             # int8 pools without scales
+        tpa.paged_attention(*args)
+    with pytest.raises(TypeError):             # scales with float pools
+        tpa.paged_attention(q, kp, vp, tab, lens, k_scale=ks, v_scale=vs)
+    with pytest.raises(ValueError):            # (P, KV) shape
+        tpa.paged_attention(*args, k_scale=ks[:, :1].contiguous(),
+                            v_scale=vs)
+    with pytest.raises(ValueError):            # f32 scales
+        tpa.paged_attention(*args, k_scale=ks.double(), v_scale=vs)
+    with pytest.raises(ValueError):            # scales on the card
+        tpa.paged_attention(*args, k_scale=ks.cpu(), v_scale=vs)
+    with pytest.raises(TypeError):             # both pools int8
+        tpa.paged_attention(q, kq, vp, tab, lens, **scales)
 
 
 @pytest.mark.cuda
@@ -266,3 +371,55 @@ def test_mamba_scan_kernel_rejects_what_it_does_not_take(cuda):
                        B[..., :3].contiguous(), C[..., :3].contiguous(), D)
     with pytest.raises(ValueError):                     # CPU state
         tms.mamba_scan(*args, h0.cpu())
+
+
+def _to(tree, device):
+    if torch.is_tensor(tree):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_to(v, device) for v in tree)
+    return tree
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,kv,page", [("int8", "int8", 16),
+                                       ("fp8", "bf16", 0)])
+def test_quantized_engine_on_the_card_matches_the_cpu(cuda, w, kv, page):
+    """The qwen3 smoke spec in fp32 with quantized storage: the session
+    on the card (the int8 page walk, fp8 gathers and dequantization on
+    the card) against the same weights served on the CPU.  Tokens and
+    positions equal; hidden states within half an int8 step of their
+    largest magnitude, as in ``chip_smoke.py``'s quantized consistency
+    phase (a payload one step apart moves a later layer's input)."""
+    from repro_torch import configs
+    from repro_torch.serving.engine import build_serving
+    cfg = configs.get("qwen3-14b")
+    kw = dict(cache_len=32, global_batch=4, compute_dtype=torch.float32,
+              page_size=page, weight_dtype=w, kv_dtype=kv)
+    plan = cfg.SMOKE_PLAN.with_(tp=1, decode_microbatches=2)
+    card = build_serving(cfg.smoke_spec(), plan, device=cuda, **kw).start(3)
+    host = build_serving(cfg.smoke_spec(), plan, device="cpu", **kw
+                         ).reset_state()
+    host.set_params(_to(card.params, "cpu"))
+    prompts = np.random.default_rng(0).integers(1, 256, (2, 2, 12))
+    runs = []
+    for sess in (card, host):
+        nxt = sess.prefill({"tokens": prompts})
+        toks, hs = [nxt.cpu()], [sess.last_hidden.cpu()]
+        for _ in range(6):
+            nxt = sess.decode(nxt)
+            toks.append(nxt.cpu())
+            hs.append(sess.last_hidden.cpu())
+        runs.append((torch.stack(toks), hs))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert (card._pos == host._pos).all()
+    tol = max(h.abs().max().item() for h in runs[1][1]) / 254
+    for a, b in zip(runs[0][1], runs[1][1]):
+        torch.testing.assert_close(a, b, atol=tol, rtol=0)
+    if page:
+        assert card.pages["layer_0"][0].dtype == torch.int8
+    else:
+        assert card.cache["layer_0"]["kv"][0].dtype == torch.bfloat16
+        assert card.params["head"]["q"].dtype == torch.float8_e4m3fn

@@ -145,8 +145,15 @@ def test_attention_ref_matches_jax_ref(causal, window):
 
 def test_dispatch_goes_by_device_and_kernels_reject_cpu_tensors():
     args = _t(*_paged_case(2, 4, 2, 16, 16, 4, seed=1))
-    with pytest.raises(NotImplementedError):
-        tops.paged_attention(*args, k_scale=torch.ones(1))
+    # int8 pools with (P, KV) scales: CPU tensors go to the plain version
+    q8 = [torch.zeros(a.shape, dtype=torch.int8) for a in args[1:3]]
+    sc = dict(k_scale=torch.ones(args[1].shape[0], 2),
+              v_scale=torch.ones(args[1].shape[0], 2))
+    int8_args = (args[0], *q8, *args[3:])
+    assert torch.equal(tops.paged_attention(*int8_args, **sc),
+                       tpa.paged_attention_plain(*int8_args, **sc))
+    with pytest.raises(ValueError):
+        tpa.paged_attention(*int8_args, **sc)
     with pytest.raises(ValueError):
         tpa.paged_attention(*args)
     q = torch.zeros(1, 8, 2, 16)
