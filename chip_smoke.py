@@ -15,7 +15,8 @@ Phases (any failure raises and the script exits non-zero):
    d_ff 17408, vocab 151936), bf16, random seeded weights, ``serve_1f``
    with pp = 2 on the one card: R = 4 slots × 2 rows, prefill 512,
    cache_len 1024, page size 16, 16 decode steps through the paged
-   kernel; then ``full_transformer`` (the flash kernel) over the served
+   kernel, and a ``torch.profiler`` breakdown of one more decode step;
+   then ``full_transformer`` (the flash kernel) over the served
    sequence.  Launch counters are zeroed before and read after each;
 4. consistency — fp32 at full width and 2 layers: the paged engine's
    hidden states and pools against the dense-cache engine's, and
@@ -59,10 +60,12 @@ Phases (any failure raises and the script exits non-zero):
 
 Phase 2 also holds the int8-pool paged kernel against its plain version.
 Launch counters are zeroed before and read after each main path (phases
-3, 5, 6, 8, 9 and 11).  Prints a ``profile`` JSON line for rwkv6, jamba
-and quantized qwen3, one ``kernels`` JSON line (launches, errors, times,
-bounds), the card's name and power limit, and last ``{"ok": true,
-"device": ...}``.  Exits non-zero without a CUDA device.
+3, 5, 6, 8, 9 and 11).  Prints a ``profile`` JSON line for qwen3 bf16,
+rwkv6, jamba and quantized qwen3, one ``kernels`` JSON line (launches,
+errors, times, bounds; for the two attention kernels also their design
+and what ``ptxas -v`` reported), the card's name and power limit, and
+last ``{"ok": true, "device": ...}``.  Exits non-zero without a CUDA
+device.
 """
 from __future__ import annotations
 
@@ -117,6 +120,13 @@ SCALE_RTOL = 0.5 / 127
 # clock per SM (CUDA C++ Programming Guide, arithmetic instruction
 # throughput, compute capability 9.0) x 132 SMs x the 1.98 GHz boost clock
 SFU_EXP_PER_S = 16 * 132 * 1.98e9
+# the paged records' ms: a call's device work is a few tens of us, below
+# the host's pace of back-to-back wrapper calls, so events would time the
+# host; the profiler times the kernels (the wkv6 and mamba_scan decode
+# records do the same)
+PAGED_MS_BY = ("torch.profiler device time of the split walk and the "
+               "merge, a call; ms_events: CUDA events around back-to-back "
+               "calls (the host's pace)")
 
 
 def log(msg: str) -> None:
@@ -215,6 +225,38 @@ def phase_build():
         for line in (report.read_text().splitlines() if report.exists() else []):
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+
+
+def ptxas_report(source: str, kernel: str) -> dict:
+    """Registers, spill bytes and static shared memory that ``ptxas -v``
+    printed in the build of ``csrc/<source>.cu``, by instantiation of the
+    entry functions whose mangled name holds ``kernel``."""
+    import re
+    from repro_torch.kernels import _build
+    log_path = _build.BUILD_DIR / f"{source}.log"
+    out, cur = {}, None
+    for line in (log_path.read_text().splitlines() if log_path.exists()
+                 else []):
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            at = m.group(1).rfind(kernel)   # past the file-name prefix
+            cur = m.group(1)[at:at + 56] if at >= 0 else None
+            if cur:
+                out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[cur].update(spill_stores=int(m.group(1)),
+                            spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[cur].update(registers=int(m.group(1)),
+                            static_smem=int(sm.group(1)) if sm else 0)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -554,7 +596,17 @@ def phase_serve(device, spec, plan):
         f"{R_SLOTS * ROWS * 1e3 / ms:.1f} tokens/s; paged kernel launches "
         f"{launches} = {spec.n_layers} layers x R {session.n_slots} x "
         f"{N_DECODE} steps")
-    return session, prompts, toks, launches, {
+    prof = profile_decode_step(session, nxt, ms, kernels=("paged_attention",))
+    log(f"[profile] {spec.name} bf16 decode step: {prof['device_ms']:.2f} ms "
+        f"of device kernels in a {ms:.2f} ms step, idle share "
+        f"{prof['idle_share']:.3f}, {prof['kernel_launches']} launches; "
+        f"paged {prof['paged_attention_calls']} calls, "
+        f"{prof['paged_attention_ms']:.3f} ms in all, "
+        f"{1e3 * prof['paged_attention_ms_per_call']:.2f} us each (split walk "
+        f"+ merge); byte bound of the schedule as run "
+        f"{prof['bound_as_run_ms']:.3f} ms; top kernels (ms, calls): "
+        f"{[(k['name'][:60], round(k['ms'], 3), k['calls']) for k in prof['by_kernel']]}")
+    return session, prompts, toks, launches, prof, {
         "prefill_s": t_prefill, "decode_ms_per_step": ms,
         "decode_tokens_per_s": R_SLOTS * ROWS * 1e3 / ms,
         "weight_bytes": tensor_bytes(session.params),
@@ -729,11 +781,14 @@ def profile_decode_step(session, nxt, step_ms, kernels=("wkv6",)):
            "bound_weight_once_ms": 1e3 * (weights + rest) / HBM_BYTES_PER_S,
            "kernel_launches": sum(e.count for e in events)}
     for name in kernels:
-        ev = [e for e in events if f"{name}_kernel" in e.key]
-        calls = sum(e.count for e in ev)
+        # calls of the kernel proper; time of every kernel of the wrapper
+        # (the paged wrapper launches a split walk and a merge)
+        calls = sum(e.count for e in events if f"{name}_kernel" in e.key)
+        ms = sum(e.self_device_time_total for e in events
+                 if name in e.key) / 1e3
         out[f"{name}_calls"] = calls
-        out[f"{name}_ms_per_call"] = (sum(e.self_device_time_total
-                                          for e in ev) / 1e3 / max(1, calls))
+        out[f"{name}_ms"] = ms
+        out[f"{name}_ms_per_call"] = ms / max(1, calls)
     out["by_kernel"] = [{"name": e.key[:80],
                          "ms": e.self_device_time_total / 1e3,
                          "calls": e.count} for e in top]
@@ -1334,13 +1389,29 @@ def kernel_records(device, errs, launches):
             fn(q, kp, vp, tab, lens)
         return call
 
-    p_ms = time_ms(run(pa.paged_attention))
+    # device time of the split walk and the merge a call; CUDA events
+    # around back-to-back calls measure the host's launch pace here
+    p_ms = device_ms(run(pa.paged_attention), 2 * n_sets, "paged_attention")
+    p_events = time_ms(run(pa.paged_attention))
     p_plain = time_ms(run(pa.paged_attention_plain))
+    splits, per = pa.plan_splits(tab.shape[1], tab.shape[0], 8,
+                                 pa._sm_count(device.index or 0))
+    paged_design = {
+        "design": f"split-k n={splits} ({per} pages a split; {ROWS} rows x "
+                  f"8 KV heads x {splits} = {ROWS * 8 * splits} blocks), "
+                  f"4-page cp.async ring; scores: keys across 8 warps, 8 "
+                  f"query rows a K chunk; softmax and PV: a warp a query "
+                  f"row; merge kernel",
+        "ptxas": ptxas_report("paged_attention", "paged_attention"),
+        "smem_dynamic_bytes": pa._bind().paged_attention_smem_bytes(
+            1, 5, 128, PAGE, 2)}
     nbytes, flops = paged_bytes_flops(sets[0][0], sets[0][1], tab, lengths, -1)
     p_bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["bfloat16"])
     del sets
     p8 = paged_int8_record(device, errs["paged_attention_int8"],
                            launches["paged_attention_int8"], lengths)
+    p8.update(paged_design, smem_dynamic_bytes=pa._bind(
+        ).paged_attention_smem_bytes(1, 5, 128, PAGE, 1))
     # flash, the main path's full_transformer call
     g = torch.Generator(device=device).manual_seed(2)
     b, s = R_SLOTS * ROWS, PREFILL + N_DECODE
@@ -1365,10 +1436,11 @@ def kernel_records(device, errs, launches):
          "launches": sum(launches["paged_attention"].values()),
          "launches_by_path": launches["paged_attention"],
          "max_abs_err": errs["paged_attention"], "tolerance": TOL, "ms": p_ms,
+         "ms_events": p_events, "ms_by": PAGED_MS_BY,
          "plain_ms": p_plain, "bound_ms": p_bound,
          "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                       >= flops / PEAK_FLOPS["bfloat16"] else "operations"),
-         "library_ms": None},
+         "library_ms": None, **paged_design},
         p8,
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1379,7 +1451,13 @@ def kernel_records(device, errs, launches):
          "plain_ms": f_plain, "bound_ms": f_bound,
          "bound_by": ("operations" if f_flops / PEAK_FLOPS["bfloat16"]
                       >= f_bytes / HBM_BYTES_PER_S else "bytes"),
-         "library_ms": f_lib},
+         "library_ms": f_lib,
+         "design": "wgmma+cp.async ring: 128 query rows a CTA (two "
+                   "warpgroups, two CTAs an SM), 64-key K/V tiles in a "
+                   "2-stage ring, m64n64k16 QK^T and register-A "
+                   "m64n128k16 PV (bf16); f32 on CUDA cores",
+         "ptxas": ptxas_report("flash_attention", "flash_attention"),
+         "smem_dynamic_bytes": fa._bind().flash_attention_smem_bytes(1, 128)},
         w,
         mb,
     ]
@@ -1405,7 +1483,8 @@ def paged_int8_record(device, err, launches, lengths):
             fn(q, kq, vq, tab, lens, k_scale=ks, v_scale=vs)
         return call
 
-    ms = time_ms(run(pa.paged_attention))
+    ms = device_ms(run(pa.paged_attention), 2 * n_sets, "paged_attention")
+    ms_events = time_ms(run(pa.paged_attention))
     plain = time_ms(run(pa.paged_attention_plain))
     nbytes, flops = paged_bytes_flops(sets[0][0], sets[0][1], tab, lengths,
                                       -1, scales=True)
@@ -1417,8 +1496,8 @@ def paged_int8_record(device, err, launches, lengths):
             "launches": sum(launches.values()),
             "launches_by_path": launches, "max_abs_err": err[0],
             "max_abs_err_vs_unquantized": err[1], "tolerance": TOL,
-            "ms": ms, "plain_ms": plain,
-            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "ms": ms, "ms_events": ms_events, "ms_by": PAGED_MS_BY,
+            "plain_ms": plain, "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "bytes": nbytes, "flops": flops,
             "shape": {"q": list(sets[0][0].shape),
@@ -1582,7 +1661,7 @@ def main() -> int:
     cfg = configs.get("qwen3-14b")
     full = cfg.full_spec()
     plan = cfg.PLAN.with_(tp=1, decode_microbatches=R_SLOTS)
-    session, prompts, toks, paged_launches, serve = phase_serve(
+    session, prompts, toks, paged_launches, prof_qwen, serve = phase_serve(
         device, full, plan)
     flash_launches = phase_reference(session, prompts, toks)
     qwen_toks = toks
@@ -1649,6 +1728,7 @@ def main() -> int:
         f"serve rwkv6 {serve_rwkv}; serve jamba {serve_jamba}; serve qwen3 "
         f"int8/int8 {serve_quant}; consistency int8/int8 "
         f"{consistency_quant}")
+    print(json.dumps({"profile": prof_qwen}))
     print(json.dumps({"profile": prof}))
     print(json.dumps({"profile": prof_jamba}))
     print(json.dumps({"profile": prof_quant}))

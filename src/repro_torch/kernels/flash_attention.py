@@ -58,7 +58,7 @@ def _bind():
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
                        + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int]
+        lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int] * 2
         lib.flash_attention_smem_bytes.restype = ctypes.c_size_t
     return lib
 
@@ -67,8 +67,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = -1):
     """Launch the CUDA kernel on PyTorch's current stream.
 
     q: (B, Sq, H, Dh); k, v: (B, Sk, KV, Dh); float32 or bfloat16, one
-    dtype, contiguous, on one CUDA device (anything else raises); H % KV
-    == 0.  window: Python int.  Returns (B, Sq, H, Dh) in q's dtype.
+    dtype, contiguous, 16-byte aligned, on one CUDA device (anything
+    else raises); H % KV == 0.  bfloat16 runs on the tensor cores and
+    takes Dh a multiple of 8 up to 128 (zero-padded inside the kernel);
+    float32 runs on CUDA cores and takes any Dh whose tiles fit in
+    shared memory.  window: Python int.  Returns (B, Sq, H, Dh) in q's
+    dtype.
     """
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
@@ -84,10 +88,15 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = -1):
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share float32 or bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention's kernel takes contiguous tensors")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in (q, k, v)):
+        raise ValueError("flash_attention's kernel takes contiguous, "
+                         "16-byte aligned tensors")
+    if q.dtype == torch.bfloat16 and (dh % 8 or dh > 128):
+        raise ValueError(f"the bf16 kernel takes Dh a multiple of 8 up to "
+                         f"128, got {dh}")
     lib = _bind()
-    smem = lib.flash_attention_smem_bytes(dh)
+    smem = lib.flash_attention_smem_bytes(_DTYPES[q.dtype], dh)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"Dh={dh} needs {smem} bytes of shared memory "
                          f"(limit {_SMEM_LIMIT})")

@@ -11,10 +11,17 @@ among themselves).  int8 pools carry (P, KV) f32 scale planes
 (``k_scale`` / ``v_scale``), one per page and KV head, as the TPU
 kernel's quantized branch does; launches of that variant are counted
 apart, in ``paged_attention.launches_int8``.
+
+The kernel splits each row's pages across the SMs (flash-decoding):
+:func:`plan_splits` picks the split count from static shapes, each
+split writes an f32 partial ``(m, l, acc)`` (:func:`paged_partial_plain`
+is its plain version) and a second kernel merges them
+(:func:`combine_splits_plain`).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -37,13 +44,51 @@ def paged_attention_plain(q, k_pages, v_pages, block_tables, lengths, *,
     scales as they are gathered, so the value dtype, and p, is f32.
     Same arguments and result as :func:`paged_attention`.
     """
+    squeeze, q, k, v, mask, _ = _row_view(q, k_pages, v_pages,
+                                          block_tables, lengths, window,
+                                          k_scale, v_scale)
+    b, ql, h, dh = q.shape
+    kv = k_pages.shape[2]
+    group = h // kv
+    qg = q.reshape(b, ql, kv, group, dh).float()
+    s = torch.einsum("bqkgd,btkd->bkgqt", qg, k.float()) / math.sqrt(dh)
+    m5 = mask[:, None, None]                                   # (B,1,1,Q,K)
+    s = torch.where(m5, s, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = torch.where(m5, p, 0.0)
+    l = p.sum(dim=-1)
+    v = v.masked_fill(~mask.any(dim=1)[:, :, None, None], 0)
+    acc = torch.einsum("bkgqt,btkd->bkgqd", p.to(v.dtype).float(), v.float())
+    out = acc / l.clamp_min(1e-30)[..., None]
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, ql, h, dh).to(q.dtype)
+    return out[:, 0] if squeeze else out
+
+
+def plan_splits(n_pages: int, batch: int, n_kv: int, n_sm: int):
+    """(splits, pages_per_split) for a call over tables ``n_pages`` wide.
+
+    Static quantities only (never ``lengths``, which would cost a host
+    sync a call): about two blocks per SM over batch × KV heads × splits,
+    at least one page a split; split j walks pages
+    ``[j · pages_per_split, min((j + 1) · pages_per_split, n_pages))``.
+    """
+    n_pages = max(1, n_pages)
+    want = max(1, -(-2 * n_sm // max(1, batch * n_kv)))
+    per = -(-n_pages // min(n_pages, want))
+    return -(-n_pages // per), per
+
+
+def _row_view(q, k_pages, v_pages, block_tables, lengths, window, k_scale,
+              v_scale):
+    """Shared set-up of the plain versions: q with its Q axis, each
+    row's gathered keys and values (f32 for int8 pools), the visibility
+    mask (B, Q, K) and the page liveness (B, n_pages)."""
     squeeze = q.dim() == 3
     if squeeze:
         q = q[:, None]
     b, ql, h, dh = q.shape
     n_pool, page, kv, _ = k_pages.shape
     n_pages = block_tables.shape[1]
-    group = h // kv
     tab = block_tables.long()
     safe = tab.clamp(0, n_pool - 1)
     k = k_pages[safe]                                # (B, n, page, KV, Dh)
@@ -60,33 +105,101 @@ def paged_attention_plain(q, k_pages, v_pages, block_tables, lengths, *,
     mask &= (tab >= 0).repeat_interleave(page, dim=1)[:, None, :]
     if window > 0:
         mask &= (qpos[:, :, None] - kpos[None, None, :]) < window
+    # the kernels' page-level test: allocated, not past the length, not
+    # wholly outside the oldest query's window
+    first = torch.arange(n_pages, device=q.device) * page
+    live = (tab >= 0) & (first[None, :] < lengths.long()[:, None])
+    if window > 0:
+        live &= (qpos[:, :1] - (first[None, :] + page - 1)) < window
+    return squeeze, q, k, v, mask, live
+
+
+def paged_partial_plain(q, k_pages, v_pages, block_tables, lengths, lo, hi,
+                        *, window: int = -1, k_scale=None, v_scale=None):
+    """One split's partial over pages ``[lo, hi)`` of every row, in f32:
+    ``(m, l, acc)`` of shapes (B, KV, Q·G), (B, KV, Q·G), (B, KV, Q·G, Dh)
+    with row r = query r // G of head kvh · G + r % G, as the kernel's
+    split writes them.  m is the max of the scores (masked -1e30) over
+    the split's live pages, -inf with none; p = exp(s - m) is 0 where
+    masked and rounded to the value dtype (float pools); l = Σ p and
+    acc = p · v, unnormalized."""
+    _, q, k, v, mask, live = _row_view(q, k_pages, v_pages, block_tables,
+                                       lengths, window, k_scale, v_scale)
+    b, ql, h, dh = q.shape
+    page, kv = k_pages.shape[1], k_pages.shape[2]
+    group = h // kv
+    in_split = torch.zeros_like(live)
+    in_split[:, lo:hi] = True
+    keys = (live & in_split).repeat_interleave(page, dim=1)    # (B, K)
+    mask = mask & keys[:, None, :]
     qg = q.reshape(b, ql, kv, group, dh).float()
-    s = torch.einsum("bqkgd,btkd->bkgqt", qg, k.float()) / math.sqrt(dh)
-    m5 = mask[:, None, None]                                   # (B,1,1,Q,K)
+    s = torch.einsum("bqkgd,btkd->bkqgt", qg, k.float()) / math.sqrt(dh)
+    m5 = mask[:, None, :, None, :]                             # (B,1,Q,1,K)
     s = torch.where(m5, s, NEG_INF)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    p = torch.where(m5, p, 0.0)
+    s = torch.where(keys[:, None, None, None, :], s, -math.inf)
+    m = s.amax(dim=-1)                                         # (B,KV,Q,G)
+    p = torch.where(m5, torch.exp(s - m[..., None]), 0.0)
     l = p.sum(dim=-1)
     v = v.masked_fill(~mask.any(dim=1)[:, :, None, None], 0)
-    acc = torch.einsum("bkgqt,btkd->bkgqd", p.to(v.dtype).float(), v.float())
-    out = acc / l.clamp_min(1e-30)[..., None]
-    out = out.permute(0, 3, 1, 2, 4).reshape(b, ql, h, dh).to(q.dtype)
-    return out[:, 0] if squeeze else out
+    acc = torch.einsum("bkqgt,btkd->bkqgd", p.to(v.dtype).float(), v.float())
+    rows = ql * group
+    return (m.reshape(b, kv, rows), l.reshape(b, kv, rows),
+            acc.reshape(b, kv, rows, dh))
+
+
+def combine_splits_plain(m, l, acc, q_len: int, dtype):
+    """The merge kernel's arithmetic: splits stacked on dim 2 of ``m``,
+    ``l`` (B, KV, S, Q·G) and ``acc`` (B, KV, S, Q·G, Dh) -> (B, Q, H,
+    Dh) in ``dtype``.  Weights exp(m_j - M) with M the max over splits;
+    a split with m_j = -inf weighs 0, a row with no live key gives 0."""
+    b, kv, _, rows = m.shape
+    dh = acc.shape[-1]
+    m_max = m.amax(dim=2, keepdim=True)
+    w = torch.where(m == -math.inf, 0.0,
+                    torch.exp(m - torch.where(m_max == -math.inf, 0.0,
+                                              m_max)))
+    num = (acc * w[..., None]).sum(dim=2)
+    den = (l * w).sum(dim=2)
+    out = num / den.clamp_min(1e-30)[..., None]                # (B,KV,R,Dh)
+    group = rows // q_len
+    out = out.reshape(b, kv, q_len, group, dh).permute(0, 2, 1, 3, 4)
+    return out.reshape(b, q_len, kv * group, dh).to(dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_plan(q_len, group, dh, page, pool_bytes, n_pages, batch, n_kv,
+                 index):
+    """(splits, pages_per_split) of a call shape, after checking its
+    shared memory against the card's limit (cached: one host lookup a
+    call)."""
+    smem = _bind().paged_attention_smem_bytes(q_len, group, dh, page,
+                                              pool_bytes)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"Q·G={q_len * group} rows × Dh={dh}, page {page} "
+                         f"need {smem} bytes of shared memory (limit "
+                         f"{_SMEM_LIMIT})")
+    return plan_splits(n_pages, batch, n_kv, _sm_count(index))
 
 
 def _bind():
     lib = _build.library("paged_attention")
     fn = lib.paged_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
-                       + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+                       + [ctypes.c_int] * 10
+                       + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fn8 = lib.paged_attention_int8_launch
-        fn8.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
-                        + [ctypes.c_int] * 8
+        fn8.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
+                        + [ctypes.c_int] * 10
                         + [ctypes.c_float, ctypes.c_void_p])
         fn8.restype = ctypes.c_int
-        lib.paged_attention_smem_bytes.argtypes = [ctypes.c_int] * 4
+        lib.paged_attention_smem_bytes.argtypes = [ctypes.c_int] * 5
         lib.paged_attention_smem_bytes.restype = ctypes.c_size_t
     return lib
 
@@ -153,25 +266,36 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
         raise TypeError("block_tables and lengths must be int32")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_attention's kernel takes contiguous tensors")
+    row_bytes = dh * k_pages.element_size()
+    if row_bytes % 16 or k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError(f"the kernel copies 16-byte chunks: Dh={dh} × "
+                         f"{k_pages.element_size()} bytes must be a multiple "
+                         f"of 16 and the pools 16-byte aligned")
     lib = _bind()
-    smem = lib.paged_attention_smem_bytes(ql, h // kv, dh, page)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"Q·G={ql * h // kv} rows × Dh={dh} need {smem} "
-                         f"bytes of shared memory (limit {_SMEM_LIMIT})")
+    index = (q.device.index if q.device.index is not None
+             else torch.cuda.current_device())
+    n_pages, rows = block_tables.shape[1], ql * (h // kv)
+    splits, per = _launch_plan(ql, h // kv, dh, page, k_pages.element_size(),
+                               n_pages, b, kv, index)
+    # f32 scratch: (B, KV, splits, Q·G, 2) of (m, l), then
+    # (B, KV, splits, Q·G, Dh) of acc
+    n_ml = b * kv * splits * rows * 2
+    part = torch.empty(n_ml + n_ml // 2 * dh, dtype=torch.float32,
+                       device=q.device)
     out = torch.empty_like(q4)
-    shape = (b, ql, h, kv, dh, page, block_tables.shape[1], int(window),
-             1.0 / math.sqrt(dh), _build.stream_handle(q.device))
+    tail = (part.data_ptr(), part.data_ptr() + 4 * n_ml, out.data_ptr(), b,
+            ql, h, kv, dh, page, n_pages, splits, per, int(window),
+            1.0 / math.sqrt(dh), _build.stream_handle(q.device))
     if scales:
         err = lib.paged_attention_int8_launch(
             _DTYPES[q.dtype], q4.data_ptr(), k_pages.data_ptr(),
             v_pages.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
-            block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            *shape)
+            block_tables.data_ptr(), lengths.data_ptr(), *tail)
     else:
         err = lib.paged_attention_launch(
             _DTYPES[q.dtype], q4.data_ptr(), k_pages.data_ptr(),
             v_pages.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), *shape)
+            *tail)
     if err:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err}")

@@ -26,12 +26,19 @@ PAGED = [  # b, h, kv, dh, page, n_pages, window
     (2, 4, 2, 64, 16, 8, -1), (3, 4, 4, 32, 16, 4, -1),
     (2, 8, 2, 64, 64, 4, -1), (2, 4, 1, 32, 16, 8, -1),
     (2, 4, 2, 64, 16, 8, 20), (1, 2, 2, 16, 64, 2, 48),
-    (2, 40, 8, 128, 16, 64, -1)]                       # qwen3-14b decode
+    (2, 40, 8, 128, 16, 64, -1),                       # qwen3-14b decode
+    (2, 40, 8, 128, 16, 256, -1)]       # 2 x 4096 keys: many pages a split
 FLASH = [  # b, sq, sk, h, kv, dh, causal, window
     (2, 256, 256, 4, 2, 64, True, -1), (1, 128, 128, 4, 4, 64, True, 32),
     (2, 100, 100, 2, 1, 32, True, -1), (1, 256, 256, 8, 2, 128, False, -1),
     (1, 64, 192, 2, 2, 16, True, 48), (1, 192, 192, 2, 2, 64, True, 200),
-    (2, 64, 64, 4, 1, 8, True, 1), (2, 528, 528, 40, 8, 128, True, -1)]
+    (2, 64, 64, 4, 1, 8, True, 1), (2, 528, 528, 40, 8, 128, True, -1),
+    # Sq off the 64- and 128-row tiles; Dh 8 and 16 zero-padded in the
+    # bf16 kernel; windows that cross key-tile edges; the main shape
+    (1, 77, 77, 4, 2, 64, True, -1), (2, 200, 200, 4, 1, 128, True, -1),
+    (1, 529, 529, 8, 2, 128, True, -1), (1, 77, 130, 2, 2, 16, False, -1),
+    (2, 200, 200, 2, 1, 8, True, 70), (1, 300, 300, 4, 2, 64, True, 100),
+    (1, 529, 529, 4, 1, 128, True, 129), (8, 528, 528, 40, 8, 128, True, -1)]
 PAGED_INT8 = [  # b, h, kv, dh, page, n_pages, window: tests/test_quant.py's
                # int8 matrix, then qwen3-14b decode, global and windowed
     (2, 4, 2, 64, 16, 8, -1), (2, 8, 2, 64, 64, 4, -1),
@@ -56,13 +63,16 @@ def cuda():
     return torch.device("cuda")
 
 
-def _paged_args(b, h, kv, dh, page, n_pages, q_len, dtype, device, seed):
+def _paged_args(b, h, kv, dh, page, n_pages, q_len, dtype, device, seed,
+                lengths=None):
     rng = np.random.default_rng(seed)
     n_pool = b * n_pages + 3
     q = rng.standard_normal((b, q_len, h, dh))
     kp = rng.standard_normal((n_pool, page, kv, dh))
     vp = rng.standard_normal((n_pool, page, kv, dh))
-    lengths = rng.integers(q_len, n_pages * page + 1, b).astype(np.int32)
+    if lengths is None:
+        lengths = rng.integers(q_len, n_pages * page + 1, b)
+    lengths = np.asarray(lengths, np.int32)
     tables = np.full((b, n_pages), -1, np.int32)
     perm, used = rng.permutation(n_pool), 0
     for r in range(b):
@@ -80,7 +90,7 @@ def _paged_args(b, h, kv, dh, page, n_pages, q_len, dtype, device, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("q_len", [1, 3])
+@pytest.mark.parametrize("q_len", [1, 3, 5])
 @pytest.mark.parametrize("b,h,kv,dh,page,n_pages,window", PAGED)
 def test_paged_kernel_matches_plain(cuda, b, h, kv, dh, page, n_pages,
                                     window, q_len, dtype):
@@ -98,6 +108,42 @@ def test_paged_kernel_matches_plain(cuda, b, h, kv, dh, page, n_pages,
     if q_len == 1:
         got3 = tpa.paged_attention(args[0][:, 0], *args[1:], window=window)
         assert torch.equal(got3, got[:, 0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q_len", [1, 5])
+def test_paged_kernel_jamba_decode(cuda, q_len, dtype):
+    """jamba-v0.1-52b's decode call: 32 / 8 heads, 1040 keys a row in a
+    2048-key table (65 of 128 pages live)."""
+    args = _paged_args(2, 32, 8, 128, 16, 128, q_len, dtype, cuda, seed=7,
+                       lengths=[1040, 1040])
+    got = tpa.paged_attention(*args)
+    want = tpa.paged_attention_plain(*args)
+    atol, rtol = TOL[dtype]
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [-1, 40])
+def test_paged_kernel_dead_first_half(cuda, window, dtype):
+    """Tables whose first half is -1, NaN in the pages those entries
+    dropped: the leading splits walk nothing and weigh 0 in the merge."""
+    q, kp, vp, tab, lens = _paged_args(2, 8, 2, 64, 16, 16, 1, dtype, cuda,
+                                       seed=3, lengths=[256, 200])
+    dropped = tab[:, :8][tab[:, :8] >= 0].long()
+    kp[dropped] = float("nan")
+    vp[dropped] = float("nan")
+    tab[:, :8] = -1
+    got = tpa.paged_attention(q, kp, vp, tab, lens, window=window)
+    want = tpa.paged_attention_plain(q, kp, vp, tab, lens, window=window)
+    atol, rtol = TOL[dtype]
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
 
 
 def _paged_int8_args(b, h, kv, dh, page, n_pages, q_len, dtype, device,
@@ -225,6 +271,10 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         tfa.flash_attention(q, q[:, :, :3].contiguous(),
                             q[:, :, :3].contiguous())
+    for dh in (12, 136):   # the bf16 kernel: Dh a multiple of 8 up to 128
+        q = torch.zeros(1, 8, 2, dh, device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(ValueError):
+            tfa.flash_attention(q, q, q)
 
 
 def _wkv_args(b, s, h, dh, dtype, device, seed, decay=None):
