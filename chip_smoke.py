@@ -9,8 +9,8 @@ Phases (any failure raises and the script exits non-zero):
    from the checkout's sources (one nvcc per source, in parallel);
 2. kernels — each kernel against its plain PyTorch version on the card,
    at the main paths' shapes, in bf16 and f32, with stated tolerances
-   (wkv6 and mamba_scan with and without a start state, plus a
-   strong-decay case for wkv6);
+   (wkv6 and mamba_scan with and without a start state, plus
+   strong-decay cases for wkv6, bf16 on its chunked design);
 3. serve — qwen3-14b at full width (d 5120, 40 heads, 8 KV heads, Dh 128,
    d_ff 17408, vocab 151936), bf16, random seeded weights, ``serve_1f``
    with pp = 2 on the one card: R = 4 slots × 2 rows, prefill 512,
@@ -25,8 +25,10 @@ Phases (any failure raises and the script exits non-zero):
    of 64, d_ff 7168, vocab 65536), bf16, random seeded weights,
    ``serve_1f`` with pp = 8 on the one card: R = 4 slots × 8 rows,
    prefill 1024, 32 decode steps, every layer's WKV through the wkv6
-   kernel from the slot's recurrent state; then a ``torch.profiler``
-   breakdown of one more decode step by kernel;
+   kernel from the slot's recurrent state (the prefill on its chunked
+   design, each decode step on its stepwise design); then
+   ``torch.profiler`` breakdowns of one more decode step and of one more
+   prefill, by kernel;
 6. reference rwkv6 — ``full_transformer`` (wkv6 from a zero state) over
    the served sequence: the served tokens must be its greedy tokens at
    every generated position of every row;
@@ -39,8 +41,9 @@ Phases (any failure raises and the script exits non-zero):
    FFNs), bf16, ``serve_1f`` with pp = 2: R = 4 slots × 2 rows, prefill
    1024 (MoE capacity 320), cache_len 2048, page 16, 16 decode steps;
    every Mamba layer call through the mamba_scan kernel from the slot's
-   state, the attention layers' decode through the paged kernel; then a
-   ``torch.profiler`` breakdown of one more decode step;
+   state, the attention layers' decode through the paged kernel; then
+   ``torch.profiler`` breakdowns of one more decode step and of one more
+   prefill;
 9. reference jamba — per slot, ``full_transformer`` (flash + mamba_scan
    from zero) over that slot's prompts with the engine's statics: its
    greedy token at the last prompt position must be the served first
@@ -61,11 +64,11 @@ Phases (any failure raises and the script exits non-zero):
 Phase 2 also holds the int8-pool paged kernel against its plain version.
 Launch counters are zeroed before and read after each main path (phases
 3, 5, 6, 8, 9 and 11).  Prints a ``profile`` JSON line for qwen3 bf16,
-rwkv6, jamba and quantized qwen3, one ``kernels`` JSON line (launches,
-errors, times, bounds; for the two attention kernels also their design
-and what ``ptxas -v`` reported), the card's name and power limit, and
-last ``{"ok": true, "device": ...}``.  Exits non-zero without a CUDA
-device.
+rwkv6 (decode, then prefill), jamba (decode, then prefill) and quantized
+qwen3, one ``kernels`` JSON line (launches, by path and for wkv6 by
+design, errors, times, bounds, each kernel's design and what ``ptxas
+-v`` reported), the card's name and power limit, and last ``{"ok":
+true, "device": ...}``.  Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
 
@@ -116,8 +119,8 @@ MAMBA_CI, MAMBA_N = 8192, 16
 # an int8 step of their page's absmax
 QUANT_SLOTS, QUANT_PREFILL, QUANT_CACHE = 1, 40, 128
 SCALE_RTOL = 0.5 / 127
-# H100 SXM exp rate, informational beside the bound: 16 ex2 results per
-# clock per SM (CUDA C++ Programming Guide, arithmetic instruction
+# H100 SXM exp rate, the SFU floor in mamba_scan's bound: 16 ex2 results
+# per clock per SM (CUDA C++ Programming Guide, arithmetic instruction
 # throughput, compute capability 9.0) x 132 SMs x the 1.98 GHz boost clock
 SFU_EXP_PER_S = 16 * 132 * 1.98e9
 # the paged records' ms: a call's device work is a few tens of us, below
@@ -162,8 +165,18 @@ def counters():
 
 
 def reset_counts() -> None:
+    from repro_torch.kernels import wkv6 as wk
     for fn, attr in counters().values():
         setattr(fn, attr, 0)
+    wk.wkv6.launches_chunked = wk.wkv6.launches_stepwise = 0
+
+
+def wkv6_designs() -> dict:
+    """Launches of each wkv6 design since the last reset (their sum is the
+    ``wkv6`` counter)."""
+    from repro_torch.kernels import wkv6 as wk
+    return {"chunked": wk.wkv6.launches_chunked,
+            "stepwise": wk.wkv6.launches_stepwise}
 
 
 def read_counts() -> dict:
@@ -457,10 +470,12 @@ def wkv6_check(name, args, s0, atol, rtol):
 
 def phase_wkv6_kernel(device):
     """wkv6 against its plain version at the rwkv6 serve path's shapes:
-    prefill (8, 1024, 32, 64) and decode (8, 1, 32, 64), with and without
-    a start state, bf16 and f32; then constant decay 0.5 over 256 steps
-    from a state, where the TPU kernel's chunked form sits at the edge of
-    f32 overflow."""
+    prefill (8, 1024, 32, 64) (bf16: the chunked design) and decode
+    (8, 1, 32, 64) (the stepwise design), with and without a start state,
+    bf16 and f32; then constant decay 0.5 over 256 steps from a state,
+    where the TPU kernel's chunked form sits at the edge of f32 overflow,
+    and in bf16 at the prefill shape constant decays 0.5 and 1e-8 (where
+    that form overflows)."""
     import torch
     err = 0.0
     for dtype in (torch.bfloat16, torch.float32):
@@ -482,6 +497,16 @@ def phase_wkv6_kernel(device):
         err = max(err, e)
         log(f"[kernels] wkv6 {str(dtype)[6:]} strong decay w=0.5 S=256 "
             f"s0=True: finite, max|err| {e:.3e} (atol {atol}, rtol {rtol})")
+    atol, rtol = TOL["bfloat16"]
+    for decay in (0.5, 1e-8):
+        args, s0 = wkv6_inputs(torch.bfloat16, device, RWKV_ROWS,
+                               RWKV_PREFILL, seed=8, decay=decay)
+        e = wkv6_check(f"wkv6 bf16 chunked decay {decay}", args, s0, atol,
+                       rtol)
+        err = max(err, e)
+        log(f"[kernels] wkv6 bfloat16 chunked strong decay w={decay} "
+            f"S={RWKV_PREFILL} s0=True: finite, max|err| {e:.3e} (atol "
+            f"{atol}, rtol {rtol})")
     return err
 
 
@@ -795,6 +820,46 @@ def profile_decode_step(session, nxt, step_ms, kernels=("wkv6",)):
     return out
 
 
+def profile_prefill(session, prompts, kernel):
+    """The prefill's breakdown: one more prefill of the same prompts timed
+    unprofiled (warm: the first prefill also loads every kernel), then one
+    under torch.profiler: device time by kernel, the idle share against
+    the warm wall time, ``kernel``'s calls, time, share and time per call,
+    and the top kernels.  A prefill continues each slot's recurrent state
+    and re-allocates its pages, so nothing after depends on these two."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    session.prefill({"tokens": prompts})
+    torch.cuda.synchronize()
+    warm_ms = 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        session.prefill({"tokens": prompts})
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if str(getattr(e, "device_type", "")).endswith("CUDA")
+              and e.self_device_time_total > 0]
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+    if dev_ms <= 0:
+        raise AssertionError("the profiler saw no device time")
+    mine = [e for e in events if kernel in e.key]
+    k_ms = sum(e.self_device_time_total for e in mine) / 1e3
+    calls = sum(e.count for e in mine)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
+    return {"model": session.spec.name, "phase": "prefill",
+            "prefill_ms_warm_unprofiled": warm_ms, "device_ms": dev_ms,
+            "idle_share": 1 - dev_ms / warm_ms,
+            "kernel_launches": sum(e.count for e in events),
+            f"{kernel}_calls": calls, f"{kernel}_ms": k_ms,
+            f"{kernel}_share": k_ms / dev_ms,
+            f"{kernel}_us_per_call": 1e3 * k_ms / max(1, calls),
+            "by_kernel": [{"name": e.key[:80],
+                           "ms": e.self_device_time_total / 1e3,
+                           "calls": e.count} for e in top]}
+
+
 def phase_serve_rwkv(device, spec, plan):
     """Serve rwkv6 in bf16 at full width: prefill then RWKV_DECODE steps,
     every layer's WKV through the kernel from the slot's state."""
@@ -842,10 +907,14 @@ def phase_serve_rwkv(device, spec, plan):
                                  f"expected {per_pass}")
         toks.append(nxt)
     counts = read_counts()
+    designs = wkv6_designs()
     if counts != {"paged_attention": 0, "paged_attention_int8": 0,
                   "flash_attention": 0,
                   "wkv6": per_pass * (1 + RWKV_DECODE), "mamba_scan": 0}:
         raise AssertionError(f"launches on the rwkv6 serve path: {counts}")
+    if designs != {"chunked": per_pass, "stepwise": per_pass * RWKV_DECODE}:
+        raise AssertionError(f"wkv6 designs on the serve path: {designs} "
+                             f"(the prefill chunked, each decode stepwise)")
     toks = torch.stack(toks).cpu().numpy()
     if not ((toks >= 0) & (toks < spec.vocab)).all():
         raise AssertionError("served token ids outside the vocabulary")
@@ -865,7 +934,16 @@ def phase_serve_rwkv(device, spec, plan):
         f"{1e3 * prof['wkv6_ms_per_call']:.2f} us each; byte bound of the "
         f"schedule as run {prof['bound_as_run_ms']:.3f} ms, weight-once "
         f"floor {prof['bound_weight_once_ms']:.3f} ms")
-    return session, prompts, toks, counts["wkv6"], prof, {
+    pre = profile_prefill(session, prompts, "wkv6")
+    pre["prefill_s_first"] = t_prefill
+    log(f"[profile] {spec.name} prefill {RWKV_PREFILL} x {n_rows}: first "
+        f"{t_prefill:.3f}s, warm {pre['prefill_ms_warm_unprofiled']:.2f} "
+        f"ms, {pre['device_ms']:.2f} ms of device kernels, idle share "
+        f"{pre['idle_share']:.3f}, {pre['kernel_launches']} launches; wkv6 "
+        f"{pre['wkv6_calls']} calls, {pre['wkv6_us_per_call']:.2f} us each, "
+        f"{pre['wkv6_ms']:.3f} ms ({100 * pre['wkv6_share']:.1f}% of device "
+        f"time)")
+    return session, prompts, toks, counts["wkv6"], designs, prof, pre, {
         "prefill_s": t_prefill, "decode_ms_per_step": ms,
         "decode_tokens_per_s": n_rows * 1e3 / ms}
 
@@ -881,10 +959,13 @@ def phase_reference_rwkv(session, prompts, toks):
     logits = reference_logits(session, prompts, toks, n_last=toks.shape[0])
     torch.cuda.synchronize()
     counts = read_counts()
+    designs = wkv6_designs()
     if counts != {"paged_attention": 0, "paged_attention_int8": 0,
                   "flash_attention": 0, "wkv6": session.spec.n_layers,
                   "mamba_scan": 0}:
         raise AssertionError(f"launches in rwkv6 full_transformer: {counts}")
+    if designs != {"chunked": session.spec.n_layers, "stepwise": 0}:
+        raise AssertionError(f"wkv6 designs in full_transformer: {designs}")
     if not torch.isfinite(logits).all():
         raise AssertionError("non-finite rwkv6 reference logits")
     served = torch.from_numpy(toks.T.astype(np.int64)).to(logits.device)
@@ -908,7 +989,7 @@ def phase_reference_rwkv(session, prompts, toks):
             f"served tokens are not full_transformer's greedy tokens at "
             f"{int((gap > RWKV_TIE).sum())} of {agree.numel()} positions "
             f"(logit gap up to {gap.max().item():.4f} > {RWKV_TIE})")
-    return counts["wkv6"]
+    return counts["wkv6"], designs
 
 
 def phase_consistency_rwkv(device, spec, plan, n_decode=6):
@@ -1042,7 +1123,17 @@ def phase_serve_jamba(device, spec, plan):
         f"{1e3 * prof['paged_attention_ms_per_call']:.2f} us each; byte "
         f"bound of the schedule as run {prof['bound_as_run_ms']:.3f} ms, "
         f"weight-once floor {prof['bound_weight_once_ms']:.3f} ms")
-    return session, prompts, toks, counts, prof, {
+    pre = profile_prefill(session, prompts, "mamba_scan")
+    pre["prefill_s_first"] = t_prefill
+    log(f"[profile] {spec.name} prefill {JAMBA_PREFILL} x {n_rows}: first "
+        f"{t_prefill:.3f}s, warm {pre['prefill_ms_warm_unprofiled']:.2f} "
+        f"ms, {pre['device_ms']:.2f} ms of device kernels, idle share "
+        f"{pre['idle_share']:.3f}, {pre['kernel_launches']} launches; "
+        f"mamba_scan {pre['mamba_scan_calls']} calls, "
+        f"{pre['mamba_scan_us_per_call']:.2f} us each, "
+        f"{pre['mamba_scan_ms']:.3f} ms ({100 * pre['mamba_scan_share']:.1f}% "
+        f"of device time)")
+    return session, prompts, toks, counts, prof, pre, {
         "prefill_s": t_prefill, "decode_ms_per_step": ms,
         "decode_tokens_per_s": n_rows * 1e3 / ms,
         "params_b": n_params / 1e9}
@@ -1427,7 +1518,8 @@ def kernel_records(device, errs, launches):
     f_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     f_bound = 1e3 * max(f_flops / PEAK_FLOPS["bfloat16"],
                         f_bytes / HBM_BYTES_PER_S)
-    w = wkv6_record(device, errs["wkv6"], launches["wkv6"])
+    w = wkv6_record(device, errs["wkv6"], launches["wkv6"],
+                    launches["wkv6_by_design"])
     mb = mamba_record(device, errs["mamba_scan"], launches["mamba_scan"])
     return [
         {"name": "paged_attention", "route": "cuda",
@@ -1517,17 +1609,21 @@ def wkv6_bytes_flops(args, s0):
     return nbytes, 4 * b * s * h * dh * dh
 
 
-def wkv6_record(device, err, launches):
+def wkv6_record(device, err, launches, by_design):
     """wkv6 at the serve path's shapes, bf16, from a state: the prefill
-    call (8, 1024, 32, 64), whose 176 MB exceed L2, timed with CUDA
-    events; and the decode call (8, 1, 32, 64), cycling enough states
-    (4.2 MB each) to fill L2 four times, as the step finds each slot's
-    state cold, timed as device time (:func:`device_ms`): its few
-    microseconds are less than the wrapper's host time."""
+    call (8, 1024, 32, 64) on the chunked design, whose 176 MB exceed L2,
+    timed with CUDA events; and the decode call (8, 1, 32, 64) on the
+    stepwise design, cycling enough states (4.2 MB each) to fill L2 four
+    times, as the step finds each slot's state cold, timed as device time
+    (:func:`device_ms`): its few microseconds are less than the wrapper's
+    host time.  ``launches_by_design`` splits the main paths' launches."""
     import torch
     from repro_torch.kernels import wkv6 as wk
     bf16 = torch.bfloat16
     args, s0 = wkv6_inputs(bf16, device, RWKV_ROWS, RWKV_PREFILL, seed=11)
+    if wk.design(RWKV_PREFILL, RWKV_DH, bf16) != "chunked" or \
+            wk.design(1, RWKV_DH, bf16) != "stepwise":
+        raise AssertionError("wkv6 prefill / decode designs changed")
     ms = time_ms(lambda: wk.wkv6(*args, s0), iters=20)
     plain = time_ms(lambda: wk.wkv6_plain(*args, s0), iters=3, warmup=1)
     nbytes, flops = wkv6_bytes_flops(args, s0)
@@ -1552,16 +1648,28 @@ def wkv6_record(device, err, launches):
     d_bytes, d_flops = wkv6_bytes_flops(dargs, states[0])
     d_bound = 1e3 * max(d_bytes / HBM_BYTES_PER_S,
                         d_flops / PEAK_FLOPS["bfloat16"])
+    ptxas = ptxas_report("wkv6", "wkv6")
     return {"name": "wkv6", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/wkv6.cu",
             "replaces": "src/repro/kernels/wkv6.py:32",
             "launches": sum(launches.values()),
             "launches_by_path": launches,
+            "launches_by_design": by_design,
             "max_abs_err": err, "tolerance": TOL, "ms": ms,
             "plain_ms": plain, "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None,
             "shape": [RWKV_ROWS, RWKV_PREFILL, RWKV_H, RWKV_DH],
+            "design": "prefill (bf16, S >= 16): chunked, 16-token chunks on "
+                      "mma.sync m16n8k16 with hi/lo bf16 splits, the state "
+                      "as accumulator fragments of 4 consumer warps, 4 "
+                      "producer warps (cp.async ring, running products, "
+                      "in-half pair weights by running products, cross-"
+                      "half on the tensor cores); decode (S = 1) and f32: "
+                      "stepwise, a thread per state column",
+            "ptxas": ptxas,
+            "smem_dynamic_bytes": wk._bind().wkv6_chunked_smem_bytes(RWKV_DH),
+            "decode_design": "stepwise",
             "decode_ms": d_ms, "decode_plain_ms": d_plain,
             "decode_bound_ms": d_bound,
             "decode_bound_by": ("bytes" if d_bytes / HBM_BYTES_PER_S
@@ -1619,7 +1727,14 @@ def mamba_record(device, err, launches):
     d_ms = device_ms(run(ms.mamba_scan), 4 * n_sets, "mamba_scan_kernel")
     d_plain = device_ms(run(ms.mamba_scan_plain), n_sets)
     d_bytes, d_flops, d_exps = mamba_bytes_flops(dargs, states[0])
+    # operations: f32 arithmetic at the CUDA-core rate and the exps at the
+    # SFU rate; the bound is the largest of the three times
+    t_sfu = exps / SFU_EXP_PER_S
+    bound = max((t_bytes, "bytes", "bytes"), (t_ops, "operations", "fp32"),
+                (t_sfu, "operations", "sfu_exp"))
     d_tb, d_to = d_bytes / HBM_BYTES_PER_S, d_flops / PEAK_FLOPS["float32"]
+    d_bound = max((d_tb, "bytes", "bytes"), (d_to, "operations", "fp32"),
+                  (d_exps / SFU_EXP_PER_S, "operations", "sfu_exp"))
     return {"name": "mamba_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
             "replaces": "src/repro/kernels/mamba_scan.py:31",
@@ -1627,16 +1742,25 @@ def mamba_record(device, err, launches):
             "launches_by_path": launches,
             "max_abs_err": err[0], "max_abs_err_by_case": err[1],
             "tolerance": TOL, "ms": t_ms, "plain_ms": plain,
-            "bound_ms": 1e3 * max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms": 1e3 * bound[0], "bound_by": bound[1],
+            "bound_unit": bound[2],
             "library_ms": None,
             "shape": [JAMBA_ROWS, JAMBA_PREFILL, MAMBA_CI, MAMBA_N],
             "dtype": "float32", "bytes": nbytes, "flops": flops,
             "bytes_bound_ms": 1e3 * t_bytes, "flops_bound_ms": 1e3 * t_ops,
-            "exps": exps, "exp_ms_at_sfu_rate": 1e3 * exps / SFU_EXP_PER_S,
+            "exps": exps, "exp_ms_at_sfu_rate": 1e3 * t_sfu,
+            "design": f"state split over lanes: {MAMBA_N // 8} lanes a "
+                      f"channel, 8 entries a lane (ex2.approx on A·log2 e, "
+                      f"shuffle sum of y), 64 channels a block; u, dt, B, C "
+                      f"by cp.async in 64-token stages (double-buffered); y "
+                      f"through shared memory, 16-byte row stores; decode "
+                      f"(S = 1) straight from global memory",
+            "ptxas": ptxas_report("mamba_scan", "mamba_scan"),
+            "smem_dynamic_bytes": ms._bind().mamba_scan_smem_bytes(
+                0, MAMBA_N),
             "decode_ms": d_ms, "decode_plain_ms": d_plain,
-            "decode_bound_ms": 1e3 * max(d_tb, d_to),
-            "decode_bound_by": "bytes" if d_tb >= d_to else "operations",
+            "decode_bound_ms": 1e3 * d_bound[0],
+            "decode_bound_by": d_bound[1], "decode_bound_unit": d_bound[2],
             "decode_exps": d_exps}
 
 
@@ -1676,9 +1800,9 @@ def main() -> int:
     cfg = configs.get("rwkv6-1.6b")
     full = cfg.full_spec()
     plan = cfg.PLAN.with_(tp=1, decode_microbatches=RWKV_SLOTS)
-    session, prompts, toks, wkv_serve, prof, serve_rwkv = phase_serve_rwkv(
-        device, full, plan)
-    wkv_ref = phase_reference_rwkv(session, prompts, toks)
+    (session, prompts, toks, wkv_serve, wkv_serve_designs, prof,
+     prof_rwkv_prefill, serve_rwkv) = phase_serve_rwkv(device, full, plan)
+    wkv_ref, wkv_ref_designs = phase_reference_rwkv(session, prompts, toks)
     del session
     torch.cuda.empty_cache()
 
@@ -1692,8 +1816,8 @@ def main() -> int:
     cut = jamba_cut(full, full.blocks[:JAMBA_LAYERS],
                     f"jamba-v0.1-52b-{JAMBA_LAYERS}l")
     plan = cfg.PLAN.with_(pp=2, tp=1, decode_microbatches=JAMBA_SLOTS)
-    session, prompts, toks, jamba_counts, prof_jamba, serve_jamba = \
-        phase_serve_jamba(device, cut, plan)
+    (session, prompts, toks, jamba_counts, prof_jamba, prof_jamba_prefill,
+     serve_jamba) = phase_serve_jamba(device, cut, plan)
     jamba_ref = phase_reference_jamba(session, prompts, toks)
     del session
     torch.cuda.empty_cache()
@@ -1722,6 +1846,10 @@ def main() -> int:
             "qwen3_full_transformer": flash_launches,
             "jamba_full_transformer": jamba_ref["flash_attention"]},
         "wkv6": {"serve": wkv_serve, "full_transformer": wkv_ref},
+        "wkv6_by_design": {
+            design: {"serve": wkv_serve_designs[design],
+                     "full_transformer": wkv_ref_designs[design]}
+            for design in ("chunked", "stepwise")},
         "mamba_scan": {"serve": jamba_counts["mamba_scan"],
                        "full_transformer": jamba_ref["mamba_scan"]}})
     log(f"[done] {time.perf_counter() - t_start:.1f}s; serve qwen3 {serve}; "
@@ -1730,7 +1858,9 @@ def main() -> int:
         f"{consistency_quant}")
     print(json.dumps({"profile": prof_qwen}))
     print(json.dumps({"profile": prof}))
+    print(json.dumps({"profile": prof_rwkv_prefill}))
     print(json.dumps({"profile": prof_jamba}))
+    print(json.dumps({"profile": prof_jamba_prefill}))
     print(json.dumps({"profile": prof_quant}))
     print(json.dumps({"kernels": records}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -13,7 +13,9 @@ the JAX engine's prefill and decode do through ``nn.selective_scan``,
 and the state advances in place: the returned ``h_last`` is ``h0``,
 overwritten (the engine's per-slot state needs no copy).  The kernel
 takes any S >= 1 unpadded, so the TPU wrapper's dt = 0 padding is not
-needed.
+needed.  It splits a channel's N state entries over N / 8 lanes (one
+lane at N = 4 or 8) and streams u, dt, B and C through shared memory
+(``csrc/mamba_scan.cu`` says why).
 """
 from __future__ import annotations
 
@@ -45,6 +47,8 @@ def _bind():
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
                        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        lib.mamba_scan_smem_bytes.argtypes = [ctypes.c_int] * 2
+        lib.mamba_scan_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 

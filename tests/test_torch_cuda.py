@@ -47,12 +47,17 @@ PAGED_INT8 = [  # b, h, kv, dh, page, n_pages, window: tests/test_quant.py's
 WKV = [  # b, s, h, dh
     (2, 64, 2, 16), (1, 128, 4, 32), (2, 100, 2, 8), (1, 64, 2, 64),
     (1, 32, 1, 4), (2, 17, 2, 32), (8, 1, 32, 64),       # rwkv6 decode
-    (8, 1024, 32, 64)]                                  # rwkv6 prefill
-MAMBA = [  # b, s, ci, n: S not a multiple of the 64-token chunk or of the
-           # 16-token register batch, Ci not a multiple of 128
+    (8, 1024, 32, 64),                                  # rwkv6 prefill
+    # the chunked design's edge (bf16): one chunk less a token (stepwise),
+    # one chunk, one chunk and a token (a ragged chunk and stage)
+    (8, 15, 32, 64), (8, 16, 32, 64), (8, 17, 32, 64)]
+MAMBA = [  # b, s, ci, n: S not a multiple of the 64-token stage or of the
+           # 8-token batch, Ci not a multiple of the 64-channel block
     (2, 64, 32, 8), (1, 128, 64, 16), (2, 100, 48, 4), (1, 48, 512, 16),
     (3, 77, 200, 16), (1, 1, 130, 8), (2, 1, 8192, 16),    # jamba decode
-    (2, 1024, 8192, 16)]                                  # jamba prefill
+    (2, 1024, 8192, 16),                                  # jamba prefill
+    # a partial last block; rows not 16-byte aligned (plain copies)
+    (2, 130, 100, 16), (1, 33, 50, 8), (2, 70, 33, 4), (1, 200, 1000, 16)]
 TOL = {torch.float32: (2e-5, 1e-3), torch.bfloat16: (2e-2, 1e-2)}
 
 
@@ -297,9 +302,15 @@ def _wkv_args(b, s, h, dh, dtype, device, seed, decay=None):
 def test_wkv6_kernel_matches_plain(cuda, b, s, h, dh, dtype, with_state):
     args, s0 = _wkv_args(b, s, h, dh, dtype, cuda, seed=s * h + dh)
     before = twkv.wkv6.launches
+    design = twkv.design(s, dh, dtype)
+    counter = f"launches_{design}"
+    before_design = getattr(twkv.wkv6, counter)
     got_s0 = s0.clone() if with_state else None
     y, s_last = twkv.wkv6(*args, got_s0)
     assert twkv.wkv6.launches == before + 1
+    assert getattr(twkv.wkv6, counter) == before_design + 1
+    assert design == ("chunked" if dtype == torch.bfloat16 and s >= 16
+                      and dh in (16, 32, 64) else "stepwise")
     if with_state:
         assert s_last is got_s0        # advanced in place
     want_y, want_s = twkv.wkv6_plain(*args, s0.clone() if with_state
@@ -325,6 +336,47 @@ def test_wkv6_kernel_stays_finite_at_strong_decay(cuda, decay):
     atol, rtol = TOL[torch.float32]
     torch.testing.assert_close(y, want_y, atol=atol, rtol=rtol)
     torch.testing.assert_close(s_last, want_s, atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decay", [0.5, 1e-8])
+def test_wkv6_chunked_kernel_stays_finite_at_strong_decay(cuda, decay):
+    """The bf16 chunked design at constant strong decay over 1024 tokens
+    from a state (64 chunks of 16): every decay factor it forms is a
+    product of w <= 1, so it stays finite where the TPU kernel's chunked
+    form overflows f32, and equals the plain version."""
+    args, s0 = _wkv_args(2, 1024, 8, 64, torch.bfloat16, cuda, seed=5,
+                         decay=decay)
+    before = twkv.wkv6.launches_chunked
+    y, s_last = twkv.wkv6(*args, s0.clone())
+    assert twkv.wkv6.launches_chunked == before + 1
+    want_y, want_s = twkv.wkv6_plain(*args, s0.clone())
+    assert torch.isfinite(y).all() and torch.isfinite(s_last).all()
+    atol, rtol = TOL[torch.bfloat16]
+    torch.testing.assert_close(y.float(), want_y.float(), atol=atol,
+                               rtol=rtol)
+    torch.testing.assert_close(s_last, want_s, atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_wkv6_chunked_kernel_continues_a_state_in_place(cuda):
+    """A bf16 prefill split into three calls, each on the chunked design
+    and each continuing the state in place, equals one pass (up to the
+    bf16 rounding of y, whose f32 sums run in another order)."""
+    args, s0 = _wkv_args(2, 150, 4, 64, torch.bfloat16, cuda, seed=6)
+    y_all, s_all = twkv.wkv6(*args, s0.clone())
+    state = s0.clone()
+    ys = []
+    for lo, hi in ((0, 70), (70, 100), (100, 150)):
+        y, s_last = twkv.wkv6(*(a[:, lo:hi].contiguous() for a in args[:4]),
+                              args[4], state)
+        assert s_last is state
+        ys.append(y)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[torch.bfloat16]
+    torch.testing.assert_close(torch.cat(ys, dim=1).float(), y_all.float(),
+                               atol=atol, rtol=rtol)
+    torch.testing.assert_close(state, s_all, atol=1e-3, rtol=1e-3)
 
 
 @pytest.mark.cuda
@@ -401,6 +453,36 @@ def test_mamba_scan_kernel_continues_a_state_in_place(cuda):
     torch.testing.assert_close(torch.cat(ys, dim=1), y_all, atol=1e-6,
                                rtol=1e-6)
     torch.testing.assert_close(state, h_all, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [1, 70])
+def test_mamba_scan_kernel_takes_unaligned_rows(cuda, s, dtype):
+    """u, dt, B, C and the state one element past a 16-byte boundary
+    (contiguous views into a larger buffer): the kernel stages them by
+    plain copies (prefill) or scalar loads (decode) and equals the plain
+    version as with aligned inputs."""
+    args, h0 = _mamba_args(2, s, 96, 16, dtype, cuda, seed=9)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    u, dt, A, B, C, D = args
+    moved = [shifted(u), shifted(dt), A, shifted(B), shifted(C), D]
+    assert all(t.data_ptr() % 16 for t in (moved[0], moved[3]))
+    got_h0 = shifted(h0)
+    y, h_last = tms.mamba_scan(*moved, got_h0)
+    assert h_last is got_h0
+    want_y, want_h = tms.mamba_scan_plain(*args, h0.clone())
+    torch.cuda.synchronize()
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(y.float(), want_y.float(), atol=atol,
+                               rtol=rtol)
+    torch.testing.assert_close(h_last, want_h, atol=atol, rtol=rtol)
 
 
 @pytest.mark.cuda
