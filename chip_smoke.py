@@ -59,19 +59,35 @@ Phases (any failure raises and the script exits non-zero):
    page walk, a profiled decode step, greedy agreement with phase 3;
 12. consistency quantized — fp32 at full width and 2 layers, int8 / int8:
    the same session on the card and on the CPU (the int8 kernel against
-   the plain path, every int8 page write included).
+   the plain path, every int8 page write included);
+13. train — qwen3-14b at full width cut to its first 4 of 40 layers,
+   bf16 parameters with f32 Adam moments, ``1f1b`` / ``stash`` with pp =
+   2 (a V = 3 weight-version ring), remat, R = 4 microbatches of 1 row x
+   4096 tokens, 3 rounds on the SyntheticLM stream through the training
+   entry point's builder (launch/train.py); every attention forward
+   through the flash kernel (with its log-sum-exp) and every attention
+   backward through the backward kernel; finite losses; the last round
+   under ``torch.profiler``;
+14. consistency train — fp32 at full width and 2 layers, pp = 2, seq
+   256, R = 4, 2 rounds of each schedule (1f1b stash and vertical, gpipe
+   flush and 2bw): the executor (core/pipeline.py) against the sequential
+   oracle (core/reference.py), losses and every state tensor bit for
+   bit, under deterministic algorithms.
 
-Phase 2 also holds the int8-pool paged kernel against its plain version.
-Launch counters are zeroed before and read after each main path (phases
-3, 5, 6, 8, 9 and 11).  Prints a ``profile`` JSON line for qwen3 bf16,
-rwkv6 (decode, then prefill), jamba (decode, then prefill) and quantized
-qwen3, one ``kernels`` JSON line (launches, by path and for wkv6 by
+Phase 2 also holds the int8-pool paged kernel and the flash backward
+kernel (bf16 and f32; with its log-sum-exp, and determinism) against
+their plain versions.  Launch counters are zeroed before and read after
+each main path (phases 3, 5, 6, 8, 9, 11 and 13).  Prints a ``profile``
+JSON line for qwen3 bf16, rwkv6 (decode, then prefill), jamba (decode,
+then prefill), quantized qwen3 and the training round, the ``train``
+JSON line, one ``kernels`` JSON line (launches, by path and for wkv6 by
 design, errors, times, bounds, each kernel's design and what ``ptxas
 -v`` reported), the card's name and power limit, and last ``{"ok":
 true, "device": ...}``.  Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -118,6 +134,28 @@ MAMBA_CI, MAMBA_N = 8192, 16
 # leaves a page partly filled, cache_len; scale planes may differ by half
 # an int8 step of their page's absmax
 QUANT_SLOTS, QUANT_PREFILL, QUANT_CACHE = 1, 40, 128
+# training (phase 13): qwen3-14b at full width cut to its first 4 of 40
+# layers (all 40 with Adam and a V = 3 stash ring do not fit one card),
+# bf16, Adam, 1f1b / stash, pp = 2, R microbatches of 1 row x the
+# train_4k sequence length, 3 rounds
+TRAIN_LAYERS, TRAIN_R, TRAIN_ROWS, TRAIN_SEQ, TRAIN_ROUNDS = 4, 4, 1, 4096, 3
+# phase 13's witnesses at the same shape, each TRAIN_ROUNDS rounds from the
+# same seed: (name, launcher flags, the stream's first batch repeated?).
+# At the config's constant Adam lr the loss on the stream rises (PERF.md
+# section 6); "flush" makes one Adam update a round instead of 1f1b's R,
+# so it shows whether the per-microbatch updates alone cause the rise;
+# "one_batch" is the main run on the first batch every round (the stream's
+# tokens are fresh each round), and its loss must fall each round: a
+# wrong bf16 gradient does not fit a batch
+TRAIN_WITNESSES = (
+    ("flush", ["--schedule", "gpipe", "--stash-mode", "flush"], False),
+    ("one_batch", ["--schedule", "1f1b", "--stash-mode", "stash"], True))
+# training consistency (phase 14): fp32, 2 layers, pp = 2, seq 256, R = 4,
+# 2 rounds, each schedule; executor against oracle, bit for bit
+CONS_LAYERS, CONS_SEQ, CONS_R, CONS_ROUNDS = 2, 256, 4, 2
+# the backward kernel's checks (phase 2): (B, S, window) at H 40 / KV 8,
+# Dh 128, causal; Sq = Sk
+FLASH_BWD_CASES = ((1, 1024, -1), (1, 1000, 256))
 SCALE_RTOL = 0.5 / 127
 # H100 SXM exp rate, the SFU floor in mamba_scan's bound: 16 ex2 results
 # per clock per SM (CUDA C++ Programming Guide, arithmetic instruction
@@ -160,6 +198,7 @@ def counters():
     return {"paged_attention": (pa.paged_attention, "launches"),
             "paged_attention_int8": (pa.paged_attention, "launches_int8"),
             "flash_attention": (fa.flash_attention, "launches"),
+            "flash_attention_bwd": (fa.flash_attention_bwd, "launches"),
             "wkv6": (wk.wkv6, "launches"),
             "mamba_scan": (ms.mamba_scan, "launches")}
 
@@ -376,6 +415,52 @@ def phase_kernels(device):
                 f"window={window}: max|err| {e:.3e} (atol {atol}, rtol {rtol})")
     log("[kernels] " + json.dumps({"max_abs_err": errs, "tolerance": TOL}))
     return errs
+
+
+def flash_inputs(dtype, device, b, s, seed):
+    """q, k, v, dO of an attention call at qwen3's heads (40 / 8, Dh 128)."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    shapes = ((b, s, 40, 128), (b, s, 8, 128), (b, s, 8, 128),
+              (b, s, 40, 128))
+    return [torch.randn(sh, generator=g, device=device).to(dtype)
+            for sh in shapes]
+
+
+def phase_flash_bwd_kernel(device):
+    """The backward kernel against ``flash_attention_bwd_plain`` on the
+    same q, k, v, o, lse and dO (the forward kernel's o and lse), dK and
+    dV summed over each KV head's 5 query heads; the forward kernel's lse
+    against the plain forward's; two identical calls bit-equal."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        atol, rtol = TOL[str(dtype).split(".")[-1]]
+        for b, sq, window in FLASH_BWD_CASES:
+            q, k, v, do = flash_inputs(dtype, device, b, sq, seed=sq)
+            out, lse = fa.flash_attention(q, k, v, causal=True,
+                                          window=window, return_lse=True)
+            _, lse_plain = fa.flash_attention_plain(
+                q, k, v, causal=True, window=window, return_lse=True)
+            got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True,
+                                         window=window)
+            again = fa.flash_attention_bwd(q, k, v, out, lse, do,
+                                           causal=True, window=window)
+            want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                                causal=True, window=window)
+            torch.cuda.synchronize()
+            tag = f"flash bwd {str(dtype)[6:]} B={b} S={sq} w={window}"
+            e_lse = check_close(f"{tag} lse", lse, lse_plain, atol, rtol)
+            errs = [check_close(f"{tag} {n}", g_, w_, atol, rtol)
+                    for n, g_, w_ in zip(("dq", "dk", "dv"), got, want)]
+            if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
+                raise AssertionError(f"{tag}: two identical calls differ")
+            err = max(err, *errs)
+            log(f"[kernels] {tag} H=40/KV=8: max|err| dq {errs[0]:.3e} dk "
+                f"{errs[1]:.3e} dv {errs[2]:.3e}, lse {e_lse:.3e} (atol "
+                f"{atol}, rtol {rtol}); a second call bit-equal")
+    return err
 
 
 def paged_int8_inputs(q_dtype, device, q_len, lengths, seed, n_copies=1):
@@ -609,7 +694,7 @@ def phase_serve(device, spec, plan):
     launches = counts["paged_attention"]
     if counts != {"paged_attention": per_step * N_DECODE,
                   "paged_attention_int8": 0, "flash_attention": 0,
-                  "wkv6": 0, "mamba_scan": 0}:
+                  "flash_attention_bwd": 0, "wkv6": 0, "mamba_scan": 0}:
         raise AssertionError(f"launches on the qwen3 serve path: {counts}")
     toks = torch.stack(toks).cpu().numpy()
     if not ((toks >= 0) & (toks < spec.vocab)).all():
@@ -679,6 +764,7 @@ def phase_reference(session, prompts, toks):
     launches = counts["flash_attention"]
     if counts["paged_attention"] or counts["paged_attention_int8"] \
             or counts["wkv6"] or counts["mamba_scan"] \
+            or counts["flash_attention_bwd"] \
             or launches != session.spec.n_layers:
         raise AssertionError(f"flash kernel launched {launches} times, "
                              f"expected {session.spec.n_layers}")
@@ -909,7 +995,7 @@ def phase_serve_rwkv(device, spec, plan):
     counts = read_counts()
     designs = wkv6_designs()
     if counts != {"paged_attention": 0, "paged_attention_int8": 0,
-                  "flash_attention": 0,
+                  "flash_attention": 0, "flash_attention_bwd": 0,
                   "wkv6": per_pass * (1 + RWKV_DECODE), "mamba_scan": 0}:
         raise AssertionError(f"launches on the rwkv6 serve path: {counts}")
     if designs != {"chunked": per_pass, "stepwise": per_pass * RWKV_DECODE}:
@@ -961,8 +1047,8 @@ def phase_reference_rwkv(session, prompts, toks):
     counts = read_counts()
     designs = wkv6_designs()
     if counts != {"paged_attention": 0, "paged_attention_int8": 0,
-                  "flash_attention": 0, "wkv6": session.spec.n_layers,
-                  "mamba_scan": 0}:
+                  "flash_attention": 0, "flash_attention_bwd": 0,
+                  "wkv6": session.spec.n_layers, "mamba_scan": 0}:
         raise AssertionError(f"launches in rwkv6 full_transformer: {counts}")
     if designs != {"chunked": session.spec.n_layers, "stepwise": 0}:
         raise AssertionError(f"wkv6 designs in full_transformer: {designs}")
@@ -1089,12 +1175,14 @@ def phase_serve_jamba(device, spec, plan):
         grew = {k: after[k] - before[k] for k in after}
         if grew != {"paged_attention": per_step_paged,
                     "paged_attention_int8": 0, "flash_attention": 0,
-                    "wkv6": 0, "mamba_scan": per_pass}:
+                    "flash_attention_bwd": 0, "wkv6": 0,
+                    "mamba_scan": per_pass}:
             raise AssertionError(f"decode step {i}: launches {grew}")
         toks.append(nxt)
     counts = read_counts()
     if counts != {"paged_attention": per_step_paged * JAMBA_DECODE,
-                  "paged_attention_int8": 0, "flash_attention": 0, "wkv6": 0,
+                  "paged_attention_int8": 0, "flash_attention": 0,
+                  "flash_attention_bwd": 0, "wkv6": 0,
                   "mamba_scan": per_pass * (1 + JAMBA_DECODE)}:
         raise AssertionError(f"launches on the jamba serve path: {counts}")
     toks = torch.stack(toks).cpu().numpy()
@@ -1165,6 +1253,7 @@ def phase_reference_jamba(session, prompts, toks):
     torch.cuda.synchronize()
     counts = read_counts()
     want = {"paged_attention": 0, "paged_attention_int8": 0, "wkv6": 0,
+            "flash_attention_bwd": 0,
             "flash_attention": n_blocks(spec, "attn") * prompts.shape[0],
             "mamba_scan": n_blocks(spec, "mamba") * prompts.shape[0]}
     if counts != want:
@@ -1326,7 +1415,8 @@ def phase_serve_quant(device, spec, plan, ref_toks, ref_serve):
     counts = read_counts()
     if counts != {"paged_attention": 0,
                   "paged_attention_int8": per_step * N_DECODE,
-                  "flash_attention": 0, "wkv6": 0, "mamba_scan": 0}:
+                  "flash_attention": 0, "flash_attention_bwd": 0, "wkv6": 0,
+                  "mamba_scan": 0}:
         raise AssertionError(f"launches on the quantized serve path: "
                              f"{counts}")
     toks = torch.stack(toks).cpu().numpy()
@@ -1454,6 +1544,288 @@ def phase_consistency_quant(device, spec, plan, n_decode=4):
 
 
 # --------------------------------------------------------------------------
+# phases 13-14: training qwen3-14b and its consistency
+# --------------------------------------------------------------------------
+
+def train_args(extra):
+    from repro_torch.launch import train
+    return train.parser().parse_args(["--arch", "qwen3-14b", "--device",
+                                      "cuda", "--seed", str(SEED), *extra])
+
+
+def profile_round(bundle, state, batch, round_s):
+    """One round under torch.profiler: device time by kernel, the idle
+    share against an unprofiled warm round's time, the flash kernels'
+    calls and time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, metrics = bundle.train_step(state, batch)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if str(getattr(e, "device_type", "")).endswith("CUDA")
+              and e.self_device_time_total > 0]
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+    if dev_ms <= 0:
+        raise AssertionError("the profiler saw no device time")
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
+    out = {"model": bundle.spec.name, "phase": "train_round",
+           "round_ms_warm_unprofiled": 1e3 * round_s, "device_ms": dev_ms,
+           "idle_share": 1 - dev_ms / (1e3 * round_s),
+           "kernel_launches": sum(e.count for e in events)}
+    for name, key in (("flash_fwd", "flash_attention_bf16_kernel"),
+                      ("flash_bwd", "flash_bwd_")):
+        mine = [e for e in events if key in e.key]
+        out[f"{name}_ms"] = sum(e.self_device_time_total for e in mine) / 1e3
+        out[f"{name}_share"] = out[f"{name}_ms"] / dev_ms
+        out[f"{name}_launches"] = sum(e.count for e in mine)
+    out["by_kernel"] = [{"name": e.key[:80],
+                         "ms": e.self_device_time_total / 1e3,
+                         "calls": e.count} for e in top]
+    return state, metrics, out
+
+
+@contextlib.contextmanager
+def plain_attention_refused():
+    """The plain attention versions raise while the block runs: on the
+    card nothing of the training path may take them."""
+    from repro_torch.kernels import flash_attention as fa
+    saved = fa.flash_attention_plain, fa.flash_attention_bwd_plain
+
+    def refuse(*_, **__):
+        raise AssertionError("a plain attention version ran on the card's "
+                             "training path")
+    fa.flash_attention_plain = fa.flash_attention_bwd_plain = refuse
+    try:
+        yield
+    finally:
+        fa.flash_attention_plain, fa.flash_attention_bwd_plain = saved
+
+
+def phase_train(device):
+    """qwen3-14b at full width, its first TRAIN_LAYERS layers, trained
+    through the entry point's builder (launch/train.py): bf16, Adam,
+    1f1b / stash, pp = 2, R = TRAIN_R microbatches of TRAIN_ROWS x
+    TRAIN_SEQ, TRAIN_ROUNDS rounds on the SyntheticLM stream; the last
+    round under torch.profiler.  Every attention layer's forward through
+    the flash kernel (three times a microbatch with remat: F, the B
+    recompute and the checkpoint's recompute) and its backward through
+    the backward kernel.  Then the TRAIN_WITNESSES runs."""
+    import torch
+    from repro_torch.data.pipeline import Loader, SyntheticLM
+    from repro_torch.launch import train
+    spec, bundle = train.build(train_args(phase_train_flags(
+        ["--schedule", "1f1b", "--stash-mode", "stash"])))
+    plan = bundle.plan
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = bundle.init_state(torch.Generator(device).manual_seed(SEED))
+    torch.cuda.synchronize()
+    log(f"[train] {spec.name}: d {spec.d_model}, heads {spec.n_heads}/"
+        f"{spec.n_kv}, Dh {spec.d_head}, d_ff {spec.d_ff}, vocab "
+        f"{spec.vocab}; {bundle.sched.name} {plan.stash_mode} pp={plan.pp} "
+        f"V={bundle.sched.stash_slots} R={plan.microbatches} remat="
+        f"{plan.remat}; state initialized "
+        f"in {time.perf_counter() - t0:.2f}s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated")
+    loader = Loader(SyntheticLM(spec.vocab, TRAIN_SEQ, seed=SEED),
+                    plan.microbatches, bundle.microbatch_size, device)
+    batches = [loader.get(r) for r in range(TRAIN_ROUNDS)]
+    reset_counts()
+    losses, round_s, prof = [], [], None
+    with plain_attention_refused():
+        for r, batch in enumerate(batches):
+            if r == TRAIN_ROUNDS - 1:
+                state, metrics, prof = profile_round(bundle, state, batch,
+                                                     round_s[-1])
+            else:
+                t0 = time.perf_counter()
+                state, metrics = bundle.train_step(state, batch)
+                torch.cuda.synchronize()
+                round_s.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+    counts = read_counts()
+    per_round = spec.n_layers * plan.microbatches
+    want = {"paged_attention": 0, "paged_attention_int8": 0, "wkv6": 0,
+            "mamba_scan": 0, "flash_attention": 3 * per_round * TRAIN_ROUNDS,
+            "flash_attention_bwd": per_round * TRAIN_ROUNDS}
+    if counts != want:
+        raise AssertionError(f"launches on the training path: {counts}, "
+                             f"expected {want}")
+    # finite; the falling loss is asked of the one_batch witness below (at
+    # the config's constant Adam lr the loss on fresh data rises)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    tokens = plan.microbatches * bundle.microbatch_size * TRAIN_SEQ
+    out = {"model": spec.name, "layers": spec.n_layers,
+           "schedule": f"{bundle.sched.name}/{plan.stash_mode}",
+           "pp": plan.pp, "microbatches": plan.microbatches,
+           "rows": bundle.microbatch_size, "seq_len": TRAIN_SEQ,
+           "optimizer": "adam", "round_s_first": round_s[0],
+           "round_s_warm": round_s[1],
+           "tokens_per_s": tokens / round_s[1],
+           "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "loss_per_round": losses,
+           "flash_attention_launches": counts["flash_attention"],
+           "flash_attention_bwd_launches": counts["flash_attention_bwd"]}
+    log(f"[train] {TRAIN_ROUNDS} rounds of {tokens} tokens: first "
+        f"{round_s[0]:.3f}s, warm {round_s[1]:.3f}s "
+        f"({out['tokens_per_s']:.0f} tokens/s), peak "
+        f"{out['peak_allocated_gb']:.1f} GB; loss per round "
+        f"{[round(x, 4) for x in losses]}; flash launches "
+        f"{counts['flash_attention']} forward = 3 x {spec.n_layers} layers x "
+        f"R {plan.microbatches} x {TRAIN_ROUNDS} rounds (remat), "
+        f"{counts['flash_attention_bwd']} backward")
+    log(f"[profile] {spec.name} train round: {prof['device_ms']:.1f} ms of "
+        f"device kernels in a {1e3 * round_s[1]:.1f} ms round, idle share "
+        f"{prof['idle_share']:.3f}, {prof['kernel_launches']} launches; "
+        f"flash fwd {prof['flash_fwd_ms']:.1f} ms, bwd "
+        f"{prof['flash_bwd_ms']:.1f} ms; top kernels (ms, calls): "
+        f"{[(k['name'][:50], round(k['ms'], 1), k['calls']) for k in prof['by_kernel']]}")
+    del state, bundle, batches
+    torch.cuda.empty_cache()
+    out["witnesses"] = {}
+    for name, flags, one_batch in TRAIN_WITNESSES:
+        with plain_attention_refused():
+            w = train_witness(device, flags, one_batch)
+        out["witnesses"][name] = w
+        log(f"[train] witness {name} ({w['schedule']}, adam lr {w['lr']}, "
+            f"{'one batch repeated' if one_batch else 'the stream'}): loss "
+            f"per round {[round(x, 4) for x in w['loss_per_round']]}")
+        falls = all(b < a for a, b in zip(w["loss_per_round"],
+                                          w["loss_per_round"][1:]))
+        if not all(np.isfinite(w["loss_per_round"])) or (one_batch
+                                                         and not falls):
+            raise AssertionError(f"witness {name}: loss per round "
+                                 f"{w['loss_per_round']}" +
+                                 (", expected to fall" if one_batch else ""))
+    return out, prof, counts["flash_attention"], counts["flash_attention_bwd"]
+
+
+def phase_train_flags(extra):
+    """The launcher's flags of phase 13's shape, plus ``extra``."""
+    return ["--layers", str(TRAIN_LAYERS), "--pp", "2", "--microbatches",
+            str(TRAIN_R), "--global-batch", str(TRAIN_R * TRAIN_ROWS),
+            "--seq-len", str(TRAIN_SEQ), *extra]
+
+
+def train_witness(device, flags, one_batch):
+    """TRAIN_ROUNDS rounds at phase 13's shape with the launcher's
+    ``flags``, on the stream or on its first batch every round."""
+    import torch
+    from repro_torch.data.pipeline import Loader, SyntheticLM
+    from repro_torch import configs
+    from repro_torch.launch import train
+    args = train_args(phase_train_flags(flags))
+    spec, bundle = train.build(args)
+    lr = args.lr or configs.get(args.arch).OPTIMIZER[1]
+    state = bundle.init_state(torch.Generator(device).manual_seed(SEED))
+    loader = Loader(SyntheticLM(spec.vocab, TRAIN_SEQ, seed=SEED),
+                    bundle.plan.microbatches, bundle.microbatch_size, device)
+    losses = []
+    for r in range(TRAIN_ROUNDS):
+        state, metrics = bundle.train_step(state, loader.get(0 if one_batch
+                                                             else r))
+        losses.append(float(metrics["loss"]))
+    out = {"schedule": f"{bundle.sched.name}/{bundle.plan.stash_mode}",
+           "lr": lr, "one_batch": one_batch,
+           "loss_per_round": losses}
+    del state, bundle
+    torch.cuda.empty_cache()
+    return out
+
+
+def tree_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in tree_leaves(tree[k], f"{prefix}/{k}")]
+    return [(prefix, tree)]
+
+
+def phase_train_consistency(device):
+    """fp32 at full width and CONS_LAYERS layers, pp = 2, each of the four
+    schedules: the executor (core/pipeline.py) against the sequential
+    oracle (core/reference.py) over CONS_ROUNDS rounds from one seed,
+    losses and every state tensor bit for bit.  SGD with momentum: two
+    training states with Adam's moments do not fit the card beside each
+    other.  Deterministic algorithms for the phase (the embedding's
+    scatter-add)."""
+    import os
+    import torch
+    from repro_torch.core.pipeline import build_pipeline
+    from repro_torch.core.reference import (reference_init_state,
+                                            reference_train_step)
+    from repro_torch.data.pipeline import Loader, SyntheticLM
+    from repro_torch.launch.train import cut_layers
+    from repro_torch.optim import SGDM
+    from repro_torch import configs
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    cfg = configs.get("qwen3-14b")
+    spec = cut_layers(cfg.full_spec(), CONS_LAYERS)
+    opt = SGDM(lr=0.01)
+    out = {}
+    try:
+        for mode in ("stash", "vertical", "flush", "2bw"):
+            t0 = time.perf_counter()
+            plan = cfg.PLAN.with_(tp=1, pp=2, microbatches=CONS_R,
+                                  stash_mode=mode)
+            bundle = build_pipeline(spec, plan, seq_len=CONS_SEQ,
+                                    global_batch=CONS_R, optimizer=opt,
+                                    compute_dtype=torch.float32,
+                                    device=device)
+            loader = Loader(SyntheticLM(spec.vocab, CONS_SEQ, seed=SEED),
+                            CONS_R, 1, device)
+            batches = [loader.get(r) for r in range(CONS_ROUNDS)]
+            state = bundle.init_state(
+                torch.Generator(device).manual_seed(SEED))
+            e_loss = []
+            for batch in batches:
+                state, m = bundle.train_step(state, batch)
+                e_loss.append(m["loss"].item())
+            executor = [(n, t.cpu() if torch.is_tensor(t) else t)
+                        for n, t in tree_leaves(state)]
+            del state, bundle
+            torch.cuda.empty_cache()
+            ref = reference_init_state(
+                spec, plan, opt, torch.Generator(device).manual_seed(SEED),
+                torch.float32)
+            o_loss = []
+            for batch in batches:
+                ref, m = reference_train_step(spec, plan, ref, batch, opt)
+                o_loss.append(m["loss"].item())
+            oracle = tree_leaves(ref)
+            if e_loss != o_loss:
+                raise AssertionError(f"{mode}: executor losses {e_loss} != "
+                                     f"oracle {o_loss}")
+            if [n for n, _ in executor] != [n for n, _ in oracle]:
+                raise AssertionError(f"{mode}: state trees differ")
+            n_bytes = 0
+            for (name, e), (_, o) in zip(executor, oracle):
+                same = (torch.equal(e.to(device), o) if torch.is_tensor(o)
+                        else e == o)
+                if not same:
+                    raise AssertionError(f"{mode}: {name} differs between "
+                                         "executor and oracle")
+                n_bytes += o.numel() * o.element_size() \
+                    if torch.is_tensor(o) else 0
+            del ref, oracle, executor
+            torch.cuda.empty_cache()
+            out[mode] = {"losses": e_loss, "state_gb": n_bytes / 1e9,
+                         "seconds": time.perf_counter() - t0}
+            log(f"[consistency-train] fp32 {spec.n_layers} layers at full "
+                f"width, {mode}, pp=2, R={CONS_R} x seq {CONS_SEQ}, "
+                f"{CONS_ROUNDS} rounds: executor == oracle bit for bit "
+                f"(losses {e_loss}, {n_bytes / 1e9:.2f} GB of state), "
+                f"{out[mode]['seconds']:.1f}s")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return out
+
+
+# --------------------------------------------------------------------------
 # the kernels line
 # --------------------------------------------------------------------------
 
@@ -1518,6 +1890,8 @@ def kernel_records(device, errs, launches):
     f_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     f_bound = 1e3 * max(f_flops / PEAK_FLOPS["bfloat16"],
                         f_bytes / HBM_BYTES_PER_S)
+    fb = flash_bwd_record(device, errs["flash_attention_bwd"],
+                          launches["flash_attention_bwd"])
     w = wkv6_record(device, errs["wkv6"], launches["wkv6"],
                     launches["wkv6_by_design"])
     mb = mamba_record(device, errs["mamba_scan"], launches["mamba_scan"])
@@ -1550,9 +1924,67 @@ def kernel_records(device, errs, launches):
                    "m64n128k16 PV (bf16); f32 on CUDA cores",
          "ptxas": ptxas_report("flash_attention", "flash_attention"),
          "smem_dynamic_bytes": fa._bind().flash_attention_smem_bytes(1, 128)},
+        fb,
         w,
         mb,
     ]
+
+
+def flash_bwd_record(device, err, launches):
+    """The backward kernel at the training path's call: (1, TRAIN_SEQ,
+    40 / 8, 128) bf16, causal; beside the plain version and autograd of
+    ``F.scaled_dot_product_attention`` (its backward alone, timed over
+    one recorded graph) as the yardstick."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    bf16 = torch.bfloat16
+    b, s = TRAIN_ROWS, TRAIN_SEQ
+    q, k, v, do = flash_inputs(bf16, device, b, s, seed=3)
+    out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, do,
+                                                causal=True), iters=10,
+                 warmup=2)
+    plain = time_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, out, lse, do, causal=True), iters=3, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    ref = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True)
+    dot = do.transpose(1, 2)
+    lib = time_ms(lambda: torch.autograd.grad(ref, (qt, kt, vt), dot,
+                                              retain_graph=True),
+                  iters=10, warmup=2)
+    h, kv, dh = 40, 8, 128
+    pairs = s * (s + 1) // 2
+    # the FA-2 backward's five products over the visible pairs: S = QKᵀ
+    # (recomputed from lse), dP = dO Vᵀ, dV = Pᵀ dO, dK = dSᵀ Q, dQ = dS K
+    flops = 5 * 2 * b * h * dh * pairs
+    nbytes = (4 * b * s * h * dh + 4 * b * s * kv * dh) * 2 + b * h * s * 4
+    bound = 1e3 * max(flops / PEAK_FLOPS["bfloat16"],
+                      nbytes / HBM_BYTES_PER_S)
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:39 (its "
+                        "gradient: no TPU kernel has a backward; JAX "
+                        "differentiates the kernel's jnp twin)",
+            "launches": sum(launches.values()), "launches_by_path": launches,
+            "max_abs_err": err, "tolerance": TOL, "ms": ms,
+            "plain_ms": plain, "bound_ms": bound,
+            "bound_by": ("operations" if flops / PEAK_FLOPS["bfloat16"]
+                         >= nbytes / HBM_BYTES_PER_S else "bytes"),
+            "library_ms": lib,
+            "library": "autograd of F.scaled_dot_product_attention "
+                       "(is_causal, enable_gqa), backward alone",
+            "shape": [b, s, h, kv, dh],
+            "design": "FA-2 recurrence on CUDA cores in f32: D = rowsum(dO*O); "
+                      "dK/dV kernel over 64-key tiles looping over the "
+                      "group's query heads and query tiles; dQ kernel over "
+                      "64-query tiles; 4x4 score blocks a thread from f32 "
+                      "shared-memory tiles; no atomics",
+            "ptxas": ptxas_report("flash_attention_bwd", "flash_bwd"),
+            "smem_dynamic_bytes": fa._bind_bwd(
+                ).flash_attention_bwd_smem_bytes(dh)}
 
 
 def paged_int8_record(device, err, launches, lengths):
@@ -1781,6 +2213,7 @@ def main() -> int:
     errs["wkv6"] = phase_wkv6_kernel(device)
     errs["mamba_scan"] = phase_mamba_kernel(device)
     errs["paged_attention_int8"] = phase_paged_int8_kernel(device)
+    errs["flash_attention_bwd"] = phase_flash_bwd_kernel(device)
 
     cfg = configs.get("qwen3-14b")
     full = cfg.full_spec()
@@ -1838,13 +2271,20 @@ def main() -> int:
     consistency_quant = phase_consistency_quant(device, short, plan)
     torch.cuda.empty_cache()
 
+    train_out, prof_train, train_fwd, train_bwd = phase_train(device)
+    torch.cuda.empty_cache()
+    consistency_train = phase_train_consistency(device)
+    torch.cuda.empty_cache()
+
     records = kernel_records(device, errs, {
         "paged_attention": {"qwen3_serve": paged_launches,
                             "jamba_serve": jamba_counts["paged_attention"]},
         "paged_attention_int8": {"qwen3_quant_serve": int8_launches},
         "flash_attention": {
             "qwen3_full_transformer": flash_launches,
-            "jamba_full_transformer": jamba_ref["flash_attention"]},
+            "jamba_full_transformer": jamba_ref["flash_attention"],
+            "qwen3_train": train_fwd},
+        "flash_attention_bwd": {"qwen3_train": train_bwd},
         "wkv6": {"serve": wkv_serve, "full_transformer": wkv_ref},
         "wkv6_by_design": {
             design: {"serve": wkv_serve_designs[design],
@@ -1855,13 +2295,15 @@ def main() -> int:
     log(f"[done] {time.perf_counter() - t_start:.1f}s; serve qwen3 {serve}; "
         f"serve rwkv6 {serve_rwkv}; serve jamba {serve_jamba}; serve qwen3 "
         f"int8/int8 {serve_quant}; consistency int8/int8 "
-        f"{consistency_quant}")
+        f"{consistency_quant}; consistency train {consistency_train}")
     print(json.dumps({"profile": prof_qwen}))
     print(json.dumps({"profile": prof}))
     print(json.dumps({"profile": prof_rwkv_prefill}))
     print(json.dumps({"profile": prof_jamba}))
     print(json.dumps({"profile": prof_jamba_prefill}))
     print(json.dumps({"profile": prof_quant}))
+    print(json.dumps({"profile": prof_train}))
+    print(json.dumps({"train": train_out}))
     print(json.dumps({"kernels": records}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -12,6 +12,8 @@ tests/test_torch_spec.py).
 from repro_torch.models import spec as S
 from repro_torch.parallel.plan import ParallelismPlan
 
+OPTIMIZER = ("adam", 1.5e-4)
+
 PLAN = ParallelismPlan(pp=4, tp=4, microbatches=8, stash_mode="flush",
                        zero1=True, remat=True)
 SMOKE_PLAN = ParallelismPlan(pp=2, tp=1, microbatches=2, stash_mode="flush",

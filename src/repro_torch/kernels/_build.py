@@ -89,6 +89,17 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise when autograd would record through a kernel that has no
+    backward: its output would carry no gradient, silently."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: the CUDA kernel has no backward yet (training "
+            f"through it comes with a later slice of the port); call it "
+            f"under torch.no_grad() or on inputs that do not require grad")
+
+
 def stream_handle(device) -> ctypes.c_void_p:
     """PyTorch's current CUDA stream on ``device``, for a kernel launch."""
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

@@ -53,6 +53,11 @@
 // scores -1e30 and p of a masked key exactly 0, m starting at -inf, p
 // rounded to the value dtype before the PV product, out = acc /
 // max(l, 1e-30) in the query dtype.
+//
+// For training, both kernels also write each row's log-sum-exp (f32,
+// (B, H, Sq)) when given a buffer: base 2, over the scaled scores
+// (row_lse2), which is what flash_attention_bwd.cu exponentiates with
+// ex2.  Serving passes null and pays nothing.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,6 +67,17 @@
 namespace {
 
 constexpr float kMasked = -1e30f;
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The saved row statistic of the backward: log2 of the row's softmax
+// denominator over the *scaled* scores, lse2 = log2 Σ_j 2^(s_j·c) with
+// c = scale·log2(e), from the running max in those units (m·c) and the
+// sum l of 2^(s_j·c − m·c).  A row with no visible key saves +inf, so
+// the backward's 2^(s·c − lse2) is 0 there.
+__device__ __forceinline__ float row_lse2(float m_c, float l) {
+  return l > 0.f ? m_c + log2f(l) : INFINITY;
+}
 
 __device__ __forceinline__ bool visible(int qpos, int kpos, int sq, int sk,
                                         int causal, int window) {
@@ -82,6 +98,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,  // (B, Sq, H, Dh)
                            const float* __restrict__ k,  // (B, Sk, KV, Dh)
                            const float* __restrict__ v,
                            float* __restrict__ out,      // (B, Sq, H, Dh)
+                           float* __restrict__ lse,      // (B, H, Sq) or null
                            int sq, int sk, int n_heads, int n_kv, int d_head,
                            int causal, int window, float scale) {
   const int q0 = blockIdx.x * kBlockQ32;
@@ -190,6 +207,13 @@ flash_attention_f32_kernel(const float* __restrict__ q,  // (B, Sq, H, Dh)
           acc[e] / fmaxf(l_run[r], 1e-30f);
     }
   }
+  if (lse != nullptr) {
+    for (int r = threadIdx.x; r < kBlockQ32; r += blockDim.x) {
+      if (q0 + r < sq)
+        lse[(static_cast<int64_t>(b) * n_heads + h) * sq + q0 + r] =
+            row_lse2(m_run[r] * kLog2e, l_run[r]);
+    }
+  }
 }
 
 size_t smem_f32(int d_head) {
@@ -208,7 +232,6 @@ constexpr int kBK = 64;                 // keys per K/V tile
 constexpr int kThreadsBF = 128 * kWarpgroups;
 constexpr int kStages = 2;
 constexpr int kMinBlocks = 2;   // two CTAs an SM: at most 128 registers
-constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared-memory tiles hold `rows` rows of DP bf16 as DP / 64 column
 // blocks of rows × 128 bytes, each in the 128-byte swizzle (16-byte
@@ -368,6 +391,7 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
                             const __nv_bfloat16* __restrict__ v,
                             __nv_bfloat16* __restrict__ out,
+                            float* __restrict__ lse,
                             int batch, int sq, int sk, int n_heads, int n_kv,
                             int d_head, int causal, int window,
                             float scale_log2, int n_qt) {
@@ -533,6 +557,11 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  if (lse != nullptr && (lane & 3) == 0) {
+    const int64_t base = (static_cast<int64_t>(b) * n_heads + h) * sq;
+    if (row0 < sq) lse[base + row0] = row_lse2(m0 * scale_log2, l0);
+    if (row0 + 8 < sq) lse[base + row0 + 8] = row_lse2(m1 * scale_log2, l1);
+  }
 #pragma unroll
   for (int j = 0; j < DP / 2; j += 2) {
     const int hi = (j >> 1) & 1;
@@ -554,8 +583,9 @@ int bf16_padded(int d_head) {
 
 template <int DP>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
-                int batch, int sq, int sk, int n_heads, int n_kv, int d_head,
-                int causal, int window, float scale, cudaStream_t stream) {
+                float* lse, int batch, int sq, int sk, int n_heads, int n_kv,
+                int d_head, int causal, int window, float scale,
+                cudaStream_t stream) {
   auto kernel = flash_attention_bf16_kernel<DP>;
   const size_t smem = smem_bf16(DP);
   cudaError_t err = cudaFuncSetAttribute(
@@ -567,8 +597,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      batch, sq, sk, n_heads, n_kv, d_head, causal, window, scale * kLog2e,
-      n_qt);
+      lse, batch, sq, sk, n_heads, n_kv, d_head, causal, window,
+      scale * kLog2e, n_qt);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -584,10 +614,12 @@ size_t flash_attention_smem_bytes(int dtype, int d_head) {
   return dp ? smem_bf16(dp) : 0;
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = success).
+// dtype: 0 = float32, 1 = bfloat16.  lse: (B, H, Sq) f32 row statistics
+// for the backward (see row_lse2), or null to skip them.  Returns a
+// cudaError_t (0 = success).
 int flash_attention_launch(int dtype, const void* q, const void* k,
-                           const void* v, void* out, int batch, int sq,
-                           int sk, int n_heads, int n_kv, int d_head,
+                           const void* v, void* out, float* lse, int batch,
+                           int sq, int sk, int n_heads, int n_kv, int d_head,
                            int causal, int window, float scale,
                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -602,18 +634,18 @@ int flash_attention_launch(int dtype, const void* q, const void* k,
     const dim3 grid((sq + kBlockQ32 - 1) / kBlockQ32, n_heads, batch);
     flash_attention_f32_kernel<<<grid, kThreads32, smem, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), sq, sk,
+        static_cast<const float*>(v), static_cast<float*>(out), lse, sq, sk,
         n_heads, n_kv, d_head, causal, window, scale);
     return static_cast<int>(cudaGetLastError());
   }
   if (dtype == 1) {
     switch (bf16_padded(d_head)) {
       case 64:
-        return launch_bf16<64>(q, k, v, out, batch, sq, sk, n_heads, n_kv,
-                               d_head, causal, window, scale, s);
+        return launch_bf16<64>(q, k, v, out, lse, batch, sq, sk, n_heads,
+                               n_kv, d_head, causal, window, scale, s);
       case 128:
-        return launch_bf16<128>(q, k, v, out, batch, sq, sk, n_heads, n_kv,
-                                d_head, causal, window, scale, s);
+        return launch_bf16<128>(q, k, v, out, lse, batch, sq, sk, n_heads,
+                                n_kv, d_head, causal, window, scale, s);
     }
   }
   return static_cast<int>(cudaErrorInvalidValue);

@@ -60,8 +60,9 @@ def mamba_scan(u, dt, A, B, C, D, h0=None):
     float32; h0: None or (B, Ci, N) float32, advanced in place.  All
     contiguous on one CUDA device; anything else raises.  Returns (y
     (B, S, Ci) in u's dtype, h_last (B, Ci, N) float32, which is ``h0``
-    when given).
+    when given).  Raises under autograd: the kernel has no backward yet.
     """
+    _build.refuse_grad("mamba_scan", u, dt, A, B, C, D, h0)
     if u.dim() != 3 or dt.shape != u.shape:
         raise ValueError(f"u and dt must share one (B, S, Ci) shape, got "
                          f"{tuple(u.shape)} and {tuple(dt.shape)}")

@@ -7,8 +7,14 @@ launch raises.  The TPU wrapper padded Sq/Sk up to block multiples; the
 CUDA flash kernel masks its ragged edge itself, so no padding copy is
 made here, and the WKV6 and selective-scan kernels take any S unpadded
 (the TPU wrapper's w = 1 and dt = 0 padding is not needed).
+
+Only flash attention has a backward.  The paged, WKV6 and selective-scan
+kernels raise on the card when autograd would record through them (their
+plain versions on the CPU stay differentiable).
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import mamba_scan as _mamba
@@ -17,7 +23,16 @@ from repro_torch.kernels import wkv6 as _wkv6
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = -1):
-    """q: (B, Sq, H, Dh); k, v: (B, Sk, KV, Dh) -> (B, Sq, H, Dh)."""
+    """q: (B, Sq, H, Dh); k, v: (B, Sk, KV, Dh) -> (B, Sq, H, Dh).
+
+    Under autograd (grad mode on, an input requiring grad) the call goes
+    through :class:`~repro_torch.kernels.flash_attention.FlashAttention`:
+    on the card the forward kernel with its row log-sum-exp and the
+    backward kernel, on the CPU the plain forward and plain backward.
+    Otherwise the forward alone, which skips the log-sum-exp.
+    """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _flash.FlashAttention.apply(q, k, v, causal, window)
     if q.device.type == "cuda":
         return _flash.flash_attention(q, k, v, causal=causal, window=window)
     return _flash.flash_attention_plain(q, k, v, causal=causal, window=window)

@@ -236,7 +236,9 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
     block_tables: (B, n_pages) int32; lengths: (B,) int32, each at least
     Q; window: Python int (<= 0 means global).  Returns the query shape
     in q's dtype.  All tensors on one CUDA device; anything else raises.
+    Raises under autograd: the kernel has no backward (it serves decode).
     """
+    _build.refuse_grad("paged_attention", q, k_pages, v_pages)
     squeeze = q.dim() == 3
     q4 = q[:, None] if squeeze else q
     if q4.dim() != 4 or k_pages.dim() != 4 or v_pages.shape != k_pages.shape:

@@ -152,7 +152,9 @@ def wkv6(r, k, v, w, u, s0=None):
     (B, H, Dh, Dh) float32, advanced in place.  All contiguous on one
     CUDA device; anything else raises.  Returns (y (B, S, H, Dh) in r's
     dtype, s_last (B, H, Dh, Dh) float32, which is ``s0`` when given).
+    Raises under autograd: the kernel has no backward yet.
     """
+    _build.refuse_grad("wkv6", r, k, v, w, u, s0)
     if r.dim() != 4 or any(t.shape != r.shape for t in (k, v, w)):
         raise ValueError(f"r, k, v, w must share one (B, S, H, Dh) shape, "
                          f"got {[tuple(t.shape) for t in (r, k, v, w)]}")

@@ -236,3 +236,23 @@ def params_from_numpy(tree, device, dtype) -> Dict:
                                               else dtype))
         return t.to(device)
     return conv(None, tree)
+
+
+def train_state_from_numpy(tree, device, dtype) -> Dict:
+    """The port's training state from a JAX one taken to numpy
+    (``jax.tree.map(np.asarray, state)``, as ``reference_init_state``
+    or ``build_pipeline``'s ``init_state`` build it): params as
+    :func:`params_from_numpy` converts them, ``stash["current"]`` the
+    very ``params["stages"]`` tensors (JAX holds one array for both),
+    the ``[V, L, ...]`` stash ring in ``dtype``, optimizer states in
+    their own dtype (f32) and ``step`` a Python int."""
+    params = params_from_numpy(tree["params"], device, dtype)
+    stash = {"current": params["stages"]}
+    if "ring" in tree["stash"]:
+        stash["ring"] = params_from_numpy(tree["stash"]["ring"], device,
+                                          dtype)
+    out = {"params": params, "stash": stash,
+           "step": int(np.asarray(tree["step"]))}
+    for key in ("opt_stages", "opt_head", "opt_embed"):
+        out[key] = params_from_numpy(tree[key], device, torch.float32)
+    return out

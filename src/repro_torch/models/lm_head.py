@@ -1,4 +1,5 @@
-"""Embedding lookup and greedy head (port of ``repro/models/lm_head.py``)."""
+"""Embedding lookup, the loss head and the greedy head (port of
+``repro/models/lm_head.py``)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -26,6 +27,83 @@ def embed_tokens(embed, tokens, dtype=None):
     else:
         out = F.embedding(idx, embed)
     return out if dtype is None else out.to(dtype)
+
+
+def _padded_vocab_mask(logits, vocab: Optional[int]):
+    """JAX's additive mask: 0 on the vocab, -1e30 on the padded ids."""
+    if vocab is None or vocab >= logits.shape[-1]:
+        return logits
+    mask = torch.zeros(logits.shape[-1], dtype=torch.float32,
+                       device=logits.device)
+    mask[vocab:] = NEG_INF
+    return logits + mask
+
+
+def head_loss(head, final_norm_scale, h, labels, *, norm_kind: str = "rmsnorm",
+              norm_bias=None, valid_mask=None, vocab: Optional[int] = None):
+    """Mean cross-entropy of the hidden states exiting the pipeline.
+
+    h: (B, S, d); labels: (B, S) int.  The head product runs in h's
+    dtype and the logits are taken to f32, as JAX does; padded vocab ids
+    are masked with -1e30; the mean is over ``valid_mask`` (all ones
+    when None), at least 1.  Returns (mean_loss, n_tokens).
+    """
+    if norm_kind == "rmsnorm":
+        h = nn.rmsnorm(h, final_norm_scale)
+    else:
+        h = nn.layernorm(h, final_norm_scale, norm_bias)
+    logits = _padded_vocab_mask((h @ maybe_dequant(head, h.dtype)).float(),
+                                vocab)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - picked
+    if valid_mask is None:
+        valid_mask = torch.ones(labels.shape, dtype=torch.float32,
+                                device=h.device)
+    n = valid_mask.sum().clamp_min(1.0)
+    return (nll * valid_mask).sum() / n, n
+
+
+def head_loss_and_grad(head, final_norm_scale, h, labels, *,
+                       norm_kind: str = "rmsnorm", norm_bias=None, **kw):
+    """(loss, dh, dhead, dnorm_scale): autograd over :func:`head_loss`,
+    the output stage's B-phase seed."""
+    fn = {"scale": final_norm_scale}
+    if norm_bias is not None:
+        fn["bias"] = norm_bias
+    loss, dh, dhead, dfn = loss_and_grads(head, fn, h, labels,
+                                          norm_kind=norm_kind, **kw)
+    return loss, dh, dhead, dfn["scale"]
+
+
+def loss_and_grads(head, final_norm, h, labels, *, norm_kind: str,
+                   valid_mask=None, vocab: Optional[int] = None):
+    """:func:`head_loss_and_grad` over the whole final-norm tree (scale,
+    and bias for a layernorm): (loss, dh, dhead, dfinal_norm), the
+    gradient tree keyed like ``final_norm``, as the JAX executor takes
+    ``jax.value_and_grad`` over ``(head, final_norm, h)``."""
+    keys = sorted(final_norm)
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_()
+                  for t in (head, h, *(final_norm[k] for k in keys))]
+        fn = dict(zip(keys, leaves[2:]))
+        loss, _ = head_loss(leaves[0], fn["scale"], leaves[1], labels,
+                            norm_kind=norm_kind, norm_bias=fn.get("bias"),
+                            valid_mask=valid_mask, vocab=vocab)
+        dhead, dh, *dfn = torch.autograd.grad(loss, leaves)
+    return loss.detach(), dh, dhead, dict(zip(keys, dfn))
+
+
+def embed_bwd(embed_shape_like, tokens, d_embeds):
+    """d(embedding table) from d(embeds) by a scatter-add over the vocab.
+
+    tokens: (..., S); d_embeds: (..., S, d).  A table of
+    ``embed_shape_like``'s shape in ``d_embeds``' dtype.
+    """
+    flat_d = d_embeds.reshape(-1, d_embeds.shape[-1])
+    out = torch.zeros(embed_shape_like.shape, dtype=flat_d.dtype,
+                      device=flat_d.device)
+    return out.index_add_(0, tokens.reshape(-1).long(), flat_d)
 
 
 def last_logits(head, final_norm_scale, h, *, norm_kind: str = "rmsnorm",

@@ -9,9 +9,11 @@ RWKV6 channel-mix or MoE as the FFN.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import nn
 from repro_torch.models import spec as spec_lib
@@ -75,9 +77,39 @@ def stage_params(params, s: int):
     return take(params["stages"])
 
 
+def _block(st: StageStatics, blk, lp, ls, x, *, positions, window, theta,
+           cache_pos, pg):
+    """One block, mixer then FFN with pre-norm residuals; returns
+    (x, aux) with the MoE auxiliary loss (None for other FFNs)."""
+    aux = None
+    h = nn.apply_norm(lp["norm1"], x, st.spec.norm)
+    if blk.mixer == "attn":
+        x = x + nn.attention(lp["attn"], h, st.attn, positions=positions,
+                             window=window, theta=theta,
+                             kv_cache=ls.get("kv"), cache_pos=cache_pos,
+                             paged_kv=pg)
+    elif blk.mixer == "mamba":
+        x = x + nn.mamba_block(lp["mamba"], h, st.mamba, state=ls.get("ssm"))
+    else:
+        x = x + nn.rwkv_time_mix(lp["tmix"], h, st.rwkv, state=ls.get("tmix"))
+    h = nn.apply_norm(lp["norm2"], x, st.spec.norm)
+    if blk.ffn == "dense":
+        x = x + nn.mlp(lp["mlp"], h, st.spec.act)
+    elif blk.ffn == "moe":
+        out, aux = nn.moe(lp["moe"], h, st.moe, st.spec.act)
+        x = x + out
+    else:
+        x = x + nn.rwkv_channel_mix(lp["cmix"], h, state=ls.get("cmix"))
+    return x, aux
+
+
 def stage_fwd(sp, x, st: StageStatics, *, positions, windows, thetas,
-              state=None, cache_pos: int = 0, paged=None):
-    """Run one stage over its blocks; returns the stage's output.
+              state=None, cache_pos: int = 0, paged=None,
+              return_aux: bool = False):
+    """Run one stage over its blocks; returns the stage's output, or
+    (output, aux) with ``return_aux``: the blocks' summed MoE auxiliary
+    loss, an f32 scalar (0 without MoE FFNs), as JAX's ``stage_fwd``
+    returns it.
 
     sp: ``stage_params(params, s)``; windows / thetas: this stage's
     [lps] host lists.  state: optional ``{'layer_i': {...}}`` views of
@@ -89,34 +121,78 @@ def stage_fwd(sp, x, st: StageStatics, *, positions, windows, thetas,
     are ``(k_pool, v_pool, k_scale, v_scale)``.  Caches and recurrent
     states are written in place.  Quantized ``{"q", "scale"}`` weights
     are dequantized at their matmul sites (``models/nn.py``).
+
+    Remat as JAX's ``jax.checkpoint`` per block: with ``plan.remat``,
+    no state and autograd recording, each block runs under
+    ``torch.utils.checkpoint`` (non-reentrant), which keeps only the
+    block's input and recomputes the block in the backward.
     """
+    remat = (st.plan.remat and state is None and paged is None
+             and torch.is_grad_enabled())
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, blk in enumerate(st.program):
         name = f"layer_{i}"
-        lp = sp[name]
-        ls = state[name] if state is not None else {}
-        h = nn.apply_norm(lp["norm1"], x, st.spec.norm)
-        if blk.mixer == "attn":
-            pg = None
-            if paged is not None and name in paged["pools"]:
-                pg = (*paged["pools"][name], paged["row"])
-            x = x + nn.attention(lp["attn"], h, st.attn, positions=positions,
-                                 window=windows[i], theta=thetas[i],
-                                 kv_cache=ls.get("kv"), cache_pos=cache_pos,
-                                 paged_kv=pg)
-        elif blk.mixer == "mamba":
-            x = x + nn.mamba_block(lp["mamba"], h, st.mamba,
-                                   state=ls.get("ssm"))
+        pg = None
+        if paged is not None and name in paged["pools"]:
+            pg = (*paged["pools"][name], paged["row"])
+        fn = functools.partial(
+            _block, st, blk, sp[name], state[name] if state is not None
+            else {}, positions=positions, window=windows[i],
+            theta=thetas[i], cache_pos=cache_pos, pg=pg)
+        if remat:
+            x, aux = checkpoint(fn, x, use_reentrant=False)
         else:
-            x = x + nn.rwkv_time_mix(lp["tmix"], h, st.rwkv,
-                                     state=ls.get("tmix"))
-        h = nn.apply_norm(lp["norm2"], x, st.spec.norm)
-        if blk.ffn == "dense":
-            x = x + nn.mlp(lp["mlp"], h, st.spec.act)
-        elif blk.ffn == "moe":
-            x = x + nn.moe(lp["moe"], h, st.moe, st.spec.act)[0]
-        else:
-            x = x + nn.rwkv_channel_mix(lp["cmix"], h, state=ls.get("cmix"))
-    return x
+            x, aux = fn(x)
+        if aux is not None:
+            aux_total = aux_total + aux
+    return (x, aux_total) if return_aux else x
+
+
+def _grad_leaves(node, prefix, names, leaves):
+    """``node`` with every tensor replaced by a detached leaf that
+    requires grad; the leaves and their key paths are appended to
+    ``leaves`` / ``names``."""
+    if isinstance(node, dict):
+        return {k: _grad_leaves(v, prefix + (k,), names, leaves)
+                for k, v in node.items()}
+    t = node.detach().requires_grad_()
+    names.append(prefix)
+    leaves.append(t)
+    return t
+
+
+def stage_vjp(sp, x, st: StageStatics, g, aux_ct: float, *, positions,
+              windows, thetas):
+    """Re-run one stage's forward under autograd and pull back the
+    cotangents (g on the output, ``aux_ct`` on the MoE auxiliary loss):
+    returns (dW tree keyed like ``sp``, dx), as ``jax.vjp`` of JAX's
+    ``stage_fwd`` gives them (zeros for weights the stage does not use).
+
+    ``sp`` and ``x`` may be views into rings that are written in place
+    later: the backward completes inside this call, before any such
+    write, so they are read through ``detach()`` without a copy.
+    """
+    names, leaves = [], []
+    with torch.enable_grad():
+        w = _grad_leaves(sp, (), names, leaves)
+        xl = x.detach().requires_grad_()
+        h, aux = stage_fwd(w, xl, st, positions=positions, windows=windows,
+                           thetas=thetas, return_aux=True)
+        outs, cts = [h], [g.to(h.dtype)]
+        if aux.requires_grad:
+            outs.append(aux)
+            cts.append(torch.tensor(aux_ct, dtype=aux.dtype,
+                                    device=aux.device))
+        grads = torch.autograd.grad(outs, [xl] + leaves, cts,
+                                    allow_unused=True)
+    dx = grads[0]
+    dW: Dict = {}
+    for path, leaf, gw in zip(names, leaves, grads[1:]):
+        node = dW
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = torch.zeros_like(leaf) if gw is None else gw
+    return dW, dx
 
 
 def init_stage_state(st: StageStatics, batch_local: int, cache_lens,

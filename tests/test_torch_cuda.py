@@ -7,7 +7,8 @@ package, so it runs on a machine that has only PyTorch:
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 The shapes mirror tests/test_kernels.py's PAGED_CASES, FLASH_CASES,
-WKV_CASES and MAMBA_CASES, and tests/test_quant.py's int8 paged matrix;
+WKV_CASES and MAMBA_CASES, and tests/test_quant.py's int8 paged matrix
+(FLASH_BWD: the flash backward at the smoke, GQA and training shapes);
 inputs come from a seeded numpy generator, NaN sits in unreferenced
 pages and past each row's length (int8 pools: random payloads and NaN /
 inf scales in unreferenced pages).
@@ -58,6 +59,11 @@ MAMBA = [  # b, s, ci, n: S not a multiple of the 64-token stage or of the
     (2, 1024, 8192, 16),                                  # jamba prefill
     # a partial last block; rows not 16-byte aligned (plain copies)
     (2, 130, 100, 16), (1, 33, 50, 8), (2, 70, 33, 4), (1, 200, 1000, 16)]
+FLASH_BWD = [  # b, s, h, kv, dh, window (causal; Sq = Sk)
+    (2, 16, 4, 2, 16, -1),                  # the qwen3 smoke spec's call
+    (2, 77, 4, 2, 64, -1), (1, 130, 4, 1, 64, 20), (2, 200, 6, 3, 128, -1),
+    (1, 300, 8, 8, 40, 50), (1, 64, 2, 2, 8, 1), (1, 129, 5, 1, 128, 65),
+    (1, 1024, 40, 8, 128, -1), (1, 1000, 40, 8, 128, 256)]
 TOL = {torch.float32: (2e-5, 1e-3), torch.bfloat16: (2e-2, 1e-2)}
 
 
@@ -555,3 +561,138 @@ def test_quantized_engine_on_the_card_matches_the_cpu(cuda, w, kv, page):
     else:
         assert card.cache["layer_0"]["kv"][0].dtype == torch.bfloat16
         assert card.params["head"]["q"].dtype == torch.float8_e4m3fn
+
+
+def _flash_bwd_args(b, s, h, kv, dh, dtype, device, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(sh)).to(device, dtype)
+            for sh in ((b, s, h, dh), (b, s, kv, dh), (b, s, kv, dh),
+                       (b, s, h, dh))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kv,dh,window", FLASH_BWD)
+def test_flash_bwd_kernel_matches_plain(cuda, b, s, h, kv, dh, window,
+                                        dtype):
+    """dQ, dK and dV (dK / dV summed over each KV head's query heads) and
+    the forward's lse against the plain versions on the same inputs."""
+    q, k, v, do = _flash_bwd_args(b, s, h, kv, dh, dtype, cuda, s * h + dh)
+    out, lse = tfa.flash_attention(q, k, v, window=window, return_lse=True)
+    _, lse_plain = tfa.flash_attention_plain(q, k, v, window=window,
+                                             return_lse=True)
+    before = tfa.flash_attention_bwd.launches
+    got = tfa.flash_attention_bwd(q, k, v, out, lse, do, window=window)
+    want = tfa.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                         window=window)
+    assert tfa.flash_attention_bwd.launches == before + 1
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(lse, lse_plain, atol=atol, rtol=rtol)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        torch.testing.assert_close(g.float(), w.float(), atol=atol,
+                                   rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernel_is_deterministic(cuda, dtype):
+    q, k, v, do = _flash_bwd_args(1, 1000, 40, 8, 128, dtype, cuda, 7)
+    out, lse = tfa.flash_attention(q, k, v, window=256, return_lse=True)
+    runs = [tfa.flash_attention_bwd(q, k, v, out, lse, do, window=256)
+            for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+def test_flash_autograd_on_the_card_runs_both_kernels(cuda):
+    """ops.flash_attention under autograd: the forward kernel with its
+    lse, then the backward kernel; the gradient equals autograd of the
+    plain forward (f32)."""
+    from repro_torch.kernels import ops
+    q, k, v, do = _flash_bwd_args(2, 100, 4, 2, 32, torch.float32, cuda, 3)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    f0, b0 = tfa.flash_attention.launches, tfa.flash_attention_bwd.launches
+    out = ops.flash_attention(*leaves, window=30)
+    got = torch.autograd.grad(out, leaves, do)
+    assert (tfa.flash_attention.launches, tfa.flash_attention_bwd.launches) \
+        == (f0 + 1, b0 + 1)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(
+        tfa.flash_attention_plain(*leaves, window=30), leaves, do)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=2e-5, rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_kernels_without_a_backward_raise_under_grad(cuda):
+    """wkv6, mamba_scan and the paged walk have no backward: under
+    autograd on the card they raise instead of losing the gradient; with
+    grad off they run."""
+    from repro_torch.kernels import ops
+    (r, k, v, w, u), _ = _wkv_args(1, 8, 2, 16, torch.float32, cuda, 0)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.wkv6(r.requires_grad_(), k, v, w, u)
+    with torch.no_grad():
+        ops.wkv6(r, k, v, w, u)
+    rng = np.random.default_rng(0)
+    f = lambda *sh: torch.from_numpy(                            # noqa: E731
+        rng.standard_normal(sh).astype(np.float32)).to(cuda)
+    u_, dt, A, B, C, D = f(1, 8, 16), f(1, 8, 16).abs(), -f(16, 4).abs(), \
+        f(1, 8, 4), f(1, 8, 4), f(16)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.mamba_scan(u_.requires_grad_(), dt, A, B, C, D)
+    q, kp, vp, tab, lens = _paged_args(2, 4, 2, 16, 16, 2, 1, torch.float32,
+                                       cuda, 0)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.paged_attention(q.requires_grad_(), kp, vp, tab, lens)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["stash", "vertical", "flush", "2bw"])
+def test_training_on_the_card_matches_the_cpu(cuda, mode):
+    """Two rounds of the qwen3 smoke spec in fp32 (pp 2, R 4, seq 16,
+    SGD with momentum) on the card (both flash kernels) and on the CPU
+    (the plain versions), from one state: losses and parameters within
+    atol 2e-5."""
+    from repro_torch import configs
+    from repro_torch.core.pipeline import build_pipeline
+    from repro_torch.data.pipeline import Loader, SyntheticLM
+    from repro_torch.optim import SGDM
+    cfg = configs.get("qwen3-14b")
+    spec = cfg.smoke_spec()
+    plan = cfg.SMOKE_PLAN.with_(microbatches=4, stash_mode=mode)
+    init = None
+    runs = []
+    for dev in (torch.device("cpu"), cuda):
+        bundle = build_pipeline(spec, plan, seq_len=16, global_batch=8,
+                                optimizer=SGDM(lr=0.05),
+                                compute_dtype=torch.float32, device=dev)
+        if init is None:
+            init = bundle.init_state(torch.Generator().manual_seed(0))
+        state = _copy(init, dev)      # the executor writes it in place
+        state["stash"]["current"] = state["params"]["stages"]
+        loader = Loader(SyntheticLM(spec.vocab, 16), 4, 2, dev)
+        losses = []
+        for r in range(2):
+            state, m = bundle.train_step(state, loader.get(r))
+            losses.append(float(m["loss"]))
+        runs.append((losses, _to(state["params"], "cpu")))
+    (l_cpu, p_cpu), (l_card, p_card) = runs
+    np.testing.assert_allclose(l_card, l_cpu, atol=2e-5, rtol=0)
+    for a, b in zip(_leaves(p_card), _leaves(p_cpu)):
+        torch.testing.assert_close(a, b, atol=2e-5, rtol=1e-3)
+
+
+def _copy(tree, device):
+    if torch.is_tensor(tree):
+        return tree.to(device, copy=True)
+    if isinstance(tree, dict):
+        return {k: _copy(v, device) for k, v in tree.items()}
+    return tree
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree] if torch.is_tensor(tree) else []
