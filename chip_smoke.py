@@ -154,8 +154,9 @@ TRAIN_WITNESSES = (
 # 2 rounds, each schedule; executor against oracle, bit for bit
 CONS_LAYERS, CONS_SEQ, CONS_R, CONS_ROUNDS = 2, 256, 4, 2
 # the backward kernel's checks (phase 2): (B, S, window) at H 40 / KV 8,
-# Dh 128, causal; Sq = Sk
-FLASH_BWD_CASES = ((1, 1024, -1), (1, 1000, 256))
+# Dh 128, causal; Sq = Sk; the last is the training call, the shape the
+# kernels line times
+FLASH_BWD_CASES = ((1, 1024, -1), (1, 1000, 256), (1, TRAIN_SEQ, -1))
 SCALE_RTOL = 0.5 / 127
 # H100 SXM exp rate, the SFU floor in mamba_scan's bound: 16 ex2 results
 # per clock per SM (CUDA C++ Programming Guide, arithmetic instruction
@@ -260,6 +261,29 @@ def device_ms(fn, iters: int, kernel: str = "") -> float:
         raise AssertionError(f"the profiler saw no device time for "
                              f"{kernel or 'any kernel'}")
     return sum(e.self_device_time_total for e in events) / 1e3 / iters
+
+
+def per_launch_ms(fn, iters: int, kernels) -> dict:
+    """Mean device time of one launch of each kernel whose name holds a
+    string of ``kernels``, from ``torch.profiler`` over ``iters`` calls
+    of ``fn``: the mean over the launches the profiler recorded."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for name in kernels:
+        events = [e for e in prof.key_averages() if name in e.key
+                  and e.self_device_time_total > 0]
+        if not events:
+            raise AssertionError(f"the profiler saw no launch of {name}")
+        out[name.strip("<")] = (sum(e.self_device_time_total for e in events)
+                                / 1e3 / sum(e.count for e in events))
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1942,9 +1966,14 @@ def flash_bwd_record(device, err, launches):
     b, s = TRAIN_ROWS, TRAIN_SEQ
     q, k, v, do = flash_inputs(bf16, device, b, s, seed=3)
     out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
-    ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, do,
-                                                causal=True), iters=10,
-                 warmup=2)
+
+    def call():
+        fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+
+    ms = time_ms(call)
+    by_kernel = per_launch_ms(call, 5, ("flash_bwd_delta_kernel<",
+                                        "flash_bwd_dkdv_kernel<",
+                                        "flash_bwd_dq_kernel<"))
     plain = time_ms(lambda: fa.flash_attention_bwd_plain(
         q, k, v, out, lse, do, causal=True), iters=3, warmup=1)
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
@@ -1953,8 +1982,21 @@ def flash_bwd_record(device, err, launches):
                                          enable_gqa=True)
     dot = do.transpose(1, 2)
     lib = time_ms(lambda: torch.autograd.grad(ref, (qt, kt, vt), dot,
-                                              retain_graph=True),
-                  iters=10, warmup=2)
+                                              retain_graph=True))
+    # relative L2 error of the kernel's and the library's bf16 gradients
+    # against the f32 recurrence on the same bf16 values (P and dS not
+    # rounded): what the bf16 rounding of P and dS costs, beside the
+    # library's own
+    exact = fa.flash_attention_bwd_plain(
+        q.float(), k.float(), v.float(), out.float(), lse, do.float(),
+        causal=True)
+    mine = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    theirs = [g.transpose(1, 2) for g in torch.autograd.grad(
+        ref, (qt, kt, vt), dot)]
+    rel_err = {who: [((g.float() - e).norm() / e.norm()).item()
+                     for g, e in zip(grads, exact)]
+               for who, grads in (("kernel", mine), ("library", theirs))}
+    del exact, mine, theirs
     h, kv, dh = 40, 8, 128
     pairs = s * (s + 1) // 2
     # the FA-2 backward's five products over the visible pairs: S = QKᵀ
@@ -1970,21 +2012,32 @@ def flash_bwd_record(device, err, launches):
                         "differentiates the kernel's jnp twin)",
             "launches": sum(launches.values()), "launches_by_path": launches,
             "max_abs_err": err, "tolerance": TOL, "ms": ms,
+            "ms_by_kernel": by_kernel,
+            "ms_by_kernel_by": "torch.profiler device time, mean of a "
+                               "launch",
             "plain_ms": plain, "bound_ms": bound,
             "bound_by": ("operations" if flops / PEAK_FLOPS["bfloat16"]
                          >= nbytes / HBM_BYTES_PER_S else "bytes"),
             "library_ms": lib,
             "library": "autograd of F.scaled_dot_product_attention "
                        "(is_causal, enable_gqa), backward alone",
+            "rel_l2_err_vs_f32": rel_err,
+            "rel_l2_err_order": ["dq", "dk", "dv"],
             "shape": [b, s, h, kv, dh],
-            "design": "FA-2 recurrence on CUDA cores in f32: D = rowsum(dO*O); "
-                      "dK/dV kernel over 64-key tiles looping over the "
-                      "group's query heads and query tiles; dQ kernel over "
-                      "64-query tiles; 4x4 score blocks a thread from f32 "
-                      "shared-memory tiles; no atomics",
+            "design": "bf16 FA-2 recurrence on wgmma, no atomics: D = "
+                      "rowsum(dO*O); dK/dV kernel: 128 keys a CTA (two "
+                      "warpgroups of 64), K and V in smem, the group's "
+                      "query heads x 64-query tiles (last first) through "
+                      "a 2-stage cp.async Q/dO ring, S^T and dP^T SS "
+                      "m64n64k16, P^T and dS^T in bf16 register-A "
+                      "m64n128k16 into dV and dK; dQ kernel: 128 queries "
+                      "a CTA, Q and dO as register A fragments, 3-stage "
+                      "K/V ring, dQ products left running under the next "
+                      "tile's; warpgroups take turns issuing S and dP; "
+                      "f32 on CUDA cores (4x4 score blocks a thread)",
             "ptxas": ptxas_report("flash_attention_bwd", "flash_bwd"),
             "smem_dynamic_bytes": fa._bind_bwd(
-                ).flash_attention_bwd_smem_bytes(dh)}
+                ).flash_attention_bwd_smem_bytes(1, dh)}
 
 
 def paged_int8_record(device, err, launches, lengths):

@@ -5,8 +5,9 @@ with a plain C interface and loaded with ``ctypes``: no PyTorch headers,
 so a build takes seconds.  The build runs at first use, from the
 checkout's sources only, into ``build/repro_torch_kernels/`` at the
 repository root; one ``nvcc`` per source, all started together.  A
-library is named by the hash of its source and flags, so an edited
-source is rebuilt and an unchanged one is reused.
+library is named by the hash of its source, the shared headers beside
+it (``csrc/*.cuh``, included by relative path) and the flags, so an
+edited source or header is rebuilt and an unchanged one is reused.
 """
 from __future__ import annotations
 
@@ -40,7 +41,10 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
+    # the shared headers (csrc/*.cuh) are part of every source's hash
     h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 

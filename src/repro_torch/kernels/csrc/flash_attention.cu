@@ -41,7 +41,9 @@
 // The ragged edge (queries past Sq, keys past Sk) is masked in the
 // kernel, so the wrapper makes no padding copies.  Copies use cp.async
 // rather than TMA: no tensor map has to be encoded on the host
-// (cuTensorMapEncodeTiled) for every call.
+// (cuTensorMapEncodeTiled) for every call.  The tile layout, the copies,
+// the wgmma descriptors and products live in hopper_mma.cuh, shared with
+// the backward (flash_attention_bwd.cu).
 //
 // f32 (flash_attention_f32_kernel) stays on CUDA cores: a tensor-core
 // f32 product is TF32 (10-bit mantissa), which would break the 2e-5
@@ -63,6 +65,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper_mma.cuh"
 
 namespace {
 
@@ -233,158 +237,11 @@ constexpr int kThreadsBF = 128 * kWarpgroups;
 constexpr int kStages = 2;
 constexpr int kMinBlocks = 2;   // two CTAs an SM: at most 128 registers
 
-// Shared-memory tiles hold `rows` rows of DP bf16 as DP / 64 column
-// blocks of rows × 128 bytes, each in the 128-byte swizzle (16-byte
-// chunk c of row r at chunk c ^ (r % 8)) that wgmma's B128 layout reads;
-// every block starts 1024-byte aligned.
-__device__ __forceinline__ uint32_t tile_offset(int rows, int r, int ch) {
-  return (ch >> 3) * (rows * 128) + r * 128 + (((ch & 7) ^ (r & 7)) << 4);
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  // src-size 0 reads nothing and zero-fills the 16 bytes
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Copy rows [0, n_rows) of a (ROWS, Dh) slab, row i at src + i·stride,
-// into a swizzled tile; rows past n_rows and chunks past Dh are zero.
-// `safe` is a valid address for the copies that read nothing.  A thread
-// copies one 16-byte column chunk of every kRowStep-th row, so its
-// chunk, swizzle and shared-memory offset are fixed.
-template <int DP, int ROWS>
-__device__ __forceinline__ void load_tile(uint32_t dst,
-                                          const __nv_bfloat16* src,
-                                          int64_t stride, int n_rows,
-                                          int d_head,
-                                          const __nv_bfloat16* safe) {
-  constexpr int kChunks = DP / 8;
-  constexpr int kRowStep = kThreadsBF / kChunks;   // a multiple of 8
-  static_assert(ROWS % kRowStep == 0, "whole passes");
-  const int ch = threadIdx.x % kChunks;
-  const int r0 = threadIdx.x / kChunks;
-  const bool ch_ok = ch * 8 < d_head;
-  dst += tile_offset(ROWS, r0, ch);
-#pragma unroll
-  for (int i = 0; i < ROWS / kRowStep; ++i) {
-    const int r = r0 + i * kRowStep;
-    const bool ok = ch_ok && r < n_rows;
-    cp_async16(dst + i * kRowStep * 128, ok ? src + r * stride + ch * 8 : safe,
-               ok);
-  }
-}
-
-// wgmma shared-memory matrix descriptor, 128-byte swizzle
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
-         | (static_cast<uint64_t>(lbo >> 4) << 16)
-         | (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-// K-major operand (Q, K): 8-row groups 1024 bytes apart; the leading
-// offset is unused in the swizzled K-major layout.  k-step kk of 16
-// columns starts 32·(kk % 4) bytes into column block kk / 4.
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int rows,
-                                                int kk) {
-  return smem_desc(tile + (kk >> 2) * rows * 128 + (kk & 3) * 32, 16, 1024);
-}
-// MN-major operand (V as stored, keys × Dh): the leading offset steps
-// over 64-column blocks of Dh, the stride over 8-key groups; k-step kk
-// of 16 keys starts 16 rows in.
-constexpr uint32_t kVLeading = kBK * 128;
-constexpr uint32_t kVStride = 1024;
-__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int kk) {
-  return smem_desc(tile + kk * 16 * 128, kVLeading, kVStride);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keeps the compiler from touching accumulators across the async product.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-#define D8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
-              "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d (64 × 64 f32) (+)= A (64 × 16, smem K-major) · B (64 × 16, smem K-major)ᵀ
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : D8(0), D8(8), D8(16), D8(24)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 × 64 f32) += A (64 × 16 bf16, registers) · B (16 × 64, smem MN-major)
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : D8(0), D8(8), D8(16), D8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (64 × 128 f32) += A (64 × 16 bf16, registers) · B (16 × 128, smem MN-major)
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-      "%58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, "
-      "p, 1, 1, 1;\n}\n"
-      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-#undef D8
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
 constexpr size_t smem_bf16(int dp) {
   return 2 * (static_cast<size_t>(kBQ) * dp + 2 * kStages * kBK * dp) + 1024;
 }
 
-// Accumulator fragment of wgmma m64nN (per warpgroup thread, warp w,
-// lane l): register j holds row 16w + l/4 + 8·((j/2) % 2), column
-// 8·(j/4) + 2·(l % 4) + j % 2.
+// Accumulator fragments as hopper_mma.cuh lays them out.
 template <int DP>
 __global__ void __launch_bounds__(kThreadsBF, kMinBlocks)
 flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
@@ -425,14 +282,15 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   if (causal) kt_end = min(kt_end, q_hi / kBK + 1);
   const int kt_begin = window > 0 ? max(0, q_lo - window + 1) / kBK : 0;
 
-  load_tile<DP, kBQ>(s_q, q + (static_cast<int64_t>(b) * sq + q_lo) * q_stride
-                     + h * d_head, q_stride, sq - q_lo, d_head, q);
+  load_tile<DP, kBQ, kThreadsBF>(
+      s_q, q + (static_cast<int64_t>(b) * sq + q_lo) * q_stride + h * d_head,
+      q_stride, sq - q_lo, d_head, q);
   if (kt_begin < kt_end) {
     const int k0 = kt_begin * kBK;
-    load_tile<DP, kBK>(s_k, kb + k0 * kv_stride, kv_stride, sk - k0, d_head,
-                       k);
-    load_tile<DP, kBK>(s_v, vb + k0 * kv_stride, kv_stride, sk - k0, d_head,
-                       v);
+    load_tile<DP, kBK, kThreadsBF>(s_k, kb + k0 * kv_stride, kv_stride,
+                                   sk - k0, d_head, k);
+    load_tile<DP, kBK, kThreadsBF>(s_v, vb + k0 * kv_stride, kv_stride,
+                                   sk - k0, d_head, v);
   }
   cp_async_commit();
 
@@ -451,16 +309,15 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const uint32_t stage = ((kt - kt_begin) & 1) * kStageBytes;
     cp_async_wait_all();
-    // the copies' writes, seen by wgmma's (async proxy) reads
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    fence_proxy_async();   // the copies' writes, seen by wgmma's reads
     __syncthreads();
     if (kt + 1 < kt_end) {   // the next tile into the stage freed above
       const int k1 = (kt + 1) * kBK;
       const uint32_t next = kStageBytes - stage;
-      load_tile<DP, kBK>(s_k + next, kb + k1 * kv_stride, kv_stride, sk - k1,
-                         d_head, k);
-      load_tile<DP, kBK>(s_v + next, vb + k1 * kv_stride, kv_stride, sk - k1,
-                         d_head, v);
+      load_tile<DP, kBK, kThreadsBF>(s_k + next, kb + k1 * kv_stride,
+                                     kv_stride, sk - k1, d_head, k);
+      load_tile<DP, kBK, kThreadsBF>(s_v + next, vb + k1 * kv_stride,
+                                     kv_stride, sk - k1, d_head, v);
     }
     cp_async_commit();
 
@@ -546,7 +403,7 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk)
-      wgmma_rs(o, pa + 4 * kk, mnmajor_desc(s_v + stage, kk));
+      wgmma_rs(o, pa + 4 * kk, mnmajor_desc(s_v + stage, kBK, kk));
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(o);

@@ -83,7 +83,10 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
     ``lse``: D = rowsum(dO ∘ O), P = 2^(s·scale·log2 e − lse) on the
     visible keys, dV = Pᵀ dO, dP = dO Vᵀ, dS = P ∘ (dP − D), dQ = dS K ·
     scale, dK = dSᵀ Q · scale; dK and dV summed over each KV head's
-    query heads.  Returns (dq, dk, dv) in the inputs' dtypes.
+    query heads.  P and dS are rounded to the inputs' dtype before the
+    products that use them, as the bf16 kernel feeds them to the tensor
+    cores (the forward's "p in the value dtype"; nothing changes in
+    f32).  Returns (dq, dk, dv) in the inputs' dtypes.
     """
     b, sq, h, dh = q.shape
     sk, kv = k.shape[1], k.shape[2]
@@ -99,7 +102,8 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
     delta = (do.float() * o.float()).sum(-1)                  # (b, sq, h)
     delta = delta.reshape(b, sq, kv, g).permute(0, 2, 3, 1)[..., None]
     dp = torch.einsum("bqkgd,btkd->bkgqt", dof, vf)
-    ds = p * (dp - delta)
+    ds = (p * (dp - delta)).to(q.dtype).float()
+    p = p.to(q.dtype).float()
     dv = torch.einsum("bkgqt,bqkgd->btkd", p, dof)
     dk = torch.einsum("bkgqt,bqkgd->btkd", ds, qf) * scale
     dq = torch.einsum("bkgqt,btkd->bqkgd", ds, kf) * scale
@@ -188,7 +192,7 @@ def _bind_bwd():
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
                        + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        lib.flash_attention_bwd_smem_bytes.argtypes = [ctypes.c_int]
+        lib.flash_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 2
         lib.flash_attention_bwd_smem_bytes.restype = ctypes.c_size_t
     return lib
 
@@ -201,8 +205,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
 
     q, o, do: (B, Sq, H, Dh); k, v: (B, Sk, KV, Dh); lse (B, H, Sq) f32
     from :func:`flash_attention` with ``return_lse``.  float32 or
-    bfloat16, contiguous, on one CUDA device; Dh up to 128.  Returns
-    (dq, dk, dv) in the inputs' dtype.
+    bfloat16, contiguous, on one CUDA device; q, k, v and do 16-byte
+    aligned.  bfloat16 runs on the tensor cores and takes Dh a multiple
+    of 8 up to 128 (zero-padded inside the kernels), as the forward does;
+    float32 runs on CUDA cores and takes any Dh up to 128.  Returns (dq,
+    dk, dv) in the inputs' dtype.
     """
     _check(q, k, v, "flash_attention_bwd")
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
@@ -215,8 +222,12 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         raise ValueError(f"lse must be ({b}, {h}, {sq}) float32, got "
                          f"{tuple(lse.shape)} {lse.dtype}")
     if not all(t.is_contiguous() and t.device == q.device
-               for t in (o, do, lse)):
-        raise ValueError("o, lse and do must be contiguous on q's device")
+               for t in (o, do, lse)) or do.data_ptr() % 16:
+        raise ValueError("o, lse and do must be contiguous on q's device, "
+                         "do 16-byte aligned")
+    if q.dtype == torch.bfloat16 and (dh % 8 or dh > 128):
+        raise ValueError(f"the bf16 backward kernel takes Dh a multiple of "
+                         f"8 up to 128, got {dh}")
     if dh > 128:
         raise ValueError(f"the backward kernel takes Dh up to 128, got {dh}")
     lib = _bind_bwd()

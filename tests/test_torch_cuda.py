@@ -8,7 +8,8 @@ package, so it runs on a machine that has only PyTorch:
 
 The shapes mirror tests/test_kernels.py's PAGED_CASES, FLASH_CASES,
 WKV_CASES and MAMBA_CASES, and tests/test_quant.py's int8 paged matrix
-(FLASH_BWD: the flash backward at the smoke, GQA and training shapes);
+(FLASH_BWD: the flash backward at the smoke, GQA and training shapes,
+and Dh 120);
 inputs come from a seeded numpy generator, NaN sits in unreferenced
 pages and past each row's length (int8 pools: random payloads and NaN /
 inf scales in unreferenced pages).
@@ -63,7 +64,10 @@ FLASH_BWD = [  # b, s, h, kv, dh, window (causal; Sq = Sk)
     (2, 16, 4, 2, 16, -1),                  # the qwen3 smoke spec's call
     (2, 77, 4, 2, 64, -1), (1, 130, 4, 1, 64, 20), (2, 200, 6, 3, 128, -1),
     (1, 300, 8, 8, 40, 50), (1, 64, 2, 2, 8, 1), (1, 129, 5, 1, 128, 65),
-    (1, 1024, 40, 8, 128, -1), (1, 1000, 40, 8, 128, 256)]
+    (1, 1024, 40, 8, 128, -1), (1, 1000, 40, 8, 128, 256),
+    # Dh 120 zero-padded to 128 in the bf16 kernels; the training shape
+    (2, 300, 10, 2, 120, -1), (1, 333, 6, 2, 120, 100),
+    (1, 4096, 40, 8, 128, -1)]
 TOL = {torch.float32: (2e-5, 1e-3), torch.bfloat16: (2e-2, 1e-2)}
 
 
@@ -602,6 +606,23 @@ def test_flash_bwd_kernel_is_deterministic(cuda, dtype):
     runs = [tfa.flash_attention_bwd(q, k, v, out, lse, do, window=256)
             for _ in range(2)]
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+def test_flash_bwd_bf16_takes_dh_a_multiple_of_8(cuda):
+    """The bf16 backward (tensor cores, 16-byte rows) raises for a Dh that
+    is not a multiple of 8, as the bf16 forward does; f32 takes it."""
+    args = _flash_bwd_args(1, 70, 4, 2, 20, torch.float32, cuda, 5)
+    out, lse = tfa.flash_attention(*args[:3], return_lse=True)
+    got = tfa.flash_attention_bwd(*args[:3], out, lse, args[3])
+    want = tfa.flash_attention_bwd_plain(*args[:3], out, lse, args[3])
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=2e-5, rtol=1e-3)
+    q, k, v, do = (t.to(torch.bfloat16) for t in args)
+    before = tfa.flash_attention_bwd.launches
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tfa.flash_attention_bwd(q, k, v, out.to(torch.bfloat16), lse, do)
+    assert tfa.flash_attention_bwd.launches == before
 
 
 @pytest.mark.cuda
