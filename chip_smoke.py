@@ -68,19 +68,44 @@ Phases (any failure raises and the script exits non-zero):
    through the flash kernel (with its log-sum-exp) and every attention
    backward through the backward kernel; finite losses; the last round
    under ``torch.profiler``;
+   then the same shape through the virtual-stage schedules,
+   ``interleaved`` (flush) and ``interleaved_async`` (per-chunk
+   weight-version rings), pp = 2 x v = 2 (4 chunks of one layer): round
+   seconds, tokens/s, peak memory, losses, the predicted bubble, and for
+   the async ring its bytes and the profiled round's device-to-device
+   copy time;
 14. consistency train — fp32 at full width and 2 layers, pp = 2, seq
    256, R = 4, 2 rounds of each schedule (1f1b stash and vertical, gpipe
-   flush and 2bw): the executor (core/pipeline.py) against the sequential
-   oracle (core/reference.py), losses and every state tensor bit for
-   bit, under deterministic algorithms.
+   flush and 2bw), and at 4 layers of ``interleaved`` and
+   ``interleaved_async`` (pp = 2, v = 2): the executor
+   (core/pipeline.py) against the sequential oracle (core/reference.py),
+   losses and every state tensor bit for bit, under deterministic
+   algorithms (at 4 layers the executor's state goes to the host before
+   the oracle runs, and the oracle consumes its input as it goes);
+15. plan — PipeDream's profiling step on the card: one qwen3-14b block's
+   forward at full width (1 row x 4096 tokens, bf16, the flash kernel)
+   and the head timed through ``core/profiler.py::profile_measured``,
+   scaled to the train_4k microbatch (32 rows), and ``plan_search`` for
+   all 40 layers at train_4k (seq 4096, global batch 256, R = 8) over a
+   model axis of 8 H100s, on analytic and on measured profiles; both
+   must return a plan that fits 80 GB;
+16. driver — ``TrainDriver`` through the training entry point's flags
+   (``--ckpt`` in a temporary directory, ``--ckpt-every 2``) at full
+   width cut to 2 layers, bf16, SGD with momentum, 1f1b / stash, pp = 2:
+   5 rounds uninterrupted, then 5 rounds with a failure at round 3 and a
+   crash in the middle of round 4's save; the restarted run's losses and
+   every state tensor must equal the uninterrupted run's bit for bit,
+   under deterministic algorithms.
 
 Phase 2 also holds the int8-pool paged kernel and the flash backward
 kernel (bf16 and f32; with its log-sum-exp, and determinism) against
 their plain versions.  Launch counters are zeroed before and read after
-each main path (phases 3, 5, 6, 8, 9, 11 and 13).  Prints a ``profile``
-JSON line for qwen3 bf16, rwkv6 (decode, then prefill), jamba (decode,
-then prefill), quantized qwen3 and the training round, the ``train``
-JSON line, one ``kernels`` JSON line (launches, by path and for wkv6 by
+each main path (phases 3, 5, 6, 8, 9, 11, 13, 15 and 16).  Prints a
+``profile`` JSON line for qwen3 bf16, rwkv6 (decode, then prefill),
+jamba (decode, then prefill), quantized qwen3 and the training rounds
+(1f1b, interleaved, interleaved_async), three ``train`` JSON lines
+(1f1b with its witnesses, then each interleaved schedule), the ``plan``
+and ``driver`` JSON lines, one ``kernels`` JSON line (launches, by path and for wkv6 by
 design, errors, times, bounds, each kernel's design and what ``ptxas
 -v`` reported), the card's name and power limit, and last ``{"ok":
 true, "device": ...}``.  Exits non-zero without a CUDA device.
@@ -153,6 +178,21 @@ TRAIN_WITNESSES = (
 # training consistency (phase 14): fp32, 2 layers, pp = 2, seq 256, R = 4,
 # 2 rounds, each schedule; executor against oracle, bit for bit
 CONS_LAYERS, CONS_SEQ, CONS_R, CONS_ROUNDS = 2, 256, 4, 2
+# phase 13's virtual-stage runs at its shape: (schedule, stash mode), v = 2
+TRAIN_VIRTUAL = (("interleaved", "flush"), ("interleaved_async", "stash"))
+V_STAGES = 2
+# phase 14's virtual-stage cases: 4 layers (pp = 2 x v = 2 chunks of one)
+CONS_VIRTUAL_LAYERS = 4
+# phase 15: PipeDream's profiling step, then plan_search at train_4k over
+# one 8-card node: the block and the head timed at 1 row x PLAN_SEQ, the
+# microbatch is PLAN_BATCH / PLAN_R rows
+PLAN_SEQ, PLAN_BATCH, PLAN_R, PLAN_AXIS = 4096, 256, 8, 8
+# phase 16: TrainDriver at full width cut to 2 layers, bf16, SGD with
+# momentum (one f32 state: the smallest checkpoint), 1f1b / stash, pp = 2;
+# a failure before round DRIVER_FAIL and a crash in round DRIVER_TORN's
+# save
+DRIVER_LAYERS, DRIVER_ROUNDS, DRIVER_EVERY = 2, 5, 2
+DRIVER_FAIL, DRIVER_TORN = 3, 4
 # the backward kernel's checks (phase 2): (B, S, window) at H 40 / KV 8,
 # Dh 128, causal; Sq = Sk; the last is the training call, the shape the
 # kernels line times
@@ -240,26 +280,41 @@ def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_events(fn, iters: int, names=("",)) -> list:
+    """``torch.profiler``'s CUDA-kernel averages over ``iters`` calls of
+    ``fn``, after one unprofiled call.  A session that recorded no kernel
+    holding one of ``names`` is profiled again, twice at most: after the
+    checkpoint phase's gigabytes of host I/O the card's profiler has been
+    seen to return a session with the launches' API calls but without
+    their kernel records."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if str(getattr(e, "device_type", "")).endswith("CUDA")
+                  and e.self_device_time_total > 0]
+        missing = [n for n in names if not any(n in e.key for e in events)]
+        if not missing:
+            return events
+        log(f"[profile] session {attempt + 1} recorded no kernel of "
+            f"{missing}; it saw {sorted({e.key[:60] for e in prof.key_averages()})}")
+    raise AssertionError(f"the profiler saw no launch of {missing}")
+
+
 def device_ms(fn, iters: int, kernel: str = "") -> float:
     """Device time per call of ``fn`` from ``torch.profiler``: the summed
     time of the CUDA kernels whose name holds ``kernel`` (every kernel
     when empty), over ``iters`` calls.  Unlike CUDA events around a run
     of calls, it leaves out the host's launch pace, which sets the
     events' time when a call's device work is a few microseconds."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if kernel in e.key
-              and str(getattr(e, "device_type", "")).endswith("CUDA")
-              and e.self_device_time_total > 0]
-    if not events:
-        raise AssertionError(f"the profiler saw no device time for "
-                             f"{kernel or 'any kernel'}")
+    events = [e for e in kernel_events(fn, iters, (kernel,))
+              if kernel in e.key]
     return sum(e.self_device_time_total for e in events) / 1e3 / iters
 
 
@@ -267,22 +322,12 @@ def per_launch_ms(fn, iters: int, kernels) -> dict:
     """Mean device time of one launch of each kernel whose name holds a
     string of ``kernels``, from ``torch.profiler`` over ``iters`` calls
     of ``fn``: the mean over the launches the profiler recorded."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
+    events = kernel_events(fn, iters, kernels)
     out = {}
     for name in kernels:
-        events = [e for e in prof.key_averages() if name in e.key
-                  and e.self_device_time_total > 0]
-        if not events:
-            raise AssertionError(f"the profiler saw no launch of {name}")
-        out[name.strip("<")] = (sum(e.self_device_time_total for e in events)
-                                / 1e3 / sum(e.count for e in events))
+        mine = [e for e in events if name in e.key]
+        out[name.strip("<")] = (sum(e.self_device_time_total for e in mine)
+                                / 1e3 / sum(e.count for e in mine))
     return out
 
 
@@ -1595,10 +1640,15 @@ def profile_round(bundle, state, batch, round_s):
     if dev_ms <= 0:
         raise AssertionError("the profiler saw no device time")
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
+    copies = [e for e in events if "Memcpy DtoD" in e.key]
     out = {"model": bundle.spec.name, "phase": "train_round",
+           "schedule": f"{bundle.sched.name}/{bundle.plan.stash_mode}",
            "round_ms_warm_unprofiled": 1e3 * round_s, "device_ms": dev_ms,
            "idle_share": 1 - dev_ms / (1e3 * round_s),
-           "kernel_launches": sum(e.count for e in events)}
+           "kernel_launches": sum(e.count for e in events),
+           "memcpy_dtod_ms": sum(e.self_device_time_total
+                                 for e in copies) / 1e3,
+           "memcpy_dtod_calls": sum(e.count for e in copies)}
     for name, key in (("flash_fwd", "flash_attention_bf16_kernel"),
                       ("flash_bwd", "flash_bwd_")):
         mine = [e for e in events if key in e.key]
@@ -1609,6 +1659,42 @@ def profile_round(bundle, state, batch, round_s):
                          "ms": e.self_device_time_total / 1e3,
                          "calls": e.count} for e in top]
     return state, metrics, out
+
+
+def train_rounds(bundle, state, batches):
+    """The rounds of ``batches`` through ``bundle.train_step`` with the
+    plain attention versions refused, the last under torch.profiler;
+    (state, losses, round seconds, profile, launches).  Every attention
+    layer's forward through the flash kernel three times a microbatch
+    (F, the B recompute and the checkpoint's recompute) and its backward
+    through the backward kernel; the losses finite."""
+    import torch
+    reset_counts()
+    losses, round_s, prof = [], [], None
+    with plain_attention_refused():
+        for r, batch in enumerate(batches):
+            if r == len(batches) - 1:
+                state, metrics, prof = profile_round(bundle, state, batch,
+                                                     round_s[-1])
+            else:
+                t0 = time.perf_counter()
+                state, metrics = bundle.train_step(state, batch)
+                torch.cuda.synchronize()
+                round_s.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+    counts = read_counts()
+    per_round = bundle.spec.n_layers * bundle.plan.microbatches
+    want = {"paged_attention": 0, "paged_attention_int8": 0, "wkv6": 0,
+            "mamba_scan": 0,
+            "flash_attention": 3 * per_round * len(batches),
+            "flash_attention_bwd": per_round * len(batches)}
+    name = bundle.sched.name
+    if counts != want:
+        raise AssertionError(f"launches on the {name} training path: "
+                             f"{counts}, expected {want}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{name}: non-finite training loss: {losses}")
+    return state, losses, round_s, prof, counts
 
 
 @contextlib.contextmanager
@@ -1657,31 +1743,10 @@ def phase_train(device):
     loader = Loader(SyntheticLM(spec.vocab, TRAIN_SEQ, seed=SEED),
                     plan.microbatches, bundle.microbatch_size, device)
     batches = [loader.get(r) for r in range(TRAIN_ROUNDS)]
-    reset_counts()
-    losses, round_s, prof = [], [], None
-    with plain_attention_refused():
-        for r, batch in enumerate(batches):
-            if r == TRAIN_ROUNDS - 1:
-                state, metrics, prof = profile_round(bundle, state, batch,
-                                                     round_s[-1])
-            else:
-                t0 = time.perf_counter()
-                state, metrics = bundle.train_step(state, batch)
-                torch.cuda.synchronize()
-                round_s.append(time.perf_counter() - t0)
-            losses.append(float(metrics["loss"]))
-    counts = read_counts()
-    per_round = spec.n_layers * plan.microbatches
-    want = {"paged_attention": 0, "paged_attention_int8": 0, "wkv6": 0,
-            "mamba_scan": 0, "flash_attention": 3 * per_round * TRAIN_ROUNDS,
-            "flash_attention_bwd": per_round * TRAIN_ROUNDS}
-    if counts != want:
-        raise AssertionError(f"launches on the training path: {counts}, "
-                             f"expected {want}")
-    # finite; the falling loss is asked of the one_batch witness below (at
-    # the config's constant Adam lr the loss on fresh data rises)
-    if not all(np.isfinite(losses)):
-        raise AssertionError(f"non-finite training loss: {losses}")
+    # finite losses; the falling loss is asked of the one_batch witness
+    # below (at the config's constant Adam lr the loss on fresh data rises)
+    state, losses, round_s, prof, counts = train_rounds(bundle, state,
+                                                        batches)
     tokens = plan.microbatches * bundle.microbatch_size * TRAIN_SEQ
     out = {"model": spec.name, "layers": spec.n_layers,
            "schedule": f"{bundle.sched.name}/{plan.stash_mode}",
@@ -1761,6 +1826,72 @@ def train_witness(device, flags, one_batch):
     return out
 
 
+def tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size()
+               for _, t in tree_leaves(tree) if hasattr(t, "numel"))
+
+
+def phase_train_virtual(device, name, mode):
+    """Phase 13's shape through a virtual-stage schedule (pp = 2, v =
+    V_STAGES: 4 chunks of one layer) from the launcher's builder:
+    TRAIN_ROUNDS rounds on the stream, the last under torch.profiler;
+    every attention forward through the flash kernel and every backward
+    through the backward kernel."""
+    import torch
+    from repro_torch.core.schedule import weighted_round_time
+    from repro_torch.data.pipeline import Loader, SyntheticLM
+    from repro_torch.launch import train
+    spec, bundle = train.build(train_args(phase_train_flags(
+        ["--schedule", name, "--stash-mode", mode, "--virtual-stages",
+         str(V_STAGES)])))
+    plan, sched = bundle.plan, bundle.sched
+    torch.cuda.reset_peak_memory_stats()
+    state = bundle.init_state(torch.Generator(device).manual_seed(SEED))
+    torch.cuda.synchronize()
+    ring_gb = tree_bytes(state["stash"].get("ring", {})) / 1e9
+    log(f"[train] {spec.name} {sched.name} {plan.stash_mode} pp={plan.pp} "
+        f"v={plan.virtual_stages} R={plan.microbatches}: "
+        f"{sched.n_ticks} ticks, ring V={sched.stash_slots} x "
+        f"{sched.n_chunks} chunks ({ring_gb:.2f} GB), residual slots "
+        f"{sched.resid_slots}; state "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated")
+    loader = Loader(SyntheticLM(spec.vocab, TRAIN_SEQ, seed=SEED),
+                    plan.microbatches, bundle.microbatch_size, device)
+    batches = [loader.get(r) for r in range(TRAIN_ROUNDS)]
+    state, losses, round_s, prof, counts = train_rounds(bundle, state,
+                                                        batches)
+    tokens = plan.microbatches * bundle.microbatch_size * TRAIN_SEQ
+    _, bubble = weighted_round_time(sched)
+    out = {"model": spec.name, "layers": spec.n_layers,
+           "schedule": f"{sched.name}/{plan.stash_mode}", "pp": plan.pp,
+           "virtual_stages": plan.virtual_stages,
+           "microbatches": plan.microbatches,
+           "rows": bundle.microbatch_size, "seq_len": TRAIN_SEQ,
+           "optimizer": "adam", "n_ticks": sched.n_ticks,
+           "predicted_bubble": bubble, "stash_slots": sched.stash_slots,
+           "resid_slots": sched.resid_slots, "ring_gb": ring_gb,
+           "round_s_first": round_s[0], "round_s_warm": round_s[1],
+           "tokens_per_s": tokens / round_s[1],
+           "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "loss_per_round": losses,
+           "memcpy_dtod_ms": prof["memcpy_dtod_ms"],
+           "device_ms": prof["device_ms"], "idle_share": prof["idle_share"],
+           "flash_attention_launches": counts["flash_attention"],
+           "flash_attention_bwd_launches": counts["flash_attention_bwd"]}
+    log(f"[train] {name}: first {round_s[0]:.3f}s, warm {round_s[1]:.3f}s "
+        f"({out['tokens_per_s']:.0f} tokens/s), peak "
+        f"{out['peak_allocated_gb']:.1f} GB, predicted bubble {bubble:.3f}; "
+        f"loss per round {[round(x, 4) for x in losses]}; device "
+        f"{prof['device_ms']:.1f} ms, idle {prof['idle_share']:.3f}, "
+        f"device-to-device copies {prof['memcpy_dtod_ms']:.1f} ms in "
+        f"{prof['memcpy_dtod_calls']} calls; flash launches "
+        f"{counts['flash_attention']} forward, "
+        f"{counts['flash_attention_bwd']} backward")
+    del state, bundle, batches
+    torch.cuda.empty_cache()
+    return out, prof, counts
+
+
 def tree_leaves(tree, prefix=""):
     if isinstance(tree, dict):
         return [x for k in sorted(tree)
@@ -1769,13 +1900,17 @@ def tree_leaves(tree, prefix=""):
 
 
 def phase_train_consistency(device):
-    """fp32 at full width and CONS_LAYERS layers, pp = 2, each of the four
-    schedules: the executor (core/pipeline.py) against the sequential
-    oracle (core/reference.py) over CONS_ROUNDS rounds from one seed,
-    losses and every state tensor bit for bit.  SGD with momentum: two
-    training states with Adam's moments do not fit the card beside each
-    other.  Deterministic algorithms for the phase (the embedding's
-    scatter-add)."""
+    """fp32 at full width: at CONS_LAYERS layers, pp = 2, each of the four
+    single-chunk schedules, and at CONS_VIRTUAL_LAYERS layers the two
+    virtual-stage schedules (pp = 2, v = V_STAGES): the executor
+    (core/pipeline.py) against the sequential oracle (core/reference.py)
+    over CONS_ROUNDS rounds from one seed, losses and every state tensor
+    bit for bit.  SGD with momentum.  The executor's state goes to the
+    host before the oracle runs; at 4 layers the oracle also consumes
+    its input round by round (``donate``): a full-width fp32 state with
+    the async schedule's ring is 49 GB, and a round's input and output
+    do not fit the card side by side.  Deterministic algorithms for the
+    phase (the embedding's scatter-add)."""
     import os
     import torch
     from repro_torch.core.pipeline import build_pipeline
@@ -1788,14 +1923,19 @@ def phase_train_consistency(device):
     os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     torch.use_deterministic_algorithms(True)
     cfg = configs.get("qwen3-14b")
-    spec = cut_layers(cfg.full_spec(), CONS_LAYERS)
     opt = SGDM(lr=0.01)
+    base = cfg.PLAN.with_(tp=1, pp=2, microbatches=CONS_R)
+    cases = [(mode, CONS_LAYERS, base.with_(stash_mode=mode), False)
+             for mode in ("stash", "vertical", "flush", "2bw")]
+    cases += [(name, CONS_VIRTUAL_LAYERS,
+               base.with_(stash_mode=mode, schedule=name,
+                          virtual_stages=V_STAGES), True)
+              for name, mode in TRAIN_VIRTUAL]
     out = {}
     try:
-        for mode in ("stash", "vertical", "flush", "2bw"):
+        for label, n_layers, plan, donate in cases:
             t0 = time.perf_counter()
-            plan = cfg.PLAN.with_(tp=1, pp=2, microbatches=CONS_R,
-                                  stash_mode=mode)
+            spec = cut_layers(cfg.full_spec(), n_layers)
             bundle = build_pipeline(spec, plan, seq_len=CONS_SEQ,
                                     global_batch=CONS_R, optimizer=opt,
                                     compute_dtype=torch.float32,
@@ -1818,35 +1958,299 @@ def phase_train_consistency(device):
                 torch.float32)
             o_loss = []
             for batch in batches:
-                ref, m = reference_train_step(spec, plan, ref, batch, opt)
+                ref, m = reference_train_step(spec, plan, ref, batch, opt,
+                                              donate=donate)
                 o_loss.append(m["loss"].item())
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
             oracle = tree_leaves(ref)
             if e_loss != o_loss:
-                raise AssertionError(f"{mode}: executor losses {e_loss} != "
+                raise AssertionError(f"{label}: executor losses {e_loss} != "
                                      f"oracle {o_loss}")
             if [n for n, _ in executor] != [n for n, _ in oracle]:
-                raise AssertionError(f"{mode}: state trees differ")
+                raise AssertionError(f"{label}: state trees differ")
             n_bytes = 0
             for (name, e), (_, o) in zip(executor, oracle):
                 same = (torch.equal(e.to(device), o) if torch.is_tensor(o)
                         else e == o)
                 if not same:
-                    raise AssertionError(f"{mode}: {name} differs between "
+                    raise AssertionError(f"{label}: {name} differs between "
                                          "executor and oracle")
                 n_bytes += o.numel() * o.element_size() \
                     if torch.is_tensor(o) else 0
             del ref, oracle, executor
             torch.cuda.empty_cache()
-            out[mode] = {"losses": e_loss, "state_gb": n_bytes / 1e9,
-                         "seconds": time.perf_counter() - t0}
+            out[label] = {"layers": n_layers, "losses": e_loss,
+                          "state_gb": n_bytes / 1e9,
+                          "seconds": time.perf_counter() - t0}
             log(f"[consistency-train] fp32 {spec.n_layers} layers at full "
-                f"width, {mode}, pp=2, R={CONS_R} x seq {CONS_SEQ}, "
-                f"{CONS_ROUNDS} rounds: executor == oracle bit for bit "
-                f"(losses {e_loss}, {n_bytes / 1e9:.2f} GB of state), "
-                f"{out[mode]['seconds']:.1f}s")
+                f"width, {label}, pp=2, v={plan.virtual_stages}, R={CONS_R} "
+                f"x seq {CONS_SEQ}, {CONS_ROUNDS} rounds: executor == oracle "
+                f"bit for bit (losses {e_loss}, {n_bytes / 1e9:.2f} GB of "
+                f"state, peak {peak_gb:.1f} GB), "
+                f"{out[label]['seconds']:.1f}s")
+            torch.cuda.reset_peak_memory_stats()
     finally:
         torch.use_deterministic_algorithms(False)
     return out
+
+
+# --------------------------------------------------------------------------
+# phase 15: PipeDream's profiling step and the planner on the card
+# --------------------------------------------------------------------------
+
+def phase_plan(device):
+    """One qwen3-14b block's forward at full width (1 row x PLAN_SEQ,
+    bf16, the flash kernel) and the head (final norm, logits, loss) timed
+    through profile_measured, scaled to the train_4k microbatch; the 40
+    layers' and the head's profiles from them (bytes and parameters from
+    profile_analytic); plan_search on analytic and on measured profiles
+    over PLAN_AXIS H100s.  Both must return a plan that fits."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import profiler as prof
+    from repro_torch.core.partitioner import plan_search
+    from repro_torch.core.versioning import tree_chunk
+    from repro_torch.launch.train import cut_layers
+    from repro_torch.models import lm_head
+    from repro_torch.models.init import init_params
+    from repro_torch.models.stage import make_statics, stage_fwd
+    cfg = configs.get("qwen3-14b")
+    full = cfg.full_spec()
+    one = cut_layers(full, 1)
+    plan1 = cfg.PLAN.with_(pp=1, tp=1)
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device).manual_seed(SEED)
+    params = init_params(one, plan1, gen, bf16)
+    statics = make_statics(one, plan1, tokens_per_mb=PLAN_SEQ)
+    w = tree_chunk(params["stages"], 0)
+    x = torch.randn((1, PLAN_SEQ, full.d_model), generator=gen,
+                    device=device).to(bf16)
+    pos = torch.arange(PLAN_SEQ, device=device)[None]
+    labels = torch.randint(0, full.vocab, (1, PLAN_SEQ), generator=gen,
+                           device=device)
+
+    def block():
+        with torch.no_grad():
+            stage_fwd(w, x, statics, positions=pos,
+                      windows=params["layer_windows"][0],
+                      thetas=params["layer_thetas"][0])
+
+    def head():
+        with torch.no_grad():
+            lm_head.head_loss(params["head"], params["final_norm"]["scale"],
+                              x, labels, norm_kind=full.norm,
+                              vocab=full.vocab)
+
+    rows = PLAN_BATCH // PLAN_R                   # microbatch rows
+    mb_tokens = rows * PLAN_SEQ
+    analytic = prof.profile_analytic(full, prof.H100_SXM,
+                                     minibatch_tokens=mb_tokens)
+    reset_counts()
+    t0 = time.perf_counter()
+    meas_block, meas_head = prof.profile_measured(
+        [block, head], ["block", "head"],
+        [analytic[1].a_bytes, analytic[-1].a_bytes],
+        [analytic[1].w_params, analytic[-1].w_params])
+    prof_s = time.perf_counter() - t0
+    counts = read_counts()
+    # warmup 2 + iters 10 block calls, one attention layer each
+    want = {"paged_attention": 0, "paged_attention_int8": 0, "wkv6": 0,
+            "mamba_scan": 0, "flash_attention": 12, "flash_attention_bwd": 0}
+    if counts != want:
+        raise AssertionError(f"launches while profiling: {counts}, "
+                             f"expected {want}")
+    scale = lambda p, name: dataclasses.replace(         # noqa: E731
+        p, name=name, t_fwd=p.t_fwd * rows, t_bwd=p.t_bwd * rows)
+    measured = ([analytic[0]]
+                + [scale(meas_block, f"block_{i}")
+                   for i in range(full.n_layers)]
+                + [scale(meas_head, "head")])
+    ratio = measured[1].t_fwd / analytic[1].t_fwd
+    out = {"model": full.name, "layers": full.n_layers,
+           "seq_len": PLAN_SEQ, "global_batch": PLAN_BATCH,
+           "microbatches": PLAN_R, "model_axis": PLAN_AXIS,
+           "hardware": dataclasses.asdict(prof.H100_SXM),
+           "block_fwd_ms_1x4096": 1e3 * meas_block.t_fwd,
+           "head_fwd_ms_1x4096": 1e3 * meas_head.t_fwd,
+           "block_fwd_ms_microbatch_analytic": 1e3 * analytic[1].t_fwd,
+           "block_fwd_measured_over_analytic": ratio,
+           "head_fwd_measured_over_analytic":
+               measured[-1].t_fwd / analytic[-1].t_fwd,
+           "profile_seconds": prof_s}
+    log(f"[plan] block forward {1e3 * meas_block.t_fwd:.3f} ms, head "
+        f"{1e3 * meas_head.t_fwd:.3f} ms at 1 x {PLAN_SEQ} tokens "
+        f"(profile_measured, {prof_s:.2f}s); x {rows} rows: block "
+        f"{1e3 * measured[1].t_fwd:.2f} ms against the analytic "
+        f"{1e3 * analytic[1].t_fwd:.2f} ms (measured / analytic {ratio:.3f})")
+    for label, profiles in (("analytic", analytic), ("measured", measured)):
+        choice = plan_search(full, cfg.PLAN.with_(microbatches=PLAN_R),
+                             PLAN_AXIS, prof.H100_SXM,
+                             minibatch_tokens=mb_tokens, profiles=profiles)
+        if not choice.feasible or not choice.memory.fits(80e9):
+            raise AssertionError(f"plan_search ({label}) chose a plan that "
+                                 f"does not fit: {choice.describe()}")
+        out[label] = {"describe": choice.describe(),
+                      "memory": str(choice.memory),
+                      "round_ms": 1e3 * choice.round_time,
+                      "bubble": choice.bubble_fraction,
+                      "plan": {k: getattr(choice.plan, k) for k in (
+                          "pp", "tp", "schedule", "stash_mode",
+                          "virtual_stages", "microbatches")}}
+        log(f"[plan] plan_search ({label} profiles), {full.name} "
+            f"{full.n_layers} layers at train_4k over {PLAN_AXIS} H100s: "
+            f"{choice.describe()}")
+        log(f"[plan]   {choice.memory}")
+    del params, w, x
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+# --------------------------------------------------------------------------
+# phase 16: the fault-tolerant driver and its checkpoints
+# --------------------------------------------------------------------------
+
+def phase_driver(device):
+    """TrainDriver through the training entry point's flags: DRIVER_ROUNDS
+    rounds uninterrupted, then with a failure before round DRIVER_FAIL
+    and a crash in the middle of round DRIVER_TORN's save (its stage 0
+    written, its manifest incomplete).  The restarted run's losses and
+    every state tensor must equal the uninterrupted run's bit for bit,
+    under deterministic algorithms.  Checkpoints go to a temporary
+    directory; the phase fails with the numbers when the disk there has
+    too little room for two."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.launch import train
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    flags = ["--layers", str(DRIVER_LAYERS), "--pp", "2", "--microbatches",
+             str(TRAIN_R), "--global-batch", str(TRAIN_R * TRAIN_ROWS),
+             "--seq-len", str(TRAIN_SEQ), "--schedule", "1f1b",
+             "--stash-mode", "stash", "--optimizer", "sgdm", "--lr", "0.01",
+             "--steps", str(DRIVER_ROUNDS), "--ckpt-every",
+             str(DRIVER_EVERY)]
+    times = {"save_s": [], "restore_s": []}
+
+    def timed(driver):
+        save, restore = driver.ckpt.save, driver.ckpt.restore
+
+        def t_save(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return save(*a, **k)
+            finally:
+                times["save_s"].append(time.perf_counter() - t0)
+
+        def t_restore(*a, **k):
+            t0 = time.perf_counter()
+            out = restore(*a, **k)
+            torch.cuda.synchronize()
+            times["restore_s"].append(time.perf_counter() - t0)
+            return out
+        driver.ckpt.save, driver.ckpt.restore = t_save, t_restore
+        return driver
+
+    def run(sub, hook=None, torn=False):
+        args = train_args([*flags, "--ckpt", os.path.join(tmp, sub)])
+        spec, bundle = train.build(args)
+        driver = train.make_driver(args, spec, bundle, args.ckpt,
+                                   failure_hook=hook)
+        timed(driver)
+        if torn:
+            save = driver.ckpt.save
+
+            def torn_save(rnd, st, n, fail_after_stage=None):
+                if rnd == DRIVER_TORN and armed["save"]:
+                    armed["save"] = False
+                    save(rnd, st, n, fail_after_stage=0)
+                    raise RuntimeError("crash in the middle of a save")
+                return save(rnd, st, n, fail_after_stage)
+            driver.ckpt.save = torn_save
+        state = bundle.init_state(torch.Generator(device).manual_seed(SEED))
+        state, step = driver.run(state, args.steps)
+        if step != DRIVER_ROUNDS:
+            raise AssertionError(f"driver stopped at round {step}")
+        return spec, bundle, driver, state
+
+    armed = {"hook": True, "save": True}
+
+    def hook(step):
+        if step == DRIVER_FAIL and armed["hook"]:
+            armed["hook"] = False
+            raise RuntimeError("simulated node failure")
+
+    out = {}
+    try:
+        reset_counts()
+        spec, bundle, driver_a, ref = run("a")
+        ckpt_bytes = sum(
+            os.path.getsize(os.path.join(r, f))
+            for r, _, fs in os.walk(os.path.join(tmp, "a", "round_00000002"))
+            for f in fs)
+        free = shutil.disk_usage(tmp).free
+        log(f"[driver] {spec.name} {bundle.sched.name}/"
+            f"{bundle.plan.stash_mode} pp={bundle.plan.pp} bf16 sgdm: "
+            f"{DRIVER_ROUNDS} rounds uninterrupted, a checkpoint is "
+            f"{ckpt_bytes / 1e9:.2f} GB on disk, {free / 1e9:.1f} GB free")
+        if free < 2.2 * ckpt_bytes:
+            raise AssertionError(
+                f"the disk at {tmp} has {free / 1e9:.1f} GB free; the "
+                f"restarted run needs two checkpoints of "
+                f"{ckpt_bytes / 1e9:.2f} GB")
+        shutil.rmtree(os.path.join(tmp, "a"))
+        ref_losses = [m["loss"] for m in driver_a.metrics_log]
+        ref_leaves = tree_leaves(ref)
+        del bundle, driver_a
+        _, _, driver_b, got = run("b", hook=hook, torn=True)
+        counts = read_counts()
+        if any(armed.values()):
+            raise AssertionError(f"a fault did not fire: {armed}")
+        losses = [m["loss"] for m in driver_b.metrics_log]
+        # rounds 0-1, 2, (failure), 2-3, (torn save), 2-4
+        if losses[-3:] != ref_losses[-3:] or losses[:2] != ref_losses[:2]:
+            raise AssertionError(f"restarted losses {losses} against "
+                                 f"{ref_losses}")
+        got_leaves = tree_leaves(got)
+        if [n for n, _ in got_leaves] != [n for n, _ in ref_leaves]:
+            raise AssertionError("driver: state trees differ")
+        for (name, a), (_, b) in zip(got_leaves, ref_leaves):
+            same = torch.equal(a, b) if torch.is_tensor(a) else a == b
+            if not same:
+                raise AssertionError(f"driver: {name} differs between the "
+                                     "restarted and the uninterrupted run")
+        n_rounds = DRIVER_ROUNDS + len(losses)
+        per_round = DRIVER_LAYERS * TRAIN_R
+        want = {"paged_attention": 0, "paged_attention_int8": 0, "wkv6": 0,
+                "mamba_scan": 0, "flash_attention": 3 * per_round * n_rounds,
+                "flash_attention_bwd": per_round * n_rounds}
+        if counts != want:
+            raise AssertionError(f"launches on the driver path: {counts}, "
+                                 f"expected {want}")
+        out = {"model": spec.name, "layers": DRIVER_LAYERS,
+               "schedule": "1f1b/stash", "pp": 2, "optimizer": "sgdm",
+               "dtype": "bfloat16", "rounds": DRIVER_ROUNDS,
+               "ckpt_every": DRIVER_EVERY, "checkpoint_gb": ckpt_bytes / 1e9,
+               "disk_free_gb": free / 1e9, "save_s": times["save_s"],
+               "restore_s": times["restore_s"],
+               "rounds_executed": n_rounds,
+               "round_s_warm": driver_b.round_seconds[1],
+               "losses_uninterrupted": ref_losses,
+               "losses_restarted_run": losses}
+        log(f"[driver] restarted run (failure before round {DRIVER_FAIL}, "
+            f"crash in round {DRIVER_TORN}'s save): {len(losses)} rounds "
+            f"executed, losses {[round(x, 4) for x in losses]}; final state "
+            f"and the last rounds' losses equal the uninterrupted run's bit "
+            f"for bit; saves {[round(x, 2) for x in times['save_s']]} s, "
+            f"restores {[round(x, 2) for x in times['restore_s']]} s")
+        del got, ref, got_leaves, ref_leaves
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return out, counts
 
 
 # --------------------------------------------------------------------------
@@ -2260,13 +2664,18 @@ def main() -> int:
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    phase_s = {}
 
     phase_build()
+    phase_s["1 build"] = time.perf_counter() - t_start
+    t0 = time.perf_counter()
     errs = phase_kernels(device)
     errs["wkv6"] = phase_wkv6_kernel(device)
     errs["mamba_scan"] = phase_mamba_kernel(device)
     errs["paged_attention_int8"] = phase_paged_int8_kernel(device)
     errs["flash_attention_bwd"] = phase_flash_bwd_kernel(device)
+    phase_s["2 kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
 
     cfg = configs.get("qwen3-14b")
     full = cfg.full_spec()
@@ -2282,6 +2691,8 @@ def main() -> int:
                                 blocks=full.blocks[:2])
     phase_consistency(device, short, plan)
     torch.cuda.empty_cache()
+    phase_s["3-4 qwen3 serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
 
     cfg = configs.get("rwkv6-1.6b")
     full = cfg.full_spec()
@@ -2296,6 +2707,8 @@ def main() -> int:
                                 blocks=full.blocks[:2])
     phase_consistency_rwkv(device, short, plan.with_(pp=2))
     torch.cuda.empty_cache()
+    phase_s["5-7 rwkv6 serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
 
     cfg = configs.get("jamba-v0.1-52b")
     full = cfg.full_spec()
@@ -2312,6 +2725,8 @@ def main() -> int:
                                               "jamba-v0.1-52b-2l"),
                             plan.with_(pp=1))
     torch.cuda.empty_cache()
+    phase_s["8-10 jamba serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
 
     cfg = configs.get("qwen3-14b")
     full = cfg.full_spec()
@@ -2323,11 +2738,27 @@ def main() -> int:
                                 blocks=full.blocks[:2])
     consistency_quant = phase_consistency_quant(device, short, plan)
     torch.cuda.empty_cache()
+    phase_s["11-12 quantized serve"] = time.perf_counter() - t0
 
+    t0 = time.perf_counter()
     train_out, prof_train, train_fwd, train_bwd = phase_train(device)
     torch.cuda.empty_cache()
+    virtual, prof_virtual, virtual_counts = {}, [], {}
+    for name, mode in TRAIN_VIRTUAL:
+        virtual[name], prof_v, virtual_counts[name] = phase_train_virtual(
+            device, name, mode)
+        prof_virtual.append(prof_v)
+    phase_s["13 train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     consistency_train = phase_train_consistency(device)
     torch.cuda.empty_cache()
+    phase_s["14 consistency train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan_out, plan_counts = phase_plan(device)
+    phase_s["15 plan"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    driver_out, driver_counts = phase_driver(device)
+    phase_s["16 driver"] = time.perf_counter() - t0
 
     records = kernel_records(device, errs, {
         "paged_attention": {"qwen3_serve": paged_launches,
@@ -2336,8 +2767,16 @@ def main() -> int:
         "flash_attention": {
             "qwen3_full_transformer": flash_launches,
             "jamba_full_transformer": jamba_ref["flash_attention"],
-            "qwen3_train": train_fwd},
-        "flash_attention_bwd": {"qwen3_train": train_bwd},
+            "qwen3_train": train_fwd,
+            **{f"qwen3_train_{n}": c["flash_attention"]
+               for n, c in virtual_counts.items()},
+            "qwen3_plan_profile": plan_counts["flash_attention"],
+            "qwen3_driver": driver_counts["flash_attention"]},
+        "flash_attention_bwd": {
+            "qwen3_train": train_bwd,
+            **{f"qwen3_train_{n}": c["flash_attention_bwd"]
+               for n, c in virtual_counts.items()},
+            "qwen3_driver": driver_counts["flash_attention_bwd"]},
         "wkv6": {"serve": wkv_serve, "full_transformer": wkv_ref},
         "wkv6_by_design": {
             design: {"serve": wkv_serve_designs[design],
@@ -2345,6 +2784,7 @@ def main() -> int:
             for design in ("chunked", "stepwise")},
         "mamba_scan": {"serve": jamba_counts["mamba_scan"],
                        "full_transformer": jamba_ref["mamba_scan"]}})
+    log(f"[phases] seconds: {json.dumps(phase_s)}")
     log(f"[done] {time.perf_counter() - t_start:.1f}s; serve qwen3 {serve}; "
         f"serve rwkv6 {serve_rwkv}; serve jamba {serve_jamba}; serve qwen3 "
         f"int8/int8 {serve_quant}; consistency int8/int8 "
@@ -2356,7 +2796,13 @@ def main() -> int:
     print(json.dumps({"profile": prof_jamba_prefill}))
     print(json.dumps({"profile": prof_quant}))
     print(json.dumps({"profile": prof_train}))
+    for prof_v in prof_virtual:
+        print(json.dumps({"profile": prof_v}))
     print(json.dumps({"train": train_out}))
+    for name in virtual:
+        print(json.dumps({"train": virtual[name]}))
+    print(json.dumps({"plan": plan_out}))
+    print(json.dumps({"driver": driver_out}))
     print(json.dumps({"kernels": records}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

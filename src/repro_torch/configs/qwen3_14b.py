@@ -13,6 +13,11 @@ PLAN = ParallelismPlan(pp=2, tp=8, microbatches=8, stash_mode="stash",
                        zero1=True, remat=True)
 SMOKE_PLAN = ParallelismPlan(pp=2, tp=1, microbatches=2, stash_mode="stash",
                              zero1=False)
+# 40 layers = 4 stages x 2 virtual chunks of 5 layers (flush semantics)
+INTERLEAVED_PLAN = ParallelismPlan(pp=4, tp=4, microbatches=8,
+                                   stash_mode="flush",
+                                   schedule="interleaved", virtual_stages=2,
+                                   zero1=True, remat=True)
 
 
 def full_spec() -> S.ModelSpec:

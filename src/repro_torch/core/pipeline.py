@@ -23,12 +23,17 @@ One ``train_step`` is one *round* of R microbatches through a
 All stages run on one device, one after another within a phase; the
 state is held as JAX's executor holds it: stage-stacked ``[L, ...]``
 weights and optimizer states, a ``[V, L, ...]`` weight-version ring and
-a ``[Vr, L, ...]`` residual ring, all written in place.  Every
-microbatch, slot and version index comes from a table row; a bubble row
-is skipped (JAX runs it on masked data).  Data replicas (the gradient
-all-reduce, ZeRO-1), stages on several devices and the virtual-stage
-schedules are not ported yet.  Bit-exact (fp32) against the sequential
-oracle core/reference.py.
+a ``[Vr, S, ...]`` residual ring, all written in place.  With virtual
+stages (the interleaved family) the model is cut into L = S·v chunks
+held in storage order (row s·v + j is chunk j·S + s); a row's chunk
+column picks the storage row, the hand-off wraps from the last stage
+back to stage 0 between chunks, the async variant's ring is chunk-major
+and a per-microbatch update touches only the chunk its B row names.
+Every microbatch, slot and version index comes from a table row; a
+bubble row is skipped (JAX runs it on masked data).  Data replicas (the
+gradient all-reduce, ZeRO-1) and stages on several devices are not
+ported yet.  Bit-exact (fp32) against the sequential oracle
+core/reference.py.
 """
 from __future__ import annotations
 
@@ -38,16 +43,19 @@ from typing import Callable
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.reference import check_trainable
-from repro_torch.core.schedule import (B_FROM_HEAD, B_MB, B_RESID_READ,
-                                       B_VERSION, F_FROM_EMBEDS, F_MB,
-                                       F_RESID_WRITE, F_STASH_WRITE,
-                                       F_VERSION, PipelineSchedule,
-                                       make_schedule)
+from repro_torch.core.reference import (check_trainable, model_plan,
+                                        to_storage_order)
+from repro_torch.core.schedule import (B_CHUNK, B_FROM_HEAD, B_MB,
+                                       B_RESID_READ, B_VERSION, F_CHUNK,
+                                       F_FROM_EMBEDS, F_MB, F_RESID_WRITE,
+                                       F_STASH_WRITE, F_VERSION,
+                                       PipelineSchedule, make_schedule)
 from repro_torch.core.versioning import (make_train_state,
                                          replicated_microbatch_update,
-                                         tree_add_, tree_ring_read,
-                                         tree_ring_write)
+                                         tree_add_, tree_chunk,
+                                         tree_chunk_add,
+                                         tree_chunk_ring_read,
+                                         tree_chunk_ring_write)
 from repro_torch.models import lm_head
 from repro_torch.models import spec as spec_lib
 from repro_torch.models.init import init_params
@@ -90,33 +98,40 @@ def build_pipeline(spec: spec_lib.ModelSpec, plan, *, seq_len: int,
                          "no backward slots to train with")
     check_trainable(spec, sched)
     sched.validate()
+    vs = sched.virtual_stages               # local chunks per stage
+    L = sched.n_chunks                      # storage rows
     Vr = sched.resid_slots
     use_ring = sched.uses_stash_ring
     accumulate = sched.accumulate or plan.grad_sync == "per_round"
+    # no schedule forwards from the stash at virtual stages
+    assert not (sched.fwd_from_stash and vs > 1), sched.name
     tabs = sched.tables()
-    statics = make_statics(spec, plan, tokens_per_mb=mb * seq_len)
+    # the model is cut into L chunks: init and statics see them as stages
+    mplan = model_plan(plan, sched)
+    statics = make_statics(spec, mplan, tokens_per_mb=mb * seq_len)
     d = spec.d_model
 
     def init_state(gen: torch.Generator):
         if gen.device != dev:
             raise ValueError(f"generator on {gen.device}, pipeline on {dev}")
-        return make_train_state(init_params(spec, plan, gen, compute_dtype),
-                                sched, optimizer)
+        params = init_params(spec, mplan, gen, compute_dtype)
+        return make_train_state(to_storage_order(params, sched), sched,
+                                optimizer)
 
     def train_step(state, batch):
         params = state["params"]
         tokens, labels = batch["tokens"], batch["labels"]   # (R, Bmb, S)
         step = state["step"]
         pos = torch.arange(seq_len, device=dev).expand(mb, seq_len)
-        kw = [dict(positions=pos, windows=params["layer_windows"][s],
-                   thetas=params["layer_thetas"][s]) for s in range(S)]
+        kw = [dict(positions=pos, windows=params["layer_windows"][p],
+                   thetas=params["layer_thetas"][p]) for p in range(L)]
         embeds = lm_head.embed_tokens(params["embed"], tokens, compute_dtype)
         weights = state["stash"]["current"]
         ring = state["stash"].get("ring")
         opt = state["opt_stages"]
         head, fnorm = params["head"], params["final_norm"]
-        w_at = [tree_map(lambda a, s=s: a[s], weights) for s in range(S)]
-        opt_at = [tree_map(lambda a, s=s: a[s], opt) for s in range(S)]
+        w_at = [tree_chunk(weights, p) for p in range(L)]
+        opt_at = [tree_chunk(opt, p) for p in range(L)]
 
         resid = torch.zeros((Vr, S, mb, seq_len, d), dtype=compute_dtype,
                             device=dev)
@@ -126,7 +141,6 @@ def build_pipeline(spec: spec_lib.ModelSpec, plan, *, seq_len: int,
                                     device=dev)
         if accumulate:
             gacc = tree_map(f32, weights)
-            gacc_at = [tree_map(lambda a, s=s: a[s], gacc) for s in range(S)]
             dhead_acc, dfnorm_acc = f32(head), tree_map(f32, fnorm)
         d_embeds = torch.zeros((R, mb, seq_len, d), dtype=compute_dtype,
                                device=dev)
@@ -140,17 +154,20 @@ def build_pipeline(spec: spec_lib.ModelSpec, plan, *, seq_len: int,
                 row = [int(c) for c in tabs.fwd[tick, s]]
                 if row[F_MB] < 0:
                     continue
+                p = s * vs + row[F_CHUNK]             # storage row
                 x_in = embeds[row[F_MB]] if row[F_FROM_EMBEDS] else recv_f[s]
                 if use_ring:
-                    tree_ring_write(ring, (row[F_STASH_WRITE], s), w_at[s])
-                w_f = (tree_ring_read(ring, (row[F_VERSION], s))
-                       if sched.fwd_from_stash else w_at[s])
+                    tree_chunk_ring_write(ring, row[F_STASH_WRITE], p,
+                                          w_at[p])
+                w_f = (tree_chunk_ring_read(ring, row[F_VERSION], p)
+                       if sched.fwd_from_stash else w_at[p])
                 with torch.no_grad():
                     h_out[s], aux = stage_fwd(w_f, x_in, statics,
-                                              return_aux=True, **kw[s])
+                                              return_aux=True, **kw[p])
                 resid[row[F_RESID_WRITE], s].copy_(x_in)
                 aux_sum += aux
-            recv_f = [None] + h_out[:-1]
+            # chunk hops wrap from the last stage back to stage 0
+            recv_f = [h_out[S - 1] if vs > 1 else None] + h_out[:-1]
 
             # ---- head + loss for the exiting microbatch -----------------
             g_exit = None
@@ -177,18 +194,20 @@ def build_pipeline(spec: spec_lib.ModelSpec, plan, *, seq_len: int,
                 row = [int(c) for c in tabs.bwd[tick, s]]
                 if row[B_MB] < 0:
                     continue
+                p = s * vs + row[B_CHUNK]
                 g_in = g_exit if row[B_FROM_HEAD] else recv_b[s]
-                w_used = (tree_ring_read(ring, (row[B_VERSION], s))
-                          if use_ring else w_at[s])
+                w_used = (tree_chunk_ring_read(ring, row[B_VERSION], p)
+                          if use_ring else w_at[p])
                 x_saved = resid[row[B_RESID_READ], s]
                 dW, dx_out[s] = stage_vjp(w_used, x_saved, statics, g_in,
-                                          aux_weight, **kw[s])
+                                          aux_weight, **kw[p])
                 if accumulate:
-                    tree_add_(gacc_at[s], dW)
+                    tree_chunk_add(gacc, dW, p)
                 else:
-                    replicated_microbatch_update(optimizer, dW, opt_at[s],
-                                                 w_at[s], step, True)
-            recv_b = dx_out[1:] + [None]
+                    # only the chunk this row names moves
+                    replicated_microbatch_update(optimizer, dW, opt_at[p],
+                                                 w_at[p], step, True)
+            recv_b = dx_out[1:] + [dx_out[0] if vs > 1 else None]
             b0 = int(tabs.demb_mb[tick])
             if b0 >= 0:
                 d_embeds[b0].copy_(dx_out[0])

@@ -14,20 +14,27 @@ every stage.  Activations produced at tick t are consumed by the next
 stage at tick t + 1; the microbatch leaving the last chunk gets its
 head loss and starts its backward in the same tick (paper Figure 8).
 
-Ported: the training schedules ``1f1b`` (policies ``stash`` and
-``vertical``) and ``gpipe`` (``flush`` and ``2bw``), and the serving
-schedule ``serve_1f``.  ``interleaved``, ``interleaved_async``,
-``serve_interleaved``, the speculative family, live-slot masking and
-the memory model come with later slices; a plan that names them
-raises.  The tables are pinned to the JAX package by
-tests/test_torch_spec.py and tests/test_torch_train_schedule.py.
+Ported: every training schedule — ``1f1b`` (policies ``stash`` and
+``vertical``), ``gpipe`` (``flush`` and ``2bw``), and the virtual-stage
+family ``interleaved`` (flush) and ``interleaved_async`` (per-chunk
+weight-version rings) — with the training memory model, and the serving
+schedule ``serve_1f``.  ``serve_interleaved``, the speculative family,
+live-slot masking and the serving memory model come with later slices;
+a plan that names them raises.  The tables are pinned to the JAX
+package by tests/test_torch_spec.py, tests/test_torch_train_schedule.py
+and tests/test_torch_interleaved.py.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple, Type
+import heapq
+import math
+from typing import Dict, Iterable, List, Tuple, Type
 
 import numpy as np
+
+from repro_torch.core.profiler import ACT_BYTES
+from repro_torch.models.spec import _block_params
 
 #: forward-table columns
 F_MB, F_CHUNK, F_FROM_EMBEDS, F_STASH_WRITE, F_VERSION, F_RESID_WRITE = \
@@ -56,6 +63,103 @@ class ScheduleTables:
 
 
 @dataclasses.dataclass(frozen=True)
+class MemoryModel:
+    """Analytic per-device memory footprint of one schedule × plan.
+
+    All quantities are bytes on the worst (most loaded) device of the
+    (stage, tensor) submesh; data replicas hold copies, so the budget is
+    per device.
+    """
+
+    schedule: str
+    weight_bytes: float        # live stage weights (+ embed/head shard)
+    stash_bytes: float         # weight-version ring: stash_slots × stage blocks
+    resid_bytes: float         # residual ring: resid_slots × microbatch input
+    workspace_bytes: float     # in-flight fwd/bwd activations (remat-aware)
+    grad_bytes: float          # gradient accumulator (flush family only)
+    optimizer_bytes: float     # Adam moments (ZeRO-1 sharded when plan.zero1)
+    cache_bytes: float = 0.0   # serving KV/SSM cache; 0 for training
+
+    @property
+    def total_bytes(self) -> float:
+        return (self.weight_bytes + self.stash_bytes + self.resid_bytes
+                + self.workspace_bytes + self.grad_bytes
+                + self.optimizer_bytes + self.cache_bytes)
+
+    def fits(self, hbm_bytes: float) -> bool:
+        return self.total_bytes <= hbm_bytes
+
+    def headroom(self, hbm_bytes: float) -> float:
+        return hbm_bytes - self.total_bytes
+
+    def __str__(self):
+        gb = 1 / 1e9
+        cache = (f" cache {self.cache_bytes * gb:.2f}"
+                 if self.cache_bytes else "")
+        return (f"{self.schedule}: total {self.total_bytes * gb:.2f} GB "
+                f"(weights {self.weight_bytes * gb:.2f} "
+                f"stash {self.stash_bytes * gb:.2f} "
+                f"resid {self.resid_bytes * gb:.2f} "
+                f"work {self.workspace_bytes * gb:.2f} "
+                f"grad {self.grad_bytes * gb:.2f} "
+                f"opt {self.optimizer_bytes * gb:.2f}{cache})")
+
+
+def _interval_color(intervals: Iterable[Tuple[int, int]]) -> Tuple[List[int],
+                                                                   int]:
+    """Greedy slot assignment for [write, read] lifetimes.
+
+    Within one tick the F phase (writes) runs before the B phase (reads),
+    so a slot read at tick r can only be rewritten at tick > r.  Returns
+    (slot per interval in input order, number of slots).
+    """
+    ivs = list(intervals)
+    idx = sorted(range(len(ivs)), key=lambda k: ivs[k][0])
+    slots = [0] * len(ivs)
+    free: List[Tuple[int, int]] = []   # (read_tick, slot)
+    n_slots = 0
+    for k in idx:
+        w, r = ivs[k]
+        if free and free[0][0] < w:
+            _, s = heapq.heappop(free)
+        else:
+            s = n_slots
+            n_slots += 1
+        slots[k] = s
+        heapq.heappush(free, (r, s))
+    return slots, max(n_slots, 1)
+
+
+def stage_weight_params(spec, plan, sched) -> Tuple[float, float]:
+    """Worst-stage per-device parameter counts ``(blocks, shared)``.
+
+    ``blocks``: the most loaded physical stage's block parameters (stage
+    s owns chunks j·S + s of the S·v-way cut), divided by tp.
+    ``shared``: the embed + head + final-norm shard over the full
+    (stage, tensor) submesh.
+    """
+    S, v = sched.n_stages, sched.virtual_stages
+    assert plan.pp == S and plan.virtual_stages == v, (
+        "memory_model called with a plan that does not describe this "
+        f"schedule: plan (pp={plan.pp}, v={plan.virtual_stages}) vs "
+        f"schedule (S={S}, v={v})")
+    L = sched.n_chunks
+    assert spec.n_layers % L == 0, (spec.n_layers, L)
+    lps = spec.n_layers // L
+    tp = plan.tp
+    stage_params = [0.0] * S
+    for c in range(L):
+        stage_params[c % S] += sum(
+            _block_params(spec, spec.blocks[i])
+            for i in range(c * lps, (c + 1) * lps))
+    blocks = max(stage_params) / tp
+    shared = (spec.vocab * spec.d_model
+              * (1 if spec.tie_embeddings else 2) + spec.d_model)
+    shared /= S * tp
+    return blocks, shared
+
+
+@dataclasses.dataclass(frozen=True)
 class PipelineSchedule:
     """Static description of one pipelined round.
 
@@ -75,12 +179,14 @@ class PipelineSchedule:
     uses_stash_ring = False
     #: F reads weights from the ring (vertical sync) instead of latest
     fwd_from_stash = False
-    #: virtual chunks per physical stage (interleaving: not ported yet)
+    #: virtual chunks per physical stage (Megatron interleaving)
     virtual_stages = 1
     #: plan.stash_mode values this schedule accepts (first = default)
     plan_stash_modes: Tuple[str, ...] = ("stash", "vertical")
     #: schedule consumes plan.virtual_stages (> 1): the interleaved family
     takes_virtual_stages = False
+    #: virtual stages require microbatch groups (R % pp == 0)
+    needs_group_microbatches = True
     #: forward-only inference schedule (no B slots)
     is_serving = False
 
@@ -132,6 +238,46 @@ class PipelineSchedule:
         busy = int((tabs.fwd[:, :, F_MB] >= 0).sum()
                    + (tabs.bwd[:, :, B_MB] >= 0).sum())
         return 1.0 - busy / (2 * self.n_ticks * self.n_stages)
+
+    def memory_model(self, spec, plan, hw, *, microbatch_tokens: int,
+                     data_replicas: int = 1) -> MemoryModel:
+        """Analytic worst-device footprint of this schedule: live
+        weights + weight-version ring + residual ring + activation
+        workspace + gradient accumulator + optimizer."""
+        return self._memory_model(
+            spec, plan, hw, microbatch_tokens=microbatch_tokens,
+            data_replicas=data_replicas,
+            weight_ring_slots=self.stash_slots if self.uses_stash_ring
+            else 0,
+            grad_accum=self.accumulate)
+
+    def _memory_model(self, spec, plan, hw, *, microbatch_tokens: int,
+                      data_replicas: int, weight_ring_slots: int,
+                      grad_accum: bool) -> MemoryModel:
+        """Shared accounting, parameterized by the schedule's ring terms:
+        a stash ring holds ``weight_ring_slots`` block copies besides
+        ``stash['current']``; the residual ring ``resid_slots``
+        stage inputs; flush-family schedules keep one gradient
+        accumulator across the round; Adam moments are fp32 and
+        ZeRO-1-sharded over the data replicas when the plan says so."""
+        lps = spec.n_layers // self.n_chunks
+        blocks, shared = stage_weight_params(spec, plan, self)
+        pb = hw.param_bytes
+        act = microbatch_tokens * spec.d_model * ACT_BYTES
+        # remat keeps ~O(1) layer activations live during the recomputed
+        # backward; without it the whole chunk's activations stay resident
+        workspace = (4.0 if plan.remat else 2.0 * lps + 2.0) * act
+        opt = 2.0 * (blocks + shared) * 4.0          # Adam m, v in fp32
+        if plan.zero1:
+            opt /= max(int(data_replicas), 1)
+        return MemoryModel(
+            schedule=self.name,
+            weight_bytes=(blocks + shared) * pb,
+            stash_bytes=weight_ring_slots * blocks * pb,
+            resid_bytes=self.resid_slots * act,
+            workspace_bytes=workspace,
+            grad_bytes=blocks * pb if grad_accum else 0.0,
+            optimizer_bytes=opt)
 
     def validate(self) -> None:
         """Prove the tables satisfy the executor's dataflow contract:
@@ -318,6 +464,214 @@ class ScheduleGPipe(Schedule1F1B):
 
 
 @dataclasses.dataclass(frozen=True)
+class ScheduleInterleaved1F1B(PipelineSchedule):
+    """Interleaved (virtual-stage) 1F1B, flush semantics.
+
+    The model is cut into L = S·v chunks; chunk c = j·S + s runs on
+    physical stage s as its j-th local chunk (storage row s·v + j, see
+    ``storage_chunk_order``).  Microbatches advance in groups of S:
+    microbatch m = g·S + o forwards chunk (j, s) at tick
+
+        t_F = s + g·v·S + j·S + o
+
+    so every chunk hop — including the stage-(S−1) → stage-0 wrap
+    between chunks — lands exactly one tick downstream.  Backwards
+    mirror the pattern, the last chunk's backward sharing the tick of
+    its forward (head adjacency):
+
+        t_B = (vS − 1) + (S−1−s) + g·v·S + (v−1−j)·S + o
+
+    and n_ticks = vR + (v+1)S − 2.  Gradients accumulate over the round
+    and one update applies at its end (one weight version); the
+    per-microbatch variant is :class:`ScheduleInterleavedAsync1F1B`.
+
+    Requires R % S == 0 (microbatch groups) and n_layers % (S·v) == 0.
+    """
+
+    virtual_stages: int = 2
+
+    name = "interleaved"
+    accumulate = True
+    uses_stash_ring = False
+    fwd_from_stash = False
+    plan_stash_modes = ("flush",)
+    takes_virtual_stages = True
+
+    def __post_init__(self):
+        super().__post_init__()
+        assert self.virtual_stages >= 1, self.virtual_stages
+        assert self.n_microbatches % self.n_stages == 0, (
+            f"interleaved schedule needs microbatches ({self.n_microbatches})"
+            f" divisible by stages ({self.n_stages})")
+
+    @property
+    def n_ticks(self) -> int:
+        S, R, v = self.n_stages, self.n_microbatches, self.virtual_stages
+        return v * R + (v + 1) * S - 2
+
+    @property
+    def stash_slots(self) -> int:
+        return 1
+
+    @property
+    def resid_slots(self) -> int:
+        return self._layout()[1]
+
+    def storage_chunk_order(self) -> np.ndarray:
+        """Chunk id held by each storage row p = s·v + j (length S·v):
+        stage s owns rows [s·v, (s+1)·v), and row s·v + j holds model
+        chunk j·S + s."""
+        S, v = self.n_stages, self.virtual_stages
+        return np.asarray([(p % v) * S + p // v for p in range(S * v)],
+                          np.int64)
+
+    @classmethod
+    def from_plan(cls, plan) -> "ScheduleInterleaved1F1B":
+        assert plan.stash_mode == "flush", (
+            "schedule='interleaved' is the flush (accumulate) variant and "
+            "needs stash_mode='flush'; for per-microbatch async updates "
+            "use schedule='interleaved_async' (per-chunk weight-version "
+            f"rings, stash_mode='stash'); got {plan.stash_mode!r}")
+        return cls(plan.pp, plan.microbatches,
+                   virtual_stages=plan.virtual_stages)
+
+    def _timing(self):
+        S, R, v = self.n_stages, self.n_microbatches, self.virtual_stages
+        items = []       # (m, c, s, j, t_f, t_b)
+        for m in range(R):
+            g, o = divmod(m, S)
+            for c in range(S * v):
+                j, s = divmod(c, S)
+                t_f = s + g * v * S + j * S + o
+                t_b = (v * S - 1) + (S - 1 - s) + g * v * S \
+                    + (v - 1 - j) * S + o
+                items.append((m, c, s, j, t_f, t_b))
+        return items
+
+    def _layout(self):
+        """Residual-slot assignment by interval colouring, per stage
+        (memoized per instance)."""
+        cached = self.__dict__.get("_layout_memo")
+        if cached is not None:
+            return cached
+        items = self._timing()
+        per_stage: Dict[int, List[int]] = {}
+        for k, item in enumerate(items):
+            per_stage.setdefault(item[2], []).append(k)
+        slot_of = [0] * len(items)
+        n_slots = 1
+        for ks in per_stage.values():
+            slots, n = _interval_color(
+                [(items[k][4], items[k][5]) for k in ks])
+            for k, sl in zip(ks, slots):
+                slot_of[k] = sl
+            n_slots = max(n_slots, n)
+        object.__setattr__(self, "_layout_memo", (slot_of, n_slots))
+        return slot_of, n_slots
+
+    def _build_tables(self) -> ScheduleTables:
+        S, v = self.n_stages, self.virtual_stages
+        T, L = self.n_ticks, S * v
+        slot_of, _ = self._layout()
+        fwd = np.full((T, S, F_COLS), -1, np.int32)
+        bwd = np.full((T, S, B_COLS), -1, np.int32)
+        exit_mb = np.full((T,), -1, np.int32)
+        demb = np.full((T,), -1, np.int32)
+        for k, (m, c, s, j, t_f, t_b) in enumerate(self._timing()):
+            assert fwd[t_f, s, F_MB] < 0, ("F slot collision", t_f, s)
+            fwd[t_f, s, F_MB] = m
+            fwd[t_f, s, F_CHUNK] = j
+            fwd[t_f, s, F_FROM_EMBEDS] = 1 if c == 0 else 0
+            fwd[t_f, s, F_STASH_WRITE] = 0
+            fwd[t_f, s, F_VERSION] = -1
+            fwd[t_f, s, F_RESID_WRITE] = slot_of[k]
+            assert bwd[t_b, s, B_MB] < 0, ("B slot collision", t_b, s)
+            bwd[t_b, s, B_MB] = m
+            bwd[t_b, s, B_CHUNK] = j
+            bwd[t_b, s, B_FROM_HEAD] = 1 if c == L - 1 else 0
+            bwd[t_b, s, B_VERSION] = 0
+            bwd[t_b, s, B_RESID_READ] = slot_of[k]
+            if c == L - 1:
+                exit_mb[t_f] = m
+            if c == 0:
+                demb[t_b] = m
+        return ScheduleTables(fwd, bwd, exit_mb, demb)
+
+
+@dataclasses.dataclass(frozen=True)
+class ScheduleInterleavedAsync1F1B(ScheduleInterleaved1F1B):
+    """Interleaved 1F1B with per-microbatch updates and per-chunk rings.
+
+    The timing tables of :class:`ScheduleInterleaved1F1B` with the
+    paper's §3.3 weight stashing per chunk: F(m, chunk c) records chunk
+    c's current weights into ring slot (m % V, c) and B(m, c) re-reads
+    that version while the per-microbatch updates advance the live
+    weights in between.  The ring is chunk-major, ``[V, S·v, ...]`` in
+    storage order, indexed by the table's (version slot, chunk) columns.
+
+    Ring depth V = min(2S, R) (2S − 1 at v = 1): chunk c is in flight for
+    2(S·v − 1 − c) ticks, and the forwards of microbatches m and m + 2S
+    of one chunk are 2·v·S ticks apart; V = R never revisits a slot
+    within a round.
+    """
+
+    name = "interleaved_async"
+    accumulate = False
+    uses_stash_ring = True
+    fwd_from_stash = False
+    plan_stash_modes = ("stash",)
+
+    @property
+    def stash_slots(self) -> int:
+        S, R, v = self.n_stages, self.n_microbatches, self.virtual_stages
+        base = 2 * S if v > 1 else 2 * S - 1
+        return max(1, min(base, R))
+
+    @classmethod
+    def from_plan(cls, plan) -> "ScheduleInterleavedAsync1F1B":
+        assert plan.stash_mode == "stash", (
+            "schedule='interleaved_async' implements the paper's stash "
+            "policy per chunk; set stash_mode='stash' (got "
+            f"{plan.stash_mode!r})")
+        return cls(plan.pp, plan.microbatches,
+                   virtual_stages=plan.virtual_stages)
+
+    def _build_tables(self) -> ScheduleTables:
+        tabs = super()._build_tables()
+        R, V = self.n_microbatches, self.stash_slots
+        fwd, bwd = tabs.fwd.copy(), tabs.bwd.copy()
+        fs = np.clip(fwd[:, :, F_MB], 0, R - 1)
+        bs = np.clip(bwd[:, :, B_MB], 0, R - 1)
+        # slot within the row's own chunk ring
+        fwd[:, :, F_STASH_WRITE] = fs % V
+        fwd[:, :, F_VERSION] = -1            # F uses the latest weights
+        bwd[:, :, B_VERSION] = bs % V
+        return ScheduleTables(fwd, bwd, tabs.exit_mb, tabs.demb_mb)
+
+    def validate(self) -> None:
+        """Structural contract + per-chunk stash-ring liveness."""
+        super().validate()
+        tabs = self.tables()
+        for s in range(self.n_stages):
+            live: Dict[Tuple[int, int], int] = {}   # (chunk, slot) -> mb
+            for t in range(self.n_ticks):
+                fr = tabs.fwd[t, s]
+                if fr[F_MB] >= 0:
+                    key = (int(fr[F_CHUNK]), int(fr[F_STASH_WRITE]))
+                    assert key not in live, (
+                        f"stage {s} tick {t}: F clobbers live version "
+                        f"slot {key} (holds mb {live[key]})")
+                    live[key] = int(fr[F_MB])
+                br = tabs.bwd[t, s]
+                if br[B_MB] >= 0:
+                    key = (int(br[B_CHUNK]), int(br[B_VERSION]))
+                    assert live.pop(key, None) == int(br[B_MB]), (
+                        f"stage {s} tick {t}: B reads wrong version "
+                        f"slot {key}")
+            assert not live, f"stage {s}: versions never read: {live}"
+
+
+@dataclasses.dataclass(frozen=True)
 class ServingSchedule(PipelineSchedule):
     """Forward-only pipelined round: prefill, or one decode step.
 
@@ -344,6 +698,11 @@ class ServingSchedule(PipelineSchedule):
     @property
     def resid_slots(self) -> int:
         return 1                     # no backward, no residual ring
+
+    def memory_model(self, spec, plan, hw, **_):
+        raise NotImplementedError(
+            "the serving memory model (serving_cache_bytes) is not ported "
+            "yet")
 
     def _build_tables(self) -> ScheduleTables:
         S, R, v = self.n_stages, self.n_microbatches, self.virtual_stages
@@ -441,11 +800,13 @@ def weighted_round_time(sched: PipelineSchedule, t_fwd=1.0, t_bwd=2.0
 SCHEDULES: Dict[str, Type[PipelineSchedule]] = {
     "1f1b": Schedule1F1B,
     "gpipe": ScheduleGPipe,
+    "interleaved": ScheduleInterleaved1F1B,
+    "interleaved_async": ScheduleInterleavedAsync1F1B,
     "serve_1f": ScheduleServe1F,
 }
 #: registered in the JAX package, still to port
-NOT_PORTED = ("interleaved", "interleaved_async", "serve_interleaved",
-              "serve_spec_1f", "serve_spec_interleaved")
+NOT_PORTED = ("serve_interleaved", "serve_spec_1f",
+              "serve_spec_interleaved")
 
 
 def _lookup(name: str) -> Type[PipelineSchedule]:
@@ -462,7 +823,8 @@ def plan_kwargs_for_schedule(name: str, *, virtual_stages=None,
                              stash_mode=None) -> Dict[str, object]:
     """``ParallelismPlan.with_()`` kwargs that put a plan onto ``name``:
     keeps ``stash_mode`` when the class accepts it, else the class
-    default; ``virtual_stages`` is 1 for every ported schedule."""
+    default; ``virtual_stages`` defaults to 2 for the interleaved family
+    and is 1 for single-chunk schedules."""
     cls = _lookup(name)
     kw: Dict[str, object] = {"schedule": name}
     if stash_mode not in cls.plan_stash_modes:
@@ -472,12 +834,24 @@ def plan_kwargs_for_schedule(name: str, *, virtual_stages=None,
     return kw
 
 
+def virtual_stages_error(schedule_name, virtual_stages) -> str | None:
+    """None when the combination is valid, else the CLI error message."""
+    if not virtual_stages or virtual_stages <= 1:
+        return None
+    cls = SCHEDULES.get(schedule_name) if schedule_name else None
+    if cls is not None and cls.takes_virtual_stages:
+        return None
+    return ("--virtual-stages > 1 requires --schedule in "
+            f"{sorted(n for n, c in SCHEDULES.items() if c.takes_virtual_stages)}")
+
+
 def make_schedule(plan) -> PipelineSchedule:
-    """The training schedule a plan asks for.
+    """The schedule a plan asks for.
 
     ``plan.schedule='auto'`` derives it from ``stash_mode``:
     stash / vertical -> 1f1b, flush / 2bw -> gpipe.  A name the port
-    does not have (interleaved, interleaved_async) raises KeyError.
+    does not have (the interleaved and speculative serving schedules)
+    raises KeyError.
     """
     name = getattr(plan, "schedule", "auto")
     if name == "auto":
@@ -528,3 +902,8 @@ def make_serving_schedule(plan, n_microbatches: int = None
     R = (n_microbatches if n_microbatches is not None
          else plan.decode_microbatches)
     return cls(plan.pp, R)
+
+
+def paper_noam(total_machines: int, input_stage_machines: int) -> int:
+    """NUM_OPT_ACTIVE_MINIBATCHES = ceil(#machines / #machines input stage)."""
+    return math.ceil(total_machines / input_stage_machines)

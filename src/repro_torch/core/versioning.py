@@ -2,8 +2,12 @@
 ``repro/core/versioning.py``).
 
 The stash and residual rings are stacked trees indexed by
-schedule-table slots: leaves ``[V, L, ...]`` (version slot, stage) for
-the weight ring, ``[Vr, L, ...]`` for the residual ring.  JAX writes them
+schedule-table slots: leaves ``[V, L, ...]`` (version slot, storage
+row) for the weight ring, ``[Vr, S, ...]`` for the residual ring.  With
+virtual stages the L = S·v rows are model chunks in storage order
+(row s·v + j holds chunk j·S + s), and the ``tree_chunk*`` helpers index
+one chunk row, or one (version slot, chunk) cell of the chunk-major
+ring.  JAX writes them
 functionally (``dynamic_update_index_in_dim`` + ``where``) and XLA
 updates in place under donation; here a write is an in-place copy into
 the slot, and a read is a view of it.  A bubble row is skipped on the
@@ -20,15 +24,34 @@ from __future__ import annotations
 from repro_torch.optim.optimizers import tree_map
 
 
-def tree_ring_read(tree, idx: int):
-    """Slot ``idx`` of every leaf (a view)."""
+def tree_chunk(tree, idx: int):
+    """Chunk row ``idx`` of every stage-stacked leaf (a view)."""
     return tree_map(lambda a: a[idx], tree)
 
 
-def tree_ring_write(tree, idx: int, val, valid: bool = True) -> None:
-    """Copy ``val`` into slot ``idx`` of every leaf, in place."""
+def tree_chunk_write(tree, idx: int, val) -> None:
+    """Copy ``val`` into chunk row ``idx`` of every leaf, in place."""
+    tree_map(lambda a, v: a[idx].copy_(v), tree, val)
+
+
+def tree_chunk_ring_read(ring, slot: int, chunk: int):
+    """Cell (version ``slot``, chunk row ``chunk``) of the chunk-major
+    ring ``[V, S·v, ...]`` (a view): the version F recorded for a
+    (microbatch, chunk), read back by its B."""
+    return tree_map(lambda a: a[slot, chunk], ring)
+
+
+def tree_chunk_ring_write(ring, slot: int, chunk: int, val,
+                          valid: bool = True) -> None:
+    """Record a chunk's current weights into its ring cell, in place."""
     if valid:
-        tree_map(lambda a, v: a[idx].copy_(v), tree, val)
+        tree_map(lambda a, v: a[slot, chunk].copy_(v), ring, val)
+
+
+def tree_chunk_add(acc, grad, idx: int) -> None:
+    """``acc[idx] += grad`` leaf by leaf, in place: a chunk's gradient
+    into the chunk-stacked accumulator."""
+    tree_map(lambda a, g: a[idx].add_(g), acc, grad)
 
 
 def tree_add(a, b):
@@ -53,11 +76,13 @@ def replicated_microbatch_update(optimizer, dW, opt_state, weights, step,
 
 
 def make_train_state(params, sched, optimizer):
-    """The training state JAX's ``init_state`` builds from ``params``:
-    ``stash["current"]`` is ``params["stages"]`` itself (one set of
-    tensors), ``stash["ring"]`` a ``[V, L, ...]`` copy of it when the
-    schedule keeps a ring, the optimizer states of the stages, of head +
-    final norm and of the embedding, and the round counter."""
+    """The training state JAX's ``init_state`` builds from ``params``
+    (stage rows already in storage order): ``stash["current"]`` is
+    ``params["stages"]`` itself (one set of tensors), ``stash["ring"]``
+    a ``[V, L, ...]`` copy of it when the schedule keeps a ring (chunk-
+    major for ``interleaved_async``: L = S·v storage rows), the
+    optimizer states of the stages, of head + final norm and of the
+    embedding, and the round counter."""
     stages = params["stages"]
     stash = {"current": stages}
     if sched.uses_stash_ring:

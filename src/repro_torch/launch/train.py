@@ -1,35 +1,44 @@
 """Pipelined training (port of ``repro/launch/train.py``): ``--steps``
-rounds of the paper's schedule on the synthetic LM stream, every stage
-of the plan on one device.
+rounds of the paper's schedule on the synthetic LM stream through the
+fault-tolerant :class:`~repro_torch.runtime.driver.TrainDriver`
+(per-stage checkpoints every ``--ckpt-every`` rounds, restart from the
+last round every stage checkpointed), every stage of the plan on one
+device.
 
 Runs on the card by default (``--device cpu`` runs the plain PyTorch
 versions of the kernels).  ``--smoke`` trains the architecture's small
 smoke spec in fp32; otherwise the full spec in bf16 (``--layers N``
-keeps its first N layers).  Prints the plan line with the predicted
+keeps its first N layers).  ``--plan-search`` lets the planner pick
+(pp, tp, schedule, virtual_stages) over the plan's pp × tp devices
+under an H100's memory (a plan with tp > 1 then raises: tensor
+parallelism is not ported).  Prints the plan line with the predicted
 bubble, then ``loss a -> b``.
 
   python -m repro_torch.launch.train --arch qwen3-14b --smoke --steps 3 \
       --device cpu
-  python -m repro_torch.launch.train --arch qwen3-14b --smoke --steps 3 \
-      --device cpu --schedule gpipe --stash-mode 2bw
-
-The fault-tolerant driver (``TrainDriver``) and its checkpoints wait for
-the port of ``checkpoint/manager.py``.
+  python -m repro_torch.launch.train --arch qwen3-14b --smoke --steps 4 \
+      --device cpu --schedule interleaved_async --virtual-stages 2 \
+      --microbatches 4 --ckpt /tmp/ckpt --ckpt-every 2
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import tempfile
 import time
 
 import torch
 
 from repro_torch import configs, resolve_device
 from repro_torch.core.pipeline import build_pipeline
-from repro_torch.core.schedule import (plan_kwargs_for_schedule,
+from repro_torch.core.schedule import (SCHEDULES, plan_kwargs_for_schedule,
+                                       virtual_stages_error,
                                        weighted_round_time)
 from repro_torch.data.pipeline import Loader, SyntheticLM
 from repro_torch.optim.optimizers import by_name
+from repro_torch.runtime.driver import (DriverConfig, TrainDriver,
+                                        plan_search_report)
 
 
 def cut_layers(spec, n: int):
@@ -49,6 +58,9 @@ def build(args):
         spec, plan = cfg.full_spec(), cfg.PLAN.with_(tp=1)
         if args.layers:
             spec = cut_layers(spec, args.layers)
+    err = virtual_stages_error(args.schedule, args.virtual_stages)
+    if err:
+        raise SystemExit(err)
     plan = plan.with_(microbatches=args.microbatches)
     if args.pp:
         plan = plan.with_(pp=args.pp)
@@ -56,7 +68,12 @@ def build(args):
         plan = plan.with_(stash_mode=args.stash_mode)
     if args.schedule:
         plan = plan.with_(**plan_kwargs_for_schedule(
-            args.schedule, stash_mode=plan.stash_mode))
+            args.schedule, virtual_stages=args.virtual_stages,
+            stash_mode=plan.stash_mode))
+    if args.plan_search:
+        plan = plan_search_report(spec, plan, seq_len=args.seq_len,
+                                  global_batch=args.global_batch,
+                                  data_replicas=1).plan
     name, lr = cfg.OPTIMIZER
     opt = by_name(args.optimizer or name, args.lr or lr)
     bundle = build_pipeline(
@@ -64,6 +81,27 @@ def build(args):
         optimizer=opt, device=args.device,
         compute_dtype=torch.float32 if args.smoke else torch.bfloat16)
     return spec, bundle
+
+
+def make_driver(args, spec, bundle, ckpt_dir: str, failure_hook=None):
+    """The TrainDriver for the parsed arguments: the SyntheticLM stream
+    from ``--seed``, checkpoints every ``--ckpt-every`` rounds."""
+    loader = Loader(SyntheticLM(spec.vocab, bundle.seq_len, seed=args.seed),
+                    bundle.plan.microbatches, bundle.microbatch_size,
+                    bundle.device)
+    return TrainDriver(bundle, loader, ckpt_dir,
+                       DriverConfig(checkpoint_every=args.ckpt_every),
+                       failure_hook=failure_hook, seed=args.seed)
+
+
+def plan_line(bundle) -> str:
+    plan, sched = bundle.plan, bundle.sched
+    _, bubble = weighted_round_time(sched)
+    return (f"plan: pp={plan.pp} tp={plan.tp} schedule={sched.name}"
+            + (f" v={plan.virtual_stages}" if plan.virtual_stages > 1
+               else "")
+            + f" stash_mode={plan.stash_mode} R={plan.microbatches} "
+            f"predicted_bubble={bubble:.3f}")
 
 
 def parser():
@@ -79,8 +117,14 @@ def parser():
     ap.add_argument("--pp", type=int, default=0,
                     help="pipeline stages (0 = the config's)")
     ap.add_argument("--schedule", type=str, default=None,
-                    choices=[None, "1f1b", "gpipe"],
+                    choices=[None, *sorted(n for n, c in SCHEDULES.items()
+                                           if not c.is_serving)],
                     help="override the plan's pipeline schedule")
+    ap.add_argument("--virtual-stages", type=int, default=None,
+                    help="model chunks per stage (interleaved schedules)")
+    ap.add_argument("--plan-search", action="store_true",
+                    help="let plan_search pick (pp, tp, schedule, "
+                         "virtual_stages) under an H100's memory")
     ap.add_argument("--stash-mode", type=str, default=None,
                     choices=[None, "stash", "vertical", "flush", "2bw"])
     ap.add_argument("--optimizer", type=str, default=None,
@@ -89,6 +133,12 @@ def parser():
                     help="learning rate (default: the config's)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds the weights and the data stream")
+    ap.add_argument("--ckpt", type=str, default=None,
+                    help="checkpoint directory (default: a temporary one, "
+                         "removed at exit)")
+    ap.add_argument("--ckpt-every", type=int, default=10)
+    ap.add_argument("--log", type=str, default=None,
+                    help="write {arch, losses, seconds} as JSON here")
     ap.add_argument("--device", type=str, default="cuda")
     return ap
 
@@ -97,23 +147,21 @@ def main(argv=None):
     args = parser().parse_args(argv)
     args.device = str(resolve_device(args.device))
     spec, bundle = build(args)
-    plan, sched = bundle.plan, bundle.sched
-    _, bubble = weighted_round_time(sched)
-    print(f"plan: pp={plan.pp} tp={plan.tp} schedule={sched.name} "
-          f"stash_mode={plan.stash_mode} R={plan.microbatches} "
-          f"predicted_bubble={bubble:.3f}", flush=True)
-    dev = bundle.device
-    state = bundle.init_state(torch.Generator(dev).manual_seed(args.seed))
-    loader = Loader(SyntheticLM(spec.vocab, bundle.seq_len, seed=args.seed),
-                    plan.microbatches, bundle.microbatch_size, dev)
-    losses = []
-    t0 = time.perf_counter()
-    for step in range(args.steps):
-        state, metrics = bundle.train_step(state, loader.get(step))
-        losses.append(float(metrics["loss"]))
-    dt = time.perf_counter() - t0
-    print(f"arch={spec.name} steps={args.steps} time={dt:.1f}s "
+    print(plan_line(bundle), flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        driver = make_driver(args, spec, bundle, args.ckpt or tmp)
+        state = bundle.init_state(
+            torch.Generator(bundle.device).manual_seed(args.seed))
+        t0 = time.perf_counter()
+        state, step = driver.run(state, args.steps)
+        dt = time.perf_counter() - t0
+    losses = [m["loss"] for m in driver.metrics_log]
+    print(f"arch={spec.name} steps={step} time={dt:.1f}s "
           f"loss {losses[0]:.4f} -> {losses[-1]:.4f}", flush=True)
+    if args.log:
+        with open(args.log, "w") as f:
+            json.dump({"arch": spec.name, "losses": losses,
+                       "seconds": dt}, f)
     return losses
 
 

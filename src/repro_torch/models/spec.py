@@ -101,6 +101,78 @@ class ModelSpec:
     def d_attn(self) -> int:
         return self.n_heads * self.d_head
 
+    def param_count(self) -> int:
+        """Exact parameter count (embedding + blocks + head + norms)."""
+        n = self.vocab * self.d_model                       # embed
+        if not self.tie_embeddings:
+            n += self.vocab * self.d_model                  # head
+        n += self.d_model                                   # final norm
+        for b in self.blocks:
+            n += _block_params(self, b)
+        if self.encoder is not None:
+            e = self.encoder
+            per = (4 * e.d_model * e.d_model + 2 * e.d_model * e.d_ff
+                   + 4 * e.d_model)
+            n += e.n_layers * per + e.d_model
+        return n
+
+    def active_param_count(self) -> int:
+        """Params active per token (MoE: top_k + shared experts only)."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        per_expert = 3 * self.d_model * m.d_expert
+        n_moe_blocks = sum(1 for b in self.blocks if b.ffn == "moe")
+        return (self.param_count()
+                - n_moe_blocks * per_expert * (m.n_experts - m.top_k))
+
+
+def _block_params(spec: ModelSpec, b: BlockSpec) -> int:
+    """Parameters of one block (what the planner's profiles and memory
+    model count)."""
+    n = 0
+    d = spec.d_model
+    if b.mixer == "attn":
+        n += d * spec.d_attn + 2 * d * spec.n_kv * spec.d_head + spec.d_attn * d
+        n += d  # mixer norm
+        if spec.qk_norm:
+            n += 2 * spec.d_head
+        if b.cross_attn:
+            n += (d * spec.d_attn + 2 * d * spec.n_kv * spec.d_head
+                  + spec.d_attn * d + d)
+    elif b.mixer == "mamba":
+        ms = spec.mamba
+        d_in = ms.expand * d
+        dt_rank = ms.dt_rank or -(-d // 16)
+        n += d * 2 * d_in                      # in_proj (x, z)
+        n += d_in * ms.d_conv                  # conv
+        n += d_in * (dt_rank + 2 * ms.d_state)  # x -> dt, B, C
+        n += dt_rank * d_in + d_in             # dt proj + bias
+        n += d_in * ms.d_state + d_in          # A_log, D
+        n += d_in * d                          # out proj
+        n += d                                 # norm
+    elif b.mixer == "rwkv":
+        rs = spec.rwkv
+        n += 4 * d * d                         # r, k, v, g
+        n += d * d                             # output
+        n += 5 * d + d * rs.tmix_lora * 2 * 5  # token-shift maa + lora
+        n += d * rs.decay_lora + rs.decay_lora * d + d  # decay lora + u
+        n += 2 * d                             # group norm
+        n += d                                 # block norm
+    if b.ffn == "dense":
+        n += 3 * d * spec.d_ff if spec.act == "silu" else 2 * d * spec.d_ff
+        n += d
+    elif b.ffn == "moe":
+        m = spec.moe
+        n += m.n_experts * 3 * d * m.d_expert
+        n += d * m.n_experts                   # router
+        n += m.n_shared * 3 * d * m.d_shared
+        n += d
+    elif b.ffn == "rwkv_cmix":
+        n += d * int(3.5 * d) + int(3.5 * d) * d + 2 * d  # wide k, v + maa
+        n += d
+    return n
+
 
 def validate_stageability(spec: ModelSpec, pp: int) -> None:
     """Every stage must run the identical block-kind program."""

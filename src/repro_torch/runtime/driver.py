@@ -1,0 +1,309 @@
+"""Fault-tolerant training driver (port of ``repro/runtime/driver.py``).
+
+  * periodic per-stage checkpointing (paper §4) + restart from the last
+    round checkpointed by *all* stages;
+  * failure handling — any exception in a round triggers restore + replay
+    (data is deterministic in step, so replayed rounds are identical);
+  * elastic scaling — on a world-size change, re-run the planner for the
+    new machine count and re-group the stage-stacked parameters
+    (checkpoint.reshard_stages, ``reshard_state_for_plan``);
+  * straggler mitigation — measured per-stage times feed the
+    rectangular partitioner, which proposes a rebalanced (pp, tp) plan
+    (the paper's answer to skew: better partitioning, not work stealing).
+
+The port's ``train_step`` updates the state in place, so a round that
+fails half way leaves half-updated tensors: a restore overwrites every
+one of them from the checkpoint.  The planner's defaults are
+:data:`~repro_torch.core.profiler.H100_SXM`.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint.manager import CheckpointManager, reshard_stages
+from repro_torch.core import profiler as prof
+from repro_torch.core.partitioner import PlanChoice, plan_search
+from repro_torch.core.schedule import make_schedule
+from repro_torch.models.spec import stage_varying_scalars
+from repro_torch.optim.optimizers import tree_map
+
+
+@dataclasses.dataclass
+class DriverConfig:
+    checkpoint_every: int = 10
+    max_restarts: int = 3
+
+
+class TrainDriver:
+    """Runs rounds of ``bundle.train_step``, checkpointing every
+    ``cfg.checkpoint_every`` rounds; a failed round restores the last
+    complete checkpoint (or re-initialises from ``seed`` when there is
+    none) and replays from there."""
+
+    def __init__(self, bundle, loader, ckpt_dir: str,
+                 cfg: DriverConfig = DriverConfig(),
+                 failure_hook: Optional[Callable[[int], None]] = None,
+                 seed: int = 0):
+        self.bundle = bundle
+        self.loader = loader
+        self.cfg = cfg
+        self.seed = seed
+        self.ckpt = CheckpointManager(ckpt_dir)
+        self.failure_hook = failure_hook or (lambda step: None)
+        self.metrics_log: List[Dict[str, float]] = []
+        self.round_seconds: List[float] = []
+
+    # ---------------- main loop -------------------------------------------
+
+    def run(self, state, n_rounds: int, start_step: int = 0):
+        plan = self.bundle.plan
+        n_rows = plan.pp * plan.virtual_stages      # stage-stacked rows
+        step = start_step
+        restarts = 0
+        while step < n_rounds:
+            try:
+                self.failure_hook(step)          # may raise (simulated fault)
+                batch = self.loader.get(step)
+                t0 = time.perf_counter()
+                state, metrics = self.bundle.train_step(state, batch)
+                if self.bundle.device.type == "cuda":
+                    torch.cuda.synchronize()
+                self.round_seconds.append(time.perf_counter() - t0)
+                self.metrics_log.append(
+                    {k: float(v) for k, v in metrics.items()})
+                step += 1
+                if step % self.cfg.checkpoint_every == 0:
+                    self.ckpt.save(step, state, n_rows)
+                    # durable progress: a complete checkpoint resets the
+                    # failure budget, so max_restarts bounds *consecutive*
+                    # failures, not sporadic ones over a long run
+                    restarts = 0
+            except Exception:
+                restarts += 1
+                if restarts > self.cfg.max_restarts:
+                    raise
+                state, step = self.restore_latest(state)
+        return state, step
+
+    def restore_latest(self, state):
+        """(state, round) of the last complete checkpoint, copied into
+        ``state``'s tensors; with none, a fresh state from the run's seed
+        and round 0."""
+        rnd = self.ckpt.latest_complete_round()
+        if rnd is None:
+            gen = torch.Generator(self.bundle.device).manual_seed(self.seed)
+            return self.bundle.init_state(gen), 0
+        return self.ckpt.restore(rnd, state), rnd
+
+
+# --------------------------------------------------------------------------
+# Elastic re-planning
+# --------------------------------------------------------------------------
+
+def elastic_replan(spec, old_plan, new_model_axis: int, hw=prof.H100_SXM,
+                   *, minibatch_tokens: int, data_replicas: int,
+                   measured_stage_seconds=None, schedules=None,
+                   hbm_bytes=None) -> Any:
+    """Choose (pp, tp, schedule, virtual_stages) for a new model axis
+    (:func:`~repro_torch.core.partitioner.plan_search`); a shrink may
+    re-pick the schedule too, and ``reshard_state_for_plan`` regroups
+    the chunks.  ``measured_stage_seconds`` (per physical stage of
+    ``old_plan``) calibrates the analytic profile first."""
+    return plan_choice(spec, old_plan, new_model_axis, hw,
+                       minibatch_tokens=minibatch_tokens,
+                       data_replicas=data_replicas,
+                       measured_stage_seconds=measured_stage_seconds,
+                       schedules=schedules, hbm_bytes=hbm_bytes).plan
+
+
+def plan_choice(spec, old_plan, new_model_axis: int, hw=prof.H100_SXM, *,
+                minibatch_tokens: int, data_replicas: int,
+                measured_stage_seconds=None, schedules=None,
+                hbm_bytes=None) -> PlanChoice:
+    """elastic_replan returning the full scored PlanChoice (round_time,
+    bubble, MemoryModel)."""
+    profiles = prof.profile_analytic(spec, hw,
+                                     minibatch_tokens=minibatch_tokens)
+    if measured_stage_seconds is not None:
+        profiles = prof.scale_profiles_to_measurements(
+            profiles, measured_stage_seconds, n_stages=old_plan.pp,
+            virtual_stages=old_plan.virtual_stages)
+    return plan_search(spec, old_plan, new_model_axis, hw,
+                       minibatch_tokens=minibatch_tokens,
+                       data_replicas=data_replicas, profiles=profiles,
+                       schedules=schedules, hbm_bytes=hbm_bytes)
+
+
+def plan_search_report(spec, base_plan, hw=prof.H100_SXM, *, seq_len: int,
+                       global_batch: int, data_replicas: int,
+                       prefix: str = "", workload: str = "train"
+                       ) -> PlanChoice:
+    """The launcher's surface: search over the base plan's model axis
+    (pp × tp), print the choice and its memory model, return it.  Only
+    the training workload is ported."""
+    if workload != "train":
+        raise NotImplementedError(
+            f"plan_search_report(workload={workload!r}): the serving "
+            "workloads need serve_interleaved and serving_cache_bytes, "
+            "which are not ported yet")
+    dp = max(data_replicas, 1)
+    mb_tokens = seq_len * max(global_batch // dp // base_plan.microbatches,
+                              1)
+    choice = plan_choice(spec, base_plan, base_plan.pp * base_plan.tp, hw,
+                         minibatch_tokens=mb_tokens,
+                         data_replicas=data_replicas)
+    print(f"{prefix}plan_search[{workload}]: {choice.describe()}")
+    print(f"{prefix}  predicted {choice.memory}")
+    return choice
+
+
+def _storage_perms(plan):
+    """(to_layer_major, from_layer_major) row-gather indices, or None.
+
+    Interleaved storage row p = s·v + j holds model chunk j·S + s
+    (schedule.storage_chunk_order); layer-major order is what
+    ``reshard_stages`` regroups over.
+    """
+    if plan.virtual_stages == 1:
+        return None
+    order = np.asarray(make_schedule(plan).storage_chunk_order())
+    return np.argsort(order), order
+
+
+def _take_rows(tree, idx):
+    return tree_map(lambda a: a[torch.as_tensor(idx, device=a.device)], tree)
+
+
+def _regroup_chunks(tree, old_plan, new_plan):
+    """Stage-stacked leaves [old_chunks, ...] -> [new_chunks, ...],
+    through canonical layer-major chunk order."""
+    old_chunks = old_plan.pp * old_plan.virtual_stages
+    new_chunks = new_plan.pp * new_plan.virtual_stages
+    src = _storage_perms(old_plan)
+    if src is not None:
+        tree = _take_rows(tree, src[0])
+    tree = reshard_stages(tree, old_chunks, new_chunks)
+    dst = _storage_perms(new_plan)
+    if dst is not None:
+        tree = _take_rows(tree, dst[1])
+    return tree
+
+
+def reshard_state_for_plan(state, spec, old_plan, new_plan):
+    """Move a training state to a new pipeline layout.
+
+    Handles any (pp, virtual_stages) -> (pp', virtual_stages') move:
+    parameters are keyed by global layer, so an interleaved source or
+    target is a storage-order permutation around the same layer-major
+    regroup.  Whether a stash ring exists, and its size, come from the
+    target plan's schedule: a flush / interleaved target drops the ring,
+    a 1F1B target rebuilds it at the new 2(S−1)+1 size from the current
+    weights, an async-interleaved target rebuilds the chunk-major
+    per-chunk ring (the restart is a sync point, so seeding every
+    version with the live weights is exact).  Returns a new state; the
+    input is not written.
+    """
+    old_sched, new_sched = make_schedule(old_plan), make_schedule(new_plan)
+    same_layout = (old_plan.virtual_stages == new_plan.virtual_stages
+                   and old_plan.pp == new_plan.pp)
+    has_rings = "stash" in state
+    old_ring = old_sched.uses_stash_ring and has_rings
+    new_ring = new_sched.uses_stash_ring and has_rings
+    if same_layout and old_ring == new_ring \
+            and (not new_ring
+                 or old_sched.stash_slots == new_sched.stash_slots):
+        return state
+    # a schedule-only change at the same (pp, v) still falls through: the
+    # stash ring must be dropped / rebuilt to the new schedule
+    new_chunks = new_plan.pp * new_plan.virtual_stages
+    new_stages = (state["params"]["stages"] if same_layout
+                  else _regroup_chunks(state["params"]["stages"],
+                                       old_plan, new_plan))
+    out = dict(state)
+    params = dict(state["params"])
+    params["stages"] = new_stages
+    # windows / thetas re-derive from the spec (rows follow storage order)
+    w, t = stage_varying_scalars(spec, new_chunks)
+    dst = _storage_perms(new_plan)
+    if dst is not None:
+        w, t = [w[i] for i in dst[1]], [t[i] for i in dst[1]]
+    params["layer_windows"], params["layer_thetas"] = w, t
+    out["params"] = params
+    if "opt_stages" in state:
+        out["opt_stages"] = {
+            slot: (sub if same_layout
+                   else _regroup_chunks(sub, old_plan, new_plan))
+            for slot, sub in state["opt_stages"].items()}
+    if has_rings:
+        out["stash"] = {"current": new_stages}
+        if new_sched.uses_stash_ring:
+            V = new_sched.stash_slots
+            out["stash"]["ring"] = tree_map(
+                lambda a: a[None].expand((V,) + tuple(a.shape)).clone(),
+                new_stages)
+    return out
+
+
+# --------------------------------------------------------------------------
+# Straggler mitigation: profile-guided rebalancing
+# --------------------------------------------------------------------------
+
+def rebalance_from_measurements(spec, plan, measured_stage_seconds,
+                                hw=prof.H100_SXM, *, minibatch_tokens: int,
+                                data_replicas: int, slack: float = 1.25,
+                                schedules=None, hbm_bytes=None):
+    """If one stage is >slack× the median (straggler), propose a new plan.
+
+    Returns (new_plan, rebalanced: bool).  The measured per-stage times
+    are scaled into the analytic profile
+    (profiler.scale_profiles_to_measurements) before the search, so the
+    DP sees the straggler's layers as slower.
+    """
+    times = np.asarray(measured_stage_seconds, float)
+    med = float(np.median(times))
+    if med <= 0 or float(times.max()) <= slack * med:
+        return plan, False
+    new_plan = elastic_replan(spec, plan, plan.pp * plan.tp, hw,
+                              minibatch_tokens=minibatch_tokens,
+                              data_replicas=data_replicas,
+                              measured_stage_seconds=measured_stage_seconds,
+                              schedules=schedules, hbm_bytes=hbm_bytes)
+    same = ((new_plan.pp, new_plan.tp, new_plan.virtual_stages)
+            == (plan.pp, plan.tp, plan.virtual_stages)
+            and make_schedule(new_plan).name == make_schedule(plan).name)
+    if same and plan.pp > 1:
+        # fall back: halve pipeline depth, double tensor parallelism —
+        # but only if that plan would survive plan_search's own checks
+        fb = plan.with_(pp=plan.pp // 2, tp=plan.tp * 2)
+        if _plan_is_buildable(spec, fb, hw,
+                              minibatch_tokens=minibatch_tokens,
+                              data_replicas=data_replicas,
+                              hbm_bytes=hbm_bytes):
+            new_plan = fb
+    return new_plan, True
+
+
+def _plan_is_buildable(spec, plan, hw, *, minibatch_tokens: int,
+                       data_replicas: int, hbm_bytes=None) -> bool:
+    """Structural + memory feasibility, mirroring plan_search's filters."""
+    n_chunks = plan.pp * plan.virtual_stages
+    if spec.n_layers % n_chunks:
+        return False
+    if spec.n_heads and spec.n_heads % plan.tp:
+        return False
+    if plan.virtual_stages > 1 and plan.microbatches % plan.pp:
+        return False
+    try:
+        spec.stage_program(n_chunks)
+    except AssertionError:
+        return False
+    mm = make_schedule(plan).memory_model(
+        spec, plan, hw, microbatch_tokens=minibatch_tokens,
+        data_replicas=data_replicas)
+    budget = hw.hbm_bytes if hbm_bytes is None else hbm_bytes
+    return mm.fits(budget)

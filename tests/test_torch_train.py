@@ -392,7 +392,7 @@ def test_build_pipeline_raises_for_what_is_not_ported():
     with pytest.raises(NotImplementedError):
         build_pipeline(spec, plan.with_(tp=2), **kw)
     with pytest.raises(KeyError, match="not ported"):
-        build_pipeline(spec, plan.with_(schedule="interleaved"), **kw)
+        build_pipeline(spec, plan.with_(schedule="serve_interleaved"), **kw)
     with pytest.raises(ValueError, match="forward-only"):
         build_pipeline(spec, plan.with_(schedule="serve_1f"), **kw)
     with pytest.raises(ValueError):

@@ -34,9 +34,12 @@ def test_training_tables_equal_jax(S, R, mode):
 
 
 @pytest.mark.parametrize("mode", sorted(MODES))
-@pytest.mark.parametrize("schedule", ["auto", "1f1b", "gpipe"])
+@pytest.mark.parametrize("schedule", ["auto", "1f1b", "gpipe", "interleaved",
+                                      "interleaved_async"])
 def test_make_schedule_resolves_as_jax(schedule, mode):
-    kw = dict(pp=3, tp=1, microbatches=5, stash_mode=mode)
+    # the interleaved family needs microbatch groups (R % pp == 0)
+    R = 6 if schedule.startswith("interleaved") else 5
+    kw = dict(pp=3, tp=1, microbatches=R, stash_mode=mode)
     t_plan, j_plan = tplan.ParallelismPlan(**kw), jmesh.ParallelismPlan(**kw)
     if schedule != "auto":
         t_plan = t_plan.with_(**tsched.plan_kwargs_for_schedule(
@@ -54,7 +57,8 @@ def test_make_schedule_resolves_as_jax(schedule, mode):
 
 def test_unported_schedules_raise_and_serving_maps_training_plans():
     plan = tplan.ParallelismPlan(pp=2, tp=1, microbatches=4)
-    for name in ("interleaved", "interleaved_async"):
+    for name in ("serve_interleaved", "serve_spec_1f",
+                 "serve_spec_interleaved"):
         with pytest.raises(KeyError, match="not ported"):
             tsched.make_schedule(plan.with_(schedule=name))
         with pytest.raises(KeyError, match="not ported"):
