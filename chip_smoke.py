@@ -95,17 +95,39 @@ Phases (any failure raises and the script exits non-zero):
    5 rounds uninterrupted, then 5 rounds with a failure at round 3 and a
    crash in the middle of round 4's save; the restarted run's losses and
    every state tensor must equal the uninterrupted run's bit for bit,
-   under deterministic algorithms.
+   under deterministic algorithms;
+17. dist — stages on several ranks and data replicas over
+   ``torch.distributed`` (``parallel/dist.py``, the executor with a
+   process grid).  17a: a (1, 1) grid under NCCL at world size 1, fp32,
+   2 layers at full width, seq 256, equals the single-process executor
+   bit for bit (NCCL's all-reduce runs; no p2p: one rank has no peer);
+   17b: two processes on the one card under gloo (started with
+   ``spawn``; every hand-off staged through host memory), pp 2 at dp 1,
+   ``1f1b`` / stash at 2 layers and ``interleaved`` (flush) v 2 at 4
+   layers, equal the single-process executor bit for bit (state digests
+   compared across processes); 17c: dp 2 x pp 1 and dp 2 x pp 2 (four
+   processes), R 2, one round, replicated and ZeRO-1, track the
+   sequential oracle over the whole batch (losses atol 5e-5 / rtol 1e-4, weights 5e-5 / 2e-3),
+   ZeRO-1 equals the replicated update bit for bit; 17d: phase 13's
+   shape (qwen3-14b, 4 layers, bf16, Adam, 1f1b / stash, pp 2, R 4 x
+   4096, 3 rounds) split over two ranks on the one card: its first
+   round's loss within 2e-2 of phase 13's, finite losses, every
+   attention through the flash kernels.  The children build nothing
+   (the kernels are built by phase 1) and run deterministic algorithms.
 
 Phase 2 also holds the int8-pool paged kernel and the flash backward
 kernel (bf16 and f32; with its log-sum-exp, and determinism) against
 their plain versions.  Launch counters are zeroed before and read after
-each main path (phases 3, 5, 6, 8, 9, 11, 13, 15 and 16).  Prints a
+each main path (phases 3, 5, 6, 8, 9, 11, 13, 15, 16 and 17d, whose
+two ranks count their own).  Prints a
 ``profile`` JSON line for qwen3 bf16, rwkv6 (decode, then prefill),
 jamba (decode, then prefill), quantized qwen3 and the training rounds
 (1f1b, interleaved, interleaved_async), three ``train`` JSON lines
 (1f1b with its witnesses, then each interleaved schedule), the ``plan``
-and ``driver`` JSON lines, one ``kernels`` JSON line (launches, by path and for wkv6 by
+and ``driver`` JSON lines, a ``dist`` JSON line a rank of 17d and of
+17c's dp 2 x pp 2 grid (backend, device, round seconds, hand-off
+seconds and bytes, bytes staged through host memory, peak GB, optimizer
+state GB with and without ZeRO-1), one ``kernels`` JSON line (launches, by path and for wkv6 by
 design, errors, times, bounds, each kernel's design and what ``ptxas
 -v`` reported), the card's name and power limit, and last ``{"ok":
 true, "device": ...}``.  Exits non-zero without a CUDA device.
@@ -193,6 +215,21 @@ PLAN_SEQ, PLAN_BATCH, PLAN_R, PLAN_AXIS = 4096, 256, 8, 8
 # save
 DRIVER_LAYERS, DRIVER_ROUNDS, DRIVER_EVERY = 2, 5, 2
 DRIVER_FAIL, DRIVER_TORN = 3, 4
+# phase 17: stages on several ranks; 17a-c in fp32 at full width, 2
+# layers (17b's interleaved case 4: pp 2 x v 2 chunks of one), SGD with
+# momentum, R microbatches of DIST_ROWS rows a replica x DIST_SEQ, 2
+# rounds; 17d is phase 13's shape.  A rank waits DIST_GROUP_S on a peer
+# before its process group raises; a spawn's results are due in
+# DIST_JOIN_S
+DIST_LAYERS, DIST_V_LAYERS, DIST_SEQ, DIST_R, DIST_ROWS, DIST_ROUNDS = \
+    2, 4, 256, 4, 1, 2
+# 17c's replicas sum every microbatch's full-width fp32 gradients through
+# host memory (gloo on one card: ~30 s a round of R 4 at dp 2 x pp 2), so
+# it runs R 2 microbatches for one round
+DIST_REPLICA_R, DIST_REPLICA_ROUNDS = 2, 1
+DIST_GROUP_S, DIST_JOIN_S = 120, 600
+# elements a digest weighs at a time (its weights: 128 MB on the card)
+DIGEST_CHUNK = 1 << 24
 # the backward kernel's checks (phase 2): (B, S, window) at H 40 / KV 8,
 # Dh 128, causal; Sq = Sk; the last is the training call, the shape the
 # kernels line times
@@ -2254,6 +2291,536 @@ def phase_driver(device):
 
 
 # --------------------------------------------------------------------------
+# phase 17: stages on several ranks and data replicas (torch.distributed)
+# --------------------------------------------------------------------------
+
+def digest(t) -> int:
+    """A 64-bit fingerprint of a tensor's bits on its device: the sum over
+    elements of bits(x_i) · w_i mod 2^64 (chunk k's sum times 2k + 1),
+    w_i odd pseudo-random words from a fixed seed; any single element that
+    differs changes it, so two processes compare states without moving
+    them."""
+    import torch
+    flat = t.detach().contiguous().view(-1)
+    bits = flat.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                      8: torch.int64}[flat.element_size()])
+    w = _DIGEST_WEIGHTS.get(flat.device)
+    if w is None:
+        g = torch.Generator(device=flat.device).manual_seed(20)
+        w = _DIGEST_WEIGHTS[flat.device] = torch.randint(
+            0, 2 ** 62, (DIGEST_CHUNK,), generator=g, device=flat.device,
+            dtype=torch.int64) * 2 + 1
+    h = 0
+    for k, i in enumerate(range(0, bits.numel(), DIGEST_CHUNK)):
+        c = bits[i:i + DIGEST_CHUNK].long()
+        h += int((c * w[:c.numel()]).sum()) * (2 * k + 1)
+    return h % 2 ** 64
+
+
+_DIGEST_WEIGHTS = {}
+
+
+def state_digests(tree) -> dict:
+    """Every leaf of a state tree: a tensor's :func:`digest`, else the
+    value (step, windows, thetas)."""
+    import torch
+    return {name: digest(t) if torch.is_tensor(t) else t
+            for name, t in tree_leaves(tree)}
+
+
+def dist_plan(pp, schedule="1f1b", mode="stash", v=1, zero1=False,
+              r=DIST_R):
+    from repro_torch import configs
+    return configs.get("qwen3-14b").PLAN.with_(
+        tp=1, pp=pp, microbatches=r, stash_mode=mode, schedule=schedule,
+        virtual_stages=v, zero1=zero1)
+
+
+def dist_batches(spec, rows, r, rounds):
+    """``rounds`` rounds of ``r`` microbatches of ``rows`` rows (all
+    replicas), on the host: the SyntheticLM stream at seed SEED."""
+    from repro_torch.data.pipeline import SyntheticLM
+    src = SyntheticLM(spec.vocab, DIST_SEQ, seed=SEED)
+    return [src.round_batch(i, r, rows) for i in range(rounds)]
+
+
+def replica_rows(batch, d, dp, device):
+    """Replica ``d``'s block of a host round, on ``device``."""
+    import torch
+    mb = batch["tokens"].shape[1] // dp
+    return {k: torch.from_numpy(np.ascontiguousarray(
+        v[:, d * mb:(d + 1) * mb])).to(device) for k, v in batch.items()}
+
+
+def dist_fp32_run(spec, plan, device, dp=1, grid=None, rounds=DIST_ROUNDS):
+    """``rounds`` rounds in fp32 (SGD with momentum) through the
+    executor, one process or this rank of ``grid``; (losses, state,
+    bundle, round seconds)."""
+    import torch
+    from repro_torch.core.pipeline import build_pipeline
+    from repro_torch.optim import SGDM
+    bundle = build_pipeline(spec, plan, seq_len=DIST_SEQ,
+                            global_batch=dp * plan.microbatches * DIST_ROWS,
+                            optimizer=SGDM(lr=0.01),
+                            compute_dtype=torch.float32, device=device,
+                            grid=grid)
+    state = bundle.init_state(torch.Generator(bundle.device).manual_seed(SEED))
+    # the init's transient (the whole model on each rank) goes back to the
+    # card for the processes that share it
+    torch.cuda.empty_cache()
+    d = grid.d if grid is not None else 0
+    losses, seconds = [], []
+    for batch in dist_batches(spec, dp * DIST_ROWS, plan.microbatches,
+                              rounds):
+        batch = replica_rows(batch, d, dp, bundle.device)
+        t0 = time.perf_counter()
+        state, m = bundle.train_step(state, batch)
+        losses.append(m["loss"].item())          # waits for the round
+        seconds.append(time.perf_counter() - t0)
+    return losses, state, bundle, seconds
+
+
+def rank_child(rank, world, data, pp, init_file, job, kw, results):
+    """A spawned rank: deterministic algorithms and no TF32 before CUDA
+    starts, the grid under gloo on the one card, ``job``'s result on the
+    queue.  An exception goes to the queue and fails the rank."""
+    import os
+    import traceback
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    # up to four processes share the card: hand back what a process frees
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    import torch
+    from repro_torch.parallel.dist import ProcessGrid, close_grid, init_grid
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        grid = init_grid(ProcessGrid(data, pp), "gloo",
+                         init_method=f"file://{init_file}", rank=rank,
+                         world_size=world, device="cuda",
+                         timeout=DIST_GROUP_S)
+        results.put((rank, globals()[job](grid, **kw)))
+    except BaseException:
+        results.put((rank, {"error": traceback.format_exc()}))
+        raise
+    finally:
+        close_grid()
+
+
+def spawn_ranks(data, pp, job, **kw):
+    """``job`` on a ``data x pp`` grid of processes started with ``spawn``
+    (the parent holds a CUDA context) on the one card under gloo; the
+    results by rank.  A rank that fails, or a deadline of DIST_JOIN_S,
+    fails the phase; every child is ended before this returns."""
+    import multiprocessing
+    import queue
+    import tempfile
+    import torch
+    torch.cuda.empty_cache()
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    world = data * pp
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rdv_")
+    procs = [ctx.Process(target=rank_child,
+                         args=(r, world, data, pp, f"{tmp}/rendezvous", job,
+                               kw, results)) for r in range(world)]
+    for p in procs:
+        p.start()
+    out = {}
+    deadline = time.monotonic() + DIST_JOIN_S
+    try:
+        while len(out) < world:
+            try:
+                rank, res = results.get(timeout=1.0)
+            except queue.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if p.exitcode not in (None, 0) and r not in out]
+                if dead:
+                    raise AssertionError(f"{job}: rank(s) {dead} exited with "
+                                         f"{[procs[r].exitcode for r in dead]}")
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"{job}: no result after "
+                                         f"{DIST_JOIN_S} s")
+                continue
+            if "error" in res:
+                raise AssertionError(f"{job}: rank {rank} failed:\n"
+                                     f"{res['error']}")
+            out[rank] = res
+        for p in procs:
+            p.join(60)
+            if p.exitcode != 0:
+                raise AssertionError(f"{job}: a rank exited with "
+                                     f"{p.exitcode}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    return [out[r] for r in range(world)]
+
+
+def rank_info(grid) -> dict:
+    return {"rank": grid.rank, "replica": grid.d, "stage": grid.s,
+            "backend": grid.backend, "device": str(grid.device),
+            "device_policy": grid.device_policy}
+
+
+def dist_job_split(grid, cases):
+    """17b on a rank: each case's fp32 rounds; losses and state digests."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch.train import cut_layers
+    out = {"seconds": []}
+    for label, layers, plan_kw in cases:
+        t0 = time.perf_counter()
+        spec = cut_layers(configs.get("qwen3-14b").full_spec(), layers)
+        losses, state, _, _ = dist_fp32_run(spec, dist_plan(**plan_kw),
+                                            grid.device, grid=grid)
+        out[label] = {"losses": losses, "digests": state_digests(state),
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del state
+        torch.cuda.empty_cache()
+        out["seconds"].append(round(time.perf_counter() - t0, 1))
+    return out
+
+
+def dist_job_replicas(grid, out_dir):
+    """17c on a rank of a (2, pp) grid: the replicated and the ZeRO-1 run
+    in fp32; losses, digests of both states and of the replicated run's
+    optimizer shard, the replicated run's parameters as raw files from
+    replica 0 (the parent holds them to the oracle), optimizer-state
+    bytes and the transport's counters."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.versioning import zero1_axes, zero1_shard
+    from repro_torch.launch.train import cut_layers
+    from repro_torch.optim.optimizers import tree_map
+    from repro_torch.parallel.dist import TransportStats
+    spec = cut_layers(configs.get("qwen3-14b").full_spec(), DIST_LAYERS)
+    dp = grid.topo.data
+    out = {"grid": rank_info(grid)}
+    for zero1 in (False, True):
+        torch.cuda.reset_peak_memory_stats()
+        grid.stats = TransportStats()
+        losses, state, bundle, round_s = dist_fp32_run(
+            spec, dist_plan(grid.topo.pp, zero1=zero1, r=DIST_REPLICA_R),
+            grid.device, dp=dp, grid=grid, rounds=DIST_REPLICA_ROUNDS)
+        run = {"losses": losses, "round_s": round_s,
+               "digests": state_digests({k: v for k, v in state.items()
+                                         if k != "opt_stages"}),
+               "opt_state_gb": tree_bytes(state["opt_stages"]) / 1e9,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "transport": dataclasses.asdict(grid.stats)}
+        axes = zero1_axes(state["params"]["stages"], dp)
+        opt = state["opt_stages"]
+        if not zero1:
+            opt = {k: tree_map(lambda a, ax: zero1_shard(a, ax, grid.d, dp),
+                               v, axes) for k, v in opt.items()}
+            if grid.d == 0:
+                for name, t in tree_leaves(state["params"]):
+                    if hasattr(t, "numel"):
+                        t.cpu().numpy().tofile(
+                            f"{out_dir}/s{grid.s}{name.replace('/', '.')}.bin")
+        run["opt_shard_digests"] = state_digests(opt)
+        out["zero1" if zero1 else "replicated"] = run
+        del state, bundle, opt
+        torch.cuda.empty_cache()
+    return out
+
+
+def dist_job_train(grid):
+    """17d on a rank: phase 13's shape (qwen3-14b, 4 layers, bf16, Adam,
+    1f1b / stash, pp 2, R 4 x 4096) through launch/train.py's build with
+    this rank's grid, TRAIN_ROUNDS rounds on the stream with the plain
+    attention versions refused; per round the host seconds and the
+    transport's counters; the launches of this rank."""
+    import torch
+    from repro_torch.core.versioning import zero1_axes, zero1_shard
+    from repro_torch.data.pipeline import Loader, SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.optim.optimizers import tree_map
+    from repro_torch.parallel.dist import TransportStats
+    args = train_args(phase_train_flags(["--schedule", "1f1b",
+                                         "--stash-mode", "stash"]))
+    spec, bundle = train.build(args, grid)
+    torch.cuda.reset_peak_memory_stats()
+    state = bundle.init_state(torch.Generator(grid.device).manual_seed(SEED))
+    loader = Loader(SyntheticLM(spec.vocab, TRAIN_SEQ, seed=SEED),
+                    TRAIN_R, TRAIN_ROWS, grid.device)
+    batches = [loader.get(r) for r in range(TRAIN_ROUNDS)]
+    torch.cuda.synchronize()
+    reset_counts()
+    rounds, losses = [], []
+    with plain_attention_refused():
+        for batch in batches:
+            grid.stats = TransportStats()
+            t0 = time.perf_counter()
+            state, m = bundle.train_step(state, batch)
+            torch.cuda.synchronize()
+            rounds.append({"round_s": time.perf_counter() - t0,
+                           **dataclasses.asdict(grid.stats)})
+            losses.append(float(m["loss"]))
+    counts = read_counts()
+    opt = state["opt_stages"]
+    axes = zero1_axes(state["params"]["stages"], 2)
+    shard = {k: tree_map(lambda a, ax: zero1_shard(a, ax, 0, 2), v, axes)
+             for k, v in opt.items()}
+    return {"grid": rank_info(grid), "losses": losses, "rounds": rounds,
+            "counts": counts,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "state_gb": tree_bytes(state) / 1e9,
+            "opt_state_gb": tree_bytes(opt) / 1e9,
+            "opt_state_gb_zero1_at_dp2": tree_bytes(shard) / 1e9,
+            "holds": sorted(k for k in state["params"]
+                            if k in ("embed", "head"))}
+
+
+def phase_dist(device, first_round_loss):
+    """17a-d (see the module docstring); the dist records."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.reference import (reference_init_state,
+                                            reference_train_step)
+    from repro_torch.core.schedule import make_schedule
+    from repro_torch.core.versioning import rank_params, rank_state
+    from repro_torch.launch.train import cut_layers
+    from repro_torch.optim import SGDM
+    from repro_torch.parallel.dist import ProcessGrid, close_grid, init_grid
+    full = configs.get("qwen3-14b").full_spec()
+    spec = cut_layers(full, DIST_LAYERS)
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    seconds, out = {}, {}
+    try:
+        # 17a: the rank-local executor under NCCL at world size 1
+        t0 = time.perf_counter()
+        plan = dist_plan(1)
+        want_losses, ref, _, _ = dist_fp32_run(spec, plan, device)
+        want = state_digests(ref)
+        del ref
+        torch.cuda.empty_cache()
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+        try:
+            grid = init_grid(ProcessGrid(1, 1), "nccl",
+                             init_method=f"file://{tmp}/rendezvous", rank=0,
+                             world_size=1, device="cuda",
+                             timeout=DIST_GROUP_S)
+            log(f"[dist] 17a {grid.describe()}")
+            losses, state, _, _ = dist_fp32_run(spec, plan, device,
+                                                grid=grid)
+            got = state_digests(state)
+            del state
+        finally:
+            close_grid()
+            shutil.rmtree(tmp, ignore_errors=True)
+            torch.cuda.empty_cache()
+        if losses != want_losses or got != want:
+            raise AssertionError(
+                f"17a: NCCL (1, 1) grid differs from the single-process "
+                f"executor: losses {losses} / {want_losses}, leaves "
+                f"{[k for k in want if got.get(k) != want[k]][:5]}")
+        seconds["17a nccl world 1"] = time.perf_counter() - t0
+        out["17a"] = {"backend": "nccl", "world": 1, "losses": losses,
+                      "leaves_equal": len(want)}
+        log(f"[dist] 17a ({seconds['17a nccl world 1']:.1f}s): fp32, "
+            f"{DIST_LAYERS} layers at full width, pp 1, "
+            f"R {DIST_R} x seq {DIST_SEQ}: the (1, 1) grid under NCCL "
+            f"equals the single-process executor bit for bit (losses "
+            f"{losses}, {len(want)} leaves); it calls NCCL's all-reduce "
+            f"(the round's metrics) and no p2p")
+
+        # 17b: two ranks on the one card under gloo, bit for bit
+        t0 = time.perf_counter()
+        cases = [("1f1b/stash", DIST_LAYERS, dict(pp=2)),
+                 ("interleaved/flush v2", DIST_V_LAYERS,
+                  dict(pp=2, schedule="interleaved", mode="flush", v=2))]
+        expect = {}
+        for label, layers, kw in cases:
+            cut = cut_layers(full, layers)
+            p = dist_plan(**kw)
+            lo, st, bundle, _ = dist_fp32_run(cut, p, device)
+            expect[label] = (lo, [state_digests(rank_state(st, bundle.sched,
+                                                           s))
+                                  for s in range(2)])
+            del st, bundle
+            torch.cuda.empty_cache()
+        ranks = spawn_ranks(1, 2, "dist_job_split", cases=cases)
+        for label, _, _ in cases:
+            lo, per_rank = expect[label]
+            for s, res in enumerate(ranks):
+                got = res[label]
+                if got["losses"] != lo or got["digests"] != per_rank[s]:
+                    bad = [k for k in per_rank[s]
+                           if got["digests"].get(k) != per_rank[s][k]]
+                    raise AssertionError(
+                        f"17b {label} rank {s}: losses {got['losses']} / "
+                        f"{lo}; leaves that differ {bad[:6]}")
+            log(f"[dist] 17b {label} ({time.perf_counter() - t0:.1f}s "
+                f"since 17b began; ranks {[r['seconds'] for r in ranks]} s "
+                f"a case): two ranks on one card (gloo) equal "
+                f"the single-process executor bit for bit: losses {lo}, "
+                f"{sum(len(d) for d in per_rank)} leaves; peak "
+                f"{[round(r[label]['peak_gb'], 2) for r in ranks]} GB")
+        seconds["17b two ranks"] = time.perf_counter() - t0
+        out["17b"] = {label: {"losses": expect[label][0]}
+                      for label, _, _ in cases}
+
+        # 17c: data replicas against the oracle over the whole batch
+        out["17c"] = {}
+        for pp in (1, 2):
+            t0 = time.perf_counter()
+            plan = dist_plan(pp, r=DIST_REPLICA_R)
+            opt = SGDM(lr=0.01)
+            ref = reference_init_state(spec, plan, opt, torch.Generator(
+                device).manual_seed(SEED), torch.float32)
+            o_losses = []
+            for batch in dist_batches(spec, 2 * DIST_ROWS, DIST_REPLICA_R,
+                                      DIST_REPLICA_ROUNDS):
+                ref, m = reference_train_step(
+                    spec, plan, ref, {k: torch.from_numpy(v).to(device)
+                                      for k, v in batch.items()}, opt,
+                    donate=True)
+                o_losses.append(m["loss"].item())
+            sched = make_schedule(plan)
+            oracle = [dict(tree_leaves(rank_params(ref["params"], sched, s)))
+                      for s in range(pp)]
+            oracle = [{k: v.cpu() if torch.is_tensor(v) else v
+                       for k, v in o.items()} for o in oracle]
+            del ref
+            torch.cuda.empty_cache()
+            tmp = tempfile.mkdtemp(prefix="chip_smoke_params_")
+            try:
+                ranks = spawn_ranks(2, pp, "dist_job_replicas", out_dir=tmp)
+                t_cmp = time.perf_counter()
+                worst = 0.0
+                for s in range(pp):
+                    for name, want_t in oracle[s].items():
+                        if not torch.is_tensor(want_t):
+                            continue
+                        path = f"{tmp}/s{s}{name.replace('/', '.')}.bin"
+                        got_t = torch.from_numpy(np.fromfile(
+                            path, dtype=np.float32).reshape(want_t.shape))
+                        worst = max(worst, check_close(
+                            f"17c dp2 pp{pp} {name}", got_t.to(device),
+                            want_t.to(device), 5e-5, 2e-3))
+                t_cmp = time.perf_counter() - t_cmp
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
+            for rank, res in enumerate(ranks):
+                d, s = divmod(rank, pp)
+                rep, z1 = res["replicated"], res["zero1"]
+                for name in ("replicated", "zero1"):
+                    np.testing.assert_allclose(
+                        res[name]["losses"], o_losses, atol=5e-5, rtol=1e-4,
+                        err_msg=f"17c dp2 pp{pp} {name} rank {rank}")
+                if rep["losses"] != z1["losses"] or \
+                        rep["digests"] != z1["digests"] or \
+                        rep["opt_shard_digests"] != z1["opt_shard_digests"]:
+                    raise AssertionError(
+                        f"17c dp2 pp{pp} rank {rank}: ZeRO-1 differs from the "
+                        "replicated update")
+                twin = ranks[(1 - d) * pp + s]["replicated"]["digests"]
+                if {k: v for k, v in rep["digests"].items()
+                        if k.startswith("/params")} != \
+                        {k: v for k, v in twin.items()
+                         if k.startswith("/params")}:
+                    raise AssertionError(f"17c dp2 pp{pp}: the replicas of "
+                                         f"stage {s} hold other weights")
+            seconds[f"17c dp2 pp{pp}"] = time.perf_counter() - t0
+            out["17c"][f"dp2xpp{pp}"] = {
+                "oracle_losses": o_losses,
+                "losses": ranks[0]["replicated"]["losses"],
+                "max_abs_param_err": worst, "ranks": ranks}
+            log(f"[dist] 17c dp 2 x pp {pp} ({seconds[f'17c dp2 pp{pp}']:.1f}s"
+                f", compare {t_cmp:.1f}s): replicated and ZeRO-1 track the "
+                f"oracle over the whole batch (losses "
+                f"{ranks[0]['replicated']['losses']} / {o_losses}, max |param"
+                f" err| {worst:.2e}); ZeRO-1 equals the replicated update bit "
+                f"for bit; optimizer state "
+                f"{[round(r['replicated']['opt_state_gb'], 3) for r in ranks]}"
+                f" GB replicated, "
+                f"{[round(r['zero1']['opt_state_gb'], 3) for r in ranks]} GB "
+                f"ZeRO-1 by rank")
+
+        # 17d: phase 13's shape split over two ranks on the one card
+    finally:
+        torch.use_deterministic_algorithms(False)
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(1, 2, "dist_job_train")
+    losses = ranks[1]["losses"]
+    if not all(np.isfinite(losses)) or \
+            abs(losses[0] - first_round_loss) > 2e-2:
+        raise AssertionError(f"17d: losses {losses}, phase 13's first round "
+                             f"{first_round_loss}")
+    counts = {k: sum(r["counts"][k] for r in ranks) for k in ranks[0]["counts"]}
+    per_round = TRAIN_LAYERS * TRAIN_R
+    want = {"paged_attention": 0, "paged_attention_int8": 0, "wkv6": 0,
+            "mamba_scan": 0, "flash_attention": 3 * per_round * TRAIN_ROUNDS,
+            "flash_attention_bwd": per_round * TRAIN_ROUNDS}
+    if counts != want:
+        raise AssertionError(f"17d launches {counts}, expected {want}")
+    seconds["17d two ranks, full width"] = time.perf_counter() - t0
+    out["17d"] = {"losses": losses, "phase13_first_round_loss":
+                  first_round_loss, "ranks": ranks}
+    log(f"[dist] 17d qwen3-14b {TRAIN_LAYERS} layers bf16 Adam 1f1b/stash "
+        f"pp 2 on two ranks (gloo, one card): losses "
+        f"{[round(x, 4) for x in losses]} (phase 13's first round "
+        f"{first_round_loss:.4f}); round seconds by rank "
+        f"{[[round(x['round_s'], 3) for x in r['rounds']] for r in ranks]}; "
+        f"peak {[round(r['peak_gb'], 2) for r in ranks]} GB")
+    log(f"[phases] 17 seconds: {json.dumps(seconds)}")
+    return out, seconds, counts
+
+
+def dist_records(dist_out, smi_line):
+    """The ``dist`` JSON records: one a rank of 17d (the slice at full
+    width) and of 17c's dp 2 x pp 2 grid."""
+    recs = []
+    for phase, ranks in (("17d", dist_out["17d"]["ranks"]),
+                         ("17c dp2xpp2", dist_out["17c"]["dp2xpp2"]["ranks"])):
+        for res in ranks:
+            rec = {"phase": phase, **res["grid"], "card": smi_line}
+            if phase == "17d":
+                rec.update({
+                    "round_s": [x["round_s"] for x in res["rounds"]],
+                    "handoff_wait_s": [x["handoff_s"] for x in res["rounds"]],
+                    "handoff_bytes": [x["handoff_bytes"]
+                                      for x in res["rounds"]],
+                    "staged_bytes": [x["staged_bytes"]
+                                     for x in res["rounds"]],
+                    "collective_bytes": [x["collective_bytes"]
+                                         for x in res["rounds"]],
+                    "peak_gb": res["peak_gb"], "state_gb": res["state_gb"],
+                    "opt_state_gb": res["opt_state_gb"],
+                    "opt_state_gb_zero1": None,
+                    "opt_state_gb_zero1_at_dp2":
+                        res["opt_state_gb_zero1_at_dp2"],
+                    "holds": res["holds"], "launches": res["counts"]})
+            else:
+                rep, z1 = res["replicated"], res["zero1"]
+                n = DIST_REPLICA_ROUNDS
+                rec.update({
+                    "round_s": rep["round_s"],
+                    "handoff_wait_s": rep["transport"]["handoff_s"] / n,
+                    "handoff_bytes": rep["transport"]["handoff_bytes"] // n,
+                    "staged_bytes": rep["transport"]["staged_bytes"] // n,
+                    "collective_bytes":
+                        rep["transport"]["collective_bytes"] // n,
+                    "peak_gb": rep["peak_gb"], "opt_state_gb":
+                    rep["opt_state_gb"], "opt_state_gb_zero1":
+                    z1["opt_state_gb"], "zero1_peak_gb": z1["peak_gb"],
+                    "zero1_collective_bytes":
+                        z1["transport"]["collective_bytes"] // n})
+            recs.append(rec)
+    return recs
+
+
+# --------------------------------------------------------------------------
 # the kernels line
 # --------------------------------------------------------------------------
 
@@ -2759,6 +3326,11 @@ def main() -> int:
     t0 = time.perf_counter()
     driver_out, driver_counts = phase_driver(device)
     phase_s["16 driver"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()          # the children of phase 17 need it
+    t0 = time.perf_counter()
+    dist_out, dist_s, dist_counts = phase_dist(
+        device, train_out["loss_per_round"][0])
+    phase_s["17 dist"] = time.perf_counter() - t0
 
     records = kernel_records(device, errs, {
         "paged_attention": {"qwen3_serve": paged_launches,
@@ -2771,12 +3343,14 @@ def main() -> int:
             **{f"qwen3_train_{n}": c["flash_attention"]
                for n, c in virtual_counts.items()},
             "qwen3_plan_profile": plan_counts["flash_attention"],
-            "qwen3_driver": driver_counts["flash_attention"]},
+            "qwen3_driver": driver_counts["flash_attention"],
+            "qwen3_train_two_ranks": dist_counts["flash_attention"]},
         "flash_attention_bwd": {
             "qwen3_train": train_bwd,
             **{f"qwen3_train_{n}": c["flash_attention_bwd"]
                for n, c in virtual_counts.items()},
-            "qwen3_driver": driver_counts["flash_attention_bwd"]},
+            "qwen3_driver": driver_counts["flash_attention_bwd"],
+            "qwen3_train_two_ranks": dist_counts["flash_attention_bwd"]},
         "wkv6": {"serve": wkv_serve, "full_transformer": wkv_ref},
         "wkv6_by_design": {
             design: {"serve": wkv_serve_designs[design],
@@ -2788,7 +3362,8 @@ def main() -> int:
     log(f"[done] {time.perf_counter() - t_start:.1f}s; serve qwen3 {serve}; "
         f"serve rwkv6 {serve_rwkv}; serve jamba {serve_jamba}; serve qwen3 "
         f"int8/int8 {serve_quant}; consistency int8/int8 "
-        f"{consistency_quant}; consistency train {consistency_train}")
+        f"{consistency_quant}; consistency train {consistency_train}; "
+        f"dist {json.dumps(dist_s)}")
     print(json.dumps({"profile": prof_qwen}))
     print(json.dumps({"profile": prof}))
     print(json.dumps({"profile": prof_rwkv_prefill}))
@@ -2803,11 +3378,14 @@ def main() -> int:
         print(json.dumps({"train": virtual[name]}))
     print(json.dumps({"plan": plan_out}))
     print(json.dumps({"driver": driver_out}))
-    print(json.dumps({"kernels": records}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    for rec in dist_records(dist_out, card):
+        print(json.dumps({"dist": rec}))
+    print(json.dumps({"kernels": records}))
+    print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

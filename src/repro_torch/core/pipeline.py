@@ -20,20 +20,37 @@ One ``train_step`` is one *round* of R microbatches through a
   round end flush-family updates; the embedding's update from the
             d(embeddings) the d(embeddings) table collected.
 
-All stages run on one device, one after another within a phase; the
-state is held as JAX's executor holds it: stage-stacked ``[L, ...]``
-weights and optimizer states, a ``[V, L, ...]`` weight-version ring and
-a ``[Vr, S, ...]`` residual ring, all written in place.  With virtual
-stages (the interleaved family) the model is cut into L = S·v chunks
-held in storage order (row s·v + j is chunk j·S + s); a row's chunk
-column picks the storage row, the hand-off wraps from the last stage
-back to stage 0 between chunks, the async variant's ring is chunk-major
-and a per-microbatch update touches only the chunk its B row names.
-Every microbatch, slot and version index comes from a table row; a
-bubble row is skipped (JAX runs it on masked data).  Data replicas (the
-gradient all-reduce, ZeRO-1) and stages on several devices are not
-ported yet.  Bit-exact (fp32) against the sequential oracle
+With no process grid, all stages run on one device, one after another
+within a phase; the state is held as JAX's executor holds it:
+stage-stacked ``[L, ...]`` weights and optimizer states, a ``[V, L,
+...]`` weight-version ring and a ``[Vr, S, ...]`` residual ring, all
+written in place.  With virtual stages (the interleaved family) the
+model is cut into L = S·v chunks held in storage order (row s·v + j is
+chunk j·S + s); a row's chunk column picks the storage row, the
+hand-off wraps from the last stage back to stage 0 between chunks, the
+async variant's ring is chunk-major and a per-microbatch update touches
+only the chunk its B row names.  Every microbatch, slot and version
+index comes from a table row; a bubble row is skipped (JAX runs it on
+masked data).  Bit-exact (fp32) against the sequential oracle
 core/reference.py.
+
+With a :class:`~repro_torch.parallel.dist.RankGrid` (``grid=``) each
+process is one rank (replica d, stage s) of a ``data × pp`` grid, the
+counterpart of JAX's shard_map over a ``(data, stage)`` mesh: it holds
+its stage's storage rows (s·v … s·v+v−1), their ring and optimizer
+state, the embedding on stage 0, head and final norm on stage S−1, and
+walks its own column of the same tables.  The hand-offs of a tick are
+derived on both ends from :func:`handoffs` and posted as one
+``batch_isend_irecv`` a phase.  Replica d trains on its block of every
+microbatch (mb = global_batch / (dp·R) rows); the head divides by the
+microbatch's valid-token count summed over the last stage's replicas
+(JAX's head runs on the global microbatch), the aux cotangent is
+``aux_weight / dp``, and every gradient is summed over its stage's data
+group before its update — per microbatch, or the round's accumulator —
+or with ``plan.zero1`` reduce-scattered onto a 1/dp shard of the
+optimizer state and all-gathered back (core/versioning.py).  ``loss``
+and ``aux`` are summed over the world, the same number on every rank.
+At dp 1 the split alone changes no bit of the single-process executor.
 """
 from __future__ import annotations
 
@@ -50,12 +67,14 @@ from repro_torch.core.schedule import (B_CHUNK, B_FROM_HEAD, B_MB,
                                        F_FROM_EMBEDS, F_MB, F_RESID_WRITE,
                                        F_STASH_WRITE, F_VERSION,
                                        PipelineSchedule, make_schedule)
-from repro_torch.core.versioning import (make_train_state,
+from repro_torch.core.versioning import (make_train_state, rank_params,
                                          replicated_microbatch_update,
-                                         tree_add_, tree_chunk,
+                                         row_axes, tree_add_, tree_chunk,
                                          tree_chunk_add,
                                          tree_chunk_ring_read,
-                                         tree_chunk_ring_write)
+                                         tree_chunk_ring_write,
+                                         zero1_axes,
+                                         zero1_microbatch_update)
 from repro_torch.models import lm_head
 from repro_torch.models import spec as spec_lib
 from repro_torch.models.init import init_params
@@ -73,25 +92,55 @@ class PipelineBundle:
     train_step: Callable            # (state, batch) -> (state, metrics)
     init_state: Callable            # (torch.Generator) -> state
     seq_len: int
-    microbatch_size: int
+    microbatch_size: int            # rows of a microbatch on one replica
     device: torch.device
+
+
+def handoffs(tabs, tick: int):
+    """The hand-offs from ``tick`` to ``tick + 1``: ``(forward, backward)``
+    lists of (source stage, destination stage).  A forward pair is an
+    activation the source's F row made at ``tick`` that the destination's
+    F row at ``tick + 1`` reads (chunk hops wrap stage S−1 → 0); a
+    backward pair a gradient the source's B row made that the
+    destination's B row reads (wrapping 0 → S−1).  Sender and receiver
+    both post from this list, so every send has its receive."""
+    T, S = tabs.fwd.shape[:2]
+    fwd, bwd = [], []
+    if tick + 1 < T:
+        for s in range(S):
+            f, b = tabs.fwd[tick + 1, s], tabs.bwd[tick + 1, s]
+            if f[F_MB] >= 0 and not f[F_FROM_EMBEDS]:
+                fwd.append(((s - 1) % S, s))
+            if b[B_MB] >= 0 and not b[B_FROM_HEAD]:
+                bwd.append(((s + 1) % S, s))
+    return fwd, bwd
 
 
 def build_pipeline(spec: spec_lib.ModelSpec, plan, *, seq_len: int,
                    global_batch: int, optimizer, aux_weight: float = 0.01,
-                   compute_dtype=torch.bfloat16, device=None
+                   compute_dtype=torch.bfloat16, device=None, grid=None
                    ) -> PipelineBundle:
-    """The pipelined train step for one (arch, plan), all stages on
-    ``device`` (``cuda`` unless told otherwise)."""
-    dev = resolve_device(device)
+    """The pipelined train step for one (arch, plan): every stage on
+    ``device`` (``cuda`` unless told otherwise), or with ``grid`` (a
+    :class:`~repro_torch.parallel.dist.RankGrid` of ``data × plan.pp``
+    ranks) this rank's stage of this rank's replica on the grid's
+    device."""
     S, R = plan.pp, plan.microbatches
     if plan.tp != 1:
         raise NotImplementedError(
             f"tp={plan.tp}: tensor parallelism is not ported; run tp=1")
-    if global_batch % R:
+    dp = 1
+    if grid is not None:
+        if grid.topo.pp != S:
+            raise ValueError(f"grid of {grid.topo.pp} stages for a plan of "
+                             f"pp={S}")
+        dp, dev = grid.topo.data, grid.device
+    else:
+        dev = resolve_device(device)
+    if global_batch % (dp * R):
         raise ValueError(f"global_batch={global_batch} is not a multiple "
-                         f"of R={R} microbatches")
-    mb = global_batch // R
+                         f"of {dp} replicas x R={R} microbatches")
+    mb = global_batch // (dp * R)            # rows a replica's microbatch
     sched = make_schedule(plan)
     if sched.is_serving:
         raise ValueError(f"schedule {sched.name!r} is forward-only: it has "
@@ -99,131 +148,198 @@ def build_pipeline(spec: spec_lib.ModelSpec, plan, *, seq_len: int,
     check_trainable(spec, sched)
     sched.validate()
     vs = sched.virtual_stages               # local chunks per stage
-    L = sched.n_chunks                      # storage rows
     Vr = sched.resid_slots
     use_ring = sched.uses_stash_ring
     accumulate = sched.accumulate or plan.grad_sync == "per_round"
     # no schedule forwards from the stash at virtual stages
     assert not (sched.fwd_from_stash and vs > 1), sched.name
     tabs = sched.tables()
-    # the model is cut into L chunks: init and statics see them as stages
+    moves = [handoffs(tabs, t) for t in range(sched.n_ticks)]
+    # the model is cut into S·v chunks: init and statics see them as stages
     mplan = model_plan(plan, sched)
     statics = make_statics(spec, mplan, tokens_per_mb=mb * seq_len)
     d = spec.d_model
+    # the stages this process runs, and its storage rows: (s - s0)·v + j
+    mine = list(range(S)) if grid is None else [grid.s]
+    s0 = mine[0]
+    first, last = 0 in mine, S - 1 in mine
+    # this stage's data replicas: gradients are summed over them
+    group = grid.data_group if dp > 1 else None
+    zero1 = plan.zero1 and dp > 1
+    aux_ct = aux_weight / dp
 
     def init_state(gen: torch.Generator):
         if gen.device != dev:
             raise ValueError(f"generator on {gen.device}, pipeline on {dev}")
-        params = init_params(spec, mplan, gen, compute_dtype)
-        return make_train_state(to_storage_order(params, sched), sched,
-                                optimizer)
+        params = to_storage_order(init_params(spec, mplan, gen,
+                                              compute_dtype), sched)
+        z1 = None
+        if grid is not None:
+            # the whole model from the generator, then this rank's part:
+            # its tensors equal the single-process state's, bit for bit
+            params = rank_params(params, sched, grid.s)
+            params["stages"] = tree_map(torch.clone, params["stages"])
+            if zero1:
+                z1 = (zero1_axes(params["stages"], dp), grid.d, dp)
+        return make_train_state(params, sched, optimizer, zero1=z1)
+
+    # a forward hand-off goes to the next stage (the last stage's to stage
+    # 0 between chunks), a backward one to the previous
+    down = up = None
+    if grid is not None:
+        down = grid.topo.downstream(grid.rank, wrap=vs > 1)
+        up = grid.topo.upstream(grid.rank, wrap=vs > 1)
+
+    def pass_on(pairs, outs, send_to, recv_from):
+        """The hand-offs ``pairs`` of this tick's outputs ``outs`` (by
+        stage): the local ones by reference, the others to rank
+        ``send_to`` and from rank ``recv_from``, posted at once; the
+        inputs of the next tick, by stage."""
+        got, sends, recvs = {}, [], []
+        for src, dst in pairs:
+            if src in mine and dst in mine:
+                got[dst] = outs[src]
+            elif src in mine:
+                sends.append((send_to, outs[src].contiguous()))
+            elif dst in mine:
+                got[dst] = torch.empty((mb, seq_len, d), dtype=compute_dtype,
+                                       device=dev)
+                recvs.append((recv_from, got[dst]))
+        if sends or recvs:
+            grid.exchange(sends, recvs)
+        return got
 
     def train_step(state, batch):
         params = state["params"]
-        tokens, labels = batch["tokens"], batch["labels"]   # (R, Bmb, S)
+        tokens, labels = batch["tokens"], batch["labels"]   # (R, mb, S)
         step = state["step"]
         pos = torch.arange(seq_len, device=dev).expand(mb, seq_len)
-        kw = [dict(positions=pos, windows=params["layer_windows"][p],
-                   thetas=params["layer_thetas"][p]) for p in range(L)]
-        embeds = lm_head.embed_tokens(params["embed"], tokens, compute_dtype)
+        n_rows = len(mine) * vs
+        kw = [dict(positions=pos, windows=params["layer_windows"][q],
+                   thetas=params["layer_thetas"][q]) for q in range(n_rows)]
         weights = state["stash"]["current"]
         ring = state["stash"].get("ring")
         opt = state["opt_stages"]
-        head, fnorm = params["head"], params["final_norm"]
-        w_at = [tree_chunk(weights, p) for p in range(L)]
-        opt_at = [tree_chunk(opt, p) for p in range(L)]
+        w_at = [tree_chunk(weights, q) for q in range(n_rows)]
+        opt_at = [tree_chunk(opt, q) for q in range(n_rows)]
+        z1 = zero1_axes(weights, dp) if zero1 else None
+        z1_row = row_axes(z1) if zero1 else None
 
-        resid = torch.zeros((Vr, S, mb, seq_len, d), dtype=compute_dtype,
-                            device=dev)
-        recv_f = [None] * S          # one-tick hand-off, stage s-1 -> s
-        recv_b = [None] * S          # one-tick hand-off, stage s+1 -> s
+        def update(grads, opt_state, w, axes):
+            """An update of ``w`` from this replica's ``grads``, summed
+            (or with ZeRO-1 reduce-scattered) over the data group."""
+            if axes is None:
+                replicated_microbatch_update(optimizer, grads, opt_state, w,
+                                             step, True, group=group)
+            else:
+                zero1_microbatch_update(optimizer, grads, opt_state, w,
+                                        step, True, axes=axes, group=group)
+
+        resid = torch.zeros((Vr, len(mine), mb, seq_len, d),
+                            dtype=compute_dtype, device=dev)
+        recv_f, recv_b = {}, {}      # one-tick hand-offs, by stage
         f32 = lambda a: torch.zeros(a.shape, dtype=torch.float32,  # noqa
                                     device=dev)
+        if first:
+            embeds = lm_head.embed_tokens(params["embed"], tokens,
+                                          compute_dtype)
+            d_embeds = torch.zeros((R, mb, seq_len, d), dtype=compute_dtype,
+                                   device=dev)
+        if last:
+            head, fnorm = params["head"], params["final_norm"]
+            # the valid tokens of each microbatch over all replicas
+            n_valid = None
+            if group is not None:
+                n_valid = group.all_reduce_((labels >= 0).sum(
+                    dim=(1, 2), dtype=torch.float32))
         if accumulate:
             gacc = tree_map(f32, weights)
-            dhead_acc, dfnorm_acc = f32(head), tree_map(f32, fnorm)
-        d_embeds = torch.zeros((R, mb, seq_len, d), dtype=compute_dtype,
-                               device=dev)
+            if last:
+                dhead_acc, dfnorm_acc = f32(head), tree_map(f32, fnorm)
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         aux_sum = torch.zeros((), dtype=torch.float32, device=dev)
 
         for tick in range(sched.n_ticks):
+            f_moves, b_moves = moves[tick]
             # ---- F phase ----------------------------------------------
-            h_out = [None] * S
-            for s in range(S):
+            h_out = {}
+            for s in mine:
                 row = [int(c) for c in tabs.fwd[tick, s]]
                 if row[F_MB] < 0:
                     continue
-                p = s * vs + row[F_CHUNK]             # storage row
+                q = (s - s0) * vs + row[F_CHUNK]      # storage row
                 x_in = embeds[row[F_MB]] if row[F_FROM_EMBEDS] else recv_f[s]
                 if use_ring:
-                    tree_chunk_ring_write(ring, row[F_STASH_WRITE], p,
-                                          w_at[p])
-                w_f = (tree_chunk_ring_read(ring, row[F_VERSION], p)
-                       if sched.fwd_from_stash else w_at[p])
+                    tree_chunk_ring_write(ring, row[F_STASH_WRITE], q,
+                                          w_at[q])
+                w_f = (tree_chunk_ring_read(ring, row[F_VERSION], q)
+                       if sched.fwd_from_stash else w_at[q])
                 with torch.no_grad():
                     h_out[s], aux = stage_fwd(w_f, x_in, statics,
-                                              return_aux=True, **kw[p])
-                resid[row[F_RESID_WRITE], s].copy_(x_in)
+                                              return_aux=True, **kw[q])
+                resid[row[F_RESID_WRITE], s - s0].copy_(x_in)
                 aux_sum += aux
-            # chunk hops wrap from the last stage back to stage 0
-            recv_f = [h_out[S - 1] if vs > 1 else None] + h_out[:-1]
+            recv_f = pass_on(f_moves, h_out, down, up)
 
             # ---- head + loss for the exiting microbatch -----------------
             g_exit = None
             m_exit = int(tabs.exit_mb[tick])
-            if m_exit >= 0:
+            if m_exit >= 0 and last:
                 lab = labels[m_exit]
                 loss, dh, dhead, dfnorm = lm_head.loss_and_grads(
                     head, fnorm, h_out[S - 1], lab.clamp_min(0),
                     norm_kind=spec.norm, valid_mask=(lab >= 0).float(),
-                    vocab=spec.vocab)
+                    vocab=spec.vocab,
+                    n_valid=None if n_valid is None else n_valid[m_exit])
                 loss_sum += loss
                 g_exit = dh.to(compute_dtype)
                 if accumulate:
                     dhead_acc.add_(dhead)
                     tree_add_(dfnorm_acc, dfnorm)
                 else:
-                    optimizer.update_({"h": dhead, "f": dfnorm},
-                                      state["opt_head"],
-                                      {"h": head, "f": fnorm}, step)
+                    update({"h": dhead, "f": dfnorm}, state["opt_head"],
+                           {"h": head, "f": fnorm}, None)
 
             # ---- B phase ----------------------------------------------
-            dx_out = [None] * S
-            for s in range(S):
+            dx_out = {}
+            for s in mine:
                 row = [int(c) for c in tabs.bwd[tick, s]]
                 if row[B_MB] < 0:
                     continue
-                p = s * vs + row[B_CHUNK]
+                q = (s - s0) * vs + row[B_CHUNK]
                 g_in = g_exit if row[B_FROM_HEAD] else recv_b[s]
-                w_used = (tree_chunk_ring_read(ring, row[B_VERSION], p)
-                          if use_ring else w_at[p])
-                x_saved = resid[row[B_RESID_READ], s]
+                w_used = (tree_chunk_ring_read(ring, row[B_VERSION], q)
+                          if use_ring else w_at[q])
+                x_saved = resid[row[B_RESID_READ], s - s0]
                 dW, dx_out[s] = stage_vjp(w_used, x_saved, statics, g_in,
-                                          aux_weight, **kw[p])
+                                          aux_ct, **kw[q])
                 if accumulate:
-                    tree_chunk_add(gacc, dW, p)
+                    tree_chunk_add(gacc, dW, q)
                 else:
                     # only the chunk this row names moves
-                    replicated_microbatch_update(optimizer, dW, opt_at[p],
-                                                 w_at[p], step, True)
-            recv_b = dx_out[1:] + [dx_out[0] if vs > 1 else None]
+                    update(dW, opt_at[q], w_at[q], z1_row)
+            recv_b = pass_on(b_moves, dx_out, up, down)
             b0 = int(tabs.demb_mb[tick])
-            if b0 >= 0:
+            if b0 >= 0 and first:
                 d_embeds[b0].copy_(dx_out[0])
 
         # ---- round end ------------------------------------------------
         if accumulate:
-            optimizer.update_(tree_map(lambda a: a / R, gacc), opt, weights,
-                              step)
-            optimizer.update_({"h": dhead_acc / R,
-                               "f": tree_map(lambda a: a / R, dfnorm_acc)},
-                              state["opt_head"], {"h": head, "f": fnorm},
-                              step)
-        d_table = lm_head.embed_bwd(params["embed"], tokens,
-                                    d_embeds.float()).div_(R)
-        optimizer.update_(d_table, state["opt_embed"], params["embed"], step)
+            update(tree_map(lambda a: a / R, gacc), opt, weights, z1)
+            if last:
+                update({"h": dhead_acc / R,
+                        "f": tree_map(lambda a: a / R, dfnorm_acc)},
+                       state["opt_head"], {"h": head, "f": fnorm}, None)
+        if first:
+            d_table = lm_head.embed_bwd(params["embed"], tokens,
+                                        d_embeds.float()).div_(R)
+            update(d_table, state["opt_embed"], params["embed"], None)
         state["step"] = step + 1
+        if grid is not None:
+            # the replicas' and stages' parts of the round's metrics
+            parts = grid.world_group.all_reduce_(torch.stack([loss_sum,
+                                                              aux_sum]))
+            loss_sum, aux_sum = parts[0], parts[1] / dp
         return state, {"loss": loss_sum / R, "aux": aux_sum / R}
 
     return PipelineBundle(

@@ -14,10 +14,13 @@ the slot, and a read is a view of it.  A bubble row is skipped on the
 host, so ``valid`` is a Python bool, and JAX's masking helpers
 (``tree_select``, ``tree_scale``) have nothing to mask.
 
-ZeRO-1 (optimizer state sharded over data replicas) and the per-
-microbatch gradient all-reduce over replicas wait for data replicas,
-which the port does not run yet: one replica, so the all-reduce is the
-identity.
+Over data replicas (a :class:`~repro_torch.parallel.dist.Group` of the
+ranks that hold one stage) a stage's gradient is summed before its
+update (paper §3.2), or with ZeRO-1 reduce-scattered: each replica
+updates its 1/dp shard of the weights with an optimizer state that
+holds only that shard, and the shards are all-gathered.  Without a
+group (one replica) the sum is the identity.  :func:`rank_state` cuts a
+whole-model state to what one rank of a process grid holds.
 """
 from __future__ import annotations
 
@@ -64,37 +67,141 @@ def tree_add_(acc, b) -> None:
 
 
 def replicated_microbatch_update(optimizer, dW, opt_state, weights, step,
-                                 valid: bool, *, dp: int = 1) -> None:
-    """Per-microbatch update of one stage (paper §3.2), in place.  Over
-    data replicas the gradient is all-reduced first; the port runs one
-    replica."""
-    if dp != 1:
-        raise NotImplementedError(
-            "data replicas (all-reduce, ZeRO-1) are not ported yet")
+                                 valid: bool, *, group=None) -> None:
+    """Per-microbatch update of one stage (paper §3.2), in place: ``dW``
+    summed over the stage's data ``group`` (None: one replica), then the
+    update.  JAX ``versioning.py::replicated_microbatch_update``."""
+    if group is not None:
+        tree_map(group.all_reduce_, dW)
     if valid:
         optimizer.update_(dW, opt_state, weights, step)
 
 
-def make_train_state(params, sched, optimizer):
+def zero1_axes(stages, dp: int):
+    """Tree of ints over stage-stacked leaves (``[L, ...]``, dim 0 the
+    stacked row): the dim each leaf's optimizer state is sharded along
+    over ``dp`` replicas, the first dim >= 1 whose size is a multiple of
+    ``dp`` and at least ``dp``; -1 for a leaf with none, and for every
+    leaf at ``dp <= 1``.  JAX ``versioning.py::zero1_axes`` at tp = 1."""
+    def pick(a):
+        if dp <= 1:
+            return -1
+        for ax in range(1, len(a.shape)):
+            if a.shape[ax] % dp == 0 and a.shape[ax] >= dp:
+                return ax
+        return -1
+    return tree_map(pick, stages)
+
+
+def row_axes(axes):
+    """:func:`zero1_axes` of stacked leaves as dims of one row."""
+    return tree_map(lambda ax: ax - 1 if ax > 0 else -1, axes)
+
+
+def zero1_shard(a, ax: int, index: int, dp: int):
+    """Replica ``index``'s 1/dp block of ``a`` (a tensor or a numpy
+    array) along ``ax``, a view; all of ``a`` for ``ax < 0``."""
+    if ax < 0:
+        return a
+    size = a.shape[ax] // dp
+    return a[(slice(None),) * ax + (slice(index * size, (index + 1) * size),)]
+
+
+def zero1_microbatch_update(optimizer, dW, opt_state, weights, step,
+                            valid: bool, *, axes, group) -> None:
+    """One ZeRO-1 update, in place (JAX ``versioning.py::
+    zero1_microbatch_update``): ``dW`` reduce-scattered over ``group``
+    along ``axes`` (dims of the trees given), this replica's shard of
+    ``weights`` updated with ``opt_state`` (which holds that shard only),
+    the shards all-gathered back into ``weights``.  A leaf with axis -1
+    is summed and updated whole, its state replicated."""
+    g = tree_map(lambda t, ax: (group.reduce_scatter(t, ax) if ax >= 0
+                                else group.all_reduce_(t)), dW, axes)
+    w = tree_map(lambda t, ax: (zero1_shard(t, ax, group.index,
+                                            group.size).clone()
+                                if ax >= 0 else t), weights, axes)
+    if valid:
+        optimizer.update_(g, opt_state, w, step)
+    tree_map(lambda full, shard, ax: (group.all_gather_(shard, full, ax)
+                                      if ax >= 0 else None),
+             weights, w, axes)
+
+
+def rank_rows(sched, s: int) -> slice:
+    """The storage rows stage ``s`` holds: ``s·v … s·v + v − 1``."""
+    v = sched.virtual_stages
+    return slice(s * v, (s + 1) * v)
+
+
+def rank_params(params, sched, s: int):
+    """What stage ``s`` of ``sched`` holds of a whole-model parameter tree
+    (torch or numpy leaves, stage rows in storage order): its rows of the
+    stacked stages, windows and thetas; the embedding on stage 0; the head
+    and final norm on the last stage."""
+    rows = rank_rows(sched, s)
+    out = {"stages": tree_map(lambda a: a[rows], params["stages"]),
+           "layer_windows": list(params["layer_windows"][rows]),
+           "layer_thetas": list(params["layer_thetas"][rows])}
+    if s == 0:
+        out["embed"] = params["embed"]
+    if s == sched.n_stages - 1:
+        out["head"], out["final_norm"] = params["head"], params["final_norm"]
+    return out
+
+
+def rank_state(state, sched, s: int, *, zero1=None):
+    """What stage ``s``'s rank holds of a whole-model training state
+    (torch or numpy leaves): :func:`rank_params`, its rows of the
+    ``[V, L, ...]`` ring, its rows of the stage optimizer state — with
+    ``zero1 = (axes, index, dp)`` only replica ``index``'s shard — and the
+    head's / embedding's optimizer states where it holds them."""
+    rows = rank_rows(sched, s)
+    params = rank_params(state["params"], sched, s)
+    stash = {"current": params["stages"]}
+    if "ring" in state["stash"]:
+        stash["ring"] = tree_map(lambda a: a[:, rows], state["stash"]["ring"])
+    opt = {k: tree_map(lambda a: a[rows], v)
+           for k, v in state["opt_stages"].items()}
+    if zero1 is not None:
+        axes, index, dp = zero1
+        opt = {k: tree_map(lambda a, ax: zero1_shard(a, ax, index, dp), v,
+                           axes) for k, v in opt.items()}
+    out = {"params": params, "stash": stash, "opt_stages": opt,
+           "step": state["step"]}
+    if "head" in params:
+        out["opt_head"] = state["opt_head"]
+    if "embed" in params:
+        out["opt_embed"] = state["opt_embed"]
+    return out
+
+
+def make_train_state(params, sched, optimizer, *, zero1=None):
     """The training state JAX's ``init_state`` builds from ``params``
     (stage rows already in storage order): ``stash["current"]`` is
     ``params["stages"]`` itself (one set of tensors), ``stash["ring"]``
     a ``[V, L, ...]`` copy of it when the schedule keeps a ring (chunk-
     major for ``interleaved_async``: L = S·v storage rows), the
     optimizer states of the stages, of head + final norm and of the
-    embedding, and the round counter."""
+    embedding, and the round counter.  ``params`` may be one rank's
+    (:func:`rank_params`): the head's and the embedding's states exist
+    where those do, and with ``zero1 = (axes, index, dp)`` the stage
+    optimizer state covers replica ``index``'s shard only."""
     stages = params["stages"]
     stash = {"current": stages}
     if sched.uses_stash_ring:
         V = sched.stash_slots
         stash["ring"] = tree_map(
             lambda a: a[None].expand((V,) + tuple(a.shape)).clone(), stages)
-    return {
-        "params": params,
-        "stash": stash,
-        "opt_stages": optimizer.init(stages),
-        "opt_head": optimizer.init({"h": params["head"],
-                                    "f": params["final_norm"]}),
-        "opt_embed": optimizer.init(params["embed"]),
-        "step": 0,
-    }
+    shards = stages
+    if zero1 is not None:
+        axes, index, dp = zero1
+        shards = tree_map(lambda a, ax: zero1_shard(a, ax, index, dp),
+                          stages, axes)
+    state = {"params": params, "stash": stash,
+             "opt_stages": optimizer.init(shards), "step": 0}
+    if "head" in params:
+        state["opt_head"] = optimizer.init({"h": params["head"],
+                                            "f": params["final_norm"]})
+    if "embed" in params:
+        state["opt_embed"] = optimizer.init(params["embed"])
+    return state

@@ -2,8 +2,10 @@
 
 :class:`SyntheticLM` draws the JAX package's numpy stream, so both
 packages train on the same tokens.  :class:`Loader` puts one round on
-the training device; JAX's ``ShardedLoader`` places it on a mesh, which
-the port does not have (all stages on one device).
+the training device; over data replicas each replica gets its
+contiguous block of every microbatch's rows, as JAX's ``ShardedLoader``
+shards the batch dim over the data axis
+(``repro/core/pipeline.py``: ``P(None, data, None)``).
 """
 from __future__ import annotations
 
@@ -40,15 +42,22 @@ class SyntheticLM:
 
 
 class Loader:
-    """One round of ``source`` as int32 tensors on ``device``."""
+    """One round of ``source`` as int32 tensors on ``device``: of the
+    ``bmb`` rows a microbatch has over all ``replicas``, replica
+    ``replica``'s block of ``bmb / replicas``."""
 
     def __init__(self, source: SyntheticLM, r_microbatches: int, bmb: int,
-                 device):
+                 device, *, replica: int = 0, replicas: int = 1):
+        if bmb % replicas:
+            raise ValueError(f"{bmb} rows a microbatch do not split over "
+                             f"{replicas} replicas")
         self.source = source
         self.r, self.bmb = r_microbatches, bmb
         self.device = torch.device(device)
+        mb = bmb // replicas
+        self.rows = slice(replica * mb, (replica + 1) * mb)
 
     def get(self, step: int) -> Dict[str, torch.Tensor]:
         host = self.source.round_batch(step, self.r, self.bmb)
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                for k, v in host.items()}
+        return {k: torch.from_numpy(np.ascontiguousarray(v[:, self.rows]))
+                .to(self.device) for k, v in host.items()}

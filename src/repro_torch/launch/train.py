@@ -1,30 +1,47 @@
 """Pipelined training (port of ``repro/launch/train.py``): ``--steps``
-rounds of the paper's schedule on the synthetic LM stream through the
-fault-tolerant :class:`~repro_torch.runtime.driver.TrainDriver`
-(per-stage checkpoints every ``--ckpt-every`` rounds, restart from the
-last round every stage checkpointed), every stage of the plan on one
-device.
+rounds of the paper's schedule on the synthetic LM stream.
+
+One process (no torchrun, or a world of one) runs every stage of the
+plan on one device through the fault-tolerant
+:class:`~repro_torch.runtime.driver.TrainDriver` (per-stage checkpoints
+every ``--ckpt-every`` rounds, restart from the last round every stage
+checkpointed).  Under torchrun each process is one rank of a ``--data``
+x pp grid (``parallel/dist.py``): rank d·pp + s runs stage s of replica
+d on ``cuda:LOCAL_RANK`` when the machine has a card per rank, or on
+``cuda:0`` when it has one card; ``--backend nccl`` needs a card per
+rank, ``--backend gloo`` stages hand-offs and collectives through host
+memory, so ranks may share one card (or run on the CPU).  Each rank
+prints the grid line with its device; rank 0 prints the plan and the
+loss.  Several ranks train without checkpoints (``--ckpt`` exits:
+multi-rank checkpoints are not ported yet).
 
 Runs on the card by default (``--device cpu`` runs the plain PyTorch
 versions of the kernels).  ``--smoke`` trains the architecture's small
 smoke spec in fp32; otherwise the full spec in bf16 (``--layers N``
 keeps its first N layers).  ``--plan-search`` lets the planner pick
-(pp, tp, schedule, virtual_stages) over the plan's pp × tp devices
-under an H100's memory (a plan with tp > 1 then raises: tensor
-parallelism is not ported).  Prints the plan line with the predicted
-bubble, then ``loss a -> b``.
+(pp, tp, schedule, virtual_stages) for the plan's model axis of pp × tp
+cards per replica, with ``--data`` replicas, under an H100's memory (a
+plan with tp > 1 then raises: tensor parallelism is not ported).
+Prints the plan line with the predicted bubble, then ``loss a -> b``.
 
   python -m repro_torch.launch.train --arch qwen3-14b --smoke --steps 3 \
       --device cpu
   python -m repro_torch.launch.train --arch qwen3-14b --smoke --steps 4 \
       --device cpu --schedule interleaved_async --virtual-stages 2 \
       --microbatches 4 --ckpt /tmp/ckpt --ckpt-every 2
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch qwen3-14b --data 2 --pp 2 --layers 4 --seq-len 4096 \
+      --microbatches 4 --global-batch 8
+  torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch qwen3-14b --smoke --data 2 --pp 2 --microbatches 4 \
+      --device cpu --backend gloo
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
 import tempfile
 import time
 
@@ -37,6 +54,7 @@ from repro_torch.core.schedule import (SCHEDULES, plan_kwargs_for_schedule,
                                        weighted_round_time)
 from repro_torch.data.pipeline import Loader, SyntheticLM
 from repro_torch.optim.optimizers import by_name
+from repro_torch.parallel.dist import ProcessGrid, close_grid, init_grid
 from repro_torch.runtime.driver import (DriverConfig, TrainDriver,
                                         plan_search_report)
 
@@ -49,8 +67,8 @@ def cut_layers(spec, n: int):
                                blocks=spec.blocks[:n])
 
 
-def build(args):
-    """(spec, bundle) for the parsed arguments."""
+def make_plan(args):
+    """(spec, plan, optimizer) for the parsed arguments."""
     cfg = configs.get(args.arch)
     if args.smoke:
         spec, plan = cfg.smoke_spec(), cfg.SMOKE_PLAN
@@ -73,12 +91,18 @@ def build(args):
     if args.plan_search:
         plan = plan_search_report(spec, plan, seq_len=args.seq_len,
                                   global_batch=args.global_batch,
-                                  data_replicas=1).plan
+                                  data_replicas=args.data).plan
     name, lr = cfg.OPTIMIZER
-    opt = by_name(args.optimizer or name, args.lr or lr)
+    return spec, plan, by_name(args.optimizer or name, args.lr or lr)
+
+
+def build(args, grid=None, made=None):
+    """(spec, bundle) for the parsed arguments: one process, or this rank
+    of ``grid``; ``made``: :func:`make_plan`'s result, if it ran."""
+    spec, plan, opt = made or make_plan(args)
     bundle = build_pipeline(
         spec, plan, seq_len=args.seq_len, global_batch=args.global_batch,
-        optimizer=opt, device=args.device,
+        optimizer=opt, device=args.device, grid=grid,
         compute_dtype=torch.float32 if args.smoke else torch.bfloat16)
     return spec, bundle
 
@@ -140,12 +164,23 @@ def parser():
     ap.add_argument("--log", type=str, default=None,
                     help="write {arch, losses, seconds} as JSON here")
     ap.add_argument("--device", type=str, default="cuda")
+    ap.add_argument("--data", type=int, default=1,
+                    help="data replicas of the pipeline (under torchrun: "
+                         "the world is data x pp ranks)")
+    ap.add_argument("--backend", type=str, default=None,
+                    choices=[None, "nccl", "gloo"],
+                    help="torch.distributed backend under torchrun "
+                         "(default: nccl on the card, gloo on the CPU); "
+                         "gloo lets ranks share one card")
     return ap
 
 
 def main(argv=None):
     args = parser().parse_args(argv)
     args.device = str(resolve_device(args.device))
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1 or args.data > 1:
+        return main_ranks(args, world)
     spec, bundle = build(args)
     print(plan_line(bundle), flush=True)
     with tempfile.TemporaryDirectory() as tmp:
@@ -156,13 +191,59 @@ def main(argv=None):
         state, step = driver.run(state, args.steps)
         dt = time.perf_counter() - t0
     losses = [m["loss"] for m in driver.metrics_log]
+    report(args, spec, step, dt, losses)
+    return losses
+
+
+def main_ranks(args, world: int):
+    """This process's rank of a ``--data`` x pp grid under torchrun: the
+    rounds without checkpoints; rank 0 prints the plan and the loss."""
+    if args.ckpt:
+        raise SystemExit("--ckpt: checkpoints of several ranks are not "
+                         "ported yet (the JAX layout's single opt.npz "
+                         "needs every rank's state); run without --ckpt")
+    made = make_plan(args)
+    plan = made[1]
+    if world != args.data * plan.pp:
+        raise SystemExit(f"--data {args.data} x pp {plan.pp} needs "
+                         f"{args.data * plan.pp} ranks; the world has "
+                         f"{world} (launch with torchrun --nproc-per-node "
+                         f"{args.data * plan.pp})")
+    backend = args.backend or ("gloo" if args.device == "cpu" else "nccl")
+    grid = init_grid(ProcessGrid(args.data, plan.pp), backend,
+                     device=args.device)
+    try:
+        print(f"grid: {grid.describe()}", flush=True)
+        spec, bundle = build(args, grid, made)
+        if grid.rank == 0:
+            print(plan_line(bundle) + f" data={args.data}", flush=True)
+        loader = Loader(SyntheticLM(spec.vocab, bundle.seq_len,
+                                    seed=args.seed),
+                        plan.microbatches,
+                        args.global_batch // plan.microbatches, grid.device,
+                        replica=grid.d, replicas=args.data)
+        state = bundle.init_state(
+            torch.Generator(grid.device).manual_seed(args.seed))
+        losses = []
+        t0 = time.perf_counter()
+        for step in range(args.steps):
+            state, metrics = bundle.train_step(state, loader.get(step))
+            losses.append(float(metrics["loss"]))
+        dt = time.perf_counter() - t0
+        if grid.rank == 0:
+            report(args, spec, args.steps, dt, losses)
+    finally:
+        close_grid()
+    return losses
+
+
+def report(args, spec, step, dt, losses):
     print(f"arch={spec.name} steps={step} time={dt:.1f}s "
           f"loss {losses[0]:.4f} -> {losses[-1]:.4f}", flush=True)
     if args.log:
         with open(args.log, "w") as f:
             json.dump({"arch": spec.name, "losses": losses,
                        "seconds": dt}, f)
-    return losses
 
 
 if __name__ == "__main__":

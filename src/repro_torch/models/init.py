@@ -18,6 +18,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch.core.versioning import rank_state
 from repro_torch.models import spec as spec_lib
 from repro_torch.models.nn import (AttnStatic, MambaStatic, MoEStatic,
                                    RWKVStatic)
@@ -238,14 +239,21 @@ def params_from_numpy(tree, device, dtype) -> Dict:
     return conv(None, tree)
 
 
-def train_state_from_numpy(tree, device, dtype) -> Dict:
+def train_state_from_numpy(tree, device, dtype, *, sched=None, stage=None,
+                           zero1=None) -> Dict:
     """The port's training state from a JAX one taken to numpy
     (``jax.tree.map(np.asarray, state)``, as ``reference_init_state``
     or ``build_pipeline``'s ``init_state`` build it): params as
     :func:`params_from_numpy` converts them, ``stash["current"]`` the
     very ``params["stages"]`` tensors (JAX holds one array for both),
     the ``[V, L, ...]`` stash ring in ``dtype``, optimizer states in
-    their own dtype (f32) and ``step`` a Python int."""
+    their own dtype (f32) and ``step`` a Python int.  With ``stage``
+    (and the plan's ``sched``) only what that stage's rank of a process
+    grid holds (``core/versioning.py::rank_state``; ``zero1 = (axes,
+    replica, dp)`` keeps the replica's optimizer shard), so a JAX state
+    loads rank by rank."""
+    if stage is not None:
+        tree = rank_state(tree, sched, stage, zero1=zero1)
     params = params_from_numpy(tree["params"], device, dtype)
     stash = {"current": params["stages"]}
     if "ring" in tree["stash"]:
@@ -254,5 +262,6 @@ def train_state_from_numpy(tree, device, dtype) -> Dict:
     out = {"params": params, "stash": stash,
            "step": int(np.asarray(tree["step"]))}
     for key in ("opt_stages", "opt_head", "opt_embed"):
-        out[key] = params_from_numpy(tree[key], device, torch.float32)
+        if key in tree:
+            out[key] = params_from_numpy(tree[key], device, torch.float32)
     return out

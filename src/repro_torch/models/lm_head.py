@@ -40,13 +40,17 @@ def _padded_vocab_mask(logits, vocab: Optional[int]):
 
 
 def head_loss(head, final_norm_scale, h, labels, *, norm_kind: str = "rmsnorm",
-              norm_bias=None, valid_mask=None, vocab: Optional[int] = None):
+              norm_bias=None, valid_mask=None, vocab: Optional[int] = None,
+              n_valid=None):
     """Mean cross-entropy of the hidden states exiting the pipeline.
 
     h: (B, S, d); labels: (B, S) int.  The head product runs in h's
     dtype and the logits are taken to f32, as JAX does; padded vocab ids
     are masked with -1e30; the mean is over ``valid_mask`` (all ones
-    when None), at least 1.  Returns (mean_loss, n_tokens).
+    when None), at least 1.  ``n_valid`` replaces the divisor: a data
+    replica holding part of a microbatch divides by the whole
+    microbatch's count, as JAX's head over the global microbatch does.
+    Returns (mean_loss, n_tokens).
     """
     if norm_kind == "rmsnorm":
         h = nn.rmsnorm(h, final_norm_scale)
@@ -60,7 +64,7 @@ def head_loss(head, final_norm_scale, h, labels, *, norm_kind: str = "rmsnorm",
     if valid_mask is None:
         valid_mask = torch.ones(labels.shape, dtype=torch.float32,
                                 device=h.device)
-    n = valid_mask.sum().clamp_min(1.0)
+    n = (valid_mask.sum() if n_valid is None else n_valid).clamp_min(1.0)
     return (nll * valid_mask).sum() / n, n
 
 
@@ -77,7 +81,8 @@ def head_loss_and_grad(head, final_norm_scale, h, labels, *,
 
 
 def loss_and_grads(head, final_norm, h, labels, *, norm_kind: str,
-                   valid_mask=None, vocab: Optional[int] = None):
+                   valid_mask=None, vocab: Optional[int] = None,
+                   n_valid=None):
     """:func:`head_loss_and_grad` over the whole final-norm tree (scale,
     and bias for a layernorm): (loss, dh, dhead, dfinal_norm), the
     gradient tree keyed like ``final_norm``, as the JAX executor takes
@@ -89,7 +94,8 @@ def loss_and_grads(head, final_norm, h, labels, *, norm_kind: str,
         fn = dict(zip(keys, leaves[2:]))
         loss, _ = head_loss(leaves[0], fn["scale"], leaves[1], labels,
                             norm_kind=norm_kind, norm_bias=fn.get("bias"),
-                            valid_mask=valid_mask, vocab=vocab)
+                            valid_mask=valid_mask, vocab=vocab,
+                            n_valid=n_valid)
         dhead, dh, *dfn = torch.autograd.grad(loss, leaves)
     return loss.detach(), dh, dhead, dict(zip(keys, dfn))
 

@@ -1,0 +1,316 @@
+"""The process grid of multi-rank training over ``torch.distributed``
+(counterpart of ``repro/parallel/mesh.py``'s ``(data, stage)`` axes and
+``repro/launch/mesh.py::make_host_mesh``).
+
+One process per rank.  :class:`ProcessGrid` is the topology alone:
+``data`` replicas of a ``pp``-stage pipeline, rank ``d·pp + s``
+(data-major, as the JAX mesh orders ``(data, model)``), each stage's
+data group and each rank's neighbours.  :func:`init_grid` joins the
+process group and returns this rank's :class:`RankGrid`: its place in
+the grid, its device, its stage's data :class:`Group` and the transport
+that every hand-off and collective goes through.
+
+The backend is the caller's choice.  NCCL takes tensors on the card and
+needs a card per rank (it refuses two ranks on one device).  gloo takes
+host tensors only, so under gloo every p2p and every collective on a
+CUDA tensor is staged through host memory in one place,
+:meth:`RankGrid._transport`, which counts the bytes it stages: moves
+(p2p, all-gather) copy bf16 / fp16 as their int16 bits, exact whatever
+gloo supports; sums take them to f32 on the host and round once.  That
+mode lets several ranks share one card.  Every process group has a
+timeout, so a rank that dies makes the others raise instead of waiting
+forever.
+
+Launch: ``torchrun --nproc-per-node N`` sets ``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK`` (and ``MASTER_ADDR`` / ``MASTER_PORT``), which
+:func:`init_grid` reads when the caller passes none.
+"""
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+import time
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+#: seconds a rank waits on a peer before its process group raises
+DEFAULT_TIMEOUT_S = 60.0
+
+
+@dataclasses.dataclass(frozen=True)
+class ProcessGrid:
+    """``data`` replicas × ``pp`` pipeline stages, rank = d·pp + s."""
+
+    data: int
+    pp: int
+
+    def __post_init__(self):
+        if self.data < 1 or self.pp < 1:
+            raise ValueError(f"grid ({self.data}, {self.pp}): both axes "
+                             "must be at least 1")
+
+    @property
+    def world(self) -> int:
+        return self.data * self.pp
+
+    def rank_of(self, d: int, s: int) -> int:
+        return d * self.pp + s
+
+    def coords(self, rank: int) -> Tuple[int, int]:
+        """(replica d, stage s) of ``rank``."""
+        if not 0 <= rank < self.world:
+            raise ValueError(f"rank {rank} outside a world of {self.world}")
+        return divmod(rank, self.pp)
+
+    def data_group_ranks(self, s: int) -> List[int]:
+        """The ranks holding stage ``s``, one per replica, in replica
+        order: the group its gradients are summed over."""
+        return [self.rank_of(d, s) for d in range(self.data)]
+
+    def downstream(self, rank: int, wrap: bool = False) -> Optional[int]:
+        """The rank of the next stage of ``rank``'s replica; the last
+        stage hands to stage 0 with ``wrap`` (virtual stages), else None."""
+        d, s = self.coords(rank)
+        if s + 1 < self.pp:
+            return self.rank_of(d, s + 1)
+        return self.rank_of(d, 0) if wrap else None
+
+    def upstream(self, rank: int, wrap: bool = False) -> Optional[int]:
+        """The rank of the previous stage of ``rank``'s replica; stage 0
+        takes from the last stage with ``wrap``, else None."""
+        d, s = self.coords(rank)
+        if s > 0:
+            return self.rank_of(d, s - 1)
+        return self.rank_of(d, self.pp - 1) if wrap else None
+
+
+def _env_int(name: str) -> Optional[int]:
+    value = os.environ.get(name)
+    return None if value is None else int(value)
+
+
+def _host_dtype(dtype: torch.dtype, reduce: bool) -> torch.dtype:
+    """What gloo gets for ``dtype``: half precision as f32 for a sum (one
+    rounding, back on the card) and as its int16 bits for a move."""
+    if dtype in (torch.bfloat16, torch.float16):
+        return torch.float32 if reduce else torch.int16
+    return dtype
+
+
+def _host(t: torch.Tensor, reduce: bool) -> torch.Tensor:
+    dtype = _host_dtype(t.dtype, reduce)
+    if dtype == torch.int16 and t.dtype != torch.int16:
+        return t.view(torch.int16).cpu()
+    return t.to(device="cpu", dtype=dtype)
+
+
+class Group:
+    """Ranks of the grid that sum or shard a tensor among themselves (a
+    stage's data replicas, or the whole world), in rank order; every call
+    goes through the grid's transport."""
+
+    def __init__(self, grid: "RankGrid", ranks: Sequence[int], pg):
+        self.grid, self.ranks, self.pg = grid, list(ranks), pg
+        self.size = len(self.ranks)
+        self.index = self.ranks.index(grid.rank)   # this rank's position
+
+    def _count(self, t: torch.Tensor) -> None:
+        self.grid.stats.collective_bytes += t.numel() * t.element_size()
+
+    def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum ``t`` over the group, in place; returns ``t``.  A stage's
+        group of one replica has no process group and returns at once; the
+        world's always calls the backend."""
+        if self.pg is not None:
+            self._count(t)
+            self.grid._transport(
+                lambda x, y: dist.all_reduce(x[0], group=self.pg),
+                [t], [t], reduce=True)
+        return t
+
+    def reduce_scatter(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's 1/size block along ``dim`` of the sum of ``t`` over
+        the group (contiguous)."""
+        if self.size == 1:
+            return t
+        x = t.movedim(dim, 0).contiguous()
+        out = torch.empty((x.shape[0] // self.size,) + tuple(x.shape[1:]),
+                          dtype=x.dtype, device=x.device)
+        self._count(x)
+        self.grid._transport(
+            lambda a, b: dist.reduce_scatter_tensor(b[0], a[0],
+                                                    group=self.pg),
+            [x], [out], reduce=True)
+        return out.movedim(0, dim).contiguous()
+
+    def all_gather_(self, shard: torch.Tensor, out: torch.Tensor,
+                    dim: int) -> None:
+        """Write every rank's ``shard`` into its block of ``out`` along
+        ``dim``, in rank order."""
+        x = shard.movedim(dim, 0).contiguous()
+        full = torch.empty((x.shape[0] * self.size,) + tuple(x.shape[1:]),
+                           dtype=x.dtype, device=x.device)
+        self._count(x)
+        self.grid._transport(
+            lambda a, b: dist.all_gather_into_tensor(b[0], a[0],
+                                                     group=self.pg),
+            [x], [full], reduce=False)
+        out.copy_(full.movedim(0, dim))
+
+
+@dataclasses.dataclass
+class TransportStats:
+    """What the transport moved since the counters were last zeroed."""
+
+    handoff_bytes: int = 0      # p2p bytes this rank sent
+    handoff_s: float = 0.0      # host seconds in hand-offs (post to done)
+    collective_bytes: int = 0   # bytes this rank put into collectives
+    staged_bytes: int = 0       # bytes copied card <-> host for gloo
+
+
+class RankGrid:
+    """This rank's place in a :class:`ProcessGrid`: its coordinates, its
+    device, its stage's data group and the transport (p2p hand-offs and
+    collectives).  Built by :func:`init_grid`."""
+
+    def __init__(self, topo: ProcessGrid, rank: int, backend: str,
+                 device: torch.device, device_policy: str,
+                 data_groups: List, world_pg):
+        self.topo, self.rank, self.backend = topo, rank, backend
+        self.device, self.device_policy = device, device_policy
+        self.d, self.s = topo.coords(rank)
+        self.stats = TransportStats()
+        # gloo takes host tensors only
+        self.stage_host = backend == "gloo"
+        self.data_group = Group(self, topo.data_group_ranks(self.s),
+                                data_groups[self.s])
+        self.world_group = Group(self, range(topo.world), world_pg)
+
+    def describe(self) -> str:
+        return (f"rank {self.rank} of {self.topo.world}: replica {self.d} "
+                f"of {self.topo.data}, stage {self.s} of {self.topo.pp}; "
+                f"backend {self.backend}, device {self.device} "
+                f"({self.device_policy})")
+
+    def _transport(self, run, reads, writes, *, reduce: bool) -> None:
+        """``run(reads, writes)``, a torch.distributed call, on the tensors
+        themselves, or under gloo with tensors on the card on host copies:
+        the one place where hand-offs and collectives are staged through
+        host memory (``stats.staged_bytes`` counts both directions).  A
+        tensor in both lists (an in-place sum) is copied out and back
+        once."""
+        if not (self.stage_host and any(t.is_cuda for t in (*reads,
+                                                            *writes))):
+            run(reads, writes)
+            return
+        host = {id(t): _host(t, reduce) for t in reads}
+        h_writes = [host[id(t)] if id(t) in host else
+                    torch.empty(t.shape, dtype=_host_dtype(t.dtype, reduce))
+                    for t in writes]
+        run([host[id(t)] for t in reads], h_writes)
+        for t, h in zip(writes, h_writes):
+            t.copy_(h.view(t.dtype) if h.dtype == torch.int16 else h)
+        self.stats.staged_bytes += sum(
+            t.numel() * t.element_size() for t in (*reads, *writes))
+
+    def exchange(self, sends: Sequence[Tuple[int, torch.Tensor]],
+                 recvs: Sequence[Tuple[int, torch.Tensor]]) -> None:
+        """Post ``sends`` ((peer, tensor)) and ``recvs`` ((peer, buffer))
+        as one ``batch_isend_irecv`` and wait for all of them.  The time
+        from posting to done goes to ``stats.handoff_s``: under gloo the
+        host waits for the peer; under NCCL the wait is the stream's, and
+        the host's time is the posting."""
+        if not sends and not recvs:
+            return
+        t0 = time.perf_counter()
+
+        def run(reads, writes):
+            ops = [dist.P2POp(dist.isend, t, peer)
+                   for (peer, _), t in zip(sends, reads)]
+            ops += [dist.P2POp(dist.irecv, t, peer)
+                    for (peer, _), t in zip(recvs, writes)]
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+
+        self._transport(run, [t for _, t in sends], [b for _, b in recvs],
+                        reduce=False)
+        self.stats.handoff_bytes += sum(t.numel() * t.element_size()
+                                        for _, t in sends)
+        self.stats.handoff_s += time.perf_counter() - t0
+
+
+def _device_for(device, local_rank: int, local_world: int, backend: str,
+                world: int) -> Tuple[torch.device, str]:
+    """This rank's device and the rule that chose it: ``cuda:LOCAL_RANK``
+    when the machine has a card per local rank, ``cuda:0`` for every rank
+    when it has one card, else the CPU when asked."""
+    if torch.device(device or "cuda").type == "cpu":
+        return torch.device("cpu"), "cpu"
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run the ranks on the CPU")
+    n = torch.cuda.device_count()
+    if n >= local_world:
+        return torch.device("cuda", local_rank), "a card per rank"
+    if n == 1:
+        if backend == "nccl" and world > 1:
+            raise ValueError(
+                f"{local_world} ranks share one card: NCCL refuses two "
+                "ranks on one device; run them with backend='gloo', which "
+                "stages hand-offs and collectives through host memory")
+        return torch.device("cuda", 0), f"one card shared by {local_world} ranks"
+    raise ValueError(f"{local_world} ranks on a machine with {n} cards: "
+                     "give each rank a card, or run on one card")
+
+
+def init_grid(topo: ProcessGrid, backend: str, *,
+              init_method: Optional[str] = None,
+              timeout: float = DEFAULT_TIMEOUT_S,
+              rank: Optional[int] = None, world_size: Optional[int] = None,
+              local_rank: Optional[int] = None, device=None) -> RankGrid:
+    """Join the process group and build this rank's :class:`RankGrid`.
+
+    ``rank`` / ``world_size`` / ``local_rank`` default to torchrun's
+    ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK``; ``init_method`` to
+    torchrun's ``env://`` rendezvous.  ``device`` is ``"cuda"`` (default)
+    or ``"cpu"``; on the card the rank's device is set current.  Every
+    process group gets ``timeout`` seconds.  Ends with a sum over the
+    world, which every rank must reach."""
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"backend {backend!r}: choose 'nccl' or 'gloo'")
+    rank = _env_int("RANK") if rank is None else rank
+    world_size = _env_int("WORLD_SIZE") if world_size is None else world_size
+    if rank is None or world_size is None:
+        raise ValueError("no rank / world size: launch with torchrun or "
+                         "pass rank= and world_size=")
+    if world_size != topo.world:
+        raise ValueError(f"grid ({topo.data} data x {topo.pp} stages) needs "
+                         f"{topo.world} ranks, the world has {world_size}")
+    if local_rank is None:
+        local_rank = _env_int("LOCAL_RANK")
+        local_rank = rank if local_rank is None else local_rank
+    local_world = _env_int("LOCAL_WORLD_SIZE") or world_size
+    dev, policy = _device_for(device, local_rank, local_world, backend,
+                              world_size)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    wait = datetime.timedelta(seconds=timeout)
+    dist.init_process_group(backend, init_method=init_method or "env://",
+                            rank=rank, world_size=world_size, timeout=wait)
+    # every rank creates every group, in the same order
+    data_groups = [dist.new_group(topo.data_group_ranks(s), timeout=wait)
+                   if topo.data > 1 else None for s in range(topo.pp)]
+    grid = RankGrid(topo, rank, backend, dev, policy, data_groups,
+                    dist.group.WORLD)
+    grid.world_group.all_reduce_(torch.ones(1, device=dev))
+    grid.stats = TransportStats()
+    return grid
+
+
+def close_grid() -> None:
+    """Leave the process group (a no-op when none is joined)."""
+    if dist.is_initialized():
+        dist.destroy_process_group()

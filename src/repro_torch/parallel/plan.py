@@ -2,9 +2,11 @@
 ``repro/parallel/mesh.py::ParallelismPlan``).
 
 Same fields, defaults and asserts as the JAX plan (pinned by
-tests/test_torch_spec.py).  The port runs every stage on one card in
-this slice, so ``tp`` must be 1 where a plan is executed; the field
-stays for configuration parity.
+tests/test_torch_spec.py).  The port runs the plan's stages on one
+device, or one stage a rank over ``torch.distributed``
+(``parallel/dist.py``), with data replicas and ``zero1``; tensor
+parallelism is not ported, so ``tp`` must be 1 where a plan is
+executed: the field stays for configuration parity and the planner.
 """
 from __future__ import annotations
 
