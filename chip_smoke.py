@@ -113,12 +113,28 @@ Phases (any failure raises and the script exits non-zero):
    4096, 3 rounds) split over two ranks on the one card: its first
    round's loss within 2e-2 of phase 13's, finite losses, every
    attention through the flash kernels.  The children build nothing
-   (the kernels are built by phase 1) and run deterministic algorithms.
+   (the kernels are built by phase 1) and run deterministic algorithms;
+18. ckpt dist — workers that checkpoint their own stages and report what
+   they measure.  18a: qwen3-14b at all 40 layers and full width, bf16,
+   1f1b / stash pp 2, parameters only (no optimizer state or ring, which
+   do not fit two ranks at 40 layers), drawn row-wise on two gloo ranks
+   sharing the card (``models/init.py::init_rank_params``): each rank's
+   init peak, and its digests equal to the rows of one process's whole
+   draw, made after the ranks exit.  18b: phase 16's TrainDriver run
+   (2 layers, bf16, SGD with momentum, R 4 x 4096, 5 rounds, a
+   checkpoint every 2) over two gloo ranks, with an Observability that
+   traces; the last rank fails before round DRIVER_FAIL and crashes in
+   round DRIVER_TORN's save.  Each rank's final state equals phase 16's
+   rows bit for bit (digests), the last complete checkpoint restores in
+   one process to the digests of what the ranks saved, the torn round
+   is skipped, ``rounds_total{kind=train}`` counts every executed round,
+   rank 0's registry holds every stage's measured
+   ``stage_round_seconds``, and the trace has a span per busy table cell.
 
 Phase 2 also holds the int8-pool paged kernel and the flash backward
 kernel (bf16 and f32; with its log-sum-exp, and determinism) against
 their plain versions.  Launch counters are zeroed before and read after
-each main path (phases 3, 5, 6, 8, 9, 11, 13, 15, 16 and 17d, whose
+each main path (phases 3, 5, 6, 8, 9, 11, 13, 15, 16, 17d and 18b, whose
 two ranks count their own).  Prints a
 ``profile`` JSON line for qwen3 bf16, rwkv6 (decode, then prefill),
 jamba (decode, then prefill), quantized qwen3 and the training rounds
@@ -127,7 +143,13 @@ jamba (decode, then prefill), quantized qwen3 and the training rounds
 and ``driver`` JSON lines, a ``dist`` JSON line a rank of 17d and of
 17c's dp 2 x pp 2 grid (backend, device, round seconds, hand-off
 seconds and bytes, bytes staged through host memory, peak GB, optimizer
-state GB with and without ZeRO-1), one ``kernels`` JSON line (launches, by path and for wkv6 by
+state GB with and without ZeRO-1), a ``ckpt_dist`` JSON line a rank of
+18b (checkpoint GB written, save and restore seconds, rounds replayed,
+stage seconds), one for 18b's one-process restore and one a rank of 18a
+(init seconds, peak and kept GB), one ``obs`` JSON line (per-stage
+measured seconds, ``reconcile`` against the planner's analytic H100
+costs, ``replan_from_registry``'s plan), one ``kernels`` JSON line
+(launches, by path and for wkv6 by
 design, errors, times, bounds, each kernel's design and what ``ptxas
 -v`` reported), the card's name and power limit, and last ``{"ok":
 true, "device": ...}``.  Exits non-zero without a CUDA device.
@@ -2163,12 +2185,6 @@ def phase_driver(device):
     os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     torch.use_deterministic_algorithms(True)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
-    flags = ["--layers", str(DRIVER_LAYERS), "--pp", "2", "--microbatches",
-             str(TRAIN_R), "--global-batch", str(TRAIN_R * TRAIN_ROWS),
-             "--seq-len", str(TRAIN_SEQ), "--schedule", "1f1b",
-             "--stash-mode", "stash", "--optimizer", "sgdm", "--lr", "0.01",
-             "--steps", str(DRIVER_ROUNDS), "--ckpt-every",
-             str(DRIVER_EVERY)]
     times = {"save_s": [], "restore_s": []}
 
     def timed(driver):
@@ -2191,7 +2207,7 @@ def phase_driver(device):
         return driver
 
     def run(sub, hook=None, torn=False):
-        args = train_args([*flags, "--ckpt", os.path.join(tmp, sub)])
+        args = train_args(driver_flags(os.path.join(tmp, sub)))
         spec, bundle = train.build(args)
         driver = train.make_driver(args, spec, bundle, args.ckpt,
                                    failure_hook=hook)
@@ -2240,6 +2256,12 @@ def phase_driver(device):
         shutil.rmtree(os.path.join(tmp, "a"))
         ref_losses = [m["loss"] for m in driver_a.metrics_log]
         ref_leaves = tree_leaves(ref)
+        # each stage's rows of the final state, for phase 18b's ranks
+        from repro_torch.core.versioning import rank_state
+        ref_rows = {"losses": ref_losses,
+                    "digests": [state_digests(rank_state(ref, bundle.sched,
+                                                         s))
+                                for s in range(2)]}
         del bundle, driver_a
         _, _, driver_b, got = run("b", hook=hook, torn=True)
         counts = read_counts()
@@ -2287,7 +2309,7 @@ def phase_driver(device):
         torch.use_deterministic_algorithms(False)
         shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
-    return out, counts
+    return out, counts, ref_rows
 
 
 # --------------------------------------------------------------------------
@@ -2821,6 +2843,321 @@ def dist_records(dist_out, smi_line):
 
 
 # --------------------------------------------------------------------------
+# phase 18: workers that checkpoint their own stages and report what they
+# measure
+# --------------------------------------------------------------------------
+
+def dist_job_init(grid):
+    """18a on a rank: this stage's parameters of qwen3-14b at all 40
+    layers, bf16, drawn row-wise (``init_rank_params``); the seconds, the
+    peak and kept memory, the digests."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.reference import model_plan
+    from repro_torch.core.schedule import make_schedule
+    from repro_torch.models.init import init_rank_params
+    spec = configs.get("qwen3-14b").full_spec()
+    sched = make_schedule(dist_plan(2))
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = init_rank_params(spec, model_plan(dist_plan(2), sched),
+                              torch.Generator(grid.device).manual_seed(SEED),
+                              sched, grid.s, torch.bfloat16)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return {"grid": rank_info(grid), "init_s": seconds,
+            "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+            "kept_gb": tree_bytes(params) / 1e9,
+            "digests": state_digests(params)}
+
+
+def driver_flags(ckpt):
+    """The launcher's flags of phases 16 and 18b."""
+    return ["--layers", str(DRIVER_LAYERS), "--pp", "2", "--microbatches",
+            str(TRAIN_R), "--global-batch", str(TRAIN_R * TRAIN_ROWS),
+            "--seq-len", str(TRAIN_SEQ), "--schedule", "1f1b",
+            "--stash-mode", "stash", "--optimizer", "sgdm", "--lr", "0.01",
+            "--steps", str(DRIVER_ROUNDS), "--ckpt-every",
+            str(DRIVER_EVERY), "--ckpt", ckpt]
+
+
+def dist_job_driver(grid, ckpt):
+    """18b on a rank: phase 16's TrainDriver run through the launcher's
+    build on this rank's grid, with an Observability; the last rank fails
+    before round DRIVER_FAIL and crashes in round DRIVER_TORN's save.
+    The final digests, the digests of the state each save wrote, the
+    save / restore seconds, what the torn save left, the registry, the
+    trace's span counts and this rank's launches."""
+    import json as _json
+    import os
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.obs import Observability
+    last = grid.rank == grid.topo.world - 1
+    armed = {"hook": last, "save": last}
+    seen = {"save_s": [], "restore_s": [], "torn": None, "saved": None}
+    args = train_args(driver_flags(ckpt))
+    obs = Observability(trace=True)
+    spec, bundle = train.build(args, grid, obs=obs)
+
+    def hook(step):
+        if step == DRIVER_FAIL and armed["hook"]:
+            armed["hook"] = False
+            raise RuntimeError("simulated failure of the last rank")
+
+    driver = train.make_driver(args, spec, bundle, ckpt, failure_hook=hook)
+    save, restore = driver.ckpt.save, driver.ckpt.restore
+
+    def t_save(rnd, st, n, fail_after_stage=None):
+        torn = rnd == DRIVER_TORN and armed["save"]
+        t0 = time.perf_counter()
+        save(rnd, st, n, fail_after_stage=0 if torn else fail_after_stage)
+        seen["save_s"].append(time.perf_counter() - t0)
+        if torn:
+            armed["save"] = False
+            with open(os.path.join(driver.ckpt._round_dir(rnd),
+                                   "MANIFEST.json")) as f:
+                seen["torn"] = {"manifest": _json.load(f), "latest":
+                                driver.ckpt.latest_complete_round()}
+            raise RuntimeError("crash in the middle of a save")
+        if driver.ckpt.latest_complete_round() == rnd:
+            seen["saved"] = (rnd, state_digests(st))
+
+    def t_restore(rnd, st):
+        t0 = time.perf_counter()
+        out = restore(rnd, st)
+        torch.cuda.synchronize()
+        seen["restore_s"].append(time.perf_counter() - t0)
+        return out
+
+    driver.ckpt.save, driver.ckpt.restore = t_save, t_restore
+    torch.cuda.reset_peak_memory_stats()
+    state = bundle.init_state(torch.Generator(grid.device).manual_seed(SEED))
+    torch.cuda.synchronize()
+    reset_counts()
+    state, step = driver.run(state, DRIVER_ROUNDS)
+    counts = read_counts()
+    rnd = driver.ckpt.latest_complete_round()
+    rdir = driver.ckpt._round_dir(rnd)
+    v = bundle.plan.virtual_stages
+    mine = [f"stage_{grid.s * v + j}.npz" for j in range(v)]
+    if grid.rank == 0:
+        mine += ["shared.npz", "opt.npz"]
+    out = {"grid": rank_info(grid), "step": step, "unfired": armed,
+           "losses": [m["loss"] for m in driver.metrics_log],
+           "digests": state_digests(state), "saved": seen["saved"],
+           "torn": seen["torn"], "save_s": seen["save_s"],
+           "restore_s": seen["restore_s"],
+           "written_gb": sum(os.path.getsize(os.path.join(rdir, f))
+                             for f in mine) / 1e9,
+           "round_s": driver.round_seconds,
+           "stage_seconds": driver.stage_seconds,
+           "snapshot": obs.registry.snapshot(),
+           "span_counts": obs.trace.span_counts("train"),
+           "rounds_traced": len(obs.trace.rounds), "counts": counts,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if grid.rank == 0:
+        out["obs"] = driver_obs(spec, bundle, obs)
+    return out
+
+
+def driver_obs(spec, bundle, obs):
+    """Rank 0's view of 18b: measured stage seconds, ``reconcile`` against
+    the planner's analytic stage costs on an H100, and
+    ``replan_from_registry`` on the measured seconds."""
+    from repro_torch.core import profiler as prof
+    from repro_torch.core.schedule import make_schedule
+    from repro_torch.obs import reconcile, stage_seconds
+    from repro_torch.runtime.driver import replan_from_registry
+    plan = bundle.plan
+    tokens = bundle.microbatch_size * bundle.seq_len
+    profiles = prof.profile_analytic(spec, prof.H100_SXM,
+                                     minibatch_tokens=tokens)
+    spans = prof.profile_stage_spans(len(profiles), plan.pp)
+    t_fwd = [sum(profiles[i].t_fwd for i in sp) for sp in spans]
+    t_bwd = [sum(profiles[i].t_bwd for i in sp) for sp in spans]
+    rep = reconcile(bundle.sched, trace=obs.trace, registry=obs.registry,
+                    kind="train", t_fwd=t_fwd, t_bwd=t_bwd)
+    new, changed = replan_from_registry(spec, plan, obs.registry,
+                                        prof.H100_SXM,
+                                        minibatch_tokens=tokens,
+                                        data_replicas=1)
+    return {"stage_seconds_mean": stage_seconds(obs.registry, plan.pp),
+            "predicted_stage_fwd_s": t_fwd, "predicted_stage_bwd_s": t_bwd,
+            "reconcile": rep.to_dict(), "reconcile_line": str(rep),
+            "replan": {"pp": new.pp, "tp": new.tp,
+                       "schedule": make_schedule(new).name,
+                       "virtual_stages": new.virtual_stages,
+                       "rebalanced": changed}}
+
+
+def phase_ckpt_dist(device, driver_rows):
+    """18a and 18b (see the module docstring); the ``ckpt_dist`` records,
+    the ``obs`` record, the seconds and the launches of 18b."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import configs
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core.reference import model_plan, to_storage_order
+    from repro_torch.core.schedule import B_MB, F_MB, make_schedule
+    from repro_torch.core.versioning import rank_params, rank_state
+    from repro_torch.launch import train
+    from repro_torch.models.init import init_params
+    seconds = {}
+
+    # 18a: the row-wise init at the planner's depth, two ranks on the card
+    t0 = time.perf_counter()
+    inits = spawn_ranks(1, 2, "dist_job_init")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    spec = configs.get("qwen3-14b").full_spec()
+    sched = make_schedule(dist_plan(2))
+    t1 = time.perf_counter()
+    whole = to_storage_order(init_params(
+        spec, model_plan(dist_plan(2), sched),
+        torch.Generator(device).manual_seed(SEED), torch.bfloat16), sched)
+    torch.cuda.synchronize()
+    whole_s = time.perf_counter() - t1
+    whole_peak = torch.cuda.max_memory_allocated() / 1e9
+    for s, res in enumerate(inits):
+        want = state_digests(rank_params(whole, sched, s))
+        if res["digests"] != want:
+            bad = [k for k in want if res["digests"].get(k) != want[k]]
+            raise AssertionError(f"18a: rank {s}'s row-wise draw differs from "
+                                 f"the whole draw's rows: {bad[:6]}")
+    whole_gb = tree_bytes(whole) / 1e9
+    del whole
+    torch.cuda.empty_cache()
+    seconds["18a row-wise init"] = time.perf_counter() - t0
+    log(f"[ckpt_dist] 18a qwen3-14b 40 layers bf16 pp 2, two ranks: init "
+        f"{[round(r['init_s'], 2) for r in inits]} s, peak "
+        f"{[round(r['peak_gb'], 2) for r in inits]} GB, kept "
+        f"{[round(r['kept_gb'], 2) for r in inits]} GB a rank; equal to the "
+        f"whole draw's rows ({whole_gb:.2f} GB, peak {whole_peak:.2f} GB, "
+        f"{whole_s:.2f} s) bit for bit")
+
+    # 18b: phase 16 on two ranks
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_dist_")
+    try:
+        ranks = spawn_ranks(1, 2, "dist_job_driver", ckpt=tmp)
+        for s, res in enumerate(ranks):
+            if any(res["unfired"].values()):
+                raise AssertionError(f"18b rank {s}: a fault did not fire")
+            if res["step"] != DRIVER_ROUNDS:
+                raise AssertionError(f"18b rank {s}: stopped at {res['step']}")
+            if res["digests"] != driver_rows["digests"][s]:
+                bad = [k for k, v in driver_rows["digests"][s].items()
+                       if res["digests"].get(k) != v]
+                raise AssertionError(f"18b rank {s}: final state differs from "
+                                     f"phase 16's rows: {bad[:6]}")
+        losses = ranks[0]["losses"]
+        ref = driver_rows["losses"]
+        # rounds 0-1, 2, (failure), 2-3, (torn save), 2-4
+        if len(losses) != 8 or losses[:2] != ref[:2] or \
+                losses[-3:] != ref[-3:]:
+            raise AssertionError(f"18b: losses {losses} against phase 16's "
+                                 f"{ref}")
+        torn = ranks[-1]["torn"]
+        if torn["manifest"]["done"] or \
+                torn["latest"] != DRIVER_TORN - DRIVER_EVERY:
+            raise AssertionError(f"18b: the torn round was not skipped: "
+                                 f"{torn}")
+        snap = ranks[0]["snapshot"]
+        hist = {(r["name"], tuple(sorted(r["labels"].items()))): r
+                for r in snap["histograms"]}
+        rounds_total = [r["value"] for r in snap["counters"]
+                        if r["name"] == "rounds_total"]
+        if rounds_total != [len(losses)]:
+            raise AssertionError(f"18b: rounds_total {rounds_total}, "
+                                 f"{len(losses)} rounds executed")
+        for s in range(2):
+            row = hist.get(("stage_round_seconds", (("stage", str(s)),)))
+            if row is None or row["count"] != len(losses):
+                raise AssertionError(f"18b: stage {s}'s stage_round_seconds "
+                                     f"{row}")
+        tabs = make_schedule(dist_plan(2)).tables()
+        cells = ((tabs.fwd[:, :, F_MB] >= 0).sum(0)
+                 + (tabs.bwd[:, :, B_MB] >= 0).sum(0))
+        for res in ranks:
+            want = {s: int(c) * res["rounds_traced"]
+                    for s, c in enumerate(cells)}
+            if res["rounds_traced"] != len(losses) or \
+                    res["span_counts"] != want:
+                raise AssertionError(f"18b: trace spans {res['span_counts']},"
+                                     f" expected {want}")
+        counts = {k: sum(r["counts"][k] for r in ranks)
+                  for k in ranks[0]["counts"]}
+        per_round = DRIVER_LAYERS * TRAIN_R
+        want = {"paged_attention": 0, "paged_attention_int8": 0, "wkv6": 0,
+                "mamba_scan": 0,
+                "flash_attention": 3 * per_round * len(losses),
+                "flash_attention_bwd": per_round * len(losses)}
+        if counts != want:
+            raise AssertionError(f"18b launches {counts}, expected {want}")
+        # the last complete checkpoint restores in one process
+        t1 = time.perf_counter()
+        args = train_args(driver_flags(tmp))
+        _, bundle = train.build(args)
+        state = bundle.init_state(torch.Generator(device).manual_seed(SEED))
+        rnd, saved = ranks[0]["saved"]
+        t2 = time.perf_counter()
+        CheckpointManager(tmp).restore(rnd, state)
+        torch.cuda.synchronize()
+        restore_one_s = time.perf_counter() - t2
+        for s, res in enumerate(ranks):
+            got = state_digests(rank_state(state, bundle.sched, s))
+            if res["saved"][0] != rnd or got != res["saved"][1]:
+                raise AssertionError(f"18b: round {rnd} restored in one "
+                                     f"process differs from rank {s}'s "
+                                     "saved state")
+        del state, bundle
+        torch.cuda.empty_cache()
+        one_s = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    seconds["18b driver on two ranks"] = time.perf_counter() - t0
+    recs = []
+    for res in ranks:
+        recs.append({"phase": "18b", **res["grid"],
+                     "checkpoint_gb_written": res["written_gb"],
+                     "save_s": res["save_s"], "restore_s": res["restore_s"],
+                     "rounds_executed": len(res["losses"]),
+                     "rounds_replayed": len(res["losses"]) - DRIVER_ROUNDS,
+                     "round_s": res["round_s"],
+                     "stage_seconds": res["stage_seconds"],
+                     # the share of this rank's round spent waiting on
+                     # hand-offs (its stage's seconds are the rest)
+                     "wait_share": 1 - sum(x[res["grid"]["stage"]] for x in
+                                           res["stage_seconds"])
+                     / sum(res["round_s"]),
+                     "peak_gb": res["peak_gb"], "launches": res["counts"]})
+    recs.append({"phase": "18b one process", "restore_s": restore_one_s,
+                 "round": rnd, "seconds_with_init": one_s})
+    for res in inits:
+        recs.append({"phase": "18a", **res["grid"], "init_s": res["init_s"],
+                     "peak_gb": res["peak_gb"], "kept_gb": res["kept_gb"],
+                     "whole_draw_gb": whole_gb,
+                     "whole_draw_peak_gb": whole_peak,
+                     "whole_draw_s": whole_s})
+    obs_rec = {"phase": "18b", **ranks[0]["obs"]}
+    log(f"[ckpt_dist] 18b {DRIVER_LAYERS} layers bf16 sgdm 1f1b/stash pp 2 "
+        f"on two ranks: {len(losses)} rounds executed, final states equal "
+        f"phase 16's rows bit for bit; saves "
+        f"{[[round(x, 2) for x in r['save_s']] for r in ranks]} s, restores "
+        f"{[[round(x, 2) for x in r['restore_s']] for r in ranks]} s, "
+        f"written {[round(r['written_gb'], 2) for r in ranks]} GB a save; "
+        f"round {rnd} restored in one process in {restore_one_s:.2f} s, "
+        f"equal; torn round {DRIVER_TORN} skipped; "
+        f"{obs_rec['reconcile_line']}; replan {obs_rec['replan']}")
+    log(f"[phases] 18 seconds: {json.dumps(seconds)}")
+    return recs, obs_rec, seconds, counts
+
+
+# --------------------------------------------------------------------------
 # the kernels line
 # --------------------------------------------------------------------------
 
@@ -3324,13 +3661,18 @@ def main() -> int:
     plan_out, plan_counts = phase_plan(device)
     phase_s["15 plan"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    driver_out, driver_counts = phase_driver(device)
+    driver_out, driver_counts, driver_rows = phase_driver(device)
     phase_s["16 driver"] = time.perf_counter() - t0
     torch.cuda.empty_cache()          # the children of phase 17 need it
     t0 = time.perf_counter()
     dist_out, dist_s, dist_counts = phase_dist(
         device, train_out["loss_per_round"][0])
     phase_s["17 dist"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ckpt_recs, obs_rec, ckpt_s, ckpt_counts = phase_ckpt_dist(device,
+                                                              driver_rows)
+    phase_s["18 ckpt dist"] = time.perf_counter() - t0
 
     records = kernel_records(device, errs, {
         "paged_attention": {"qwen3_serve": paged_launches,
@@ -3344,13 +3686,15 @@ def main() -> int:
                for n, c in virtual_counts.items()},
             "qwen3_plan_profile": plan_counts["flash_attention"],
             "qwen3_driver": driver_counts["flash_attention"],
-            "qwen3_train_two_ranks": dist_counts["flash_attention"]},
+            "qwen3_train_two_ranks": dist_counts["flash_attention"],
+            "qwen3_driver_two_ranks": ckpt_counts["flash_attention"]},
         "flash_attention_bwd": {
             "qwen3_train": train_bwd,
             **{f"qwen3_train_{n}": c["flash_attention_bwd"]
                for n, c in virtual_counts.items()},
             "qwen3_driver": driver_counts["flash_attention_bwd"],
-            "qwen3_train_two_ranks": dist_counts["flash_attention_bwd"]},
+            "qwen3_train_two_ranks": dist_counts["flash_attention_bwd"],
+            "qwen3_driver_two_ranks": ckpt_counts["flash_attention_bwd"]},
         "wkv6": {"serve": wkv_serve, "full_transformer": wkv_ref},
         "wkv6_by_design": {
             design: {"serve": wkv_serve_designs[design],
@@ -3363,7 +3707,7 @@ def main() -> int:
         f"serve rwkv6 {serve_rwkv}; serve jamba {serve_jamba}; serve qwen3 "
         f"int8/int8 {serve_quant}; consistency int8/int8 "
         f"{consistency_quant}; consistency train {consistency_train}; "
-        f"dist {json.dumps(dist_s)}")
+        f"dist {json.dumps(dist_s)}; ckpt dist {json.dumps(ckpt_s)}")
     print(json.dumps({"profile": prof_qwen}))
     print(json.dumps({"profile": prof}))
     print(json.dumps({"profile": prof_rwkv_prefill}))
@@ -3384,6 +3728,9 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0]
     for rec in dist_records(dist_out, card):
         print(json.dumps({"dist": rec}))
+    for rec in ckpt_recs:
+        print(json.dumps({"ckpt_dist": {**rec, "card": card}}))
+    print(json.dumps({"obs": {**obs_rec, "card": card}}))
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -38,8 +38,9 @@ With a :class:`~repro_torch.parallel.dist.RankGrid` (``grid=``) each
 process is one rank (replica d, stage s) of a ``data × pp`` grid, the
 counterpart of JAX's shard_map over a ``(data, stage)`` mesh: it holds
 its stage's storage rows (s·v … s·v+v−1), their ring and optimizer
-state, the embedding on stage 0, head and final norm on stage S−1, and
-walks its own column of the same tables.  The hand-offs of a tick are
+state, the embedding on stage 0, head and final norm on stage S−1 (its
+``init_state`` draws only those, ``models/init.py::init_rank_params``),
+and walks its own column of the same tables.  The hand-offs of a tick are
 derived on both ends from :func:`handoffs` and posted as one
 ``batch_isend_irecv`` a phase.  Replica d trains on its block of every
 microbatch (mb = global_batch / (dp·R) rows); the head divides by the
@@ -60,14 +61,13 @@ from typing import Callable
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.reference import (check_trainable, model_plan,
-                                        to_storage_order)
+from repro_torch.core.reference import check_trainable, model_plan
 from repro_torch.core.schedule import (B_CHUNK, B_FROM_HEAD, B_MB,
                                        B_RESID_READ, B_VERSION, F_CHUNK,
                                        F_FROM_EMBEDS, F_MB, F_RESID_WRITE,
                                        F_STASH_WRITE, F_VERSION,
                                        PipelineSchedule, make_schedule)
-from repro_torch.core.versioning import (make_train_state, rank_params,
+from repro_torch.core.versioning import (make_train_state,
                                          replicated_microbatch_update,
                                          row_axes, tree_add_, tree_chunk,
                                          tree_chunk_add,
@@ -77,7 +77,7 @@ from repro_torch.core.versioning import (make_train_state, rank_params,
                                          zero1_microbatch_update)
 from repro_torch.models import lm_head
 from repro_torch.models import spec as spec_lib
-from repro_torch.models.init import init_params
+from repro_torch.models.init import init_rank_params
 from repro_torch.models.stage import (StageStatics, make_statics, stage_fwd,
                                       stage_vjp)
 from repro_torch.optim.optimizers import tree_map
@@ -94,6 +94,10 @@ class PipelineBundle:
     seq_len: int
     microbatch_size: int            # rows of a microbatch on one replica
     device: torch.device
+    grid: object = None             # this rank's RankGrid, None: one process
+    # observability (repro_torch.obs.Observability or None = off): the
+    # driver reports one on_round("train", sched, ...) per executed round
+    obs: object = None
 
 
 def handoffs(tabs, tick: int):
@@ -118,13 +122,14 @@ def handoffs(tabs, tick: int):
 
 def build_pipeline(spec: spec_lib.ModelSpec, plan, *, seq_len: int,
                    global_batch: int, optimizer, aux_weight: float = 0.01,
-                   compute_dtype=torch.bfloat16, device=None, grid=None
-                   ) -> PipelineBundle:
+                   compute_dtype=torch.bfloat16, device=None, grid=None,
+                   obs=None) -> PipelineBundle:
     """The pipelined train step for one (arch, plan): every stage on
     ``device`` (``cuda`` unless told otherwise), or with ``grid`` (a
     :class:`~repro_torch.parallel.dist.RankGrid` of ``data × plan.pp``
     ranks) this rank's stage of this rank's replica on the grid's
-    device."""
+    device.  ``obs`` rides on the bundle for the driver to report
+    into."""
     S, R = plan.pp, plan.microbatches
     if plan.tp != 1:
         raise NotImplementedError(
@@ -171,16 +176,13 @@ def build_pipeline(spec: spec_lib.ModelSpec, plan, *, seq_len: int,
     def init_state(gen: torch.Generator):
         if gen.device != dev:
             raise ValueError(f"generator on {gen.device}, pipeline on {dev}")
-        params = to_storage_order(init_params(spec, mplan, gen,
-                                              compute_dtype), sched)
-        z1 = None
-        if grid is not None:
-            # the whole model from the generator, then this rank's part:
-            # its tensors equal the single-process state's, bit for bit
-            params = rank_params(params, sched, grid.s)
-            params["stages"] = tree_map(torch.clone, params["stages"])
-            if zero1:
-                z1 = (zero1_axes(params["stages"], dp), grid.d, dp)
+        # this rank's rows only (every row in one process), drawn leaf by
+        # leaf: a rank's tensors equal the single-process state's, bit for
+        # bit
+        params = init_rank_params(spec, mplan, gen, sched,
+                                  None if grid is None else grid.s,
+                                  compute_dtype)
+        z1 = (zero1_axes(params["stages"], dp), grid.d, dp) if zero1 else None
         return make_train_state(params, sched, optimizer, zero1=z1)
 
     # a forward hand-off goes to the next stage (the last stage's to stage
@@ -345,4 +347,4 @@ def build_pipeline(spec: spec_lib.ModelSpec, plan, *, seq_len: int,
     return PipelineBundle(
         spec=spec, plan=plan, statics=statics, sched=sched,
         train_step=train_step, init_state=init_state, seq_len=seq_len,
-        microbatch_size=mb, device=dev)
+        microbatch_size=mb, device=dev, grid=grid, obs=obs)

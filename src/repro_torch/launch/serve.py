@@ -15,6 +15,13 @@ plan on one device.
       --device cpu --page-size 16
   python -m repro_torch.launch.serve --arch qwen3-14b --smoke \
       --device cpu --page-size 16 --weight-dtype int8 --kv-dtype int8
+  python -m repro_torch.launch.serve --arch qwen3-14b --smoke \
+      --device cpu --page-size 16 --trace-out /tmp/t.json \
+      --metrics-out /tmp/m.json
+
+``--trace-out`` / ``--metrics-out`` write the session's Chrome trace (one
+track per stage) and metrics snapshot (``repro_torch.obs``); the run
+then prints the decode rounds' ``reconcile`` line.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch import configs, resolve_device
+from repro_torch.obs import Observability, reconcile
 from repro_torch.serving.engine import build_serving
 
 
@@ -56,7 +64,15 @@ def main(argv=None):
     ap.add_argument("--device", type=str, default="cuda")
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds the weights and the prompts")
+    ap.add_argument("--trace-out", type=str, default=None,
+                    help="write a Chrome trace-event JSON of every "
+                         "prefill and decode round")
+    ap.add_argument("--metrics-out", type=str, default=None,
+                    help="write the metrics-registry snapshot JSON")
     args = ap.parse_args(argv)
+    obs = None
+    if args.trace_out or args.metrics_out:
+        obs = Observability(trace=bool(args.trace_out))
 
     device = resolve_device(args.device)
     cfg = configs.get(args.arch)
@@ -70,7 +86,8 @@ def main(argv=None):
                             page_size=args.page_size,
                             prefill_len=args.prefill,
                             weight_dtype=args.weight_dtype,
-                            kv_dtype=args.kv_dtype, device=device)
+                            kv_dtype=args.kv_dtype, device=device,
+                            obs=obs)
     print(f"serve schedule: {session.sched.name} (S={session.sched.n_stages} "
           f"R={session.n_slots}, {session.sched.n_ticks} ticks/pass) on "
           f"{device}")
@@ -101,6 +118,14 @@ def main(argv=None):
     print(f"decoded {args.tokens} steps x {args.batch} seqs in {dt:.3f}s "
           f"({args.tokens * args.batch / max(dt, 1e-9):.1f} tok/s)")
     print("sample:", torch.stack(outs)[:, 0].tolist())
+    if obs is not None:
+        print(" ", reconcile(session.sched, trace=obs.trace,
+                             registry=obs.registry, kind="decode"))
+        obs.save(trace_out=args.trace_out, metrics_out=args.metrics_out)
+        for what, path in (("pipeline trace", args.trace_out),
+                           ("metrics snapshot", args.metrics_out)):
+            if path:
+                print(f"wrote {what} to {path}")
 
 
 if __name__ == "__main__":

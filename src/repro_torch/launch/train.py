@@ -12,8 +12,18 @@ d on ``cuda:LOCAL_RANK`` when the machine has a card per rank, or on
 rank, ``--backend gloo`` stages hand-offs and collectives through host
 memory, so ranks may share one card (or run on the CPU).  Each rank
 prints the grid line with its device; rank 0 prints the plan and the
-loss.  Several ranks train without checkpoints (``--ckpt`` exits:
-multi-rank checkpoints are not ported yet).
+loss.  Several ranks run the same driver, each over its own stage:
+every rank writes its own checkpoint rows and rank 0 the shared files
+(``checkpoint/manager.py``), into ``--ckpt`` or a temporary directory
+of rank 0's.
+
+``--trace-out`` / ``--metrics-out`` write the run's Chrome trace (one
+track per stage) and metrics snapshot (``repro_torch.obs``); on several
+ranks each rank writes its own, ``.rank<r>`` before the extension, its
+registry holding every stage's measured ``stage_round_seconds``.  Every
+run prints the ``reconcile`` line (rank 0 on several ranks), and
+``--replan`` on several ranks prints what ``replan_from_registry``
+makes of the measured stage seconds.
 
 Runs on the card by default (``--device cpu`` runs the plain PyTorch
 versions of the kernels).  ``--smoke`` trains the architecture's small
@@ -35,6 +45,10 @@ Prints the plan line with the predicted bubble, then ``loss a -> b``.
   torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
       --arch qwen3-14b --smoke --data 2 --pp 2 --microbatches 4 \
       --device cpu --backend gloo
+  torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \
+      --arch qwen3-14b --smoke --pp 2 --microbatches 4 --device cpu \
+      --steps 4 --ckpt /tmp/ckpt --ckpt-every 2 --trace-out /tmp/t.json \
+      --metrics-out /tmp/m.json --replan
 """
 from __future__ import annotations
 
@@ -42,21 +56,24 @@ import argparse
 import dataclasses
 import json
 import os
+import shutil
 import tempfile
-import time
 
 import torch
 
 from repro_torch import configs, resolve_device
 from repro_torch.core.pipeline import build_pipeline
-from repro_torch.core.schedule import (SCHEDULES, plan_kwargs_for_schedule,
+from repro_torch.core.schedule import (SCHEDULES, make_schedule,
+                                       plan_kwargs_for_schedule,
                                        virtual_stages_error,
                                        weighted_round_time)
 from repro_torch.data.pipeline import Loader, SyntheticLM
+from repro_torch.obs import Observability, reconcile, stage_seconds
 from repro_torch.optim.optimizers import by_name
 from repro_torch.parallel.dist import ProcessGrid, close_grid, init_grid
 from repro_torch.runtime.driver import (DriverConfig, TrainDriver,
-                                        plan_search_report)
+                                        plan_search_report,
+                                        replan_from_registry)
 
 
 def cut_layers(spec, n: int):
@@ -96,26 +113,38 @@ def make_plan(args):
     return spec, plan, by_name(args.optimizer or name, args.lr or lr)
 
 
-def build(args, grid=None, made=None):
+def build(args, grid=None, made=None, obs=None):
     """(spec, bundle) for the parsed arguments: one process, or this rank
     of ``grid``; ``made``: :func:`make_plan`'s result, if it ran."""
     spec, plan, opt = made or make_plan(args)
     bundle = build_pipeline(
         spec, plan, seq_len=args.seq_len, global_batch=args.global_batch,
-        optimizer=opt, device=args.device, grid=grid,
+        optimizer=opt, device=args.device, grid=grid, obs=obs,
         compute_dtype=torch.float32 if args.smoke else torch.bfloat16)
     return spec, bundle
 
 
 def make_driver(args, spec, bundle, ckpt_dir: str, failure_hook=None):
     """The TrainDriver for the parsed arguments: the SyntheticLM stream
-    from ``--seed``, checkpoints every ``--ckpt-every`` rounds."""
+    from ``--seed`` (on a grid, this replica's rows of it), checkpoints
+    every ``--ckpt-every`` rounds."""
+    grid = bundle.grid
+    replica, replicas = (0, 1) if grid is None else (grid.d, grid.topo.data)
     loader = Loader(SyntheticLM(spec.vocab, bundle.seq_len, seed=args.seed),
-                    bundle.plan.microbatches, bundle.microbatch_size,
-                    bundle.device)
+                    bundle.plan.microbatches,
+                    bundle.microbatch_size * replicas, bundle.device,
+                    replica=replica, replicas=replicas)
     return TrainDriver(bundle, loader, ckpt_dir,
                        DriverConfig(checkpoint_every=args.ckpt_every),
                        failure_hook=failure_hook, seed=args.seed)
+
+
+def rank_path(path, grid):
+    """``path`` with ``.rank<r>`` before its extension on several ranks."""
+    if not path or grid is None or grid.topo.world == 1:
+        return path
+    root, ext = os.path.splitext(path)
+    return f"{root}.rank{grid.rank}{ext}"
 
 
 def plan_line(bundle) -> str:
@@ -163,6 +192,16 @@ def parser():
     ap.add_argument("--ckpt-every", type=int, default=10)
     ap.add_argument("--log", type=str, default=None,
                     help="write {arch, losses, seconds} as JSON here")
+    ap.add_argument("--trace-out", type=str, default=None,
+                    help="write a Chrome trace-event JSON of every "
+                         "training round (one track per stage; open in "
+                         "Perfetto / chrome://tracing)")
+    ap.add_argument("--metrics-out", type=str, default=None,
+                    help="write the metrics-registry snapshot JSON "
+                         "(schema-checked by scripts/bench_check.py)")
+    ap.add_argument("--replan", action="store_true",
+                    help="on several ranks: print replan_from_registry's "
+                         "plan for the measured stage seconds")
     ap.add_argument("--device", type=str, default="cuda")
     ap.add_argument("--data", type=int, default=1,
                     help="data replicas of the pipeline (under torchrun: "
@@ -181,27 +220,29 @@ def main(argv=None):
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world > 1 or args.data > 1:
         return main_ranks(args, world)
-    spec, bundle = build(args)
+    if args.replan:
+        raise SystemExit("--replan: stage seconds are measured on several "
+                         "ranks (one process runs every stage); launch "
+                         "with torchrun")
+    obs = Observability(trace=bool(args.trace_out))
+    spec, bundle = build(args, obs=obs)
     print(plan_line(bundle), flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         driver = make_driver(args, spec, bundle, args.ckpt or tmp)
         state = bundle.init_state(
             torch.Generator(bundle.device).manual_seed(args.seed))
-        t0 = time.perf_counter()
-        state, step = driver.run(state, args.steps)
-        dt = time.perf_counter() - t0
+        with obs.timer("launch_phase_seconds", phase="run") as t:
+            state, step = driver.run(state, args.steps)
     losses = [m["loss"] for m in driver.metrics_log]
-    report(args, spec, step, dt, losses)
+    report(args, spec, step, t.elapsed, losses)
+    finish(args, bundle, obs)
     return losses
 
 
 def main_ranks(args, world: int):
-    """This process's rank of a ``--data`` x pp grid under torchrun: the
-    rounds without checkpoints; rank 0 prints the plan and the loss."""
-    if args.ckpt:
-        raise SystemExit("--ckpt: checkpoints of several ranks are not "
-                         "ported yet (the JAX layout's single opt.npz "
-                         "needs every rank's state); run without --ckpt")
+    """This process's rank of a ``--data`` x pp grid under torchrun:
+    the driver over this rank's stage, checkpoints rank by rank; rank 0
+    prints the plan, the loss and the reconcile line."""
     made = make_plan(args)
     plan = made[1]
     if world != args.data * plan.pp:
@@ -212,29 +253,58 @@ def main_ranks(args, world: int):
     backend = args.backend or ("gloo" if args.device == "cpu" else "nccl")
     grid = init_grid(ProcessGrid(args.data, plan.pp), backend,
                      device=args.device)
+    tmp = None
     try:
         print(f"grid: {grid.describe()}", flush=True)
-        spec, bundle = build(args, grid, made)
+        obs = Observability(trace=bool(args.trace_out))
+        spec, bundle = build(args, grid, made, obs)
         if grid.rank == 0:
             print(plan_line(bundle) + f" data={args.data}", flush=True)
-        loader = Loader(SyntheticLM(spec.vocab, bundle.seq_len,
-                                    seed=args.seed),
-                        plan.microbatches,
-                        args.global_batch // plan.microbatches, grid.device,
-                        replica=grid.d, replicas=args.data)
+            if not args.ckpt:
+                tmp = tempfile.mkdtemp(prefix="repro_torch_ckpt_")
+        # one checkpoint directory for every rank: rank 0's
+        ckpt = args.ckpt or grid.world_group.all_gather_object(tmp)[0]
+        driver = make_driver(args, spec, bundle, ckpt)
         state = bundle.init_state(
             torch.Generator(grid.device).manual_seed(args.seed))
-        losses = []
-        t0 = time.perf_counter()
-        for step in range(args.steps):
-            state, metrics = bundle.train_step(state, loader.get(step))
-            losses.append(float(metrics["loss"]))
-        dt = time.perf_counter() - t0
+        with obs.timer("launch_phase_seconds", phase="run") as t:
+            state, step = driver.run(state, args.steps)
+        losses = [m["loss"] for m in driver.metrics_log]
         if grid.rank == 0:
-            report(args, spec, args.steps, dt, losses)
+            report(args, spec, step, t.elapsed, losses)
+        finish(args, bundle, obs)
+        if args.replan and grid.rank == 0:
+            mb_tokens = bundle.seq_len * bundle.microbatch_size
+            new, changed = replan_from_registry(
+                spec, plan, obs.registry, minibatch_tokens=mb_tokens,
+                data_replicas=args.data)
+            print(f"replan: stage seconds "
+                  f"{[round(x, 4) for x in stage_seconds(obs.registry, plan.pp)]}"
+                  f" -> pp={new.pp} tp={new.tp} "
+                  f"schedule={make_schedule(new).name} "
+                  f"v={new.virtual_stages} rebalanced={changed}", flush=True)
+        grid.world_group.barrier()
     finally:
         close_grid()
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
     return losses
+
+
+def finish(args, bundle, obs):
+    """The reconcile line (rank 0) and this rank's trace / metrics files."""
+    grid = bundle.grid
+    if grid is None or grid.rank == 0:
+        print(" ", reconcile(bundle.sched, trace=obs.trace,
+                             registry=obs.registry, kind="train"),
+              flush=True)
+    trace_out = rank_path(args.trace_out, grid)
+    metrics_out = rank_path(args.metrics_out, grid)
+    obs.save(trace_out=trace_out, metrics_out=metrics_out)
+    if trace_out:
+        print(f"wrote pipeline trace to {trace_out}", flush=True)
+    if metrics_out:
+        print(f"wrote metrics snapshot to {metrics_out}", flush=True)
 
 
 def report(args, spec, step, dt, losses):

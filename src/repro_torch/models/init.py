@@ -13,15 +13,16 @@ Cross-attention blocks come later.
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.core.versioning import rank_state
+from repro_torch.core.versioning import rank_rows, rank_state
 from repro_torch.models import spec as spec_lib
 from repro_torch.models.nn import (AttnStatic, MambaStatic, MoEStatic,
                                    RWKVStatic)
+from repro_torch.optim.optimizers import tree_map
 
 _STATIC_KEYS = ("layer_windows", "layer_thetas")
 # leaves the JAX init keeps in f32 whatever the compute dtype
@@ -88,54 +89,55 @@ def _norm_init(shape, kind, dtype, device):
     return p
 
 
-def _rwkv_tmix_init(spec, pp, gen, dtype, out_scale):
+def _rwkv_tmix_init(spec, pp, gen, dtype, out_scale, take):
     d, rs, dev = spec.d_model, spec.rwkv, gen.device
-    p = {f"maa_{n}": torch.full((pp, d), 0.5, dtype=dtype, device=dev)
+    p = {f"maa_{n}": take(torch.full((pp, d), 0.5, dtype=dtype, device=dev))
          for n in ("x", "w", "k", "v", "r", "g")}
     p.update({
-        "tmix_w1": _dense(gen, (pp, d, 5 * rs.tmix_lora), dtype, 0.01),
-        "tmix_w2": _dense(gen, (pp, 5, rs.tmix_lora, d), dtype, 0.01),
-        "wr": _dense(gen, (pp, d, d), dtype),
-        "wk": _dense(gen, (pp, d, d), dtype),
-        "wv": _dense(gen, (pp, d, d), dtype),
-        "wg": _dense(gen, (pp, d, d), dtype),
-        "wo": _dense(gen, (pp, d, d), dtype, out_scale),
-        "w0": _dense(gen, (pp, d), torch.float32, 0.2).add_(-3.9),
-        "decay_w1": _dense(gen, (pp, d, rs.decay_lora), dtype, 0.01),
-        "decay_w2": _dense(gen, (pp, rs.decay_lora, d), dtype, 0.01),
-        "u": _dense(gen, (pp, d), dtype),
-        "gn_scale": torch.ones((pp, d), dtype=dtype, device=dev),
-        "gn_bias": torch.zeros((pp, d), dtype=dtype, device=dev),
+        "tmix_w1": take(_dense(gen, (pp, d, 5 * rs.tmix_lora), dtype, 0.01)),
+        "tmix_w2": take(_dense(gen, (pp, 5, rs.tmix_lora, d), dtype, 0.01)),
+        "wr": take(_dense(gen, (pp, d, d), dtype)),
+        "wk": take(_dense(gen, (pp, d, d), dtype)),
+        "wv": take(_dense(gen, (pp, d, d), dtype)),
+        "wg": take(_dense(gen, (pp, d, d), dtype)),
+        "wo": take(_dense(gen, (pp, d, d), dtype, out_scale)),
+        "w0": take(_dense(gen, (pp, d), torch.float32, 0.2).add_(-3.9)),
+        "decay_w1": take(_dense(gen, (pp, d, rs.decay_lora), dtype, 0.01)),
+        "decay_w2": take(_dense(gen, (pp, rs.decay_lora, d), dtype, 0.01)),
+        "u": take(_dense(gen, (pp, d), dtype)),
+        "gn_scale": take(torch.ones((pp, d), dtype=dtype, device=dev)),
+        "gn_bias": take(torch.zeros((pp, d), dtype=dtype, device=dev)),
     })
     return p
 
 
-def _rwkv_cmix_init(spec, pp, gen, dtype, out_scale):
+def _rwkv_cmix_init(spec, pp, gen, dtype, out_scale, take):
     d, dev = spec.d_model, gen.device
     return {
-        "maa_k": torch.full((pp, d), 0.5, dtype=dtype, device=dev),
-        "maa_r": torch.full((pp, d), 0.5, dtype=dtype, device=dev),
-        "wk": _dense(gen, (pp, d, spec.d_ff), dtype),
-        "wv": _dense(gen, (pp, spec.d_ff, d), dtype, out_scale),
-        "wr_gate": _dense(gen, (pp, d, d), dtype),
+        "maa_k": take(torch.full((pp, d), 0.5, dtype=dtype, device=dev)),
+        "maa_r": take(torch.full((pp, d), 0.5, dtype=dtype, device=dev)),
+        "wk": take(_dense(gen, (pp, d, spec.d_ff), dtype)),
+        "wv": take(_dense(gen, (pp, spec.d_ff, d), dtype, out_scale)),
+        "wr_gate": take(_dense(gen, (pp, d, d), dtype)),
     }
 
 
-def _moe_init(spec, pp, gen, dtype, out_scale):
+def _moe_init(spec, pp, gen, dtype, out_scale, take):
     d, m = spec.d_model, spec.moe
     if m.n_shared:
         raise NotImplementedError(
             "shared experts (deepseek) come with the deepseek slice of the "
             "port")
     return {
-        "router": _dense(gen, (pp, d, m.n_experts), dtype),
-        "w1": _dense(gen, (pp, m.n_experts, d, m.d_expert), dtype),
-        "w2": _dense(gen, (pp, m.n_experts, m.d_expert, d), dtype, out_scale),
-        "w3": _dense(gen, (pp, m.n_experts, d, m.d_expert), dtype),
+        "router": take(_dense(gen, (pp, d, m.n_experts), dtype)),
+        "w1": take(_dense(gen, (pp, m.n_experts, d, m.d_expert), dtype)),
+        "w2": take(_dense(gen, (pp, m.n_experts, m.d_expert, d), dtype,
+                          out_scale)),
+        "w3": take(_dense(gen, (pp, m.n_experts, d, m.d_expert), dtype)),
     }
 
 
-def _mamba_init(spec, pp, gen, dtype, out_scale):
+def _mamba_init(spec, pp, gen, dtype, out_scale, take):
     d, ms, dev = spec.d_model, spec.mamba, gen.device
     ci = ms.expand * d
     dt_rank = ms.dt_rank or -(-d // 16)
@@ -143,16 +145,18 @@ def _mamba_init(spec, pp, gen, dtype, out_scale):
     lo, hi = math.log(1e-3), math.log(1e-1)
     dt0 = torch.rand((pp, ci), generator=gen, device=dev) * (hi - lo) + lo
     return {
-        "in_x": _dense(gen, (pp, d, ci), dtype),
-        "in_z": _dense(gen, (pp, d, ci), dtype),
-        "conv_w": _dense(gen, (pp, ci, ms.d_conv), dtype, 0.1),
-        "x_proj": _dense(gen, (pp, ci, dt_rank + 2 * ms.d_state), dtype),
-        "dt_proj": _dense(gen, (pp, dt_rank, ci), dtype, dt_rank ** -0.5),
+        "in_x": take(_dense(gen, (pp, d, ci), dtype)),
+        "in_z": take(_dense(gen, (pp, d, ci), dtype)),
+        "conv_w": take(_dense(gen, (pp, ci, ms.d_conv), dtype, 0.1)),
+        "x_proj": take(_dense(gen, (pp, ci, dt_rank + 2 * ms.d_state),
+                              dtype)),
+        "dt_proj": take(_dense(gen, (pp, dt_rank, ci), dtype,
+                               dt_rank ** -0.5)),
         # softplus⁻¹ of dt ~ logU(1e-3, 1e-1); f32, as in the JAX init
-        "dt_bias": torch.log(torch.expm1(torch.exp(dt0))),
-        "A_log": torch.log(a).expand(pp, ci, ms.d_state).contiguous(),
-        "D": torch.ones((pp, ci), dtype=torch.float32, device=dev),
-        "out_proj": _dense(gen, (pp, ci, d), dtype, out_scale),
+        "dt_bias": take(torch.log(torch.expm1(torch.exp(dt0)))),
+        "A_log": take(torch.log(a).expand(pp, ci, ms.d_state).contiguous()),
+        "D": take(torch.ones((pp, ci), dtype=torch.float32, device=dev)),
+        "out_proj": take(_dense(gen, (pp, ci, d), dtype, out_scale)),
     }
 
 
@@ -166,6 +170,45 @@ def init_params(spec: spec_lib.ModelSpec, plan, gen: torch.Generator,
     the random numbers differ from JAX's, so a
     test that compares the two packages hands both one numpy tree.
     """
+    return _draw(spec, plan, gen, dtype, None, True, True)
+
+
+def init_rank_params(spec: spec_lib.ModelSpec, plan, gen: torch.Generator,
+                     sched, stage: Optional[int],
+                     dtype=torch.bfloat16) -> Dict:
+    """What stage ``stage`` of ``sched`` holds of :func:`init_params`,
+    drawn without the rest (the paper's workers hold their stage only).
+
+    ``plan`` is the plan the model is cut with (``core/reference.py::
+    model_plan``: S·v chunks at virtual stages).  Every leaf is drawn
+    whole, in :func:`init_params`' generator order, and cut to the
+    stage's storage rows (row s·v + j holds chunk j·S + s) before the
+    next leaf is drawn, so the transient is one leaf.  The embedding is
+    kept on stage 0 and the head and final norm on the last stage; the
+    other stages draw them and drop them.  Equal bit for bit to
+    ``rank_params(to_storage_order(init_params(...), sched), sched,
+    stage)`` (``core/versioning.py``).  ``stage`` None draws every row,
+    one process's state: ``to_storage_order(init_params(...), sched)``."""
+    if stage is None:
+        rows = list(range(sched.n_chunks))
+    else:
+        held = rank_rows(sched, stage)
+        rows = list(range(held.start, held.stop))
+    if sched.virtual_stages > 1:
+        order = sched.storage_chunk_order().tolist()
+        rows = [order[r] for r in rows]
+    elif stage is None:
+        rows = None                 # model order already: no copies
+    return _draw(spec, plan, gen, dtype, rows, stage in (None, 0),
+                 stage in (None, sched.n_stages - 1))
+
+
+def _draw(spec, plan, gen, dtype, rows, embed: bool, head: bool) -> Dict:
+    """The parameter draw: ``rows`` (model chunks, in the order to keep
+    them) of every stage-stacked leaf, or all of them for None; the
+    embedding with ``embed``, head and final norm with ``head``.  A leaf
+    not kept is drawn all the same: the generator's stream stays the
+    whole model's."""
     pp = plan.pp
     program = spec.stage_program(pp)
     dev = gen.device
@@ -173,12 +216,25 @@ def init_params(spec: spec_lib.ModelSpec, plan, gen: torch.Generator,
                         spec.d_ff)
     out_scale = 0.02 / math.sqrt(2 * spec.n_layers)
     vpad = padded_vocab(spec.vocab)
+    if rows is None:
+        def take(a):
+            return a
+    else:
+        idx = torch.tensor(rows, device=dev)
 
-    params: Dict = {
-        "embed": _dense(gen, (vpad, d), dtype, 1.0),
-        "head": _dense(gen, (d, vpad), dtype),
-        "final_norm": _norm_init((d,), spec.norm, dtype, dev),
-    }
+        def take(a):
+            return a.index_select(0, idx)
+
+    params: Dict = {}
+    e = _dense(gen, (vpad, d), dtype, 1.0)
+    if embed:
+        params["embed"] = e
+    del e
+    w = _dense(gen, (d, vpad), dtype)
+    if head:
+        params["head"] = w
+        params["final_norm"] = _norm_init((d,), spec.norm, dtype, dev)
+    del w
     stages: Dict = {}
     for i, blk in enumerate(program):
         if (blk.mixer not in ("attn", "rwkv", "mamba") or blk.cross_attn
@@ -186,34 +242,43 @@ def init_params(spec: spec_lib.ModelSpec, plan, gen: torch.Generator,
             raise NotImplementedError(
                 f"block {blk} is not ported yet (cross-attention and "
                 "mixer- or FFN-less blocks are still to port)")
-        lp: Dict = {"norm1": _norm_init((pp, d), spec.norm, dtype, dev)}
+        lp: Dict = {"norm1": tree_map(take, _norm_init((pp, d), spec.norm,
+                                                       dtype, dev))}
         if blk.mixer == "mamba":
-            lp["mamba"] = _mamba_init(spec, pp, gen, dtype, out_scale)
+            lp["mamba"] = _mamba_init(spec, pp, gen, dtype, out_scale, take)
         elif blk.mixer == "attn":
-            attn = {"wq": _dense(gen, (pp, d, h, dh), dtype),
-                    "wk": _dense(gen, (pp, d, kv, dh), dtype),
-                    "wv": _dense(gen, (pp, d, kv, dh), dtype),
-                    "wo": _dense(gen, (pp, h * dh, d), dtype, out_scale)}
+            attn = {"wq": take(_dense(gen, (pp, d, h, dh), dtype)),
+                    "wk": take(_dense(gen, (pp, d, kv, dh), dtype)),
+                    "wv": take(_dense(gen, (pp, d, kv, dh), dtype)),
+                    "wo": take(_dense(gen, (pp, h * dh, d), dtype,
+                                      out_scale))}
             if spec.qk_norm:
-                attn["q_norm"] = torch.ones((pp, dh), dtype=dtype, device=dev)
-                attn["k_norm"] = torch.ones((pp, dh), dtype=dtype, device=dev)
+                attn["q_norm"] = take(torch.ones((pp, dh), dtype=dtype,
+                                                 device=dev))
+                attn["k_norm"] = take(torch.ones((pp, dh), dtype=dtype,
+                                                 device=dev))
             lp["attn"] = attn
         else:
-            lp["tmix"] = _rwkv_tmix_init(spec, pp, gen, dtype, out_scale)
-        lp["norm2"] = _norm_init((pp, d), spec.norm, dtype, dev)
+            lp["tmix"] = _rwkv_tmix_init(spec, pp, gen, dtype, out_scale,
+                                         take)
+        lp["norm2"] = tree_map(take, _norm_init((pp, d), spec.norm, dtype,
+                                                dev))
         if blk.ffn == "dense":
-            mlp = {"w1": _dense(gen, (pp, d, ff), dtype),
-                   "w2": _dense(gen, (pp, ff, d), dtype, out_scale)}
+            mlp = {"w1": take(_dense(gen, (pp, d, ff), dtype)),
+                   "w2": take(_dense(gen, (pp, ff, d), dtype, out_scale))}
             if spec.act == "silu":
-                mlp["w3"] = _dense(gen, (pp, d, ff), dtype)
+                mlp["w3"] = take(_dense(gen, (pp, d, ff), dtype))
             lp["mlp"] = mlp
         elif blk.ffn == "moe":
-            lp["moe"] = _moe_init(spec, pp, gen, dtype, out_scale)
+            lp["moe"] = _moe_init(spec, pp, gen, dtype, out_scale, take)
         else:
-            lp["cmix"] = _rwkv_cmix_init(spec, pp, gen, dtype, out_scale)
+            lp["cmix"] = _rwkv_cmix_init(spec, pp, gen, dtype, out_scale,
+                                         take)
         stages[f"layer_{i}"] = lp
     params["stages"] = stages
     windows, thetas = spec_lib.stage_varying_scalars(spec, pp)
+    if rows is not None:
+        windows, thetas = [windows[r] for r in rows], [thetas[r] for r in rows]
     params["layer_windows"] = windows
     params["layer_thetas"] = thetas
     return params

@@ -38,6 +38,11 @@ import torch.distributed as dist
 
 #: seconds a rank waits on a peer before its process group raises
 DEFAULT_TIMEOUT_S = 60.0
+#: seconds a rank waits in a checkpoint's collectives (``RankGrid.
+#: ckpt_group``): rank 0 writes ``shared.npz`` and ``opt.npz`` while its
+#: peers wait, so the wait scales with the state's bytes: ~1.2 TB at the
+#: 0.7 GB/s one process saved at on an H100 machine (PERF.md §6)
+CKPT_TIMEOUT_S = 1800.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,6 +165,65 @@ class Group:
             [x], [full], reduce=False)
         out.copy_(full.movedim(0, dim))
 
+    # ---- the small collectives of checkpoints and telemetry, on a group
+    # ---- that spans the world (its first rank is the root) -------------
+
+    def barrier(self) -> None:
+        """Return once every rank of the group has called it (a sum, so
+        it has the group's timeout)."""
+        self.all_reduce_(torch.zeros(1, device=self.grid.device))
+
+    def any_flag(self, flag: bool) -> bool:
+        """Whether ``flag`` is set on any rank of the group."""
+        t = torch.tensor([1.0 if flag else 0.0], device=self.grid.device)
+        return bool(self.all_reduce_(t).item() > 0)
+
+    def all_gather_floats(self, values: Sequence[float]) -> List[List[float]]:
+        """Every rank's ``values`` (the same length on every rank), in
+        rank order."""
+        x = torch.tensor([float(v) for v in values], dtype=torch.float64,
+                         device=self.grid.device)
+        full = torch.empty(self.size * x.numel(), dtype=x.dtype,
+                           device=x.device)
+        self._count(x)
+        self.grid._transport(
+            lambda a, b: dist.all_gather_into_tensor(b[0], a[0],
+                                                     group=self.pg),
+            [x], [full], reduce=False)
+        return full.view(self.size, -1).tolist()
+
+    def all_gather_object(self, obj) -> list:
+        """Every rank's picklable ``obj``, in rank order (small
+        metadata)."""
+        out = [None] * self.size
+        dist.all_gather_object(out, obj, group=self.pg)
+        return out
+
+    def gather_to_root(self, t: Optional[torch.Tensor], src: int, shape,
+                       dtype: torch.dtype) -> Optional[torch.Tensor]:
+        """Rank ``src``'s tensor ``t`` (of ``shape`` and ``dtype``) on the
+        root: the root gets it (on the host under gloo, else on its
+        device), every other rank None.  A point-to-point send, so a rank
+        that never sends makes the root raise after the group's timeout;
+        under gloo half precision moves as its int16 bits."""
+        g, root = self.grid, self.ranks[0]
+        if g.rank == src == root:
+            return t
+        if g.rank not in (src, root):
+            return None
+        wire = _host_dtype(dtype, reduce=False) if g.stage_host else dtype
+        if g.rank == src:
+            x = t.contiguous()
+            x = x.view(wire) if wire != x.dtype else x
+            g._transport(lambda a, b: dist.send(a[0], root, group=self.pg),
+                         [x], [], reduce=False)
+            return None
+        buf = torch.empty(tuple(shape), dtype=wire, device=(
+            "cpu" if g.stage_host else g.device))
+        g._transport(lambda a, b: dist.recv(b[0], src, group=self.pg),
+                     [], [buf], reduce=False)
+        return buf.view(dtype) if wire != dtype else buf
+
 
 @dataclasses.dataclass
 class TransportStats:
@@ -174,11 +238,15 @@ class TransportStats:
 class RankGrid:
     """This rank's place in a :class:`ProcessGrid`: its coordinates, its
     device, its stage's data group and the transport (p2p hand-offs and
-    collectives).  Built by :func:`init_grid`."""
+    collectives).  Built by :func:`init_grid`.
+
+    ``world_group`` and ``ckpt_group`` both span the world: the first
+    has the grid's timeout, the second the checkpoint's, for the waits
+    of a save (``checkpoint/manager.py``)."""
 
     def __init__(self, topo: ProcessGrid, rank: int, backend: str,
                  device: torch.device, device_policy: str,
-                 data_groups: List, world_pg):
+                 data_groups: List, world_pg, ckpt_pg):
         self.topo, self.rank, self.backend = topo, rank, backend
         self.device, self.device_policy = device, device_policy
         self.d, self.s = topo.coords(rank)
@@ -188,6 +256,7 @@ class RankGrid:
         self.data_group = Group(self, topo.data_group_ranks(self.s),
                                 data_groups[self.s])
         self.world_group = Group(self, range(topo.world), world_pg)
+        self.ckpt_group = Group(self, range(topo.world), ckpt_pg)
 
     def describe(self) -> str:
         return (f"rank {self.rank} of {self.topo.world}: replica {self.d} "
@@ -241,7 +310,6 @@ class RankGrid:
                                         for _, t in sends)
         self.stats.handoff_s += time.perf_counter() - t0
 
-
 def _device_for(device, local_rank: int, local_world: int, backend: str,
                 world: int) -> Tuple[torch.device, str]:
     """This rank's device and the rule that chose it: ``cuda:LOCAL_RANK``
@@ -277,8 +345,9 @@ def init_grid(topo: ProcessGrid, backend: str, *,
     ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK``; ``init_method`` to
     torchrun's ``env://`` rendezvous.  ``device`` is ``"cuda"`` (default)
     or ``"cpu"``; on the card the rank's device is set current.  Every
-    process group gets ``timeout`` seconds.  Ends with a sum over the
-    world, which every rank must reach."""
+    process group gets ``timeout`` seconds, but the checkpoint's world
+    group (``RankGrid.ckpt_group``) :data:`CKPT_TIMEOUT_S`.  Ends with a
+    sum over the world, which every rank must reach."""
     if backend not in ("nccl", "gloo"):
         raise ValueError(f"backend {backend!r}: choose 'nccl' or 'gloo'")
     rank = _env_int("RANK") if rank is None else rank
@@ -303,8 +372,10 @@ def init_grid(topo: ProcessGrid, backend: str, *,
     # every rank creates every group, in the same order
     data_groups = [dist.new_group(topo.data_group_ranks(s), timeout=wait)
                    if topo.data > 1 else None for s in range(topo.pp)]
+    ckpt_pg = dist.new_group(list(range(world_size)),
+                             timeout=datetime.timedelta(seconds=CKPT_TIMEOUT_S))
     grid = RankGrid(topo, rank, backend, dev, policy, data_groups,
-                    dist.group.WORLD)
+                    dist.group.WORLD, ckpt_pg)
     grid.world_group.all_reduce_(torch.ones(1, device=dev))
     grid.stats = TransportStats()
     return grid

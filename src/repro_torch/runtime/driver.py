@@ -9,12 +9,41 @@
     (checkpoint.reshard_stages, ``reshard_state_for_plan``);
   * straggler mitigation — measured per-stage times feed the
     rectangular partitioner, which proposes a rebalanced (pp, tp) plan
-    (the paper's answer to skew: better partitioning, not work stealing).
+    (the paper's answer to skew: better partitioning, not work stealing);
+    :func:`replan_from_registry` re-plans from the seconds a run put in
+    its metrics registry.
 
 The port's ``train_step`` updates the state in place, so a round that
 fails half way leaves half-updated tensors: a restore overwrites every
 one of them from the checkpoint.  The planner's defaults are
 :data:`~repro_torch.core.profiler.H100_SXM`.
+
+On a process grid (the bundle's ``grid``) every rank runs a driver over
+its own state.  Checkpoints are written rank by rank
+(``CheckpointManager(grid=)``).  At the top of each round the ranks
+agree, by one flag over the world, whether any rank's ``failure_hook``
+raised, and after each save whether any rank's save raised: if one did,
+every rank restores the last complete round and replays, so no peer
+waits in a hand-off for a rank that went back, and a failed save of the
+last round is replayed like any other.  A fault inside a round
+(a peer that died, a hand-off that timed out) cannot be agreed on: it
+raises, as the process group's timeout makes every peer raise.
+
+Stage seconds.  The JAX step is one fused program, so its host cannot
+time stages and takes them from ``stage_seconds_fn``.  On a grid each
+rank runs one stage, and the driver measures: a rank's stage seconds
+for a round are its wall time over ``train_step`` (ended by a device
+synchronise) less the time its hand-offs waited
+(``grid.stats.handoff_s``); the largest over a stage's data replicas is
+the stage's, and the per-stage vector is all-gathered so that every
+rank's registry (rank 0's included) holds every stage's
+``stage_round_seconds{stage=}`` series.  These seconds include the
+stage's optimizer updates (per microbatch, or the round-end flush and
+the embedding's update, all inside ``train_step``), its data-group
+gradient sums and the round's metric all-reduce; under NCCL
+``handoff_s`` is the posting time only, so a stage's wait on its
+stream stays in its seconds.  The round's ``round_seconds`` are the
+same wall time, hand-offs included.
 """
 from __future__ import annotations
 
@@ -43,20 +72,31 @@ class TrainDriver:
     """Runs rounds of ``bundle.train_step``, checkpointing every
     ``cfg.checkpoint_every`` rounds; a failed round restores the last
     complete checkpoint (or re-initialises from ``seed`` when there is
-    none) and replays from there."""
+    none) and replays from there.
+
+    ``obs`` (default: the bundle's) gets one ``on_round("train", ...)``
+    per executed round, replays included; ``stage_seconds_fn`` (round ->
+    per-stage seconds) feeds its ``stage_round_seconds{stage=}``
+    histograms.  On a grid with ``obs`` and no ``stage_seconds_fn`` the
+    driver measures them (module docstring)."""
 
     def __init__(self, bundle, loader, ckpt_dir: str,
                  cfg: DriverConfig = DriverConfig(),
                  failure_hook: Optional[Callable[[int], None]] = None,
-                 seed: int = 0):
+                 seed: int = 0, obs=None,
+                 stage_seconds_fn: Optional[Callable[[int], Any]] = None):
         self.bundle = bundle
         self.loader = loader
         self.cfg = cfg
         self.seed = seed
-        self.ckpt = CheckpointManager(ckpt_dir)
+        self.grid = bundle.grid
+        self.ckpt = CheckpointManager(ckpt_dir, grid=self.grid)
         self.failure_hook = failure_hook or (lambda step: None)
+        self.obs = obs if obs is not None else bundle.obs
+        self.stage_seconds_fn = stage_seconds_fn
         self.metrics_log: List[Dict[str, float]] = []
         self.round_seconds: List[float] = []
+        self.stage_seconds: List[List[float]] = []   # measured, a round
 
     # ---------------- main loop -------------------------------------------
 
@@ -68,27 +108,96 @@ class TrainDriver:
         while step < n_rounds:
             try:
                 self.failure_hook(step)          # may raise (simulated fault)
-                batch = self.loader.get(step)
-                t0 = time.perf_counter()
-                state, metrics = self.bundle.train_step(state, batch)
-                if self.bundle.device.type == "cuda":
-                    torch.cuda.synchronize()
-                self.round_seconds.append(time.perf_counter() - t0)
-                self.metrics_log.append(
-                    {k: float(v) for k, v in metrics.items()})
-                step += 1
-                if step % self.cfg.checkpoint_every == 0:
-                    self.ckpt.save(step, state, n_rows)
-                    # durable progress: a complete checkpoint resets the
-                    # failure budget, so max_restarts bounds *consecutive*
-                    # failures, not sporadic ones over a long run
-                    restarts = 0
-            except Exception:
-                restarts += 1
-                if restarts > self.cfg.max_restarts:
+                err = None
+            except Exception as e:
+                err = e
+            if self._failed(err):
+                state, step, restarts = self._recover(state, err, restarts)
+                continue
+            try:
+                state = self._round(state, step)
+            except Exception as e:
+                if self.grid is not None:
+                    # peers may wait in a hand-off: the group's timeout
+                    # makes them raise too
                     raise
-                state, step = self.restore_latest(state)
+                state, step, restarts = self._recover(state, e, restarts)
+                continue
+            step += 1
+            if step % self.cfg.checkpoint_every == 0:
+                try:
+                    self.ckpt.save(step, state, n_rows)
+                    err = None
+                except Exception as e:
+                    err = e
+                if self._failed(err):
+                    # before the next round's hook, and before the loop
+                    # can end on the last round's save
+                    state, step, restarts = self._recover(state, err,
+                                                          restarts)
+                    continue
+                # durable progress: a complete checkpoint resets the
+                # failure budget, so max_restarts bounds *consecutive*
+                # failures, not sporadic ones over a long run
+                if self.ckpt.latest_complete_round() == step:
+                    restarts = 0
         return state, step
+
+    def _failed(self, err) -> bool:
+        """Whether this rank's ``err`` (or on a grid any rank's) is set:
+        one flag over the world, so every rank restores together."""
+        failed = err is not None
+        if self.grid is not None:
+            failed = self.grid.world_group.any_flag(failed)
+        return failed
+
+    def _recover(self, state, err, restarts: int):
+        """(state, round, restarts) after a failure: the last complete
+        checkpoint restored, or ``err`` (a peer's failure on a rank
+        without one) raised once ``cfg.max_restarts`` are spent."""
+        restarts += 1
+        if restarts > self.cfg.max_restarts:
+            if err is not None:
+                raise err
+            raise RuntimeError(f"a peer rank failed {restarts} times in a "
+                               "row")
+        state, step = self.restore_latest(state)
+        return state, step, restarts
+
+    def _round(self, state, step: int):
+        """One executed round, timed and reported."""
+        batch = self.loader.get(step)
+        clk = self.obs.clock if self.obs is not None else time.perf_counter
+        waited = self.grid.stats.handoff_s if self.grid is not None else 0.0
+        t0 = clk()
+        state, metrics = self.bundle.train_step(state, batch)
+        if self.bundle.device.type == "cuda":
+            torch.cuda.synchronize(self.bundle.device)
+        t1 = clk()
+        self.round_seconds.append(t1 - t0)
+        self.metrics_log.append({k: float(v) for k, v in metrics.items()})
+        if self.obs is not None:
+            self.obs.on_round("train", self.bundle.sched, t0, t1)
+            seconds = None
+            if self.stage_seconds_fn is not None:
+                seconds = self.stage_seconds_fn(step)
+            elif self.grid is not None:
+                own = (t1 - t0) - (self.grid.stats.handoff_s - waited)
+                seconds = self._stage_seconds(own)
+                self.stage_seconds.append(seconds)
+            if seconds is not None:
+                hist = self.obs.histogram("stage_round_seconds")
+                for s, sec in enumerate(seconds):
+                    hist.observe(float(sec), stage=s)
+        return state
+
+    def _stage_seconds(self, own: float) -> List[float]:
+        """Every stage's seconds from each rank's own: the largest over a
+        stage's replicas (ranks d·pp + s)."""
+        pp = self.grid.topo.pp
+        by_rank = [v[0] for v in
+                   self.grid.world_group.all_gather_floats([own])]
+        return [max(by_rank[s::pp]) for s in range(pp)]
 
     def restore_latest(self, state):
         """(state, round) of the last complete checkpoint, copied into
@@ -286,6 +395,25 @@ def rebalance_from_measurements(spec, plan, measured_stage_seconds,
                               hbm_bytes=hbm_bytes):
             new_plan = fb
     return new_plan, True
+
+
+def replan_from_registry(spec, plan, registry, hw=prof.H100_SXM, *,
+                         minibatch_tokens: int, data_replicas: int,
+                         slack: float = 1.25, schedules=None,
+                         hbm_bytes=None):
+    """Rebalance from the telemetry a run collected: the per-stage mean
+    seconds of the registry's ``stage_round_seconds{stage=}`` histograms
+    (filled by :class:`TrainDriver`, measured on a grid) into
+    :func:`rebalance_from_measurements`, the end of the paper's profile →
+    plan → measure → replan loop.  Returns ``(new_plan, rebalanced)``;
+    raises ``ValueError`` when one of ``plan.pp`` stages has no
+    samples."""
+    from repro_torch.obs.reconcile import stage_seconds
+    measured = stage_seconds(registry, plan.pp)
+    return rebalance_from_measurements(
+        spec, plan, measured, hw, minibatch_tokens=minibatch_tokens,
+        data_replicas=data_replicas, slack=slack, schedules=schedules,
+        hbm_bytes=hbm_bytes)
 
 
 def _plan_is_buildable(spec, plan, hw, *, minibatch_tokens: int,

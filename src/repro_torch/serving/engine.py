@@ -90,6 +90,9 @@ class EngineSession:
     _pools: List[Dict] = dataclasses.field(default_factory=list)
     _alloc: Optional[PageAllocator] = None
     _pos: Any = None               # host cache position per slot
+    # observability (repro_torch.obs.Observability or None = off): one
+    # on_round per prefill / decode, the allocator's page gauges after it
+    obs: Any = None
 
     @property
     def n_slots(self) -> int:
@@ -192,7 +195,9 @@ class EngineSession:
         self._pos[:] = 0
         embeds = lm_head.embed_tokens(self.params["embed"], tokens,
                                       self.compute_dtype)
+        t0 = self._obs_t0()
         nxt = self._round(embeds)
+        self._obs_round("prefill", t0, nxt)
         self._pos[:] = qlen
         return nxt
 
@@ -217,9 +222,26 @@ class EngineSession:
         embeds = lm_head.embed_tokens(
             self.params["embed"], tokens.reshape(self.n_slots, self.rows, 1),
             self.compute_dtype)
+        t0 = self._obs_t0()
         nxt = self._round(embeds)
+        self._obs_round("decode", t0, nxt)
         self._pos += 1
         return nxt
+
+    def _obs_t0(self):
+        """A round's start stamp, taken only when obs is on."""
+        return self.obs.clock() if self.obs is not None else None
+
+    def _obs_round(self, kind: str, t0, out: torch.Tensor) -> None:
+        """Report one executed round [t0, now) once ``out`` is computed
+        (the stamp covers the device's work, not the enqueue)."""
+        if self.obs is None:
+            return
+        if out.is_cuda:
+            torch.cuda.synchronize(out.device)
+        self.obs.on_round(kind, self.sched, t0, self.obs.clock())
+        if self._alloc is not None:
+            self.obs.page_gauges(self._alloc)
 
     def _round(self, embeds) -> torch.Tensor:
         """Walk the forward / exit tables over ``embeds`` (R, rows, qlen,
@@ -280,7 +302,7 @@ def build_serving(spec: spec_lib.ModelSpec, plan: ParallelismPlan, *,
                   compute_dtype=torch.bfloat16, page_size: int = 0,
                   prefill_len: int = 0, weight_dtype: Optional[str] = None,
                   kv_dtype: Optional[str] = None,
-                  device=None) -> EngineSession:
+                  device=None, obs=None) -> EngineSession:
     """A serving session for ``plan``'s ``serve_1f`` schedule, all stages
     on ``device`` (default ``cuda``; raises without a card).
 
@@ -303,7 +325,9 @@ def build_serving(spec: spec_lib.ModelSpec, plan: ParallelismPlan, *,
     the page pools as int8 payloads with per-(page, KV head) f32 scale
     planes (it needs ``page_size > 0``), read by the paged kernel's int8
     page walk.  Both default to the unquantized behaviour; the checks
-    and messages are the JAX engine's.
+    and messages are the JAX engine's.  ``obs`` (an
+    :class:`~repro_torch.obs.Observability`) gets one ``on_round`` per
+    prefill and decode and the page gauges.
     """
     dev = resolve_device(device)
     if weight_dtype is not None and weight_dtype not in quant.WEIGHT_DTYPES:
@@ -339,4 +363,5 @@ def build_serving(spec: spec_lib.ModelSpec, plan: ParallelismPlan, *,
     return EngineSession(spec=spec, plan=plan, sched=sched, statics=statics,
                          device=dev, compute_dtype=compute_dtype,
                          cache_len=cache_len, rows=rows, paged=paged,
-                         weight_dtype=weight_dtype, kv_dtype=kv_dtype)
+                         weight_dtype=weight_dtype, kv_dtype=kv_dtype,
+                         obs=obs)

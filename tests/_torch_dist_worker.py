@@ -177,6 +177,132 @@ def job_modules(grid, rounds: int):
     return out
 
 
+def job_ckpt_save(grid, out_dir: str, cases, rounds: int):
+    """Each case ``key: (schedule, mode, v, zero1, opt)``: ``rounds``
+    rounds (fp32, masked labels) through the rank-local executor, then a
+    checkpoint of round ``rounds`` rank by rank into ``out_dir/key``, and
+    that checkpoint restored rank by rank into a zeroed copy of the
+    state: (the rank's state, the restored one) by key."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    dp = grid.topo.data
+    out = {}
+    for key, (schedule, mode, v, zero1, opt) in cases.items():
+        plan = smoke_plan(grid.topo.pp, schedule, mode, v, zero1)
+        bundle = build_pipeline(smoke_spec(), plan, seq_len=SEQ,
+                                global_batch=dp * R * MB,
+                                optimizer=optimizer(opt),
+                                compute_dtype=torch.float32, grid=grid)
+        state = bundle.init_state(torch.Generator("cpu").manual_seed(0))
+        for r in range(rounds):
+            state, _ = bundle.train_step(
+                state, rows_of(full_batch(r, dp * MB, True), grid.d))
+        mgr = CheckpointManager(os.path.join(out_dir, key), grid=grid)
+        mgr.save(rounds, state, plan.pp * v)
+        back = mgr.restore(rounds, zeroed(state))
+        out[key] = {"state": state, "restored": back,
+                    "aliased": back["stash"]["current"] is
+                    back["params"]["stages"]}
+    return out
+
+
+def job_ckpt_restore(grid, ckpt_dir: str, rnd: int, schedule, mode, v):
+    """A checkpoint written by one process restored rank by rank into a
+    zeroed copy of this rank's fresh state."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    plan = smoke_plan(grid.topo.pp, schedule, mode, v)
+    bundle = build_pipeline(smoke_spec(), plan, seq_len=SEQ,
+                            global_batch=R * MB, optimizer=optimizer("adam"),
+                            compute_dtype=torch.float32, grid=grid)
+    state = zeroed(bundle.init_state(torch.Generator("cpu").manual_seed(5)))
+    return CheckpointManager(ckpt_dir, grid=grid).restore(rnd, state)
+
+
+def job_driver(grid, out_dir: str, rounds: int, every: int, fail: int,
+               torn: int, final: int):
+    """TrainDriver on the grid with an Observability, ``rounds`` rounds
+    uninterrupted (a), then again with a fault before round ``fail``
+    raised on the last rank only and a crash of the last rank in the save
+    of round ``torn`` (its rows not written) (b), then ``final`` rounds
+    with that crash in the save of the last round (c): each run's state
+    and losses, what the torn save left, the metrics snapshot and stage
+    seconds, and (c) the latest complete round and run a's checkpoint of
+    round ``final``."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.pipeline import Loader
+    from repro_torch.obs import Observability
+    from repro_torch.runtime.driver import DriverConfig, TrainDriver
+    dp, last = grid.topo.data, grid.rank == grid.topo.world - 1
+    plan = smoke_plan(grid.topo.pp)
+    armed = {"hook": last, "save": last, "final": last}
+    torn_seen = {}
+
+    def run(sub, faults, n=rounds, at=torn, key="save"):
+        obs = Observability(trace=True)
+        bundle = build_pipeline(smoke_spec(), plan, seq_len=SEQ,
+                                global_batch=dp * R * MB,
+                                optimizer=optimizer(),
+                                compute_dtype=torch.float32, grid=grid,
+                                obs=obs)
+        loader = Loader(SyntheticLM(smoke_spec().vocab, SEQ, seed=1), R,
+                        dp * MB, "cpu", replica=grid.d, replicas=dp)
+
+        def hook(step):
+            if faults and key == "save" and step == fail and armed["hook"]:
+                armed["hook"] = False
+                raise RuntimeError("simulated failure of one rank")
+
+        driver = TrainDriver(bundle, loader, os.path.join(out_dir, sub),
+                             DriverConfig(checkpoint_every=every),
+                             failure_hook=hook, seed=0)
+        save = driver.ckpt.save
+
+        def torn_save(rnd, st, n, fail_after_stage=None):
+            if faults and rnd == at and armed[key]:
+                armed[key] = False
+                save(rnd, st, n, fail_after_stage=grid.s * plan.
+                     virtual_stages - 1)
+                if key == "save":
+                    torn_seen["latest"] = driver.ckpt.latest_complete_round()
+                    with open(os.path.join(driver.ckpt._round_dir(rnd),
+                                           "MANIFEST.json")) as f:
+                        torn_seen["manifest"] = f.read()
+                raise RuntimeError("crash in the middle of a save")
+            return save(rnd, st, n, fail_after_stage)
+
+        driver.ckpt.save = torn_save
+        state = bundle.init_state(torch.Generator("cpu").manual_seed(0))
+        state, step = driver.run(state, n)
+        return {"state": state, "step": step,
+                "latest": driver.ckpt.latest_complete_round(),
+                "losses": [m["loss"] for m in driver.metrics_log],
+                "snapshot": obs.registry.snapshot(),
+                "stage_seconds": driver.stage_seconds,
+                "span_counts": obs.trace.span_counts("train"),
+                "rounds_traced": len(obs.trace.rounds)}
+
+    out = {"a": run("a", False), "b": run("b", True),
+           "c": run("c", True, final, final, "final")}
+    out["a_final"] = CheckpointManager(
+        os.path.join(out_dir, "a"), grid=grid).restore(
+            final, zeroed(out["c"]["state"]))
+    out["unfired"] = any(armed.values())
+    out["torn"] = torn_seen
+    return out
+
+
+def zeroed(state):
+    """A copy of ``state`` with every tensor zeroed, ``stash["current"]``
+    the params' stages, ``step`` 0."""
+    def z(t):
+        if isinstance(t, dict):
+            return {k: z(v) for k, v in t.items()}
+        return torch.zeros_like(t) if torch.is_tensor(t) else t
+    out = z(state)
+    out["stash"]["current"] = out["params"]["stages"]
+    out["step"] = 0
+    return out
+
+
 def unflatten(flat):
     """``{"a/b/c": x}`` -> ``{"a": {"b": {"c": x}}}``."""
     out = {}
