@@ -129,13 +129,37 @@ Phases (any failure raises and the script exits non-zero):
    one process to the digests of what the ranks saved, the torn round
    is skipped, ``rounds_total{kind=train}`` counts every executed round,
    rank 0's registry holds every stage's measured
-   ``stage_round_seconds``, and the trace has a span per busy table cell.
+   ``stage_round_seconds``, and the trace has a span per busy table cell;
+19. batching — phase 3's model and shape (qwen3-14b, 40 layers, bf16,
+   pp 2, R 4 x 2 rows, prompt width 512, cache 1024, page 16) through
+   the continuous batcher (``serving/batcher.py``) with buckets and a
+   pool of BATCH_POOL pages, over BATCH_TRACE (6 pairs of requests,
+   prompts 64-512, 8-48 new tokens, staggered arrivals).  19a: every
+   served token is ``full_transformer``'s greedy token up to near-ties
+   (BATCH_TIE), the allocator holds after every step and every page
+   comes back, each decode round launches the paged kernel layers x
+   live slots times at Q = 1, an admission queues on the dry pool, one
+   is admitted into an evicted slot, the live set shrinks to a smaller
+   bucket and grows back.  19b: the same trace on ``serve_spec_1f``
+   (spec_k SPEC_K) with the self-drafter, oracle drafts of 19a's streams
+   and corrupted ones: every served token of each run is
+   ``full_transformer``'s greedy token over that run's own prefix up to
+   near-ties, streams equal 19a's up to a first difference at a
+   near-tie, every verify round launches the paged kernel at Q =
+   SPEC_K + 1 only (its plain version refused), oracle drafts are
+   rejected only where a lane's stream leaves 19a's (all accepted for
+   pairs that keep 19a's streams), corrupted ones never.  19c: fp32, TF32 off, at
+   BATCH_CONS_LAYERS layers: the trace batched equals each request
+   served alone in a fresh one-shot session (tokens; last hidden state
+   1e-4), ``serve_interleaved`` pp 2 x v 2 equals ``serve_1f`` (tokens;
+   hidden 1e-5), and the speculative streams (self, oracle, corrupted)
+   equal the plain ones exactly.
 
 Phase 2 also holds the int8-pool paged kernel and the flash backward
 kernel (bf16 and f32; with its log-sum-exp, and determinism) against
 their plain versions.  Launch counters are zeroed before and read after
-each main path (phases 3, 5, 6, 8, 9, 11, 13, 15, 16, 17d and 18b, whose
-two ranks count their own).  Prints a
+each main path (phases 3, 5, 6, 8, 9, 11, 13, 15, 16, 17d, 18b, whose
+two ranks count their own, 19a and each run of 19b).  Prints a
 ``profile`` JSON line for qwen3 bf16, rwkv6 (decode, then prefill),
 jamba (decode, then prefill), quantized qwen3 and the training rounds
 (1f1b, interleaved, interleaved_async), three ``train`` JSON lines
@@ -148,7 +172,11 @@ state GB with and without ZeRO-1), a ``ckpt_dist`` JSON line a rank of
 stage seconds), one for 18b's one-process restore and one a rank of 18a
 (init seconds, peak and kept GB), one ``obs`` JSON line (per-stage
 measured seconds, ``reconcile`` against the planner's analytic H100
-costs, ``replan_from_registry``'s plan), one ``kernels`` JSON line
+costs, ``replan_from_registry``'s plan), one ``batcher`` JSON line
+(phase 19: requests, tokens, steps, rounds, goodput, TTFT and per-token
+latency p50 / p99, decode ms by live slots, the bucket histogram, the
+steps admissions waited on the dry pool, near-ties, each speculative
+run's acceptance by round), one ``kernels`` JSON line
 (launches, by path and for wkv6 by
 design, errors, times, bounds, each kernel's design and what ``ptxas
 -v`` reported), the card's name and power limit, and last ``{"ok":
@@ -159,6 +187,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -168,6 +197,12 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# detach the profiler's CUPTI hooks when each profiling session ends: left
+# attached, they slow every later host-bound phase of this process (phase
+# 19a's 4-slot decode step 176-201 ms before one torch.profiler session,
+# 243-283 ms after it; scripts/profiler_teardown_probe.py, H100 80GB HBM3
+# at 700 W)
+os.environ.setdefault("TEARDOWN_CUPTI", "1")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): the bound of a
 # kernel is the larger of bytes / HBM rate and operations / peak rate.
@@ -257,6 +292,27 @@ DIGEST_CHUNK = 1 << 24
 # kernels line times
 FLASH_BWD_CASES = ((1, 1024, -1), (1, 1000, 256), (1, TRAIN_SEQ, -1))
 SCALE_RTOL = 0.5 / 127
+# phase 19: continuous batching at phase 3's shape (R_SLOTS x ROWS, prefill
+# width PREFILL, CACHE_LEN, PAGE).  Each entry is a pair of requests, the
+# two lanes of one slot: (prompt length, max_new_tokens, arrival step).
+# Pairs 1-3 fill three slots at step 0 (90 pages) and pair 4 (16 pages)
+# queues on the dry pool of BATCH_POOL pages until pair 3 is evicted at
+# step 8 and it is admitted into that slot; pair 4's eviction at step 24
+# shrinks the live set to bucket 2, pairs 5-6 grow it back to 4.  No
+# slot set can outgrow the pool, so no request is truncated.
+BATCH_TRACE = ((512, 48, 0), (480, 40, 0), (448, 8, 0), (256, 16, 0),
+               (320, 12, 28), (64, 20, 30))
+BATCH_POOL = 100
+SPEC_K = 4
+# 19c's depth (fp32 at full width), pp 2 x v 2 chunks of one layer
+BATCH_CONS_LAYERS = 4
+# bf16 greedy agreement at qwen3-14b's 40 layers: the reference's largest
+# logit is 5.7-7.9 at these random weights (bf16 steps of 1/32), and the
+# served path's logits differ from full_transformer's by up to 0.22 at a
+# position (the largest of the 151936, measured on the card); a served
+# token must be a greedy token of the reference up to this margin, and a
+# wrong state moves logits by their spread (std ~1.43)
+BATCH_TIE = 0.25
 # H100 SXM exp rate, the SFU floor in mamba_scan's bound: 16 ex2 results
 # per clock per SM (CUDA C++ Programming Guide, arithmetic instruction
 # throughput, compute capability 9.0) x 132 SMs x the 1.98 GHz boost clock
@@ -304,10 +360,12 @@ def counters():
 
 
 def reset_counts() -> None:
+    from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import wkv6 as wk
     for fn, attr in counters().values():
         setattr(fn, attr, 0)
     wk.wkv6.launches_chunked = wk.wkv6.launches_stepwise = 0
+    pa.paged_attention.launches_by_q = {}
 
 
 def wkv6_designs() -> dict:
@@ -371,10 +429,21 @@ def device_ms(fn, iters: int, kernel: str = "") -> float:
     time of the CUDA kernels whose name holds ``kernel`` (every kernel
     when empty), over ``iters`` calls.  Unlike CUDA events around a run
     of calls, it leaves out the host's launch pace, which sets the
-    events' time when a call's device work is a few microseconds."""
-    events = [e for e in kernel_events(fn, iters, (kernel,))
-              if kernel in e.key]
-    return sum(e.self_device_time_total for e in events) / 1e3 / iters
+    events' time when a call's device work is a few microseconds.  Late
+    in the script the profiler has been seen to keep only some of a
+    session's kernel records, which makes the sum too small: a session
+    in which a named kernel recorded fewer than ``iters`` launches is
+    profiled again, twice at most, and after that each named kernel is
+    taken as launched once a call (its mean over the records kept)."""
+    for attempt in range(3):
+        events = [e for e in kernel_events(fn, iters, (kernel,))
+                  if kernel in e.key]
+        if not kernel or all(e.count >= iters for e in events):
+            return sum(e.self_device_time_total for e in events) / 1e3 / iters
+        log(f"[profile] device_ms session {attempt + 1} kept "
+            f"{[(e.key[:40], e.count) for e in events]} launches of "
+            f"{iters} calls")
+    return sum(e.self_device_time_total / e.count for e in events) / 1e3
 
 
 def per_launch_ms(fn, iters: int, kernels) -> dict:
@@ -3161,6 +3230,605 @@ def phase_ckpt_dist(device, driver_rows):
 # the kernels line
 # --------------------------------------------------------------------------
 
+# --------------------------------------------------------------------------
+# phase 19: continuous batching and speculative decode at phase 3's width
+# --------------------------------------------------------------------------
+
+def batch_requests(vocab, seed):
+    """The phase's request trace: each BATCH_TRACE entry is a pair of
+    requests (the two lanes of one slot: equal prompt length,
+    max_new_tokens and arrival step), prompts drawn from ``seed``."""
+    from repro_torch.serving.batcher import Request
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for plen, new, arrival in BATCH_TRACE:
+        for _ in range(ROWS):
+            reqs.append(Request(
+                rid=len(reqs), prompt=rng.integers(0, vocab, plen)
+                .astype(np.int32), max_new_tokens=new, arrival=arrival))
+    return reqs
+
+
+class RoundWatch:
+    """Wraps a session's rounds for one batcher run: every decode
+    (``q`` 1) or verify (``q`` spec_k + 1) must launch the paged kernel
+    exactly layers x live slots times, at query count ``q`` only, and an
+    admission not at all; the allocator's invariants are checked after
+    every round.  Records each round's live slots, bucket, seconds and
+    (verify) acceptance by slot with each live lane's (request, tokens
+    before the round), and with ``hidden`` each live lane's last hidden
+    state."""
+
+    def __init__(self, session, q, server, hidden=False):
+        import torch
+        self.s, self.q, self.server = session, q, server
+        self.rounds, self.admits, self.hidden = [], [], {}
+        self.layers = session.spec.n_layers
+        name = "decode" if q == 1 else "verify"
+        orig = getattr(session, name)
+        admit = session.write_prefill_into_slots
+
+        def launches():
+            from repro_torch.kernels import paged_attention as pa
+            return dict(pa.paged_attention.launches_by_q)
+
+        def grew(before):
+            now = launches()
+            return {k: v - before.get(k, 0) for k, v in now.items()
+                    if v != before.get(k, 0)}
+
+        def round_fn(tokens, bucket=None):
+            n_live = int(session._live.sum())
+            lanes = {slot.index: [(r.rid, len(r.tokens))
+                                  for _, r in slot.live_lanes()]
+                     for slot in server.slots}
+            before = launches()
+            t0 = time.perf_counter()
+            out = orig(tokens, bucket=bucket)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            got = grew(before)
+            if got != {q: self.layers * n_live}:
+                raise AssertionError(
+                    f"{name} round {len(self.rounds)}: paged launches by Q "
+                    f"{got}, expected {{{q}: {self.layers} layers x "
+                    f"{n_live} live slots}}")
+            session._alloc.check()
+            acc = None
+            if q > 1:
+                acc = {m: int(out[1][m]) for m, ls in lanes.items() if ls}
+            self.rounds.append({"live": n_live, "ms": 1e3 * dt,
+                                "bucket": session._bucket_log[-1],
+                                "accepted": acc, "lanes": lanes})
+            if hidden:
+                for slot in server.slots:
+                    for lane, r in slot.live_lanes():
+                        row = slot.index * session.rows + lane
+                        self.hidden[r.rid] = session.last_hidden[row, -1]
+            return out
+
+        def admit_fn(batch, mask, bucket=None):
+            before = launches()
+            t0 = time.perf_counter()
+            out = admit(batch, mask, bucket=bucket)
+            torch.cuda.synchronize()
+            if grew(before):
+                raise AssertionError(f"an admission launched the paged "
+                                     f"kernel: {grew(before)}")
+            session._alloc.check()
+            self.admits.append({"slots": int(np.sum(mask)),
+                                "ms": 1e3 * (time.perf_counter() - t0)})
+            return out
+
+        setattr(session, name, round_fn)
+        session.write_prefill_into_slots = admit_fn
+
+
+def serve_trace(session, q, seed, draft_fn=None, hidden=False):
+    """The trace through ContinuousBatchingSession on ``session`` under a
+    RoundWatch; the allocator is checked after every scheduler step and
+    must have every page back at the end.  Returns (report, requests,
+    watch, seconds)."""
+    import torch
+    from repro_torch.serving.batcher import ContinuousBatchingSession
+    reqs = batch_requests(session.spec.vocab, seed)
+    server = ContinuousBatchingSession(session, draft_fn=(
+        draft_fn(lambda: server) if draft_fn else None))
+    watch = RoundWatch(session, q, server, hidden)
+    step = server.step
+
+    def checked_step():
+        more = step()
+        session._alloc.check()
+        return more
+
+    server.step = checked_step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = server.run(reqs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    alloc = session._alloc
+    if alloc.live_pages or alloc.free_pages != alloc.pool_pages:
+        raise AssertionError(f"pages not all back: {alloc.live_pages} live, "
+                             f"{alloc.free_pages} of {alloc.pool_pages} free")
+    unfinished = [r.rid for r in reqs if not r.finished or r.truncated]
+    if unfinished:
+        raise AssertionError(f"requests {unfinished} unfinished or truncated")
+    return report, reqs, watch, seconds
+
+
+def trace_reference(session, reqs):
+    """``full_transformer`` (the flash kernel) over each request's prompt
+    + tokens, a pair of lanes a call: every served token must be a
+    greedy token of the reference up to BATCH_TIE.  Returns the
+    reference logits at each generated position by request, the count of
+    near-tie positions (top-2 gap <= BATCH_TIE) and the largest gap of a
+    served token below the maximum."""
+    import torch
+    logits, ties, worst, n = {}, 0, 0.0, 0
+    for i in range(0, len(reqs), ROWS):
+        pair = reqs[i:i + ROWS]
+        seq = np.stack([np.concatenate([r.prompt, r.tokens[:-1]])
+                        for r in pair]).astype(np.int32)
+        lg = sequence_logits(session, seq, len(pair[0].tokens))
+        served = torch.tensor([r.tokens for r in pair], device=lg.device)
+        gap = lg.max(-1).values - lg.gather(-1, served[..., None])[..., 0]
+        top2 = lg.topk(2, dim=-1).values
+        ties += int(((top2[..., 0] - top2[..., 1]) <= BATCH_TIE).sum())
+        worst = max(worst, float(gap.max()))
+        n += served.numel()
+        if (gap > BATCH_TIE).any():
+            bad = [(pair[r].rid, int(t)) for r, t in
+                   (gap > BATCH_TIE).nonzero().tolist()]
+            raise AssertionError(
+                f"served tokens are not full_transformer's greedy tokens at "
+                f"(request, position) {bad[:8]}: logit gaps up to "
+                f"{float(gap.max()):.4f} > {BATCH_TIE}")
+        for r, row in zip(pair, lg):
+            logits[r.rid] = row
+    return logits, ties, worst, n
+
+
+def same_streams(reqs, want, ref_logits, what):
+    """Each request's tokens equal ``want``'s, or first differ at a
+    near-tie of the reference (both tokens within BATCH_TIE of its
+    maximum at that position); returns the count of such divergences."""
+    diverged = 0
+    for r in reqs:
+        a, b = r.tokens, want[r.rid]
+        if a == b:
+            continue
+        j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        if j >= min(len(a), len(b)):
+            raise AssertionError(f"{what}: request {r.rid} has {len(a)} "
+                                 f"tokens, the reference stream {len(b)}")
+        lg = ref_logits[r.rid][j]
+        gaps = [float(lg.max() - lg[t]) for t in (a[j], b[j])]
+        if max(gaps) > BATCH_TIE:
+            raise AssertionError(
+                f"{what}: request {r.rid} differs at token {j} ({a[j]} vs "
+                f"{b[j]}), not a near-tie: logit gaps {gaps}")
+        diverged += 1
+    return diverged
+
+
+def oracle_rounds(watch, reqs, want, k):
+    """Holds each verify round of an oracle run to its own streams: a
+    slot whose lanes all still follow ``want`` when the round starts
+    (and have k + 1 tokens to go) must accept exactly as many drafts as
+    every lane's emitted tokens kept of ``want``'s, so a draft is
+    rejected only where a lane's stream leaves ``want``'s there.
+    Returns (slot-rounds checked, of them accepted in full)."""
+    toks = {r.rid: r.tokens for r in reqs}
+    checked = full = 0
+    for i, rnd in enumerate(watch.rounds):
+        for m, lanes in rnd["lanes"].items():
+            if not lanes or any(
+                    n + k + 1 > len(toks[rid])
+                    or toks[rid][:n] != want[rid][:n] for rid, n in lanes):
+                continue
+            kept = min(next((j for j in range(k) if toks[rid][n + j]
+                             != want[rid][n + j]), k) for rid, n in lanes)
+            if rnd["accepted"][m] != kept:
+                raise AssertionError(
+                    f"oracle verify round {i}, slot {m} (requests "
+                    f"{[rid for rid, _ in lanes]}): accepted "
+                    f"{rnd['accepted'][m]} drafts, its streams kept {kept}")
+            checked += 1
+            full += kept == k
+    return checked, full
+
+
+def oracle_drafts(want, k, vocab, corrupt):
+    """A ``draft_fn`` factory: each live lane's next k tokens of its
+    request's stream in ``want`` (zeros past its end), each plus one with
+    ``corrupt``.  It is handed a getter of the server it drafts for."""
+    def make(server_of):
+        def draft(last):
+            out = np.zeros((last.shape[0], k), np.int32)
+            server = server_of()
+            for slot in server.slots:
+                for lane, r in slot.live_lanes():
+                    cont = want[r.rid][len(r.tokens):len(r.tokens) + k]
+                    out[slot.index * server.rows + lane, :len(cont)] = cont
+            return (out + 1) % vocab if corrupt else out
+        return draft
+    return make
+
+
+def batching_session(spec, plan, dtype, device, **kw):
+    from repro_torch.serving.engine import build_serving
+    return build_serving(spec, plan, cache_len=CACHE_LEN,
+                         global_batch=R_SLOTS * ROWS, compute_dtype=dtype,
+                         page_size=PAGE, prefill_len=PREFILL,
+                         pool_pages=BATCH_POOL, buckets=True, device=device,
+                         **kw)
+
+
+def verify_tile_check(device):
+    """The paged kernel at the verify tile (Q = SPEC_K + 1) against its
+    plain version at the main path's shapes, bf16 and f32."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    err = 0.0
+    lengths = [PREFILL + 37, 300]
+    for dtype in (torch.bfloat16, torch.float32):
+        atol, rtol = TOL[str(dtype).split(".")[-1]]
+        sets, tab, lens = paged_inputs(dtype, device, SPEC_K + 1, lengths,
+                                       seed=19)
+        q, kp, vp = sets[0]
+        got = pa.paged_attention(q, kp, vp, tab, lens)
+        want = pa.paged_attention_plain(q, kp, vp, tab, lens)
+        torch.cuda.synchronize()
+        err = max(err, check_close(f"paged verify tile {dtype}", got, want,
+                                   atol, rtol))
+    return err
+
+
+def spec_run(device, spec, plan, params, kind, want, ref_logits, what):
+    """The trace on a speculative session sharing ``params``, with the
+    self-drafter or ``kind`` "oracle" / "corrupt" drafts of ``want``'s
+    streams.  The streams must equal ``want``'s: exactly without
+    ``ref_logits``, else up to a first difference at a near-tie of the
+    reference, with every token held to ``full_transformer`` over the
+    run's own prefix.  Oracle drafts must be accepted in full (a request
+    of a pair that kept both streams takes the fewest rounds; a slot
+    accepts the minimum over its lanes) and rejected only where a
+    stream leaves ``want``'s (``oracle_rounds``), corrupted ones never.
+    Returns the run's record and its launch counts."""
+    import torch
+    sess = batching_session(spec, plan, torch.bfloat16 if ref_logits
+                            is not None else torch.float32,
+                            device, spec_k=SPEC_K)
+    sess.reset_state()
+    sess.set_params(params)
+    fn = None if kind == "self" else oracle_drafts(
+        want, SPEC_K, spec.vocab, kind == "corrupt")
+    reset_counts()
+    rep, rq, w, secs = serve_trace(sess, SPEC_K + 1, SEED, draft_fn=fn)
+    counts = read_counts()
+    ties = worst = None
+    if ref_logits is None:
+        bad = [r.rid for r in rq if r.tokens != want[r.rid]]
+        if bad:
+            raise AssertionError(f"{what} {kind}: requests {bad} differ "
+                                 "from the plain streams")
+        div = 0
+    else:
+        # every token of this run against full_transformer over its own
+        # prefix, past any divergence from want's stream too
+        _, ties, worst, _ = trace_reference(sess, rq)
+        div = same_streams(rq, want, ref_logits, f"{what} {kind}")
+    kept = {r.rid // ROWS for r in rq} - {
+        r.rid // ROWS for r in rq if r.tokens != want[r.rid]}
+    checked = full = None
+    if kind == "oracle":
+        slow = [r.rid for r in rq if r.rid // ROWS in kept
+                and r.step_done - r.step_admitted != max(
+                    -(-(r.max_new_tokens - 1) // (SPEC_K + 1)) - 1, 0)]
+        if slow:
+            raise AssertionError(f"{what} oracle: requests {slow} did not "
+                                 "accept every draft")
+        checked, full = oracle_rounds(w, rq, want, SPEC_K)
+    if kind == "corrupt" and rep.accepted_drafts:
+        raise AssertionError(f"{what} corrupt: {rep.accepted_drafts} "
+                             "corrupted drafts accepted")
+    rec = {"seconds": secs, "steps": rep.steps,
+           "verify_rounds": rep.spec_rounds,
+           "acceptance_rate": rep.acceptance_rate,
+           "accepted_per_round": rep.accepted_per_round,
+           "goodput_tokens_per_s": rep.goodput_tokens_per_s,
+           "verify_ms_mean": float(np.mean([r["ms"] for r in w.rounds])),
+           "acceptance_by_round": [round(float(np.mean(list(
+               r["accepted"].values()))), 3)
+                                   for r in w.rounds],
+           "diverged_at_near_ties": div,
+           "near_tie_positions": ties, "largest_served_gap": worst,
+           "pairs_kept": len(kept),
+           "oracle_slot_rounds_checked": checked,
+           "oracle_slot_rounds_full": full,
+           "paged_launches_q5": counts["paged_attention"]}
+    log(f"[batching] {what} {kind} drafts: {rep.steps} steps, "
+        f"{rep.spec_rounds} verify rounds in {secs:.2f}s "
+        f"({rec['verify_ms_mean']:.2f} ms a round), acceptance "
+        f"{rep.acceptance_rate:.3f}, accepted a round "
+        f"{rec['acceptance_by_round']}; streams equal the plain ones "
+        f"({div} diverge at a near-tie; {len(kept)} of "
+        f"{len(BATCH_TRACE)} pairs keep both)"
+        + ("" if ties is None else
+           f", every token full_transformer's greedy token over its own "
+           f"prefix up to near-ties ({ties} positions with a top-2 gap "
+           f"<= {BATCH_TIE}, largest served gap {worst:.4f})")
+        + ("" if checked is None else
+           f", oracle acceptance held to its streams in {checked} "
+           f"slot-rounds ({full} in full)")
+        + f"; paged launches "
+        f"{counts['paged_attention']} at Q={SPEC_K + 1}")
+    return rec, counts
+
+
+def phase_batching(device, spec, plan):
+    """19a-c (see the module docstring).  Returns the ``batcher`` record,
+    the launches by sub-phase and the verify tile's error."""
+    import dataclasses as dc
+    import torch
+    from collections import Counter
+    from repro_torch.kernels import paged_attention as pa
+    seconds = {}
+    tile_err = verify_tile_check(device)
+
+    # 19a: continuous batching through the Q = 1 decode tile
+    t0 = time.perf_counter()
+    base = batching_session(spec, plan, torch.bfloat16, device).start(SEED)
+    reset_counts()
+    report, reqs, watch, run_s = serve_trace(base, 1, SEED, hidden=True)
+    counts_a = read_counts()
+    if counts_a["paged_attention"] != sum(r["live"] for r in watch.rounds) \
+            * spec.n_layers or counts_a["flash_attention"] \
+            or counts_a["paged_attention_int8"]:
+        raise AssertionError(f"19a launches {counts_a}")
+    hist = Counter(base._bucket_log)
+    if report.pool_stalls < 1:
+        raise AssertionError("19a: no admission queued on a dry pool")
+    shrink = [i for i in range(1, len(watch.rounds))
+              if watch.rounds[i]["bucket"] < watch.rounds[i - 1]["bucket"]]
+    grow = [i for i in shrink for j in range(i + 1, len(watch.rounds))
+            if watch.rounds[j]["bucket"] > watch.rounds[i]["bucket"]]
+    first_done = min(r.step_done for r in reqs)
+    mid = [r.rid for r in reqs if r.step_admitted > first_done]
+    if not shrink or not grow or not mid:
+        raise AssertionError(f"19a: the trace did not shrink the bucket "
+                             f"and grow it back ({shrink}, {grow}) or admit "
+                             f"mid-stream ({mid})")
+    reset_counts()
+    t1 = time.perf_counter()
+    ref_logits, ties, worst, n_tok = trace_reference(base, reqs)
+    ref_s = time.perf_counter() - t1
+    ref_counts = read_counts()
+    # the served path's logits against the reference's at each request's
+    # last position: the bf16 noise BATCH_TIE must cover
+    from repro_torch.models import lm_head
+    fn = base.params["final_norm"]
+    noise = max(float((lm_head.last_logits(
+        base.params["head"], fn["scale"], watch.hidden[r.rid][None, None],
+        vocab=spec.vocab)[0] - ref_logits[r.rid][-1])[:spec.vocab]
+        .abs().max()) for r in reqs)
+    want = {r.rid: list(r.tokens) for r in reqs}
+    decode_ms = [r["ms"] for r in watch.rounds]
+    by_live = {n: float(np.mean([r["ms"] for r in watch.rounds
+                                 if r["live"] == n]))
+               for n in sorted({r["live"] for r in watch.rounds})}
+    seconds["19a"] = time.perf_counter() - t0
+    log(f"[batching] 19a {spec.name} bf16 pp {plan.pp}, R {R_SLOTS} x "
+        f"{ROWS}, pool {BATCH_POOL} pages: {len(reqs)} requests, "
+        f"{report.completed_tokens} tokens, {report.steps} steps "
+        f"({report.decode_rounds} decode + {report.admit_rounds} admit "
+        f"rounds) in {run_s:.2f}s; decode ms by live slots "
+        f"{ {k: round(v, 2) for k, v in by_live.items()} }; buckets "
+        f"{dict(sorted(hist.items()))}; admissions queued on a dry pool "
+        f"{report.pool_stalls}; mid-stream admissions {mid}; paged "
+        f"launches {counts_a['paged_attention']} (Q=1), each round layers "
+        f"x live slots; tokens equal full_transformer's greedy tokens at "
+        f"all {n_tok} positions up to near-ties ({ties} positions with a "
+        f"top-2 gap <= {BATCH_TIE}, largest served gap {worst:.4f}; served "
+        f"vs reference logits at the last positions max|diff| {noise:.4f}); "
+        f"reference {ref_s:.2f}s, {ref_counts['flash_attention']} flash "
+        f"launches")
+
+    # 19b: speculative decode through the Q = spec_k + 1 verify tile
+    t0 = time.perf_counter()
+    spec_plan = plan.with_(schedule="serve_spec_1f")
+    plain = pa.paged_attention_plain
+
+    def refuse(*a, **kw):
+        raise AssertionError("verify called the paged kernel's plain version")
+
+    spec_runs, counts_b = {}, {}
+    pa.paged_attention_plain = refuse
+    try:
+        for kind in ("self", "oracle", "corrupt"):
+            spec_runs[kind], counts_b[kind] = spec_run(
+                device, spec, spec_plan, base.params, kind, want,
+                ref_logits, "19b")
+    finally:
+        pa.paged_attention_plain = plain
+    del base
+    torch.cuda.empty_cache()
+    seconds["19b"] = time.perf_counter() - t0
+
+    # 19c: fp32 at 4 layers: batched = solo, interleaved = 1f, spec = plain
+    t0 = time.perf_counter()
+    short = dc.replace(spec, name=f"{spec.name}-{BATCH_CONS_LAYERS}l",
+                       n_layers=BATCH_CONS_LAYERS,
+                       blocks=spec.blocks[:BATCH_CONS_LAYERS])
+    f32 = torch.float32
+    one = batching_session(short, plan, f32, device).start(SEED)
+    _, reqs32, w32, _ = serve_trace(one, 1, SEED, hidden=True)
+    toks32 = {r.rid: list(r.tokens) for r in reqs32}
+    err_solo = 0.0
+    from repro_torch.serving.engine import build_serving
+    for r in reqs32:
+        solo = build_serving(short, plan, cache_len=CACHE_LEN,
+                             global_batch=1, compute_dtype=f32,
+                             page_size=PAGE, device=device)
+        solo.reset_state()
+        solo.set_params(one.params)
+        nxt = solo.prefill({"tokens": r.prompt[None, None]})
+        out = [int(nxt[0])]
+        for _ in range(r.max_new_tokens - 1):
+            nxt = solo.decode(nxt)
+            out.append(int(nxt[0]))
+        if out != toks32[r.rid]:
+            raise AssertionError(f"19c: request {r.rid} batched "
+                                 f"{toks32[r.rid]} != alone {out}")
+        # phase 4's tolerance for engine hidden states: alone, every
+        # matmul has one row instead of two, and the card's fp32 GEMMs
+        # tile (and so sum) differently by row count
+        err_solo = max(err_solo, check_close(
+            f"19c request {r.rid} last hidden, batched vs alone",
+            w32.hidden[r.rid], solo.last_hidden[0, -1], 1e-4, 1e-4))
+    inter_plan = plan.with_(schedule="serve_interleaved", virtual_stages=2)
+    inter = batching_session(short, inter_plan, f32, device)
+    inter.reset_state()
+    inter.set_params(interleaved_params(one.params, plan.pp, 2, inter.sched))
+    _, reqs_i, w_i, _ = serve_trace(inter, 1, SEED, hidden=True)
+    if {r.rid: r.tokens for r in reqs_i} != toks32:
+        raise AssertionError("19c: serve_interleaved tokens != serve_1f's")
+    err_inter = max(check_close(f"19c request {rid} last hidden, "
+                                "interleaved vs 1f", w_i.hidden[rid], h,
+                                1e-5, 1e-5)
+                    for rid, h in w32.hidden.items())
+    del inter
+    spec32 = {kind: spec_run(device, short, spec_plan, one.params, kind,
+                             toks32, None, "19c")[0]["acceptance_rate"]
+              for kind in ("self", "oracle", "corrupt")}
+    del one
+    torch.cuda.empty_cache()
+    seconds["19c"] = time.perf_counter() - t0
+    log(f"[batching] 19c fp32 {BATCH_CONS_LAYERS} layers: the trace batched "
+        f"equals each request alone in tokens, last hidden max|err| "
+        f"{err_solo:.3e} (atol/rtol 1e-4); serve_interleaved pp {plan.pp} "
+        f"x v 2 equals "
+        f"serve_1f in tokens, hidden {err_inter:.3e} (atol/rtol 1e-5); "
+        f"speculative tokens equal the plain tokens with self, oracle and "
+        f"corrupted drafts (acceptance {spec32})")
+
+    lat = report.per_token_latency_s()
+    ttft = np.asarray([r.t_first - r.t_arrival for r in report.completed])
+    record = {
+        "model": spec.name, "schedule": "serve_1f", "pp": plan.pp,
+        "slots": R_SLOTS, "rows": ROWS, "page": PAGE,
+        "pool_pages": BATCH_POOL, "prefill_len": PREFILL,
+        "cache_len": CACHE_LEN, "requests": len(reqs),
+        "tokens": report.completed_tokens, "steps": report.steps,
+        "decode_rounds": report.decode_rounds,
+        "admit_rounds": report.admit_rounds, "seconds": run_s,
+        "goodput_tokens_per_s": report.goodput_tokens_per_s,
+        "ttft_p50_s": float(np.percentile(ttft, 50)),
+        "ttft_p99_s": float(np.percentile(ttft, 99)),
+        "per_token_latency_p50_s": float(np.percentile(lat, 50)),
+        "per_token_latency_p99_s": float(np.percentile(lat, 99)),
+        "decode_ms_by_live_slots": by_live,
+        "decode_ms_mean": float(np.mean(decode_ms)),
+        "admit_ms": [round(a["ms"], 2) for a in watch.admits],
+        "bucket_histogram": dict(sorted(hist.items())),
+        "pool_dry_stalls": report.pool_stalls,
+        "near_tie_positions": ties, "largest_served_gap": worst,
+        "logit_diff_vs_reference": noise,
+        "spec_k": SPEC_K, "speculative": spec_runs,
+        "acceptance_rate": spec_runs["self"]["acceptance_rate"],
+        "fp32_hidden_err": {"batched_vs_alone": err_solo,
+                            "interleaved_vs_1f": err_inter},
+        "fp32_acceptance": spec32,
+        "seconds_by_part": seconds}
+    launches = {"decode_q1": counts_a["paged_attention"],
+                "reference_flash": ref_counts["flash_attention"],
+                "verify_q5": sum(c["paged_attention"]
+                                 for c in counts_b.values())}
+    return record, launches, tile_err
+
+
+def interleaved_params(params, S, v, sched):
+    """``serve_1f`` parameters (S stages of L/S layers) as
+    ``serve_interleaved``'s: S·v chunks of L/(S·v) layers, stacked in the
+    schedule's storage order (row s·v + j holds chunk j·S + s)."""
+    import torch
+    lps = len(params["stages"])
+    lpc = S * lps // (S * v)
+    order = sched.storage_chunk_order().tolist()
+
+    def layer(g, node):
+        if isinstance(node, dict):
+            return {k: layer(g, x) for k, x in node.items()}
+        return node[g // lps]
+
+    def stack(nodes):
+        if isinstance(nodes[0], dict):
+            return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
+        return torch.stack(nodes)
+
+    glob = [layer(g, params["stages"][f"layer_{g % lps}"])
+            for g in range(S * lps)]
+    flat_w = [w for row in params["layer_windows"] for w in row]
+    flat_t = [t for row in params["layer_thetas"] for t in row]
+    out = dict(params)
+    out["stages"] = {f"layer_{k}": stack([glob[c * lpc + k] for c in order])
+                     for k in range(lpc)}
+    out["layer_windows"] = [[flat_w[c * lpc + k] for k in range(lpc)]
+                            for c in order]
+    out["layer_thetas"] = [[flat_t[c * lpc + k] for k in range(lpc)]
+                           for c in order]
+    return out
+
+
+def verify_record(device, err, launches):
+    """The paged kernel at the verify tile of 19b: bf16 q (2, SPEC_K + 1,
+    40, 128), PREFILL + 37 keys a row (a round from mid-page), enough
+    input sets cycled to fill L2 four times."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    lengths = [PREFILL + 37, PREFILL + 37]
+    live = 2 * sum(-(-n // PAGE) for n in lengths) * PAGE * 8 * 128 * 2
+    n_sets = -(-4 * L2_BYTES // live)
+    sets, tab, lens = paged_inputs(torch.bfloat16, device, SPEC_K + 1,
+                                   lengths, seed=21, n_copies=n_sets)
+    it = {"i": 0}
+
+    def run(fn):
+        def call():
+            q, kp, vp = sets[it["i"] % n_sets]
+            it["i"] += 1
+            fn(q, kp, vp, tab, lens)
+        return call
+
+    # three profiles in one run: the tile's device time moved 1.7x
+    # between two runs of the whole script, so its spread is recorded
+    ms_repeats = [device_ms(run(pa.paged_attention), 2 * n_sets,
+                            "paged_attention") for _ in range(3)]
+    ms = float(np.median(ms_repeats))
+    ms_events = time_ms(run(pa.paged_attention))
+    plain = time_ms(run(pa.paged_attention_plain))
+    nbytes, flops = paged_bytes_flops(sets[0][0], sets[0][1], tab, lengths,
+                                      -1)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS["bfloat16"]
+    return {"name": "paged_attention_verify", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention.py:51",
+            "launches": launches, "launches_by_path": {
+                "qwen3_speculative_serve": launches},
+            "max_abs_err": err, "tolerance": TOL, "ms": ms,
+            "ms_repeats": ms_repeats,
+            "ms_events": ms_events, "ms_by": PAGED_MS_BY,
+            "plain_ms": plain, "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "bytes": nbytes, "flops": flops,
+            "shape": {"q": list(sets[0][0].shape),
+                      "pool": list(sets[0][1].shape), "lengths": lengths}}
+
+
 def kernel_records(device, errs, launches):
     import torch
     import torch.nn.functional as F
@@ -3584,6 +4252,7 @@ def main() -> int:
     cfg = configs.get("qwen3-14b")
     full = cfg.full_spec()
     plan = cfg.PLAN.with_(tp=1, decode_microbatches=R_SLOTS)
+    qwen_full, qwen_plan = full, plan
     session, prompts, toks, paged_launches, prof_qwen, serve = phase_serve(
         device, full, plan)
     flash_launches = phase_reference(session, prompts, toks)
@@ -3673,10 +4342,16 @@ def main() -> int:
     ckpt_recs, obs_rec, ckpt_s, ckpt_counts = phase_ckpt_dist(device,
                                                               driver_rows)
     phase_s["18 ckpt dist"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    batch_rec, batch_counts, tile_err = phase_batching(device, qwen_full,
+                                                       qwen_plan)
+    phase_s["19 batching"] = time.perf_counter() - t0
 
     records = kernel_records(device, errs, {
         "paged_attention": {"qwen3_serve": paged_launches,
-                            "jamba_serve": jamba_counts["paged_attention"]},
+                            "jamba_serve": jamba_counts["paged_attention"],
+                            "qwen3_batching": batch_counts["decode_q1"]},
         "paged_attention_int8": {"qwen3_quant_serve": int8_launches},
         "flash_attention": {
             "qwen3_full_transformer": flash_launches,
@@ -3685,6 +4360,7 @@ def main() -> int:
             **{f"qwen3_train_{n}": c["flash_attention"]
                for n, c in virtual_counts.items()},
             "qwen3_plan_profile": plan_counts["flash_attention"],
+            "qwen3_batching_reference": batch_counts["reference_flash"],
             "qwen3_driver": driver_counts["flash_attention"],
             "qwen3_train_two_ranks": dist_counts["flash_attention"],
             "qwen3_driver_two_ranks": ckpt_counts["flash_attention"]},
@@ -3702,6 +4378,8 @@ def main() -> int:
             for design in ("chunked", "stepwise")},
         "mamba_scan": {"serve": jamba_counts["mamba_scan"],
                        "full_transformer": jamba_ref["mamba_scan"]}})
+    records.insert(2, verify_record(device, tile_err,
+                                    batch_counts["verify_q5"]))
     log(f"[phases] seconds: {json.dumps(phase_s)}")
     log(f"[done] {time.perf_counter() - t_start:.1f}s; serve qwen3 {serve}; "
         f"serve rwkv6 {serve_rwkv}; serve jamba {serve_jamba}; serve qwen3 "
@@ -3731,6 +4409,7 @@ def main() -> int:
     for rec in ckpt_recs:
         print(json.dumps({"ckpt_dist": {**rec, "card": card}}))
     print(json.dumps({"obs": {**obs_rec, "card": card}}))
+    print(json.dumps({"batcher": {**batch_rec, "card": card}}))
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -393,14 +393,14 @@ def plan_search(spec, base_plan, model_axis: int, hw: Hardware = H100_SXM,
     Returns the best :class:`PlanChoice` (``return_all=True``: the full
     ranked candidate list instead, infeasible ones included).  Only the
     ``"train"`` workload is ported: ``"decode"`` and ``"prefill"`` need
-    the serving schedules (``serve_interleaved``) and their memory model
-    (``serving_cache_bytes``).
+    the serving memory model (``serving_cache_bytes``) and the
+    ``serve_ttft`` pricing of the serving schedules.
     """
     if workload != "train":
         raise NotImplementedError(
             f"plan_search(workload={workload!r}): the serving workloads "
-            "need serve_interleaved and serving_cache_bytes, which are not "
-            "ported yet")
+            "need the serving memory model (serving_cache_bytes) and its "
+            "pricing, which are not ported yet")
     if profiles is None:
         profiles = profile_analytic(spec, hw,
                                     minibatch_tokens=minibatch_tokens)

@@ -18,18 +18,21 @@ Ported: every training schedule — ``1f1b`` (policies ``stash`` and
 ``vertical``), ``gpipe`` (``flush`` and ``2bw``), and the virtual-stage
 family ``interleaved`` (flush) and ``interleaved_async`` (per-chunk
 weight-version rings) — with the training memory model, and the serving
-schedule ``serve_1f``.  ``serve_interleaved``, the speculative family,
-live-slot masking and the serving memory model come with later slices;
-a plan that names them raises.  The tables are pinned to the JAX
-package by tests/test_torch_spec.py, tests/test_torch_train_schedule.py
-and tests/test_torch_interleaved.py.
+serving family ``serve_1f``, ``serve_interleaved``, ``serve_spec_1f``
+and ``serve_spec_interleaved`` with live-slot masking, bucketed
+variants, ``serve_ttft``, ``bucket_lattice`` and ``pick_bucket``.  The
+serving memory model (``serving_cache_bytes``) comes with a later
+slice; ``ServingSchedule.memory_model`` raises.  The tables are pinned
+to the JAX package by tests/test_torch_spec.py,
+tests/test_torch_train_schedule.py, tests/test_torch_interleaved.py and
+tests/test_torch_serving_slots.py.
 """
 from __future__ import annotations
 
 import dataclasses
 import heapq
 import math
-from typing import Dict, Iterable, List, Tuple, Type
+from typing import Dict, Iterable, List, Optional, Tuple, Type
 
 import numpy as np
 
@@ -189,6 +192,8 @@ class PipelineSchedule:
     needs_group_microbatches = True
     #: forward-only inference schedule (no B slots)
     is_serving = False
+    #: speculative draft–verify serving schedule
+    is_speculative = False
 
     def __post_init__(self):
         assert self.n_stages >= 1 and self.n_microbatches >= 1
@@ -679,11 +684,80 @@ class ServingSchedule(PipelineSchedule):
     ``t_F = s + g·v·S + j·S + o`` with no backward slots, so any R ≥ 1
     is valid.  v = 1 is the classic forward-only 1F pipe (stage s
     forwards microbatch t − s, n_ticks = R + S − 1).
+
+    Slot liveness (continuous batching): ``live_slots``, a sorted tuple
+    of slot indices, masks the tables to a partly occupied batch: a
+    dead slot's F rows and exits become bubbles while live slots keep
+    their full-R timing.  ``validate()`` proves the forward-only
+    contract over the live slots only.  ``None`` means fully live.
     """
+
+    live_slots: Optional[Tuple[int, ...]] = None
 
     name = "abstract_serve"
     plan_stash_modes = ("stash", "vertical", "flush", "2bw")
+    needs_group_microbatches = False
     is_serving = True
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.live_slots is not None:
+            R = self.n_microbatches
+            assert all(0 <= m < R for m in self.live_slots), (
+                f"live_slots {self.live_slots} out of range for R={R}")
+            assert list(self.live_slots) == sorted(set(self.live_slots)), (
+                f"live_slots must be sorted and unique: {self.live_slots}")
+
+    @property
+    def live_count(self) -> int:
+        """Number of live microbatch slots (R when unmasked)."""
+        return (self.n_microbatches if self.live_slots is None
+                else len(self.live_slots))
+
+    def live_mask(self) -> np.ndarray:
+        """Boolean [R] mask of live slots."""
+        mask = np.ones(self.n_microbatches, bool)
+        if self.live_slots is not None:
+            mask[:] = False
+            mask[list(self.live_slots)] = True
+        return mask
+
+    def with_live_slots(self, live) -> "ServingSchedule":
+        """This schedule with only ``live`` slots occupied (None
+        unmasks); live slots keep their timing, dead ones blank."""
+        slots = None if live is None else tuple(sorted(set(int(m)
+                                                          for m in live)))
+        return dataclasses.replace(self, live_slots=slots)
+
+    def bucketed(self, n_live: int) -> "ServingSchedule":
+        """The compacted ``n_live``-slot variant: this schedule with
+        ``n_microbatches = n_live``, the short round a compacted batch
+        whose live slots fill the prefix ``[0, n_live)`` runs.
+
+        Checked on every call: a slot's timing depends only on its own
+        index, so the bucket's tables equal the full-R tables masked to
+        ``range(n_live)`` and cut to the bucket's ticks, and the masked
+        tail past them is all bubble."""
+        R = self.n_microbatches
+        if not 1 <= n_live <= R:
+            raise ValueError(f"bucket size {n_live} outside [1, R={R}]")
+        bucket = dataclasses.replace(self, n_microbatches=n_live,
+                                     live_slots=None)
+        bucket.validate()
+        masked = dataclasses.replace(self, live_slots=None).with_live_slots(
+            range(n_live))
+        bt, mt = bucket.tables(), masked.tables()
+        Tb = bucket.n_ticks
+        assert (bt.fwd == mt.fwd[:Tb]).all(), (
+            "bucketed fwd table is not the masked full-R table with dead "
+            "slots deleted")
+        assert (bt.exit_mb == mt.exit_mb[:Tb]).all(), (
+            "bucketed exit table diverges from the masked full-R exits")
+        assert (mt.fwd[Tb:, :, F_MB] < 0).all() and (
+            mt.exit_mb[Tb:] < 0).all(), (
+            "masked full-R table still schedules work past the bucket's "
+            "last tick")
+        return bucket
 
     @property
     def n_ticks(self) -> int:
@@ -726,15 +800,28 @@ class ServingSchedule(PipelineSchedule):
                     fwd[t, s, F_RESID_WRITE] = 0
                     if c == S * v - 1:
                         exit_mb[t] = m
+        if self.live_slots is not None:
+            # dead slots' rows blank to bubbles; live slots keep their
+            # full-R timing
+            live = self.live_mask()
+            mb = fwd[:, :, F_MB]
+            dead = (mb >= 0) & ~live[np.clip(mb, 0, R - 1)]
+            fwd[dead] = -1
+            edead = (exit_mb >= 0) & ~live[np.clip(exit_mb, 0, R - 1)]
+            exit_mb[edead] = -1
         return ScheduleTables(fwd, bwd, exit_mb, demb)
 
     def validate(self) -> None:
-        """Forward-only dataflow contract: exactly one F per (microbatch,
-        chunk), one-tick hops across chunk boundaries, embeds consumed
-        exactly at chunk 0, no backward, exit-table agreement."""
+        """Forward-only dataflow contract over the live slots: exactly
+        one F per (live microbatch, chunk), one-tick hops across chunk
+        boundaries (wraps included), embeds consumed exactly at chunk 0,
+        no backward, exit-table agreement; a masked table keeps every
+        live slot's exit tick."""
         S, R, v = self.n_stages, self.n_microbatches, self.virtual_stages
         tabs = self.tables()
         T, L = self.n_ticks, S * v
+        live = self.live_mask()
+        live_mbs = [m for m in range(R) if live[m]]
         assert tabs.fwd.shape == (T, S, F_COLS), tabs.fwd.shape
         assert tabs.bwd.shape == (T, S, B_COLS), tabs.bwd.shape
         assert (tabs.bwd[:, :, B_MB] < 0).all(), "serving is forward-only"
@@ -745,21 +832,32 @@ class ServingSchedule(PipelineSchedule):
                 fr = tabs.fwd[t, s]
                 if fr[F_MB] < 0:
                     continue
+                assert live[int(fr[F_MB])], (
+                    f"tick {t} stage {s}: dead slot {int(fr[F_MB])} "
+                    "scheduled")
                 c = int(fr[F_CHUNK]) * S + s
                 key = (int(fr[F_MB]), c)
                 assert key not in f_time, f"duplicate F{key}"
                 assert (fr[F_FROM_EMBEDS] == 1) == (c == 0), (t, s)
                 f_time[key] = t
-        assert len(f_time) == R * L, (len(f_time), R * L)
-        for m in range(R):
+        assert len(f_time) == len(live_mbs) * L, (
+            len(f_time), len(live_mbs) * L)
+        for m in live_mbs:
             for c in range(1, L):
                 assert f_time[(m, c)] == f_time[(m, c - 1)] + 1, (m, c)
         for t in range(T):
             fr = tabs.fwd[t, S - 1]
             is_exit = fr[F_MB] >= 0 and fr[F_CHUNK] == v - 1
             assert tabs.exit_mb[t] == (fr[F_MB] if is_exit else -1), t
-        assert int((tabs.exit_mb >= 0).sum()) == R
-        assert tabs.exit_mb[T - 1] >= 0, "round must end on the last exit"
+        assert int((tabs.exit_mb >= 0).sum()) == len(live_mbs)
+        if self.live_slots is None:
+            assert tabs.exit_mb[T - 1] >= 0, "round must end on the last exit"
+        else:
+            full = dataclasses.replace(self, live_slots=None)
+            fx = full.tables().exit_mb
+            keep = (fx >= 0) & live[np.clip(fx, 0, R - 1)]
+            assert (tabs.exit_mb == np.where(keep, fx, -1)).all(), (
+                "masked exit table moved a live slot's exit tick")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -767,6 +865,167 @@ class ScheduleServe1F(ServingSchedule):
     """Forward-only 1F serving pipe: stage s forwards microbatch t − s."""
 
     name = "serve_1f"
+
+    @classmethod
+    def from_plan(cls, plan) -> "ScheduleServe1F":
+        return cls(plan.pp, plan.decode_microbatches)
+
+
+@dataclasses.dataclass(frozen=True)
+class ScheduleServeInterleaved(ServingSchedule):
+    """Forward-only interleaved serving: v chunks per physical stage.
+
+    The training interleaved family's chunk placement and storage order
+    (chunk c = j·S + s on stage s as local chunk j, storage row s·v + j),
+    so a batch prefill completes in R + (S − 1)/v stage passes instead
+    of 1F's R + (S − 1) (:func:`serve_ttft`).
+    """
+
+    virtual_stages: int = 2
+
+    name = "serve_interleaved"
+    takes_virtual_stages = True
+
+    def __post_init__(self):
+        super().__post_init__()
+        assert self.virtual_stages >= 1, self.virtual_stages
+
+    storage_chunk_order = ScheduleInterleaved1F1B.storage_chunk_order
+
+    @classmethod
+    def from_plan(cls, plan) -> "ScheduleServeInterleaved":
+        return cls(plan.pp, plan.decode_microbatches,
+                   virtual_stages=getattr(plan, "virtual_stages", 1) or 1)
+
+
+class _SpeculativeServe:
+    """Mixin: the draft–verify accept / rollback contract.
+
+    A round feeds each live slot ``spec_k + 1`` tokens (its current
+    token and ``spec_k`` drafts) through the unchanged serve tables;
+    greedy verification accepts the longest draft prefix matching the
+    verifier's argmax, emits ``accepted + 1`` tokens and rolls the other
+    ``spec_k - accepted`` positions back (a position decrement, and in
+    paged mode the release of the rejected suffix's pages).
+    """
+
+    is_speculative = True
+
+    @property
+    def verify_qlen(self) -> int:
+        """Positions scored per slot per round: spec_k drafts + 1."""
+        return self.spec_k + 1
+
+    def accept_pos_delta(self, accepted: int) -> Tuple[int, int]:
+        """(advance, rolled_back) = (accepted + 1, spec_k − accepted) for
+        a slot that accepted ``accepted`` drafts; outside [0, spec_k]
+        raises."""
+        a = int(accepted)
+        if not 0 <= a <= self.spec_k:
+            raise ValueError(
+                f"accepted={accepted} outside [0, spec_k={self.spec_k}]")
+        return a + 1, self.spec_k - a
+
+    def rollback_table(self) -> np.ndarray:
+        """Tick -> slot whose rejected suffix resolves: a slot's
+        acceptance is known the tick its last chunk exits, so this
+        mirrors ``tables().exit_mb``."""
+        return np.asarray(self.tables().exit_mb).copy()
+
+    def validate(self) -> None:
+        """Forward-only contract plus the accept / rollback contract."""
+        super().validate()
+        k = self.spec_k
+        assert k >= 1, f"spec_k={k} must be >= 1 for a speculative schedule"
+        rb = self.rollback_table()
+        tabs = self.tables()
+        assert rb.shape == tabs.exit_mb.shape and (rb == tabs.exit_mb).all(), (
+            "rollback table must resolve each slot at its exit tick")
+        live = self.live_mask()
+        counts = np.bincount(rb[rb >= 0], minlength=self.n_microbatches)
+        for m in range(self.n_microbatches):
+            assert counts[m] == (1 if live[m] else 0), (
+                f"slot {m} resolves {counts[m]} times per round")
+        for a in range(k + 1):
+            adv, rolled = self.accept_pos_delta(a)
+            assert adv == a + 1 and rolled == k - a, (a, adv, rolled)
+            assert adv + rolled == self.verify_qlen and adv >= 1
+        try:
+            self.accept_pos_delta(k + 1)
+            raise AssertionError("accept_pos_delta(k+1) must raise")
+        except ValueError:
+            pass
+
+
+@dataclasses.dataclass(frozen=True)
+class ScheduleServeSpec1F(_SpeculativeServe, ScheduleServe1F):
+    """Speculative draft–verify decode on the 1F serving pipe: the
+    ``serve_1f`` tick program with rows ``spec_k + 1`` positions wide."""
+
+    spec_k: int = 4
+
+    name = "serve_spec_1f"
+
+    def __post_init__(self):
+        super().__post_init__()
+        assert self.spec_k >= 1, (
+            f"spec_k={self.spec_k} must be >= 1 (0 drafts is plain "
+            "serve_1f)")
+
+
+@dataclasses.dataclass(frozen=True)
+class ScheduleServeSpecInterleaved(_SpeculativeServe,
+                                   ScheduleServeInterleaved):
+    """Speculative draft–verify decode on the interleaved serving pipe."""
+
+    spec_k: int = 4
+
+    name = "serve_spec_interleaved"
+
+    def __post_init__(self):
+        super().__post_init__()
+        assert self.spec_k >= 1, (
+            f"spec_k={self.spec_k} must be >= 1 (0 drafts is plain "
+            "serve_interleaved)")
+
+
+def serve_ttft(sched: PipelineSchedule, t_fwd=1.0) -> float:
+    """Weighted time-to-first-token of a prefill round: the F-phase walk
+    (each tick costs its slowest active stage's forward, a chunk slot
+    1/v of a stage pass) through the tick where the last microbatch
+    exits."""
+    tabs = sched.tables()
+    S, v = sched.n_stages, sched.virtual_stages
+    tf = np.broadcast_to(np.asarray(t_fwd, float), (S,))
+    fbusy = tabs.fwd[:, :, F_MB] >= 0
+    f_phase = np.where(fbusy, tf[None, :], 0.0).max(axis=1) / v
+    exits = np.flatnonzero(tabs.exit_mb >= 0)
+    assert exits.size, "schedule has no exit ticks"
+    return float(f_phase[: int(exits[-1]) + 1].sum())
+
+
+def bucket_lattice(R: int) -> Tuple[int, ...]:
+    """The compacted-variant sizes a bucketed engine runs: powers of two
+    below R, and R itself (R = 6 -> (1, 2, 4, 6))."""
+    if R < 1:
+        raise ValueError(f"R={R} must be >= 1")
+    lat = []
+    b = 1
+    while b < R:
+        lat.append(b)
+        b *= 2
+    lat.append(R)
+    return tuple(lat)
+
+
+def pick_bucket(n_live: int, lattice: Iterable[int]) -> int:
+    """Smallest lattice entry that fits ``n_live`` live slots (an empty
+    batch runs the smallest bucket)."""
+    fits = sorted(b for b in lattice if b >= max(1, int(n_live)))
+    if not fits:
+        raise ValueError(
+            f"no bucket in {sorted(lattice)} fits {n_live} live slots")
+    return fits[0]
 
 
 def weighted_round_time(sched: PipelineSchedule, t_fwd=1.0, t_bwd=2.0
@@ -803,10 +1062,12 @@ SCHEDULES: Dict[str, Type[PipelineSchedule]] = {
     "interleaved": ScheduleInterleaved1F1B,
     "interleaved_async": ScheduleInterleavedAsync1F1B,
     "serve_1f": ScheduleServe1F,
+    "serve_interleaved": ScheduleServeInterleaved,
+    "serve_spec_1f": ScheduleServeSpec1F,
+    "serve_spec_interleaved": ScheduleServeSpecInterleaved,
 }
 #: registered in the JAX package, still to port
-NOT_PORTED = ("serve_interleaved", "serve_spec_1f",
-              "serve_spec_interleaved")
+NOT_PORTED: Tuple[str, ...] = ()
 
 
 def _lookup(name: str) -> Type[PipelineSchedule]:
@@ -849,9 +1110,8 @@ def make_schedule(plan) -> PipelineSchedule:
     """The schedule a plan asks for.
 
     ``plan.schedule='auto'`` derives it from ``stash_mode``:
-    stash / vertical -> 1f1b, flush / 2bw -> gpipe.  A name the port
-    does not have (the interleaved and speculative serving schedules)
-    raises KeyError.
+    stash / vertical -> 1f1b, flush / 2bw -> gpipe.  A name the
+    registry does not hold raises KeyError.
     """
     name = getattr(plan, "schedule", "auto")
     if name == "auto":
@@ -878,30 +1138,42 @@ def fit_serving_microbatches(decode_microbatches: int, global_batch: int,
     return R
 
 
-def make_serving_schedule(plan, n_microbatches: int = None
-                          ) -> ServingSchedule:
-    """The forward-only schedule a plan asks for.
+def make_serving_schedule(plan, n_microbatches: int = None,
+                          spec_k: int = None) -> ServingSchedule:
+    """The forward-only schedule a plan asks for, from the registry.
 
     A plan naming a serving schedule gets it; ``'auto'`` and a
-    registered training schedule map onto ``serve_1f`` (single-chunk
-    plans; the interleaved serving analogue is not ported yet).
-    ``n_microbatches`` overrides ``plan.decode_microbatches`` (the engine
-    passes its batch-fitted R).  Other names raise: the interleaved and
-    speculative serving schedules are not ported yet.
+    registered training schedule map onto the serving analogue of their
+    chunking: ``serve_interleaved`` at ``virtual_stages > 1``, else
+    ``serve_1f``.  ``n_microbatches`` overrides
+    ``plan.decode_microbatches`` (the engine passes its batch-fitted R).
+    ``spec_k`` overrides the draft depth of a speculative schedule and
+    raises for any other.  Unknown names raise KeyError.
     """
     name = getattr(plan, "schedule", "auto")
     cls = SCHEDULES.get(name)
-    if (name == "auto" or (cls is not None and not cls.is_serving)) \
-            and plan.virtual_stages == 1:
-        name, cls = "serve_1f", SCHEDULES["serve_1f"]
+    if name == "auto" or (cls is not None and not cls.is_serving):
+        name = ("serve_interleaved" if plan.virtual_stages > 1
+                else "serve_1f")
+        cls = SCHEDULES[name]
     if cls is None or not cls.is_serving:
         raise KeyError(
-            f"no serving schedule {name!r} (virtual_stages="
-            f"{plan.virtual_stages}) in the port's registry; registered: "
-            f"{sorted(SCHEDULES)}")
+            f"no serving schedule {name!r} in the registry; registered "
+            f"serving schedules: "
+            f"{sorted(n for n, c in SCHEDULES.items() if c.is_serving)}")
+    if spec_k is not None and not cls.is_speculative:
+        raise ValueError(
+            f"spec_k={spec_k} passed but schedule {name!r} is not "
+            "speculative; speculative serving schedules: "
+            f"{sorted(n for n, c in SCHEDULES.items() if c.is_speculative)}")
     R = (n_microbatches if n_microbatches is not None
          else plan.decode_microbatches)
-    return cls(plan.pp, R)
+    kw = {}
+    if cls.takes_virtual_stages:
+        kw["virtual_stages"] = plan.virtual_stages
+    if spec_k is not None:
+        kw["spec_k"] = int(spec_k)
+    return cls(plan.pp, R, **kw)
 
 
 def paper_noam(total_machines: int, input_stage_machines: int) -> int:

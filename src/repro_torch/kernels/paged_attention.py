@@ -10,7 +10,8 @@ unallocated); the Q queries of a row sit at positions
 among themselves).  int8 pools carry (P, KV) f32 scale planes
 (``k_scale`` / ``v_scale``), one per page and KV head, as the TPU
 kernel's quantized branch does; launches of that variant are counted
-apart, in ``paged_attention.launches_int8``.
+apart, in ``paged_attention.launches_int8``, and launches of either
+variant by their query count in ``paged_attention.launches_by_q``.
 
 The kernel splits each row's pages across the SMs (flash-decoding):
 :func:`plan_splits` picks the split count from static shapes, each
@@ -305,8 +306,12 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
         paged_attention.launches_int8 += 1
     else:
         paged_attention.launches += 1
+    by_q = paged_attention.launches_by_q
+    by_q[ql] = by_q.get(ql, 0) + 1
     return out[:, 0] if squeeze else out
 
 
 paged_attention.launches = 0
 paged_attention.launches_int8 = 0
+#: launches of either variant by query count Q (1 decode, spec_k + 1 verify)
+paged_attention.launches_by_q = {}

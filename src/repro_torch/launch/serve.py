@@ -1,39 +1,91 @@
-"""One-shot pipelined serving (port of ``repro/launch/serve.py``): prefill
-a batch of random prompts, then decode ``--tokens`` steps.
+"""Pipelined serving (port of ``repro/launch/serve.py``): a one-shot
+batch of random prompts (prefill, then ``--tokens`` decode steps or
+draft–verify rounds), or a request trace through the continuous batcher
+(``--arrivals``).
 
 Runs on the card by default (``--device cpu`` runs the plain PyTorch
 versions of the kernels).  ``--smoke`` serves the architecture's small
 smoke spec in fp32; otherwise the full spec in bf16, every stage of the
 plan on one device.
 
-``--prefill`` is also the prompt length the session is sized for
-(``prefill_len``: it sets the MoE expert capacity).
+``--prefill`` is the prompt width the session is sized for
+(``prefill_len``: the batcher's prompt width, and the MoE expert
+capacity).
 
   python -m repro_torch.launch.serve --arch qwen3-14b --page-size 16
   python -m repro_torch.launch.serve --arch qwen3-14b --smoke --device cpu
-  python -m repro_torch.launch.serve --arch jamba-v0.1-52b --smoke \
+  python -m repro_torch.launch.serve --arch qwen3-14b --smoke \\
+      --device cpu --page-size 16 --buckets --arrivals 0,0,2,4
+  python -m repro_torch.launch.serve --arch qwen3-14b --smoke \\
+      --device cpu --page-size 16 --spec-k 2 --arrivals poisson:0.5:8
+  python -m repro_torch.launch.serve --arch qwen3-14b --smoke \\
+      --device cpu --schedule serve_interleaved --virtual-stages 2
+  python -m repro_torch.launch.serve --arch jamba-v0.1-52b --smoke \\
       --device cpu --page-size 16
-  python -m repro_torch.launch.serve --arch qwen3-14b --smoke \
+  python -m repro_torch.launch.serve --arch qwen3-14b --smoke \\
       --device cpu --page-size 16 --weight-dtype int8 --kv-dtype int8
-  python -m repro_torch.launch.serve --arch qwen3-14b --smoke \
-      --device cpu --page-size 16 --trace-out /tmp/t.json \
+  python -m repro_torch.launch.serve --arch qwen3-14b --smoke \\
+      --device cpu --page-size 16 --trace-out /tmp/t.json \\
       --metrics-out /tmp/m.json
 
 ``--trace-out`` / ``--metrics-out`` write the session's Chrome trace (one
 track per stage) and metrics snapshot (``repro_torch.obs``); the run
-then prints the decode rounds' ``reconcile`` line.
+then prints the decode (and verify) rounds' ``reconcile`` lines.
 """
 from __future__ import annotations
 
 import argparse
 import time
+from collections import Counter
 
 import numpy as np
 import torch
 
 from repro_torch import configs, resolve_device
+from repro_torch.core.schedule import SCHEDULES, plan_kwargs_for_schedule
 from repro_torch.obs import Observability, reconcile
 from repro_torch.serving.engine import build_serving
+
+_ARRIVALS_HELP = ("accepted --arrivals formats: 't0,t1,...' "
+                  "(comma-separated non-negative integer arrival steps, "
+                  "one request each) or 'poisson:RATE:N' (N requests, "
+                  "exponential inter-arrival at RATE requests/step, "
+                  "e.g. 'poisson:0.5:32')")
+
+
+def parse_arrivals(spec_str: str, seed: int = 0):
+    """'t0,t1,...' explicit steps, or 'poisson:RATE:N' (RATE requests a
+    step); a malformed spec raises ValueError naming the formats."""
+    if spec_str.startswith("poisson:"):
+        parts = spec_str.split(":")
+        if len(parts) != 3:
+            raise ValueError(
+                f"malformed arrivals spec {spec_str!r}: poisson traces "
+                f"need both a rate and a count; {_ARRIVALS_HELP}")
+        try:
+            rate, n = float(parts[1]), int(parts[2])
+        except ValueError:
+            raise ValueError(
+                f"malformed arrivals spec {spec_str!r}: RATE must be a "
+                f"number and N an integer; {_ARRIVALS_HELP}") from None
+        if rate <= 0 or n <= 0:
+            raise ValueError(
+                f"malformed arrivals spec {spec_str!r}: RATE and N must "
+                f"be positive; {_ARRIVALS_HELP}")
+        rng = np.random.default_rng(seed)
+        gaps = rng.exponential(scale=1.0 / rate, size=n)
+        return np.floor(np.cumsum(gaps)).astype(int).tolist()
+    try:
+        steps = [int(t) for t in spec_str.split(",")]
+    except ValueError:
+        raise ValueError(
+            f"malformed arrivals spec {spec_str!r}: non-numeric arrival "
+            f"step; {_ARRIVALS_HELP}") from None
+    if any(t < 0 for t in steps):
+        raise ValueError(
+            f"malformed arrivals spec {spec_str!r}: arrival steps must "
+            f"be non-negative; {_ARRIVALS_HELP}")
+    return steps
 
 
 def _sync(device) -> None:
@@ -41,7 +93,100 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def serve_arrivals(session, spec, args) -> None:
+    """Continuous batching over a request trace (``--arrivals``)."""
+    from repro_torch.serving.batcher import ContinuousBatchingSession, Request
+    arrivals = parse_arrivals(args.arrivals, seed=args.seed)
+    rng = np.random.default_rng(args.seed)
+    trace = [Request(rid=i,
+                     prompt=rng.integers(1, spec.vocab, session.prefill_len)
+                     .astype(np.int32),
+                     max_new_tokens=args.tokens, arrival=int(t))
+             for i, t in enumerate(sorted(arrivals))]
+    session.start(args.seed)
+    server = ContinuousBatchingSession(session, policy=args.policy)
+    t0 = time.perf_counter()
+    report = server.run(trace)
+    _sync(session.device)
+    dt = time.perf_counter() - t0
+    s = report.summary()
+    print(f"{args.policy} batching: {s['requests']} requests over "
+          f"{session.n_slots} slots, {s['steps']} steps "
+          f"({s['decode_rounds']} decode + {s['admit_rounds']} admit "
+          f"rounds) in {dt:.2f}s")
+
+    def fmt_ms(v):
+        return "n/a" if v is None else f"{v * 1e3:.1f} ms"
+
+    print(f"  goodput {s['goodput_tokens_per_s']:.1f} tok/s; per-token "
+          f"latency p50 {fmt_ms(s['p50_per_token_latency_s'])} / "
+          f"p99 {fmt_ms(s['p99_per_token_latency_s'])}; mean TTFT "
+          f"{fmt_ms(s['mean_ttft_s'])}")
+    if s.get("spec_rounds"):
+        print(f"  speculative: {s['spec_rounds']} verify rounds, "
+              f"acceptance {s['acceptance_rate']:.2f}, "
+              f"{s['accepted_per_round']:.2f} accepted tok/lane-round "
+              "(goodput counts accepted tokens only)")
+    if session.buckets and session._bucket_log:
+        hist = Counter(session._bucket_log)
+        print("  bucket rounds: " + ", ".join(
+            f"R_b={b} x{hist[b]}" for b in sorted(hist)))
+    for r in report.requests[:8]:
+        print(f"  request {r.rid}: arrival step {r.arrival}, admitted "
+              f"{r.step_admitted}, done {r.step_done}, "
+              f"tokens {r.tokens[:6]}{'...' if len(r.tokens) > 6 else ''}")
+
+
+def serve_batch(session, spec, args) -> None:
+    """One-shot batch: prefill, then decode steps or draft–verify
+    rounds."""
+    device = session.device
+    session.start(args.seed)
+    rng = np.random.default_rng(args.seed)
+    prompts = rng.integers(0, spec.vocab, (session.n_slots, session.rows,
+                                           args.prefill)).astype(np.int32)
+    t0 = time.perf_counter()
+    nxt = session.prefill({"tokens": prompts})
+    _sync(device)
+    print(f"prefill[{args.prefill}] batch={args.batch}: "
+          f"{time.perf_counter() - t0:.3f}s first tokens "
+          f"{nxt[:8].tolist()}")
+    if session.speculative:
+        # draft–verify rounds: each commits 1..spec_k+1 tokens a slot
+        last = nxt.cpu().numpy().astype(np.int32)
+        emitted, rounds, acc_total, sample = 0, 0, 0, []
+        t0 = time.perf_counter()
+        while emitted < args.tokens * args.batch:
+            drafts = session.draft(last)
+            toks = np.concatenate([last[:, None], drafts], axis=1)
+            scores, acc = session.verify(toks)
+            rounds += 1
+            acc_total += int(acc.sum())
+            emitted += int((acc + 1).sum()) * session.rows
+            sample.append(int(scores[0, 0]))
+            last = scores[np.arange(scores.shape[0]),
+                          acc.repeat(session.rows)].astype(np.int32)
+        dt = time.perf_counter() - t0
+        print(f"spec-decoded {emitted} tokens in {rounds} verify rounds "
+              f"(k={session.sched.spec_k}, mean accepted/round "
+              f"{acc_total / max(rounds * session.n_slots, 1):.2f}) in "
+              f"{dt:.3f}s ({emitted / max(dt, 1e-9):.1f} tok/s)")
+        print("sample (first emitted/round):", sample[:args.tokens])
+        return
+    outs = []
+    t0 = time.perf_counter()
+    for _ in range(args.tokens):
+        nxt = session.decode(nxt)
+        outs.append(nxt)
+    _sync(device)
+    dt = time.perf_counter() - t0
+    print(f"decoded {args.tokens} steps x {args.batch} seqs in {dt:.3f}s "
+          f"({args.tokens * args.batch / max(dt, 1e-9):.1f} tok/s)")
+    print("sample:", torch.stack(outs)[:, 0].tolist())
+
+
 def main(argv=None):
+    serve_names = sorted(n for n, c in SCHEDULES.items() if c.is_serving)
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", type=str, required=True)
     ap.add_argument("--smoke", action="store_true")
@@ -52,6 +197,10 @@ def main(argv=None):
     ap.add_argument("--page-size", type=int, default=0,
                     help="paged KV page size in tokens (0 = dense; must "
                          "divide --cache-len)")
+    ap.add_argument("--buckets", action="store_true",
+                    help="liveness-aware bucketed execution: each round "
+                         "walks the smallest compacted table variant "
+                         "covering its slots")
     ap.add_argument("--weight-dtype", type=str, default=None,
                     choices=[None, "fp32", "bf16", "int8", "fp8"],
                     help="weight storage dtype: int8/fp8 store matmul "
@@ -61,15 +210,43 @@ def main(argv=None):
                     choices=[None, "fp32", "bf16", "int8"],
                     help="KV-cache storage dtype; int8 needs --page-size "
                          "> 0 (per-page scales live in the page pools)")
+    ap.add_argument("--schedule", type=str, default=None,
+                    choices=[None, *serve_names])
+    ap.add_argument("--virtual-stages", type=int, default=None)
+    ap.add_argument("--spec-k", type=int, default=None,
+                    help="speculative decode: draft depth (routes onto "
+                         "the serve_spec_* schedules; each round drafts "
+                         "k tokens and verifies k+1 positions in one "
+                         "pipelined pass)")
+    ap.add_argument("--arrivals", type=str, default=None,
+                    help="continuous batching: 't0,t1,...' arrival steps "
+                         "(one request each) or 'poisson:RATE:N'")
+    ap.add_argument("--policy", type=str, default="continuous",
+                    choices=["continuous", "synchronized"],
+                    help="slot scheduler policy under --arrivals")
     ap.add_argument("--device", type=str, default="cuda")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seeds the weights and the prompts")
+                    help="seeds the weights, the prompts and a poisson "
+                         "trace")
     ap.add_argument("--trace-out", type=str, default=None,
                     help="write a Chrome trace-event JSON of every "
-                         "prefill and decode round")
+                         "executed round")
     ap.add_argument("--metrics-out", type=str, default=None,
                     help="write the metrics-registry snapshot JSON")
     args = ap.parse_args(argv)
+    if args.virtual_stages and args.virtual_stages > 1 \
+            and args.schedule not in (None, "serve_interleaved",
+                                      "serve_spec_interleaved"):
+        ap.error("--virtual-stages > 1 requires --schedule "
+                 "serve_interleaved or serve_spec_interleaved")
+    if args.spec_k is not None and args.schedule is not None \
+            and not SCHEDULES[args.schedule].is_speculative:
+        ap.error(f"--spec-k needs a speculative schedule "
+                 f"(--schedule serve_spec_1f / serve_spec_interleaved), "
+                 f"got {args.schedule}")
+    if args.spec_k is None and args.schedule is not None \
+            and SCHEDULES[args.schedule].is_speculative:
+        args.spec_k = 4         # the schedules' default draft depth
     obs = None
     if args.trace_out or args.metrics_out:
         obs = Observability(trace=bool(args.trace_out))
@@ -81,46 +258,47 @@ def main(argv=None):
     else:
         spec, plan, dtype = cfg.full_spec(), cfg.PLAN, torch.bfloat16
     plan = plan.with_(tp=1)
+    if args.schedule or args.virtual_stages or args.spec_k:
+        v2 = (args.virtual_stages or 1) > 1
+        name = args.schedule or (
+            ("serve_spec_interleaved" if v2 else "serve_spec_1f")
+            if args.spec_k else
+            ("serve_interleaved" if v2 else "serve_1f"))
+        plan = plan.with_(**plan_kwargs_for_schedule(
+            name, virtual_stages=args.virtual_stages,
+            stash_mode=plan.stash_mode))
     session = build_serving(spec, plan, cache_len=args.cache_len,
                             global_batch=args.batch, compute_dtype=dtype,
                             page_size=args.page_size,
-                            prefill_len=args.prefill,
+                            prefill_len=args.prefill, buckets=args.buckets,
+                            spec_k=args.spec_k,
                             weight_dtype=args.weight_dtype,
                             kv_dtype=args.kv_dtype, device=device,
                             obs=obs)
-    print(f"serve schedule: {session.sched.name} (S={session.sched.n_stages} "
-          f"R={session.n_slots}, {session.sched.n_ticks} ticks/pass) on "
-          f"{device}")
+    sched = session.sched
+    print(f"serve schedule: {sched.name} (S={sched.n_stages} "
+          f"R={session.n_slots}"
+          f"{f' v={sched.virtual_stages}' if sched.virtual_stages > 1 else ''}"
+          f"{f' spec_k={sched.spec_k}' if session.speculative else ''}"
+          f", {sched.n_ticks} ticks/pass) on {device}")
     if session.paged:
         print(f"paged KV: page_size={session.paged['page_size']} "
               f"max_pages/slot={session.paged['max_pages']} "
               f"pool_pages={session.paged['pool_pages']}")
+    if session.buckets:
+        print(f"bucket lattice: {session.buckets}")
     if args.weight_dtype or args.kv_dtype:
         print(f"storage dtypes: weights={args.weight_dtype or 'compute'} "
               f"kv={args.kv_dtype or 'compute'}")
-    session.start(args.seed)
-    rng = np.random.default_rng(args.seed)
-    prompts = rng.integers(0, spec.vocab, (session.n_slots, session.rows,
-                                           args.prefill)).astype(np.int32)
-    t0 = time.perf_counter()
-    nxt = session.prefill({"tokens": prompts})
-    _sync(device)
-    print(f"prefill[{args.prefill}] batch={args.batch}: "
-          f"{time.perf_counter() - t0:.3f}s first tokens "
-          f"{nxt[:8].tolist()}")
-    outs = []
-    t0 = time.perf_counter()
-    for _ in range(args.tokens):
-        nxt = session.decode(nxt)
-        outs.append(nxt)
-    _sync(device)
-    dt = time.perf_counter() - t0
-    print(f"decoded {args.tokens} steps x {args.batch} seqs in {dt:.3f}s "
-          f"({args.tokens * args.batch / max(dt, 1e-9):.1f} tok/s)")
-    print("sample:", torch.stack(outs)[:, 0].tolist())
+    if args.arrivals:
+        serve_arrivals(session, spec, args)
+    else:
+        serve_batch(session, spec, args)
     if obs is not None:
-        print(" ", reconcile(session.sched, trace=obs.trace,
-                             registry=obs.registry, kind="decode"))
+        for kind in ("decode", "verify"):
+            if obs.registry.counter("rounds_total").value(kind=kind):
+                print(" ", reconcile(sched, trace=obs.trace,
+                                     registry=obs.registry, kind=kind))
         obs.save(trace_out=args.trace_out, metrics_out=args.metrics_out)
         for what, path in (("pipeline trace", args.trace_out),
                            ("metrics snapshot", args.metrics_out)):

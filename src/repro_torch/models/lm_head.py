@@ -112,9 +112,9 @@ def embed_bwd(embed_shape_like, tokens, d_embeds):
     return out.index_add_(0, tokens.reshape(-1).long(), flat_d)
 
 
-def last_logits(head, final_norm_scale, h, *, norm_kind: str = "rmsnorm",
-                norm_bias=None, vocab: Optional[int] = None):
-    """f32 logits of the last position, h: (B, S, d) -> (B, Vpad).
+def logits(head, final_norm_scale, h, *, norm_kind: str = "rmsnorm",
+           norm_bias=None, vocab: Optional[int] = None):
+    """f32 logits at every position, h: (B, S, d) -> (B, S, Vpad).
 
     Padded vocab ids get -1e30, so they never win an argmax.
     """
@@ -122,10 +122,17 @@ def last_logits(head, final_norm_scale, h, *, norm_kind: str = "rmsnorm",
         h = nn.rmsnorm(h, final_norm_scale)
     else:
         h = nn.layernorm(h, final_norm_scale, norm_bias)
-    logits = (h[:, -1] @ maybe_dequant(head, h.dtype)).float()
-    if vocab is not None and vocab < logits.shape[-1]:
-        logits[:, vocab:] = NEG_INF
-    return logits
+    out = (h @ maybe_dequant(head, h.dtype)).float()
+    if vocab is not None and vocab < out.shape[-1]:
+        out[..., vocab:] = NEG_INF
+    return out
+
+
+def last_logits(head, final_norm_scale, h, *, norm_kind: str = "rmsnorm",
+                norm_bias=None, vocab: Optional[int] = None):
+    """f32 logits of the last position, h: (B, S, d) -> (B, Vpad)."""
+    return logits(head, final_norm_scale, h[:, -1:], norm_kind=norm_kind,
+                  norm_bias=norm_bias, vocab=vocab)[:, 0]
 
 
 def sample_greedy(head, final_norm_scale, h, *, norm_kind: str = "rmsnorm",
@@ -134,3 +141,13 @@ def sample_greedy(head, final_norm_scale, h, *, norm_kind: str = "rmsnorm",
     return last_logits(head, final_norm_scale, h, norm_kind=norm_kind,
                        norm_bias=norm_bias, vocab=vocab
                        ).argmax(dim=-1).to(torch.int32)
+
+
+def greedy_tokens(head, final_norm_scale, h, *, norm_kind: str = "rmsnorm",
+                  norm_bias=None, vocab: Optional[int] = None):
+    """Greedy token ids at every position, h: (B, S, d) -> (B, S) int32:
+    position j's argmax is the next token after the prefix ending at j
+    (the verify half of speculative decode)."""
+    return logits(head, final_norm_scale, h, norm_kind=norm_kind,
+                  norm_bias=norm_bias, vocab=vocab
+                  ).argmax(dim=-1).to(torch.int32)

@@ -212,7 +212,11 @@ def attention(p, x, st: AttnStatic, *, positions, window: int, theta: float,
     (pool_pages, B, page, KV, Dh), or ``(k_pool, v_pool, k_scale,
     v_scale, row)`` for int8 pools with their (pool_pages, B, KV) f32
     scale planes, written in place, and the slot's :class:`PageRow`.
-    ``cache_pos`` is the host position of the first query.  Neither: the
+    Paged keys are written token by token for decode (s = 1) and for
+    s > 1 from ``cache_pos`` > 0 (a speculative verify round); these
+    queries read through the paged kernel at Q = s.  A prefill (s > 1
+    from ``cache_pos`` 0) writes page-aligned slabs.  ``cache_pos`` is
+    the host position of the first query.  Neither: the
     cache-less causal forward, which runs the flash kernel.  The engine
     runs only valid (microbatch, stage) cells — bubbles are skipped — so
     the JAX ``valid`` write gate is the engine's skip, and writes here
@@ -245,29 +249,34 @@ def attention(p, x, st: AttnStatic, *, positions, window: int, theta: float,
         ks_pool, vs_pool = pools[2:] if kq else (None, None)
         n_pool, _, ps, n_kv, dh = k_pool.shape
         L = len(row.ids) * ps
-        if s == 1:
-            # decode: key t lands at offset (cache_pos + t) % ps of the
-            # slot's page (cache_pos + t) // ps
-            pid = int(row.ids[cache_pos // ps])
-            if pid >= 0 and kq:
-                _write_token_int8(k_pool, ks_pool, pid, cache_pos % ps,
-                                  k[:, 0])
-                _write_token_int8(v_pool, vs_pool, pid, cache_pos % ps,
-                                  v[:, 0])
-            elif pid >= 0:
-                k_pool[pid, :, cache_pos % ps] = k[:, 0]
-                v_pool[pid, :, cache_pos % ps] = v[:, 0]
+        if s == 1 or cache_pos > 0:
+            # decode / verify: key t lands at offset (cache_pos + t) % ps
+            # of the slot's page (cache_pos + t) // ps, token by token: a
+            # write that starts mid-sequence is a verify round, and starts
+            # mid-page, where the slab write below would clobber the
+            # page's earlier keys
+            for t in range(s):
+                posn = cache_pos + t
+                pid, off = int(row.ids[posn // ps]), posn % ps
+                if pid >= 0 and kq:
+                    _write_token_int8(k_pool, ks_pool, pid, off, k[:, t])
+                    _write_token_int8(v_pool, vs_pool, pid, off, v[:, t])
+                elif pid >= 0:
+                    k_pool[pid, :, off] = k[:, t]
+                    v_pool[pid, :, off] = v[:, t]
             if st.causal:
                 # paged kernel over the (page, lane)-flattened pool: lane
                 # l of page pid is flat page pid·b + l, every lane holds
-                # cache_pos + 1 keys (row.lengths); the scale planes
+                # cache_pos + s keys (row.lengths) and its s queries sit
+                # at cache_pos .. cache_pos + s - 1; the scale planes
                 # flatten the same way
                 ks = vs = None
                 if kq:
                     ks = ks_pool.reshape(n_pool * b, n_kv)
                     vs = vs_pool.reshape(n_pool * b, n_kv)
                 out = kernel_ops.paged_attention(
-                    q[:, 0], k_pool.reshape(n_pool * b, ps, n_kv, dh),
+                    q[:, 0] if s == 1 else q,
+                    k_pool.reshape(n_pool * b, ps, n_kv, dh),
                     v_pool.reshape(n_pool * b, ps, n_kv, dh),
                     row.lane_tables, row.lengths, window=window,
                     k_scale=ks, v_scale=vs)

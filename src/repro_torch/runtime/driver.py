@@ -258,8 +258,8 @@ def plan_search_report(spec, base_plan, hw=prof.H100_SXM, *, seq_len: int,
     if workload != "train":
         raise NotImplementedError(
             f"plan_search_report(workload={workload!r}): the serving "
-            "workloads need serve_interleaved and serving_cache_bytes, "
-            "which are not ported yet")
+            "workloads need the serving memory model (serving_cache_bytes) "
+            "and its pricing, which are not ported yet")
     dp = max(data_replicas, 1)
     mb_tokens = seq_len * max(global_batch // dp // base_plan.microbatches,
                               1)

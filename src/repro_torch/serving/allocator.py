@@ -4,10 +4,13 @@
 
 The engine's KV pool is ``pool_pages`` pages of ``page_size`` tokens;
 every slot owns an ordered page-table row (``tables[slot]``, int32, -1 =
-unallocated) shared by all of its paged layers.  Prefill allocates
+unallocated) shared by all of its paged layers.  Admission allocates
 ``ceil(len / page_size)`` pages per slot, decode one page at each
-page-boundary crossing.  Freed pages go back on the free list LIFO, so
-the port hands out the same page ids as the JAX allocator.
+page-boundary crossing, a verify round its ``spec_k + 1`` positions
+ahead; the rejected suffix's pages come back (``truncate_slot``), and
+compaction renames slots without moving a page (``permute_slots``).
+Freed pages go back on the free list LIFO, so the port hands out the
+same page ids as the JAX allocator.
 """
 from __future__ import annotations
 
@@ -17,11 +20,12 @@ import numpy as np
 
 
 class CacheExhausted(RuntimeError):
-    """A decode step cannot proceed: the named slots are out of KV room.
+    """A decode or verify round cannot proceed: the named slots are out
+    of KV room (at capacity, or the page pool cannot cover the round).
 
-    Raised by ``EngineSession.decode`` before any device work or
-    allocator mutation, so the session stays usable after the caller
-    frees the named ``slots``.
+    Raised by ``EngineSession.decode`` / ``verify`` before any device
+    work or allocator mutation, so the session stays usable after the
+    caller frees the named ``slots`` (the batcher evicts them).
     """
 
     def __init__(self, message: str, slots=()):
@@ -94,6 +98,48 @@ class PageAllocator:
             self.tables[slot, self.counts[slot]] = self.free.pop()
             self.counts[slot] += 1
         self.tokens[slot] = max(int(self.tokens[slot]), int(n_tokens))
+
+    def truncate_slot(self, slot: int, n_tokens: int) -> int:
+        """Shrink ``slot`` to ``n_tokens``, freeing the pages wholly past
+        them (a verify round's rejected suffix); returns the number of
+        pages freed.  Asking for more tokens than the slot holds
+        raises."""
+        n_tokens = int(n_tokens)
+        if n_tokens < 0:
+            raise ValueError(f"slot {slot}: cannot truncate to "
+                             f"{n_tokens} tokens")
+        if n_tokens > int(self.tokens[slot]):
+            raise ValueError(
+                f"slot {slot}: truncate_slot({n_tokens}) exceeds the "
+                f"slot's {int(self.tokens[slot])} tokens — truncate "
+                "only shrinks (extend_slot grows)")
+        need = self.pages_needed(n_tokens)
+        freed = 0
+        while self.counts[slot] > need:
+            self.counts[slot] -= 1
+            pid = int(self.tables[slot, self.counts[slot]])
+            if pid < 0:
+                raise AssertionError(
+                    f"slot {slot} table corrupt: entry "
+                    f"{int(self.counts[slot])} unallocated inside the "
+                    "counted range")
+            self.tables[slot, self.counts[slot]] = -1
+            self.free.append(pid)
+            freed += 1
+        self.tokens[slot] = n_tokens
+        return freed
+
+    def permute_slots(self, perm) -> None:
+        """Reorder the slot rows: new slot i takes old slot perm[i].  Page
+        ids, the pool and the free list are untouched."""
+        perm = np.asarray(perm, np.int64).reshape(-1)
+        if sorted(perm.tolist()) != list(range(self.n_slots)):
+            raise ValueError(
+                f"perm must be a permutation of range({self.n_slots}), "
+                f"got {perm.tolist()}")
+        self.tables = self.tables[perm].copy()
+        self.counts = self.counts[perm].copy()
+        self.tokens = self.tokens[perm].copy()
 
     def release_slot(self, slot: int) -> None:
         """Return the slot's pages to the pool (no-op on an empty slot)."""

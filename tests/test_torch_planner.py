@@ -211,7 +211,7 @@ def test_serving_workloads_are_not_ported():
         with pytest.raises(NotImplementedError, match="serving_cache_bytes"):
             tpart.plan_search(spec, plan, 2, minibatch_tokens=64,
                               workload=workload)
-        with pytest.raises(NotImplementedError, match="serve_interleaved"):
+        with pytest.raises(NotImplementedError, match="serving_cache_bytes"):
             tdriver.plan_search_report(spec, plan, seq_len=64,
                                        global_batch=8, data_replicas=1,
                                        workload=workload)

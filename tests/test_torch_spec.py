@@ -122,8 +122,14 @@ def test_serving_schedule_resolution_and_fitting():
     plan = tplan.ParallelismPlan(pp=2, tp=1, decode_microbatches=4)
     s = tsched.make_serving_schedule(plan, 3)
     assert (s.name, s.n_stages, s.n_microbatches) == ("serve_1f", 2, 3)
+    spec_plan = plan.with_(schedule="serve_spec_1f")
+    s = tsched.make_serving_schedule(spec_plan, spec_k=3)
+    j = jsched.make_serving_schedule(spec_plan, spec_k=3)
+    assert (s.name, s.n_microbatches, s.spec_k) == (j.name, 4, 3)
+    with pytest.raises(ValueError, match="not speculative"):
+        tsched.make_serving_schedule(plan, spec_k=3)
     with pytest.raises(KeyError):
-        tsched.make_serving_schedule(plan.with_(schedule="serve_spec_1f"))
+        tsched.make_serving_schedule(plan.with_(schedule="serve_2f"))
     for dm in (1, 3, 8):
         for gb in (1, 4, 6, 12):
             assert tsched.fit_serving_microbatches(dm, gb, 1) == \

@@ -391,7 +391,7 @@ def test_build_pipeline_raises_for_what_is_not_ported():
     kw = dict(seq_len=8, global_batch=8, optimizer=SGDM(), device="cpu")
     with pytest.raises(NotImplementedError):
         build_pipeline(spec, plan.with_(tp=2), **kw)
-    with pytest.raises(KeyError, match="not ported"):
+    with pytest.raises(ValueError, match="forward-only"):
         build_pipeline(spec, plan.with_(schedule="serve_interleaved"), **kw)
     with pytest.raises(ValueError, match="forward-only"):
         build_pipeline(spec, plan.with_(schedule="serve_1f"), **kw)

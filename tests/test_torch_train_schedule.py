@@ -57,12 +57,15 @@ def test_make_schedule_resolves_as_jax(schedule, mode):
 
 def test_unported_schedules_raise_and_serving_maps_training_plans():
     plan = tplan.ParallelismPlan(pp=2, tp=1, microbatches=4)
+    assert tsched.NOT_PORTED == ()
     for name in ("serve_interleaved", "serve_spec_1f",
                  "serve_spec_interleaved"):
-        with pytest.raises(KeyError, match="not ported"):
-            tsched.make_schedule(plan.with_(schedule=name))
-        with pytest.raises(KeyError, match="not ported"):
-            tsched.plan_kwargs_for_schedule(name)
+        kw = tsched.plan_kwargs_for_schedule(name)
+        assert kw == jsched.plan_kwargs_for_schedule(name)
+        s = tsched.make_schedule(plan.with_(**kw))
+        assert s.name == name and s.is_serving
+    with pytest.raises(KeyError, match="not a registered schedule"):
+        tsched.make_schedule(plan.with_(schedule="serve_2f"))
     for name in ("1f1b", "gpipe"):
         s = tsched.make_serving_schedule(plan.with_(schedule=name), 3)
         assert (s.name, s.n_microbatches, s.is_serving) == ("serve_1f", 3,
