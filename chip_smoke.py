@@ -110,7 +110,7 @@ Phases (any failure raises and the script exits non-zero):
    sequential oracle over the whole batch (losses atol 5e-5 / rtol 1e-4, weights 5e-5 / 2e-3),
    ZeRO-1 equals the replicated update bit for bit; 17d: phase 13's
    shape (qwen3-14b, 4 layers, bf16, Adam, 1f1b / stash, pp 2, R 4 x
-   4096, 3 rounds) split over two ranks on the one card: its first
+   4096, one round) split over two ranks on the one card: its first
    round's loss within 2e-2 of phase 13's, finite losses, every
    attention through the flash kernels.  The children build nothing
    (the kernels are built by phase 1) and run deterministic algorithms;
@@ -153,13 +153,36 @@ Phases (any failure raises and the script exits non-zero):
    served alone in a fresh one-shot session (tokens; last hidden state
    1e-4), ``serve_interleaved`` pp 2 x v 2 equals ``serve_1f`` (tokens;
    hidden 1e-5), and the speculative streams (self, oracle, corrupted)
-   equal the plain ones exactly.
+   equal the plain ones exactly;
+20. planned serving — the serving planner and windowed ring caches.
+   20a: ``plan_search(workload="decode")`` for qwen3-14b at all 40
+   layers, pp 1 x tp 1 on an 80 GB H100, cache SPLAN_CACHE, SPLAN_BATCH
+   rows (R SPLAN_R), bf16 KV: every dense plan over budget, paged at
+   SPLAN_PAGE and occupancy SPLAN_OCC one that fits; the chosen plan's
+   session, its pool the pages the occupancy implies, holds weights and
+   cache (``torch.cuda.memory_allocated`` around ``init_weights`` and
+   ``reset_state``) within MEM_RTOL of the memory model's; SPLAN_R
+   requests of SPLAN_PROMPTS tokens, SPLAN_DECODE decodes at SPLAN_R live
+   slots beside the predicted round (informative), slot 0's first tokens
+   ``full_transformer``'s up to BATCH_TIE.  20b: h2o-danube3-4b at full
+   width (24 layers, Dh 120, window 4096), bf16, ``serve_1f`` pp 2, R
+   DANUBE_SLOTS x DANUBE_ROWS, DANUBE_PROMPT-token prompts, cache
+   DANUBE_CACHE, page 16, DANUBE_DECODE decodes through the paged kernel
+   at Dh 120; the served tokens ``full_transformer``'s (the flash kernel
+   at Dh 120) greedy tokens up to near-ties (DANUBE_TIE).  20c: fp32,
+   danube's widths cut to RING_LAYERS layers of window RING_WINDOW, cache
+   RING_CACHE: a session without ``prefill_len`` (ring caches) equals one
+   with it (full-length caches) over RING_PROMPT + RING_DECODE tokens
+   (tokens; hidden 1e-5), and each one's cache bytes equal
+   ``serving_cache_bytes`` with ``prefill`` False and True.
 
 Phase 2 also holds the int8-pool paged kernel and the flash backward
 kernel (bf16 and f32; with its log-sum-exp, and determinism) against
-their plain versions.  Launch counters are zeroed before and read after
-each main path (phases 3, 5, 6, 8, 9, 11, 13, 15, 16, 17d, 18b, whose
-two ranks count their own, 19a and each run of 19b).  Prints a
+their plain versions, and at h2o-danube3-4b's heads (32 / 8, Dh 120)
+the flash forward (bf16 and f32, windowed), its backward (bf16) and the
+float paged walk (windowed).  Launch counters are zeroed before and
+read after each main path (phases 3, 5, 6, 8, 9, 11, 13, 15, 16, 17d,
+18b, whose two ranks count their own, 19a, each run of 19b, and 20a-b).  Prints a
 ``profile`` JSON line for qwen3 bf16, rwkv6 (decode, then prefill),
 jamba (decode, then prefill), quantized qwen3 and the training rounds
 (1f1b, interleaved, interleaved_async), three ``train`` JSON lines
@@ -176,10 +199,14 @@ costs, ``replan_from_registry``'s plan), one ``batcher`` JSON line
 (phase 19: requests, tokens, steps, rounds, goodput, TTFT and per-token
 latency p50 / p99, decode ms by live slots, the bucket histogram, the
 steps admissions waited on the dry pool, near-ties, each speculative
-run's acceptance by round), one ``kernels`` JSON line
+run's acceptance by round), one ``planned_serving`` JSON line (phase
+20: the dense and chosen plans, predicted and measured bytes, the
+decode step beside the predicted round, danube's times and gaps, the
+ring check), one ``kernels`` JSON line
 (launches, by path and for wkv6 by
 design, errors, times, bounds, each kernel's design and what ``ptxas
--v`` reported), the card's name and power limit, and last ``{"ok":
+-v`` reported; the flash, backward and paged records carry a ``dh120``
+entry at Dh 120), the card's name and power limit, and last ``{"ok":
 true, "device": ...}``.  Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
@@ -284,6 +311,9 @@ DIST_LAYERS, DIST_V_LAYERS, DIST_SEQ, DIST_R, DIST_ROWS, DIST_ROUNDS = \
 # host memory (gloo on one card: ~30 s a round of R 4 at dp 2 x pp 2), so
 # it runs R 2 microbatches for one round
 DIST_REPLICA_R, DIST_REPLICA_ROUNDS = 2, 1
+# 17d runs phase 13's shape for one round (its loss is held to phase 13's
+# first round's), which gives phase 20 its seconds
+DIST_TRAIN_ROUNDS = 1
 DIST_GROUP_S, DIST_JOIN_S = 120, 600
 # elements a digest weighs at a time (its weights: 128 MB on the card)
 DIGEST_CHUNK = 1 << 24
@@ -313,6 +343,28 @@ BATCH_CONS_LAYERS = 4
 # token must be a greedy token of the reference up to this margin, and a
 # wrong state moves logits by their spread (std ~1.43)
 BATCH_TIE = 0.25
+# phase 20: the serving planner at qwen3-14b's full depth, pp 1 x tp 1 on
+# one card: cache SPLAN_CACHE, SPLAN_BATCH rows in SPLAN_R slots, bf16 KV,
+# paged at SPLAN_PAGE with SPLAN_OCC of the slots' capacity in the pool;
+# SPLAN_R requests (a slot each) with prompts spread over SPLAN_PROMPTS,
+# SPLAN_DECODE decodes; measured weights and cache within MEM_RTOL of the
+# memory model's
+SPLAN_CACHE, SPLAN_BATCH, SPLAN_R = 32768, 16, 8
+SPLAN_PAGE, SPLAN_OCC = 16, 0.25
+SPLAN_PROMPTS, SPLAN_DECODE = (1024, 2048), 16
+MEM_RTOL = 0.01
+# 20b: h2o-danube3-4b at full width (24 layers, bf16, serve_1f pp 2), R
+# DANUBE_SLOTS x DANUBE_ROWS rows, prompts past its 4096 window; its
+# heads (H, KV, Dh); served tokens held with phase 6's bf16 margin
+DANUBE_SLOTS, DANUBE_ROWS = 2, 1
+DANUBE_PROMPT, DANUBE_CACHE, DANUBE_DECODE = 6144, 8192, 16
+DANUBE_WINDOW = 4096
+DH120_HEADS = (32, 8, 120)
+DANUBE_TIE = RWKV_TIE
+# 20c: ring caches against full-length ones, fp32, h2o-danube3-4b's
+# widths cut to RING_LAYERS layers of window RING_WINDOW
+RING_LAYERS, RING_WINDOW, RING_CACHE = 2, 64, 512
+RING_PROMPT, RING_DECODE = 32, 160
 # H100 SXM exp rate, the SFU floor in mamba_scan's bound: 16 ex2 results
 # per clock per SM (CUDA C++ Programming Guide, arithmetic instruction
 # throughput, compute capability 9.0) x 132 SMs x the 1.98 GHz boost clock
@@ -512,16 +564,18 @@ def ptxas_report(source: str, kernel: str) -> dict:
 # phase 2: kernels against their plain versions
 # --------------------------------------------------------------------------
 
-def paged_inputs(dtype, device, q_len, lengths, seed, n_copies=1):
+def paged_inputs(dtype, device, q_len, lengths, seed, n_copies=1,
+                 heads=(40, 8, 128), cache_len=CACHE_LEN, slots=R_SLOTS):
     """Main-path paged call: rows × KV-head tiles over the flattened pool
-    (pool_pages · rows pages), tables of one slot's pages per lane.
-    Unreferenced pages, and keys past each length, hold NaN."""
+    (pool_pages · rows pages), tables of one slot's pages per lane, one
+    lane a length; ``heads`` is (H, KV, Dh).  Unreferenced pages, and
+    keys past each length, hold NaN."""
     import torch
     g = torch.Generator(device=device).manual_seed(seed)
-    H, KV, DH = 40, 8, 128
-    b = ROWS
-    n_pages = CACHE_LEN // PAGE
-    pool = R_SLOTS * n_pages * b
+    H, KV, DH = heads
+    b = len(lengths)
+    n_pages = cache_len // PAGE
+    pool = slots * n_pages * b
     rng = np.random.default_rng(seed)
     perm = rng.permutation(pool)
     tables = np.full((b, n_pages), -1, np.int32)
@@ -2624,7 +2678,7 @@ def dist_job_replicas(grid, out_dir):
 def dist_job_train(grid):
     """17d on a rank: phase 13's shape (qwen3-14b, 4 layers, bf16, Adam,
     1f1b / stash, pp 2, R 4 x 4096) through launch/train.py's build with
-    this rank's grid, TRAIN_ROUNDS rounds on the stream with the plain
+    this rank's grid, DIST_TRAIN_ROUNDS rounds on the stream with the plain
     attention versions refused; per round the host seconds and the
     transport's counters; the launches of this rank."""
     import torch
@@ -2640,7 +2694,7 @@ def dist_job_train(grid):
     state = bundle.init_state(torch.Generator(grid.device).manual_seed(SEED))
     loader = Loader(SyntheticLM(spec.vocab, TRAIN_SEQ, seed=SEED),
                     TRAIN_R, TRAIN_ROWS, grid.device)
-    batches = [loader.get(r) for r in range(TRAIN_ROUNDS)]
+    batches = [loader.get(r) for r in range(DIST_TRAIN_ROUNDS)]
     torch.cuda.synchronize()
     reset_counts()
     rounds, losses = [], []
@@ -2851,8 +2905,9 @@ def phase_dist(device, first_round_loss):
     counts = {k: sum(r["counts"][k] for r in ranks) for k in ranks[0]["counts"]}
     per_round = TRAIN_LAYERS * TRAIN_R
     want = {"paged_attention": 0, "paged_attention_int8": 0, "wkv6": 0,
-            "mamba_scan": 0, "flash_attention": 3 * per_round * TRAIN_ROUNDS,
-            "flash_attention_bwd": per_round * TRAIN_ROUNDS}
+            "mamba_scan": 0,
+            "flash_attention": 3 * per_round * DIST_TRAIN_ROUNDS,
+            "flash_attention_bwd": per_round * DIST_TRAIN_ROUNDS}
     if counts != want:
         raise AssertionError(f"17d launches {counts}, expected {want}")
     seconds["17d two ranks, full width"] = time.perf_counter() - t0
@@ -4225,6 +4280,537 @@ def mamba_record(device, err, launches):
             "decode_exps": d_exps}
 
 
+# --------------------------------------------------------------------------
+# phase 20: the serving planner, windowed ring caches, h2o-danube3-4b
+# --------------------------------------------------------------------------
+
+def allocated(device) -> int:
+    """Bytes the caching allocator holds in live tensors on ``device``
+    (whole blocks: a cached block up to 1 MB larger than a request is
+    handed out unsplit)."""
+    import torch
+    torch.cuda.synchronize(device)
+    return torch.cuda.memory_allocated(device)
+
+
+def requested(device) -> int:
+    """Bytes the live tensors on ``device`` asked the allocator for."""
+    import torch
+    torch.cuda.synchronize(device)
+    return torch.cuda.memory_stats(device)["requested_bytes.all.current"]
+
+
+def phase_serving_plan(device, spec, base):
+    """20a: ``plan_search(workload="decode")`` for ``spec`` at pp 1 x tp 1
+    on an H100 (80 GB), cache SPLAN_CACHE, SPLAN_BATCH rows (R SPLAN_R), bf16
+    KV: dense must be over budget and paged at SPLAN_PAGE / SPLAN_OCC must
+    fit; the chosen plan's session (its pool the occupancy's pages) holds
+    weights and cache within MEM_RTOL of the model's; PLAN_REQUESTS
+    ragged prompts, SPLAN_DECODE decodes at SPLAN_R live slots."""
+    import math
+    import torch
+    from repro_torch.core.partitioner import plan_search
+    from repro_torch.core.profiler import H100_SXM
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.serving.engine import build_serving
+    kw = dict(minibatch_tokens=SPLAN_BATCH // SPLAN_R, workload="decode",
+              cache_len=SPLAN_CACHE, global_batch=SPLAN_BATCH,
+              kv_dtype="bf16")
+    dense = plan_search(spec, base, 1, H100_SXM, return_all=True, **kw)
+    if any(c.feasible for c in dense):
+        raise AssertionError("20a: a dense decode plan fits 80 GB: "
+                             f"{[c.describe() for c in dense]}")
+    chosen = plan_search(spec, base, 1, H100_SXM, page_size=SPLAN_PAGE,
+                         occupancy=SPLAN_OCC, **kw)
+    mm = chosen.memory
+    for c in dense:
+        log(f"[plan-serve] dense {c.describe()}")
+    log(f"[plan-serve] paged page {SPLAN_PAGE} at occupancy {SPLAN_OCC}: "
+        f"{chosen.describe()}; predicted {mm}")
+    R = chosen.plan.decode_microbatches
+    # the pool the priced occupancy implies: whole slots' worth of pages
+    pool_pages = math.ceil(SPLAN_OCC * R) * SPLAN_CACHE // SPLAN_PAGE
+    session = build_serving(spec, chosen.plan, cache_len=SPLAN_CACHE,
+                            global_batch=SPLAN_BATCH,
+                            compute_dtype=torch.bfloat16,
+                            page_size=SPLAN_PAGE,
+                            prefill_len=SPLAN_PROMPTS[-1],
+                            pool_pages=pool_pages, kv_dtype="bf16",
+                            device=device)
+    m0 = allocated(device)
+    t0 = time.perf_counter()
+    session.init_weights(SEED)
+    m1 = allocated(device)
+    init_s = time.perf_counter() - t0
+    session.reset_state()
+    m2 = allocated(device)
+    measured = {"weight_bytes": m1 - m0, "cache_bytes": m2 - m1}
+    predicted = {"weight_bytes": mm.weight_bytes,
+                 "cache_bytes": mm.cache_bytes}
+    rel = {k: measured[k] / predicted[k] - 1 for k in measured}
+    log(f"[plan-serve] measured weights {measured['weight_bytes'] / 1e9:.4f} "
+        f"GB (model {mm.weight_bytes / 1e9:.4f}), cache "
+        f"{measured['cache_bytes'] / 1e9:.4f} GB (model "
+        f"{mm.cache_bytes / 1e9:.4f}, a pool of {pool_pages} pages); "
+        f"relative {rel} (limit {MEM_RTOL}); weights drawn in {init_s:.2f}s")
+    if any(abs(r) > MEM_RTOL for r in rel.values()):
+        raise AssertionError(f"20a: measured {measured} vs the model "
+                             f"{predicted}")
+    rng = np.random.default_rng(SEED + 20)
+    rows = session.rows
+    lens = np.linspace(*SPLAN_PROMPTS, R).astype(np.int64)
+    prompts = rng.integers(0, spec.vocab, (R, rows, SPLAN_PROMPTS[-1])
+                           ).astype(np.int32)
+    reset_counts()
+    t0 = time.perf_counter()
+    nxt = session.prefill({"tokens": prompts, "lens": lens})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    first = nxt.cpu().numpy()
+    toks, step_s = [first], []
+    per_step = spec.n_layers * R
+    for i in range(SPLAN_DECODE):
+        before = pa.paged_attention.launches
+        t0 = time.perf_counter()
+        nxt = session.decode(nxt)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        if pa.paged_attention.launches - before != per_step:
+            raise AssertionError(f"20a decode step {i}: paged launches "
+                                 f"{pa.paged_attention.launches - before}, "
+                                 f"expected {per_step}")
+        toks.append(nxt.cpu().numpy())
+    counts = read_counts()
+    if counts != {"paged_attention": per_step * SPLAN_DECODE,
+                  "paged_attention_int8": 0, "flash_attention": 0,
+                  "flash_attention_bwd": 0, "wkv6": 0, "mamba_scan": 0}:
+        raise AssertionError(f"20a launches {counts}")
+    toks = np.stack(toks)
+    if not ((toks >= 0) & (toks < spec.vocab)).all() or \
+            not torch.isfinite(session.last_hidden).all():
+        raise AssertionError("20a: tokens outside the vocabulary or "
+                             "non-finite hidden states")
+    session._alloc.check()
+    used = int(session._alloc.live_pages)
+    # slot 0's first token against full_transformer over its prompt
+    reset_counts()
+    seq = prompts[0][:, :lens[0]]
+    logits = sequence_logits(session, seq)[:, -1]
+    ref_flash = read_counts()["flash_attention"]
+    gap = (logits.amax(-1) - logits.gather(
+        -1, torch.from_numpy(first.reshape(R, rows)[0].astype(np.int64)
+                             ).to(logits.device)[:, None])[:, 0])
+    if (gap > BATCH_TIE).any() or ref_flash != spec.n_layers:
+        raise AssertionError(f"20a: slot 0's first tokens are not "
+                             f"full_transformer's (gaps {gap.tolist()}, "
+                             f"limit {BATCH_TIE}; flash launches "
+                             f"{ref_flash})")
+    step_ms = 1e3 * float(np.mean(step_s))
+    full_r = next(c for c in dense if c.plan.schedule == chosen.plan.schedule
+                  and c.plan.virtual_stages == chosen.plan.virtual_stages)
+    log(f"[plan-serve] {R} requests (slots of {rows} rows), prompts "
+        f"{lens.tolist()}: prefill {prefill_s:.3f}s; decode {SPLAN_DECODE} "
+        f"steps at {R} live slots {step_ms:.2f} ms/step (predicted round: "
+        f"{1e3 * full_r.round_time:.3f} ms at R {R}, "
+        f"{1e3 * chosen.round_time:.3f} ms on the chosen bucket "
+        f"{chosen.bucket}; informative); {used} of {pool_pages} pages "
+        f"live; slot 0's first tokens within {gap.max().item():.4f} of "
+        f"full_transformer's maximum logit")
+    record = {
+        "model": spec.name, "layers": spec.n_layers, "cache_len": SPLAN_CACHE,
+        "global_batch": SPLAN_BATCH, "slots": R, "rows": rows,
+        "dense": [{"plan": c.describe(), "total_gb": c.memory.total_bytes
+                   / 1e9, "cache_gb": c.memory.cache_bytes / 1e9,
+                   "feasible": c.feasible} for c in dense],
+        "chosen": chosen.describe(), "page": SPLAN_PAGE,
+        "occupancy": SPLAN_OCC, "bucket": chosen.bucket,
+        "pool_pages": pool_pages, "predicted": predicted,
+        "measured": measured, "relative": rel,
+        "predicted_round_ms": {"full_r": 1e3 * full_r.round_time,
+                               "bucket": 1e3 * chosen.round_time},
+        "decode_ms_per_step": step_ms, "decode_ms": [1e3 * x for x in
+                                                     step_s],
+        "prefill_s": prefill_s, "prompt_lens": lens.tolist(),
+        "live_pages": used, "first_token_gap": gap.max().item()}
+    return record, counts["paged_attention"], ref_flash
+
+
+def danube_session(device, spec, plan, dtype, cache_len, **kw):
+    from repro_torch.serving.engine import build_serving
+    return build_serving(spec, plan, cache_len=cache_len,
+                         global_batch=DANUBE_SLOTS * DANUBE_ROWS,
+                         compute_dtype=dtype, device=device, **kw)
+
+
+def phase_serve_danube(device, spec, plan):
+    """20b: ``spec`` (h2o-danube3-4b, all 24 layers) in bf16 through the
+    paged engine past its window: DANUBE_PROMPT-token prompts, cache
+    DANUBE_CACHE, DANUBE_DECODE decodes through the paged kernel at Dh
+    120; the served tokens are ``full_transformer``'s (the flash kernel
+    at Dh 120, window 4096) greedy tokens up to near-ties (DANUBE_TIE)."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    session = danube_session(device, spec, plan, torch.bfloat16,
+                             DANUBE_CACHE, page_size=PAGE,
+                             prefill_len=DANUBE_PROMPT)
+    t0 = time.perf_counter()
+    session.start(SEED)
+    init_s = time.perf_counter() - t0
+    lps = spec.layers_per_stage(plan.pp)
+    if session.cache_lens != [DANUBE_CACHE] * lps or \
+            session.paged_layers != tuple(range(lps)):
+        raise AssertionError(f"20b: a prefilling session keeps full-length "
+                             f"paged caches, got {session.cache_lens}")
+    rng = np.random.default_rng(SEED + 21)
+    prompts = rng.integers(0, spec.vocab, (DANUBE_SLOTS, DANUBE_ROWS,
+                                           DANUBE_PROMPT)).astype(np.int32)
+    reset_counts()
+    t0 = time.perf_counter()
+    nxt = session.prefill({"tokens": prompts})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    toks, step_s = [nxt], []
+    for _ in range(DANUBE_DECODE):
+        t0 = time.perf_counter()
+        nxt = session.decode(nxt)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        toks.append(nxt)
+    counts = read_counts()
+    per_step = spec.n_layers * DANUBE_SLOTS
+    if counts != {"paged_attention": per_step * DANUBE_DECODE,
+                  "paged_attention_int8": 0, "flash_attention": 0,
+                  "flash_attention_bwd": 0, "wkv6": 0, "mamba_scan": 0} \
+            or pa.paged_attention.launches_by_q != {
+                1: per_step * DANUBE_DECODE}:
+        raise AssertionError(f"20b launches {counts}, by query count "
+                             f"{pa.paged_attention.launches_by_q}")
+    session._alloc.check()
+    toks = torch.stack(toks).cpu().numpy()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits = reference_logits(session, prompts, toks, n_last=toks.shape[0])
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    ref_counts = read_counts()
+    if ref_counts["flash_attention"] != spec.n_layers or \
+            sum(ref_counts.values()) != spec.n_layers:
+        raise AssertionError(f"20b reference launches {ref_counts}")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("20b: non-finite reference logits")
+    served = torch.from_numpy(toks.T.astype(np.int64)).to(logits.device)
+    gap = logits.amax(-1) - logits.gather(-1, served[..., None])[..., 0]
+    agree = logits.argmax(-1) == served
+    step_ms = 1e3 * float(np.mean(step_s))
+    log(f"[danube] {spec.name} {spec.n_layers} layers bf16 pp {plan.pp}, "
+        f"R {DANUBE_SLOTS} x {DANUBE_ROWS}, Dh {spec.d_head}, window "
+        f"{spec.blocks[0].window}: weights in {init_s:.2f}s; prefill "
+        f"{DANUBE_PROMPT} tokens {prefill_s:.3f}s; decode {step_ms:.2f} "
+        f"ms/step; paged launches {counts['paged_attention']}; "
+        f"full_transformer over {DANUBE_PROMPT} + {DANUBE_DECODE} tokens "
+        f"{ref_s:.3f}s, flash launches {ref_counts['flash_attention']}; "
+        f"greedy equal at {int(agree.sum())}/{agree.numel()} positions, "
+        f"largest gap {gap.max().item():.4f} (limit {DANUBE_TIE})")
+    if (gap > DANUBE_TIE).any():
+        raise AssertionError(
+            f"20b: served tokens are not full_transformer's greedy tokens "
+            f"at {int((gap > DANUBE_TIE).sum())} positions (gap up to "
+            f"{gap.max().item():.4f} > {DANUBE_TIE})")
+    return {"model": spec.name, "layers": spec.n_layers, "pp": plan.pp,
+            "slots": DANUBE_SLOTS, "rows": DANUBE_ROWS,
+            "prompt": DANUBE_PROMPT, "cache_len": DANUBE_CACHE,
+            "decode_steps": DANUBE_DECODE, "init_s": init_s,
+            "prefill_s": prefill_s, "decode_ms_per_step": step_ms,
+            "reference_s": ref_s, "largest_served_gap": gap.max().item(),
+            "greedy_equal": int(agree.sum()), "positions": agree.numel(),
+            "weight_bytes": tensor_bytes(session.params),
+            "pool_bytes": tensor_bytes(session.pages)}, \
+        counts["paged_attention"], ref_counts["flash_attention"]
+
+
+def phase_ring_caches(device, spec, plan):
+    """20c: fp32, ``spec`` cut to RING_LAYERS layers of window
+    RING_WINDOW: a session without ``prefill_len`` (ring caches) and one
+    with it (full-length caches), the same weights, a RING_PROMPT-token
+    prompt and RING_DECODE decodes: tokens equal, hidden states within
+    1e-5, and each session's cache bytes (requested from the allocator
+    around ``reset_state``) the serving memory model's (prefill False /
+    True)."""
+    import torch
+    from repro_torch.core.schedule import (make_serving_schedule,
+                                           serving_cache_bytes)
+    sched = make_serving_schedule(plan)
+    rng = np.random.default_rng(SEED + 22)
+    prompts = rng.integers(0, spec.vocab, (DANUBE_SLOTS, DANUBE_ROWS,
+                                           RING_PROMPT)).astype(np.int32)
+    out, params = {}, None
+    for kind, prefill_len in (("ring", 0), ("full", RING_PROMPT)):
+        session = danube_session(device, spec, plan, torch.float32,
+                                 RING_CACHE, prefill_len=prefill_len)
+        if params is None:
+            session.init_weights(SEED)
+            params = session.params
+        else:
+            session.set_params(params)
+        m0, r0 = allocated(device), requested(device)
+        session.reset_state()
+        cache = requested(device) - r0
+        blocks = allocated(device) - m0
+        priced = serving_cache_bytes(spec, plan, sched, cache_len=RING_CACHE,
+                                     global_batch=DANUBE_SLOTS * DANUBE_ROWS,
+                                     prefill=bool(prefill_len),
+                                     kv_dtype="fp32")
+        if cache != priced:
+            raise AssertionError(f"20c {kind}: {cache} cache bytes, the "
+                                 f"model prices {priced}")
+        nxt = session.prefill({"tokens": prompts})
+        toks, hidden = [nxt], [session.last_hidden.clone()]
+        for _ in range(RING_DECODE):
+            nxt = session.decode(nxt)
+            toks.append(nxt)
+            hidden.append(session.last_hidden.clone())
+        out[kind] = {"lens": session.cache_lens, "cache": cache,
+                     "blocks": blocks, "priced": priced,
+                     "toks": torch.stack(toks).cpu().numpy(),
+                     "hidden": hidden}
+        del session
+    lps = spec.layers_per_stage(plan.pp)
+    if out["ring"]["lens"] != [RING_WINDOW] * lps or \
+            out["full"]["lens"] != [RING_CACHE] * lps:
+        raise AssertionError(f"20c cache lengths {out['ring']['lens']} / "
+                             f"{out['full']['lens']}")
+    if not (out["ring"]["toks"] == out["full"]["toks"]).all():
+        raise AssertionError("20c: ring and full-length tokens differ")
+    err = max(check_close(f"20c hidden step {i}", a, b, 1e-5, 1e-5)
+              for i, (a, b) in enumerate(zip(out["ring"]["hidden"],
+                                             out["full"]["hidden"])))
+    log(f"[ring] {spec.name} fp32 {spec.n_layers} layers, window "
+        f"{RING_WINDOW}, cache {RING_CACHE}: {RING_PROMPT} + {RING_DECODE} "
+        f"tokens; rings of {out['ring']['lens']} = full-length "
+        f"{out['full']['lens']} in tokens, hidden max|err| {err:.3e} "
+        f"(atol/rtol 1e-5); cache bytes requested {out['ring']['cache']} / "
+        f"{out['full']['cache']} = the model's {out['ring']['priced']:.0f} "
+        f"/ {out['full']['priced']:.0f} (allocator blocks "
+        f"{out['ring']['blocks']} / {out['full']['blocks']})")
+    return {"window": RING_WINDOW, "cache_len": RING_CACHE,
+            "layers": spec.n_layers, "decodes": RING_DECODE,
+            "hidden_err": err,
+            "cache_bytes": {k: out[k]["cache"] for k in out},
+            "allocator_block_bytes": {k: out[k]["blocks"] for k in out},
+            "priced_bytes": {k: out[k]["priced"] for k in out}}
+
+
+def phase_planned_serving(device):
+    """Phase 20 (20a-c, see the module docstring)."""
+    import gc
+    import torch
+    from repro_torch import configs
+    # phase 19's sessions sit in reference cycles (RoundWatch wraps their
+    # methods in closures over them): collect them before 20a needs 51 GB
+    held_gb = allocated(device) / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    before_gb = allocated(device) / 1e9
+    log(f"[plan-serve] {before_gb:.3f} GB allocated before phase 20 "
+        f"({held_gb:.3f} before collecting garbage)")
+    seconds = {}
+    t0 = time.perf_counter()
+    cfg = configs.get("qwen3-14b")
+    plan_rec, plan_paged, plan_flash = phase_serving_plan(
+        device, cfg.full_spec(),
+        cfg.PLAN.with_(pp=1, tp=1, decode_microbatches=SPLAN_R))
+    torch.cuda.empty_cache()
+    seconds["20a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cfg = configs.get("h2o-danube-3-4b")
+    full = cfg.full_spec()
+    plan = cfg.PLAN.with_(pp=2, tp=1, decode_microbatches=DANUBE_SLOTS)
+    danube_rec, danube_paged, danube_flash = phase_serve_danube(
+        device, full, plan)
+    torch.cuda.empty_cache()
+    seconds["20b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cut = dataclasses.replace(
+        full, name=f"{full.name}-{RING_LAYERS}l-w{RING_WINDOW}",
+        n_layers=RING_LAYERS, blocks=tuple(
+            dataclasses.replace(b, window=RING_WINDOW)
+            for b in full.blocks[:RING_LAYERS]))
+    ring_rec = phase_ring_caches(device, cut, plan.with_(pp=1))
+    torch.cuda.empty_cache()
+    seconds["20c"] = time.perf_counter() - t0
+    log(f"[phases] 20 seconds: {json.dumps(seconds)}")
+    record = {"plan": plan_rec, "danube": danube_rec, "ring": ring_rec,
+              "allocated_before_gb": before_gb, "seconds": seconds}
+    launches = {"qwen3_planned_serve": plan_paged,
+                "qwen3_planned_serve_reference": plan_flash,
+                "danube3_serve": danube_paged,
+                "danube3_full_transformer": danube_flash}
+    return record, launches
+
+
+def dh120_flash_inputs(dtype, device, s, seed):
+    """q, k, v, dO of h2o-danube3-4b's attention: (1, s, 32 / 8, 120)."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    h, kv, dh = DH120_HEADS
+    shapes = ((1, s, h, dh), (1, s, kv, dh), (1, s, kv, dh), (1, s, h, dh))
+    return [torch.randn(sh, generator=g, device=device).to(dtype)
+            for sh in shapes]
+
+
+def dh120_paged_inputs(dtype, device, seed, n_copies=1):
+    """A 20b decode call: one lane, DANUBE_PROMPT + DANUBE_DECODE keys of
+    a DANUBE_CACHE slot, q (1, 1, 32, 120)."""
+    return paged_inputs(dtype, device, 1, [DANUBE_PROMPT + DANUBE_DECODE],
+                        seed, n_copies=n_copies, heads=DH120_HEADS,
+                        cache_len=DANUBE_CACHE, slots=DANUBE_SLOTS)
+
+
+def phase_dh120_kernels(device):
+    """Phase 2 at Dh 120 (h2o-danube3-4b's heads): the flash forward in
+    bf16 and f32 at (1, DANUBE_PROMPT, 32 / 8, 120) with the 4096 window,
+    the flash backward in bf16 at (1, TRAIN_SEQ, 32 / 8, 120) causal, and
+    the float paged walk at a 20b decode call with the window, each
+    against its plain version."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    errs = {"flash_attention": 0.0, "flash_attention_bwd": 0.0,
+            "paged_attention": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        atol, rtol = TOL[str(dtype).split(".")[-1]]
+        q, k, v, _ = dh120_flash_inputs(dtype, device, DANUBE_PROMPT, 31)
+        got = fa.flash_attention(q, k, v, causal=True, window=DANUBE_WINDOW)
+        want = fa.flash_attention_plain(q, k, v, causal=True,
+                                        window=DANUBE_WINDOW)
+        e = check_close(f"flash Dh 120 {dtype}", got, want, atol, rtol)
+        errs["flash_attention"] = max(errs["flash_attention"], e)
+        del got, want
+        sets, tab, lens = dh120_paged_inputs(dtype, device, 32)
+        qp, kp, vp = sets[0]
+        got = pa.paged_attention(qp, kp, vp, tab, lens, window=DANUBE_WINDOW)
+        want = pa.paged_attention_plain(qp, kp, vp, tab, lens,
+                                        window=DANUBE_WINDOW)
+        ep = check_close(f"paged Dh 120 {dtype}", got, want, atol, rtol)
+        errs["paged_attention"] = max(errs["paged_attention"], ep)
+        log(f"[kernels] Dh 120 {str(dtype)[6:]}: flash (1, {DANUBE_PROMPT}, "
+            f"32/8, 120) window {DANUBE_WINDOW} max|err| {e:.3e}; paged "
+            f"{int(lens[0])} keys window {DANUBE_WINDOW} max|err| {ep:.3e} "
+            f"(atol {atol}, rtol {rtol})")
+    atol, rtol = TOL["bfloat16"]
+    q, k, v, do = dh120_flash_inputs(torch.bfloat16, device, TRAIN_SEQ, 33)
+    out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=True)
+    e = [check_close(f"flash bwd Dh 120 {n}", g_, w_, atol, rtol)
+         for n, g_, w_ in zip(("dq", "dk", "dv"), got, want)]
+    errs["flash_attention_bwd"] = max(e)
+    log(f"[kernels] Dh 120 bf16 flash bwd (1, {TRAIN_SEQ}, 32/8, 120): "
+        f"max|err| dq {e[0]:.3e} dk {e[1]:.3e} dv {e[2]:.3e} (atol {atol}, "
+        f"rtol {rtol})")
+    torch.cuda.empty_cache()
+    return errs
+
+
+def dh120_records(device, errs, launches):
+    """Times at Dh 120 beside bounds, plain versions and the library, one
+    entry for each of the three kernels' records: the flash forward at
+    20b's reference call, the paged walk at a 20b decode call, the
+    backward at (1, TRAIN_SEQ, 32 / 8, 120)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    bf16 = torch.bfloat16
+    h, kv, dh = DH120_HEADS
+    out = {}
+    # flash forward, windowed: the library call is SDPA with the window's
+    # boolean mask (SDPA has no window argument)
+    s, w = DANUBE_PROMPT, DANUBE_WINDOW
+    q, k, v, _ = dh120_flash_inputs(bf16, device, s, 34)
+    ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True, window=w))
+    plain = time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True,
+                                                     window=w), 3, 1)
+    idx = torch.arange(s, device=device)
+    dq_ = idx[:, None] - idx[None, :]
+    mask = (dq_ >= 0) & (dq_ < w)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True), 5, 1)
+    pairs = sum(min(i + 1, w) for i in range(s))
+    flops = 4 * h * dh * pairs
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+    out["flash_attention"] = _dh120_entry(
+        [1, s, h, kv, dh], w, errs["flash_attention"],
+        launches["flash_attention"], ms, plain, flops, nbytes,
+        lib, "F.scaled_dot_product_attention with the window's boolean "
+             "mask (enable_gqa)")
+    del q, k, v, qt, kt, vt, mask
+    # the backward, causal
+    q, k, v, do = dh120_flash_inputs(bf16, device, TRAIN_SEQ, 35)
+    o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                causal=True))
+    plain = time_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, o, lse, do, causal=True), 3, 1)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    ref = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True)
+    dot = do.transpose(1, 2)
+    lib = time_ms(lambda: torch.autograd.grad(ref, (qt, kt, vt), dot,
+                                              retain_graph=True))
+    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    flops = 5 * 2 * h * dh * pairs
+    nbytes = (4 * TRAIN_SEQ * h * dh + 4 * TRAIN_SEQ * kv * dh) * 2 \
+        + h * TRAIN_SEQ * 4
+    out["flash_attention_bwd"] = _dh120_entry(
+        [1, TRAIN_SEQ, h, kv, dh], -1, errs["flash_attention_bwd"],
+        launches["flash_attention_bwd"], ms, plain, flops, nbytes, lib,
+        "autograd of F.scaled_dot_product_attention (is_causal, "
+        "enable_gqa), backward alone")
+    del q, k, v, do, o, lse, qt, kt, vt, ref
+    # the paged walk, a 20b decode call, input sets cycled past L2
+    n_keys = DANUBE_PROMPT + DANUBE_DECODE
+    live = 2 * -(-min(n_keys, DANUBE_WINDOW + 1) // PAGE) * PAGE * kv * dh * 2
+    n_sets = -(-4 * L2_BYTES // live)
+    sets, tab, lens = dh120_paged_inputs(bf16, device, 36, n_copies=n_sets)
+    it = {"i": 0}
+
+    def run(fn):
+        def call():
+            qp, kp, vp = sets[it["i"] % n_sets]
+            it["i"] += 1
+            fn(qp, kp, vp, tab, lens, window=DANUBE_WINDOW)
+        return call
+
+    ms = device_ms(run(pa.paged_attention), 2 * n_sets, "paged_attention")
+    plain = time_ms(run(pa.paged_attention_plain))
+    nbytes, flops = paged_bytes_flops(sets[0][0], sets[0][1], tab, [n_keys],
+                                      DANUBE_WINDOW)
+    out["paged_attention"] = _dh120_entry(
+        [1, 1, h, kv, dh], DANUBE_WINDOW, errs["paged_attention"],
+        launches["paged_attention"], ms, plain, flops, nbytes, None,
+        "none (no single PyTorch call)")
+    out["paged_attention"].update(keys=n_keys, ms_by=PAGED_MS_BY)
+    del sets
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dh120_entry(shape, window, err, launches, ms, plain, flops, nbytes,
+                 lib, lib_what):
+    t_ops = flops / PEAK_FLOPS["bfloat16"]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return {"shape": shape, "window": window, "dtype": "bfloat16",
+            "launches": sum(launches.values()), "launches_by_path": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": lib, "library": lib_what, "flops": flops,
+            "bytes": nbytes}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4246,6 +4832,7 @@ def main() -> int:
     errs["mamba_scan"] = phase_mamba_kernel(device)
     errs["paged_attention_int8"] = phase_paged_int8_kernel(device)
     errs["flash_attention_bwd"] = phase_flash_bwd_kernel(device)
+    errs["dh120"] = phase_dh120_kernels(device)
     phase_s["2 kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
 
@@ -4347,11 +4934,18 @@ def main() -> int:
     batch_rec, batch_counts, tile_err = phase_batching(device, qwen_full,
                                                        qwen_plan)
     phase_s["19 batching"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    planned_rec, planned_counts = phase_planned_serving(device)
+    phase_s["20 planned serving"] = time.perf_counter() - t0
 
     records = kernel_records(device, errs, {
         "paged_attention": {"qwen3_serve": paged_launches,
                             "jamba_serve": jamba_counts["paged_attention"],
-                            "qwen3_batching": batch_counts["decode_q1"]},
+                            "qwen3_batching": batch_counts["decode_q1"],
+                            "qwen3_planned_serve":
+                                planned_counts["qwen3_planned_serve"],
+                            "danube3_serve": planned_counts["danube3_serve"]},
         "paged_attention_int8": {"qwen3_quant_serve": int8_launches},
         "flash_attention": {
             "qwen3_full_transformer": flash_launches,
@@ -4363,7 +4957,11 @@ def main() -> int:
             "qwen3_batching_reference": batch_counts["reference_flash"],
             "qwen3_driver": driver_counts["flash_attention"],
             "qwen3_train_two_ranks": dist_counts["flash_attention"],
-            "qwen3_driver_two_ranks": ckpt_counts["flash_attention"]},
+            "qwen3_driver_two_ranks": ckpt_counts["flash_attention"],
+            "qwen3_planned_serve_reference":
+                planned_counts["qwen3_planned_serve_reference"],
+            "danube3_full_transformer":
+                planned_counts["danube3_full_transformer"]},
         "flash_attention_bwd": {
             "qwen3_train": train_bwd,
             **{f"qwen3_train_{n}": c["flash_attention_bwd"]
@@ -4380,6 +4978,15 @@ def main() -> int:
                        "full_transformer": jamba_ref["mamba_scan"]}})
     records.insert(2, verify_record(device, tile_err,
                                     batch_counts["verify_q5"]))
+    dh120 = dh120_records(device, errs["dh120"], {
+        "flash_attention": {"danube3_full_transformer":
+                            planned_counts["danube3_full_transformer"]},
+        "flash_attention_bwd": {},
+        "paged_attention": {"danube3_serve":
+                            planned_counts["danube3_serve"]}})
+    for rec in records:
+        if rec["name"] in dh120:
+            rec["dh120"] = dh120[rec["name"]]
     log(f"[phases] seconds: {json.dumps(phase_s)}")
     log(f"[done] {time.perf_counter() - t_start:.1f}s; serve qwen3 {serve}; "
         f"serve rwkv6 {serve_rwkv}; serve jamba {serve_jamba}; serve qwen3 "
@@ -4410,6 +5017,7 @@ def main() -> int:
         print(json.dumps({"ckpt_dist": {**rec, "card": card}}))
     print(json.dumps({"obs": {**obs_rec, "card": card}}))
     print(json.dumps({"batcher": {**batch_rec, "card": card}}))
+    print(json.dumps({"planned_serving": {**planned_rec, "card": card}}))
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,20 +1,21 @@
 """Architecture registry (port of ``repro/configs``).
 
 Every config module exposes ``full_spec()``, ``smoke_spec()``, ``PLAN``
-and ``SMOKE_PLAN``.  Ported so far: qwen3-14b, rwkv6-1.6b and
-jamba-v0.1-52b; the other seven architectures of the JAX registry follow
-with their block kinds.
+and ``SMOKE_PLAN``.  Ported so far: qwen3-14b, rwkv6-1.6b, jamba-v0.1-52b
+and h2o-danube3-4b; the other six architectures of the JAX registry
+follow with their block kinds.
 """
 from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ("qwen3_14b", "rwkv6_1b6", "jamba_v01_52b")
+ARCH_IDS = ("qwen3_14b", "h2o_danube3_4b", "rwkv6_1b6", "jamba_v01_52b")
 
 # CLI ids (dashes) -> module names, as in the JAX registry
 _ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
 _ALIASES["rwkv6-1.6b"] = "rwkv6_1b6"
 _ALIASES["jamba-v0.1-52b"] = "jamba_v01_52b"
+_ALIASES["h2o-danube-3-4b"] = "h2o_danube3_4b"
 
 
 def resolve(arch: str) -> str:

@@ -13,13 +13,13 @@ over i+1..j replicated m' ways (Case 2):
 O(N²M²) as in the paper.  ``general`` mode reproduces the paper's
 non-uniform replication configs (e.g. 7-1, 9-5-1-1); ``rectangular`` mode
 constrains replication to be uniform (the data axis) and only splits
-layers into S balanced stages.  ``plan_search`` plans the training
-workload; its serving workloads wait for the serving schedules and
-memory model of a later slice.
+layers into S balanced stages.  ``plan_search`` plans training, decode
+and prefill (the serving schedules under the serving memory model).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -29,8 +29,12 @@ from repro_torch.core.profiler import (H100_SXM, Hardware, LayerProfile,
                                        comm_time_tp_allreduce,
                                        comm_time_weight_sync,
                                        profile_analytic)
-from repro_torch.core.schedule import (SCHEDULES, MemoryModel, make_schedule,
-                                       paper_noam, plan_kwargs_for_schedule,
+from repro_torch.core.schedule import (SCHEDULES, MemoryModel,
+                                       bucket_lattice,
+                                       fit_serving_microbatches,
+                                       make_schedule, make_serving_schedule,
+                                       paper_noam, pick_bucket,
+                                       plan_kwargs_for_schedule, serve_ttft,
                                        weighted_round_time)
 
 
@@ -301,8 +305,13 @@ def uniform_layer_split(n_layers: int, n_stages: int) -> List[Tuple[int, int]]:
 
 @dataclasses.dataclass(frozen=True)
 class PlanChoice:
-    """One scored (pp, tp, schedule, v) candidate; ``round_time`` is the
-    simulated train round."""
+    """One scored (pp, tp, schedule, v) candidate.
+
+    ``round_time`` is the ranking score for the candidate's workload:
+    the simulated train round for ``workload='train'``, the per-token
+    decode round for ``'decode'`` (per accepted token when speculative),
+    and the weighted time-to-first-token for ``'prefill'``.
+    """
 
     plan: object                   # ParallelismPlan
     partition: Partition           # rectangular split into pp·v chunks
@@ -311,7 +320,15 @@ class PlanChoice:
     memory: MemoryModel
     hbm_bytes: float               # budget the candidate was checked against
     feasible: bool                 # memory.total_bytes <= hbm_bytes
-    workload: str = "train"
+    workload: str = "train"        # train | prefill | decode
+    occupancy: float = 1.0         # expected live-slot fraction (decode)
+    # the bucket the round was scored on at occupancy < 1 (None: full R)
+    bucket: Optional[int] = None
+    # the draft depth a speculative candidate was priced at
+    spec_k: Optional[int] = None
+    # the storage dtypes it was priced at (None: the compute dtype)
+    weight_dtype: Optional[str] = None
+    kv_dtype: Optional[str] = None
 
     @property
     def per_microbatch(self) -> float:
@@ -319,11 +336,15 @@ class PlanChoice:
 
     def describe(self) -> str:
         ok = "fits" if self.feasible else "OVER BUDGET"
+        score = "ttft" if self.workload == "prefill" else "round"
         v = self.plan.virtual_stages
         return (f"pp={self.plan.pp} tp={self.plan.tp} "
                 f"sched={self.plan.schedule}/{self.plan.stash_mode}"
                 f"{f' v={v}' if v > 1 else ''}"
-                f" round={self.round_time * 1e3:.3f} ms"
+                f"{f' k={self.spec_k}' if self.spec_k is not None else ''}"
+                f"{f' w={self.weight_dtype}' if self.weight_dtype else ''}"
+                f"{f' kv={self.kv_dtype}' if self.kv_dtype else ''}"
+                f" {score}={self.round_time * 1e3:.3f} ms"
                 f" bubble={self.bubble_fraction:.3f}"
                 f" hbm={self.memory.total_bytes / 1e9:.2f}"
                 f"/{self.hbm_bytes / 1e9:.1f} GB [{ok}]")
@@ -373,7 +394,18 @@ def plan_search(spec, base_plan, model_axis: int, hw: Hardware = H100_SXM,
                 max_virtual_stages: int = 4,
                 hbm_bytes: Optional[float] = None,
                 return_all: bool = False,
-                workload: str = "train"):
+                workload: str = "train",
+                cache_len: Optional[int] = None,
+                global_batch: Optional[int] = None,
+                sp: bool = False,
+                occupancy: float = 1.0,
+                page_size: int = 0,
+                spec_k: Optional[int] = None,
+                spec_acceptance: float = 0.8,
+                spec_draft_cost: float = 0.05,
+                spec_verify_cost: float = 0.15,
+                weight_dtype: Optional[str] = None,
+                kv_dtype: Optional[str] = None):
     """Jointly pick (pp, tp, schedule, virtual_stages) for a model axis.
 
     Enumerates every pp dividing ``model_axis`` whose chunk count
@@ -384,6 +416,31 @@ def plan_search(spec, base_plan, model_axis: int, hw: Hardware = H100_SXM,
     exceeds the memory budget (``hw.hbm_bytes`` unless overridden) are
     rejected outright — a plan that does not fit is not a plan.
 
+    ``workload``: ``"train"`` plans the training schedules by their
+    round; ``"decode"`` the serving schedules (``serve_1f``,
+    ``serve_interleaved``) by the per-token round with the attention
+    span pinned to ``cache_len`` in the analytic profile; ``"prefill"``
+    the serving schedules by :func:`~repro_torch.core.schedule.serve_ttft`.
+    Serving needs ``cache_len=`` and ``global_batch=`` (and honours
+    ``sp=``): the memory model then carries the cache term, and R is the
+    one the engine runs (``fit_serving_microbatches``).
+
+    ``occupancy`` (decode, 0 < occupancy <= 1) scores the round on the
+    smallest bucket of ``bucket_lattice(R)`` covering ``ceil(occupancy
+    · R)`` live slots (``ServingSchedule.bucketed``, recorded on
+    :attr:`PlanChoice.bucket`) while memory keeps the full-R capacity;
+    with ``page_size`` the full-length attention KV is priced by pages
+    in use at that occupancy (``serving_cache_bytes``), so a decode plan
+    over budget dense can fit paged at the same R.
+
+    ``spec_k`` (decode) adds the speculative schedules, one candidate
+    per draft depth k in 1..spec_k, scored per accepted token: the
+    round stretched by ``1 + k·spec_verify_cost`` plus k draft steps of
+    ``spec_draft_cost`` of a mean stage forward, over the expected
+    advance ``(1 - alpha^(k+1)) / (1 - alpha)`` at ``alpha =
+    spec_acceptance``.  Plain schedules stay in the pool.
+    ``weight_dtype`` / ``kv_dtype`` price quantized serving storage.
+
     Pass measured-calibrated ``profiles``
     (profiler.scale_profiles_to_measurements, or profile_measured) to
     make the search respond to measurements.  Tie-breaking is
@@ -391,24 +448,60 @@ def plan_search(spec, base_plan, model_axis: int, hw: Hardware = H100_SXM,
     then lower memory, then shallower pipe.
 
     Returns the best :class:`PlanChoice` (``return_all=True``: the full
-    ranked candidate list instead, infeasible ones included).  Only the
-    ``"train"`` workload is ported: ``"decode"`` and ``"prefill"`` need
-    the serving memory model (``serving_cache_bytes``) and the
-    ``serve_ttft`` pricing of the serving schedules.
+    ranked candidate list instead, infeasible ones included).
     """
-    if workload != "train":
-        raise NotImplementedError(
-            f"plan_search(workload={workload!r}): the serving workloads "
-            "need the serving memory model (serving_cache_bytes) and its "
-            "pricing, which are not ported yet")
+    assert workload in ("train", "prefill", "decode"), workload
+    assert 0.0 < occupancy <= 1.0, occupancy
+    assert occupancy == 1.0 or workload == "decode", (
+        "occupancy < 1 models a partially live decode batch; prefill "
+        "and train rounds are full by construction")
+    serving = workload != "train"
+    if serving:
+        assert cache_len is not None and global_batch is not None, (
+            f"plan_search(workload={workload!r}) needs cache_len= and "
+            "global_batch= to size the KV/SSM cache term")
+    assert page_size == 0 or serving, (
+        "page_size prices the serving engine's paged KV cache; training "
+        "plans have no KV cache")
+    assert (weight_dtype is None and kv_dtype is None) or serving, (
+        "weight_dtype/kv_dtype price quantized *serving* storage; "
+        "training keeps full-precision weights")
+    assert not (page_size and sp), (
+        "paged KV and sequence-parallel decode are mutually exclusive "
+        "(the engine rejects the combination)")
+    if spec_k is not None:
+        assert workload == "decode", (
+            "spec_k prices speculative draft-verify decode; prefill and "
+            "train rounds have no draft loop")
+        assert spec_k >= 1, f"spec_k must be >= 1, got {spec_k}"
+        assert 0.0 < spec_acceptance <= 1.0, spec_acceptance
     if profiles is None:
-        profiles = profile_analytic(spec, hw,
-                                    minibatch_tokens=minibatch_tokens)
+        profiles = profile_analytic(
+            spec, hw, minibatch_tokens=minibatch_tokens,
+            kv_len=cache_len if workload == "decode" else None)
     budget = float(hw.hbm_bytes if hbm_bytes is None else hbm_bytes)
-    R = base_plan.microbatches
+    if serving:
+        # the R the engine runs: batch-fitted, 1 under sp
+        R = fit_serving_microbatches(base_plan.decode_microbatches,
+                                     global_batch, max(data_replicas, 1),
+                                     sp=sp)
+        base_plan = base_plan.with_(decode_microbatches=R)
+    else:
+        R = base_plan.microbatches
     names = tuple(schedules) if schedules else (
-        "1f1b", "gpipe", "interleaved", "interleaved_async")
-    base_name = make_schedule(base_plan).name
+        (("serve_1f", "serve_interleaved")
+         + (("serve_spec_1f", "serve_spec_interleaved")
+            if workload == "decode" and spec_k else ()))
+        if serving
+        else ("1f1b", "gpipe", "interleaved", "interleaved_async"))
+    if spec_k is None and any(
+            getattr(SCHEDULES.get(n), "is_speculative", False)
+            for n in names):
+        raise ValueError(
+            "speculative schedules in schedules= need spec_k= (the max "
+            "draft depth to price); got spec_k=None")
+    base_name = (make_serving_schedule(base_plan).name if serving
+                 else make_schedule(base_plan).name)
     cands: List[PlanChoice] = []
     parts: dict = {}        # n_chunks -> Partition (schedule-independent)
     phases: dict = {}       # (pp, v, tp) -> (t_fwd, t_bwd)
@@ -423,15 +516,16 @@ def plan_search(spec, base_plan, model_axis: int, hw: Hardware = H100_SXM,
             assert cls is not None, (
                 f"unknown schedule {name!r}; registered: "
                 f"{sorted(SCHEDULES)}")
-            assert not cls.is_serving, (
-                f"schedule {name!r} does not run the 'train' workload")
+            assert cls.is_serving == serving, (
+                f"schedule {name!r} does not run the {workload!r} "
+                "workload")
             vs = (tuple(range(2, max_virtual_stages + 1))
                   if cls.takes_virtual_stages else (1,))
             for v in vs:
                 n_chunks = pp * v
                 if spec.n_layers % n_chunks:
                     continue
-                # the interleaved family needs microbatch groups
+                # the training interleaved family needs microbatch groups
                 if cls.takes_virtual_stages \
                         and cls.needs_group_microbatches and R % pp:
                     continue
@@ -440,7 +534,7 @@ def plan_search(spec, base_plan, model_axis: int, hw: Hardware = H100_SXM,
                 except AssertionError:
                     continue
                 plan = _candidate_plan(base_plan, pp, tp, name, v)
-                sched = make_schedule(plan)
+                base_sched = make_schedule(plan)
                 part = parts.get(n_chunks)
                 if part is None:
                     part = parts[n_chunks] = partition_rectangular(
@@ -451,12 +545,54 @@ def plan_search(spec, base_plan, model_axis: int, hw: Hardware = H100_SXM,
                         profiles, part, pp, tp, hw,
                         data_replicas=data_replicas)
                 tf, tb = phases[key]
-                mm = sched.memory_model(spec, plan, hw,
-                                        microbatch_tokens=minibatch_tokens,
-                                        data_replicas=data_replicas)
-                rt, bubble = weighted_round_time(sched, tf, tb)
-                cands.append(PlanChoice(plan, part, rt, bubble, mm, budget,
-                                        feasible=mm.fits(budget)))
+                # a speculative schedule is one candidate a draft depth
+                ks = (tuple(range(1, spec_k + 1)) if cls.is_speculative
+                      else (None,))
+                for kk in ks:
+                    sched = (base_sched if kk is None else
+                             dataclasses.replace(base_sched, spec_k=kk))
+                    if serving:
+                        mm = sched.memory_model(
+                            spec, plan, hw,
+                            microbatch_tokens=minibatch_tokens,
+                            data_replicas=data_replicas,
+                            cache_len=cache_len,
+                            global_batch=global_batch, sp=sp,
+                            prefill=(workload == "prefill"),
+                            page_size=page_size, kv_occupancy=occupancy,
+                            weight_dtype=weight_dtype, kv_dtype=kv_dtype)
+                    else:
+                        mm = sched.memory_model(
+                            spec, plan, hw,
+                            microbatch_tokens=minibatch_tokens,
+                            data_replicas=data_replicas)
+                    scored = sched
+                    bucket = None
+                    if serving and occupancy < 1.0:
+                        # the bucket the bucketed engine runs
+                        n_live = max(1, math.ceil(occupancy * R))
+                        bucket = pick_bucket(n_live, bucket_lattice(R))
+                        scored = sched.bucketed(bucket)
+                    rt, bubble = weighted_round_time(scored, tf, tb)
+                    if workload == "prefill":
+                        rt = serve_ttft(scored, tf)
+                    if kk is not None:
+                        # per accepted token
+                        alpha = spec_acceptance
+                        exp_adv = (float(kk + 1) if alpha >= 1.0 else
+                                   (1.0 - alpha ** (kk + 1))
+                                   / (1.0 - alpha))
+                        rt = (rt * (1.0 + kk * spec_verify_cost)
+                              + kk * spec_draft_cost
+                              * float(np.mean(tf))) / exp_adv
+                    cands.append(PlanChoice(plan, part, rt, bubble, mm,
+                                            budget,
+                                            feasible=mm.fits(budget),
+                                            workload=workload,
+                                            occupancy=occupancy,
+                                            bucket=bucket, spec_k=kk,
+                                            weight_dtype=weight_dtype,
+                                            kv_dtype=kv_dtype))
     assert cands, f"no structurally valid plan for model_axis={model_axis}"
 
     def rank(c: PlanChoice):
@@ -468,6 +604,6 @@ def plan_search(spec, base_plan, model_axis: int, hw: Hardware = H100_SXM,
         return cands
     feasible = [c for c in cands if c.feasible]
     assert feasible, (
-        f"no plan fits the {budget / 1e9:.1f} GB memory budget; closest: "
+        f"no plan fits the {budget / 1e9:.1f} GB HBM budget; closest: "
         f"{min(cands, key=lambda c: c.memory.total_bytes).describe()}")
     return feasible[0]

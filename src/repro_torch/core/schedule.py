@@ -17,15 +17,16 @@ head loss and starts its backward in the same tick (paper Figure 8).
 Ported: every training schedule — ``1f1b`` (policies ``stash`` and
 ``vertical``), ``gpipe`` (``flush`` and ``2bw``), and the virtual-stage
 family ``interleaved`` (flush) and ``interleaved_async`` (per-chunk
-weight-version rings) — with the training memory model, and the serving
+weight-version rings) — with the training memory model, and the
 serving family ``serve_1f``, ``serve_interleaved``, ``serve_spec_1f``
 and ``serve_spec_interleaved`` with live-slot masking, bucketed
-variants, ``serve_ttft``, ``bucket_lattice`` and ``pick_bucket``.  The
-serving memory model (``serving_cache_bytes``) comes with a later
-slice; ``ServingSchedule.memory_model`` raises.  The tables are pinned
-to the JAX package by tests/test_torch_spec.py,
-tests/test_torch_train_schedule.py, tests/test_torch_interleaved.py and
-tests/test_torch_serving_slots.py.
+variants, ``serve_ttft``, ``bucket_lattice`` and ``pick_bucket``, and
+the serving memory model (``default_cache_lens``, the windowed layers'
+ring lengths; ``serving_cache_bytes``; ``ServingSchedule.memory_model``
+and its speculative override).  The tables are pinned to the JAX
+package by tests/test_torch_spec.py, tests/test_torch_train_schedule.py,
+tests/test_torch_interleaved.py and tests/test_torch_serving_slots.py,
+the memory model by tests/test_torch_serving_planner.py.
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ from typing import Dict, Iterable, List, Optional, Tuple, Type
 
 import numpy as np
 
+from repro_torch import quant
 from repro_torch.core.profiler import ACT_BYTES
 from repro_torch.models.spec import _block_params
 
@@ -676,6 +678,119 @@ class ScheduleInterleavedAsync1F1B(ScheduleInterleaved1F1B):
             assert not live, f"stage {s}: versions never read: {live}"
 
 
+def default_cache_lens(spec, pp: int, cache_len: int) -> List[int]:
+    """Per-position KV capacities of a ``pp``-chunk split (pass the
+    chunk count for a virtual-stage split): a windowed layer needs
+    ``min(window, cache_len)`` slots, a global one ``cache_len``, and a
+    position gets the largest need over the chunks that share it (8 at
+    least), so every chunk has the same state structure."""
+    lps = spec.layers_per_stage(pp)
+    lens = []
+    for i in range(lps):
+        need = 0
+        for s in range(pp):
+            blk = spec.blocks[s * lps + i]
+            if blk.mixer != "attn":
+                continue
+            w = blk.window
+            need = max(need, cache_len if w <= 0 else min(w, cache_len))
+        lens.append(max(need, 8))
+    return lens
+
+
+def serving_cache_bytes(spec, plan, sched, *, cache_len: int,
+                        global_batch: int, sp: bool = False,
+                        prefill: bool = False,
+                        data_replicas: int = 1,
+                        page_size: int = 0,
+                        kv_occupancy: float = 1.0,
+                        n_slots: Optional[int] = None,
+                        kv_dtype: Optional[str] = None) -> float:
+    """Worst-stage per-device KV / SSM / WKV cache bytes of one serve
+    state, the engine's cache template (serving/engine.py) term for term.
+
+    Stage s holds its chunks' state for every row it serves; rows shard
+    over the data replicas (``global_batch / dp`` a device), or under
+    sequence-parallel decode (``sp``) replicate while full-length KV
+    positions shard (ring buffers stay replicated); KV heads shard over
+    tp when divisible.  Without ``prefill`` windowed layers are priced
+    at their ring lengths (:func:`default_cache_lens`); a session that
+    prefills allocates full-length caches.
+
+    Paged KV (``page_size > 0``): the full-length attention layers (the
+    ones the engine pages) are priced by the pages in use, a
+    ``kv_occupancy`` fraction of the slots' capacity, rounded up to
+    whole slots with ``n_slots``; ring buffers and recurrent state stay
+    dense; the int32 page tables are priced once.  Paged + sp raises.
+
+    ``kv_dtype`` prices the KV storage dtype (``repro_torch.quant``):
+    "fp32" / "bf16" re-price every attention cache, "int8" the paged
+    layers only (one byte plus the amortized per-page scale; dense
+    leftovers stay at ``ACT_BYTES``), the engine's layout.
+    """
+    def _kv_elt_bytes(paged: bool) -> float:
+        if kv_dtype is None:
+            return ACT_BYTES
+        if kv_dtype == "int8":
+            return (quant.kv_byte_cost("int8", spec, page_size) if paged
+                    else ACT_BYTES)
+        return quant.kv_byte_cost(kv_dtype, spec, page_size)
+
+    S, v = sched.n_stages, sched.virtual_stages
+    L = S * v
+    assert spec.n_layers % L == 0, (spec.n_layers, L)
+    lps = spec.n_layers // L
+    dp = max(int(data_replicas), 1)
+    tp = plan.tp
+    if page_size:
+        assert not sp, "paged KV and sequence-parallel decode exclusive"
+        assert cache_len % page_size == 0, (cache_len, page_size)
+    rows = float(global_batch) if sp else global_batch / dp
+    lens = ([cache_len] * lps if prefill
+            else default_cache_lens(spec, L, cache_len))
+    sp_flags = [sp and ln >= cache_len for ln in lens]
+    paged_flags = [page_size > 0 and ln >= cache_len for ln in lens]
+    if sp:
+        lens = [max(-(-ln // dp), 8) if f else ln
+                for ln, f in zip(lens, sp_flags)]
+    kv_local = (spec.n_kv // tp if spec.n_kv and spec.n_kv % tp == 0
+                else spec.n_kv)
+    occ = min(max(float(kv_occupancy), 0.0), 1.0)
+    if n_slots:
+        # the allocator hands out pages by slot: whole slots' worth
+        occ = math.ceil(occ * n_slots) / n_slots
+    stage_bytes = [0.0] * S
+    any_paged = False
+    for c in range(L):
+        s = c % S
+        for i in range(lps):
+            blk = spec.blocks[c * lps + i]
+            b = 0.0
+            if blk.mixer == "attn":
+                rows_eff = rows * occ if paged_flags[i] else rows
+                any_paged |= paged_flags[i]
+                b += 2.0 * rows_eff * lens[i] * kv_local * spec.d_head \
+                    * _kv_elt_bytes(paged_flags[i])
+            elif blk.mixer == "mamba":
+                ms = spec.mamba
+                d_inner = ms.expand * spec.d_model // tp
+                b += rows * (ms.d_conv - 1) * d_inner * ACT_BYTES
+                b += rows * d_inner * ms.d_state * 4.0        # f32 scan
+            elif blk.mixer == "rwkv":
+                rs = spec.rwkv
+                heads = spec.d_model // rs.head_dim // tp
+                b += rows * spec.d_model * ACT_BYTES
+                b += rows * heads * rs.head_dim * rs.head_dim * 4.0
+            if blk.ffn == "rwkv_cmix":
+                b += rows * spec.d_model * ACT_BYTES
+            stage_bytes[s] += b
+    if any_paged:
+        # one int32 (slot, page) table, replicated on every stage
+        table_bytes = (n_slots or rows) * (cache_len // page_size) * 4.0
+        stage_bytes = [b + table_bytes for b in stage_bytes]
+    return max(stage_bytes)
+
+
 @dataclasses.dataclass(frozen=True)
 class ServingSchedule(PipelineSchedule):
     """Forward-only pipelined round: prefill, or one decode step.
@@ -773,10 +888,43 @@ class ServingSchedule(PipelineSchedule):
     def resid_slots(self) -> int:
         return 1                     # no backward, no residual ring
 
-    def memory_model(self, spec, plan, hw, **_):
-        raise NotImplementedError(
-            "the serving memory model (serving_cache_bytes) is not ported "
-            "yet")
+    def memory_model(self, spec, plan, hw, *, microbatch_tokens: int,
+                     data_replicas: int = 1, cache_len: int = None,
+                     global_batch: int = None, sp: bool = False,
+                     prefill: bool = False, page_size: int = 0,
+                     kv_occupancy: float = 1.0,
+                     weight_dtype: Optional[str] = None,
+                     kv_dtype: Optional[str] = None) -> MemoryModel:
+        """Serving footprint: weights + KV / SSM cache + in-flight rings.
+
+        No version ring, residual ring, gradient accumulator or
+        optimizer state.  The workspace is the engine's rings: R slots of
+        embeddings, R of exiting hidden state and one activation in
+        flight a stage (``microbatch_tokens`` rows · qlen each).
+        ``weight_dtype`` / ``kv_dtype`` price quantized storage
+        (``repro_torch.quant``).
+        """
+        assert cache_len is not None and global_batch is not None, (
+            "serving memory_model needs cache_len= and global_batch= "
+            "(the KV/SSM cache term is sized from them)")
+        blocks, shared = stage_weight_params(spec, plan, self)
+        act = microbatch_tokens * spec.d_model * ACT_BYTES
+        cache = serving_cache_bytes(
+            spec, plan, self, cache_len=cache_len,
+            global_batch=global_batch, sp=sp, prefill=prefill,
+            data_replicas=data_replicas, page_size=page_size,
+            kv_occupancy=kv_occupancy, n_slots=self.n_microbatches,
+            kv_dtype=kv_dtype)
+        return MemoryModel(
+            schedule=self.name,
+            weight_bytes=(blocks + shared)
+            * quant.weight_byte_cost(weight_dtype, spec, hw),
+            stash_bytes=0.0,
+            resid_bytes=0.0,
+            workspace_bytes=(2.0 * self.n_microbatches + 2.0) * act,
+            grad_bytes=0.0,
+            optimizer_bytes=0.0,
+            cache_bytes=cache)
 
     def _build_tables(self) -> ScheduleTables:
         S, R, v = self.n_stages, self.n_microbatches, self.virtual_stages
@@ -955,6 +1103,32 @@ class _SpeculativeServe:
             raise AssertionError("accept_pos_delta(k+1) must raise")
         except ValueError:
             pass
+
+    def memory_model(self, spec, plan, hw, *, microbatch_tokens: int,
+                     data_replicas: int = 1, cache_len: int = None,
+                     global_batch: int = None, sp: bool = False,
+                     prefill: bool = False, page_size: int = 0,
+                     kv_occupancy: float = 1.0,
+                     weight_dtype: Optional[str] = None,
+                     kv_dtype: Optional[str] = None) -> MemoryModel:
+        """The serving footprint with the verify width and the draft
+        state: the in-flight rings hold ``verify_qlen`` positions a slot
+        (the workspace scales by spec_k + 1), plus the slots' draft
+        tokens and one drafter row in flight.  Unlike the JAX package's
+        override, which drops them (ROADMAP Queue 3), the storage dtypes
+        pass on to the plain model."""
+        mm = super().memory_model(
+            spec, plan, hw, microbatch_tokens=microbatch_tokens,
+            data_replicas=data_replicas, cache_len=cache_len,
+            global_batch=global_batch, sp=sp, prefill=prefill,
+            page_size=page_size, kv_occupancy=kv_occupancy,
+            weight_dtype=weight_dtype, kv_dtype=kv_dtype)
+        act = microbatch_tokens * spec.d_model * ACT_BYTES
+        draft_bytes = self.n_microbatches * self.spec_k * 4.0 + act
+        return dataclasses.replace(
+            mm,
+            workspace_bytes=mm.workspace_bytes * self.verify_qlen
+            + draft_bytes)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -248,7 +248,6 @@ def attention(p, x, st: AttnStatic, *, positions, window: int, theta: float,
         k_pool, v_pool = pools[:2]
         ks_pool, vs_pool = pools[2:] if kq else (None, None)
         n_pool, _, ps, n_kv, dh = k_pool.shape
-        L = len(row.ids) * ps
         if s == 1 or cache_pos > 0:
             # decode / verify: key t lands at offset (cache_pos + t) % ps
             # of the slot's page (cache_pos + t) // ps, token by token: a
@@ -294,11 +293,14 @@ def attention(p, x, st: AttnStatic, *, positions, window: int, theta: float,
                 if pid >= 0:
                     k_pool[pid, :, :width] = k[:, lo:lo + width]
                     v_pool[pid, :, :width] = v[:, lo:lo + width]
-        # gather the table into a dense slab (int8 pages dequantized in
-        # f32, int8 · f32 promoting, and cast to q's dtype, as JAX reads
-        # them); masked entries contribute exact zeros, as on the dense
-        # path
-        safe = row.ids_dev.long().clamp(0, n_pool - 1)
+        # gather the pages that hold the first cache_pos + s keys into a
+        # dense slab (int8 pages dequantized in f32, int8 · f32
+        # promoting, and cast to q's dtype, as JAX reads them); the keys
+        # past them are masked and would contribute exact zeros, as on
+        # the dense path, so they are not read
+        ids = row.ids_dev[:-(-(cache_pos + s) // ps)]
+        L = ids.shape[0] * ps
+        safe = ids.long().clamp(0, n_pool - 1)
         k, v = k_pool[safe], v_pool[safe]
         if kq:
             k = (k * ks_pool[safe][:, :, None, :, None]).to(q.dtype)
@@ -306,7 +308,7 @@ def attention(p, x, st: AttnStatic, *, positions, window: int, theta: float,
         k = k.transpose(0, 1).reshape(b, L, n_kv, dh)
         v = v.transpose(0, 1).reshape(b, L, n_kv, dh)
         j = torch.arange(L, device=x.device)
-        alive = (row.ids_dev >= 0).repeat_interleave(ps)
+        alive = (ids >= 0).repeat_interleave(ps)
         k_pos = torch.where((j < cache_pos + s) & alive, j, _INVALID_POS)
     elif kv_cache is not None:
         ck, cv = kv_cache

@@ -57,7 +57,7 @@ import torch
 from repro_torch.checkpoint.manager import CheckpointManager, reshard_stages
 from repro_torch.core import profiler as prof
 from repro_torch.core.partitioner import PlanChoice, plan_search
-from repro_torch.core.schedule import make_schedule
+from repro_torch.core.schedule import fit_serving_microbatches, make_schedule
 from repro_torch.models.spec import stage_varying_scalars
 from repro_torch.optim.optimizers import tree_map
 
@@ -250,22 +250,34 @@ def plan_choice(spec, old_plan, new_model_axis: int, hw=prof.H100_SXM, *,
 
 def plan_search_report(spec, base_plan, hw=prof.H100_SXM, *, seq_len: int,
                        global_batch: int, data_replicas: int,
-                       prefix: str = "", workload: str = "train"
-                       ) -> PlanChoice:
+                       prefix: str = "", workload: str = "train",
+                       sp: bool = False, weight_dtype=None,
+                       kv_dtype=None) -> PlanChoice:
     """The launcher's surface: search over the base plan's model axis
-    (pp × tp), print the choice and its memory model, return it.  Only
-    the training workload is ported."""
-    if workload != "train":
-        raise NotImplementedError(
-            f"plan_search_report(workload={workload!r}): the serving "
-            "workloads need the serving memory model (serving_cache_bytes) "
-            "and its pricing, which are not ported yet")
+    (pp × tp), print the choice and its memory model, return it.
+
+    Serving workloads take the microbatch's tokens from the decode
+    microbatch count the engine runs (one query token a row when
+    decoding, ``seq_len`` when prefilling) and price the KV / SSM cache
+    of ``cache_len = seq_len`` beside the weights."""
     dp = max(data_replicas, 1)
-    mb_tokens = seq_len * max(global_batch // dp // base_plan.microbatches,
-                              1)
-    choice = plan_choice(spec, base_plan, base_plan.pp * base_plan.tp, hw,
-                         minibatch_tokens=mb_tokens,
-                         data_replicas=data_replicas)
+    if workload == "train":
+        mb_tokens = seq_len * max(global_batch // dp
+                                  // base_plan.microbatches, 1)
+        choice = plan_choice(spec, base_plan, base_plan.pp * base_plan.tp,
+                             hw, minibatch_tokens=mb_tokens,
+                             data_replicas=data_replicas)
+    else:
+        R = fit_serving_microbatches(base_plan.decode_microbatches,
+                                     global_batch, dp, sp=sp)
+        rows = global_batch if sp else max(global_batch // dp // R, 1)
+        mb_tokens = rows * (seq_len if workload == "prefill" else 1)
+        choice = plan_search(spec, base_plan, base_plan.pp * base_plan.tp,
+                             hw, minibatch_tokens=mb_tokens,
+                             data_replicas=data_replicas,
+                             workload=workload, cache_len=seq_len,
+                             global_batch=global_batch, sp=sp,
+                             weight_dtype=weight_dtype, kv_dtype=kv_dtype)
     print(f"{prefix}plan_search[{workload}]: {choice.describe()}")
     print(f"{prefix}  predicted {choice.memory}")
     return choice

@@ -35,14 +35,19 @@ token, and truncates the rejected suffix's pages) and
 Per-slot state is stacked like the JAX engine's, ``(n_chunks, R, rows,
 ...)`` per leaf with storage row p = s·v + j holding model chunk
 j·S + s (``storage_chunk_order``, the training layout; the parameters
-are stored the same way): dense KV caches ``(..., cache_len, KV, Dh)``
-for attention layers; RWKV6 recurrent state, time-mix ``(x_prev (...,
+are stored the same way): dense KV caches ``(..., L_i, KV, Dh)`` for
+attention layers, where ``L_i`` is ``cache_len``, or on a session that
+neither prefills a fixed width nor speculates, a windowed layer's ring
+length ``min(window, cache_len)`` (``default_cache_lens``, the lengths
+the serving memory model prices: a decode writes position t at slot
+t mod L_i); RWKV6 recurrent state, time-mix ``(x_prev (...,
 d), wkv (..., H, Dh, Dh) f32)`` and channel-mix ``x_prev (..., d)``; and
 Mamba state ``(conv_tail (..., d_conv - 1, Ci), h (..., Ci, N) f32)``.
-With paging, attention KV moves into page pools ``(n_chunks,
-pool_pages, rows, page, KV, Dh)`` per layer plus one host-side
-:class:`PageAllocator` whose (R, max_pages) table indexes every layer's
-pool; recurrent state stays dense, as in JAX.  Quantized storage
+With paging, the full-length attention layers' KV moves into page
+pools ``(n_chunks, pool_pages, rows, page, KV, Dh)`` per layer plus one
+host-side :class:`PageAllocator` whose (R, max_pages) table indexes
+every paged layer's pool; ring buffers and recurrent state stay dense,
+as in JAX.  Quantized storage
 (``build_serving(weight_dtype=, kv_dtype=)``, ``repro_torch.quant``):
 int8 / fp8 matmul weights with per-output-channel scales, dequantized at
 each matmul site; int8 page pools with per-(page, KV head) f32 scale
@@ -64,6 +69,7 @@ from repro_torch import quant, resolve_device
 from repro_torch.core.reference import model_plan, to_storage_order
 from repro_torch.core.schedule import (F_CHUNK, F_FROM_EMBEDS, F_MB,
                                        ServingSchedule, bucket_lattice,
+                                       default_cache_lens,
                                        fit_serving_microbatches,
                                        make_serving_schedule, pick_bucket)
 from repro_torch.models import lm_head
@@ -104,8 +110,14 @@ class EngineSession:
     cache_len: int
     rows: int                      # rows per microbatch slot
     # the session's prompt width (0: a one-shot prefill takes any width
-    # up to cache_len, and there is no per-slot admission)
+    # up to cache_len, or up to the shortest ring, and there is no
+    # per-slot admission)
     prefill_len: int = 0
+    # KV capacity of each stage-program position (build_serving's
+    # default_cache_lens, or cache_len everywhere)
+    cache_lens: Optional[List[int]] = None
+    # stage-program positions whose KV lives in the page pools
+    paged_layers: Tuple[int, ...] = ()
     paged: Optional[Dict[str, int]] = None
     # the bucket lattice (build_serving(buckets=True)), None = full R only
     buckets: Optional[Tuple[int, ...]] = None
@@ -156,32 +168,33 @@ class EngineSession:
             self.kv_dtype, self.compute_dtype)
 
     def start(self, seed: int = 0) -> "EngineSession":
-        """Initialize (or reset) parameters from ``seed`` and zero the
-        per-slot state (KV caches or pools, recurrent state).  Weights
-        are drawn at the compute dtype, put in the schedule's storage
-        chunk order, and then quantized leaf by leaf (``weight_dtype``),
-        so the largest transient is one leaf's f32 copy; int8 pools start
-        at zero with scale planes of 1, so an untouched page dequantizes
-        to exact zeros."""
+        """Initialize (or reset) parameters from ``seed``
+        (``init_weights``) and zero the per-slot state
+        (``reset_state``)."""
+        return self.init_weights(seed).reset_state()
+
+    def init_weights(self, seed: int = 0) -> "EngineSession":
+        """Draw the parameters from ``seed`` at the compute dtype, put
+        them in the schedule's storage chunk order, and quantize them
+        leaf by leaf (``weight_dtype``), so the largest transient is one
+        leaf's f32 copy."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         params = init_params(self.spec, model_plan(self.plan, self.sched),
                              gen, self.compute_dtype)
-        self.set_params(quant.quantize_params(
+        return self.set_params(quant.quantize_params(
             to_storage_order(params, self.sched), self.weight_dtype))
-        return self.reset_state()
 
     def reset_state(self) -> "EngineSession":
         """Zero the per-slot state (KV caches or pools, recurrent state),
         the positions and prompt lengths, and make every slot live (the
-        one-shot flows); the parameters stay."""
+        one-shot flows); the parameters stay.  int8 pools start at zero
+        with scale planes of 1, so an untouched page dequantizes to
+        exact zeros."""
         R, n_chunks = self.n_slots, self.sched.n_chunks
         st = self.statics
-        paged_layers = [i for i, b in enumerate(st.program)
-                        if b.mixer == "attn"] if self.paged else []
         self.cache = init_stage_state(
-            st, self.rows, [self.cache_len] * len(st.program),
-            self.cache_dtype, self.device, lead=(n_chunks, R),
-            paged_layers=paged_layers)
+            st, self.rows, self.cache_lens, self.cache_dtype, self.device,
+            lead=(n_chunks, R), paged_layers=self.paged_layers)
         self._views = [[_slot_view(self.cache, p, m) for m in range(R)]
                        for p in range(n_chunks)]
         if self.paged is not None:
@@ -201,7 +214,7 @@ class EngineSession:
                             for _ in range(2)]
                 return tuple(out)
 
-            self.pages = {f"layer_{i}": pools() for i in paged_layers}
+            self.pages = {f"layer_{i}": pools() for i in self.paged_layers}
             self._pools = [{name: tuple(t[p] for t in pool)
                             for name, pool in self.pages.items()}
                            for p in range(n_chunks)]
@@ -254,6 +267,17 @@ class EngineSession:
             raise ValueError(
                 f"tokens {tuple(tokens.shape)} must be (R={R}, rows="
                 f"{self.rows}, S <= cache_len={self.cache_len})")
+        else:
+            lens = self.cache_lens
+            for i, blk in enumerate(self.statics.program):
+                if blk.mixer == "attn" and width > lens[i]:
+                    raise ValueError(
+                        f"a prompt of width {width} does not fit layer_{i}'s "
+                        f"ring cache of {lens[i]} positions (cache_len="
+                        f"{self.cache_len}): build "
+                        "the session with prefill_len= for full-length "
+                        "caches, or send prompts of at most "
+                        f"{lens[i]} tokens")
         lens = batch.get("lens") if isinstance(batch, dict) else None
         if lens is None:
             return tokens, np.full(R, width, np.int64)
@@ -758,12 +782,22 @@ def build_serving(spec: spec_lib.ModelSpec, plan: ParallelismPlan, *,
     Without it a one-shot ``prefill`` takes any width up to
     ``cache_len`` and per-slot admission is off.
 
-    ``page_size > 0`` keeps every attention layer's KV in a block-paged
-    pool of ``pool_pages`` pages (default R · cache_len / page_size, the
-    dense capacity; fewer trade worst-case capacity for memory, and the
-    batcher queues admissions when the pool runs dry) and runs decode
-    and verify attention through the paged kernel.  Recurrent state
-    (RWKV6, Mamba) stays dense whatever ``page_size`` says.
+    Cache lengths, as the JAX engine allocates them and the serving
+    memory model prices them: a session built without ``prefill_len``
+    on a plain schedule keeps each windowed attention layer in a ring
+    of ``default_cache_lens(spec, n_chunks, cache_len)`` positions (its
+    one-shot prompts must fit the shortest ring, or ``prefill`` raises);
+    a session with ``prefill_len``, or speculative, keeps every cache
+    full-length.
+
+    ``page_size > 0`` keeps the full-length attention layers' KV in a
+    block-paged pool of ``pool_pages`` pages (default R · cache_len /
+    page_size, the dense capacity; fewer trade worst-case capacity for
+    memory, and the batcher queues admissions when the pool runs dry)
+    and runs their decode and verify attention through the paged kernel.
+    Ring buffers and recurrent state (RWKV6, Mamba) stay dense whatever
+    ``page_size`` says; a session with no full-length attention layer
+    has no pool.
     ``buckets=True`` runs each round over the smallest
     ``bucket_lattice(R)`` variant of the tables covering its slots.
 
@@ -818,8 +852,15 @@ def build_serving(spec: spec_lib.ModelSpec, plan: ParallelismPlan, *,
                 f"spec_k={sched.spec_k} exceeds the cache_len headroom: a "
                 f"verify round writes spec_k+1={sched.verify_qlen} "
                 f"positions but cache_len={cache_len}")
+    n_chunks = sched.n_chunks
+    cache_lens = ([cache_len] * spec.layers_per_stage(n_chunks)
+                  if prefill_len or sched.is_speculative
+                  else default_cache_lens(spec, n_chunks, cache_len))
+    paged_layers = tuple(
+        i for i, (blk, ln) in enumerate(zip(statics.program, cache_lens))
+        if page_size and blk.mixer == "attn" and ln >= cache_len)
     paged = None
-    if page_size and statics.attn is not None:
+    if paged_layers:
         max_pages = cache_len // page_size
         paged = {"page_size": page_size, "max_pages": max_pages,
                  "pool_pages": (R * max_pages if pool_pages is None
@@ -827,7 +868,8 @@ def build_serving(spec: spec_lib.ModelSpec, plan: ParallelismPlan, *,
     return EngineSession(
         spec=spec, plan=plan, sched=sched, statics=statics, device=dev,
         compute_dtype=compute_dtype, cache_len=cache_len, rows=rows,
-        prefill_len=prefill_len, paged=paged,
+        prefill_len=prefill_len, cache_lens=cache_lens,
+        paged_layers=paged_layers, paged=paged,
         buckets=bucket_lattice(R) if buckets else None,
         ragged_ok=(not recurrent and spec.encoder is None
                    and spec.frontend != "vision"),

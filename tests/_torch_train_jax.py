@@ -34,14 +34,14 @@ LOSS_ATOL = 5e-5
 PARAM_TOL = (2e-5, 1e-3)
 
 
-def run_both(mode, pp, opt="sgdm", lr=0.05):
+def run_both(mode, pp, opt="sgdm", lr=0.05, arch="qwen3-14b"):
     """({"losses", "state"} numpy for JAX, the same for the port) after
-    ROUNDS rounds of the qwen3 smoke spec, fp32."""
+    ROUNDS rounds of the arch's smoke spec (qwen3's by default), fp32."""
     kw = dict(pp=pp, microbatches=R, stash_mode=mode)
-    jspec = jconfigs.get("qwen3-14b").smoke_spec()
-    jplan = jconfigs.get("qwen3-14b").SMOKE_PLAN.with_(**kw)
-    tspec = tconfigs.get("qwen3-14b").smoke_spec()
-    tplan = tconfigs.get("qwen3-14b").SMOKE_PLAN.with_(**kw)
+    jspec = jconfigs.get(arch).smoke_spec()
+    jplan = jconfigs.get(arch).SMOKE_PLAN.with_(**kw)
+    tspec = tconfigs.get(arch).smoke_spec()
+    tplan = tconfigs.get(arch).SMOKE_PLAN.with_(**kw)
     name = {"sgdm": "SGDM", "adam": "Adam"}[opt]
     jo, to = getattr(jopt, name)(lr=lr), getattr(topt, name)(lr=lr)
     js = j_init(jspec, jplan, jo, jax.random.key(0), jnp.float32)

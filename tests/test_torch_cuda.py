@@ -9,7 +9,7 @@ package, so it runs on a machine that has only PyTorch:
 The shapes mirror tests/test_kernels.py's PAGED_CASES, FLASH_CASES,
 WKV_CASES and MAMBA_CASES, and tests/test_quant.py's int8 paged matrix
 (FLASH_BWD: the flash backward at the smoke, GQA and training shapes,
-and Dh 120);
+and Dh 120; PAGED and FLASH also at h2o-danube3-4b's Dh 120);
 inputs come from a seeded numpy generator, NaN sits in unreferenced
 pages and past each row's length (int8 pools: random payloads and NaN /
 inf scales in unreferenced pages).
@@ -29,7 +29,8 @@ PAGED = [  # b, h, kv, dh, page, n_pages, window
     (2, 8, 2, 64, 64, 4, -1), (2, 4, 1, 32, 16, 8, -1),
     (2, 4, 2, 64, 16, 8, 20), (1, 2, 2, 16, 64, 2, 48),
     (2, 40, 8, 128, 16, 64, -1),                       # qwen3-14b decode
-    (2, 40, 8, 128, 16, 256, -1)]       # 2 x 4096 keys: many pages a split
+    (2, 40, 8, 128, 16, 256, -1),       # 2 x 4096 keys: many pages a split
+    (1, 32, 8, 120, 16, 512, 4096)]     # h2o-danube3-4b decode, Dh 120
 FLASH = [  # b, sq, sk, h, kv, dh, causal, window
     (2, 256, 256, 4, 2, 64, True, -1), (1, 128, 128, 4, 4, 64, True, 32),
     (2, 100, 100, 2, 1, 32, True, -1), (1, 256, 256, 8, 2, 128, False, -1),
@@ -40,7 +41,10 @@ FLASH = [  # b, sq, sk, h, kv, dh, causal, window
     (1, 77, 77, 4, 2, 64, True, -1), (2, 200, 200, 4, 1, 128, True, -1),
     (1, 529, 529, 8, 2, 128, True, -1), (1, 77, 130, 2, 2, 16, False, -1),
     (2, 200, 200, 2, 1, 8, True, 70), (1, 300, 300, 4, 2, 64, True, 100),
-    (1, 529, 529, 4, 1, 128, True, 129), (8, 528, 528, 40, 8, 128, True, -1)]
+    (1, 529, 529, 4, 1, 128, True, 129), (8, 528, 528, 40, 8, 128, True, -1),
+    # h2o-danube3-4b's heads (Dh 120, zero-padded to 128 in bf16) with a
+    # window that crosses key tiles
+    (1, 700, 700, 32, 8, 120, True, 300)]
 PAGED_INT8 = [  # b, h, kv, dh, page, n_pages, window: tests/test_quant.py's
                # int8 matrix, then qwen3-14b decode, global and windowed
     (2, 4, 2, 64, 16, 8, -1), (2, 8, 2, 64, 64, 4, -1),

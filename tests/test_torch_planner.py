@@ -204,19 +204,6 @@ def test_stage_phase_times_equal_jax():
         np.testing.assert_array_equal(t[1], j[1])
 
 
-def test_serving_workloads_are_not_ported():
-    spec = tconfigs.get("qwen3-14b").smoke_spec()
-    plan = tconfigs.get("qwen3-14b").SMOKE_PLAN
-    for workload in ("decode", "prefill"):
-        with pytest.raises(NotImplementedError, match="serving_cache_bytes"):
-            tpart.plan_search(spec, plan, 2, minibatch_tokens=64,
-                              workload=workload)
-        with pytest.raises(NotImplementedError, match="serving_cache_bytes"):
-            tdriver.plan_search_report(spec, plan, seq_len=64,
-                                       global_batch=8, data_replicas=1,
-                                       workload=workload)
-
-
 # a straggler at each stage, none, and a small skew under the slack
 MEASURED = [[1.0, 1.0], [3.0, 1.0], [1.0, 3.0], [1.1, 1.0],
             [1.0, 1.0, 1.0, 4.0], [2.0, 1.0, 1.0, 1.0]]
