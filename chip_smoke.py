@@ -105,8 +105,8 @@ Phases (any failure raises and the script exits non-zero):
    ``spawn``; every hand-off staged through host memory), pp 2 at dp 1,
    ``1f1b`` / stash at 2 layers and ``interleaved`` (flush) v 2 at 4
    layers, equal the single-process executor bit for bit (state digests
-   compared across processes); 17c: dp 2 x pp 1 and dp 2 x pp 2 (four
-   processes), R 2, one round, replicated and ZeRO-1, track the
+   compared across processes); 17c: dp 2 x pp 2 (four processes; dp 2
+   x pp 1 is held on the CPU), R 2, one round, replicated and ZeRO-1, track the
    sequential oracle over the whole batch (losses atol 5e-5 / rtol 1e-4, weights 5e-5 / 2e-3),
    ZeRO-1 equals the replicated update bit for bit; 17d: phase 13's
    shape (qwen3-14b, 4 layers, bf16, Adam, 1f1b / stash, pp 2, R 4 x
@@ -174,15 +174,37 @@ Phases (any failure raises and the script exits non-zero):
    RING_CACHE: a session without ``prefill_len`` (ring caches) equals one
    with it (full-length caches) over RING_PROMPT + RING_DECODE tokens
    (tokens; hidden 1e-5), and each one's cache bytes equal
-   ``serving_cache_bytes`` with ``prefill`` False and True.
+   ``serving_cache_bytes`` with ``prefill`` False and True.  20b also
+   serves danube3 at 2 layers in fp32 with int8 paged KV (120-byte rows
+   through the walk's 8-byte chunks), DANUBE_INT8_DECODE decodes on the
+   card and on the CPU: tokens and positions equal;
+21. tensor parallelism — ranks as gloo processes sharing the card (NCCL
+   refuses two a card, so round times are not tp's speed).  21a:
+   qwen3-14b's widths at DIST_LAYERS layers, fp32, phase 17a's shape, pp
+   1 x tp TP_DEGREE on two ranks against the one-process tp 1 executor
+   from the same seed: losses and parameters within TP_LOSS_TOL /
+   TP_PARAM_TOL, the replicated stage leaves bit-identical across the
+   tensor ranks (the embedding and head on tensor rank 0 alone), the
+   tensor group's calls and bytes equal to the analytic count
+   (``tp_sums``).  21b: phase 13's model and shape at pp 2 x tp
+   TP_DEGREE on four ranks through launch/train.py's build, one round:
+   its loss within 2e-2 of phase 13's first round, the flash launches
+   tp times phase 13's a round, a ``tp`` line a rank (round seconds, the
+   tensor group's calls / bytes / seconds, hand-off wait, peak GB).
+   21c: 21a's checkpoint, written by the ranks in JAX's full layout,
+   restored by one tp 1 process in host memory while 21b runs: every
+   rank's state equals its tensor shard of the restored one bit for
+   bit (64-bit digests).
 
 Phase 2 also holds the int8-pool paged kernel and the flash backward
 kernel (bf16 and f32; with its log-sum-exp, and determinism) against
 their plain versions, and at h2o-danube3-4b's heads (32 / 8, Dh 120)
 the flash forward (bf16 and f32, windowed), its backward (bf16) and the
-float paged walk (windowed).  Launch counters are zeroed before and
-read after each main path (phases 3, 5, 6, 8, 9, 11, 13, 15, 16, 17d,
-18b, whose two ranks count their own, 19a, each run of 19b, and 20a-b).  Prints a
+float and int8 paged walks (windowed; int8 rows of 120 bytes).  Launch
+counters are zeroed before and read after each main path (phases 3, 5,
+6, 8, 9, 11, 13, 15, 16, 17d, 18b, whose two ranks count their own,
+19a, each run of 19b, 20a-b, and 21a-b, whose ranks count their own).
+Prints a
 ``profile`` JSON line for qwen3 bf16, rwkv6 (decode, then prefill),
 jamba (decode, then prefill), quantized qwen3 and the training rounds
 (1f1b, interleaved, interleaved_async), three ``train`` JSON lines
@@ -202,11 +224,12 @@ steps admissions waited on the dry pool, near-ties, each speculative
 run's acceptance by round), one ``planned_serving`` JSON line (phase
 20: the dense and chosen plans, predicted and measured bytes, the
 decode step beside the predicted round, danube's times and gaps, the
-ring check), one ``kernels`` JSON line
+ring check), ``tp`` JSON lines (phase 21: one a rank of 21b, one for
+21a / 21c), one ``kernels`` JSON line
 (launches, by path and for wkv6 by
 design, errors, times, bounds, each kernel's design and what ``ptxas
--v`` reported; the flash, backward and paged records carry a ``dh120``
-entry at Dh 120), the card's name and power limit, and last ``{"ok":
+-v`` reported; the flash, backward, paged and int8 paged records carry a
+``dh120`` entry at Dh 120), the card's name and power limit, and last ``{"ok":
 true, "device": ...}``.  Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
@@ -309,12 +332,26 @@ DIST_LAYERS, DIST_V_LAYERS, DIST_SEQ, DIST_R, DIST_ROWS, DIST_ROUNDS = \
     2, 4, 256, 4, 1, 2
 # 17c's replicas sum every microbatch's full-width fp32 gradients through
 # host memory (gloo on one card: ~30 s a round of R 4 at dp 2 x pp 2), so
-# it runs R 2 microbatches for one round
+# it runs R 2 microbatches for one round, at dp 2 x pp 2 only: dp 2 x pp
+# 1 took 153 s on a slow host (the f32 embedding and head dominate, so a
+# shallower model saves little); tests/test_torch_dist_replicas.py holds
+# it on the CPU
 DIST_REPLICA_R, DIST_REPLICA_ROUNDS = 2, 1
+DIST_REPLICA_PP = (2,)
 # 17d runs phase 13's shape for one round (its loss is held to phase 13's
 # first round's), which gives phase 20 its seconds
 DIST_TRAIN_ROUNDS = 1
 DIST_GROUP_S, DIST_JOIN_S = 120, 600
+# phase 21: tensor parallelism on gloo ranks sharing the card.  21a / 21c
+# run 17a's shape (DIST_LAYERS layers fp32, DIST_R x DIST_ROWS x
+# DIST_SEQ, SGD with momentum, DIST_ROUNDS rounds) at pp 1 x tp
+# TP_DEGREE, held to the one-process tp 1 executor within the
+# tolerances of tests/test_torch_dist_jax.py; 21b runs phase 13's model
+# and shape at pp 2 x tp TP_DEGREE; 21c's restore at tp 1 runs in host
+# memory while 21b's ranks hold the card
+TP_DEGREE = 2
+TP_LOSS_TOL = dict(atol=5e-5, rtol=1e-4)
+TP_PARAM_TOL = (5e-5, 2e-3)
 # elements a digest weighs at a time (its weights: 128 MB on the card)
 DIGEST_CHUNK = 1 << 24
 # the backward kernel's checks (phase 2): (B, S, window) at H 40 / KV 8,
@@ -360,6 +397,8 @@ DANUBE_SLOTS, DANUBE_ROWS = 2, 1
 DANUBE_PROMPT, DANUBE_CACHE, DANUBE_DECODE = 6144, 8192, 16
 DANUBE_WINDOW = 4096
 DH120_HEADS = (32, 8, 120)
+# 20b's int8 KV run: 2 layers fp32 at full width, card against the CPU
+DANUBE_INT8_DECODE = 8
 DANUBE_TIE = RWKV_TIE
 # 20c: ring caches against full-length ones, fp32, h2o-danube3-4b's
 # widths cut to RING_LAYERS layers of window RING_WINDOW
@@ -714,7 +753,8 @@ def phase_flash_bwd_kernel(device):
     return err
 
 
-def paged_int8_inputs(q_dtype, device, q_len, lengths, seed, n_copies=1):
+def paged_int8_inputs(q_dtype, device, q_len, lengths, seed, n_copies=1,
+                      **shape):
     """The main-path paged call over int8 pools: :func:`paged_inputs`'s
     f32 pools quantized per (page, KV head), q in ``q_dtype``.  Pages no
     table references hold random int8 payloads and NaN scales (garbage
@@ -724,7 +764,7 @@ def paged_int8_inputs(q_dtype, device, q_len, lengths, seed, n_copies=1):
     import torch
     from repro_torch.quant import quantize_kv_page_batched
     sets, tab, lens = paged_inputs(torch.float32, device, q_len, lengths,
-                                   seed, n_copies)
+                                   seed, n_copies, **shape)
     live = torch.zeros(sets[0][1].shape[0], dtype=torch.bool, device=device)
     live[tab[tab >= 0].long()] = True
     g = torch.Generator(device=device).manual_seed(seed + 1)
@@ -1714,8 +1754,12 @@ def to_device(tree, device):
     return tree
 
 
-def phase_consistency_quant(device, spec, plan, n_decode=4):
-    """fp32, full width, 2 layers, int8 weights and int8 paged KV: one
+def phase_consistency_quant(device, spec, plan, n_decode=4,
+                            weight_dtype="int8", tag="consistency-quant"):
+    """fp32, full width, 2 layers, ``weight_dtype`` weights (int8 for
+    qwen3-14b's phase 12; h2o-danube3-4b's 20b runs fp32 weights, its
+    120-byte int8 KV rows through the walk's 8-byte chunks) and int8
+    paged KV: one
     session on the card (the int8 page walk) and the same session on the
     CPU (the plain version and the same int8 writes), started from the
     card's quantized weights, served the same prompts.  A 40-token prompt
@@ -1740,12 +1784,13 @@ def phase_consistency_quant(device, spec, plan, n_decode=4):
     plan = plan.with_(decode_microbatches=QUANT_SLOTS)
     kw = dict(cache_len=QUANT_CACHE, global_batch=QUANT_SLOTS * ROWS,
               compute_dtype=torch.float32, page_size=PAGE,
-              weight_dtype="int8", kv_dtype="int8")
+              weight_dtype=weight_dtype, kv_dtype="int8")
     card = build_serving(spec, plan, device=device, **kw).start(SEED)
     host = build_serving(spec, plan, device="cpu", **kw).reset_state()
     host.set_params(to_device(card.params, "cpu"))
     runs, times = {}, {}
     for name, s in (("cuda", card), ("cpu", host)):
+        reset_counts()
         t0 = time.perf_counter()
         nxt = s.prefill({"tokens": prompts})
         hs, ts = [s.last_hidden.cpu()], [nxt.cpu()]
@@ -1755,6 +1800,12 @@ def phase_consistency_quant(device, spec, plan, n_decode=4):
             ts.append(nxt.cpu())
         times[name] = time.perf_counter() - t0
         runs[name] = (torch.stack(ts).numpy(), hs)
+        if name == "cuda":
+            counts = read_counts()
+    want = spec.n_layers * QUANT_SLOTS * n_decode
+    if counts["paged_attention_int8"] != want or counts["paged_attention"]:
+        raise AssertionError(f"{tag}: launches {counts}, {want} int8 walks "
+                             "expected")
     if not (runs["cuda"][0] == runs["cpu"][0]).all():
         raise AssertionError("quantized tokens differ between the card and "
                              "the CPU")
@@ -1781,8 +1832,9 @@ def phase_consistency_quant(device, spec, plan, n_decode=4):
     err_h = max(check_close(f"quantized hidden step {i}", a, b, h_tol, 0.0)
                 for i, (a, b) in enumerate(zip(runs["cuda"][1],
                                                runs["cpu"][1])))
-    log(f"[consistency-quant] fp32 {spec.n_layers} layers at full width, "
-        f"int8 weights + int8 paged KV, {QUANT_SLOTS} x {ROWS} rows, "
+    log(f"[{tag}] {spec.name} fp32 {spec.n_layers} layers at full width, "
+        f"{weight_dtype} weights + int8 paged KV (Dh {spec.d_head}), "
+        f"{QUANT_SLOTS} x {ROWS} rows, "
         f"prefill {QUANT_PREFILL} + {n_decode} decodes, card vs CPU: tokens "
         f"and positions equal; payloads one step apart at {n_diff} of "
         f"{n_all} entries ({n_diff / n_all:.2e}); scale planes max rel err "
@@ -1791,7 +1843,9 @@ def phase_consistency_quant(device, spec, plan, n_decode=4):
         f"{times['cpu']:.2f}s")
     return {"payload_share_one_step": n_diff / n_all, "scale_err": err_s,
             "hidden_err": err_h, "hidden_tol": h_tol,
-            "cpu_s": times["cpu"]}
+            "cpu_s": times["cpu"], "card_s": times["cuda"],
+            "decodes": n_decode, "tokens_equal": True,
+            "int8_launches": counts["paged_attention_int8"]}
 
 
 # --------------------------------------------------------------------------
@@ -1802,6 +1856,16 @@ def train_args(extra):
     from repro_torch.launch import train
     return train.parser().parse_args(["--arch", "qwen3-14b", "--device",
                                       "cuda", "--seed", str(SEED), *extra])
+
+
+def build_train(args, grid=None, obs=None, tp=1):
+    """launch/train.py's build for the parsed arguments at tensor degree
+    ``tp``: the full spec's plan cuts qwen3-14b's stages over 8 tensor
+    ranks (16 cards), and the phases run one process a stage (tp 1), or
+    phase 21's tensor ranks (tp 2)."""
+    from repro_torch.launch import train
+    spec, plan, opt = train.make_plan(args)
+    return train.build(args, grid, (spec, plan.with_(tp=tp), opt), obs)
 
 
 def profile_round(bundle, state, batch, round_s):
@@ -1908,7 +1972,7 @@ def phase_train(device):
     import torch
     from repro_torch.data.pipeline import Loader, SyntheticLM
     from repro_torch.launch import train
-    spec, bundle = train.build(train_args(phase_train_flags(
+    spec, bundle = build_train(train_args(phase_train_flags(
         ["--schedule", "1f1b", "--stash-mode", "stash"])))
     plan = bundle.plan
     torch.cuda.reset_peak_memory_stats()
@@ -1990,7 +2054,7 @@ def train_witness(device, flags, one_batch):
     from repro_torch import configs
     from repro_torch.launch import train
     args = train_args(phase_train_flags(flags))
-    spec, bundle = train.build(args)
+    spec, bundle = build_train(args)
     lr = args.lr or configs.get(args.arch).OPTIMIZER[1]
     state = bundle.init_state(torch.Generator(device).manual_seed(SEED))
     loader = Loader(SyntheticLM(spec.vocab, TRAIN_SEQ, seed=SEED),
@@ -2023,7 +2087,7 @@ def phase_train_virtual(device, name, mode):
     from repro_torch.core.schedule import weighted_round_time
     from repro_torch.data.pipeline import Loader, SyntheticLM
     from repro_torch.launch import train
-    spec, bundle = train.build(train_args(phase_train_flags(
+    spec, bundle = build_train(train_args(phase_train_flags(
         ["--schedule", name, "--stash-mode", mode, "--virtual-stages",
          str(V_STAGES)])))
     plan, sched = bundle.plan, bundle.sched
@@ -2329,9 +2393,10 @@ def phase_driver(device):
         driver.ckpt.save, driver.ckpt.restore = t_save, t_restore
         return driver
 
-    def run(sub, hook=None, torn=False):
+    def run(sub, hook=None, torn=False, every=DRIVER_EVERY):
         args = train_args(driver_flags(os.path.join(tmp, sub)))
-        spec, bundle = train.build(args)
+        args.ckpt_every = every
+        spec, bundle = build_train(args)
         driver = train.make_driver(args, spec, bundle, args.ckpt,
                                    failure_hook=hook)
         timed(driver)
@@ -2361,22 +2426,17 @@ def phase_driver(device):
     out = {}
     try:
         reset_counts()
-        spec, bundle, driver_a, ref = run("a")
-        ckpt_bytes = sum(
-            os.path.getsize(os.path.join(r, f))
-            for r, _, fs in os.walk(os.path.join(tmp, "a", "round_00000002"))
-            for f in fs)
+        # the uninterrupted reference saves nothing (its saves checked
+        # nothing the restarted run's do not; the time limit)
+        spec, bundle, driver_a, ref = run("a", every=DRIVER_ROUNDS + 1)
+        # a checkpoint holds every leaf of the state tree, whose stage
+        # rows appear twice (params and stash/current), as the files do
+        est = tree_bytes(ref)
         free = shutil.disk_usage(tmp).free
-        log(f"[driver] {spec.name} {bundle.sched.name}/"
-            f"{bundle.plan.stash_mode} pp={bundle.plan.pp} bf16 sgdm: "
-            f"{DRIVER_ROUNDS} rounds uninterrupted, a checkpoint is "
-            f"{ckpt_bytes / 1e9:.2f} GB on disk, {free / 1e9:.1f} GB free")
-        if free < 2.2 * ckpt_bytes:
+        if free < 2.2 * est:
             raise AssertionError(
                 f"the disk at {tmp} has {free / 1e9:.1f} GB free; the "
-                f"restarted run needs two checkpoints of "
-                f"{ckpt_bytes / 1e9:.2f} GB")
-        shutil.rmtree(os.path.join(tmp, "a"))
+                f"restarted run needs two checkpoints of {est / 1e9:.2f} GB")
         ref_losses = [m["loss"] for m in driver_a.metrics_log]
         ref_leaves = tree_leaves(ref)
         # each stage's rows of the final state, for phase 18b's ranks
@@ -2388,6 +2448,14 @@ def phase_driver(device):
         del bundle, driver_a
         _, _, driver_b, got = run("b", hook=hook, torn=True)
         counts = read_counts()
+        ckpt_bytes = sum(
+            os.path.getsize(os.path.join(r, f))
+            for r, _, fs in os.walk(os.path.join(tmp, "b", "round_00000004"))
+            for f in fs)
+        log(f"[driver] {spec.name} 1f1b/stash pp=2 bf16 sgdm: "
+            f"{DRIVER_ROUNDS} rounds uninterrupted (no checkpoints), a "
+            f"checkpoint is {ckpt_bytes / 1e9:.2f} GB on disk (estimated "
+            f"{est / 1e9:.2f}), {free / 1e9:.1f} GB free")
         if any(armed.values()):
             raise AssertionError(f"a fault did not fire: {armed}")
         losses = [m["loss"] for m in driver_b.metrics_log]
@@ -2525,7 +2593,7 @@ def dist_fp32_run(spec, plan, device, dp=1, grid=None, rounds=DIST_ROUNDS):
     return losses, state, bundle, seconds
 
 
-def rank_child(rank, world, data, pp, init_file, job, kw, results):
+def rank_child(rank, world, data, pp, init_file, job, kw, results, tp=1):
     """A spawned rank: deterministic algorithms and no TF32 before CUDA
     starts, the grid under gloo on the one card, ``job``'s result on the
     queue.  An exception goes to the queue and fails the rank."""
@@ -2540,7 +2608,7 @@ def rank_child(rank, world, data, pp, init_file, job, kw, results):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
-        grid = init_grid(ProcessGrid(data, pp), "gloo",
+        grid = init_grid(ProcessGrid(data, pp, tp), "gloo",
                          init_method=f"file://{init_file}", rank=rank,
                          world_size=world, device="cuda",
                          timeout=DIST_GROUP_S)
@@ -2552,25 +2620,40 @@ def rank_child(rank, world, data, pp, init_file, job, kw, results):
         close_grid()
 
 
-def spawn_ranks(data, pp, job, **kw):
-    """``job`` on a ``data x pp`` grid of processes started with ``spawn``
+def spawn_ranks(data, pp, job, tp=1, **kw):
+    """``job`` on a ``data x pp x tp`` grid of processes started with ``spawn``
     (the parent holds a CUDA context) on the one card under gloo; the
     results by rank.  A rank that fails, or a deadline of DIST_JOIN_S,
     fails the phase; every child is ended before this returns."""
+    return join_ranks(start_ranks(data, pp, job, tp, **kw))
+
+
+def start_ranks(data, pp, job, tp=1, **kw):
+    """:func:`spawn_ranks`' processes, started; the handle
+    :func:`join_ranks` takes (the parent may work meanwhile, and must
+    join them whatever happens)."""
     import multiprocessing
-    import queue
     import tempfile
     import torch
     torch.cuda.empty_cache()
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
-    world = data * pp
+    world = data * pp * tp
     tmp = tempfile.mkdtemp(prefix="chip_smoke_rdv_")
     procs = [ctx.Process(target=rank_child,
                          args=(r, world, data, pp, f"{tmp}/rendezvous", job,
-                               kw, results)) for r in range(world)]
+                               kw, results, tp)) for r in range(world)]
     for p in procs:
         p.start()
+    return job, procs, results, tmp
+
+
+def join_ranks(handle):
+    """The results by rank of :func:`start_ranks`' processes, every child
+    ended before this returns."""
+    import queue
+    job, procs, results, tmp = handle
+    world = len(procs)
     out = {}
     deadline = time.monotonic() + DIST_JOIN_S
     try:
@@ -2689,7 +2772,7 @@ def dist_job_train(grid):
     from repro_torch.parallel.dist import TransportStats
     args = train_args(phase_train_flags(["--schedule", "1f1b",
                                          "--stash-mode", "stash"]))
-    spec, bundle = train.build(args, grid)
+    spec, bundle = build_train(args, grid)
     torch.cuda.reset_peak_memory_stats()
     state = bundle.init_state(torch.Generator(grid.device).manual_seed(SEED))
     loader = Loader(SyntheticLM(spec.vocab, TRAIN_SEQ, seed=SEED),
@@ -2817,7 +2900,7 @@ def phase_dist(device, first_round_loss):
 
         # 17c: data replicas against the oracle over the whole batch
         out["17c"] = {}
-        for pp in (1, 2):
+        for pp in DIST_REPLICA_PP:
             t0 = time.perf_counter()
             plan = dist_plan(pp, r=DIST_REPLICA_R)
             opt = SGDM(lr=0.01)
@@ -3023,7 +3106,7 @@ def dist_job_driver(grid, ckpt):
     seen = {"save_s": [], "restore_s": [], "torn": None, "saved": None}
     args = train_args(driver_flags(ckpt))
     obs = Observability(trace=True)
-    spec, bundle = train.build(args, grid, obs=obs)
+    spec, bundle = build_train(args, grid, obs=obs)
 
     def hook(step):
         if step == DRIVER_FAIL and armed["hook"]:
@@ -3225,7 +3308,7 @@ def phase_ckpt_dist(device, driver_rows):
         # the last complete checkpoint restores in one process
         t1 = time.perf_counter()
         args = train_args(driver_flags(tmp))
-        _, bundle = train.build(args)
+        _, bundle = build_train(args)
         state = bundle.init_state(torch.Generator(device).manual_seed(SEED))
         rnd, saved = ranks[0]["saved"]
         t2 = time.perf_counter()
@@ -4628,6 +4711,13 @@ def phase_planned_serving(device):
     danube_rec, danube_paged, danube_flash = phase_serve_danube(
         device, full, plan)
     torch.cuda.empty_cache()
+    # int8 paged KV at Dh 120 (120-byte rows): the card's tokens = the CPU's
+    short = dataclasses.replace(full, name=f"{full.name}-2l", n_layers=2,
+                                blocks=full.blocks[:2])
+    danube_rec["int8_kv"] = phase_consistency_quant(
+        device, short, plan.with_(pp=1), n_decode=DANUBE_INT8_DECODE,
+        weight_dtype="fp32", tag="danube-int8")
+    torch.cuda.empty_cache()
     seconds["20b"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     cut = dataclasses.replace(
@@ -4644,7 +4734,9 @@ def phase_planned_serving(device):
     launches = {"qwen3_planned_serve": plan_paged,
                 "qwen3_planned_serve_reference": plan_flash,
                 "danube3_serve": danube_paged,
-                "danube3_full_transformer": danube_flash}
+                "danube3_full_transformer": danube_flash,
+                "danube3_int8_serve":
+                    danube_rec["int8_kv"]["int8_launches"]}
     return record, launches
 
 
@@ -4666,17 +4758,29 @@ def dh120_paged_inputs(dtype, device, seed, n_copies=1):
                         cache_len=DANUBE_CACHE, slots=DANUBE_SLOTS)
 
 
+def dh120_int8_inputs(q_dtype, device, seed, n_copies=1):
+    """A 20b decode call over int8 pools (120-byte rows: the walk's
+    8-byte chunks): one lane of DANUBE_PROMPT + DANUBE_DECODE keys, q (1,
+    1, 32, 120); :func:`paged_int8_inputs`' sets, tables, lengths and f32
+    pools."""
+    return paged_int8_inputs(q_dtype, device, 1,
+                             [DANUBE_PROMPT + DANUBE_DECODE], seed,
+                             n_copies=n_copies, heads=DH120_HEADS,
+                             cache_len=DANUBE_CACHE, slots=DANUBE_SLOTS)
+
+
 def phase_dh120_kernels(device):
     """Phase 2 at Dh 120 (h2o-danube3-4b's heads): the flash forward in
     bf16 and f32 at (1, DANUBE_PROMPT, 32 / 8, 120) with the 4096 window,
     the flash backward in bf16 at (1, TRAIN_SEQ, 32 / 8, 120) causal, and
-    the float paged walk at a 20b decode call with the window, each
-    against its plain version."""
+    the float and int8 paged walks at a 20b decode call with the window,
+    each against its plain version (the int8 walk also against the
+    unquantized pools within 0.05)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     errs = {"flash_attention": 0.0, "flash_attention_bwd": 0.0,
-            "paged_attention": 0.0}
+            "paged_attention": 0.0, "paged_attention_int8": (0.0, 0.0)}
     for dtype in (torch.bfloat16, torch.float32):
         atol, rtol = TOL[str(dtype).split(".")[-1]]
         q, k, v, _ = dh120_flash_inputs(dtype, device, DANUBE_PROMPT, 31)
@@ -4693,10 +4797,25 @@ def phase_dh120_kernels(device):
                                         window=DANUBE_WINDOW)
         ep = check_close(f"paged Dh 120 {dtype}", got, want, atol, rtol)
         errs["paged_attention"] = max(errs["paged_attention"], ep)
+        del sets
+        sets, tab, lens, (kp, vp) = dh120_int8_inputs(dtype, device, 37)
+        qi, kq, vq, ks, vs = sets[0]
+        kw = dict(window=DANUBE_WINDOW, k_scale=ks, v_scale=vs)
+        got = pa.paged_attention(qi, kq, vq, tab, lens, **kw)
+        want = pa.paged_attention_plain(qi, kq, vq, tab, lens, **kw)
+        full = pa.paged_attention_plain(qi, kp, vp, tab, lens,
+                                        window=DANUBE_WINDOW)
+        ei = check_close(f"paged int8 Dh 120 {dtype}", got, want, atol, rtol)
+        ef = check_close(f"paged int8 Dh 120 {dtype} vs unquantized", got,
+                         full, 0.05, 0.05)
+        errs["paged_attention_int8"] = tuple(
+            max(a, b) for a, b in zip(errs["paged_attention_int8"], (ei, ef)))
+        del sets, got, want, full
         log(f"[kernels] Dh 120 {str(dtype)[6:]}: flash (1, {DANUBE_PROMPT}, "
             f"32/8, 120) window {DANUBE_WINDOW} max|err| {e:.3e}; paged "
-            f"{int(lens[0])} keys window {DANUBE_WINDOW} max|err| {ep:.3e} "
-            f"(atol {atol}, rtol {rtol})")
+            f"{int(lens[0])} keys window {DANUBE_WINDOW} max|err| {ep:.3e}; "
+            f"int8 paged (120-byte rows) max|err| {ei:.3e}, vs the "
+            f"unquantized pools {ef:.3e} (atol {atol}, rtol {rtol})")
     atol, rtol = TOL["bfloat16"]
     q, k, v, do = dh120_flash_inputs(torch.bfloat16, device, TRAIN_SEQ, 33)
     out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
@@ -4794,13 +4913,41 @@ def dh120_records(device, errs, launches):
         "none (no single PyTorch call)")
     out["paged_attention"].update(keys=n_keys, ms_by=PAGED_MS_BY)
     del sets
+    # the int8 walk at the same call: bf16 q, int8 pools of 120-byte rows
+    # (8-byte chunks) and their f32 scale planes
+    live = 2 * -(-min(n_keys, DANUBE_WINDOW + 1) // PAGE) * PAGE * kv * dh
+    n_sets = -(-4 * L2_BYTES // live)
+    sets, tab, lens, _ = dh120_int8_inputs(bf16, device, 38, n_copies=n_sets)
+    it = {"i": 0}
+
+    def run8(fn):
+        def call():
+            qp, kq, vq, ks, vs = sets[it["i"] % n_sets]
+            it["i"] += 1
+            fn(qp, kq, vq, tab, lens, window=DANUBE_WINDOW, k_scale=ks,
+               v_scale=vs)
+        return call
+
+    ms = device_ms(run8(pa.paged_attention), 2 * n_sets, "paged_attention")
+    plain = time_ms(run8(pa.paged_attention_plain))
+    nbytes, flops = paged_bytes_flops(sets[0][0], sets[0][1], tab, [n_keys],
+                                      DANUBE_WINDOW, scales=True)
+    entry = _dh120_entry(
+        [1, 1, h, kv, dh], DANUBE_WINDOW, errs["paged_attention_int8"][0],
+        launches["paged_attention_int8"], ms, plain, flops, nbytes, None,
+        "none (no single PyTorch call)", peak="float32")
+    entry.update(keys=n_keys, ms_by=PAGED_MS_BY, pool_dtype="int8",
+                 chunk_bytes=8,
+                 max_abs_err_vs_unquantized=errs["paged_attention_int8"][1])
+    out["paged_attention_int8"] = entry
+    del sets
     torch.cuda.empty_cache()
     return out
 
 
 def _dh120_entry(shape, window, err, launches, ms, plain, flops, nbytes,
-                 lib, lib_what):
-    t_ops = flops / PEAK_FLOPS["bfloat16"]
+                 lib, lib_what, peak="bfloat16"):
+    t_ops = flops / PEAK_FLOPS[peak]
     t_bytes = nbytes / HBM_BYTES_PER_S
     return {"shape": shape, "window": window, "dtype": "bfloat16",
             "launches": sum(launches.values()), "launches_by_path": launches,
@@ -4809,6 +4956,342 @@ def _dh120_entry(shape, window, err, launches, ms, plain, flops, nbytes,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": lib, "library": lib_what, "flops": flops,
             "bytes": nbytes}
+
+
+# --------------------------------------------------------------------------
+# phase 21: tensor parallelism (tp > 1) on gloo ranks sharing the card
+# --------------------------------------------------------------------------
+
+def tp_replicated(state, spec, tp) -> list:
+    """Leaf names of a rank's state that every tensor rank holds whole:
+    the replicated stage leaves (norms, qk-norm scales) with their ring
+    rows and optimizer slots (the embedding, head and final norm, on
+    tensor rank 0 alone, are not among them)."""
+    from repro_torch.models.init import tp_axes
+    whole = {n for n, ax in tree_leaves(tp_axes(
+        state["params"]["stages"], spec, tp)) if ax < 0}
+    out = []
+    for name, t in tree_leaves(state):
+        if not hasattr(t, "numel"):
+            continue
+        tail = name.split("/stages", 1)[-1] if "/stages" in name else None
+        for pre in ("/current", "/ring"):
+            if name.startswith("/stash" + pre):
+                tail = name[len("/stash" + pre):]
+        if name.startswith("/opt_stages/"):
+            tail = "/" + name.split("/", 3)[3]
+        if tail is not None and tail in whole:
+            out.append(name)
+    return out
+
+
+def tp_job_exact(grid, ckpt):
+    """21a on a rank: DIST_LAYERS layers of qwen3-14b at full width, fp32,
+    pp 1 x tp 2 (dist_fp32_run's shape: DIST_R x DIST_ROWS x DIST_SEQ,
+    SGD with momentum, DIST_ROUNDS rounds) from the seed's state, cut to
+    this rank's tensor shard; then 21c's checkpoint of it into ``ckpt``.
+    Losses, the digests of every leaf, the transport's counters, the
+    launches, peak GB."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch.train import cut_layers
+    spec = cut_layers(configs.get("qwen3-14b").full_spec(), DIST_LAYERS)
+    plan = dist_plan(1).with_(tp=grid.topo.tp)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    losses, state, bundle, seconds = dist_fp32_run(spec, plan, grid.device,
+                                                   grid=grid)
+    run_s = time.perf_counter() - t0
+    counts = read_counts()
+    stats = dataclasses.asdict(grid.stats)
+    t0 = time.perf_counter()
+    CheckpointManager(ckpt, grid=grid, spec=spec).save(
+        DIST_ROUNDS, state, plan.pp * plan.virtual_stages)
+    save_s = time.perf_counter() - t0
+    return {"grid": {**rank_info(grid), "tensor": grid.t},
+            "losses": losses, "round_s": seconds, "run_s": run_s,
+            "save_s": save_s, "stats": stats, "counts": counts,
+            "digests": state_digests(state),
+            "replicated": tp_replicated(state, spec, grid.topo.tp),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def tp_job_train(grid):
+    """21b on a rank: phase 13's model and shape (qwen3-14b, TRAIN_LAYERS
+    layers at full width, bf16, Adam, remat, 1f1b / stash, pp 2, R
+    TRAIN_R x TRAIN_ROWS x TRAIN_SEQ) at tp 2 through launch/train.py's
+    build with this rank's grid, one round on the stream with the plain
+    attention versions refused: its loss, host seconds, the transport's
+    counters (the tensor group's sums apart), launches and peak GB."""
+    import torch
+    from repro_torch.data.pipeline import Loader, SyntheticLM
+    from repro_torch.parallel.dist import TransportStats
+    spec, bundle = build_train(train_args(phase_train_flags(
+        ["--schedule", "1f1b", "--stash-mode", "stash"])), grid,
+        tp=grid.topo.tp)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = bundle.init_state(torch.Generator(grid.device).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    loader = Loader(SyntheticLM(spec.vocab, TRAIN_SEQ, seed=SEED),
+                    TRAIN_R, TRAIN_ROWS, grid.device)
+    batch = loader.get(0)
+    torch.cuda.synchronize()
+    reset_counts()
+    grid.stats = TransportStats()
+    with plain_attention_refused():
+        t0 = time.perf_counter()
+        state, m = bundle.train_step(state, batch)
+        torch.cuda.synchronize()
+        round_s = time.perf_counter() - t0
+    return {"grid": {**rank_info(grid), "tensor": grid.t},
+            "loss": float(m["loss"]), "round_s": round_s, "init_s": init_s,
+            "stats": dataclasses.asdict(grid.stats), "counts": read_counts(),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "state_gb": tree_bytes(state) / 1e9,
+            "stage_shapes": {
+                n: list(t.shape) for n, t in tree_leaves(
+                    state["params"]["stages"]["layer_0"])}}
+
+
+def tp_sums(spec, lps, r, rows, seq, esz, tp, first, last):
+    """The tensor group's collectives of one rank in one round of ``r``
+    microbatches through ``lps`` layers at remat: per layer and
+    microbatch the attention and FFN outputs in F (2) and in B's re-run
+    of the stage (2), the attention's in the checkpoint's recompute (1:
+    non-reentrant recomputation stops at the last tensor the backward
+    needs, before the FFN's sum), the two inputs' cotangents backward
+    (2), each rows x seq x d_model; the qk-norm scales' cotangents (2 x
+    Dh) and, with KV replicated over the ranks, the KV weights' (2 x d x
+    n_kv x Dh); on the ``first`` stage t = 0's embeddings (one broadcast
+    of r microbatches), on the ``last`` each microbatch's d(loss)/d(h).
+    (calls, bytes)."""
+    act = rows * seq * spec.d_model * esz
+    calls, nbytes = 7, 7 * act
+    if spec.qk_norm:
+        calls, nbytes = calls + 2, nbytes + 2 * spec.d_head * esz
+    if spec.n_kv % tp:
+        calls += 2
+        nbytes += 2 * spec.d_model * spec.n_kv * spec.d_head * esz
+    calls, nbytes = lps * r * calls, lps * r * nbytes
+    if first:
+        calls, nbytes = calls + 1, nbytes + r * act
+    if last:
+        calls, nbytes = calls + r, nbytes + r * act
+    return calls, nbytes
+
+
+def host_zeros(state):
+    """A host copy of ``state``'s structure with every tensor zeroed (a
+    restore template), ``stash["current"]`` the params' stages."""
+    import torch
+
+    def z(t):
+        if isinstance(t, dict):
+            return {k: z(v) for k, v in t.items()}
+        return torch.zeros(t.shape, dtype=t.dtype) if torch.is_tensor(t) \
+            else t
+    out = z(state)
+    out["stash"]["current"] = out["params"]["stages"]
+    return out
+
+
+def phase_tp(device, first_round_loss):
+    """Phase 21 (21a-c, see the module docstring): the records and the
+    launches.  21c's restore and 21a's parameter check run on the host
+    while 21b's four ranks hold the card."""
+    import gc
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import configs
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core.versioning import rank_state
+    from repro_torch.launch.train import cut_layers
+    from repro_torch.models.init import tp_axes
+    from repro_torch.optim.optimizers import tree_map
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds, out = {}, {}
+    full = configs.get("qwen3-14b").full_spec()
+    spec = cut_layers(full, DIST_LAYERS)
+    tp = TP_DEGREE
+    # 21a: the one-process tp 1 executor, then pp 1 x tp 2 on two ranks
+    t0 = time.perf_counter()
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        want_losses, ref, bundle, _ = dist_fp32_run(spec, dist_plan(1),
+                                                    device)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    sched = bundle.sched
+    one_s = time.perf_counter() - t0
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_tp_ckpt_")
+    try:
+        t1 = time.perf_counter()
+        ranks = spawn_ranks(1, 1, "tp_job_exact", tp=tp, ckpt=ckpt)
+        ranks_s = time.perf_counter() - t1
+        for res in ranks:
+            np.testing.assert_allclose(res["losses"], want_losses,
+                                       **TP_LOSS_TOL,
+                                       err_msg=f"21a rank {res['grid']}")
+        rep = ranks[0]["replicated"]
+        for res in ranks[1:]:
+            bad = [n for n in rep
+                   if res["digests"][n] != ranks[0]["digests"][n]]
+            if bad or res["replicated"] != rep:
+                raise AssertionError(f"21a: replicated leaves differ across "
+                                     f"the tensor ranks: {bad[:6]}")
+            held = [n for n in res["digests"] if n.startswith((
+                "/params/embed", "/params/head", "/params/final_norm",
+                "/opt_head", "/opt_embed"))]
+            if held:
+                raise AssertionError(f"21a: tensor rank {res['grid']['tensor']}"
+                                     f" holds {held[:3]} (tensor rank 0's)")
+        # the card goes to 21b: tp 1's parameters and a restore template
+        # wait in host memory
+        state = host_zeros(ref)
+        want_params = tree_map(lambda t: t.cpu() if torch.is_tensor(t)
+                               else t, ref["params"])
+        del ref, bundle
+        gc.collect()
+        torch.cuda.empty_cache()
+        # 21b: phase 13's model and shape at pp 2 x tp 2, four ranks
+        t_b = time.perf_counter()
+        handle = start_ranks(1, 2, "tp_job_train", tp=tp)
+        try:
+            # 21c: the ranks' checkpoint restored by one tp 1 process
+            t2 = time.perf_counter()
+            CheckpointManager(ckpt).restore(DIST_ROUNDS, state)
+            restore_s = time.perf_counter() - t2
+            t2 = time.perf_counter()
+            axes = tp_axes(state["params"]["stages"], spec, tp)
+            for t, res in enumerate(ranks):
+                got = {n: digest(v.to(device)) if torch.is_tensor(v) else v
+                       for n, v in tree_leaves(rank_state(
+                           state, sched, 0, tensor=(axes, t, tp)))}
+                bad = [n for n in got if got[n] != res["digests"].get(n)]
+                if bad or set(got) != set(res["digests"]):
+                    raise AssertionError(
+                        f"21c: the tp {tp} checkpoint restored at tp 1 "
+                        f"differs from rank {t}'s state at {bad[:6]}")
+            # 21a's parameters: the tp 2 state (as restored) against tp 1's
+            worst = 0.0
+            for (n, a), (_, b) in zip(tree_leaves(state["params"]),
+                                      tree_leaves(want_params)):
+                if torch.is_tensor(a):
+                    worst = max(worst, check_close(
+                        f"21a {n}", a.to(device), b.to(device),
+                        *TP_PARAM_TOL))
+            cmp_s = time.perf_counter() - t2
+            del state, want_params
+        finally:
+            ranks_b = join_ranks(handle)
+        seconds["21b"] = time.perf_counter() - t_b
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    gc.collect()
+    n_calls, n_bytes = tp_sums(spec, DIST_LAYERS, DIST_R, DIST_ROWS,
+                               DIST_SEQ, 4, tp, True, True)
+    for res in ranks:
+        st = res["stats"]
+        if (st["tensor_calls"], st["tensor_bytes"]) != \
+                (DIST_ROUNDS * n_calls, DIST_ROUNDS * n_bytes):
+            raise AssertionError(f"21a tensor sums {st['tensor_calls']} / "
+                                 f"{st['tensor_bytes']} B, analytic "
+                                 f"{DIST_ROUNDS * n_calls} / "
+                                 f"{DIST_ROUNDS * n_bytes}")
+    seconds["21a+c"] = t_b - t0
+    out["21a"] = {"losses": ranks[0]["losses"], "tp1_losses": want_losses,
+                  "max_abs_param_err": worst, "tp1_s": one_s,
+                  "ranks": [{k: r[k] for k in ("grid", "round_s", "run_s",
+                                                "save_s", "stats", "peak_gb")}
+                            for r in ranks],
+                  "replicated_leaves_equal": len(rep)}
+    out["21c"] = {"restore_s": restore_s, "compare_s": cmp_s,
+                  "ranks_s": ranks_s,
+                  "leaves_equal": len(ranks[0]["digests"])}
+    counts_a = {k: sum(r["counts"][k] for r in ranks)
+                for k in ranks[0]["counts"]}
+    log(f"[tp] 21a qwen3-14b {DIST_LAYERS} layers fp32 pp 1 x tp {tp} "
+        f"(gloo, one card) vs the one-process tp 1 executor: losses "
+        f"{ranks[0]['losses']} / {want_losses}, max |param err| "
+        f"{worst:.3e}; {len(rep)} replicated leaves equal across the tensor "
+        f"ranks; tensor sums {ranks[0]['stats']['tensor_calls']} calls, "
+        f"{ranks[0]['stats']['tensor_bytes'] / 1e6:.2f} MB a rank (analytic "
+        f"{DIST_ROUNDS * n_calls} / {DIST_ROUNDS * n_bytes / 1e6:.2f}); "
+        f"21c: saved in {[round(r['save_s'], 1) for r in ranks]} s, "
+        f"restored at tp 1 in {restore_s:.1f} s (host, beside 21b), every "
+        f"rank's {len(ranks[0]['digests'])} leaves equal bit for bit; "
+        f"seconds: tp 1 run {one_s:.1f}, ranks {ranks_s:.1f} (rounds "
+        f"{[[round(x, 3) for x in r['round_s']] for r in ranks]}), "
+        f"checks {cmp_s:.1f}")
+    ranks = ranks_b
+    losses = [r["loss"] for r in ranks]
+    if not all(np.isfinite(losses)) or len(set(losses)) != 1 or \
+            abs(losses[0] - first_round_loss) > 2e-2:
+        raise AssertionError(f"21b: losses {losses}, phase 13's first round "
+                             f"{first_round_loss}")
+    counts_b = {k: sum(r["counts"][k] for r in ranks)
+                for k in ranks[0]["counts"]}
+    per_round = tp * TRAIN_LAYERS * TRAIN_R
+    want = {"paged_attention": 0, "paged_attention_int8": 0, "wkv6": 0,
+            "mamba_scan": 0, "flash_attention": 3 * per_round,
+            "flash_attention_bwd": per_round}
+    if counts_b != want:
+        raise AssertionError(f"21b launches {counts_b}, expected {want}")
+    sums = [tp_sums(full, TRAIN_LAYERS // 2, TRAIN_R, TRAIN_ROWS, TRAIN_SEQ,
+                    2, tp, s == 0, s == 1) for s in range(2)]
+    for res in ranks:
+        st, want_s = res["stats"], sums[res["grid"]["stage"]]
+        res["analytic_tensor"] = want_s
+        if (st["tensor_calls"], st["tensor_bytes"]) != want_s:
+            raise AssertionError(f"21b tensor sums {st['tensor_calls']} / "
+                                 f"{st['tensor_bytes']} B, analytic "
+                                 f"{want_s[0]} / {want_s[1]}")
+    out["21b"] = {"loss": losses[0], "phase13_first_round_loss":
+                  first_round_loss, "seq": TRAIN_SEQ, "ranks": ranks}
+    for res in ranks:
+        st = res["stats"]
+        log(f"[tp] 21b rank {res['grid']['rank']} (stage "
+            f"{res['grid']['stage']}, tensor {res['grid']['tensor']}): "
+            f"round {res['round_s']:.3f} s; tensor sums "
+            f"{st['tensor_calls']} calls, {st['tensor_bytes'] / 1e9:.3f} GB "
+            f"(analytic {res['analytic_tensor'][1] / 1e9:.3f}), "
+            f"{st['tensor_s']:.3f} s; hand-off wait {st['handoff_s']:.3f} s; "
+            f"peak {res['peak_gb']:.2f} GB")
+    log(f"[tp] 21b qwen3-14b {TRAIN_LAYERS} layers bf16 Adam 1f1b/stash pp 2 "
+        f"x tp {tp} (four ranks, gloo, one card), seq {TRAIN_SEQ}: loss "
+        f"{losses[0]:.4f} (phase 13's first round {first_round_loss:.4f})")
+    log(f"[phases] 21 seconds: {json.dumps(seconds)}")
+    return out, seconds, {"qwen3_tp_exact": counts_a, "qwen3_train_tp":
+                          counts_b}
+
+
+def tp_records(tp_out, card):
+    """One ``tp`` JSON record a rank of 21b, and one for 21a / 21c."""
+    recs = []
+    for res in tp_out["21b"]["ranks"]:
+        st = res["stats"]
+        recs.append({"phase": "21b", **res["grid"], "card": card,
+                     "seq": tp_out["21b"]["seq"], "round_s": res["round_s"],
+                     "tensor_calls": st["tensor_calls"],
+                     "tensor_bytes": st["tensor_bytes"],
+                     "tensor_calls_bytes_analytic": res["analytic_tensor"],
+                     "tensor_s": st["tensor_s"],
+                     "handoff_s": st["handoff_s"],
+                     "handoff_bytes": st["handoff_bytes"],
+                     "staged_bytes": st["staged_bytes"],
+                     "peak_gb": res["peak_gb"], "loss": res["loss"]})
+    recs.append({"phase": "21a+c", "card": card,
+                 **{k: v for k, v in tp_out["21a"].items() if k != "ranks"},
+                 "ranks": tp_out["21a"]["ranks"], **tp_out["21c"]})
+    return recs
 
 
 def main() -> int:
@@ -4938,6 +5421,10 @@ def main() -> int:
     t0 = time.perf_counter()
     planned_rec, planned_counts = phase_planned_serving(device)
     phase_s["20 planned serving"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tp_out, tp_s, tp_counts = phase_tp(device,
+                                       train_out["loss_per_round"][0])
+    phase_s["21 tensor parallel"] = time.perf_counter() - t0
 
     records = kernel_records(device, errs, {
         "paged_attention": {"qwen3_serve": paged_launches,
@@ -4946,7 +5433,9 @@ def main() -> int:
                             "qwen3_planned_serve":
                                 planned_counts["qwen3_planned_serve"],
                             "danube3_serve": planned_counts["danube3_serve"]},
-        "paged_attention_int8": {"qwen3_quant_serve": int8_launches},
+        "paged_attention_int8": {"qwen3_quant_serve": int8_launches,
+                                 "danube3_int8_serve":
+                                     planned_counts["danube3_int8_serve"]},
         "flash_attention": {
             "qwen3_full_transformer": flash_launches,
             "jamba_full_transformer": jamba_ref["flash_attention"],
@@ -4961,14 +5450,17 @@ def main() -> int:
             "qwen3_planned_serve_reference":
                 planned_counts["qwen3_planned_serve_reference"],
             "danube3_full_transformer":
-                planned_counts["danube3_full_transformer"]},
+                planned_counts["danube3_full_transformer"],
+            **{k: c["flash_attention"] for k, c in tp_counts.items()}},
         "flash_attention_bwd": {
             "qwen3_train": train_bwd,
             **{f"qwen3_train_{n}": c["flash_attention_bwd"]
                for n, c in virtual_counts.items()},
             "qwen3_driver": driver_counts["flash_attention_bwd"],
             "qwen3_train_two_ranks": dist_counts["flash_attention_bwd"],
-            "qwen3_driver_two_ranks": ckpt_counts["flash_attention_bwd"]},
+            "qwen3_driver_two_ranks": ckpt_counts["flash_attention_bwd"],
+            **{k: c["flash_attention_bwd"]
+               for k, c in tp_counts.items()}},
         "wkv6": {"serve": wkv_serve, "full_transformer": wkv_ref},
         "wkv6_by_design": {
             design: {"serve": wkv_serve_designs[design],
@@ -4983,7 +5475,9 @@ def main() -> int:
                             planned_counts["danube3_full_transformer"]},
         "flash_attention_bwd": {},
         "paged_attention": {"danube3_serve":
-                            planned_counts["danube3_serve"]}})
+                            planned_counts["danube3_serve"]},
+        "paged_attention_int8": {"danube3_int8_serve":
+                                 planned_counts["danube3_int8_serve"]}})
     for rec in records:
         if rec["name"] in dh120:
             rec["dh120"] = dh120[rec["name"]]
@@ -4992,7 +5486,8 @@ def main() -> int:
         f"serve rwkv6 {serve_rwkv}; serve jamba {serve_jamba}; serve qwen3 "
         f"int8/int8 {serve_quant}; consistency int8/int8 "
         f"{consistency_quant}; consistency train {consistency_train}; "
-        f"dist {json.dumps(dist_s)}; ckpt dist {json.dumps(ckpt_s)}")
+        f"dist {json.dumps(dist_s)}; ckpt dist {json.dumps(ckpt_s)}; "
+        f"tp {json.dumps(tp_s)}")
     print(json.dumps({"profile": prof_qwen}))
     print(json.dumps({"profile": prof}))
     print(json.dumps({"profile": prof_rwkv_prefill}))
@@ -5018,6 +5513,8 @@ def main() -> int:
     print(json.dumps({"obs": {**obs_rec, "card": card}}))
     print(json.dumps({"batcher": {**batch_rec, "card": card}}))
     print(json.dumps({"planned_serving": {**planned_rec, "card": card}}))
+    for rec in tp_records(tp_out, card):
+        print(json.dumps({"tp": rec}))
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -54,6 +54,16 @@ only its keys and rows of ``shared.npz`` / ``opt.npz`` (seeking to the
 rows inside the uncompressed members); a ZeRO-1 replica keeps its shard.
 A checkpoint written by ranks restores in one process, and the reverse.
 
+On a grid with tensor ranks (``tp`` > 1; the manager then needs the
+model's ``spec`` to know which dim each leaf is cut along,
+``models/init.py::tp_axes``) the files keep the same full layout: before
+a stage's row, or a piece of a stage-stacked leaf, leaves its stage, the
+tensor ranks of replica 0 send their shards to tensor rank 0, which
+joins them (after the data group's ZeRO-1 gather) and does what replica
+0 does at tp 1.  On restore each rank reads the full rows and keeps its
+tensor shard.  So a checkpoint written at one tp restores at any other
+(tp 2 at tp 1 and back, bit for bit).
+
 ``reshard_stages`` re-groups stage-stacked leaves when the pipeline depth
 changes (elastic scaling): parameters are keyed by global layer index, so
 moving stage boundaries is a pure reshape.
@@ -62,7 +72,6 @@ from __future__ import annotations
 
 import json
 import os
-import types
 import zipfile
 from typing import Any, Dict, List, Optional
 
@@ -70,7 +79,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.versioning import zero1_shard
+from repro_torch.models.init import tp_dim
 from repro_torch.optim.optimizers import tree_map
+from repro_torch.parallel.dist import ProcessGrid
 
 # torch dtypes npz cannot hold -> (torch and numpy integer types of the
 # same width, the unsigned type written to disk, as the JAX package does)
@@ -175,6 +186,21 @@ def _full_rows(key: str, state):
     return None
 
 
+def _tp_key_dim(key: str, spec, tp: int) -> int:
+    """The dim of ``key``'s leaf (as the files hold it) that the tensor
+    axis cuts, -1 for none: a stage-stacked leaf's own dim, one more in
+    the ``[V, L, ...]`` ring."""
+    if tp == 1 or _row_axis(key) is None:
+        return -1
+    parts = key.split("/")
+    lead = 2 if key.startswith(("stash/", "opt_stages/")) else 0
+    layer = parts[lead:]
+    if len(layer) != 3:
+        return -1
+    ax = tp_dim(layer[1], layer[2], spec, tp)
+    return ax + (1 if key.startswith("stash/ring/") else 0) if ax >= 0 else -1
+
+
 def _shard_axis(local_shape, full_shape) -> int:
     """The axis a ZeRO-1 shard is cut along: where its shape differs
     from the full rows' (-1 for none)."""
@@ -252,9 +278,9 @@ def _read_rows(zf: zipfile.ZipFile, key: str, axis: int, start: int,
 class _OneProcess:
     """The grid of a manager without one: a single rank of a single stage
     that holds every row, its collectives returning at once."""
-    rank = d = s = 0
-    topo = types.SimpleNamespace(pp=1, world=1)
-    data_group = None
+    rank = d = s = t = 0
+    topo = ProcessGrid(1, 1)
+    data_group = tensor_group = None
 
     @property
     def ckpt_group(self):
@@ -277,10 +303,36 @@ class _OneProcess:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, grid=None):
+    def __init__(self, directory: str, grid=None, spec=None):
         self.dir = directory
         self.grid = grid if grid is not None else _OneProcess()
+        self.tp = self.grid.topo.tp
+        if self.tp > 1 and spec is None:
+            raise ValueError(f"a grid of tp={self.tp}: the manager needs the "
+                             "model's spec to join and cut tensor shards")
+        self.spec = spec
         os.makedirs(directory, exist_ok=True)
+
+    def _tp_join(self, key: str, t: torch.Tensor):
+        """Tensor rank 0's whole ``key`` leaf from the shards of this
+        rank's tensor group (each rank's ``t``; None on the other ranks,
+        ``t`` itself for a leaf every rank holds whole)."""
+        ax = _tp_key_dim(key, self.spec, self.tp)
+        if ax < 0:
+            return t
+        g = self.grid
+        grp = g.tensor_group
+        pieces = [grp.gather_to_root(t if g.rank == src else None, src,
+                                     t.shape, t.dtype)
+                  for src in grp.ranks]
+        if g.t:
+            return None
+        return torch.cat([p.cpu() for p in pieces], dim=ax)
+
+    def _tp_cut(self, key: str, arr: np.ndarray) -> np.ndarray:
+        """This rank's tensor shard of the whole ``key`` leaf ``arr``."""
+        ax = _tp_key_dim(key, self.spec, self.tp)
+        return arr if ax < 0 else zero1_shard(arr, ax, self.grid.t, self.tp)
 
     def _round_dir(self, rnd: int) -> str:
         return os.path.join(self.dir, f"round_{rnd:08d}")
@@ -317,7 +369,8 @@ class CheckpointManager:
         if g.rank == 0:
             self._write_manifest(d, {"round": rnd, "stages": [],
                                      "n_stages": n_stages, "done": False})
-        # 1. each stage's rows, by its replica 0
+        # 1. each stage's rows, by its replica 0 (its tensor rank 0, which
+        # joins the tensor ranks' shards first)
         written, err = 0, None
         if g.d == 0:
             try:
@@ -326,14 +379,19 @@ class CheckpointManager:
                     row = g.s * v + j
                     if fail_after_stage is not None and row > fail_after_stage:
                         break
-                    part = tree_map(lambda a: a[j:j + 1], stages)
-                    np.savez(os.path.join(d, f"stage_{row}.npz"),
-                             **_flatten(part))
-                    written += 1
+                    part = {f"stash/current/{k}": self._tp_join(
+                        f"stash/current/{k}", a[j:j + 1])
+                        for k, a in _leaves(stages)}
+                    if g.t == 0:
+                        np.savez(os.path.join(d, f"stage_{row}.npz"),
+                                 **{k.split("/", 2)[2]: _to_numpy(k, a)
+                                    for k, a in part.items()})
+                        written += 1
             except Exception as e:      # agreed on below, then re-raised
                 err = e
         counts = c.all_gather_floats([written])
-        landed = [s * v + j for s in range(S) for j in range(int(counts[s][0]))]
+        landed = [s * v + j for s in range(S)
+                  for j in range(int(counts[g.topo.rank_of(0, s)][0]))]
         if g.rank == 0:
             self._write_manifest(d, {"round": rnd, "stages": landed,
                                      "n_stages": n_stages, "done": False})
@@ -350,9 +408,11 @@ class CheckpointManager:
             for key, leaf in leaves.items():
                 if torch.is_tensor(leaf):
                     full = _full_rows(key, state)
-                    meta[name, key] = (tuple((full if full is not None
-                                              else leaf).shape),
-                                       leaf.dtype, None)
+                    shape = list((full if full is not None else leaf).shape)
+                    ax = _tp_key_dim(key, self.spec, self.tp)
+                    if ax >= 0:
+                        shape[ax] *= self.tp
+                    meta[name, key] = (tuple(shape), leaf.dtype, None)
                 else:
                     host = _to_numpy(key.rsplit("/", 1)[-1], leaf)
                     meta[name, key] = (host.shape, host.dtype, host)
@@ -382,7 +442,7 @@ class CheckpointManager:
         from the metadata; a leaf one stage holds whole from its lowest
         rank; a stage-stacked leaf stage by stage (version slot by slot
         for the ring), ZeRO-1 shards all-gathered over the data group
-        first."""
+        first, then tensor shards joined on tensor rank 0."""
         g = self.grid
         owners = [r for r, m in enumerate(every) if (name, key) in m]
         shape, dt, host = every[owners[0]][name, key]
@@ -399,7 +459,8 @@ class CheckpointManager:
             S = g.topo.pp
             full_shape = (shape[:axis] + (shape[axis] * S,)
                           + shape[axis + 1:])
-            srcs = list(range(S))            # replica 0 of each stage
+            # replica 0 (tensor rank 0) of each stage
+            srcs = [g.topo.rank_of(0, s) for s in range(S)]
             lead = list(np.ndindex(*shape[:axis]))
         if out is not None:
             out.begin(name, key, full_shape, dt if host is not None
@@ -413,6 +474,8 @@ class CheckpointManager:
                 mine = torch.empty(rows.shape, dtype=leaf.dtype,
                                    device=leaf.device)
                 g.data_group.all_gather_(leaf, mine, ax)
+            if g.d == 0:
+                mine = self._tp_join(key, mine)
         for idx in lead:
             for src in srcs:
                 if host is not None:
@@ -459,7 +522,8 @@ class CheckpointManager:
         parts = [dict(np.load(os.path.join(d, f"stage_{start + j}.npz")))
                  for j in range(v)]
         _restore_into(state["params"]["stages"],
-                      {k: np.concatenate([p[k] for p in parts], axis=0)
+                      {k: self._tp_cut(f"stash/current/{k}", np.concatenate(
+                          [p[k] for p in parts], axis=0))
                        for k in parts[0]})
         del parts
         for name, leaves in _files(state).items():
@@ -473,7 +537,8 @@ class CheckpointManager:
                         with zf.open(f"{key}.npy") as f:
                             flat[key] = np.lib.format.read_array(f)
                         continue
-                    arr = _read_rows(zf, key, axis, start, v)
+                    arr = self._tp_cut(key, _read_rows(zf, key, axis, start,
+                                                       v))
                     if torch.is_tensor(leaf):
                         ax = _shard_axis(leaf.shape, arr.shape)
                         if ax >= 0:         # this replica's ZeRO-1 shard

@@ -52,6 +52,25 @@ or with ``plan.zero1`` reduce-scattered onto a 1/dp shard of the
 optimizer state and all-gathered back (core/versioning.py).  ``loss``
 and ``aux`` are summed over the world, the same number on every rank.
 At dp 1 the split alone changes no bit of the single-process executor.
+
+At ``plan.tp`` > 1 (a ``data × pp × tp`` grid, JAX's ``tp_axis``) each
+stage is cut over its tensor group: a rank holds tensor shard t of its
+stage's sharded leaves (``models/init.py::tp_shard``) — and of their
+ring and optimizer state — and runs its blocks with the group's
+collectives (``models/nn.py``); the activations and their hand-offs
+are whole on every tensor rank (rank (d, s, t) hands to (d, s ± 1, t)).
+The embedding (stage 0) and the head and final norm (the last stage)
+live on tensor rank 0 alone, with their optimizer state: t = 0 embeds
+a round's tokens and broadcasts the embeddings over its tensor group,
+and computes an exiting microbatch's loss and broadcasts d(loss)/d(h);
+the metrics are t = 0's.  (Held on every tensor rank, the head's Adam
+state and f32 logits did not fit four ranks of phase 13's model on one
+card.)  Data sums and ZeRO-1 run over the data group of each (stage,
+tensor index).  A replicated leaf that a rank uses in part (the qk-norm
+scales, KV weights replicated at n_kv < tp) has its ranks' shares
+summed by its ``tp_enter`` inside B, so every replicated leaf gets one
+gradient on every tensor rank and stays equal across them.  One process
+runs tp 1 only.
 """
 from __future__ import annotations
 
@@ -126,19 +145,23 @@ def build_pipeline(spec: spec_lib.ModelSpec, plan, *, seq_len: int,
                    obs=None) -> PipelineBundle:
     """The pipelined train step for one (arch, plan): every stage on
     ``device`` (``cuda`` unless told otherwise), or with ``grid`` (a
-    :class:`~repro_torch.parallel.dist.RankGrid` of ``data × plan.pp``
-    ranks) this rank's stage of this rank's replica on the grid's
-    device.  ``obs`` rides on the bundle for the driver to report
-    into."""
-    S, R = plan.pp, plan.microbatches
-    if plan.tp != 1:
-        raise NotImplementedError(
-            f"tp={plan.tp}: tensor parallelism is not ported; run tp=1")
+    :class:`~repro_torch.parallel.dist.RankGrid` of ``data × plan.pp ×
+    plan.tp`` ranks) this rank's tensor shard of this rank's stage of
+    this rank's replica on the grid's device.  ``obs`` rides on the
+    bundle for the driver to report into."""
+    S, R, tp = plan.pp, plan.microbatches, plan.tp
     dp = 1
+    if grid is None and tp != 1:
+        raise ValueError(
+            f"tp={tp}: a stage cut over {tp} tensor ranks runs on a grid of "
+            f"data x pp x tp ranks, one process each: launch with torchrun "
+            f"--nproc-per-node {S * tp} (x data replicas) or pass grid= "
+            "(parallel/dist.py::init_grid)")
     if grid is not None:
-        if grid.topo.pp != S:
-            raise ValueError(f"grid of {grid.topo.pp} stages for a plan of "
-                             f"pp={S}")
+        if (grid.topo.pp, grid.topo.tp) != (S, tp):
+            raise ValueError(f"grid of {grid.topo.pp} stages x "
+                             f"{grid.topo.tp} tensor ranks for a plan of "
+                             f"pp={S}, tp={tp}")
         dp, dev = grid.topo.data, grid.device
     else:
         dev = resolve_device(device)
@@ -168,8 +191,13 @@ def build_pipeline(spec: spec_lib.ModelSpec, plan, *, seq_len: int,
     mine = list(range(S)) if grid is None else [grid.s]
     s0 = mine[0]
     first, last = 0 in mine, S - 1 in mine
-    # this stage's data replicas: gradients are summed over them
+    # this stage's data replicas: gradients are summed over them; its
+    # tensor ranks: the blocks' collectives run over them
     group = grid.data_group if dp > 1 else None
+    tensor = grid.tensor_group if tp > 1 else None
+    t_index = 0 if grid is None else grid.t
+    # the embedding and the head live on tensor rank 0
+    embed_here, head_here = first and t_index == 0, last and t_index == 0
     zero1 = plan.zero1 and dp > 1
     aux_ct = aux_weight / dp
 
@@ -181,7 +209,7 @@ def build_pipeline(spec: spec_lib.ModelSpec, plan, *, seq_len: int,
         # bit
         params = init_rank_params(spec, mplan, gen, sched,
                                   None if grid is None else grid.s,
-                                  compute_dtype)
+                                  compute_dtype, t=t_index)
         z1 = (zero1_axes(params["stages"], dp), grid.d, dp) if zero1 else None
         return make_train_state(params, sched, optimizer, zero1=z1)
 
@@ -242,12 +270,17 @@ def build_pipeline(spec: spec_lib.ModelSpec, plan, *, seq_len: int,
         recv_f, recv_b = {}, {}      # one-tick hand-offs, by stage
         f32 = lambda a: torch.zeros(a.shape, dtype=torch.float32,  # noqa
                                     device=dev)
-        if first:
+        if embed_here:
             embeds = lm_head.embed_tokens(params["embed"], tokens,
                                           compute_dtype)
             d_embeds = torch.zeros((R, mb, seq_len, d), dtype=compute_dtype,
                                    device=dev)
-        if last:
+        elif first:
+            embeds = torch.empty((R, mb, seq_len, d), dtype=compute_dtype,
+                                 device=dev)
+        if first and tensor is not None:
+            tensor.broadcast_(embeds)
+        if head_here:
             head, fnorm = params["head"], params["final_norm"]
             # the valid tokens of each microbatch over all replicas
             n_valid = None
@@ -256,7 +289,7 @@ def build_pipeline(spec: spec_lib.ModelSpec, plan, *, seq_len: int,
                     dim=(1, 2), dtype=torch.float32))
         if accumulate:
             gacc = tree_map(f32, weights)
-            if last:
+            if head_here:
                 dhead_acc, dfnorm_acc = f32(head), tree_map(f32, fnorm)
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         aux_sum = torch.zeros((), dtype=torch.float32, device=dev)
@@ -278,7 +311,8 @@ def build_pipeline(spec: spec_lib.ModelSpec, plan, *, seq_len: int,
                        if sched.fwd_from_stash else w_at[q])
                 with torch.no_grad():
                     h_out[s], aux = stage_fwd(w_f, x_in, statics,
-                                              return_aux=True, **kw[q])
+                                              return_aux=True, tp=tensor,
+                                              **kw[q])
                 resid[row[F_RESID_WRITE], s - s0].copy_(x_in)
                 aux_sum += aux
             recv_f = pass_on(f_moves, h_out, down, up)
@@ -286,7 +320,7 @@ def build_pipeline(spec: spec_lib.ModelSpec, plan, *, seq_len: int,
             # ---- head + loss for the exiting microbatch -----------------
             g_exit = None
             m_exit = int(tabs.exit_mb[tick])
-            if m_exit >= 0 and last:
+            if m_exit >= 0 and head_here:
                 lab = labels[m_exit]
                 loss, dh, dhead, dfnorm = lm_head.loss_and_grads(
                     head, fnorm, h_out[S - 1], lab.clamp_min(0),
@@ -301,6 +335,14 @@ def build_pipeline(spec: spec_lib.ModelSpec, plan, *, seq_len: int,
                 else:
                     update({"h": dhead, "f": dfnorm}, state["opt_head"],
                            {"h": head, "f": fnorm}, None)
+            if m_exit >= 0 and last and tensor is not None:
+                # the other tensor ranks start their backward from t = 0's
+                if head_here:
+                    g_exit = g_exit.contiguous()
+                else:
+                    g_exit = torch.empty((mb, seq_len, d),
+                                         dtype=compute_dtype, device=dev)
+                tensor.broadcast_(g_exit)
 
             # ---- B phase ----------------------------------------------
             dx_out = {}
@@ -314,7 +356,7 @@ def build_pipeline(spec: spec_lib.ModelSpec, plan, *, seq_len: int,
                           if use_ring else w_at[q])
                 x_saved = resid[row[B_RESID_READ], s - s0]
                 dW, dx_out[s] = stage_vjp(w_used, x_saved, statics, g_in,
-                                          aux_ct, **kw[q])
+                                          aux_ct, tp=tensor, **kw[q])
                 if accumulate:
                     tree_chunk_add(gacc, dW, q)
                 else:
@@ -322,25 +364,28 @@ def build_pipeline(spec: spec_lib.ModelSpec, plan, *, seq_len: int,
                     update(dW, opt_at[q], w_at[q], z1_row)
             recv_b = pass_on(b_moves, dx_out, up, down)
             b0 = int(tabs.demb_mb[tick])
-            if b0 >= 0 and first:
+            if b0 >= 0 and embed_here:
                 d_embeds[b0].copy_(dx_out[0])
 
         # ---- round end ------------------------------------------------
         if accumulate:
             update(tree_map(lambda a: a / R, gacc), opt, weights, z1)
-            if last:
+            if head_here:
                 update({"h": dhead_acc / R,
                         "f": tree_map(lambda a: a / R, dfnorm_acc)},
                        state["opt_head"], {"h": head, "f": fnorm}, None)
-        if first:
+        if embed_here:
             d_table = lm_head.embed_bwd(params["embed"], tokens,
                                         d_embeds.float()).div_(R)
             update(d_table, state["opt_embed"], params["embed"], None)
         state["step"] = step + 1
         if grid is not None:
             # the replicas' and stages' parts of the round's metrics
-            parts = grid.world_group.all_reduce_(torch.stack([loss_sum,
-                                                              aux_sum]))
+            # (every tensor rank holds the same ones: t = 0's count)
+            parts = torch.stack([loss_sum, aux_sum])
+            if t_index:
+                parts.zero_()
+            parts = grid.world_group.all_reduce_(parts)
             loss_sum, aux_sum = parts[0], parts[1] / dp
         return state, {"loss": loss_sum / R, "aux": aux_sum / R}
 

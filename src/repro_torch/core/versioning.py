@@ -20,7 +20,10 @@ update (paper §3.2), or with ZeRO-1 reduce-scattered: each replica
 updates its 1/dp shard of the weights with an optimizer state that
 holds only that shard, and the shards are all-gathered.  Without a
 group (one replica) the sum is the identity.  :func:`rank_state` cuts a
-whole-model state to what one rank of a process grid holds.
+whole-model state to what one rank of a process grid holds: its stage's
+rows, with ``tensor`` its tensor shard of every sharded leaf
+(``models/init.py::tp_axes`` says which dim), and with ``zero1`` its
+replica's shard of the optimizer state, cut from the tensor shard.
 """
 from __future__ import annotations
 
@@ -82,7 +85,9 @@ def zero1_axes(stages, dp: int):
     stacked row): the dim each leaf's optimizer state is sharded along
     over ``dp`` replicas, the first dim >= 1 whose size is a multiple of
     ``dp`` and at least ``dp``; -1 for a leaf with none, and for every
-    leaf at ``dp <= 1``.  JAX ``versioning.py::zero1_axes`` at tp = 1."""
+    leaf at ``dp <= 1``.  ``stages`` are a rank's own tensor shards, so
+    the axis is picked from the local (post-tensor) shape, as JAX's
+    ``versioning.py::zero1_axes`` picks it."""
     def pick(a):
         if dp <= 1:
             return -1
@@ -133,34 +138,55 @@ def rank_rows(sched, s: int) -> slice:
     return slice(s * v, (s + 1) * v)
 
 
-def rank_params(params, sched, s: int):
+def tensor_cut(stages, tensor, lead: int = 0):
+    """Tensor shard ``t`` of every stage-stacked leaf (views), ``tensor =
+    (tp_axes, t, tp)``; ``lead`` extra leading dims (1 for the ``[V, L,
+    ...]`` ring).  ``stages`` itself for None."""
+    if tensor is None:
+        return stages
+    axes, t, tp = tensor
+    return tree_map(lambda a, ax: zero1_shard(a, ax + lead if ax >= 0
+                                              else -1, t, tp),
+                    stages, axes)
+
+
+def rank_params(params, sched, s: int, *, tensor=None):
     """What stage ``s`` of ``sched`` holds of a whole-model parameter tree
     (torch or numpy leaves, stage rows in storage order): its rows of the
-    stacked stages, windows and thetas; the embedding on stage 0; the head
-    and final norm on the last stage."""
+    stacked stages, windows and thetas — with ``tensor = (tp_axes, t,
+    tp)`` tensor shard t of them (:func:`tensor_cut`) —; the embedding on
+    stage 0; the head and final norm on the last stage (on tensor rank 0:
+    the executor keeps them there)."""
     rows = rank_rows(sched, s)
-    out = {"stages": tree_map(lambda a: a[rows], params["stages"]),
+    t = 0 if tensor is None else tensor[1]
+    out = {"stages": tensor_cut(tree_map(lambda a: a[rows],
+                                         params["stages"]), tensor),
            "layer_windows": list(params["layer_windows"][rows]),
            "layer_thetas": list(params["layer_thetas"][rows])}
-    if s == 0:
+    if s == 0 and t == 0:
         out["embed"] = params["embed"]
-    if s == sched.n_stages - 1:
+    if s == sched.n_stages - 1 and t == 0:
         out["head"], out["final_norm"] = params["head"], params["final_norm"]
     return out
 
 
-def rank_state(state, sched, s: int, *, zero1=None):
+def rank_state(state, sched, s: int, *, zero1=None, tensor=None):
     """What stage ``s``'s rank holds of a whole-model training state
     (torch or numpy leaves): :func:`rank_params`, its rows of the
     ``[V, L, ...]`` ring, its rows of the stage optimizer state — with
-    ``zero1 = (axes, index, dp)`` only replica ``index``'s shard — and the
-    head's / embedding's optimizer states where it holds them."""
+    ``tensor = (tp_axes, t, tp)`` tensor shard t of all three, and with
+    ``zero1 = (axes, index, dp)`` only replica ``index``'s shard of the
+    optimizer state, ``axes`` the dims of the tensor shard
+    (:func:`zero1_axes`) — and the head's / embedding's optimizer states
+    where it holds them."""
     rows = rank_rows(sched, s)
-    params = rank_params(state["params"], sched, s)
+    params = rank_params(state["params"], sched, s, tensor=tensor)
     stash = {"current": params["stages"]}
     if "ring" in state["stash"]:
-        stash["ring"] = tree_map(lambda a: a[:, rows], state["stash"]["ring"])
-    opt = {k: tree_map(lambda a: a[rows], v)
+        stash["ring"] = tensor_cut(tree_map(lambda a: a[:, rows],
+                                            state["stash"]["ring"]),
+                                   tensor, lead=1)
+    opt = {k: tensor_cut(tree_map(lambda a: a[rows], v), tensor)
            for k, v in state["opt_stages"].items()}
     if zero1 is not None:
         axes, index, dp = zero1

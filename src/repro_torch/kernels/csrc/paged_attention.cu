@@ -26,13 +26,15 @@
 //   heads, SMs): lengths are never read on the host, each split finds
 //   its own live pages.
 // - Inside a split, live pages stream through a ring of kStages page
-//   slots (K and V of one KV head) filled by 16-byte cp.async copies,
-//   kStages − 1 pages ahead of the one being scored.  The page id is
+//   slots (K and V of one KV head) filled by cp.async copies of kChunk
+//   bytes (16, or 8 for a row of 8 mod 16 bytes: int8 at Dh 120, whose
+//   rows of one KV head start 8-byte aligned in the pool), kStages − 1
+//   pages ahead of the one being scored.  The page id is
 //   loaded first and a page is fetched only when it is live, so a dead
 //   page (which may hold NaN, or a −1 entry with no address) is never
 //   read.  Two __syncthreads per page.
 // - Scores: the warps split the page's keys; a key's Dh is split into
-//   16-byte chunks across lanes, each chunk scored against 8 query rows
+//   kChunk-byte chunks across lanes, each chunk scored against 8 query rows
 //   at once, the dot products summed with shuffles.  Softmax and P·V:
 //   a warp per query row, its lanes owning 4 adjacent Dh columns of the
 //   row's f32 accumulator.  No page is staged in f32.
@@ -99,9 +101,18 @@ __device__ __forceinline__ int live_page(const int* row_table, int i,
   return row_table[i];   // -1 when unallocated
 }
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(dst), "l"(src) : "memory");
+// kBytes from global src to shared dst: 16 bypass L1 (.cg); 8 must go
+// through it (.ca takes 4, 8 or 16)
+template <int kBytes>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src) {
+  if constexpr (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(dst), "l"(src) : "memory");
+  } else {
+    static_assert(kBytes == 8, "16- or 8-byte chunks");
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
+                 :: "r"(dst), "l"(src) : "memory");
+  }
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -147,8 +158,10 @@ __device__ __forceinline__ void load_f32(const uint8_t* p, float (&x)[N]) {
 }
 
 // T: q and output type; TP: pool element type (T, or int8_t with the
-// scale planes k_scale / v_scale, (P, KV) f32; null for float pools).
-template <typename T, typename TP>
+// scale planes k_scale / v_scale, (P, KV) f32; null for float pools);
+// kChunk: bytes a copy and a scored chunk (16, or 8 where a row is 8
+// mod 16 bytes).
+template <typename T, typename TP, int kChunk>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_kernel(const T* __restrict__ q,            // (B, Q, H, Dh)
                        const TP* __restrict__ k_pages,     // (P, page, KV, Dh)
@@ -163,7 +176,8 @@ paged_attention_kernel(const T* __restrict__ q,            // (B, Q, H, Dh)
                        int n_pages, int pages_per_split, int window,
                        float scale) {
   constexpr bool kInt8 = std::is_same<TP, int8_t>::value;
-  constexpr int kElems = 16 / sizeof(TP);          // pool elements a chunk
+  constexpr int kElems = kChunk / sizeof(TP);      // pool elements a chunk
+  static_assert(kElems % 4 == 0, "a chunk is scored 4 q columns at a time");
   const int split = blockIdx.x;
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
@@ -172,7 +186,7 @@ paged_attention_kernel(const T* __restrict__ q,            // (B, Q, H, Dh)
   const int rows = q_len * group;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int row_bytes = d_head * static_cast<int>(sizeof(TP));
-  const int n_chunks = row_bytes / 16;           // 16-byte chunks a row
+  const int n_chunks = row_bytes / kChunk;       // chunks a row
   // lanes a key: the largest power of two <= min(chunks, 32)
   int lanes_per_key = 1;
   while (lanes_per_key * 2 <= min(n_chunks, 32)) lanes_per_key *= 2;
@@ -219,11 +233,12 @@ paged_attention_kernel(const T* __restrict__ q,            // (B, Q, H, Dh)
         for (int c = threadIdx.x; c < page * n_chunks; c += kThreads) {
           const int t = c / n_chunks, ch = c % n_chunks;
           const int64_t off = base + static_cast<int64_t>(t) * n_kv * d_head;
-          const uint32_t dst = slot + t * row_bytes + ch * 16;
-          cp_async16(dst, reinterpret_cast<const uint8_t*>(k_pages + off)
-                              + ch * 16);
-          cp_async16(dst + page * row_bytes,
-                     reinterpret_cast<const uint8_t*>(v_pages + off) + ch * 16);
+          const uint32_t dst = slot + t * row_bytes + ch * kChunk;
+          cp_async<kChunk>(dst, reinterpret_cast<const uint8_t*>(
+                                    k_pages + off) + ch * kChunk);
+          cp_async<kChunk>(dst + page * row_bytes,
+                           reinterpret_cast<const uint8_t*>(v_pages + off)
+                               + ch * kChunk);
         }
       }
     }
@@ -247,7 +262,7 @@ paged_attention_kernel(const T* __restrict__ q,            // (B, Q, H, Dh)
     const int k0 = i * page;
 
     // scores: the warps split the page's keys, lanes_per_key lanes a
-    // key, one 16-byte chunk a lane; each K chunk is scored against
+    // key, one kChunk-byte chunk a lane; each K chunk is scored against
     // kRowTile query rows at once and the dot products are summed over
     // the key's lanes with shuffles
     for (int t0 = warp * keys_per_pass; t0 < page;
@@ -261,7 +276,7 @@ paged_attention_kernel(const T* __restrict__ q,            // (B, Q, H, Dh)
           for (int ch = lane % lanes_per_key; ch < n_chunks;
                ch += lanes_per_key) {
             float kx[kElems];
-            load_f32<TP>(ks + t * row_bytes + ch * 16, kx);
+            load_f32<TP>(ks + t * row_bytes + ch * kChunk, kx);
             if constexpr (kInt8) {   // dequantize in f32, as the TPU tile
 #pragma unroll
               for (int e = 0; e < kElems; ++e) kx[e] *= k_sc;
@@ -407,14 +422,14 @@ size_t split_smem(int q_len, int group, int d_head, int page, int pool_bytes) {
          + sizeof(float) * (2 * rows * d_head + rows * page + 2 * rows);
 }
 
-template <typename T, typename TP>
-int launch(const void* q, const void* k_pages, const void* v_pages,
+template <typename T, typename TP, int kChunk>
+int launch_chunked(const void* q, const void* k_pages, const void* v_pages,
            const void* k_scale, const void* v_scale, const void* tables,
            const void* lengths, void* part_ml, void* part_acc, void* out,
            int batch, int q_len, int n_heads, int n_kv, int d_head, int page,
            int n_pages, int n_splits, int pages_per_split, int window,
            float scale, cudaStream_t stream) {
-  auto kernel = paged_attention_kernel<T, TP>;
+  auto kernel = paged_attention_kernel<T, TP, kChunk>;
   const size_t smem = split_smem(q_len, n_heads / n_kv, d_head, page,
                                  sizeof(TP));
   if (smem > 48 * 1024) {   // above 48 KB only after an explicit opt-in
@@ -437,6 +452,27 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
       static_cast<const float*>(part_ml), static_cast<const float*>(part_acc),
       static_cast<T*>(out), n_splits, q_len, n_heads, n_kv, d_head);
   return static_cast<int>(cudaGetLastError());
+}
+
+// rows of a multiple of 16 bytes take 16-byte chunks, rows of 8 mod 16
+// bytes (int8 at Dh 120) 8-byte ones; the wrapper refuses any other
+template <typename T, typename TP>
+int launch(const void* q, const void* k_pages, const void* v_pages,
+           const void* k_scale, const void* v_scale, const void* tables,
+           const void* lengths, void* part_ml, void* part_acc, void* out,
+           int batch, int q_len, int n_heads, int n_kv, int d_head, int page,
+           int n_pages, int n_splits, int pages_per_split, int window,
+           float scale, cudaStream_t stream) {
+  const int row_bytes = d_head * static_cast<int>(sizeof(TP));
+  if (d_head % 4 || row_bytes % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto go = launch_chunked<T, TP, 16>;
+  if constexpr (sizeof(TP) <= 2) {   // an f32 row of Dh % 4 == 0 is 16·n
+    if (row_bytes % 16) go = launch_chunked<T, TP, 8>;
+  }
+  return go(q, k_pages, v_pages, k_scale, v_scale, tables, lengths, part_ml,
+            part_acc, out, batch, q_len, n_heads, n_kv, d_head, page,
+            n_pages, n_splits, pages_per_split, window, scale, stream);
 }
 
 }  // namespace

@@ -270,10 +270,12 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_attention's kernel takes contiguous tensors")
     row_bytes = dh * k_pages.element_size()
-    if row_bytes % 16 or k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
-        raise ValueError(f"the kernel copies 16-byte chunks: Dh={dh} × "
-                         f"{k_pages.element_size()} bytes must be a multiple "
-                         f"of 16 and the pools 16-byte aligned")
+    if (dh % 4 or row_bytes % 8 or k_pages.data_ptr() % 16
+            or v_pages.data_ptr() % 16):
+        raise ValueError(f"the kernel copies 16- or 8-byte chunks: Dh={dh} "
+                         f"must be a multiple of 4, Dh × "
+                         f"{k_pages.element_size()} bytes of 8 and the pools "
+                         f"16-byte aligned")
     lib = _bind()
     index = (q.device.index if q.device.index is not None
              else torch.cuda.current_device())

@@ -5,9 +5,11 @@ One process (no torchrun, or a world of one) runs every stage of the
 plan on one device through the fault-tolerant
 :class:`~repro_torch.runtime.driver.TrainDriver` (per-stage checkpoints
 every ``--ckpt-every`` rounds, restart from the last round every stage
-checkpointed).  Under torchrun each process is one rank of a ``--data``
-x pp grid (``parallel/dist.py``): rank d·pp + s runs stage s of replica
-d on ``cuda:LOCAL_RANK`` when the machine has a card per rank, or on
+checkpointed); it runs plans of tp 1 (the smoke plans).  Under torchrun
+each process is one rank of a ``--data`` x pp x tp grid
+(``parallel/dist.py``), tp the plan's: rank (d·pp + s)·tp + t runs
+tensor shard t of stage s of replica d on ``cuda:LOCAL_RANK`` when the
+machine has a card per rank, or on
 ``cuda:0`` when it has one card; ``--backend nccl`` needs a card per
 rank, ``--backend gloo`` stages hand-offs and collectives through host
 memory, so ranks may share one card (or run on the CPU).  Each rank
@@ -30,8 +32,9 @@ versions of the kernels).  ``--smoke`` trains the architecture's small
 smoke spec in fp32; otherwise the full spec in bf16 (``--layers N``
 keeps its first N layers).  ``--plan-search`` lets the planner pick
 (pp, tp, schedule, virtual_stages) for the plan's model axis of pp × tp
-cards per replica, with ``--data`` replicas, under an H100's memory (a
-plan with tp > 1 then raises: tensor parallelism is not ported).
+cards per replica, with ``--data`` replicas, under an H100's memory; as
+in the JAX launcher there is no ``--tp``: tp is the plan's (the full
+specs' plans cut stages over 2-8 tensor ranks) or the planner's.
 Prints the plan line with the predicted bubble, then ``loss a -> b``.
 
   python -m repro_torch.launch.train --arch qwen3-14b --smoke --steps 3 \
@@ -40,8 +43,11 @@ Prints the plan line with the predicted bubble, then ``loss a -> b``.
       --device cpu --schedule interleaved_async --virtual-stages 2 \
       --microbatches 4 --ckpt /tmp/ckpt --ckpt-every 2
   torchrun --nproc-per-node 4 -m repro_torch.launch.train \
-      --arch qwen3-14b --data 2 --pp 2 --layers 4 --seq-len 4096 \
-      --microbatches 4 --global-batch 8
+      --arch qwen3-14b --pp 2 --layers 4 --seq-len 4096 --microbatches 4 \
+      --global-batch 4 --plan-search     # a pp x tp plan of 4 ranks
+  torchrun --standalone --nproc-per-node 8 -m repro_torch.launch.train \
+      --arch qwen3-14b --smoke --data 2 --pp 2 --microbatches 4 \
+      --device cpu --backend gloo        # the smoke plan at tp 1: 4 ranks
   torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
       --arch qwen3-14b --smoke --data 2 --pp 2 --microbatches 4 \
       --device cpu --backend gloo
@@ -90,7 +96,7 @@ def make_plan(args):
     if args.smoke:
         spec, plan = cfg.smoke_spec(), cfg.SMOKE_PLAN
     else:
-        spec, plan = cfg.full_spec(), cfg.PLAN.with_(tp=1)
+        spec, plan = cfg.full_spec(), cfg.PLAN
         if args.layers:
             spec = cut_layers(spec, args.layers)
     err = virtual_stages_error(args.schedule, args.virtual_stages)
@@ -205,7 +211,7 @@ def parser():
     ap.add_argument("--device", type=str, default="cuda")
     ap.add_argument("--data", type=int, default=1,
                     help="data replicas of the pipeline (under torchrun: "
-                         "the world is data x pp ranks)")
+                         "the world is data x pp x tp ranks)")
     ap.add_argument("--backend", type=str, default=None,
                     choices=[None, "nccl", "gloo"],
                     help="torch.distributed backend under torchrun "
@@ -218,14 +224,15 @@ def main(argv=None):
     args = parser().parse_args(argv)
     args.device = str(resolve_device(args.device))
     world = int(os.environ.get("WORLD_SIZE", "1"))
-    if world > 1 or args.data > 1:
-        return main_ranks(args, world)
+    made = make_plan(args)
+    if world > 1 or args.data > 1 or made[1].tp > 1:
+        return main_ranks(args, world, made)
     if args.replan:
         raise SystemExit("--replan: stage seconds are measured on several "
                          "ranks (one process runs every stage); launch "
                          "with torchrun")
     obs = Observability(trace=bool(args.trace_out))
-    spec, bundle = build(args, obs=obs)
+    spec, bundle = build(args, made=made, obs=obs)
     print(plan_line(bundle), flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         driver = make_driver(args, spec, bundle, args.ckpt or tmp)
@@ -239,19 +246,19 @@ def main(argv=None):
     return losses
 
 
-def main_ranks(args, world: int):
-    """This process's rank of a ``--data`` x pp grid under torchrun:
-    the driver over this rank's stage, checkpoints rank by rank; rank 0
-    prints the plan, the loss and the reconcile line."""
-    made = make_plan(args)
+def main_ranks(args, world: int, made):
+    """This process's rank of a ``--data`` x pp x tp grid under torchrun:
+    the driver over this rank's tensor shard of its stage, checkpoints
+    rank by rank; rank 0 prints the plan, the loss and the reconcile
+    line."""
     plan = made[1]
-    if world != args.data * plan.pp:
-        raise SystemExit(f"--data {args.data} x pp {plan.pp} needs "
-                         f"{args.data * plan.pp} ranks; the world has "
-                         f"{world} (launch with torchrun --nproc-per-node "
-                         f"{args.data * plan.pp})")
+    need = args.data * plan.pp * plan.tp
+    if world != need:
+        raise SystemExit(f"--data {args.data} x pp {plan.pp} x tp {plan.tp} "
+                         f"needs {need} ranks; the world has {world} "
+                         f"(launch with torchrun --nproc-per-node {need})")
     backend = args.backend or ("gloo" if args.device == "cpu" else "nccl")
-    grid = init_grid(ProcessGrid(args.data, plan.pp), backend,
+    grid = init_grid(ProcessGrid(args.data, plan.pp, plan.tp), backend,
                      device=args.device)
     tmp = None
     try:

@@ -9,6 +9,13 @@ tree carries over leaf for leaf (:func:`params_from_numpy`).  Ported
 block kinds: attention, RWKV6 time-mix or Mamba as the mixer; a dense
 FFN, RWKV6 channel-mix or MoE (without shared experts) as the FFN.
 Cross-attention blocks come later.
+
+A stage cut over tp tensor ranks holds rank t's shard of every sharded
+leaf: :func:`tp_axes` is the port's copy of the JAX init's
+``PartitionSpec`` table (which dim of each stage-stacked leaf the
+``"tensor"`` axis cuts), :func:`tp_shard` cuts a whole tree to rank t's
+shard, and :func:`init_rank_params` draws a rank's shard layer by
+layer.
 """
 from __future__ import annotations
 
@@ -74,6 +81,76 @@ def rwkv_static(spec: spec_lib.ModelSpec, tp: int) -> RWKVStatic:
     n_heads = spec.d_model // spec.rwkv.head_dim
     assert n_heads % tp == 0, (spec.name, n_heads, tp)
     return RWKVStatic(n_heads_local=n_heads // tp, d_head=spec.rwkv.head_dim)
+
+
+# the dim of each stage-stacked leaf ([L, ...]) that the tensor axis cuts,
+# by (block, leaf): JAX ``models/init.py``'s PartitionSpecs (``"kv"``:
+# the KV heads when tp divides them, else whole).  Every leaf not named
+# (norms, qk-norm scales, the router, RWKV's lerps and LoRAs, the
+# channel-mix gate) and the embedding, head and final norm stay whole.
+_TP_DIMS = {
+    "attn": {"wq": 2, "wk": "kv", "wv": "kv", "wo": 1},
+    "mlp": {"w1": 2, "w3": 2, "w2": 1},
+    "moe": {"w1": 1, "w2": 1, "w3": 1},
+    "mamba": {"in_x": 2, "in_z": 2, "conv_w": 1, "x_proj": 1, "dt_proj": 2,
+              "dt_bias": 1, "A_log": 1, "D": 1, "out_proj": 1},
+    "tmix": {"wr": 2, "wk": 2, "wv": 2, "wg": 2, "wo": 1, "w0": 1,
+             "decay_w2": 2, "u": 1, "gn_scale": 1, "gn_bias": 1},
+    "cmix": {"wk": 2, "wv": 1},
+}
+
+
+def tp_dim(block: str, leaf: str, spec: spec_lib.ModelSpec, tp: int) -> int:
+    """The dim of a stage-stacked ``block`` / ``leaf`` weight that the
+    tensor axis cuts at ``tp`` ranks; -1 for a leaf held whole."""
+    ax = _TP_DIMS.get(block, {}).get(leaf, -1)
+    if ax == "kv":
+        ax = 2 if spec.n_kv % tp == 0 else -1
+    return ax if tp > 1 else -1
+
+
+def _layer_tp_axes(layer, spec: spec_lib.ModelSpec, tp: int) -> Dict:
+    """:func:`tp_axes` of one ``stages["layer_i"]`` dict."""
+    return {block: {leaf: tp_dim(block, leaf, spec, tp) for leaf in sub}
+            for block, sub in layer.items()}
+
+
+def tp_axes(stages, spec: spec_lib.ModelSpec, tp: int) -> Dict:
+    """Tree of ints over ``stages`` (stage-stacked leaves): the dim the
+    tensor axis cuts at ``tp`` ranks, -1 for a leaf every rank holds
+    whole (every leaf at tp 1)."""
+    return {name: _layer_tp_axes(layer, spec, tp)
+            for name, layer in stages.items()}
+
+
+def _copy_cut(a, ax: int, t: int, tp: int):
+    """Shard ``t`` of ``a`` along ``ax`` as a tensor (or array) of its
+    own, so the whole leaf can be freed; ``a`` for ax < 0."""
+    if ax < 0:
+        return a
+    n = a.shape[ax] // tp
+    if torch.is_tensor(a):
+        return a.narrow(ax, t * n, n).clone(
+            memory_format=torch.contiguous_format)
+    return np.ascontiguousarray(
+        a[(slice(None),) * ax + (slice(t * n, (t + 1) * n),)])
+
+
+def tp_shard(tree, spec: spec_lib.ModelSpec, plan, t: int) -> Dict:
+    """Rank ``t``'s shard of a whole parameter tree (torch or numpy
+    leaves; stage-stacked ``stages``, the embedding, head, final norm and
+    per-layer lists as :func:`init_params` lays them out) at
+    ``plan.tp`` tensor ranks: each sharded leaf cut to its own copy,
+    every other leaf the same object.  ``tree`` itself at tp 1."""
+    if plan.tp == 1:
+        return tree
+    if not 0 <= t < plan.tp:
+        raise ValueError(f"tensor index {t} outside tp={plan.tp}")
+    axes = tp_axes(tree["stages"], spec, plan.tp)
+    out = dict(tree)
+    out["stages"] = tree_map(lambda a, ax: _copy_cut(a, ax, t, plan.tp),
+                             tree["stages"], axes)
+    return out
 
 
 def _dense(gen: torch.Generator, shape, dtype, scale=0.02):
@@ -175,7 +252,7 @@ def init_params(spec: spec_lib.ModelSpec, plan, gen: torch.Generator,
 
 def init_rank_params(spec: spec_lib.ModelSpec, plan, gen: torch.Generator,
                      sched, stage: Optional[int],
-                     dtype=torch.bfloat16) -> Dict:
+                     dtype=torch.bfloat16, t: int = 0) -> Dict:
     """What stage ``stage`` of ``sched`` holds of :func:`init_params`,
     drawn without the rest (the paper's workers hold their stage only).
 
@@ -188,7 +265,12 @@ def init_rank_params(spec: spec_lib.ModelSpec, plan, gen: torch.Generator,
     other stages draw them and drop them.  Equal bit for bit to
     ``rank_params(to_storage_order(init_params(...), sched), sched,
     stage)`` (``core/versioning.py``).  ``stage`` None draws every row,
-    one process's state: ``to_storage_order(init_params(...), sched)``."""
+    one process's state: ``to_storage_order(init_params(...), sched)``.
+
+    At ``plan.tp`` > 1 the rank keeps tensor shard ``t`` of every
+    sharded leaf (:func:`tp_shard`): each layer is drawn at full width
+    for the rank's rows and cut before the next layer is drawn; the
+    embedding and the head stay on tensor rank 0."""
     if stage is None:
         rows = list(range(sched.n_chunks))
     else:
@@ -199,16 +281,18 @@ def init_rank_params(spec: spec_lib.ModelSpec, plan, gen: torch.Generator,
         rows = [order[r] for r in rows]
     elif stage is None:
         rows = None                 # model order already: no copies
-    return _draw(spec, plan, gen, dtype, rows, stage in (None, 0),
-                 stage in (None, sched.n_stages - 1))
+    return _draw(spec, plan, gen, dtype, rows, stage in (None, 0) and t == 0,
+                 stage in (None, sched.n_stages - 1) and t == 0, t)
 
 
-def _draw(spec, plan, gen, dtype, rows, embed: bool, head: bool) -> Dict:
+def _draw(spec, plan, gen, dtype, rows, embed: bool, head: bool,
+          t: int = 0) -> Dict:
     """The parameter draw: ``rows`` (model chunks, in the order to keep
     them) of every stage-stacked leaf, or all of them for None; the
-    embedding with ``embed``, head and final norm with ``head``.  A leaf
-    not kept is drawn all the same: the generator's stream stays the
-    whole model's."""
+    embedding with ``embed``, head and final norm with ``head``; tensor
+    shard ``t`` of each layer at ``plan.tp`` > 1.  A leaf not kept is
+    drawn all the same: the generator's stream stays the whole
+    model's."""
     pp = plan.pp
     program = spec.stage_program(pp)
     dev = gen.device
@@ -274,6 +358,9 @@ def _draw(spec, plan, gen, dtype, rows, embed: bool, head: bool) -> Dict:
         else:
             lp["cmix"] = _rwkv_cmix_init(spec, pp, gen, dtype, out_scale,
                                          take)
+        if plan.tp > 1:
+            lp = tree_map(lambda a, ax: _copy_cut(a, ax, t, plan.tp), lp,
+                          _layer_tp_axes(lp, spec, plan.tp))
         stages[f"layer_{i}"] = lp
     params["stages"] = stages
     windows, thetas = spec_lib.stage_varying_scalars(spec, pp)
@@ -284,13 +371,16 @@ def _draw(spec, plan, gen, dtype, rows, embed: bool, head: bool) -> Dict:
     return params
 
 
-def params_from_numpy(tree, device, dtype) -> Dict:
+def params_from_numpy(tree, device, dtype, *, tensor=None) -> Dict:
     """The port's tree from a JAX parameter tree taken to numpy
     (``jax.tree.map(np.asarray, params)``): a leaf-for-leaf copy, float
     leaves cast to ``dtype`` on ``device``; the per-layer window / theta
     arrays become host lists, and the leaves the JAX engine keeps in f32
     (the RWKV decay bias ``w0``; Mamba's ``dt_bias``, ``A_log`` and
-    ``D``) stay f32."""
+    ``D``) stay f32.  ``tensor = (spec, plan, t)``: tensor rank t's
+    shard of the whole tree (:func:`tp_shard`)."""
+    if tensor is not None:
+        tree = tp_shard(tree, *tensor)
     def conv(key, node):
         if isinstance(node, dict):
             return {k: conv(k, v) for k, v in node.items()}
@@ -305,7 +395,7 @@ def params_from_numpy(tree, device, dtype) -> Dict:
 
 
 def train_state_from_numpy(tree, device, dtype, *, sched=None, stage=None,
-                           zero1=None) -> Dict:
+                           zero1=None, tensor=None) -> Dict:
     """The port's training state from a JAX one taken to numpy
     (``jax.tree.map(np.asarray, state)``, as ``reference_init_state``
     or ``build_pipeline``'s ``init_state`` build it): params as
@@ -316,9 +406,16 @@ def train_state_from_numpy(tree, device, dtype, *, sched=None, stage=None,
     (and the plan's ``sched``) only what that stage's rank of a process
     grid holds (``core/versioning.py::rank_state``; ``zero1 = (axes,
     replica, dp)`` keeps the replica's optimizer shard), so a JAX state
-    loads rank by rank."""
+    loads rank by rank; with ``stage``, ``tensor = (spec, plan, t)``
+    keeps tensor rank t's shard of the stage's leaves (``zero1``'s axes
+    are then those of the shard)."""
     if stage is not None:
-        tree = rank_state(tree, sched, stage, zero1=zero1)
+        cut = None
+        if tensor is not None:
+            spec, plan, t = tensor
+            cut = (tp_axes(tree["params"]["stages"], spec, plan.tp), t,
+                   plan.tp)
+        tree = rank_state(tree, sched, stage, zero1=zero1, tensor=cut)
     params = params_from_numpy(tree["params"], device, dtype)
     stash = {"current": params["stages"]}
     if "ring" in tree["stash"]:

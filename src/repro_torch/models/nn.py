@@ -2,9 +2,15 @@
 ``repro/models/nn.py``).
 
 Plain functions on tensors, in the JAX package's layouts: activations
-(B, S, d), q (B, S, H, Dh), ``wq`` (d, H, Dh), ``wo`` (H·Dh, d).  The
-port runs one device per stage group, so there are no tensor-parallel
-collectives.  Per-layer scalars (window, rope theta) are Python numbers
+(B, S, d), q (B, S, H, Dh), ``wq`` (d, H, Dh), ``wo`` (H·Dh, d).  A
+stage cut over a tensor group (``tp``, a ``parallel/dist.py::Group`` or
+None) holds this rank's shard of every sharded weight
+(``models/init.py::tp_shard``: heads, FFN columns, experts, Mamba
+channels) and runs the layer on it; the collectives sit at JAX's
+sites: ``tp_exit`` where JAX calls ``maybe_psum``, ``tp_enter`` where a
+tensor every rank holds whole enters sharded work (so its cotangent is
+summed), ``tp_all_gather`` at the MoE combine.  Without a group each is
+the identity.  Per-layer scalars (window, rope theta) are Python numbers
 on the host: the JAX package traces them as data because every stage
 runs one SPMD program, the port runs each stage's layers itself.
 
@@ -29,6 +35,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.parallel.dist import (tensor_index, tp_all_gather, tp_enter,
+                                       tp_exit)
 from repro_torch.quant import maybe_dequant, quantize_kv_page_batched
 
 # Sequence-length product above which attention over a cache switches to
@@ -199,9 +207,25 @@ def _sdpa_flash(q, k, v, q_pos, k_pos, window: int, causal: bool,
     return out.transpose(1, 2).to(q.dtype)
 
 
+def _project_kv_weights(p, x, st: AttnStatic, tp):
+    """``wk`` / ``wv`` as this rank uses them: its shard, or with KV heads
+    replicated over the tensor group (n_kv < tp) its KV group's slice of
+    the whole weight, whose cotangent the group sums (JAX
+    ``_project_kv``)."""
+    wk = maybe_dequant(p["wk"], x.dtype)
+    wv = maybe_dequant(p["wv"], x.dtype)
+    if not st.kv_sharded and tp is not None:
+        grp = (tensor_index(tp) // st.kv_groups_per_device
+               if st.kv_groups_per_device else 0)
+        lo, n = grp * st.n_kv_local, st.n_kv_local
+        wk = tp_enter(wk, tp).narrow(1, lo, n)
+        wv = tp_enter(wv, tp).narrow(1, lo, n)
+    return wk, wv
+
+
 def attention(p, x, st: AttnStatic, *, positions, window: int, theta: float,
               kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-              cache_pos: int = 0, paged_kv=None):
+              cache_pos: int = 0, paged_kv=None, tp=None):
     """Self-attention of x (B, S, d); returns (B, S, d).
 
     ``kv_cache``: this slot's dense (k, v) cache views (B, L, KV, Dh),
@@ -221,25 +245,31 @@ def attention(p, x, st: AttnStatic, *, positions, window: int, theta: float,
     runs only valid (microbatch, stage) cells — bubbles are skipped — so
     the JAX ``valid`` write gate is the engine's skip, and writes here
     are gated by page liveness only.
+
+    ``tp``: the stage's tensor group: this rank runs its ``n_heads_local``
+    query heads and their KV heads, and the output projection's partial
+    sums leave through ``tp_exit`` (JAX ``nn.py:280`` / ``:423`` /
+    ``:501`` / ``:517``); the replicated qk-norm scales enter through
+    ``tp_enter``, each rank normalizing its own heads with them.
     """
     b, s, _ = x.shape
     d = x.shape[-1]
     hd = st.n_heads_local * st.d_head
     kvd = st.n_kv_local * st.d_head
+    x = tp_enter(x, tp)
     wq = maybe_dequant(p["wq"], x.dtype).reshape(d, hd)
     q = (x @ wq).view(b, s, st.n_heads_local, st.d_head)
-    wk = maybe_dequant(p["wk"], x.dtype).reshape(d, kvd)
-    k = (x @ wk).view(b, s, st.n_kv_local, st.d_head)
-    wv = maybe_dequant(p["wv"], x.dtype).reshape(d, kvd)
-    v = (x @ wv).view(b, s, st.n_kv_local, st.d_head)
+    wk, wv = _project_kv_weights(p, x, st, tp)
+    k = (x @ wk.reshape(d, kvd)).view(b, s, st.n_kv_local, st.d_head)
+    v = (x @ wv.reshape(d, kvd)).view(b, s, st.n_kv_local, st.d_head)
     if st.qk_norm:
-        q = rmsnorm(q, p["q_norm"])
-        k = rmsnorm(k, p["k_norm"])
+        q = rmsnorm(q, tp_enter(p["q_norm"], tp))
+        k = rmsnorm(k, tp_enter(p["k_norm"], tp))
     q, k = apply_rope(q, k, positions, theta, rope_2d=st.rope_2d)
 
     def project_out(o):
-        return o.reshape(b, s, hd).to(x.dtype) @ maybe_dequant(p["wo"],
-                                                               x.dtype)
+        return tp_exit(o.reshape(b, s, hd).to(x.dtype)
+                       @ maybe_dequant(p["wo"], x.dtype), tp)
 
     if paged_kv is not None:
         assert kv_cache is None
@@ -382,13 +412,16 @@ def _write_slab_int8(pool, spool, ids, cache_pos: int, new):
 # Dense FFN (SwiGLU / GELU)
 # --------------------------------------------------------------------------
 
-def mlp(p, x, act: str):
+def mlp(p, x, act: str, tp=None):
+    """The FFN on this rank's columns of ``w1`` / ``w3`` and rows of
+    ``w2``; the partial sums leave through ``tp_exit`` (JAX ``:531``)."""
+    x = tp_enter(x, tp)
     w1 = maybe_dequant(p["w1"], x.dtype)
     if act == "silu":
         h = F.silu(x @ w1) * (x @ maybe_dequant(p["w3"], x.dtype))
     else:
         h = F.gelu(x @ w1, approximate="tanh")
-    return h @ maybe_dequant(p["w2"], x.dtype)
+    return tp_exit(h @ maybe_dequant(p["w2"], x.dtype), tp)
 
 
 # --------------------------------------------------------------------------
@@ -426,7 +459,7 @@ def moe_dispatch_indices(gate_idx, n_experts: int, capacity: int):
     return slot, keep
 
 
-def moe(p, x, ms: MoEStatic, act: str):
+def moe(p, x, ms: MoEStatic, act: str, tp=None):
     """MoE FFN of x (B, S, d); returns (out (B, S, d), aux_loss).
 
     Routing and the drop rule are the JAX package's: f32 softmax over
@@ -441,6 +474,14 @@ def moe(p, x, ms: MoEStatic, act: str):
     contributes its gate-weighted output, a dropped pair nothing.  A
     token's K contributions are summed in choice order in x's dtype, as
     JAX's ``.at[token_of].add`` does.
+
+    With ``tp`` (JAX ``:595-614``) the router and the dispatch buffer are
+    every rank's; each rank runs its ``n_local`` experts on its slice of
+    the buffer and ``tp_all_gather`` combines the outputs in rank (=
+    expert) order.  ``tp_enter`` sits on the buffer the slices are cut
+    from, so its cotangent, each rank's experts' share, is summed; on
+    ``x`` it would also sum the router's cotangent, which every rank
+    already holds whole.
     """
     if ms.n_shared:
         raise NotImplementedError(
@@ -463,14 +504,16 @@ def moe(p, x, ms: MoEStatic, act: str):
     token_of = torch.arange(n, device=x.device).repeat_interleave(k)
     buf = x.new_zeros((e * ms.capacity, d))
     buf[slot[keep]] = xf[token_of[keep]]
-    buf = buf.view(e, ms.capacity, d)
+    buf = tp_enter(buf, tp).view(e, ms.capacity, d)
+    local = buf.narrow(0, tensor_index(tp) * ms.n_local, ms.n_local)
     w1 = maybe_dequant(p["w1"], x.dtype)
     if act == "silu":
-        h = F.silu(torch.bmm(buf, w1)) * torch.bmm(
-            buf, maybe_dequant(p["w3"], x.dtype))
+        h = F.silu(torch.bmm(local, w1)) * torch.bmm(
+            local, maybe_dequant(p["w3"], x.dtype))
     else:
-        h = F.gelu(torch.bmm(buf, w1), approximate="tanh")
-    y = torch.bmm(h, maybe_dequant(p["w2"], x.dtype)).view(e * ms.capacity, d)
+        h = F.gelu(torch.bmm(local, w1), approximate="tanh")
+    y = tp_all_gather(torch.bmm(h, maybe_dequant(p["w2"], x.dtype)), tp, 0)
+    y = y.reshape(e * ms.capacity, d)
 
     w = top_p.reshape(-1).to(x.dtype)[:, None]
     gathered = torch.where(keep[:, None], y[slot] * w, 0).view(n, k, d)
@@ -507,7 +550,7 @@ def _causal_conv1d(x, w):
     return out
 
 
-def mamba_block(p, x, ms: MambaStatic, state=None):
+def mamba_block(p, x, ms: MambaStatic, state=None, tp=None):
     """Mamba mixer of x (B, S, d); returns (B, S, d).
 
     ``state``: this slot's ``(conv_tail (B, d_conv-1, Ci) in x's dtype,
@@ -519,7 +562,13 @@ def mamba_block(p, x, ms: MambaStatic, state=None):
     call goes through ``ops.mamba_scan`` (the CUDA kernel on the card),
     with JAX's casts: xc, dt, B and C enter the scan in f32 and y is cast
     back to x's dtype before the ``silu(z)`` gate.
+
+    With ``tp`` the rank holds its ``d_inner_local`` channels: the
+    ``x_proj`` partial sums leave through ``tp_exit`` and the summed
+    (dt, B, C) enter the rank's channels again (JAX ``:714``), and the
+    output projection's sums leave through ``tp_exit`` (``:731``).
     """
+    x = tp_enter(x, tp)
     xi = x @ p["in_x"]                                       # (B, S, Ci)
     z = x @ p["in_z"]
     if state is not None:
@@ -531,7 +580,7 @@ def mamba_block(p, x, ms: MambaStatic, state=None):
         h0 = None
         xc = _causal_conv1d(xi, p["conv_w"])
     xc = F.silu(xc)
-    proj = xc @ p["x_proj"]                                  # (B,S,R+2N)
+    proj = tp_enter(tp_exit(xc @ p["x_proj"], tp), tp)      # (B,S,R+2N)
     dt_in, bm, cm = torch.split(proj, [ms.dt_rank, ms.d_state, ms.d_state],
                                 dim=-1)
     # dt_bias is f32 (as in the JAX init): dt is formed in f32
@@ -540,7 +589,7 @@ def mamba_block(p, x, ms: MambaStatic, state=None):
     y, _ = kernel_ops.mamba_scan(
         xc.float().contiguous(), dt.float().contiguous(), A,
         bm.float().contiguous(), cm.float().contiguous(), p["D"], h0)
-    return (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]
+    return tp_exit((y.to(x.dtype) * F.silu(z)) @ p["out_proj"], tp)
 
 
 # --------------------------------------------------------------------------
@@ -565,7 +614,7 @@ def _token_shift(x, prev=None):
     return torch.cat([prev[:, None], x], dim=1)[:, : x.shape[1]]
 
 
-def rwkv_time_mix(p, x, rst: RWKVStatic, state=None):
+def rwkv_time_mix(p, x, rst: RWKVStatic, state=None, tp=None):
     """RWKV6 time-mix of x (B, S, d); returns (B, S, d).
 
     ``state``: this slot's ``(x_prev (B, d), wkv (B, H, Dh, Dh) f32)``
@@ -573,6 +622,12 @@ def rwkv_time_mix(p, x, rst: RWKVStatic, state=None):
     writes its last state over ``wkv``).  Without a state the WKV runs
     from zero, as the TPU kernel does.  Every path goes through
     ``ops.wkv6``: the CUDA kernel on the card.
+
+    With ``tp`` the rank holds its ``n_heads_local`` heads: the token
+    shift and the five lerps stay whole on every rank, each mixed input
+    enters the rank's heads through ``tp_enter`` (and the decay LoRA's
+    hidden layer before its sharded second matrix), and the output's
+    partial sums leave through ``tp_exit`` (JAX ``:847``).
     """
     prev_tok, s0 = state if state is not None else (None, None)
     dx = _token_shift(x, prev_tok) - x
@@ -589,28 +644,32 @@ def rwkv_time_mix(p, x, rst: RWKVStatic, state=None):
 
     b, s, _ = x.shape
     h, dh = rst.n_heads_local, rst.d_head
-    r = (xr @ p["wr"]).view(b, s, h, dh)
-    k = (xk @ p["wk"]).view(b, s, h, dh)
-    v = (xv @ p["wv"]).view(b, s, h, dh)
-    g = F.silu(xg @ p["wg"])
+    r = (tp_enter(xr, tp) @ p["wr"]).view(b, s, h, dh)
+    k = (tp_enter(xk, tp) @ p["wk"]).view(b, s, h, dh)
+    v = (tp_enter(xv, tp) @ p["wv"]).view(b, s, h, dh)
+    g = F.silu(tp_enter(xg, tp) @ p["wg"])
     # w0 is f32 (as in the JAX init): the decay logit is formed in f32
-    dec = p["w0"] + torch.tanh(xw @ p["decay_w1"]) @ p["decay_w2"]
+    dec = p["w0"] + tp_enter(torch.tanh(xw @ p["decay_w1"]),
+                             tp) @ p["decay_w2"]
     w = torch.exp(-torch.exp(dec.float())).view(b, s, h, dh).to(r.dtype)
     y, _ = kernel_ops.wkv6(r, k, v, w, p["u"].view(h, dh), s0)
     if prev_tok is not None:
         prev_tok.copy_(x[:, -1])
     y = groupnorm_heads(y, p["gn_scale"], p["gn_bias"])
-    return (y * g) @ p["wo"]
+    return tp_exit((y * g) @ p["wo"], tp)
 
 
-def rwkv_channel_mix(p, x, state=None):
+def rwkv_channel_mix(p, x, state=None, tp=None):
     """RWKV6 channel-mix of x (B, S, d); ``state`` is this slot's x_prev
-    (B, d) view, read and advanced in place."""
+    (B, d) view, read and advanced in place.  With ``tp`` the key path
+    runs on the rank's columns of ``wk`` and rows of ``wv`` and its sums
+    leave through ``tp_exit`` (JAX ``:859``); the receptance gate stays
+    whole."""
     dx = _token_shift(x, state) - x
     xk = x + dx * p["maa_k"]
     xr = x + dx * p["maa_r"]
-    k = torch.square(F.relu(xk @ p["wk"]))
-    out = torch.sigmoid(xr @ p["wr_gate"]) * (k @ p["wv"])
+    k = torch.square(F.relu(tp_enter(xk, tp) @ p["wk"]))
+    out = torch.sigmoid(xr @ p["wr_gate"]) * tp_exit(k @ p["wv"], tp)
     if state is not None:
         state.copy_(x[:, -1])
     return out

@@ -4,7 +4,10 @@ A stage runs ``layers_per_stage`` blocks (the validated stage program).
 :func:`stage_fwd` takes one stage's parameters — the stage-stacked tree
 already indexed at that stage — and the ported block kinds with pre-norm
 residuals: attention, RWKV6 time-mix or Mamba as the mixer; a dense FFN,
-RWKV6 channel-mix or MoE as the FFN.
+RWKV6 channel-mix or MoE as the FFN.  A stage cut over a tensor group
+(``tp``) runs every block on this rank's shard with the group's
+collectives (``models/nn.py``); its input and output are whole on every
+rank of the group.
 """
 from __future__ import annotations
 
@@ -78,7 +81,7 @@ def stage_params(params, s: int):
 
 
 def _block(st: StageStatics, blk, lp, ls, x, *, positions, window, theta,
-           cache_pos, pg):
+           cache_pos, pg, tp):
     """One block, mixer then FFN with pre-norm residuals; returns
     (x, aux) with the MoE auxiliary loss (None for other FFNs)."""
     aux = None
@@ -87,25 +90,28 @@ def _block(st: StageStatics, blk, lp, ls, x, *, positions, window, theta,
         x = x + nn.attention(lp["attn"], h, st.attn, positions=positions,
                              window=window, theta=theta,
                              kv_cache=ls.get("kv"), cache_pos=cache_pos,
-                             paged_kv=pg)
+                             paged_kv=pg, tp=tp)
     elif blk.mixer == "mamba":
-        x = x + nn.mamba_block(lp["mamba"], h, st.mamba, state=ls.get("ssm"))
+        x = x + nn.mamba_block(lp["mamba"], h, st.mamba, state=ls.get("ssm"),
+                               tp=tp)
     else:
-        x = x + nn.rwkv_time_mix(lp["tmix"], h, st.rwkv, state=ls.get("tmix"))
+        x = x + nn.rwkv_time_mix(lp["tmix"], h, st.rwkv,
+                                 state=ls.get("tmix"), tp=tp)
     h = nn.apply_norm(lp["norm2"], x, st.spec.norm)
     if blk.ffn == "dense":
-        x = x + nn.mlp(lp["mlp"], h, st.spec.act)
+        x = x + nn.mlp(lp["mlp"], h, st.spec.act, tp=tp)
     elif blk.ffn == "moe":
-        out, aux = nn.moe(lp["moe"], h, st.moe, st.spec.act)
+        out, aux = nn.moe(lp["moe"], h, st.moe, st.spec.act, tp=tp)
         x = x + out
     else:
-        x = x + nn.rwkv_channel_mix(lp["cmix"], h, state=ls.get("cmix"))
+        x = x + nn.rwkv_channel_mix(lp["cmix"], h, state=ls.get("cmix"),
+                                    tp=tp)
     return x, aux
 
 
 def stage_fwd(sp, x, st: StageStatics, *, positions, windows, thetas,
               state=None, cache_pos: int = 0, paged=None,
-              return_aux: bool = False):
+              return_aux: bool = False, tp=None):
     """Run one stage over its blocks; returns the stage's output, or
     (output, aux) with ``return_aux``: the blocks' summed MoE auxiliary
     loss, an f32 scalar (0 without MoE FFNs), as JAX's ``stage_fwd``
@@ -125,7 +131,12 @@ def stage_fwd(sp, x, st: StageStatics, *, positions, windows, thetas,
     Remat as JAX's ``jax.checkpoint`` per block: with ``plan.remat``,
     no state and autograd recording, each block runs under
     ``torch.utils.checkpoint`` (non-reentrant), which keeps only the
-    block's input and recomputes the block in the backward.
+    block's input and recomputes the block in the backward, the tensor
+    group's sums included: every rank of the group re-runs the same
+    blocks, so the ranks issue the same collectives in the same order.
+
+    tp: the stage's tensor group (``RankGrid.tensor_group``) when ``sp``
+    is this rank's shard (``models/init.py::tp_shard``), else None.
     """
     remat = (st.plan.remat and state is None and paged is None
              and torch.is_grad_enabled())
@@ -138,7 +149,7 @@ def stage_fwd(sp, x, st: StageStatics, *, positions, windows, thetas,
         fn = functools.partial(
             _block, st, blk, sp[name], state[name] if state is not None
             else {}, positions=positions, window=windows[i],
-            theta=thetas[i], cache_pos=cache_pos, pg=pg)
+            theta=thetas[i], cache_pos=cache_pos, pg=pg, tp=tp)
         if remat:
             x, aux = checkpoint(fn, x, use_reentrant=False)
         else:
@@ -162,7 +173,7 @@ def _grad_leaves(node, prefix, names, leaves):
 
 
 def stage_vjp(sp, x, st: StageStatics, g, aux_ct: float, *, positions,
-              windows, thetas):
+              windows, thetas, tp=None):
     """Re-run one stage's forward under autograd and pull back the
     cotangents (g on the output, ``aux_ct`` on the MoE auxiliary loss):
     returns (dW tree keyed like ``sp``, dx), as ``jax.vjp`` of JAX's
@@ -171,13 +182,18 @@ def stage_vjp(sp, x, st: StageStatics, g, aux_ct: float, *, positions,
     ``sp`` and ``x`` may be views into rings that are written in place
     later: the backward completes inside this call, before any such
     write, so they are read through ``detach()`` without a copy.
+
+    With ``tp`` the weights are this rank's shard and ``g`` the whole
+    cotangent every rank of the group holds: dW is the rank's shard of
+    the gradient (for a replicated leaf, the whole gradient: its
+    ``tp_enter`` sums the ranks' shares), dx the whole of d(input).
     """
     names, leaves = [], []
     with torch.enable_grad():
         w = _grad_leaves(sp, (), names, leaves)
         xl = x.detach().requires_grad_()
         h, aux = stage_fwd(w, xl, st, positions=positions, windows=windows,
-                           thetas=thetas, return_aux=True)
+                           thetas=thetas, return_aux=True, tp=tp)
         outs, cts = [h], [g.to(h.dtype)]
         if aux.requires_grad:
             outs.append(aux)

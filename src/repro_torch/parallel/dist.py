@@ -1,22 +1,34 @@
 """The process grid of multi-rank training over ``torch.distributed``
-(counterpart of ``repro/parallel/mesh.py``'s ``(data, stage)`` axes and
-``repro/launch/mesh.py::make_host_mesh``).
+(counterpart of ``repro/parallel/mesh.py``'s ``(data, stage, tensor)``
+axes and ``repro/launch/mesh.py::make_host_mesh``).
 
 One process per rank.  :class:`ProcessGrid` is the topology alone:
-``data`` replicas of a ``pp``-stage pipeline, rank ``d·pp + s``
-(data-major, as the JAX mesh orders ``(data, model)``), each stage's
-data group and each rank's neighbours.  :func:`init_grid` joins the
-process group and returns this rank's :class:`RankGrid`: its place in
-the grid, its device, its stage's data :class:`Group` and the transport
-that every hand-off and collective goes through.
+``data`` replicas of a ``pp``-stage pipeline whose stages are each cut
+over ``tp`` tensor ranks, rank ``(d·pp + s)·tp + t`` (data-major, tensor
+innermost, as JAX's ``split_model_axis`` reshapes the model axis into
+``(stage, tensor)``), the data group of each (stage, tensor index), the
+tensor group of each (replica, stage) and each rank's neighbours.
+:func:`init_grid` joins the process group and returns this rank's
+:class:`RankGrid`: its place in the grid, its device, its data and
+tensor :class:`Group` and the transport that every hand-off and
+collective goes through.
+
+The tensor group's collectives inside a stage are autograd functions
+(:func:`tp_exit`, :func:`tp_enter`, :func:`tp_all_gather`, the
+counterparts of JAX's ``maybe_psum`` and of the all-gather of its MoE
+combine), no-ops without a group.  Their backward is the sum's true
+transpose for a stage whose output every tensor rank holds whole: an
+exit's cotangent is the same on every rank and passes through; an
+entry's is each rank's share and is summed.
 
 The backend is the caller's choice.  NCCL takes tensors on the card and
 needs a card per rank (it refuses two ranks on one device).  gloo takes
 host tensors only, so under gloo every p2p and every collective on a
 CUDA tensor is staged through host memory in one place,
-:meth:`RankGrid._transport`, which counts the bytes it stages: moves
-(p2p, all-gather) copy bf16 / fp16 as their int16 bits, exact whatever
-gloo supports; sums take them to f32 on the host and round once.  That
+:meth:`RankGrid._transport`, which counts the bytes it stages: p2p
+moves copy bf16 / fp16 as their int16 bits, exact whatever gloo
+supports; collectives (gloo's take no int16) take them to f32 on the
+host: exact for a gather or a broadcast, one rounding for a sum.  That
 mode lets several ranks share one card.  Every process group has a
 timeout, so a rank that dies makes the others raise instead of waiting
 forever.
@@ -47,49 +59,62 @@ CKPT_TIMEOUT_S = 1800.0
 
 @dataclasses.dataclass(frozen=True)
 class ProcessGrid:
-    """``data`` replicas × ``pp`` pipeline stages, rank = d·pp + s."""
+    """``data`` replicas × ``pp`` pipeline stages × ``tp`` tensor ranks a
+    stage, rank = (d·pp + s)·tp + t."""
 
     data: int
     pp: int
+    tp: int = 1
 
     def __post_init__(self):
-        if self.data < 1 or self.pp < 1:
-            raise ValueError(f"grid ({self.data}, {self.pp}): both axes "
-                             "must be at least 1")
+        if self.data < 1 or self.pp < 1 or self.tp < 1:
+            raise ValueError(f"grid ({self.data}, {self.pp}, {self.tp}): "
+                             "every axis must be at least 1")
 
     @property
     def world(self) -> int:
-        return self.data * self.pp
+        return self.data * self.pp * self.tp
 
-    def rank_of(self, d: int, s: int) -> int:
-        return d * self.pp + s
+    def rank_of(self, d: int, s: int, t: int = 0) -> int:
+        return (d * self.pp + s) * self.tp + t
 
-    def coords(self, rank: int) -> Tuple[int, int]:
-        """(replica d, stage s) of ``rank``."""
+    def coords(self, rank: int) -> Tuple[int, int, int]:
+        """(replica d, stage s, tensor index t) of ``rank``."""
         if not 0 <= rank < self.world:
             raise ValueError(f"rank {rank} outside a world of {self.world}")
-        return divmod(rank, self.pp)
+        ds, t = divmod(rank, self.tp)
+        return (*divmod(ds, self.pp), t)
 
-    def data_group_ranks(self, s: int) -> List[int]:
-        """The ranks holding stage ``s``, one per replica, in replica
-        order: the group its gradients are summed over."""
-        return [self.rank_of(d, s) for d in range(self.data)]
+    def data_group_ranks(self, s: int, t: int = 0) -> List[int]:
+        """The ranks holding tensor shard ``t`` of stage ``s``, one per
+        replica, in replica order: the group its gradients are summed
+        over."""
+        return [self.rank_of(d, s, t) for d in range(self.data)]
+
+    def tensor_group_ranks(self, d: int, s: int) -> List[int]:
+        """The ranks that cut stage ``s`` of replica ``d`` among
+        themselves, in tensor order."""
+        return [self.rank_of(d, s, t) for t in range(self.tp)]
 
     def downstream(self, rank: int, wrap: bool = False) -> Optional[int]:
-        """The rank of the next stage of ``rank``'s replica; the last
-        stage hands to stage 0 with ``wrap`` (virtual stages), else None."""
-        d, s = self.coords(rank)
+        """The rank of the next stage of ``rank``'s replica at the same
+        tensor index (each tensor rank hands its copy of the activation
+        on, as JAX's stage ``ppermute`` does once for each tensor index);
+        the last stage hands to stage 0 with ``wrap`` (virtual stages),
+        else None."""
+        d, s, t = self.coords(rank)
         if s + 1 < self.pp:
-            return self.rank_of(d, s + 1)
-        return self.rank_of(d, 0) if wrap else None
+            return self.rank_of(d, s + 1, t)
+        return self.rank_of(d, 0, t) if wrap else None
 
     def upstream(self, rank: int, wrap: bool = False) -> Optional[int]:
-        """The rank of the previous stage of ``rank``'s replica; stage 0
-        takes from the last stage with ``wrap``, else None."""
-        d, s = self.coords(rank)
+        """The rank of the previous stage of ``rank``'s replica at the
+        same tensor index; stage 0 takes from the last stage with
+        ``wrap``, else None."""
+        d, s, t = self.coords(rank)
         if s > 0:
-            return self.rank_of(d, s - 1)
-        return self.rank_of(d, self.pp - 1) if wrap else None
+            return self.rank_of(d, s - 1, t)
+        return self.rank_of(d, self.pp - 1, t) if wrap else None
 
 
 def _env_int(name: str) -> Optional[int]:
@@ -97,16 +122,18 @@ def _env_int(name: str) -> Optional[int]:
     return None if value is None else int(value)
 
 
-def _host_dtype(dtype: torch.dtype, reduce: bool) -> torch.dtype:
-    """What gloo gets for ``dtype``: half precision as f32 for a sum (one
-    rounding, back on the card) and as its int16 bits for a move."""
+def _host_dtype(dtype: torch.dtype, collective: bool) -> torch.dtype:
+    """What gloo gets for ``dtype``: half precision as f32 for a
+    collective (gloo's take no int16; f32 holds every half value, so
+    only a sum rounds, once, back on the card) and as its int16 bits for
+    a point-to-point move."""
     if dtype in (torch.bfloat16, torch.float16):
-        return torch.float32 if reduce else torch.int16
+        return torch.float32 if collective else torch.int16
     return dtype
 
 
-def _host(t: torch.Tensor, reduce: bool) -> torch.Tensor:
-    dtype = _host_dtype(t.dtype, reduce)
+def _host(t: torch.Tensor, collective: bool) -> torch.Tensor:
+    dtype = _host_dtype(t.dtype, collective)
     if dtype == torch.int16 and t.dtype != torch.int16:
         return t.view(torch.int16).cpu()
     return t.to(device="cpu", dtype=dtype)
@@ -114,26 +141,52 @@ def _host(t: torch.Tensor, reduce: bool) -> torch.Tensor:
 
 class Group:
     """Ranks of the grid that sum or shard a tensor among themselves (a
-    stage's data replicas, or the whole world), in rank order; every call
-    goes through the grid's transport."""
+    stage's data replicas, a stage's tensor ranks, or the whole world),
+    in rank order; every call goes through the grid's transport.  The
+    tensor group's calls are counted apart (``TransportStats.tensor_*``):
+    calls, bytes and host seconds."""
 
-    def __init__(self, grid: "RankGrid", ranks: Sequence[int], pg):
+    def __init__(self, grid: "RankGrid", ranks: Sequence[int], pg,
+                 kind: str = "data"):
         self.grid, self.ranks, self.pg = grid, list(ranks), pg
         self.size = len(self.ranks)
         self.index = self.ranks.index(grid.rank)   # this rank's position
+        self.kind = kind
 
     def _count(self, t: torch.Tensor) -> None:
-        self.grid.stats.collective_bytes += t.numel() * t.element_size()
+        n = t.numel() * t.element_size()
+        if self.kind == "tensor":
+            self.grid.stats.tensor_calls += 1
+            self.grid.stats.tensor_bytes += n
+        else:
+            self.grid.stats.collective_bytes += n
+
+    def _run(self, run, reads, writes, *, collective: bool) -> None:
+        """``grid._transport``, timed into ``stats.tensor_s`` for the
+        tensor group (host seconds from the call to its return)."""
+        t0 = time.perf_counter()
+        self.grid._transport(run, reads, writes, collective=collective)
+        if self.kind == "tensor":
+            self.grid.stats.tensor_s += time.perf_counter() - t0
 
     def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum ``t`` over the group, in place; returns ``t``.  A stage's
-        group of one replica has no process group and returns at once; the
-        world's always calls the backend."""
+        """Sum ``t`` over the group, in place; returns ``t``.  A group of
+        one rank has no process group and returns at once; the world's
+        always calls the backend."""
         if self.pg is not None:
             self._count(t)
-            self.grid._transport(
-                lambda x, y: dist.all_reduce(x[0], group=self.pg),
-                [t], [t], reduce=True)
+            self._run(lambda x, y: dist.all_reduce(x[0], group=self.pg),
+                      [t], [t], collective=True)
+        return t
+
+    def broadcast_(self, t: torch.Tensor) -> torch.Tensor:
+        """The group's first rank's ``t`` into every rank's ``t``, in
+        place; returns ``t``."""
+        if self.pg is not None:
+            self._count(t)
+            self._run(lambda x, y: dist.broadcast(y[0], self.ranks[0],
+                                                  group=self.pg),
+                      [t], [t], collective=True)
         return t
 
     def reduce_scatter(self, t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -145,10 +198,9 @@ class Group:
         out = torch.empty((x.shape[0] // self.size,) + tuple(x.shape[1:]),
                           dtype=x.dtype, device=x.device)
         self._count(x)
-        self.grid._transport(
-            lambda a, b: dist.reduce_scatter_tensor(b[0], a[0],
-                                                    group=self.pg),
-            [x], [out], reduce=True)
+        self._run(lambda a, b: dist.reduce_scatter_tensor(b[0], a[0],
+                                                          group=self.pg),
+                  [x], [out], collective=True)
         return out.movedim(0, dim).contiguous()
 
     def all_gather_(self, shard: torch.Tensor, out: torch.Tensor,
@@ -159,10 +211,9 @@ class Group:
         full = torch.empty((x.shape[0] * self.size,) + tuple(x.shape[1:]),
                            dtype=x.dtype, device=x.device)
         self._count(x)
-        self.grid._transport(
-            lambda a, b: dist.all_gather_into_tensor(b[0], a[0],
-                                                     group=self.pg),
-            [x], [full], reduce=False)
+        self._run(lambda a, b: dist.all_gather_into_tensor(b[0], a[0],
+                                                           group=self.pg),
+                  [x], [full], collective=True)
         out.copy_(full.movedim(0, dim))
 
     # ---- the small collectives of checkpoints and telemetry, on a group
@@ -189,7 +240,7 @@ class Group:
         self.grid._transport(
             lambda a, b: dist.all_gather_into_tensor(b[0], a[0],
                                                      group=self.pg),
-            [x], [full], reduce=False)
+            [x], [full], collective=True)
         return full.view(self.size, -1).tolist()
 
     def all_gather_object(self, obj) -> list:
@@ -211,17 +262,17 @@ class Group:
             return t
         if g.rank not in (src, root):
             return None
-        wire = _host_dtype(dtype, reduce=False) if g.stage_host else dtype
+        wire = _host_dtype(dtype, collective=False) if g.stage_host else dtype
         if g.rank == src:
             x = t.contiguous()
             x = x.view(wire) if wire != x.dtype else x
             g._transport(lambda a, b: dist.send(a[0], root, group=self.pg),
-                         [x], [], reduce=False)
+                         [x], [], collective=False)
             return None
         buf = torch.empty(tuple(shape), dtype=wire, device=(
             "cpu" if g.stage_host else g.device))
         g._transport(lambda a, b: dist.recv(b[0], src, group=self.pg),
-                     [], [buf], reduce=False)
+                     [], [buf], collective=False)
         return buf.view(dtype) if wire != dtype else buf
 
 
@@ -231,14 +282,19 @@ class TransportStats:
 
     handoff_bytes: int = 0      # p2p bytes this rank sent
     handoff_s: float = 0.0      # host seconds in hand-offs (post to done)
-    collective_bytes: int = 0   # bytes this rank put into collectives
+    collective_bytes: int = 0   # bytes this rank put into data / world
+                                # collectives
     staged_bytes: int = 0       # bytes copied card <-> host for gloo
+    tensor_calls: int = 0       # the tensor group's collectives
+    tensor_bytes: int = 0       # bytes this rank put into them
+    tensor_s: float = 0.0       # host seconds in them
 
 
 class RankGrid:
     """This rank's place in a :class:`ProcessGrid`: its coordinates, its
-    device, its stage's data group and the transport (p2p hand-offs and
-    collectives).  Built by :func:`init_grid`.
+    device, its data group (the replicas of its stage's tensor shard),
+    its tensor group (the ranks that cut its stage) and the transport
+    (p2p hand-offs and collectives).  Built by :func:`init_grid`.
 
     ``world_group`` and ``ckpt_group`` both span the world: the first
     has the grid's timeout, the second the checkpoint's, for the waits
@@ -246,25 +302,29 @@ class RankGrid:
 
     def __init__(self, topo: ProcessGrid, rank: int, backend: str,
                  device: torch.device, device_policy: str,
-                 data_groups: List, world_pg, ckpt_pg):
+                 data_groups: List, tensor_groups: List, world_pg, ckpt_pg):
         self.topo, self.rank, self.backend = topo, rank, backend
         self.device, self.device_policy = device, device_policy
-        self.d, self.s = topo.coords(rank)
+        self.d, self.s, self.t = topo.coords(rank)
         self.stats = TransportStats()
         # gloo takes host tensors only
         self.stage_host = backend == "gloo"
-        self.data_group = Group(self, topo.data_group_ranks(self.s),
-                                data_groups[self.s])
+        self.data_group = Group(self, topo.data_group_ranks(self.s, self.t),
+                                data_groups[self.s * topo.tp + self.t])
+        self.tensor_group = Group(
+            self, topo.tensor_group_ranks(self.d, self.s),
+            tensor_groups[self.d * topo.pp + self.s], kind="tensor")
         self.world_group = Group(self, range(topo.world), world_pg)
         self.ckpt_group = Group(self, range(topo.world), ckpt_pg)
 
     def describe(self) -> str:
         return (f"rank {self.rank} of {self.topo.world}: replica {self.d} "
-                f"of {self.topo.data}, stage {self.s} of {self.topo.pp}; "
+                f"of {self.topo.data}, stage {self.s} of {self.topo.pp}, "
+                f"tensor {self.t} of {self.topo.tp}; "
                 f"backend {self.backend}, device {self.device} "
                 f"({self.device_policy})")
 
-    def _transport(self, run, reads, writes, *, reduce: bool) -> None:
+    def _transport(self, run, reads, writes, *, collective: bool) -> None:
         """``run(reads, writes)``, a torch.distributed call, on the tensors
         themselves, or under gloo with tensors on the card on host copies:
         the one place where hand-offs and collectives are staged through
@@ -275,9 +335,10 @@ class RankGrid:
                                                             *writes))):
             run(reads, writes)
             return
-        host = {id(t): _host(t, reduce) for t in reads}
+        host = {id(t): _host(t, collective) for t in reads}
         h_writes = [host[id(t)] if id(t) in host else
-                    torch.empty(t.shape, dtype=_host_dtype(t.dtype, reduce))
+                    torch.empty(t.shape,
+                                dtype=_host_dtype(t.dtype, collective))
                     for t in writes]
         run([host[id(t)] for t in reads], h_writes)
         for t, h in zip(writes, h_writes):
@@ -305,10 +366,90 @@ class RankGrid:
                 work.wait()
 
         self._transport(run, [t for _, t in sends], [b for _, b in recvs],
-                        reduce=False)
+                        collective=False)
         self.stats.handoff_bytes += sum(t.numel() * t.element_size()
                                         for _, t in sends)
         self.stats.handoff_s += time.perf_counter() - t0
+
+
+# --------------------------------------------------------------------------
+# the tensor group's collectives inside a stage, as autograd functions
+# --------------------------------------------------------------------------
+
+class _Exit(torch.autograd.Function):
+    """Sum over the tensor group forward; the cotangent passes through."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return group.all_reduce_(x.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Enter(torch.autograd.Function):
+    """Identity forward; the cotangent is summed over the tensor group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_reduce_(g.contiguous().clone()), None
+
+
+class _AllGather(torch.autograd.Function):
+    """Every rank's block along ``dim`` in rank order forward; the
+    backward keeps this rank's block of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.n = group, dim, x.shape[dim]
+        shape = list(x.shape)
+        shape[dim] *= group.size
+        out = x.new_empty(shape)
+        group.all_gather_(x, out, dim)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        i = ctx.group.index
+        return g.narrow(ctx.dim, i * ctx.n, ctx.n), None, None
+
+
+def _split(group) -> bool:
+    return group is not None and group.size > 1
+
+
+def tp_exit(x: torch.Tensor, group) -> torch.Tensor:
+    """Where a stage's tensor-sharded work leaves as partial sums (JAX's
+    ``maybe_psum``): their sum over ``group``, the same on every rank.
+    The identity without a group of several ranks."""
+    return _Exit.apply(x, group) if _split(group) else x
+
+
+def tp_enter(x: torch.Tensor, group) -> torch.Tensor:
+    """Where a tensor every rank of ``group`` holds whole enters sharded
+    work (an activation, or a replicated weight a rank uses in part):
+    the identity forward, and the ranks' shares of its cotangent summed
+    backward."""
+    return _Enter.apply(x, group) if _split(group) else x
+
+
+def tp_all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The ranks' blocks of ``x`` along ``dim``, concatenated in rank
+    order (the MoE combine of JAX's ``all_gather(..., tiled=True)``)."""
+    return _AllGather.apply(x, group, dim) if _split(group) else x
+
+
+def tensor_index(group) -> int:
+    """This rank's index in ``group`` (JAX's ``maybe_axis_index``): 0
+    without a group."""
+    return 0 if group is None else group.index
+
 
 def _device_for(device, local_rank: int, local_world: int, backend: str,
                 world: int) -> Tuple[torch.device, str]:
@@ -356,8 +497,9 @@ def init_grid(topo: ProcessGrid, backend: str, *,
         raise ValueError("no rank / world size: launch with torchrun or "
                          "pass rank= and world_size=")
     if world_size != topo.world:
-        raise ValueError(f"grid ({topo.data} data x {topo.pp} stages) needs "
-                         f"{topo.world} ranks, the world has {world_size}")
+        raise ValueError(f"grid ({topo.data} data x {topo.pp} stages x "
+                         f"{topo.tp} tensor) needs {topo.world} ranks, the "
+                         f"world has {world_size}")
     if local_rank is None:
         local_rank = _env_int("LOCAL_RANK")
         local_rank = rank if local_rank is None else local_rank
@@ -369,13 +511,18 @@ def init_grid(topo: ProcessGrid, backend: str, *,
     wait = datetime.timedelta(seconds=timeout)
     dist.init_process_group(backend, init_method=init_method or "env://",
                             rank=rank, world_size=world_size, timeout=wait)
-    # every rank creates every group, in the same order
-    data_groups = [dist.new_group(topo.data_group_ranks(s), timeout=wait)
-                   if topo.data > 1 else None for s in range(topo.pp)]
+    # every rank creates every group, in the same order: the data groups
+    # by (stage, tensor index), the tensor groups by (replica, stage)
+    data_groups = [dist.new_group(topo.data_group_ranks(s, t), timeout=wait)
+                   if topo.data > 1 else None
+                   for s in range(topo.pp) for t in range(topo.tp)]
+    tensor_groups = [dist.new_group(topo.tensor_group_ranks(d, s),
+                                    timeout=wait) if topo.tp > 1 else None
+                     for d in range(topo.data) for s in range(topo.pp)]
     ckpt_pg = dist.new_group(list(range(world_size)),
                              timeout=datetime.timedelta(seconds=CKPT_TIMEOUT_S))
     grid = RankGrid(topo, rank, backend, dev, policy, data_groups,
-                    dist.group.WORLD, ckpt_pg)
+                    tensor_groups, dist.group.WORLD, ckpt_pg)
     grid.world_group.all_reduce_(torch.ones(1, device=dev))
     grid.stats = TransportStats()
     return grid

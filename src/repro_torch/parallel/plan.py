@@ -3,10 +3,9 @@
 
 Same fields, defaults and asserts as the JAX plan (pinned by
 tests/test_torch_spec.py).  The port runs the plan's stages on one
-device, or one stage a rank over ``torch.distributed``
-(``parallel/dist.py``), with data replicas and ``zero1``; tensor
-parallelism is not ported, so ``tp`` must be 1 where a plan is
-executed: the field stays for configuration parity and the planner.
+device (tp 1), or over ``torch.distributed`` (``parallel/dist.py``) on a
+grid of data × pp × tp ranks: one rank a tensor shard of a stage of a
+replica, with ``zero1`` over each shard's replicas.  Serving runs tp 1.
 """
 from __future__ import annotations
 

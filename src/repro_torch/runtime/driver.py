@@ -34,8 +34,9 @@ time stages and takes them from ``stage_seconds_fn``.  On a grid each
 rank runs one stage, and the driver measures: a rank's stage seconds
 for a round are its wall time over ``train_step`` (ended by a device
 synchronise) less the time its hand-offs waited
-(``grid.stats.handoff_s``); the largest over a stage's data replicas is
-the stage's, and the per-stage vector is all-gathered so that every
+(``grid.stats.handoff_s``); the largest over a stage's data replicas
+and tensor ranks is the stage's (a stage counts once, however many
+ranks cut it), and the per-stage vector is all-gathered so that every
 rank's registry (rank 0's included) holds every stage's
 ``stage_round_seconds{stage=}`` series.  These seconds include the
 stage's optimizer updates (per microbatch, or the round-end flush and
@@ -90,7 +91,8 @@ class TrainDriver:
         self.cfg = cfg
         self.seed = seed
         self.grid = bundle.grid
-        self.ckpt = CheckpointManager(ckpt_dir, grid=self.grid)
+        self.ckpt = CheckpointManager(ckpt_dir, grid=self.grid,
+                                      spec=bundle.spec)
         self.failure_hook = failure_hook or (lambda step: None)
         self.obs = obs if obs is not None else bundle.obs
         self.stage_seconds_fn = stage_seconds_fn
@@ -192,12 +194,14 @@ class TrainDriver:
         return state
 
     def _stage_seconds(self, own: float) -> List[float]:
-        """Every stage's seconds from each rank's own: the largest over a
-        stage's replicas (ranks d·pp + s)."""
-        pp = self.grid.topo.pp
+        """Every stage's seconds from each rank's own: the largest over
+        the ranks that hold the stage (its replicas and tensor ranks)."""
+        topo = self.grid.topo
         by_rank = [v[0] for v in
                    self.grid.world_group.all_gather_floats([own])]
-        return [max(by_rank[s::pp]) for s in range(pp)]
+        stage_of = [topo.coords(r)[1] for r in range(topo.world)]
+        return [max(sec for sec, st in zip(by_rank, stage_of) if st == s)
+                for s in range(topo.pp)]
 
     def restore_latest(self, state):
         """(state, round) of the last complete checkpoint, copied into
@@ -435,6 +439,8 @@ def _plan_is_buildable(spec, plan, hw, *, minibatch_tokens: int,
     if spec.n_layers % n_chunks:
         return False
     if spec.n_heads and spec.n_heads % plan.tp:
+        return False
+    if spec.n_kv and spec.n_kv % plan.tp and plan.tp % spec.n_kv:
         return False
     if plan.virtual_stages > 1 and plan.microbatches % plan.pp:
         return False

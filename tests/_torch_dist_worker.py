@@ -9,6 +9,7 @@ deadline, and a rank that fails fails the run at once.
 """
 from __future__ import annotations
 
+import dataclasses
 import multiprocessing
 import os
 import time
@@ -117,6 +118,176 @@ def job_load_and_train(grid, npz: str, rounds: int):
             state, rows_of(full_batch(r, dp * MB, False), grid.d))
         losses.append(float(m["loss"]))
     return {"losses": losses, "state": state}
+
+
+def job_tp_train(grid, spec, plan, npz: str, rounds: int):
+    """A JAX training state (``npz``) loaded as this rank of a (data, pp,
+    tp) grid holds it — its stage rows, its tensor shard, its ZeRO-1
+    shard of that — then ``rounds`` rounds of ``plan`` (fp32, SGD with
+    momentum 0.05 and 0.9) on this replica's rows of the stream: (losses,
+    aux, the rank's state)."""
+    from repro_torch.core.reference import model_plan
+    from repro_torch.core.schedule import make_schedule
+    from repro_torch.core.versioning import tensor_cut, zero1_axes
+    from repro_torch.models.init import tp_axes, train_state_from_numpy
+    dp, tp = grid.topo.data, grid.topo.tp
+    tree = unflatten(dict(np.load(npz)))
+    sched = make_schedule(plan)
+    mplan = model_plan(plan, sched)
+    stages = tree["params"]["stages"]
+    # ZeRO-1 picks its dims from a tensor shard's shapes
+    axes = zero1_axes(tensor_cut(stages, (tp_axes(stages, spec, tp), 0, tp)),
+                      dp)
+    state = train_state_from_numpy(
+        tree, "cpu", torch.float32, sched=sched, stage=grid.s,
+        zero1=(axes, grid.d, dp) if plan.zero1 and dp > 1 else None,
+        tensor=(spec, mplan, grid.t))
+    bundle = build_pipeline(spec, plan, seq_len=SEQ,
+                            global_batch=dp * R * MB,
+                            optimizer=topt.SGDM(lr=0.05, momentum=0.9),
+                            compute_dtype=torch.float32, grid=grid)
+    src = SyntheticLM(spec.vocab, SEQ, seed=1)
+    losses, aux = [], []
+    for r in range(rounds):
+        b = src.round_batch(r, R, dp * MB)
+        state, m = bundle.train_step(state, rows_of(b, grid.d))
+        losses.append(float(m["loss"]))
+        aux.append(float(m["aux"]))
+    return {"losses": losses, "aux": aux, "state": state,
+            "stats": dataclasses.asdict(grid.stats)}
+
+
+def job_tp_autograd(grid, seed: int):
+    """tp_enter / tp_exit / tp_all_gather over the tensor group on a
+    two-layer product cut over the ranks: this rank's output and the
+    gradients of its shards and of the replicated input.  ``x`` (4, 6)
+    replicated, ``w1`` (6, 8) by columns, ``w2`` (8, 6) by rows, ``a``
+    (6, 4) by columns for the gathered branch."""
+    from repro_torch.parallel.dist import tp_all_gather, tp_enter, tp_exit
+    rng = np.random.default_rng(seed)
+    full = {k: torch.from_numpy(rng.normal(size=sh).astype(np.float32))
+            for k, sh in (("x", (4, 6)), ("w1", (6, 8)), ("w2", (8, 6)),
+                          ("a", (6, 4)), ("c", (4, 6)), ("e", (4, 4)))}
+    tp, t = grid.topo.tp, grid.t
+    grp = grid.tensor_group
+    cut = {"w1": full["w1"].chunk(tp, 1)[t], "w2": full["w2"].chunk(tp, 0)[t],
+           "a": full["a"].chunk(tp, 1)[t]}
+    leaves = {k: v.clone().requires_grad_() for k, v in
+              dict(cut, x=full["x"]).items()}
+    xe = tp_enter(leaves["x"], grp)
+    y = tp_exit(torch.tanh(xe @ leaves["w1"]) @ leaves["w2"], grp)
+    z = tp_all_gather(xe @ leaves["a"], grp, 1)
+    loss = (y * full["c"]).sum() + (z * full["e"]).sum()
+    loss.backward()
+    return {"y": y.detach(), "z": z.detach(), "loss": float(loss),
+            "grads": {k: v.grad for k, v in leaves.items()},
+            "stats": dataclasses.asdict(grid.stats)}
+
+
+def job_tp_ckpt(grid, spec, plan, save_dir: str, restore_dir: str,
+                rounds: int):
+    """On a (data, pp, tp) grid: ``rounds`` rounds from the seed-0 state
+    (each replica its rows of the stream), a checkpoint of them into
+    ``save_dir``; then a checkpoint of ``rounds`` written elsewhere
+    (``restore_dir``, any tp) restored into a zeroed copy of the rank's
+    state: (trained state, restored one)."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    dp = grid.topo.data
+    bundle = build_pipeline(spec, plan, seq_len=SEQ,
+                            global_batch=dp * R * MB,
+                            optimizer=optimizer("adam"),
+                            compute_dtype=torch.float32, grid=grid)
+    state = bundle.init_state(torch.Generator("cpu").manual_seed(0))
+    src = SyntheticLM(spec.vocab, SEQ, seed=1)
+    for r in range(rounds):
+        state, _ = bundle.train_step(state, rows_of(src.round_batch(
+            r, R, dp * MB), grid.d))
+    n_rows = plan.pp * plan.virtual_stages
+    CheckpointManager(save_dir, grid=grid, spec=spec).save(rounds, state,
+                                                           n_rows)
+    back = CheckpointManager(restore_dir, grid=grid, spec=spec).restore(
+        rounds, zeroed(state))
+    return {"state": state, "restored": back}
+
+
+def job_tp_driver(grid, spec, plan, out_dir: str, rounds: int, every: int,
+                  fail: int):
+    """TrainDriver on a grid with tensor ranks (tiny spec, SGD with
+    momentum, an Observability): ``rounds`` rounds uninterrupted, then
+    again with a failure before round ``fail`` raised on the last rank
+    only; each run's losses and final state, the measured stage seconds
+    and, on rank 0, ``replan_from_registry``'s plan."""
+    from repro_torch.data.pipeline import Loader
+    from repro_torch.obs import Observability
+    from repro_torch.runtime.driver import (DriverConfig, TrainDriver,
+                                            replan_from_registry)
+    dp, last = grid.topo.data, grid.rank == grid.topo.world - 1
+    armed = {"hook": last}
+
+    def run(sub, faults):
+        obs = Observability()
+        bundle = build_pipeline(spec, plan, seq_len=SEQ,
+                                global_batch=dp * R * MB,
+                                optimizer=optimizer(),
+                                compute_dtype=torch.float32, grid=grid,
+                                obs=obs)
+        loader = Loader(SyntheticLM(spec.vocab, SEQ, seed=1), R, dp * MB,
+                        "cpu", replica=grid.d, replicas=dp)
+
+        def hook(step):
+            if faults and step == fail and armed["hook"]:
+                armed["hook"] = False
+                raise RuntimeError("simulated failure of one rank")
+
+        driver = TrainDriver(bundle, loader, os.path.join(out_dir, sub),
+                             DriverConfig(checkpoint_every=every),
+                             failure_hook=hook, seed=0)
+        state = bundle.init_state(torch.Generator("cpu").manual_seed(0))
+        state, step = driver.run(state, rounds)
+        return {"state": state, "step": step, "obs": obs,
+                "losses": [m["loss"] for m in driver.metrics_log],
+                "stage_seconds": driver.stage_seconds}
+
+    out = {"a": run("a", False), "b": run("b", True)}
+    out["unfired"] = any(armed.values())
+    if grid.rank == 0:
+        new, _ = replan_from_registry(
+            spec, plan, out["b"]["obs"].registry,
+            minibatch_tokens=SEQ * MB, data_replicas=dp)
+        out["replan"] = (new.pp, new.tp)
+    for key in ("a", "b"):
+        del out[key]["obs"]
+    return out
+
+
+def job_tp_stage(grid, spec, npz: str, tokens_per_mb: int):
+    """One stage (pp 1) of ``spec`` at this rank's tensor shard of the
+    parameters in ``npz`` (a whole JAX tree, and ``x`` / ``g``): the
+    stage's output, and its gradients (stage_vjp) beside the same
+    stage's at tp 1 in this process."""
+    from repro_torch.models.init import params_from_numpy
+    from repro_torch.models.stage import (make_statics, stage_fwd,
+                                          stage_params, stage_vjp)
+    from repro_torch.parallel.plan import ParallelismPlan
+    tp = grid.topo.tp
+    flat = dict(np.load(npz))
+    x, g = (torch.from_numpy(flat.pop(k)) for k in ("x", "g"))
+    tree = unflatten(flat)
+    out = {}
+    for n, group in ((tp, grid.tensor_group), (1, None)):
+        plan = ParallelismPlan(pp=1, tp=n, microbatches=1)
+        st = make_statics(spec, plan, tokens_per_mb=tokens_per_mb)
+        params = params_from_numpy(tree, "cpu", torch.float32,
+                                   tensor=(spec, plan, grid.t))
+        sp = stage_params(params, 0)
+        pos = torch.arange(x.shape[1]).expand(x.shape[0], -1)
+        kw = dict(positions=pos, windows=params["layer_windows"][0],
+                  thetas=params["layer_thetas"][0])
+        with torch.no_grad():
+            h = stage_fwd(sp, x, st, tp=group, **kw)
+        dw, dx = stage_vjp(sp, x, st, g, 0.01, tp=group, **kw)
+        out[n] = {"h": h, "dW": dw, "dx": dx}
+    return out
 
 
 def job_exchange_timeout(grid, idle_s: float):
@@ -320,10 +491,10 @@ def unflatten(flat):
 # --------------------------------------------------------------------------
 
 def _rank_main(rank, world, data, pp, init_file, out_dir, jobs,
-               group_timeout):
+               group_timeout, tp=1):
     torch.set_num_threads(1)
     try:
-        grid = init_grid(ProcessGrid(data, pp), "gloo",
+        grid = init_grid(ProcessGrid(data, pp, tp), "gloo",
                          init_method=f"file://{init_file}", rank=rank,
                          world_size=world, device="cpu",
                          timeout=group_timeout)
@@ -339,17 +510,17 @@ def _rank_main(rank, world, data, pp, init_file, out_dir, jobs,
 
 def run_ranks(tmp_path, data: int, pp: int, jobs,
               timeout: float = JOIN_TIMEOUT_S,
-              group_timeout: float = GROUP_TIMEOUT_S):
+              group_timeout: float = GROUP_TIMEOUT_S, tp: int = 1):
     """Run ``jobs`` (``{name: kwargs}`` of the ``job_<name>`` functions,
-    in order) on a ``data × pp`` grid of spawned ranks; the results by
-    rank, each ``{name: result}``.  Raises as soon as a rank fails (the
+    in order) on a ``data × pp × tp`` grid of spawned ranks; the results
+    by rank, each ``{name: result}``.  Raises as soon as a rank fails (the
     others are killed) or when the deadline passes."""
-    world = data * pp
+    world = data * pp * tp
     ctx = multiprocessing.get_context("spawn")
     init_file = tmp_path / "rendezvous"
     procs = [ctx.Process(target=_rank_main,
                          args=(r, world, data, pp, str(init_file),
-                               str(tmp_path), jobs, group_timeout))
+                               str(tmp_path), jobs, group_timeout, tp))
              for r in range(world)]
     for p in procs:
         p.start()

@@ -44,12 +44,16 @@ FLASH = [  # b, sq, sk, h, kv, dh, causal, window
     (1, 529, 529, 4, 1, 128, True, 129), (8, 528, 528, 40, 8, 128, True, -1),
     # h2o-danube3-4b's heads (Dh 120, zero-padded to 128 in bf16) with a
     # window that crosses key tiles
-    (1, 700, 700, 32, 8, 120, True, 300)]
+    (1, 700, 700, 32, 8, 120, True, 300),
+    # qwen3-14b's heads on a tensor rank at tp 2 and tp 8 (training)
+    (1, 256, 256, 20, 4, 128, True, -1), (1, 256, 256, 5, 1, 128, True, -1)]
 PAGED_INT8 = [  # b, h, kv, dh, page, n_pages, window: tests/test_quant.py's
-               # int8 matrix, then qwen3-14b decode, global and windowed
+               # int8 matrix, then qwen3-14b decode, global and windowed,
+               # then h2o-danube3-4b's heads (120-byte rows: 8-byte chunks)
     (2, 4, 2, 64, 16, 8, -1), (2, 8, 2, 64, 64, 4, -1),
     (2, 4, 2, 64, 16, 8, 20), (2, 40, 8, 128, 16, 64, -1),
-    (2, 40, 8, 128, 16, 64, 100)]
+    (2, 40, 8, 128, 16, 64, 100), (2, 32, 8, 120, 16, 64, -1),
+    (2, 32, 8, 120, 16, 64, 100)]
 WKV = [  # b, s, h, dh
     (2, 64, 2, 16), (1, 128, 4, 32), (2, 100, 2, 8), (1, 64, 2, 64),
     (1, 32, 1, 4), (2, 17, 2, 32), (8, 1, 32, 64),       # rwkv6 decode
@@ -71,7 +75,9 @@ FLASH_BWD = [  # b, s, h, kv, dh, window (causal; Sq = Sk)
     (1, 1024, 40, 8, 128, -1), (1, 1000, 40, 8, 128, 256),
     # Dh 120 zero-padded to 128 in the bf16 kernels; the training shape
     (2, 300, 10, 2, 120, -1), (1, 333, 6, 2, 120, 100),
-    (1, 4096, 40, 8, 128, -1)]
+    (1, 4096, 40, 8, 128, -1),
+    # qwen3-14b's heads on a tensor rank at tp 2 and tp 8 (training)
+    (1, 256, 20, 4, 128, -1), (1, 256, 5, 1, 128, -1)]
 TOL = {torch.float32: (2e-5, 1e-3), torch.bfloat16: (2e-2, 1e-2)}
 
 

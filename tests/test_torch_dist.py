@@ -35,7 +35,7 @@ def test_process_grid_topology():
     g = ProcessGrid(data=2, pp=3)
     assert g.world == 6
     assert [g.coords(r) for r in range(6)] == [
-        (0, 0), (0, 1), (0, 2), (1, 0), (1, 1), (1, 2)]
+        (0, 0, 0), (0, 1, 0), (0, 2, 0), (1, 0, 0), (1, 1, 0), (1, 2, 0)]
     assert [g.rank_of(*g.coords(r)) for r in range(6)] == list(range(6))
     assert g.data_group_ranks(1) == [1, 4]
     assert [g.downstream(r) for r in range(6)] == [1, 2, None, 4, 5, None]
@@ -247,14 +247,16 @@ def test_launcher_refuses_what_ranks_cannot_do(monkeypatch, capsys):
 
 
 def test_host_staging_keeps_half_precision_bits():
-    """What gloo is handed for a card tensor: a move carries bf16 / fp16 as
-    their int16 bits (back bit for bit), a sum takes them to f32."""
+    """What gloo is handed for a card tensor: a point-to-point move carries
+    bf16 / fp16 as their int16 bits (back bit for bit), a collective (a
+    sum, a gather, a broadcast: gloo's take no int16) takes them to f32,
+    which holds every half value."""
     from repro_torch.parallel.dist import _host, _host_dtype
     x = torch.randn(64).to(torch.bfloat16)
-    moved = _host(x, reduce=False)
+    moved = _host(x, collective=False)
     assert moved.dtype == torch.int16
     assert torch.equal(moved.view(torch.bfloat16), x)
-    assert _host(x, reduce=True).dtype == torch.float32
-    assert torch.equal(_host(x, reduce=True).to(torch.bfloat16), x)
+    assert _host(x, collective=True).dtype == torch.float32
+    assert torch.equal(_host(x, collective=True).to(torch.bfloat16), x)
     for dt in (torch.float32, torch.int64):
         assert _host_dtype(dt, True) == _host_dtype(dt, False) == dt

@@ -389,7 +389,8 @@ def test_train_entry_point_prints_a_falling_loss():
 def test_build_pipeline_raises_for_what_is_not_ported():
     spec, plan = _smoke(2, "stash")
     kw = dict(seq_len=8, global_batch=8, optimizer=SGDM(), device="cpu")
-    with pytest.raises(NotImplementedError):
+    # a stage cut over tensor ranks runs on a grid of ranks only
+    with pytest.raises(ValueError, match="torchrun"):
         build_pipeline(spec, plan.with_(tp=2), **kw)
     with pytest.raises(ValueError, match="forward-only"):
         build_pipeline(spec, plan.with_(schedule="serve_interleaved"), **kw)
