@@ -89,13 +89,12 @@ Phases (any failure raises and the script exits non-zero):
    all 40 layers at train_4k (seq 4096, global batch 256, R = 8) over a
    model axis of 8 H100s, on analytic and on measured profiles; both
    must return a plan that fits 80 GB;
-16. driver — ``TrainDriver`` through the training entry point's flags
-   (``--ckpt`` in a temporary directory, ``--ckpt-every 2``) at full
-   width cut to 2 layers, bf16, SGD with momentum, 1f1b / stash, pp = 2:
-   5 rounds uninterrupted, then 5 rounds with a failure at round 3 and a
-   crash in the middle of round 4's save; the restarted run's losses and
-   every state tensor must equal the uninterrupted run's bit for bit,
-   under deterministic algorithms;
+16. driver — ``TrainDriver`` through the training entry point's flags at
+   full width cut to 2 layers, bf16, SGD with momentum, 1f1b / stash, pp
+   = 2: 5 rounds uninterrupted, without checkpoints, under deterministic
+   algorithms, the reference of 18b (which runs the driver's faults and
+   restart on two ranks; the one-process faulty run is left to the CPU
+   tests, for the time limit);
 17. dist — stages on several ranks and data replicas over
    ``torch.distributed`` (``parallel/dist.py``, the executor with a
    process grid).  17a: a (1, 1) grid under NCCL at world size 1, fp32,
@@ -194,16 +193,36 @@ Phases (any failure raises and the script exits non-zero):
    21c: 21a's checkpoint, written by the ranks in JAX's full layout,
    restored by one tp 1 process in host memory while 21b runs: every
    rank's state equals its tensor shard of the restored one bit for
-   bit (64-bit digests).
+   bit (64-bit digests);
+22. train recurrent — the recurrent block kinds trained through the
+   launcher's builder at phase 13's shape (R 4 x 1 row x 4096 tokens, 3
+   rounds, bf16, the config's Adam, remat), the last round under
+   ``torch.profiler``, every plain version refused.  22a: rwkv6-1.6b
+   whole (24 layers at full width), ``1f1b`` / stash, pp 2: every WKV
+   forward on the wkv6 kernel (chunked design) and every backward on
+   the wkv6 backward kernel.  22b: jamba-v0.1-52b at full width cut to
+   its first 2 of 32 layers (Mamba + dense FFN, Mamba + MoE of 16
+   experts top 2, capacity 640), gpipe / flush, pp 1 (a stage holds
+   whole layer patterns): every selective scan forward and backward on
+   its kernels, the MoE aux loss finite and > 0.  Launches: three
+   forwards (F, B's re-run, the checkpoint's recompute) and one
+   backward a mixer layer and microbatch.  22c: both at 2 layers in
+   fp32 (phase 14's shape and SGD), the executor against the oracle bit
+   for bit under deterministic algorithms, every scan on its kernels.
 
 Phase 2 also holds the int8-pool paged kernel and the flash backward
 kernel (bf16 and f32; with its log-sum-exp, and determinism) against
 their plain versions, and at h2o-danube3-4b's heads (32 / 8, Dh 120)
 the flash forward (bf16 and f32, windowed), its backward (bf16) and the
-float and int8 paged walks (windowed; int8 rows of 120 bytes).  Launch
+float and int8 paged walks (windowed; int8 rows of 120 bytes); and the
+wkv6 and mamba_scan backward kernels against their plain backwards at
+phase 22's training calls (wkv6 (1, 4096, 32, 64) in bf16 and f32, at
+strong decay and with decays of exactly 0; mamba_scan (1, 4096, 8192,
+16) in f32), deterministic.  Launch
 counters are zeroed before and read after each main path (phases 3, 5,
 6, 8, 9, 11, 13, 15, 16, 17d, 18b, whose two ranks count their own,
-19a, each run of 19b, 20a-b, and 21a-b, whose ranks count their own).
+19a, each run of 19b, 20a-b, 21a-b, whose ranks count their own, and
+22a-c, which also read the backward kernels' counters).
 Prints a
 ``profile`` JSON line for qwen3 bf16, rwkv6 (decode, then prefill),
 jamba (decode, then prefill), quantized qwen3 and the training rounds
@@ -225,7 +244,9 @@ run's acceptance by round), one ``planned_serving`` JSON line (phase
 20: the dense and chosen plans, predicted and measured bytes, the
 decode step beside the predicted round, danube's times and gaps, the
 ring check), ``tp`` JSON lines (phase 21: one a rank of 21b, one for
-21a / 21c), one ``kernels`` JSON line
+21a / 21c), ``train_recurrent`` JSON lines (phase 22: 22a and 22b's
+round seconds, tokens/s, peak GB, losses, aux and launches; 22c),
+profiles of 22a's and 22b's rounds, one ``kernels`` JSON line
 (launches, by path and for wkv6 by
 design, errors, times, bounds, each kernel's design and what ``ptxas
 -v`` reported; the flash, backward, paged and int8 paged records carry a
@@ -408,6 +429,18 @@ RING_PROMPT, RING_DECODE = 32, 160
 # per clock per SM (CUDA C++ Programming Guide, arithmetic instruction
 # throughput, compute capability 9.0) x 132 SMs x the 1.98 GHz boost clock
 SFU_EXP_PER_S = 16 * 132 * 1.98e9
+# phase 2's backward checks at the training calls of phase 22: wkv6 at
+# (B, S, H, Dh) and mamba_scan at (B, S, Ci, N), f32 (the model casts the
+# scan's inputs to f32).  Tolerance (rel, rtol): |err| <= rel · max|plain|
+# + rtol · |plain|.  Each gradient is a sum over up to S x Dh (wkv6) or
+# S x N (mamba) products taken in another order than the plain version's
+# (f32: a few ulps of the largest term reach entries that cancel to
+# near 0, hence a floor relative to the gradient's scale); bf16 outputs
+# are rounded to bf16 (2^-8) from f32 values that already differ
+TRAIN_WKV = (1, TRAIN_SEQ, RWKV_H, RWKV_DH)
+TRAIN_MAMBA = (1, TRAIN_SEQ, MAMBA_CI, MAMBA_N)
+WKV6_BWD_TOL = {"f32": (1e-5, 1e-3), "bf16": (1e-2, 1e-2)}
+MAMBA_BWD_TOL = (1e-5, 1e-3)
 # the paged records' ms: a call's device work is a few tens of us, below
 # the host's pace of back-to-back wrapper calls, so events would time the
 # host; the profiler times the kernels (the wkv6 and mamba_scan decode
@@ -450,10 +483,20 @@ def counters():
             "mamba_scan": (ms.mamba_scan, "launches")}
 
 
+def bwd_counters():
+    """(wrapper, attribute) of the recurrent kernels' backward launch
+    counters, by kernel name (read apart from :func:`counters`, whose
+    dicts the earlier phases hold to exact values)."""
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import wkv6 as wk
+    return {"wkv6_bwd": (wk.wkv6_bwd, "launches"),
+            "mamba_scan_bwd": (ms.mamba_scan_bwd, "launches")}
+
+
 def reset_counts() -> None:
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import wkv6 as wk
-    for fn, attr in counters().values():
+    for fn, attr in (*counters().values(), *bwd_counters().values()):
         setattr(fn, attr, 0)
     wk.wkv6.launches_chunked = wk.wkv6.launches_stepwise = 0
     pa.paged_attention.launches_by_q = {}
@@ -470,6 +513,12 @@ def wkv6_designs() -> dict:
 def read_counts() -> dict:
     return {name: getattr(fn, attr)
             for name, (fn, attr) in counters().items()}
+
+
+def read_all_counts() -> dict:
+    """:func:`read_counts` with the backward kernels' counters."""
+    return {**read_counts(), **{name: getattr(fn, attr) for name, (fn, attr)
+                                in bwd_counters().items()}}
 
 
 def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
@@ -934,6 +983,111 @@ def phase_mamba_kernel(device):
                     f"S={s} Ci={MAMBA_CI} N={MAMBA_N} h0={with_state}: "
                     f"max|err| {e:.3e} (atol {atol}, rtol {rtol})")
     return max(cases.values()), cases
+
+
+def wkv6_bwd_inputs(dtype, device, seed, decay=None, zero_frac=0.0):
+    """r, k, v, w, u, dy at the rwkv6 training call (TRAIN_WKV) in
+    ``dtype``: decays in (0.49, 0.99), or uniform in (0, ``decay``); a
+    ``zero_frac`` share of the decays exactly 0."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    rnd = lambda *sh: torch.randn(sh, generator=g, device=device)
+    shape = TRAIN_WKV
+    if decay is None:
+        w = torch.sigmoid(rnd(*shape)) * 0.5 + 0.49
+    else:
+        w = torch.rand(shape, generator=g, device=device) * decay
+    if zero_frac:
+        w = torch.where(torch.rand(shape, generator=g, device=device)
+                        < zero_frac, 0.0, w)
+    args = [rnd(*shape), 0.5 * rnd(*shape), rnd(*shape), w,
+            0.1 * rnd(RWKV_H, RWKV_DH), rnd(*shape)]
+    return [a.to(dtype) for a in args]
+
+
+def bwd_check(name, got, want, names, tol):
+    """Each gradient of a backward kernel against its plain version:
+    |err| <= rel · max|want| + rtol · |want| elementwise (``tol`` =
+    (rel, rtol)).  Returns {gradient: (max |err|, max |want|)}."""
+    out = {}
+    for n, a, b in zip(names, got, want):
+        scale = float(b.float().abs().max().item())
+        out[n] = (check_close(f"{name} {n}", a, b, tol[0] * scale, tol[1]),
+                  scale)
+    return out
+
+
+def phase_wkv6_bwd_kernel(device):
+    """wkv6's backward kernel against its plain backward at the rwkv6
+    training call (TRAIN_WKV): bf16 at the model's range of decays with a
+    quarter of them exactly 0 (where a d(log w) / w form is 0 / 0), f32
+    at the model's range and at strong decay (w uniform in (0, 1e-3)),
+    and twice on one input, bit for bit.  Returns ({case: {gradient:
+    (max |err|, max |want|)}}, {case: the plain backward's ms}: host
+    clock around one call between synchronizes, its Python loop over S
+    launches ~20 small kernels a token)."""
+    import torch
+    from repro_torch.kernels import wkv6 as wk
+    names = ("dr", "dk", "dv", "dw", "du")
+    plain_ms = {}
+    cases = (("bf16 w=0", torch.bfloat16, None, 0.25),
+             ("f32", torch.float32, None, 0.0),
+             ("f32 strong decay", torch.float32, 1e-3, 0.0))
+    out = {}
+    for i, (label, dtype, decay, zero_frac) in enumerate(cases):
+        args = wkv6_bwd_inputs(dtype, device, 60 + i, decay, zero_frac)
+        got = wk.wkv6_bwd(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = wk.wkv6_bwd_plain(*args)
+        torch.cuda.synchronize()
+        plain_ms[label] = 1e3 * (time.perf_counter() - t0)
+        tol = WKV6_BWD_TOL[label.split()[0]]
+        out[label] = bwd_check(f"wkv6_bwd {label}", got, want, names, tol)
+        log(f"[kernels] wkv6_bwd {label} {list(TRAIN_WKV)}: (max|err|, "
+            f"max|plain|) {out[label]} (tolerance {tol})")
+        if label == "bf16 w=0":
+            again = wk.wkv6_bwd(*args)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError("wkv6_bwd: two calls on one input "
+                                     "differ")
+        del args, got, want
+    return out, plain_ms
+
+
+def mamba_bwd_inputs(device, seed):
+    """u, dt, A, B, C, D, dy at the jamba training call (TRAIN_MAMBA), f32
+    (the model casts the scan's inputs to f32): A from the init's A_log =
+    log(1..16), dt the softplus of a normal, as mamba_inputs."""
+    import torch
+    args, _ = mamba_inputs(torch.float32, device, TRAIN_MAMBA[0],
+                           TRAIN_MAMBA[1], seed, with_state=False)
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    return args + [torch.randn(TRAIN_MAMBA[:3], generator=g, device=device)]
+
+
+def phase_mamba_bwd_kernel(device):
+    """mamba_scan's backward kernel against its plain backward at the
+    jamba training call (TRAIN_MAMBA, f32), and twice on one input, bit
+    for bit.  Returns ({gradient: (max |err|, max |want|)}, the plain
+    backward's ms, timed as in :func:`phase_wkv6_bwd_kernel`)."""
+    import torch
+    from repro_torch.kernels import mamba_scan as ms
+    args = mamba_bwd_inputs(device, 70)
+    got = ms.mamba_scan_bwd(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = ms.mamba_scan_bwd_plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    out = bwd_check("mamba_scan_bwd f32", got, want,
+                    ("du", "ddt", "dA", "dB", "dC", "dD"), MAMBA_BWD_TOL)
+    again = ms.mamba_scan_bwd(*args)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("mamba_scan_bwd: two calls on one input differ")
+    log(f"[kernels] mamba_scan_bwd f32 {list(TRAIN_MAMBA)}: (max|err|, "
+        f"max|plain|) {out} (tolerance {MAMBA_BWD_TOL})")
+    return out, plain_ms
 
 
 # --------------------------------------------------------------------------
@@ -1852,10 +2006,10 @@ def phase_consistency_quant(device, spec, plan, n_decode=4,
 # phases 13-14: training qwen3-14b and its consistency
 # --------------------------------------------------------------------------
 
-def train_args(extra):
+def train_args(extra, arch="qwen3-14b"):
     from repro_torch.launch import train
-    return train.parser().parse_args(["--arch", "qwen3-14b", "--device",
-                                      "cuda", "--seed", str(SEED), *extra])
+    return train.parser().parse_args(["--arch", arch, "--device", "cuda",
+                                      "--seed", str(SEED), *extra])
 
 
 def build_train(args, grid=None, obs=None, tp=1):
@@ -1868,15 +2022,21 @@ def build_train(args, grid=None, obs=None, tp=1):
     return train.build(args, grid, (spec, plan.with_(tp=tp), opt), obs)
 
 
-def profile_round(bundle, state, batch, round_s):
+FLASH_KERNELS = (("flash_fwd", "flash_attention_bf16_kernel"),
+                 ("flash_bwd", "flash_bwd_"))
+
+
+def profile_round(bundle, state, batch, round_s, kernels=FLASH_KERNELS):
     """One round under torch.profiler: device time by kernel, the idle
-    share against an unprofiled warm round's time, the flash kernels'
-    calls and time."""
+    share against an unprofiled warm round's time, and the calls and
+    time of each of ``kernels`` ((label, substring of the kernel names)):
+    by default the flash kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the card's activity only: host operators add ~5 events a launch,
+    # and reducing them took ~50 s of 22a's 90k-launch round
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         state, metrics = bundle.train_step(state, batch)
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
@@ -1895,8 +2055,7 @@ def profile_round(bundle, state, batch, round_s):
            "memcpy_dtod_ms": sum(e.self_device_time_total
                                  for e in copies) / 1e3,
            "memcpy_dtod_calls": sum(e.count for e in copies)}
-    for name, key in (("flash_fwd", "flash_attention_bf16_kernel"),
-                      ("flash_bwd", "flash_bwd_")):
+    for name, key in kernels:
         mine = [e for e in events if key in e.key]
         out[f"{name}_ms"] = sum(e.self_device_time_total for e in mine) / 1e3
         out[f"{name}_share"] = out[f"{name}_ms"] / dev_ms
@@ -2159,10 +2318,6 @@ def phase_train_consistency(device):
     phase (the embedding's scatter-add)."""
     import os
     import torch
-    from repro_torch.core.pipeline import build_pipeline
-    from repro_torch.core.reference import (reference_init_state,
-                                            reference_train_step)
-    from repro_torch.data.pipeline import Loader, SyntheticLM
     from repro_torch.launch.train import cut_layers
     from repro_torch.optim import SGDM
     from repro_torch import configs
@@ -2180,64 +2335,74 @@ def phase_train_consistency(device):
     out = {}
     try:
         for label, n_layers, plan, donate in cases:
-            t0 = time.perf_counter()
-            spec = cut_layers(cfg.full_spec(), n_layers)
-            bundle = build_pipeline(spec, plan, seq_len=CONS_SEQ,
-                                    global_batch=CONS_R, optimizer=opt,
-                                    compute_dtype=torch.float32,
-                                    device=device)
-            loader = Loader(SyntheticLM(spec.vocab, CONS_SEQ, seed=SEED),
-                            CONS_R, 1, device)
-            batches = [loader.get(r) for r in range(CONS_ROUNDS)]
-            state = bundle.init_state(
-                torch.Generator(device).manual_seed(SEED))
-            e_loss = []
-            for batch in batches:
-                state, m = bundle.train_step(state, batch)
-                e_loss.append(m["loss"].item())
-            executor = [(n, t.cpu() if torch.is_tensor(t) else t)
-                        for n, t in tree_leaves(state)]
-            del state, bundle
-            torch.cuda.empty_cache()
-            ref = reference_init_state(
-                spec, plan, opt, torch.Generator(device).manual_seed(SEED),
-                torch.float32)
-            o_loss = []
-            for batch in batches:
-                ref, m = reference_train_step(spec, plan, ref, batch, opt,
-                                              donate=donate)
-                o_loss.append(m["loss"].item())
-            peak_gb = torch.cuda.max_memory_allocated() / 1e9
-            oracle = tree_leaves(ref)
-            if e_loss != o_loss:
-                raise AssertionError(f"{label}: executor losses {e_loss} != "
-                                     f"oracle {o_loss}")
-            if [n for n, _ in executor] != [n for n, _ in oracle]:
-                raise AssertionError(f"{label}: state trees differ")
-            n_bytes = 0
-            for (name, e), (_, o) in zip(executor, oracle):
-                same = (torch.equal(e.to(device), o) if torch.is_tensor(o)
-                        else e == o)
-                if not same:
-                    raise AssertionError(f"{label}: {name} differs between "
-                                         "executor and oracle")
-                n_bytes += o.numel() * o.element_size() \
-                    if torch.is_tensor(o) else 0
-            del ref, oracle, executor
-            torch.cuda.empty_cache()
-            out[label] = {"layers": n_layers, "losses": e_loss,
-                          "state_gb": n_bytes / 1e9,
-                          "seconds": time.perf_counter() - t0}
-            log(f"[consistency-train] fp32 {spec.n_layers} layers at full "
-                f"width, {label}, pp=2, v={plan.virtual_stages}, R={CONS_R} "
-                f"x seq {CONS_SEQ}, {CONS_ROUNDS} rounds: executor == oracle "
-                f"bit for bit (losses {e_loss}, {n_bytes / 1e9:.2f} GB of "
-                f"state, peak {peak_gb:.1f} GB), "
-                f"{out[label]['seconds']:.1f}s")
-            torch.cuda.reset_peak_memory_stats()
+            out[label] = executor_equals_oracle(
+                device, label, cut_layers(cfg.full_spec(), n_layers), plan,
+                opt, donate)
     finally:
         torch.use_deterministic_algorithms(False)
     return out
+
+
+def executor_equals_oracle(device, label, spec, plan, opt, donate=False):
+    """CONS_ROUNDS fp32 rounds of R = CONS_R x 1 row x CONS_SEQ through the
+    executor (core/pipeline.py), its state moved to the host, then
+    through the sequential oracle (core/reference.py, consuming its
+    input with ``donate``) from the same seed: losses and every state
+    tensor bit for bit.  Returns the case's record."""
+    import torch
+    from repro_torch.core.pipeline import build_pipeline
+    from repro_torch.core.reference import (reference_init_state,
+                                            reference_train_step)
+    from repro_torch.data.pipeline import Loader, SyntheticLM
+    t0 = time.perf_counter()
+    bundle = build_pipeline(spec, plan, seq_len=CONS_SEQ,
+                            global_batch=CONS_R, optimizer=opt,
+                            compute_dtype=torch.float32, device=device)
+    loader = Loader(SyntheticLM(spec.vocab, CONS_SEQ, seed=SEED), CONS_R, 1,
+                    device)
+    batches = [loader.get(r) for r in range(CONS_ROUNDS)]
+    state = bundle.init_state(torch.Generator(device).manual_seed(SEED))
+    e_loss = []
+    for batch in batches:
+        state, m = bundle.train_step(state, batch)
+        e_loss.append(m["loss"].item())
+    executor = [(n, t.cpu() if torch.is_tensor(t) else t)
+                for n, t in tree_leaves(state)]
+    del state, bundle
+    torch.cuda.empty_cache()
+    ref = reference_init_state(spec, plan, opt,
+                               torch.Generator(device).manual_seed(SEED),
+                               torch.float32)
+    o_loss = []
+    for batch in batches:
+        ref, m = reference_train_step(spec, plan, ref, batch, opt,
+                                      donate=donate)
+        o_loss.append(m["loss"].item())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    oracle = tree_leaves(ref)
+    if e_loss != o_loss:
+        raise AssertionError(f"{label}: executor losses {e_loss} != oracle "
+                             f"{o_loss}")
+    if [n for n, _ in executor] != [n for n, _ in oracle]:
+        raise AssertionError(f"{label}: state trees differ")
+    n_bytes = 0
+    for (name, e), (_, o) in zip(executor, oracle):
+        same = torch.equal(e.to(device), o) if torch.is_tensor(o) else e == o
+        if not same:
+            raise AssertionError(f"{label}: {name} differs between executor "
+                                 "and oracle")
+        n_bytes += o.numel() * o.element_size() if torch.is_tensor(o) else 0
+    del ref, oracle, executor
+    torch.cuda.empty_cache()
+    rec = {"layers": spec.n_layers, "losses": e_loss,
+           "state_gb": n_bytes / 1e9, "seconds": time.perf_counter() - t0}
+    log(f"[consistency-train] fp32 {spec.n_layers} layers at full width "
+        f"({spec.name}), {label}, pp={plan.pp}, v={plan.virtual_stages}, "
+        f"R={CONS_R} x seq {CONS_SEQ}, {CONS_ROUNDS} rounds: executor == "
+        f"oracle bit for bit (losses {e_loss}, {n_bytes / 1e9:.2f} GB of "
+        f"state, peak {peak_gb:.1f} GB), {rec['seconds']:.1f}s")
+    torch.cuda.reset_peak_memory_stats()
+    return rec
 
 
 # --------------------------------------------------------------------------
@@ -2356,146 +2521,62 @@ def phase_plan(device):
 # --------------------------------------------------------------------------
 
 def phase_driver(device):
-    """TrainDriver through the training entry point's flags: DRIVER_ROUNDS
-    rounds uninterrupted, then with a failure before round DRIVER_FAIL
-    and a crash in the middle of round DRIVER_TORN's save (its stage 0
-    written, its manifest incomplete).  The restarted run's losses and
-    every state tensor must equal the uninterrupted run's bit for bit,
-    under deterministic algorithms.  Checkpoints go to a temporary
-    directory; the phase fails with the numbers when the disk there has
-    too little room for two."""
+    """TrainDriver through the training entry point's flags, DRIVER_ROUNDS
+    rounds uninterrupted and without checkpoints, under deterministic
+    algorithms: the reference of phase 18b, which runs the same driver
+    and faults (a failure before round DRIVER_FAIL, a crash in the
+    middle of round DRIVER_TORN's save) over two ranks and holds every
+    rank's final state and the last rounds' losses to this run's bit
+    for bit.  One process runs the same checkpoint and restart code as
+    a grid of one rank; its faulty run was this phase's until the time
+    limit wanted its ~110 s of checkpoint I/O (tests/test_torch_checkpoint
+    .py holds it on the CPU).  Returns (the driver record, launches, this
+    run's losses and each stage's rows' digests)."""
     import os
     import shutil
     import tempfile
     import torch
+    from repro_torch.core.versioning import rank_state
     from repro_torch.launch import train
     os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     torch.use_deterministic_algorithms(True)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
-    times = {"save_s": [], "restore_s": []}
-
-    def timed(driver):
-        save, restore = driver.ckpt.save, driver.ckpt.restore
-
-        def t_save(*a, **k):
-            t0 = time.perf_counter()
-            try:
-                return save(*a, **k)
-            finally:
-                times["save_s"].append(time.perf_counter() - t0)
-
-        def t_restore(*a, **k):
-            t0 = time.perf_counter()
-            out = restore(*a, **k)
-            torch.cuda.synchronize()
-            times["restore_s"].append(time.perf_counter() - t0)
-            return out
-        driver.ckpt.save, driver.ckpt.restore = t_save, t_restore
-        return driver
-
-    def run(sub, hook=None, torn=False, every=DRIVER_EVERY):
-        args = train_args(driver_flags(os.path.join(tmp, sub)))
-        args.ckpt_every = every
+    try:
+        reset_counts()
+        args = train_args(driver_flags(tmp))
+        args.ckpt_every = DRIVER_ROUNDS + 1        # saves nothing
         spec, bundle = build_train(args)
-        driver = train.make_driver(args, spec, bundle, args.ckpt,
-                                   failure_hook=hook)
-        timed(driver)
-        if torn:
-            save = driver.ckpt.save
-
-            def torn_save(rnd, st, n, fail_after_stage=None):
-                if rnd == DRIVER_TORN and armed["save"]:
-                    armed["save"] = False
-                    save(rnd, st, n, fail_after_stage=0)
-                    raise RuntimeError("crash in the middle of a save")
-                return save(rnd, st, n, fail_after_stage)
-            driver.ckpt.save = torn_save
+        driver = train.make_driver(args, spec, bundle, args.ckpt)
         state = bundle.init_state(torch.Generator(device).manual_seed(SEED))
         state, step = driver.run(state, args.steps)
         if step != DRIVER_ROUNDS:
             raise AssertionError(f"driver stopped at round {step}")
-        return spec, bundle, driver, state
-
-    armed = {"hook": True, "save": True}
-
-    def hook(step):
-        if step == DRIVER_FAIL and armed["hook"]:
-            armed["hook"] = False
-            raise RuntimeError("simulated node failure")
-
-    out = {}
-    try:
-        reset_counts()
-        # the uninterrupted reference saves nothing (its saves checked
-        # nothing the restarted run's do not; the time limit)
-        spec, bundle, driver_a, ref = run("a", every=DRIVER_ROUNDS + 1)
-        # a checkpoint holds every leaf of the state tree, whose stage
-        # rows appear twice (params and stash/current), as the files do
-        est = tree_bytes(ref)
-        free = shutil.disk_usage(tmp).free
-        if free < 2.2 * est:
-            raise AssertionError(
-                f"the disk at {tmp} has {free / 1e9:.1f} GB free; the "
-                f"restarted run needs two checkpoints of {est / 1e9:.2f} GB")
-        ref_losses = [m["loss"] for m in driver_a.metrics_log]
-        ref_leaves = tree_leaves(ref)
-        # each stage's rows of the final state, for phase 18b's ranks
-        from repro_torch.core.versioning import rank_state
-        ref_rows = {"losses": ref_losses,
-                    "digests": [state_digests(rank_state(ref, bundle.sched,
+        counts = read_counts()
+        losses = [m["loss"] for m in driver.metrics_log]
+        ref_rows = {"losses": losses,
+                    "digests": [state_digests(rank_state(state, bundle.sched,
                                                          s))
                                 for s in range(2)]}
-        del bundle, driver_a
-        _, _, driver_b, got = run("b", hook=hook, torn=True)
-        counts = read_counts()
-        ckpt_bytes = sum(
-            os.path.getsize(os.path.join(r, f))
-            for r, _, fs in os.walk(os.path.join(tmp, "b", "round_00000004"))
-            for f in fs)
-        log(f"[driver] {spec.name} 1f1b/stash pp=2 bf16 sgdm: "
-            f"{DRIVER_ROUNDS} rounds uninterrupted (no checkpoints), a "
-            f"checkpoint is {ckpt_bytes / 1e9:.2f} GB on disk (estimated "
-            f"{est / 1e9:.2f}), {free / 1e9:.1f} GB free")
-        if any(armed.values()):
-            raise AssertionError(f"a fault did not fire: {armed}")
-        losses = [m["loss"] for m in driver_b.metrics_log]
-        # rounds 0-1, 2, (failure), 2-3, (torn save), 2-4
-        if losses[-3:] != ref_losses[-3:] or losses[:2] != ref_losses[:2]:
-            raise AssertionError(f"restarted losses {losses} against "
-                                 f"{ref_losses}")
-        got_leaves = tree_leaves(got)
-        if [n for n, _ in got_leaves] != [n for n, _ in ref_leaves]:
-            raise AssertionError("driver: state trees differ")
-        for (name, a), (_, b) in zip(got_leaves, ref_leaves):
-            same = torch.equal(a, b) if torch.is_tensor(a) else a == b
-            if not same:
-                raise AssertionError(f"driver: {name} differs between the "
-                                     "restarted and the uninterrupted run")
-        n_rounds = DRIVER_ROUNDS + len(losses)
         per_round = DRIVER_LAYERS * TRAIN_R
         want = {"paged_attention": 0, "paged_attention_int8": 0, "wkv6": 0,
-                "mamba_scan": 0, "flash_attention": 3 * per_round * n_rounds,
-                "flash_attention_bwd": per_round * n_rounds}
+                "mamba_scan": 0,
+                "flash_attention": 3 * per_round * DRIVER_ROUNDS,
+                "flash_attention_bwd": per_round * DRIVER_ROUNDS}
         if counts != want:
             raise AssertionError(f"launches on the driver path: {counts}, "
                                  f"expected {want}")
         out = {"model": spec.name, "layers": DRIVER_LAYERS,
                "schedule": "1f1b/stash", "pp": 2, "optimizer": "sgdm",
                "dtype": "bfloat16", "rounds": DRIVER_ROUNDS,
-               "ckpt_every": DRIVER_EVERY, "checkpoint_gb": ckpt_bytes / 1e9,
-               "disk_free_gb": free / 1e9, "save_s": times["save_s"],
-               "restore_s": times["restore_s"],
-               "rounds_executed": n_rounds,
-               "round_s_warm": driver_b.round_seconds[1],
-               "losses_uninterrupted": ref_losses,
-               "losses_restarted_run": losses}
-        log(f"[driver] restarted run (failure before round {DRIVER_FAIL}, "
-            f"crash in round {DRIVER_TORN}'s save): {len(losses)} rounds "
-            f"executed, losses {[round(x, 4) for x in losses]}; final state "
-            f"and the last rounds' losses equal the uninterrupted run's bit "
-            f"for bit; saves {[round(x, 2) for x in times['save_s']]} s, "
-            f"restores {[round(x, 2) for x in times['restore_s']]} s")
-        del got, ref, got_leaves, ref_leaves
+               "state_gb": tree_bytes(state) / 1e9,
+               "round_s_warm": driver.round_seconds[1],
+               "losses_uninterrupted": losses,
+               "faults": "phase 18b (two ranks, the same driver)"}
+        log(f"[driver] {spec.name} 1f1b/stash pp=2 bf16 sgdm: "
+            f"{DRIVER_ROUNDS} rounds uninterrupted (no checkpoints), losses "
+            f"{[round(x, 4) for x in losses]}, state {out['state_gb']:.2f} "
+            f"GB; the reference of 18b's restarted ranks")
+        del state, bundle, driver
     finally:
         torch.use_deterministic_algorithms(False)
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4363,6 +4444,97 @@ def mamba_record(device, err, launches):
             "decode_exps": d_exps}
 
 
+def wkv6_bwd_bytes_flops(args):
+    """Bytes the backward must move (r, k, v, w, dy and u read; dr, dk,
+    dv, dw and du written) and its f32 operations: 12 a (token, d, e) of
+    a head (the state's forward update, G's update, and one multiply-add
+    each of dr, dk, dv and dw; 2 a multiply-add)."""
+    r, u = args[0], args[4]
+    dh = r.shape[-1]
+    return (9 * r.numel() + 2 * u.numel()) * r.element_size(), \
+        12 * r.numel() * dh
+
+
+def wkv6_bwd_record(device, errs, plain_ms, launches):
+    """wkv6's backward at the rwkv6 training call (TRAIN_WKV, bf16, as
+    22a runs it), timed with CUDA events (its 151 MB of inputs and
+    outputs exceed L2)."""
+    import torch
+    from repro_torch.kernels import wkv6 as wk
+    args = wkv6_bwd_inputs(torch.bfloat16, device, 60)
+    ms = time_ms(lambda: wk.wkv6_bwd(*args), iters=10)
+    nbytes, flops = wkv6_bwd_bytes_flops(args)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["float32"]
+    return {"name": "wkv6_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/wkv6_bwd.cu",
+            "replaces": "none: the backward of src/repro/kernels/wkv6.py:32 "
+                        "(pallas_call :95), which has none; JAX "
+                        "differentiates the jnp twin "
+                        "src/repro/models/nn.py:754 (wkv6_chunked)",
+            "launches": sum(launches.values()), "launches_by_path": launches,
+            "max_abs_err": max(e for case in errs.values()
+                               for e, _ in case.values()),
+            "errors_by_case": errs, "tolerance": WKV6_BWD_TOL, "ms": ms,
+            "plain_ms": plain_ms["bf16 w=0"], "plain_ms_by_case": plain_ms,
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_unit": "bytes" if t_bytes >= t_ops else "fp32",
+            "bytes": nbytes, "flops": flops, "library_ms": None,
+            "library": "none", "shape": list(TRAIN_WKV), "dtype": "bfloat16",
+            "design": "state checkpoints every 16 tokens (a forward pass), "
+                      "then chunks in reverse: a chunk's 16 states "
+                      "recomputed into registers, a thread per row d and "
+                      "2 columns e of S and G, 16 columns a block; dr, dk, "
+                      "dw summed over e by shuffles and per-block "
+                      "partials, dv over d by shuffles and shared memory; "
+                      "a last pass sums the partials in a fixed order (no "
+                      "atomics)",
+            "ptxas": ptxas_report("wkv6_bwd", "wkv6_bwd")}
+
+
+def mamba_bwd_record(device, errs, plain_ms, launches):
+    """mamba_scan's backward at the jamba training call (TRAIN_MAMBA, f32),
+    timed with CUDA events (its 0.7 GB of inputs and outputs exceed L2).
+    Operations: 24 f32 a (token, channel, entry) (the state's recompute
+    4, dh 2, du 2, ddt 4, dA 3, dB 2, dC 4, the two decays 2, the sums
+    1) and one exp at the SFU rate; the bound is the largest time."""
+    from repro_torch.kernels import mamba_scan as ms
+    args = mamba_bwd_inputs(device, 70)
+    t_ms = time_ms(lambda: ms.mamba_scan_bwd(*args), iters=10)
+    u, A = args[0], args[2]
+    b, s, ci = u.shape
+    n = A.shape[1]
+    nbytes = (5 * u.numel() + 4 * b * s * n) * u.element_size() \
+        + (2 * ci * n + 2 * ci) * 4
+    flops, exps = 24 * b * s * ci * n, b * s * ci * n
+    bound = max((nbytes / HBM_BYTES_PER_S, "bytes", "bytes"),
+                (flops / PEAK_FLOPS["float32"], "operations", "fp32"),
+                (exps / SFU_EXP_PER_S, "operations", "sfu_exp"))
+    return {"name": "mamba_scan_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/mamba_scan_bwd.cu",
+            "replaces": "none: the backward of "
+                        "src/repro/kernels/mamba_scan.py:31 (pallas_call "
+                        ":86), which has none; JAX differentiates the jnp "
+                        "twin src/repro/models/nn.py:649 (selective_scan)",
+            "launches": sum(launches.values()), "launches_by_path": launches,
+            "max_abs_err": max(e for e, _ in errs.values()),
+            "errors": errs, "tolerance": MAMBA_BWD_TOL, "ms": t_ms,
+            "plain_ms": plain_ms, "bound_ms": 1e3 * bound[0],
+            "bound_by": bound[1], "bound_unit": bound[2], "bytes": nbytes,
+            "flops": flops, "exps": exps, "library_ms": None,
+            "library": "none", "shape": list(TRAIN_MAMBA),
+            "dtype": "float32",
+            "design": "state checkpoints every 16 tokens (a forward pass), "
+                      "then chunks in reverse: a channel's 16 entries over "
+                      "4 lanes, a chunk's 16 states recomputed into "
+                      "registers, 64 channels a block; du, ddt by "
+                      "shuffles over a channel's lanes, dB, dC by a "
+                      "halving transpose-reduction over a warp's channels, "
+                      "shared memory over its warps and per-block partials; "
+                      "a last pass sums them in a fixed order (no atomics)",
+            "ptxas": ptxas_report("mamba_scan_bwd", "mamba_bwd")}
+
+
 # --------------------------------------------------------------------------
 # phase 20: the serving planner, windowed ring caches, h2o-danube3-4b
 # --------------------------------------------------------------------------
@@ -5294,6 +5466,211 @@ def tp_records(tp_out, card):
     return recs
 
 
+# phase 22: the recurrent block kinds trained on the card at phase 13's
+# shape (R TRAIN_R x TRAIN_ROWS x TRAIN_SEQ, TRAIN_ROUNDS rounds, bf16,
+# the config's Adam, remat), each in its config's stash mode: (arch,
+# layers, pp, schedule, stash mode).  rwkv6-1.6b whole (24 layers, ~1.6 B
+# parameters); jamba-v0.1-52b cut to its first 2 of 32 layers (Mamba +
+# dense FFN, Mamba + MoE of 16 experts top 2: ~3.7 B parameters; with
+# Adam even 4 layers are ~83 GB), at pp 1: a stage must hold whole layer
+# patterns.  22c: both at 2 layers in fp32 (phase 14's shape and SGD),
+# executor against oracle; the oracle consumes its input as it goes
+# (jamba's fp32 state is 30 GB: an input and an output do not fit the
+# card beside a round's gradients)
+RECUR_TRAIN = (("rwkv6-1.6b", 24, 2, "1f1b", "stash"),
+               ("jamba-v0.1-52b", 2, 1, "gpipe", "flush"))
+RECUR_CONS_LAYERS = 2
+# (label, substring of the kernel names) of each arch's scan kernels in a
+# profiled round
+RECUR_KERNELS = {"rwkv6-1.6b": (("wkv6_fwd", "wkv6_chunked_kernel"),
+                                ("wkv6_bwd", "wkv6_bwd")),
+                 "jamba-v0.1-52b": (("mamba_fwd", "mamba_scan_kernel"),
+                                    ("mamba_bwd", "mamba_bwd"))}
+
+
+@contextlib.contextmanager
+def plain_versions_refused():
+    """Every plain version of a training kernel raises while the block
+    runs: the attention, WKV6 and selective-scan forwards and backwards
+    on the card's training path must run the CUDA kernels."""
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import wkv6 as wk
+    names = ((wk, "wkv6_plain"), (wk, "wkv6_bwd_plain"),
+             (ms, "mamba_scan_plain"), (ms, "mamba_scan_bwd_plain"))
+    saved = [getattr(m, n) for m, n in names]
+
+    def refuse(*_, **__):
+        raise AssertionError("a plain WKV6 / selective-scan version ran on "
+                             "the card's training path")
+    for m, n in names:
+        setattr(m, n, refuse)
+    try:
+        with plain_attention_refused():
+            yield
+    finally:
+        for (m, n), fn in zip(names, saved):
+            setattr(m, n, fn)
+
+
+def scan_launches(spec, rounds, r):
+    """The scan kernels' launches a run of ``rounds`` rounds of ``r``
+    microbatches makes: per mixer layer and microbatch three forwards (F,
+    the B phase's re-run, the checkpoint's recompute: remat) and one
+    backward."""
+    n = {m: sum(b.mixer == m for b in spec.blocks)
+         for m in ("rwkv", "mamba")}
+    per = rounds * r
+    return {"wkv6": 3 * per * n["rwkv"], "wkv6_bwd": per * n["rwkv"],
+            "mamba_scan": 3 * per * n["mamba"],
+            "mamba_scan_bwd": per * n["mamba"]}
+
+
+def recurrent_train(device, arch, layers, pp, schedule, mode):
+    """22a / 22b: ``arch`` at full width, its first ``layers`` layers,
+    trained through the launcher's builder (launch/train.py) at phase
+    13's shape, the last round under torch.profiler, with every plain
+    version refused.  Every WKV / selective-scan forward and backward
+    on its kernel; finite losses; for MoE models a finite aux > 0."""
+    import torch
+    from repro_torch.data.pipeline import Loader, SyntheticLM
+    from repro_torch import configs
+    args = train_args(["--layers", str(layers), "--pp", str(pp),
+                       "--microbatches", str(TRAIN_R), "--global-batch",
+                       str(TRAIN_R * TRAIN_ROWS), "--seq-len",
+                       str(TRAIN_SEQ), "--schedule", schedule,
+                       "--stash-mode", mode], arch=arch)
+    spec, bundle = build_train(args)
+    plan = bundle.plan
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = bundle.init_state(torch.Generator(device).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in tree_leaves(state["params"])
+                   if torch.is_tensor(t))
+    loader = Loader(SyntheticLM(spec.vocab, TRAIN_SEQ, seed=SEED),
+                    plan.microbatches, bundle.microbatch_size, device)
+    batches = [loader.get(r) for r in range(TRAIN_ROUNDS)]
+    reset_counts()
+    losses, auxes, round_s, prof = [], [], [], None
+    with plain_versions_refused():
+        for r, batch in enumerate(batches):
+            if r == len(batches) - 1:
+                state, m, prof = profile_round(bundle, state, batch,
+                                               round_s[-1],
+                                               RECUR_KERNELS[arch])
+            else:
+                t1 = time.perf_counter()
+                state, m = bundle.train_step(state, batch)
+                torch.cuda.synchronize()
+                round_s.append(time.perf_counter() - t1)
+            losses.append(float(m["loss"]))
+            auxes.append(float(m["aux"]))
+    counts = read_all_counts()
+    want = {"paged_attention": 0, "paged_attention_int8": 0,
+            "flash_attention": 0, "flash_attention_bwd": 0,
+            **scan_launches(spec, TRAIN_ROUNDS, plan.microbatches)}
+    if counts != want:
+        raise AssertionError(f"launches on {spec.name}'s training path: "
+                             f"{counts}, expected {want}")
+    if not all(np.isfinite(losses + auxes)):
+        raise AssertionError(f"{spec.name}: non-finite loss or aux: {losses}, "
+                             f"{auxes}")
+    if spec.moe is not None and not all(a > 0 for a in auxes):
+        raise AssertionError(f"{spec.name}: MoE aux {auxes}, expected > 0")
+    tokens = plan.microbatches * bundle.microbatch_size * TRAIN_SEQ
+    moe = bundle.statics.moe
+    out = {"model": spec.name, "layers": spec.n_layers,
+           "parameters": n_params,
+           "schedule": f"{bundle.sched.name}/{plan.stash_mode}",
+           "pp": plan.pp, "microbatches": plan.microbatches,
+           "rows": bundle.microbatch_size, "seq_len": TRAIN_SEQ,
+           "optimizer": configs.get(arch).OPTIMIZER, "init_s": init_s,
+           "round_s": round_s, "round_s_warm": round_s[-1],
+           "tokens_per_s": tokens / round_s[-1],
+           "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "loss_per_round": losses, "aux_per_round": auxes,
+           "moe_capacity": None if moe is None else moe.capacity,
+           "launches": counts}
+    log(f"[train-recurrent] {spec.name}: {spec.n_layers} layers, "
+        f"{n_params / 1e9:.3f} B parameters, {out['schedule']} pp={plan.pp} "
+        f"R={plan.microbatches} x {bundle.microbatch_size} x {TRAIN_SEQ}, "
+        f"adam lr {out['optimizer'][1]}: init {init_s:.1f}s, rounds "
+        f"{[round(x, 3) for x in round_s]} s ({out['tokens_per_s']:.0f} "
+        f"tokens/s warm), peak {out['peak_allocated_gb']:.1f} GB; loss per "
+        f"round {[round(x, 4) for x in losses]}, aux "
+        f"{[round(x, 4) for x in auxes]}, MoE capacity "
+        f"{out['moe_capacity']}; launches {counts}")
+    fwd, bwd = RECUR_KERNELS[arch]
+    log(f"[profile] {spec.name} train round: {prof['device_ms']:.1f} ms of "
+        f"device kernels in a {1e3 * round_s[-1]:.1f} ms round, idle share "
+        f"{prof['idle_share']:.3f}; {fwd[0]} {prof[fwd[0] + '_ms']:.1f} ms "
+        f"in {prof[fwd[0] + '_launches']}, {bwd[0]} "
+        f"{prof[bwd[0] + '_ms']:.1f} ms in {prof[bwd[0] + '_launches']} "
+        f"launches; top kernels (ms, calls): "
+        f"{[(k['name'][:50], round(k['ms'], 1), k['calls']) for k in prof['by_kernel']]}")
+    del state, bundle, batches
+    torch.cuda.empty_cache()
+    return out, prof
+
+
+def phase_train_recurrent(device):
+    """Phase 22: 22a and 22b (RECUR_TRAIN), then 22c: each arch at
+    RECUR_CONS_LAYERS layers in fp32 through the executor and the oracle
+    (:func:`executor_equals_oracle`, deterministic algorithms), every
+    scan on its kernels.  Returns (records, profiles, launches by path,
+    seconds)."""
+    import os
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch.train import cut_layers
+    from repro_torch.optim import SGDM
+    out, profs, launches, seconds = {}, [], {}, {}
+    for arch, layers, pp, schedule, mode in RECUR_TRAIN:
+        t0 = time.perf_counter()
+        out[arch], prof = recurrent_train(device, arch, layers, pp, schedule,
+                                          mode)
+        profs.append(prof)
+        launches[f"{arch.split('-')[0]}_train"] = out[arch]["launches"]
+        seconds[arch] = time.perf_counter() - t0
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    out["22c"] = {}
+    try:
+        for arch, _, pp, schedule, mode in RECUR_TRAIN:
+            t0 = time.perf_counter()
+            cfg = configs.get(arch)
+            spec = cut_layers(cfg.full_spec(), RECUR_CONS_LAYERS)
+            plan = cfg.PLAN.with_(tp=1, pp=pp, microbatches=CONS_R,
+                                  schedule=schedule, stash_mode=mode)
+            reset_counts()
+            with plain_versions_refused():
+                out["22c"][arch] = executor_equals_oracle(
+                    device, f"{schedule}/{mode}", spec, plan, SGDM(lr=0.01),
+                    donate=True)
+            counts = read_all_counts()
+            want = scan_launches(spec, 2 * CONS_ROUNDS, CONS_R)
+            if {k: counts[k] for k in want} != want:
+                raise AssertionError(f"22c {spec.name} launches {counts}, "
+                                     f"expected {want} (executor + oracle)")
+            out["22c"][arch]["launches"] = counts
+            launches[f"{arch.split('-')[0]}_train_exact"] = counts
+            seconds[f"22c {arch}"] = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    log(f"[phases] 22 seconds: {json.dumps(seconds)}")
+    return out, profs, launches, seconds
+
+
+class PhaseSeconds(dict):
+    """Each phase's seconds, logged as it is recorded: a run cut short
+    still shows where its time went."""
+
+    def __setitem__(self, name, seconds):
+        super().__setitem__(name, seconds)
+        log(f"[phases] {name}: {seconds:.1f}s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5305,7 +5682,7 @@ def main() -> int:
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phase_s = {}
+    phase_s = PhaseSeconds()
 
     phase_build()
     phase_s["1 build"] = time.perf_counter() - t_start
@@ -5316,6 +5693,8 @@ def main() -> int:
     errs["paged_attention_int8"] = phase_paged_int8_kernel(device)
     errs["flash_attention_bwd"] = phase_flash_bwd_kernel(device)
     errs["dh120"] = phase_dh120_kernels(device)
+    errs["wkv6_bwd"] = phase_wkv6_bwd_kernel(device)
+    errs["mamba_scan_bwd"] = phase_mamba_bwd_kernel(device)
     phase_s["2 kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
 
@@ -5425,6 +5804,15 @@ def main() -> int:
     tp_out, tp_s, tp_counts = phase_tp(device,
                                        train_out["loss_per_round"][0])
     phase_s["21 tensor parallel"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    recur_out, prof_recur, recur_launches, recur_s = phase_train_recurrent(
+        device)
+    phase_s["22 train recurrent"] = time.perf_counter() - t0
+
+    def recur_paths(arch, kernel):
+        return {k: c[kernel] for k, c in recur_launches.items()
+                if k.startswith(arch)}
 
     records = kernel_records(device, errs, {
         "paged_attention": {"qwen3_serve": paged_launches,
@@ -5461,13 +5849,19 @@ def main() -> int:
             "qwen3_driver_two_ranks": ckpt_counts["flash_attention_bwd"],
             **{k: c["flash_attention_bwd"]
                for k, c in tp_counts.items()}},
-        "wkv6": {"serve": wkv_serve, "full_transformer": wkv_ref},
+        "wkv6": {"serve": wkv_serve, "full_transformer": wkv_ref,
+                 **recur_paths("rwkv6", "wkv6")},
         "wkv6_by_design": {
             design: {"serve": wkv_serve_designs[design],
                      "full_transformer": wkv_ref_designs[design]}
             for design in ("chunked", "stepwise")},
         "mamba_scan": {"serve": jamba_counts["mamba_scan"],
-                       "full_transformer": jamba_ref["mamba_scan"]}})
+                       "full_transformer": jamba_ref["mamba_scan"],
+                       **recur_paths("jamba", "mamba_scan")}})
+    records += [wkv6_bwd_record(device, *errs["wkv6_bwd"],
+                                recur_paths("rwkv6", "wkv6_bwd")),
+                mamba_bwd_record(device, *errs["mamba_scan_bwd"],
+                                 recur_paths("jamba", "mamba_scan_bwd"))]
     records.insert(2, verify_record(device, tile_err,
                                     batch_counts["verify_q5"]))
     dh120 = dh120_records(device, errs["dh120"], {
@@ -5487,7 +5881,7 @@ def main() -> int:
         f"int8/int8 {serve_quant}; consistency int8/int8 "
         f"{consistency_quant}; consistency train {consistency_train}; "
         f"dist {json.dumps(dist_s)}; ckpt dist {json.dumps(ckpt_s)}; "
-        f"tp {json.dumps(tp_s)}")
+        f"tp {json.dumps(tp_s)}; train recurrent {json.dumps(recur_s)}")
     print(json.dumps({"profile": prof_qwen}))
     print(json.dumps({"profile": prof}))
     print(json.dumps({"profile": prof_rwkv_prefill}))
@@ -5497,6 +5891,8 @@ def main() -> int:
     print(json.dumps({"profile": prof_train}))
     for prof_v in prof_virtual:
         print(json.dumps({"profile": prof_v}))
+    for prof_r in prof_recur:
+        print(json.dumps({"profile": prof_r}))
     print(json.dumps({"train": train_out}))
     for name in virtual:
         print(json.dumps({"train": virtual[name]}))
@@ -5515,6 +5911,11 @@ def main() -> int:
     print(json.dumps({"planned_serving": {**planned_rec, "card": card}}))
     for rec in tp_records(tp_out, card):
         print(json.dumps({"tp": rec}))
+    for arch, *_ in RECUR_TRAIN:
+        print(json.dumps({"train_recurrent": {**recur_out[arch],
+                                              "card": card}}))
+    print(json.dumps({"train_recurrent_exact": {**recur_out["22c"],
+                                                "card": card}}))
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

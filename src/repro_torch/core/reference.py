@@ -115,6 +115,29 @@ def _gather(cells, lead, donate: bool):
     return out
 
 
+def _update_leafwise(optimizer, grads, state, params, step):
+    """``optimizer.update(grads, state, params, step)`` leaf by leaf, each
+    gradient, parameter and state leaf popped from its dict as its
+    update lands: the same arithmetic (the optimizer's per-leaf rule),
+    with one leaf's old and new tensors alive at a time instead of the
+    whole tree's.  For a donated round's rows, whose dicts nothing else
+    holds; the dicts are left empty."""
+    def walk(g, p, s):
+        new_p, new_s = {}, [{} for _ in s]
+        for k in list(g):
+            gk, pk, sk = g.pop(k), p.pop(k), [x.pop(k) for x in s]
+            if isinstance(gk, dict):
+                new_p[k], subs = walk(gk, pk, sk)
+            else:
+                new_p[k], *subs = optimizer._leaf(gk, tuple(sk), pk, step)
+            for d, v in zip(new_s, subs):
+                d[k] = v
+            del gk, pk, sk
+        return new_p, new_s
+    new_p, new_s = walk(grads, params, [state[k] for k in optimizer.slots])
+    return new_p, dict(zip(optimizer.slots, new_s))
+
+
 def reference_train_step(spec, plan, state, batch, optimizer,
                          aux_weight: float = 0.01, *, donate: bool = False):
     """Mirror of core/pipeline.py's ``train_step``, sequential, one data
@@ -125,8 +148,9 @@ def reference_train_step(spec, plan, state, batch, optimizer,
     ``donate=True`` hands the input state to the step, as a jitted step's
     donated argument: its dicts are emptied and its tensors released as
     the round replaces them, so a full-width state and its successor
-    need not fit the card side by side.  The caller must not use
-    ``state`` afterwards."""
+    need not fit the card side by side (the round-end update of
+    accumulated gradients then runs leaf by leaf where no ring holds the
+    rows).  The caller must not use ``state`` afterwards."""
     S, R = plan.pp, plan.microbatches
     sched = make_schedule(plan)
     check_trainable(spec, sched)
@@ -253,8 +277,10 @@ def reference_train_step(spec, plan, state, batch, optimizer,
         for p in range(L):
             g = tree_map(lambda a: a / R, gacc[p])
             gacc[p] = None
-            weights[p], opt[p] = optimizer.update(g, opt[p], weights[p],
-                                                  step)
+            update = (_update_leafwise if donate and not use_ring
+                      else type(optimizer).update)
+            weights[p], opt[p] = update(optimizer, g, opt[p], weights[p],
+                                        step)
         hf_new, head_opt = optimizer.update(
             {"h": dhead_acc / R, "f": tree_map(lambda a: a / R, dfnorm_acc)},
             head_opt, {"h": head, "f": fnorm}, step)

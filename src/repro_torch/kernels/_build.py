@@ -93,11 +93,18 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def refuse_grad(kernel: str, *tensors) -> None:
-    """Raise when autograd would record through a kernel that has no
-    backward: its output would carry no gradient, silently."""
+def refuse_grad(kernel: str, *tensors, via: str = "") -> None:
+    """Raise when autograd would record through a launch wrapper, which
+    records no backward: its output would carry no gradient, silently.
+    ``via`` names the autograd Function that trains through the kernel,
+    where there is one."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
+        if via:
+            raise RuntimeError(
+                f"{kernel}: the launch wrapper records no backward; under "
+                f"autograd call the kernel through {via} (ops.{kernel} "
+                f"does), or call the wrapper under torch.no_grad()")
         raise RuntimeError(
             f"{kernel}: the CUDA kernel has no backward yet (training "
             f"through it comes with a later slice of the port); call it "

@@ -17,6 +17,12 @@ version is the stepwise form: it has no exp(±cumulative decay) term, so
 it stays finite at any decay where the chunked TPU form overflows f32.
 Both CUDA designs stay finite too and take any S >= 1 unpadded.
 
+Training goes through :class:`WKV6` (from a zero state): the forward
+kernel, then the backward kernels of ``csrc/wkv6_bwd.cu``
+(:func:`wkv6_bwd`, counter ``wkv6_bwd.launches``), whose plain version
+is :func:`wkv6_bwd_plain`.  The TPU kernel has no backward (JAX
+differentiates its jnp twin ``nn.wkv6_chunked``), so they replace none.
+
 Two CUDA designs share the counter ``wkv6.launches``; the wrapper picks
 one by shape and dtype alone (:func:`design`): bf16 calls with S >= 16
 and Dh in 16, 32 or 64 (the rwkv6 prefill) run the chunked tensor-core
@@ -49,6 +55,56 @@ def wkv6_plain(r, k, v, w, u, s0=None):
     if s0 is None:
         return y, s_last
     return y, s0.copy_(s_last)
+
+
+def wkv6_bwd_plain(r, k, v, w, u, dy):
+    """The backward of :func:`wkv6` from a zero state, in plain PyTorch
+    (CPU training, card checks): the reverse recurrence written out in
+    f32, not autograd of the forward.  With S_t = diag(w_t) S_{t-1} +
+    k_t v_tᵀ, y_t = r_t · (S_{t-1} + diag(u) k_t v_tᵀ) and G_t = dL/dS_t
+    (G_S = 0: the last state carries no gradient)::
+
+        G_{t-1} = diag(w_t) G_t + r_t dy_tᵀ
+        dr_t = (S_{t-1} + diag(u) k_t v_tᵀ) dy_t
+        dk_t = G_t v_t + u ⊙ r_t (v_t · dy_t)
+        dv_t = G_tᵀ k_t + (Σ r_t ⊙ u ⊙ k_t) dy_t
+        dw_t = rowsum(G_t ⊙ S_{t-1})
+        du = Σ_{b,t} r_t ⊙ k_t (v_t · dy_t)
+
+    The recurrence runs on w clipped to [1e-8, 1], as the forward does,
+    and dw is its derivative there: the clip passes the gradient through
+    (at w = 0 it is the derivative at w = 1e-8, finite).  dw is formed
+    from the states themselves, never as d(log w) / w, which is 0 / 0
+    where w underflows.  Returns (dr, dk, dv, dw, du) in the inputs'
+    dtypes."""
+    b, s, h, dh = r.shape
+    rf, kf, vf, dyf = (t.float() for t in (r, k, v, dy))
+    wf = w.float().clamp(1e-8, 1.0)
+    uf = u.float()
+    state = torch.zeros((b, h, dh, dh), dtype=torch.float32, device=r.device)
+    before = []                                  # S_{t-1} for every t
+    for t in range(s):
+        before.append(state)
+        state = (wf[:, t, :, :, None] * state
+                 + kf[:, t, :, :, None] * vf[:, t, :, None, :])
+    grads = [torch.empty((b, s, h, dh), dtype=torch.float32, device=r.device)
+             for _ in range(4)]
+    dr, dk, dv, dw = grads
+    du = torch.zeros((h, dh), dtype=torch.float32, device=r.device)
+    g = torch.zeros_like(state)                  # G_t
+    for t in reversed(range(s)):
+        rt, kt, vt, dyt = rf[:, t], kf[:, t], vf[:, t], dyf[:, t]
+        vdy = (vt * dyt).sum(-1, keepdim=True)                 # (B, H, 1)
+        dr[:, t] = (torch.einsum("bhde,bhe->bhd", before[t], dyt)
+                    + uf * kt * vdy)
+        dk[:, t] = torch.einsum("bhde,bhe->bhd", g, vt) + uf * rt * vdy
+        dv[:, t] = (torch.einsum("bhde,bhd->bhe", g, kt)
+                    + (rt * uf * kt).sum(-1, keepdim=True) * dyt)
+        dw[:, t] = (g * before[t]).sum(-1)
+        du += (rt * kt * vdy).sum(0)
+        g = wf[:, t, :, :, None] * g + rt[..., None] * dyt[:, :, None, :]
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype),
+            du.to(u.dtype))
 
 
 def _excl_cumprod(w):
@@ -152,9 +208,9 @@ def wkv6(r, k, v, w, u, s0=None):
     (B, H, Dh, Dh) float32, advanced in place.  All contiguous on one
     CUDA device; anything else raises.  Returns (y (B, S, H, Dh) in r's
     dtype, s_last (B, H, Dh, Dh) float32, which is ``s0`` when given).
-    Raises under autograd: the kernel has no backward yet.
+    Raises under autograd: training goes through :class:`WKV6`.
     """
-    _build.refuse_grad("wkv6", r, k, v, w, u, s0)
+    _build.refuse_grad("wkv6", r, k, v, w, u, s0, via="WKV6")
     if r.dim() != 4 or any(t.shape != r.shape for t in (k, v, w)):
         raise ValueError(f"r, k, v, w must share one (B, S, H, Dh) shape, "
                          f"got {[tuple(t.shape) for t in (r, k, v, w)]}")
@@ -207,3 +263,84 @@ def wkv6(r, k, v, w, u, s0=None):
 wkv6.launches = 0            # every launch: the sum of the two below
 wkv6.launches_chunked = 0
 wkv6.launches_stepwise = 0
+
+
+def _bind_bwd():
+    lib = _build.library("wkv6_bwd")
+    fn = lib.wkv6_bwd_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 12
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.wkv6_bwd_scratch_floats.argtypes = [ctypes.c_int] * 4
+        lib.wkv6_bwd_scratch_floats.restype = ctypes.c_size_t
+    return lib
+
+
+def wkv6_bwd(r, k, v, w, u, dy):
+    """Launch the backward kernels (``csrc/wkv6_bwd.cu``) on PyTorch's
+    current stream: the gradients of :func:`wkv6` from a zero state, as
+    :func:`wkv6_bwd_plain` defines them; deterministic, no atomics.
+
+    r, k, v, w, dy: (B, S, H, Dh) with S >= 1 and Dh in 4, 8, 16, 32 or
+    64; u: (H, Dh); all of one dtype, float32 or bfloat16, contiguous on
+    one CUDA device (anything else raises).  Returns (dr, dk, dv, dw, du)
+    in that dtype; the arithmetic is f32.
+    """
+    _build.refuse_grad("wkv6_bwd", r, k, v, w, u, dy)
+    if r.dim() != 4 or any(t.shape != r.shape for t in (k, v, w, dy)):
+        raise ValueError(f"r, k, v, w, dy must share one (B, S, H, Dh) "
+                         f"shape, got "
+                         f"{[tuple(t.shape) for t in (r, k, v, w, dy)]}")
+    b, s, h, dh = r.shape
+    if tuple(u.shape) != (h, dh):
+        raise ValueError(f"u {tuple(u.shape)} must be (H, Dh) = {(h, dh)}")
+    if s < 1 or dh not in _HEAD_DIMS:
+        raise ValueError(f"wkv6's backward kernel takes S >= 1 and Dh in "
+                         f"{_HEAD_DIMS}, got S={s}, Dh={dh}")
+    tensors = (r, k, v, w, u, dy)
+    if r.device.type != "cuda" or any(t.device != r.device for t in tensors):
+        raise ValueError("wkv6's backward kernel takes CUDA tensors on one "
+                         "device")
+    if r.dtype not in _DTYPES or any(t.dtype != r.dtype for t in tensors):
+        raise TypeError(f"r, k, v, w, u, dy must share float32 or bfloat16, "
+                        f"got {[t.dtype for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("wkv6's backward kernel takes contiguous tensors")
+    lib = _bind_bwd()
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du = torch.empty_like(u)
+    scratch = torch.empty(lib.wkv6_bwd_scratch_floats(b, s, h, dh),
+                          dtype=torch.float32, device=r.device)
+    err = lib.wkv6_bwd_launch(
+        _DTYPES[r.dtype], *(t.data_ptr() for t in (
+            r, k, v, w, u, dy, dr, dk, dv, dw, du, scratch)),
+        b, s, h, dh, _build.stream_handle(r.device))
+    if err:
+        raise RuntimeError(f"wkv6_bwd kernel launch failed: CUDA error "
+                           f"{err}")
+    wkv6_bwd.launches += 1
+    return dr, dk, dv, dw, du
+
+
+wkv6_bwd.launches = 0
+
+
+class WKV6(torch.autograd.Function):
+    """Differentiable WKV6 from a zero state: :func:`wkv6` and
+    :func:`wkv6_bwd` for CUDA tensors, :func:`wkv6_plain` and
+    :func:`wkv6_bwd_plain` for CPU tensors.  Returns (y, s_last); s_last
+    carries no gradient (no path reads it under autograd)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u):
+        fwd = wkv6 if r.is_cuda else wkv6_plain
+        y, s_last = fwd(r, k, v, w, u)
+        ctx.save_for_backward(r, k, v, w, u)
+        ctx.mark_non_differentiable(s_last)
+        return y, s_last
+
+    @staticmethod
+    def backward(ctx, dy, _ds_last):
+        bwd = wkv6_bwd if dy.is_cuda else wkv6_bwd_plain
+        return bwd(*ctx.saved_tensors, dy.contiguous())

@@ -559,9 +559,10 @@ def mamba_block(p, x, ms: MambaStatic, state=None, tp=None):
     held tail concatenated before the new inputs, so a prompt shorter
     than d_conv - 1 keeps part of the old tail, as in JAX.  Without a
     state the conv is zero-padded and the scan starts from zero.  Every
-    call goes through ``ops.mamba_scan`` (the CUDA kernel on the card),
-    with JAX's casts: xc, dt, B and C enter the scan in f32 and y is cast
-    back to x's dtype before the ``silu(z)`` gate.
+    call goes through ``ops.mamba_scan`` (the CUDA kernel on the card;
+    under autograd its forward and backward kernels), with JAX's casts:
+    xc, dt, B and C enter the scan in f32 and y is cast back to x's
+    dtype before the ``silu(z)`` gate.
 
     With ``tp`` the rank holds its ``d_inner_local`` channels: the
     ``x_proj`` partial sums leave through ``tp_exit`` and the summed
@@ -621,7 +622,8 @@ def rwkv_time_mix(p, x, rst: RWKVStatic, state=None, tp=None):
     views, read as the start and advanced in place (the WKV kernel
     writes its last state over ``wkv``).  Without a state the WKV runs
     from zero, as the TPU kernel does.  Every path goes through
-    ``ops.wkv6``: the CUDA kernel on the card.
+    ``ops.wkv6``: the CUDA kernel on the card (under autograd, training,
+    its forward and backward kernels).
 
     With ``tp`` the rank holds its ``n_heads_local`` heads: the token
     shift and the five lerps stay whole on every rank, each mixed input

@@ -34,13 +34,16 @@ LOSS_ATOL = 5e-5
 PARAM_TOL = (2e-5, 1e-3)
 
 
-def run_both(mode, pp, opt="sgdm", lr=0.05, arch="qwen3-14b"):
+def run_both(mode, pp, opt="sgdm", lr=0.05, arch="qwen3-14b",
+             spec_fn=None):
     """({"losses", "state"} numpy for JAX, the same for the port) after
-    ROUNDS rounds of the arch's smoke spec (qwen3's by default), fp32."""
+    ROUNDS rounds of the arch's smoke spec (qwen3's by default), fp32;
+    ``spec_fn`` maps each package's smoke spec to the spec trained."""
     kw = dict(pp=pp, microbatches=R, stash_mode=mode)
-    jspec = jconfigs.get(arch).smoke_spec()
+    spec_fn = spec_fn or (lambda spec: spec)
+    jspec = spec_fn(jconfigs.get(arch).smoke_spec())
     jplan = jconfigs.get(arch).SMOKE_PLAN.with_(**kw)
-    tspec = tconfigs.get(arch).smoke_spec()
+    tspec = spec_fn(tconfigs.get(arch).smoke_spec())
     tplan = tconfigs.get(arch).SMOKE_PLAN.with_(**kw)
     name = {"sgdm": "SGDM", "adam": "Adam"}[opt]
     jo, to = getattr(jopt, name)(lr=lr), getattr(topt, name)(lr=lr)

@@ -78,7 +78,18 @@ FLASH_BWD = [  # b, s, h, kv, dh, window (causal; Sq = Sk)
     (1, 4096, 40, 8, 128, -1),
     # qwen3-14b's heads on a tensor rank at tp 2 and tp 8 (training)
     (1, 256, 20, 4, 128, -1), (1, 256, 5, 1, 128, -1)]
+WKV_BWD = [  # b, s, h, dh: every head size, ragged chunks, the training call
+    (2, 37, 3, 4), (2, 37, 3, 8), (1, 50, 2, 16), (2, 33, 2, 32),
+    (1, 100, 3, 64), (2, 16, 2, 64), (1, 1, 2, 64), (1, 4096, 32, 64)]
+MAMBA_BWD = [  # b, s, ci, n: every state size, a partial channel block,
+               # ragged chunks, the training call
+    (2, 37, 100, 4), (2, 37, 100, 8), (1, 70, 64, 16), (2, 33, 200, 16),
+    (1, 16, 8, 16), (2, 1, 130, 16), (1, 4096, 8192, 16)]
 TOL = {torch.float32: (2e-5, 1e-3), torch.bfloat16: (2e-2, 1e-2)}
+# the backward kernels' gradients against their plain versions: (rel,
+# rtol), |err| <= rel · max|plain| + rtol · |plain|: sums over up to S x Dh
+# products in another order (chip_smoke.py's WKV6_BWD_TOL)
+BWD_TOL = {torch.float32: (1e-5, 1e-3), torch.bfloat16: (1e-2, 1e-2)}
 
 
 @pytest.fixture
@@ -657,13 +668,14 @@ def test_flash_autograd_on_the_card_runs_both_kernels(cuda):
 
 @pytest.mark.cuda
 def test_kernels_without_a_backward_raise_under_grad(cuda):
-    """wkv6, mamba_scan and the paged walk have no backward: under
+    """The paged walk has no backward, and the wkv6 and mamba_scan launch
+    wrappers record none (training goes through their Functions): under
     autograd on the card they raise instead of losing the gradient; with
     grad off they run."""
     from repro_torch.kernels import ops
     (r, k, v, w, u), _ = _wkv_args(1, 8, 2, 16, torch.float32, cuda, 0)
-    with pytest.raises(RuntimeError, match="no backward"):
-        ops.wkv6(r.requires_grad_(), k, v, w, u)
+    with pytest.raises(RuntimeError, match="records no backward.*WKV6"):
+        twkv.wkv6(r.requires_grad_(), k, v, w, u)
     with torch.no_grad():
         ops.wkv6(r, k, v, w, u)
     rng = np.random.default_rng(0)
@@ -671,12 +683,103 @@ def test_kernels_without_a_backward_raise_under_grad(cuda):
         rng.standard_normal(sh).astype(np.float32)).to(cuda)
     u_, dt, A, B, C, D = f(1, 8, 16), f(1, 8, 16).abs(), -f(16, 4).abs(), \
         f(1, 8, 4), f(1, 8, 4), f(16)
-    with pytest.raises(RuntimeError, match="no backward"):
-        ops.mamba_scan(u_.requires_grad_(), dt, A, B, C, D)
+    with pytest.raises(RuntimeError, match="records no backward.*MambaScan"):
+        tms.mamba_scan(u_.requires_grad_(), dt, A, B, C, D)
     q, kp, vp, tab, lens = _paged_args(2, 4, 2, 16, 16, 2, 1, torch.float32,
                                        cuda, 0)
     with pytest.raises(RuntimeError, match="no backward"):
         ops.paged_attention(q.requires_grad_(), kp, vp, tab, lens)
+
+
+def _bwd_close(got, want, dtype):
+    rel, rtol = BWD_TOL[dtype]
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.isfinite(g).all()
+        scale = w.float().abs().max().item()
+        torch.testing.assert_close(g.float(), w.float(), atol=rel * scale,
+                                   rtol=rtol)
+
+
+def _wkv_bwd_args(b, s, h, dh, dtype, device, seed, decay=None):
+    (r, k, v, w, u), _ = _wkv_args(b, s, h, dh, dtype, device, seed, decay)
+    rng = np.random.default_rng(seed + 1)
+    dy = torch.from_numpy(rng.standard_normal((b, s, h, dh))).to(
+        device=device, dtype=dtype)
+    return [r, k, v, w, u, dy]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,dh", WKV_BWD)
+def test_wkv6_bwd_kernel_matches_plain(cuda, b, s, h, dh, dtype):
+    args = _wkv_bwd_args(b, s, h, dh, dtype, cuda, seed=s + dh)
+    before = twkv.wkv6_bwd.launches
+    got = twkv.wkv6_bwd(*args)
+    assert twkv.wkv6_bwd.launches == before + 1
+    _bwd_close(got, twkv.wkv6_bwd_plain(*args), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decay", [1e-3, 1e-8, 0.0])
+def test_wkv6_bwd_kernel_at_strong_decay_and_zero(cuda, decay):
+    """Constant strong decay, and w = 0 (a bf16 decay that underflowed:
+    a d(log w) / w form is 0 / 0): finite and equal to the plain
+    backward, and deterministic."""
+    for dtype in (torch.float32, torch.bfloat16):
+        args = _wkv_bwd_args(2, 200, 4, 64, dtype, cuda, seed=9, decay=decay)
+        got = twkv.wkv6_bwd(*args)
+        _bwd_close(got, twkv.wkv6_bwd_plain(*args), dtype)
+        assert all(torch.equal(a, b) for a, b in
+                   zip(got, twkv.wkv6_bwd(*args)))
+
+
+def _mamba_bwd_args(b, s, ci, n, dtype, device, seed):
+    args, _ = _mamba_args(b, s, ci, n, dtype, device, seed)
+    rng = np.random.default_rng(seed + 1)
+    dy = torch.from_numpy(rng.standard_normal((b, s, ci)).astype(
+        np.float32)).to(device=device, dtype=dtype)
+    return args + [dy]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,ci,n", MAMBA_BWD)
+def test_mamba_scan_bwd_kernel_matches_plain(cuda, b, s, ci, n, dtype):
+    args = _mamba_bwd_args(b, s, ci, n, dtype, cuda, seed=s * n + ci)
+    before = tms.mamba_scan_bwd.launches
+    got = tms.mamba_scan_bwd(*args)
+    assert tms.mamba_scan_bwd.launches == before + 1
+    _bwd_close(got, tms.mamba_scan_bwd_plain(*args), dtype)
+    assert all(torch.equal(a, b) for a, b in
+               zip(got, tms.mamba_scan_bwd(*args)))
+
+
+@pytest.mark.cuda
+def test_recurrent_autograd_on_the_card_runs_both_kernels(cuda):
+    """ops.wkv6 and ops.mamba_scan under autograd: the forward kernel,
+    then the backward kernel; the gradients equal autograd of the plain
+    forwards (f32)."""
+    from repro_torch.kernels import ops
+    args = _wkv_bwd_args(2, 50, 2, 32, torch.float32, cuda, seed=5)
+    leaves = [t.clone().requires_grad_() for t in args[:5]]
+    f0, b0 = twkv.wkv6.launches, twkv.wkv6_bwd.launches
+    got = torch.autograd.grad(ops.wkv6(*leaves)[0], leaves, args[5])
+    assert (twkv.wkv6.launches, twkv.wkv6_bwd.launches) == (f0 + 1, b0 + 1)
+    leaves = [t.clone().requires_grad_() for t in args[:5]]
+    want = torch.autograd.grad(twkv.wkv6_plain(*leaves)[0], leaves, args[5])
+    _bwd_close(got, want, torch.float32)
+    args = _mamba_bwd_args(2, 50, 100, 16, torch.float32, cuda, seed=6)
+    leaves = [t.clone().requires_grad_() for t in args[:6]]
+    f0, b0 = tms.mamba_scan.launches, tms.mamba_scan_bwd.launches
+    got = torch.autograd.grad(ops.mamba_scan(*leaves)[0], leaves, args[6])
+    assert (tms.mamba_scan.launches, tms.mamba_scan_bwd.launches) == \
+        (f0 + 1, b0 + 1)
+    leaves = [t.clone().requires_grad_() for t in args[:6]]
+    want = torch.autograd.grad(tms.mamba_scan_plain(*leaves)[0], leaves,
+                               args[6])
+    _bwd_close(got, want, torch.float32)
+    with pytest.raises(ValueError, match="start state under autograd"):
+        ops.mamba_scan(*leaves, torch.zeros(2, 100, 16, device=cuda))
 
 
 @pytest.mark.cuda
@@ -686,11 +789,25 @@ def test_training_on_the_card_matches_the_cpu(cuda, mode):
     SGD with momentum) on the card (both flash kernels) and on the CPU
     (the plain versions), from one state: losses and parameters within
     atol 2e-5."""
+    _train_card_vs_cpu(cuda, "qwen3-14b", mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,mode", [("rwkv6-1.6b", "stash"),
+                                       ("jamba-v0.1-52b", "flush")])
+def test_recurrent_training_on_the_card_matches_the_cpu(cuda, arch, mode):
+    """The same for rwkv6's and jamba's smoke specs in their configs'
+    modes: on the card every WKV / selective scan runs its forward and
+    backward kernels."""
+    _train_card_vs_cpu(cuda, arch, mode)
+
+
+def _train_card_vs_cpu(cuda, arch, mode):
     from repro_torch import configs
     from repro_torch.core.pipeline import build_pipeline
     from repro_torch.data.pipeline import Loader, SyntheticLM
     from repro_torch.optim import SGDM
-    cfg = configs.get("qwen3-14b")
+    cfg = configs.get(arch)
     spec = cfg.smoke_spec()
     plan = cfg.SMOKE_PLAN.with_(microbatches=4, stash_mode=mode)
     init = None

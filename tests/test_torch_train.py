@@ -420,7 +420,8 @@ def test_train_state_from_numpy_carries_the_jax_state():
 def test_kernels_without_a_backward_refuse_autograd(kernel):
     """The wrapper raises before it launches anything when an input
     requires grad (on the card the kernel's output would carry no
-    gradient); the message names the later slice."""
+    gradient); the message names the autograd Function that trains
+    through the kernel (wkv6, mamba_scan), or the later slice (paged)."""
     x = torch.zeros(1, 4, 2, 8, requires_grad=True)
     call = {"wkv6": lambda: twkv.wkv6(x, x, x, x, x[0, 0]),
             "mamba_scan": lambda: tms.mamba_scan(x[0], x[0], x[0, 0],
@@ -428,5 +429,8 @@ def test_kernels_without_a_backward_refuse_autograd(kernel):
             "paged_attention": lambda: tpa.paged_attention(
                 x[0], x, x, torch.zeros(1, 1, dtype=torch.int32),
                 torch.ones(1, dtype=torch.int32))}[kernel]
-    with pytest.raises(RuntimeError, match="no backward.*later slice"):
+    match = {"wkv6": "records no backward.*WKV6",
+             "mamba_scan": "records no backward.*MambaScan",
+             "paged_attention": "no backward.*later slice"}[kernel]
+    with pytest.raises(RuntimeError, match=match):
         call()
