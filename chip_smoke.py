@@ -4455,16 +4455,36 @@ def wkv6_bwd_bytes_flops(args):
         12 * r.numel() * dh
 
 
+def scaling_probe(fn, shapes) -> dict:
+    """The kernel's ms (CUDA events) at each of ``shapes`` ({label:
+    args}): whether the time follows S (a serial walk over the sequence)
+    or the work (H or Ci)."""
+    return {label: time_ms(lambda a=args: fn(*a), iters=10)
+            for label, args in shapes.items()}
+
+
 def wkv6_bwd_record(device, errs, plain_ms, launches):
     """wkv6's backward at the rwkv6 training call (TRAIN_WKV, bf16, as
     22a runs it), timed with CUDA events (its 151 MB of inputs and
-    outputs exceed L2)."""
+    outputs exceed L2); the scaling probe at half S and half H."""
     import torch
     from repro_torch.kernels import wkv6 as wk
     args = wkv6_bwd_inputs(torch.bfloat16, device, 60)
     ms = time_ms(lambda: wk.wkv6_bwd(*args), iters=10)
+    by_kernel = per_launch_ms(lambda: wk.wkv6_bwd(*args), 5,
+                              ("wkv6_bwd_local<", "wkv6_bwd_combine<",
+                               "wkv6_bwd_chunk<", "wkv6_bwd_du<"))
     nbytes, flops = wkv6_bwd_bytes_flops(args)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["float32"]
+    b, s, h, dh = TRAIN_WKV
+    scratch = 4 * wk._bind_bwd().wkv6_bwd_scratch_floats(b, s, h, dh)
+    probe = scaling_probe(wk.wkv6_bwd, {
+        str([b, s, h, dh]): args,
+        str([b, s // 2, h, dh]): [a if i == 4 else a[:, :s // 2].contiguous()
+                                  for i, a in enumerate(args)],
+        str([b, s, h // 2, dh]): [a[:h // 2].contiguous() if i == 4
+                                  else a[:, :, :h // 2].contiguous()
+                                  for i, a in enumerate(args)]})
     return {"name": "wkv6_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/wkv6_bwd.cu",
             "replaces": "none: the backward of src/repro/kernels/wkv6.py:32 "
@@ -4475,32 +4495,49 @@ def wkv6_bwd_record(device, errs, plain_ms, launches):
             "max_abs_err": max(e for case in errs.values()
                                for e, _ in case.values()),
             "errors_by_case": errs, "tolerance": WKV6_BWD_TOL, "ms": ms,
+            "ms_by_kernel": by_kernel,
+            "ms_by_kernel_by": "torch.profiler device time, mean of a "
+                               "launch",
             "plain_ms": plain_ms["bf16 w=0"], "plain_ms_by_case": plain_ms,
             "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bound_unit": "bytes" if t_bytes >= t_ops else "fp32",
             "bytes": nbytes, "flops": flops, "library_ms": None,
             "library": "none", "shape": list(TRAIN_WKV), "dtype": "bfloat16",
-            "design": "state checkpoints every 16 tokens (a forward pass), "
-                      "then chunks in reverse: a chunk's 16 states "
-                      "recomputed into registers, a thread per row d and "
-                      "2 columns e of S and G, 16 columns a block; dr, dk, "
-                      "dw summed over e by shuffles and per-block "
-                      "partials, dv over d by shuffles and shared memory; "
-                      "a last pass sums the partials in a fixed order (no "
-                      "atomics)",
+            "scratch_bytes": scratch, "scaling_ms": probe,
+            "design": "split the sequence, find the boundary states, "
+                      "finish every piece at once: chunks of 64 tokens; "
+                      "A: each chunk's decay, ΔS and ΔG as two products "
+                      "on the CUDA cores (persistent CTAs, the next "
+                      "item's loads in flight); B: S_in and G_out of "
+                      "every chunk by an ordered walk over chunks; C: a "
+                      "CTA a (chunk, head) holds the state, 2 x 4 a "
+                      "thread, its inputs by cp.async a sub-chunk at a "
+                      "time, two ahead (bf16 through a two-slot ring), "
+                      "walks S forward keeping it every 8 tokens "
+                      "in shared memory, then each "
+                      "8-token sub-chunk in "
+                      "reverse: states recomputed into registers (dr), G "
+                      "walked back (dk, dv, dw); sums over e by a "
+                      "transpose-reduction within the warp, over d across "
+                      "warps in shared memory; du's chunk partials summed "
+                      "by a last launch (no atomics)",
             "ptxas": ptxas_report("wkv6_bwd", "wkv6_bwd")}
 
 
 def mamba_bwd_record(device, errs, plain_ms, launches):
     """mamba_scan's backward at the jamba training call (TRAIN_MAMBA, f32),
-    timed with CUDA events (its 0.7 GB of inputs and outputs exceed L2).
-    Operations: 24 f32 a (token, channel, entry) (the state's recompute
-    4, dh 2, du 2, ddt 4, dA 3, dB 2, dC 4, the two decays 2, the sums
-    1) and one exp at the SFU rate; the bound is the largest time."""
+    timed with CUDA events (its 0.7 GB of inputs and outputs exceed L2);
+    the scaling probe at half S and half Ci.  Operations: 24 f32 a
+    (token, channel, entry) (the state's recompute 4, dh 2, du 2, ddt 4,
+    dA 3, dB 2, dC 4, the two decays 2, the sums 1) and one exp at the
+    SFU rate; the bound is the largest time."""
     from repro_torch.kernels import mamba_scan as ms
     args = mamba_bwd_inputs(device, 70)
     t_ms = time_ms(lambda: ms.mamba_scan_bwd(*args), iters=10)
+    by_kernel = per_launch_ms(lambda: ms.mamba_scan_bwd(*args), 5,
+                              ("mamba_bwd_local<", "mamba_bwd_combine<",
+                               "mamba_bwd_seg<", "mamba_bwd_finish<"))
     u, A = args[0], args[2]
     b, s, ci = u.shape
     n = A.shape[1]
@@ -4510,6 +4547,15 @@ def mamba_bwd_record(device, errs, plain_ms, launches):
     bound = max((nbytes / HBM_BYTES_PER_S, "bytes", "bytes"),
                 (flops / PEAK_FLOPS["float32"], "operations", "fp32"),
                 (exps / SFU_EXP_PER_S, "operations", "sfu_exp"))
+    scratch = 4 * ms._bind_bwd().mamba_scan_bwd_scratch_floats(b, s, ci, n)
+    half_s = [a if i in (2, 5) else a[:, :s // 2].contiguous()
+              for i, a in enumerate(args)]
+    half_c = [a[:ci // 2].contiguous() if i in (2, 5)
+              else a if i in (3, 4) else a[:, :, :ci // 2].contiguous()
+              for i, a in enumerate(args)]
+    probe = scaling_probe(ms.mamba_scan_bwd, {
+        str([b, s, ci, n]): args, str([b, s // 2, ci, n]): half_s,
+        str([b, s, ci // 2, n]): half_c})
     return {"name": "mamba_scan_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/mamba_scan_bwd.cu",
             "replaces": "none: the backward of "
@@ -4519,19 +4565,33 @@ def mamba_bwd_record(device, errs, plain_ms, launches):
             "launches": sum(launches.values()), "launches_by_path": launches,
             "max_abs_err": max(e for e, _ in errs.values()),
             "errors": errs, "tolerance": MAMBA_BWD_TOL, "ms": t_ms,
+            "ms_by_kernel": by_kernel,
+            "ms_by_kernel_by": "torch.profiler device time, mean of a "
+                               "launch",
             "plain_ms": plain_ms, "bound_ms": 1e3 * bound[0],
             "bound_by": bound[1], "bound_unit": bound[2], "bytes": nbytes,
             "flops": flops, "exps": exps, "library_ms": None,
             "library": "none", "shape": list(TRAIN_MAMBA),
-            "dtype": "float32",
-            "design": "state checkpoints every 16 tokens (a forward pass), "
-                      "then chunks in reverse: a channel's 16 entries over "
-                      "4 lanes, a chunk's 16 states recomputed into "
-                      "registers, 64 channels a block; du, ddt by "
-                      "shuffles over a channel's lanes, dB, dC by a "
-                      "halving transpose-reduction over a warp's channels, "
-                      "shared memory over its warps and per-block partials; "
-                      "a last pass sums them in a fixed order (no atomics)",
+            "dtype": "float32", "scratch_bytes": scratch,
+            "scaling_ms": probe,
+            "design": "split the sequence, find the boundary states, "
+                      "finish every piece at once: segments of 128 tokens, "
+                      "a CTA a (64 channels, segment, row), two CTAs an "
+                      "SM, a channel's 16 entries over 4 lanes; A: each "
+                      "segment's decay, "
+                      "local end state and local gradient carry in one "
+                      "walk; B: h_in and the carry of every segment by an "
+                      "ordered walk; C: h walked forward from h_in, kept "
+                      "every 8 tokens in shared memory, then each 8-token "
+                      "sub-chunk in reverse: a_t and h_{t-1} recomputed "
+                      "into registers (one exp), dh walked back; du, ddt "
+                      "by shuffles over a channel's lanes, dB, dC by a "
+                      "transpose-reduction over a warp's channels, shared "
+                      "memory over its warps and per-block partials; "
+                      "inputs by cp.async through a 3-slot ring, two "
+                      "sub-chunks ahead; a last pass sums the partials in "
+                      "a fixed order (no atomics); du, ddt, dB, dC "
+                      "staged and stored behind the next sub-chunk",
             "ptxas": ptxas_report("mamba_scan_bwd", "mamba_bwd")}
 
 
@@ -5607,7 +5667,8 @@ def recurrent_train(device, arch, layers, pp, schedule, mode):
         f"{prof['idle_share']:.3f}; {fwd[0]} {prof[fwd[0] + '_ms']:.1f} ms "
         f"in {prof[fwd[0] + '_launches']}, {bwd[0]} "
         f"{prof[bwd[0] + '_ms']:.1f} ms in {prof[bwd[0] + '_launches']} "
-        f"launches; top kernels (ms, calls): "
+        f"launches; "
+        f"top kernels (ms, calls): "
         f"{[(k['name'][:50], round(k['ms'], 1), k['calls']) for k in prof['by_kernel']]}")
     del state, bundle, batches
     torch.cuda.empty_cache()

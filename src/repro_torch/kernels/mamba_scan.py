@@ -20,9 +20,14 @@ lane at N = 4 or 8) and streams u, dt, B and C through shared memory
 Training goes through :class:`MambaScan` (from a zero state): the
 forward kernel, then the backward kernels of ``csrc/mamba_scan_bwd.cu``
 (:func:`mamba_scan_bwd`, counter ``mamba_scan_bwd.launches``), whose
-plain version is :func:`mamba_scan_bwd_plain`.  The TPU kernel has no
-backward (JAX differentiates its jnp twin ``nn.selective_scan``), so
-they replace none.
+plain version is :func:`mamba_scan_bwd_plain`.  They split the sequence
+into segments of ``BWD_SEG`` tokens: each segment's local sums, an
+ordered combine of the boundary states and gradient carries, then every
+segment's gradients from sub-chunk checkpoints in shared memory;
+:func:`mamba_scan_bwd_segmented_plain` is that arithmetic in plain
+PyTorch, for the CPU tests.  The TPU kernel has no backward (JAX
+differentiates its jnp twin ``nn.selective_scan``), so they replace
+none.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ from repro_torch.kernels import ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _D_STATES = (4, 8, 16)   # instantiated in csrc/mamba_scan.cu
+BWD_SEG, BWD_SUB = 128, 8   # the backward kernel's segment, sub-chunk
 
 
 def mamba_scan_plain(u, dt, A, B, C, D, h0=None):
@@ -92,6 +98,105 @@ def mamba_scan_bwd_plain(u, dt, A, B, C, D, dy):
         dA += (dh * dtt[..., None] * ah).sum(0)
         dh = at * dh
     dD = (dyf * uf).sum((0, 1))
+    return (du.to(u.dtype), ddt.to(dt.dtype), dA.to(A.dtype),
+            dB.to(B.dtype), dC.to(C.dtype), dD.to(D.dtype))
+
+
+def mamba_scan_bwd_segmented_plain(u, dt, A, B, C, D, dy, *,
+                                   seg: int = BWD_SEG, sub: int = BWD_SUB):
+    """The backward kernel's passes in plain f32 PyTorch (CPU tests;
+    nothing on the main path calls it).  Same arguments and result as
+    :func:`mamba_scan_bwd_plain`.
+
+    Segments of ``seg`` tokens t0 .. t1 (the last one ragged); with a_t =
+    exp(dt_t A) and P_s = Π_{t in s} a_t:
+
+    - A, every segment on its own: P_s, the local end state hloc_s (the
+      walk from h = 0) and the local carry gloc_s = Σ_{t in s}
+      (Π_{τ=t0..t} a_τ) C_t dy_t;
+    - B, in segment order: h_in from h_s = P_s h_{s-1} + hloc_s, and in
+      reverse the carry g_s into each segment, g_{s-1} = gloc_s + P_s g_s;
+    - C, every segment on its own: h walked forward from h_in, kept at
+      the start of every ``sub``-token sub-chunk; the sub-chunks in
+      reverse, a_t and h_{t-1} recomputed from the checkpoint, then dh
+      walked back from the carry (du, ddt, dB, dC, and dA and dD per
+      (row, segment), summed over rows and segments).
+
+    The defaults are the CUDA kernel's (``BWD_SEG``, ``BWD_SUB``).
+    """
+    b, s, ci = u.shape
+    n = A.shape[-1]
+    uf, dtf, bf, cf, dyf = (t.float() for t in (u, dt, B, C, dy))
+    af, df = A.float(), D.float()
+    spans = [(s0, min(s0 + seg, s)) for s0 in range(0, s, seg)]
+
+    def decay(t):
+        return torch.exp(dtf[:, t, :, None] * af)            # (B, Ci, N)
+
+    def drive(t):
+        return (dtf[:, t] * uf[:, t])[..., None] * bf[:, t, None, :]
+
+    # A: the segments' decays and local sums
+    pseg, hloc, gloc = [], [], []
+    for s0, s1 in spans:
+        h = torch.zeros((b, ci, n), dtype=torch.float32, device=u.device)
+        p, g = torch.ones_like(h), torch.zeros_like(h)
+        for t in range(s0, s1):
+            a = decay(t)
+            h = a * h + drive(t)
+            p = p * a
+            g = g + p * cf[:, t, None, :] * dyf[:, t, :, None]
+        pseg.append(p)
+        hloc.append(h)
+        gloc.append(g)
+    # B: h_in and the carries, in a fixed order
+    zero = torch.zeros((b, ci, n), dtype=torch.float32, device=u.device)
+    h_in, carry = [zero] * len(spans), [zero] * len(spans)
+    h = g = zero
+    for i in range(len(spans)):
+        h_in[i] = h
+        h = pseg[i] * h + hloc[i]
+    for i in reversed(range(len(spans))):
+        carry[i] = g
+        g = pseg[i] * g + gloc[i]
+    # C: every segment's gradients
+    du, ddt = (torch.empty((b, s, ci), dtype=torch.float32, device=u.device)
+               for _ in range(2))
+    dB, dC = (torch.empty((b, s, n), dtype=torch.float32, device=u.device)
+              for _ in range(2))
+    da_parts, dd_parts = [], []
+    for i, (s0, s1) in enumerate(spans):
+        ckpt, h = {}, h_in[i]
+        for t in range(s0, s1):
+            if (t - s0) % sub == 0:
+                ckpt[t] = h
+            h = decay(t) * h + drive(t)
+        dh = carry[i]
+        da = torch.zeros_like(h)
+        for a0 in reversed(range(s0, s1, sub)):
+            a1 = min(a0 + sub, s1)
+            h, hist = ckpt[a0], []
+            for t in range(a0, a1):                  # a_t, h_{t-1}
+                a = decay(t)
+                hist.append((a, h))
+                h = a * h + drive(t)
+            for t in reversed(range(a0, a1)):
+                a, hp = hist[t - a0]
+                ht = a * hp + drive(t)
+                dtt, ut, dyt = dtf[:, t], uf[:, t], dyf[:, t]
+                dh = dh + cf[:, t, None, :] * dyt[..., None]
+                m = dh * (a * hp)
+                sb = (dh * bf[:, t, None, :]).sum(-1)
+                du[:, t] = dtt * sb + df * dyt
+                ddt[:, t] = (af * m).sum(-1) + ut * sb
+                da = da + dtt[..., None] * m
+                dB[:, t] = torch.einsum("bcn,bc->bn", dh, dtt * ut)
+                dC[:, t] = torch.einsum("bcn,bc->bn", ht, dyt)
+                dh = a * dh
+        da_parts.append(da)
+        dd_parts.append((dyf[:, s0:s1] * uf[:, s0:s1]).sum(1))   # (B, Ci)
+    dA = torch.stack(da_parts, 1).sum((0, 1))
+    dD = torch.stack(dd_parts, 1).sum((0, 1))
     return (du.to(u.dtype), ddt.to(dt.dtype), dA.to(A.dtype),
             dB.to(B.dtype), dC.to(C.dtype), dD.to(D.dtype))
 

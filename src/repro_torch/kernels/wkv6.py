@@ -20,8 +20,13 @@ Both CUDA designs stay finite too and take any S >= 1 unpadded.
 Training goes through :class:`WKV6` (from a zero state): the forward
 kernel, then the backward kernels of ``csrc/wkv6_bwd.cu``
 (:func:`wkv6_bwd`, counter ``wkv6_bwd.launches``), whose plain version
-is :func:`wkv6_bwd_plain`.  The TPU kernel has no backward (JAX
-differentiates its jnp twin ``nn.wkv6_chunked``), so they replace none.
+is :func:`wkv6_bwd_plain`.  They split the sequence into chunks of
+``BWD_CHUNK`` tokens: each chunk's local sums, an ordered combine of the
+boundary states, then every chunk's gradients from sub-chunk
+checkpoints in shared memory; :func:`wkv6_bwd_chunked_plain` is that
+arithmetic in plain PyTorch, for the CPU tests.  The TPU kernel has no
+backward (JAX differentiates its jnp twin ``nn.wkv6_chunked``), so they
+replace none.
 
 Two CUDA designs share the counter ``wkv6.launches``; the wrapper picks
 one by shape and dtype alone (:func:`design`): bf16 calls with S >= 16
@@ -45,6 +50,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (4, 8, 16, 32, 64)   # instantiated in csrc/wkv6.cu
 _CHUNKED_HEAD_DIMS = (16, 32, 64)  # the chunked kernel's instantiations
 CHUNK = 16                         # tokens a chunk of the chunked kernel
+BWD_CHUNK, BWD_SUB = 64, 8         # the backward kernel's chunk, sub-chunk
 
 
 def wkv6_plain(r, k, v, w, u, s0=None):
@@ -172,6 +178,96 @@ def wkv6_chunked_plain(r, k, v, w, u, s0=None, *, chunk: int = CHUNK,
     if s0 is None:
         return y, state
     return y, s0.copy_(state)
+
+
+def wkv6_bwd_chunked_plain(r, k, v, w, u, dy, *, chunk: int = BWD_CHUNK,
+                           sub: int = BWD_SUB):
+    """The backward kernel's passes in plain f32 PyTorch (CPU tests;
+    nothing on the main path calls it).  Same arguments and result as
+    :func:`wkv6_bwd_plain`.
+
+    Chunks of ``chunk`` tokens c0 .. c1 (the last one ragged); with
+    P(a, b) = Π_{τ=a..b} w_τ (1 when a > b):
+
+    - A, every chunk on its own: P_c = P(c0, c1), ΔS_c = Σ_s (k_s ⊙
+      P(s+1, c1)) v_sᵀ and ΔG_c = Σ_t (r_t ⊙ P(c0, t-1)) dy_tᵀ;
+    - B, in chunk order: S_in from S_c = diag(P_c) S_{c-1} + ΔS_c, and
+      in reverse G_out from G_{c-1} = diag(P_c) G_c + ΔG_c;
+    - C, every chunk on its own: S walked forward from S_in, kept at the
+      start of every ``sub``-token sub-chunk; the sub-chunks in reverse,
+      their states recomputed from the checkpoint (dr on the way), then
+      G walked back from G_out (dk, dv, dw); du summed per chunk, then
+      over chunks and rows.
+
+    The defaults are the CUDA kernel's (``BWD_CHUNK``, ``BWD_SUB``).
+    Every decay factor is a product of clipped w over an interval:
+    nothing divides, so w = 0 and strong decay stay finite.
+    """
+    b, s, h, dh = r.shape
+    rf, kf, vf, dyf = (t.float() for t in (r, k, v, dy))
+    wc = w.float().clamp(1e-8, 1.0)
+    uf = u.float()
+    starts = list(range(0, s, chunk))
+    spans = [(c0, min(c0 + chunk, s)) for c0 in starts]
+    # A: the chunks' decays and local sums
+    pc, dS, dG = [], [], []
+    for c0, c1 in spans:
+        wcc = wc[:, c0:c1]
+        pc.append(torch.prod(wcc, dim=1)[..., None])          # (B, H, Dh, 1)
+        dS.append(torch.einsum("bshd,bshe->bhde",
+                               kf[:, c0:c1] * _excl_rev_cumprod(wcc),
+                               vf[:, c0:c1]))
+        dG.append(torch.einsum("bthd,bthe->bhde",
+                               rf[:, c0:c1] * _excl_cumprod(wcc),
+                               dyf[:, c0:c1]))
+    # B: the boundary states, in a fixed order
+    zero = torch.zeros((b, h, dh, dh), dtype=torch.float32, device=r.device)
+    s_in, g_out = [zero] * len(spans), [zero] * len(spans)
+    state = grad = zero
+    for c in range(len(spans)):
+        s_in[c] = state
+        state = pc[c] * state + dS[c]
+    for c in reversed(range(len(spans))):
+        g_out[c] = grad
+        grad = pc[c] * grad + dG[c]
+    # C: every chunk's gradients from its S_in and G_out
+    dr, dk, dv, dw = (torch.empty((b, s, h, dh), dtype=torch.float32,
+                                  device=r.device) for _ in range(4))
+    vdy = (vf * dyf).sum(-1, keepdim=True)                    # (B, S, H, 1)
+    ruk = (rf * uf * kf).sum(-1, keepdim=True)
+    du_parts = []
+
+    def step(st, t):
+        return (wc[:, t, :, :, None] * st
+                + kf[:, t, :, :, None] * vf[:, t, :, None, :])
+
+    for c, (c0, c1) in enumerate(spans):
+        ckpt, st = {}, s_in[c]
+        for t in range(c0, c1):
+            if (t - c0) % sub == 0:
+                ckpt[t] = st
+            st = step(st, t)
+        g = g_out[c]
+        for a0 in reversed(range(c0, c1, sub)):
+            a1 = min(a0 + sub, c1)
+            st, hist = ckpt[a0], []
+            for t in range(a0, a1):                 # S_{t-1}, and dr
+                hist.append(st)
+                dr[:, t] = (torch.einsum("bhde,bhe->bhd", st, dyf[:, t])
+                            + uf * kf[:, t] * vdy[:, t])
+                st = step(st, t)
+            for t in reversed(range(a0, a1)):       # G_t: dk, dv, dw
+                dk[:, t] = (torch.einsum("bhde,bhe->bhd", g, vf[:, t])
+                            + uf * rf[:, t] * vdy[:, t])
+                dv[:, t] = (torch.einsum("bhde,bhd->bhe", g, kf[:, t])
+                            + ruk[:, t] * dyf[:, t])
+                dw[:, t] = (g * hist[t - a0]).sum(-1)
+                g = (wc[:, t, :, :, None] * g
+                     + rf[:, t, :, :, None] * dyf[:, t, :, None, :])
+        du_parts.append((rf[:, c0:c1] * kf[:, c0:c1] * vdy[:, c0:c1]).sum(1))
+    du = torch.stack(du_parts, 1).sum((0, 1))          # (H, Dh)
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype),
+            du.to(u.dtype))
 
 
 def design(s: int, dh: int, dtype) -> str:

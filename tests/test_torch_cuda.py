@@ -80,11 +80,21 @@ FLASH_BWD = [  # b, s, h, kv, dh, window (causal; Sq = Sk)
     (1, 256, 20, 4, 128, -1), (1, 256, 5, 1, 128, -1)]
 WKV_BWD = [  # b, s, h, dh: every head size, ragged chunks, the training call
     (2, 37, 3, 4), (2, 37, 3, 8), (1, 50, 2, 16), (2, 33, 2, 32),
-    (1, 100, 3, 64), (2, 16, 2, 64), (1, 1, 2, 64), (1, 4096, 32, 64)]
+    (1, 100, 3, 64), (2, 16, 2, 64), (1, 1, 2, 64), (1, 4096, 32, 64),
+    # the 64-token chunk and 8-token sub-chunk of the kernel's passes:
+    # one chunk less / more a token, below one sub-chunk, B = 3 with
+    # several chunks, Dh 32 across a chunk edge
+    (1, 63, 2, 64), (1, 65, 2, 64), (2, 7, 2, 64), (3, 200, 2, 64),
+    (2, 129, 3, 32)]
 MAMBA_BWD = [  # b, s, ci, n: every state size, a partial channel block,
                # ragged chunks, the training call
     (2, 37, 100, 4), (2, 37, 100, 8), (1, 70, 64, 16), (2, 33, 200, 16),
-    (1, 16, 8, 16), (2, 1, 130, 16), (1, 4096, 8192, 16)]
+    (1, 16, 8, 16), (2, 1, 130, 16), (1, 4096, 8192, 16),
+    # the 128-token segment and 8-token sub-chunk of the kernel's passes:
+    # one segment less / more a token, below one sub-chunk, B = 3 with
+    # several segments, a partial channel block at a segment edge
+    (1, 127, 64, 16), (1, 129, 64, 16), (2, 5, 70, 8), (3, 600, 70, 16),
+    (1, 257, 100, 4)]
 TOL = {torch.float32: (2e-5, 1e-3), torch.bfloat16: (2e-2, 1e-2)}
 # the backward kernels' gradients against their plain versions: (rel,
 # rtol), |err| <= rel · max|plain| + rtol · |plain|: sums over up to S x Dh
@@ -731,6 +741,16 @@ def test_wkv6_bwd_kernel_at_strong_decay_and_zero(cuda, decay):
         _bwd_close(got, twkv.wkv6_bwd_plain(*args), dtype)
         assert all(torch.equal(a, b) for a, b in
                    zip(got, twkv.wkv6_bwd(*args)))
+
+
+@pytest.mark.cuda
+def test_wkv6_bwd_kernel_is_deterministic_at_the_model_decays(cuda):
+    """bf16 at the model's range of decays at the rwkv6 training call's
+    heads: two calls on one input are bit-identical (every sum across
+    threads and blocks runs in a fixed order, no atomics)."""
+    args = _wkv_bwd_args(1, 1000, 32, 64, torch.bfloat16, cuda, seed=13)
+    runs = [twkv.wkv6_bwd(*args) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 def _mamba_bwd_args(b, s, ci, n, dtype, device, seed):
