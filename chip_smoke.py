@@ -129,7 +129,8 @@ Phases (any failure raises and the script exits non-zero):
    is skipped, ``rounds_total{kind=train}`` counts every executed round,
    rank 0's registry holds every stage's measured
    ``stage_round_seconds``, and the trace has a span per busy table cell;
-19. batching — phase 3's model and shape (qwen3-14b, 40 layers, bf16,
+19. batching — phase 3's model cut to BATCH_LAYERS of its 40 layers
+   (for the script's time limit) at phase 3's shape (bf16,
    pp 2, R 4 x 2 rows, prompt width 512, cache 1024, page 16) through
    the continuous batcher (``serving/batcher.py``) with buckets and a
    pool of BATCH_POOL pages, over BATCH_TRACE (6 pairs of requests,
@@ -198,7 +199,7 @@ Phases (any failure raises and the script exits non-zero):
    launcher's builder at phase 13's shape (R 4 x 1 row x 4096 tokens, 3
    rounds, bf16, the config's Adam, remat), the last round under
    ``torch.profiler``, every plain version refused.  22a: rwkv6-1.6b
-   whole (24 layers at full width), ``1f1b`` / stash, pp 2: every WKV
+   at full width cut to 12 of 24 layers, ``1f1b`` / stash, pp 2: every WKV
    forward on the wkv6 kernel (chunked design) and every backward on
    the wkv6 backward kernel.  22b: jamba-v0.1-52b at full width cut to
    its first 2 of 32 layers (Mamba + dense FFN, Mamba + MoE of 16
@@ -206,10 +207,47 @@ Phases (any failure raises and the script exits non-zero):
    whole layer patterns): every selective scan forward and backward on
    its kernels, the MoE aux loss finite and > 0.  Launches: three
    forwards (F, B's re-run, the checkpoint's recompute) and one
-   backward a mixer layer and microbatch.  22c: both at 2 layers in
-   fp32 (phase 14's shape and SGD), the executor against the oracle bit
-   for bit under deterministic algorithms, every scan on its kernels.
+   backward a mixer layer and microbatch.  22c: rwkv6 at 2 layers and
+   jamba at 1 (Mamba + dense FFN) in fp32 (phase 14's shape and SGD),
+   the executor against the oracle bit for bit under deterministic
+   algorithms, every scan on its kernels;
+23. new configs — checkpoint ingest and three more configs, bf16 on the
+   card.  23a: olmoe-1b-7b at full width cut to INGEST_LAYERS of 16
+   layers, a BF16 fixture (values drawn on the card) written by the
+   port's safetensors writer in INGEST_SHARDS shards and an index,
+   converted by ``checkpoint/convert.py`` for pp 2 at v 1 and v 2, all
+   of 23a in a spawned process beside 23b-e: the export of the v 1
+   directory equals the fixture widened to f32, the v 1 ``load_converted``
+   equals ``hf_to_params`` and the v 2 one the v 1 tree re-chunked into
+   v 2 rows, bit for bit; each directory served through
+   ``launch/serve.py::load_checkpoint`` (``serve_1f`` /
+   ``serve_interleaved``) gives the tokens and logits of the same tree
+   installed in memory bit for bit, and the v 1 directory loaded into
+   the v 2 session raises ConvertError; bytes, seconds and GB/s of each
+   step.  23b-d: olmoe-1b-7b (16 layers, 16 / 16 heads, 64
+   experts top 8), deepseek-moe-16b (28 layers, 16 / 16 heads, 64
+   experts top 6 and 2 shared) and chatglm3-6b (28 layers, 32 / 2 heads,
+   2d RoPE) at full width and depth, ``serve_1f`` pp 2 at phase 3's
+   shape (prefill_len PREFILL sizes the MoE capacity), every decode
+   through the paged kernel, a profiled decode step; the served tokens
+   ``full_transformer``'s greedy tokens up to near-ties of NEW_TIE (for
+   chatglm3 at every generated position, for the MoE models the first
+   token from per-slot passes: a longer pass routes more tokens a call);
+   at NEW_CONS_LAYERS layers in fp32 the paged engine equals the dense
+   one (1e-5), the same session on the CPU (tokens, positions; hidden
+   1e-4) and ``full_transformer``'s prefill logits (1e-3).  23e:
+   deepseek-moe-16b cut to 2 of 28 layers and chatglm3-6b cut to 4 of 28
+   trained at phase 13's shape (1f1b / stash pp 2, the config's Adam,
+   remat): finite losses, every attention forward and backward on the
+   flash kernels; at NEW_CONS_LAYERS layers in fp32 the executor equals
+   the oracle bit for bit.
 
+Phase 2 also holds the flash forward (bf16 and f32) and backward (bf16)
+and the paged walk (bf16 and f32 pools) at the head layouts of phase
+23's configs (LAYOUTS: 16 / 16 heads, G 1; 32 / 2, G 16, with the verify
+tile at Q SPEC_K + 1, 80 query rows a KV head) against their plain
+versions; the kernels line gives each record a ``layouts`` entry a
+layout (time, bound, plain and library time, launches by path).
 Phase 2 also holds the int8-pool paged kernel and the flash backward
 kernel (bf16 and f32; with its log-sum-exp, and determinism) against
 their plain versions, and at h2o-danube3-4b's heads (32 / 8, Dh 120)
@@ -222,7 +260,7 @@ strong decay and with decays of exactly 0; mamba_scan (1, 4096, 8192,
 counters are zeroed before and read after each main path (phases 3, 5,
 6, 8, 9, 11, 13, 15, 16, 17d, 18b, whose two ranks count their own,
 19a, each run of 19b, 20a-b, 21a-b, whose ranks count their own, and
-22a-c, which also read the backward kernels' counters).
+22a-c, which also read the backward kernels' counters, and 23a-e).
 Prints a
 ``profile`` JSON line for qwen3 bf16, rwkv6 (decode, then prefill),
 jamba (decode, then prefill), quantized qwen3 and the training rounds
@@ -246,9 +284,13 @@ decode step beside the predicted round, danube's times and gaps, the
 ring check), ``tp`` JSON lines (phase 21: one a rank of 21b, one for
 21a / 21c), ``train_recurrent`` JSON lines (phase 22: 22a and 22b's
 round seconds, tokens/s, peak GB, losses, aux and launches; 22c),
-profiles of 22a's and 22b's rounds, one ``kernels`` JSON line
+profiles of 22a's and 22b's rounds, of 23b-d's decode steps and 23e's
+rounds, an ``ingest`` JSON line (23a), three ``serve_new`` lines
+(23b-d), two ``train_new`` lines and a ``train_new_exact`` line (23e),
+one ``kernels`` JSON line
 (launches, by path and for wkv6 by
-design, errors, times, bounds, each kernel's design and what ``ptxas
+design, errors, times, bounds, a ``layouts`` entry for the new head
+layouts, each kernel's design and what ``ptxas
 -v`` reported; the flash, backward, paged and int8 paged records carry a
 ``dh120`` entry at Dh 120), the card's name and power limit, and last ``{"ok":
 true, "device": ...}``.  Exits non-zero without a CUDA device.
@@ -392,7 +434,9 @@ BATCH_TRACE = ((512, 48, 0), (480, 40, 0), (448, 8, 0), (256, 16, 0),
                (320, 12, 28), (64, 20, 30))
 BATCH_POOL = 100
 SPEC_K = 4
-# 19c's depth (fp32 at full width), pp 2 x v 2 chunks of one layer
+# 19a-b's depth (bf16 at full width, cut from 40 for the script's time
+# limit) and 19c's (fp32), pp 2 x v 2 chunks of one layer
+BATCH_LAYERS = 20
 BATCH_CONS_LAYERS = 4
 # bf16 greedy agreement at qwen3-14b's 40 layers: the reference's largest
 # logit is 5.7-7.9 at these random weights (bf16 steps of 1/32), and the
@@ -756,12 +800,13 @@ def phase_kernels(device):
     return errs
 
 
-def flash_inputs(dtype, device, b, s, seed):
-    """q, k, v, dO of an attention call at qwen3's heads (40 / 8, Dh 128)."""
+def flash_inputs(dtype, device, b, s, seed, heads=(40, 8, 128)):
+    """q, k, v, dO of an attention call at ``heads`` = (H, KV, Dh),
+    qwen3's by default."""
     import torch
     g = torch.Generator(device=device).manual_seed(seed)
-    shapes = ((b, s, 40, 128), (b, s, 8, 128), (b, s, 8, 128),
-              (b, s, 40, 128))
+    h, kv, dh = heads
+    shapes = ((b, s, h, dh), (b, s, kv, dh), (b, s, kv, dh), (b, s, h, dh))
     return [torch.randn(sh, generator=g, device=device).to(dtype)
             for sh in shapes]
 
@@ -1315,8 +1360,9 @@ def profile_decode_step(session, nxt, step_ms, kernels=("wkv6",)):
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the card's activity only (as profile_round): host operators add
+    # events a launch that only slow the reduction
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         session.decode(nxt)
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
@@ -1365,8 +1411,7 @@ def profile_prefill(session, prompts, kernel):
     session.prefill({"tokens": prompts})
     torch.cuda.synchronize()
     warm_ms = 1e3 * (time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         session.prefill({"tokens": prompts})
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
@@ -5529,17 +5574,19 @@ def tp_records(tp_out, card):
 # phase 22: the recurrent block kinds trained on the card at phase 13's
 # shape (R TRAIN_R x TRAIN_ROWS x TRAIN_SEQ, TRAIN_ROUNDS rounds, bf16,
 # the config's Adam, remat), each in its config's stash mode: (arch,
-# layers, pp, schedule, stash mode).  rwkv6-1.6b whole (24 layers, ~1.6 B
-# parameters); jamba-v0.1-52b cut to its first 2 of 32 layers (Mamba +
-# dense FFN, Mamba + MoE of 16 experts top 2: ~3.7 B parameters; with
-# Adam even 4 layers are ~83 GB), at pp 1: a stage must hold whole layer
-# patterns.  22c: both at 2 layers in fp32 (phase 14's shape and SGD),
-# executor against oracle; the oracle consumes its input as it goes
-# (jamba's fp32 state is 30 GB: an input and an output do not fit the
-# card beside a round's gradients)
-RECUR_TRAIN = (("rwkv6-1.6b", 24, 2, "1f1b", "stash"),
+# layers, pp, schedule, stash mode).  rwkv6-1.6b cut to 12 of its 24
+# layers (for the script's time limit: its host-bound round scales with
+# the layers); jamba-v0.1-52b cut to its first 2 of 32 layers
+# (Mamba + dense FFN, Mamba + MoE of 16 experts top 2: ~3.7 B parameters;
+# with Adam even 4 layers are ~83 GB), at pp 1: a stage must hold whole
+# layer patterns.  22c in fp32 (phase 14's shape and SGD), executor
+# against oracle: rwkv6 at its first 2 layers, jamba at its first layer
+# (Mamba + dense FFN, for the script's time limit: its MoE layer made
+# the fp32 state 30 GB, and phase 23e holds an MoE to the oracle on the
+# card); the oracle consumes its input as it goes
+RECUR_TRAIN = (("rwkv6-1.6b", 12, 2, "1f1b", "stash"),
                ("jamba-v0.1-52b", 2, 1, "gpipe", "flush"))
-RECUR_CONS_LAYERS = 2
+RECUR_CONS_LAYERS = {"rwkv6-1.6b": 2, "jamba-v0.1-52b": 1}
 # (label, substring of the kernel names) of each arch's scan kernels in a
 # profiled round
 RECUR_KERNELS = {"rwkv6-1.6b": (("wkv6_fwd", "wkv6_chunked_kernel"),
@@ -5572,25 +5619,29 @@ def plain_versions_refused():
             setattr(m, n, fn)
 
 
-def scan_launches(spec, rounds, r):
-    """The scan kernels' launches a run of ``rounds`` rounds of ``r``
+def train_launches(spec, rounds, r):
+    """The mixers' kernel launches a run of ``rounds`` rounds of ``r``
     microbatches makes: per mixer layer and microbatch three forwards (F,
     the B phase's re-run, the checkpoint's recompute: remat) and one
-    backward."""
+    backward, on the attention, WKV6 or selective-scan kernels."""
     n = {m: sum(b.mixer == m for b in spec.blocks)
-         for m in ("rwkv", "mamba")}
+         for m in ("attn", "rwkv", "mamba")}
     per = rounds * r
-    return {"wkv6": 3 * per * n["rwkv"], "wkv6_bwd": per * n["rwkv"],
+    return {"flash_attention": 3 * per * n["attn"],
+            "flash_attention_bwd": per * n["attn"],
+            "wkv6": 3 * per * n["rwkv"], "wkv6_bwd": per * n["rwkv"],
             "mamba_scan": 3 * per * n["mamba"],
             "mamba_scan_bwd": per * n["mamba"]}
 
 
-def recurrent_train(device, arch, layers, pp, schedule, mode):
-    """22a / 22b: ``arch`` at full width, its first ``layers`` layers,
-    trained through the launcher's builder (launch/train.py) at phase
-    13's shape, the last round under torch.profiler, with every plain
-    version refused.  Every WKV / selective-scan forward and backward
-    on its kernel; finite losses; for MoE models a finite aux > 0."""
+def train_cut(device, arch, layers, pp, schedule, mode, kernels):
+    """22a / 22b / 23e: ``arch`` at full width, its first ``layers``
+    layers, trained through the launcher's build (launch/train.py) at
+    phase 13's shape, the last round under torch.profiler (``kernels``:
+    profile_round's labels of the mixer's kernels), with every plain
+    version refused.  Every attention, WKV or selective-scan forward and
+    backward on its kernel; finite losses; for MoE models a finite aux
+    > 0."""
     import torch
     from repro_torch.data.pipeline import Loader, SyntheticLM
     from repro_torch import configs
@@ -5617,8 +5668,7 @@ def recurrent_train(device, arch, layers, pp, schedule, mode):
         for r, batch in enumerate(batches):
             if r == len(batches) - 1:
                 state, m, prof = profile_round(bundle, state, batch,
-                                               round_s[-1],
-                                               RECUR_KERNELS[arch])
+                                               round_s[-1], kernels)
             else:
                 t1 = time.perf_counter()
                 state, m = bundle.train_step(state, batch)
@@ -5628,8 +5678,7 @@ def recurrent_train(device, arch, layers, pp, schedule, mode):
             auxes.append(float(m["aux"]))
     counts = read_all_counts()
     want = {"paged_attention": 0, "paged_attention_int8": 0,
-            "flash_attention": 0, "flash_attention_bwd": 0,
-            **scan_launches(spec, TRAIN_ROUNDS, plan.microbatches)}
+            **train_launches(spec, TRAIN_ROUNDS, plan.microbatches)}
     if counts != want:
         raise AssertionError(f"launches on {spec.name}'s training path: "
                              f"{counts}, expected {want}")
@@ -5661,7 +5710,7 @@ def recurrent_train(device, arch, layers, pp, schedule, mode):
         f"round {[round(x, 4) for x in losses]}, aux "
         f"{[round(x, 4) for x in auxes]}, MoE capacity "
         f"{out['moe_capacity']}; launches {counts}")
-    fwd, bwd = RECUR_KERNELS[arch]
+    fwd, bwd = kernels
     log(f"[profile] {spec.name} train round: {prof['device_ms']:.1f} ms of "
         f"device kernels in a {1e3 * round_s[-1]:.1f} ms round, idle share "
         f"{prof['idle_share']:.3f}; {fwd[0]} {prof[fwd[0] + '_ms']:.1f} ms "
@@ -5677,8 +5726,8 @@ def recurrent_train(device, arch, layers, pp, schedule, mode):
 
 def phase_train_recurrent(device):
     """Phase 22: 22a and 22b (RECUR_TRAIN), then 22c: each arch at
-    RECUR_CONS_LAYERS layers in fp32 through the executor and the oracle
-    (:func:`executor_equals_oracle`, deterministic algorithms), every
+    RECUR_CONS_LAYERS[arch] layers in fp32 through the executor and the
+    oracle (:func:`executor_equals_oracle`, deterministic algorithms), every
     scan on its kernels.  Returns (records, profiles, launches by path,
     seconds)."""
     import os
@@ -5689,8 +5738,8 @@ def phase_train_recurrent(device):
     out, profs, launches, seconds = {}, [], {}, {}
     for arch, layers, pp, schedule, mode in RECUR_TRAIN:
         t0 = time.perf_counter()
-        out[arch], prof = recurrent_train(device, arch, layers, pp, schedule,
-                                          mode)
+        out[arch], prof = train_cut(device, arch, layers, pp, schedule,
+                                    mode, RECUR_KERNELS[arch])
         profs.append(prof)
         launches[f"{arch.split('-')[0]}_train"] = out[arch]["launches"]
         seconds[arch] = time.perf_counter() - t0
@@ -5701,7 +5750,7 @@ def phase_train_recurrent(device):
         for arch, _, pp, schedule, mode in RECUR_TRAIN:
             t0 = time.perf_counter()
             cfg = configs.get(arch)
-            spec = cut_layers(cfg.full_spec(), RECUR_CONS_LAYERS)
+            spec = cut_layers(cfg.full_spec(), RECUR_CONS_LAYERS[arch])
             plan = cfg.PLAN.with_(tp=1, pp=pp, microbatches=CONS_R,
                                   schedule=schedule, stash_mode=mode)
             reset_counts()
@@ -5710,7 +5759,7 @@ def phase_train_recurrent(device):
                     device, f"{schedule}/{mode}", spec, plan, SGDM(lr=0.01),
                     donate=True)
             counts = read_all_counts()
-            want = scan_launches(spec, 2 * CONS_ROUNDS, CONS_R)
+            want = train_launches(spec, 2 * CONS_ROUNDS, CONS_R)
             if {k: counts[k] for k in want} != want:
                 raise AssertionError(f"22c {spec.name} launches {counts}, "
                                      f"expected {want} (executor + oracle)")
@@ -5721,6 +5770,770 @@ def phase_train_recurrent(device):
         torch.use_deterministic_algorithms(False)
     log(f"[phases] 22 seconds: {json.dumps(seconds)}")
     return out, profs, launches, seconds
+
+
+# --------------------------------------------------------------------------
+# phase 2 at the new head layouts; phase 23: checkpoint ingest, olmoe-1b-7b,
+# deepseek-moe-16b and chatglm3-6b
+# --------------------------------------------------------------------------
+
+# (H, KV, Dh) of the attention layouts phase 23's configs run: MHA (G 1,
+# olmoe and deepseek) and a group of 16 (chatglm3)
+LAYOUTS = {"g1": (16, 16, 128), "g16": (32, 2, 128)}
+LAYOUT_ARCHS = {"g1": ("olmoe", "deepseek"), "g16": ("chatglm3",)}
+# 23a: olmoe-1b-7b at full width cut to INGEST_LAYERS of 16 layers (full
+# depth would write ~41 GB of files), a BF16 fixture in INGEST_SHARDS
+# shards and an index, converted for pp 2 at v 1 and v 2, each served
+# INGEST_DECODE decodes from the directory and from memory
+INGEST_ARCH, INGEST_LAYERS, INGEST_SHARDS, INGEST_DECODE = \
+    "olmoe-1b-7b", 4, 2, 4
+# 23b-d: served at full depth at phase 3's shape (prefill_len PREFILL
+# sizes the MoE capacity); 23e: trained at phase 13's shape, cut to a
+# depth (with Adam, deeper cuts do not fit the card beside the ring)
+NEW_SERVE = ("olmoe-1b-7b", "deepseek-moe-16b", "chatglm3-6b")
+NEW_TRAIN = (("deepseek-moe-16b", 2), ("chatglm3-6b", 4))
+NEW_CONS_LAYERS = 2
+# 23b-d's fp32 consistency at NEW_CONS_LAYERS layers: one slot of ROWS
+# rows, a 40-token prompt and 4 decodes (the CPU session's time)
+NEW_CONS_SLOTS, NEW_CONS_PREFILL, NEW_CONS_CACHE, NEW_CONS_DECODE = \
+    1, 40, 128, 4
+NEW_TIE = RWKV_TIE
+# 23a (a spawned process beside 23b-e) is due this long after it starts
+INGEST_S = 900
+
+
+def phase_layout_kernels(device):
+    """Phase 2 at the head layouts of LAYOUTS: the flash forward at (8,
+    PREFILL + N_DECODE) and its backward at (1, TRAIN_SEQ) (causal; bf16
+    and f32 forward, bf16 backward, two identical backward calls
+    bit-equal), and the paged walk at a decode call (Q 1) and, at G 16, a
+    verify tile (Q SPEC_K + 1: Q·G = 80 query rows a KV head), bf16 and
+    f32 pools, each against its plain version within TOL."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    errs = {}
+    for name, heads in LAYOUTS.items():
+        e = {"flash_attention": 0.0, "flash_attention_bwd": 0.0,
+             "paged_attention": 0.0, "paged_attention_verify": 0.0}
+        for dtype in (torch.bfloat16, torch.float32):
+            atol, rtol = TOL[str(dtype).split(".")[-1]]
+            q, k, v, _ = flash_inputs(dtype, device, R_SLOTS * ROWS,
+                                      PREFILL + N_DECODE, 41, heads)
+            got = fa.flash_attention(q, k, v, causal=True)
+            want = fa.flash_attention_plain(q, k, v, causal=True)
+            e["flash_attention"] = max(e["flash_attention"], check_close(
+                f"flash {name} {dtype}", got, want, atol, rtol))
+            del q, k, v, got, want
+            q_lens = (1, SPEC_K + 1) if name == "g16" else (1,)
+            for q_len in q_lens:
+                key = "paged_attention" if q_len == 1 else \
+                    "paged_attention_verify"
+                sets, tab, lens = paged_inputs(
+                    dtype, device, q_len, [PREFILL + N_DECODE, PREFILL + 37],
+                    seed=43 + q_len, heads=heads)
+                qp, kp, vp = sets[0]
+                got = pa.paged_attention(qp, kp, vp, tab, lens)
+                want = pa.paged_attention_plain(qp, kp, vp, tab, lens)
+                e[key] = max(e[key], check_close(
+                    f"paged {name} Q={q_len} {dtype}", got, want, atol, rtol))
+                del sets
+        atol, rtol = TOL["bfloat16"]
+        q, k, v, do = flash_inputs(torch.bfloat16, device, 1, TRAIN_SEQ,
+                                   42, heads)
+        out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+        again = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+        want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                            causal=True)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"flash bwd {name}: two identical calls "
+                                 "differ")
+        e["flash_attention_bwd"] = max(
+            check_close(f"flash bwd {name} {n}", g_, w_, atol, rtol)
+            for n, g_, w_ in zip(("dq", "dk", "dv"), got, want))
+        del q, k, v, do, out, lse, got, again, want
+        log(f"[kernels] layout {name} (H/KV/Dh {heads}): max|err| "
+            f"{json.dumps(e)} (bf16 atol/rtol {TOL['bfloat16']}, f32 "
+            f"{TOL['float32']}); the backward bit-equal twice")
+        errs[name] = e
+    torch.cuda.empty_cache()
+    return errs
+
+
+def layout_records(device, errs, launches):
+    """Times at each layout of LAYOUTS beside bounds, the plain versions
+    and the library, one entry a layout for the flash forward (8, PREFILL
+    + N_DECODE), its backward (1, TRAIN_SEQ), the paged walk's decode
+    call and (G 16) its verify tile; bf16.  ``launches`` maps a kernel to
+    {layout: {path: count}}."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    bf16 = torch.bfloat16
+    n_sm = pa._sm_count(device.index or 0)
+    out = {}
+    for name, heads in LAYOUTS.items():
+        h, kv, dh = heads
+        rec = {}
+        b, s = R_SLOTS * ROWS, PREFILL + N_DECODE
+        q, k, v, _ = flash_inputs(bf16, device, b, s, 44, heads)
+        ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True))
+        plain = time_ms(lambda: fa.flash_attention_plain(q, k, v,
+                                                         causal=True), 5, 1)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
+        flops = 4 * b * h * dh * s * (s + 1) / 2
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+        rec["flash_attention"] = _dh120_entry(
+            [b, s, h, kv, dh], -1, errs[name]["flash_attention"],
+            launches["flash_attention"][name], ms, plain, flops, nbytes, lib,
+            "F.scaled_dot_product_attention (is_causal, enable_gqa)")
+        del q, k, v, qt, kt, vt
+        s = TRAIN_SEQ
+        q, k, v, do = flash_inputs(bf16, device, 1, s, 45, heads)
+        o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+        ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                    causal=True))
+        plain = time_ms(lambda: fa.flash_attention_bwd_plain(
+            q, k, v, o, lse, do, causal=True), 3, 1)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        ref = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+        dot = do.transpose(1, 2)
+        lib = time_ms(lambda: torch.autograd.grad(ref, (qt, kt, vt), dot,
+                                                  retain_graph=True))
+        flops = 5 * 2 * h * dh * s * (s + 1) // 2
+        nbytes = (4 * s * h * dh + 4 * s * kv * dh) * 2 + h * s * 4
+        rec["flash_attention_bwd"] = _dh120_entry(
+            [1, s, h, kv, dh], -1, errs[name]["flash_attention_bwd"],
+            launches["flash_attention_bwd"][name], ms, plain, flops, nbytes,
+            lib, "autograd of F.scaled_dot_product_attention (is_causal, "
+                 "enable_gqa), backward alone")
+        del q, k, v, do, o, lse, qt, kt, vt, ref
+        q_lens = (1, SPEC_K + 1) if name == "g16" else (1,)
+        for q_len in q_lens:
+            key = "paged_attention" if q_len == 1 else "paged_attention_verify"
+            lengths = [PREFILL + N_DECODE, PREFILL + N_DECODE]
+            live = 2 * sum(-(-n // PAGE) for n in lengths) * PAGE * kv * dh * 2
+            n_sets = -(-4 * L2_BYTES // live)
+            sets, tab, lens = paged_inputs(bf16, device, q_len, lengths,
+                                           seed=46 + q_len, n_copies=n_sets,
+                                           heads=heads)
+            it = {"i": 0}
+
+            def run(fn):
+                def call():
+                    qp, kp, vp = sets[it["i"] % n_sets]
+                    it["i"] += 1
+                    fn(qp, kp, vp, tab, lens)
+                return call
+
+            ms = device_ms(run(pa.paged_attention), 2 * n_sets,
+                           "paged_attention")
+            plain = time_ms(run(pa.paged_attention_plain))
+            nbytes, flops = paged_bytes_flops(sets[0][0], sets[0][1], tab,
+                                              lengths, -1)
+            splits, per = pa.plan_splits(tab.shape[1], tab.shape[0], kv,
+                                         n_sm)
+            entry = _dh120_entry(
+                [len(lengths), q_len, h, kv, dh], -1, errs[name][key],
+                launches[key][name], ms, plain, flops, nbytes, None,
+                "none (no single PyTorch call)")
+            entry.update(
+                keys=lengths, ms_by=PAGED_MS_BY, query_rows=q_len * h // kv,
+                splits=splits, pages_a_split=per,
+                blocks=len(lengths) * kv * splits,
+                smem_dynamic_bytes={
+                    dt: pa._bind().paged_attention_smem_bytes(
+                        q_len, h // kv, dh, PAGE, esz)
+                    for dt, esz in (("bfloat16", 2), ("float32", 4))})
+            rec[key] = entry
+            del sets
+        out[name] = rec
+        log(f"[kernels] layout {name} records: " + json.dumps(
+            {k: {f: r[f] for f in ("ms", "bound_ms", "plain_ms",
+                                   "library_ms", "launches")}
+             for k, r in rec.items()}))
+    torch.cuda.empty_cache()
+    return out
+
+
+def card_draw(device, seed):
+    """``convert.synthetic_tensors``'s ``draw`` on the card: 0.05·N(0, 1)
+    from a CUDA generator, rounded to bfloat16 (so a BF16 file holds the
+    values exactly), as f32 numpy arrays."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(*shape):
+        x = torch.randn(shape, generator=g, device=device).mul_(0.05)
+        return x.to(torch.bfloat16).float().cpu().numpy()
+    return draw
+
+
+def same_arrays(label, got, want) -> int:
+    """Every leaf of two numpy trees equal bit for bit; their bytes."""
+    a, b = dict(tree_leaves(got)), dict(tree_leaves(want))
+    if sorted(a) != sorted(b):
+        raise AssertionError(f"{label}: trees differ: {sorted(set(a) ^ set(b))}")
+    import torch
+    n = 0
+    for k in a:
+        x, y = np.asarray(a[k]), np.asarray(b[k])
+        if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(
+                torch.from_numpy(np.ascontiguousarray(x)),
+                torch.from_numpy(np.ascontiguousarray(y))):
+            raise AssertionError(f"{label}: {k} differs")
+        n += x.nbytes
+    return n
+
+
+def dir_bytes(path) -> int:
+    return sum(p.stat().st_size for p in Path(path).rglob("*") if p.is_file())
+
+
+def new_session(spec, plan, device, dtype, **kw):
+    import torch
+    from repro_torch.serving.engine import build_serving
+    kw.setdefault("cache_len", CACHE_LEN)
+    kw.setdefault("prefill_len", PREFILL)
+    slots = plan.decode_microbatches
+    return build_serving(spec, plan, global_batch=slots * ROWS,
+                         compute_dtype=dtype or torch.bfloat16,
+                         page_size=kw.pop("page_size", PAGE), device=device,
+                         **kw)
+
+
+def serve_logits(session, prompts, n_decode):
+    """Prefill and ``n_decode`` decodes: the tokens (n_decode + 1, rows)
+    and each step's f32 logits of the last position, on the card."""
+    import torch
+    from repro_torch.models import lm_head
+    nxt = session.prefill({"tokens": prompts})
+    toks, logits = [nxt], []
+    fn = session.params["final_norm"]
+    for i in range(n_decode + 1):
+        logits.append(lm_head.last_logits(
+            session.params["head"], fn["scale"], session.last_hidden,
+            vocab=session.spec.vocab))
+        if i < n_decode:
+            nxt = session.decode(nxt)
+            toks.append(nxt)
+    return torch.stack(toks), torch.stack(logits)
+
+
+class Steps(dict):
+    """Bytes, seconds and GB/s of 23a's steps, logged as each ends."""
+
+    def timed(self, name, nbytes_fn, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        s = time.perf_counter() - t0
+        nbytes = nbytes_fn(out)
+        self[name] = {"seconds": s, "gb": nbytes / 1e9,
+                      "gb_per_s": nbytes / 1e9 / s}
+        log(f"[ingest] {name}: {nbytes / 1e9:.2f} GB in {s:.2f}s "
+            f"({nbytes / 1e9 / s:.2f} GB/s)")
+        return out
+
+
+def to_v2_rows(tree, spec, order):
+    """A pp 2 x v 1 tree (2 chunks of 2 layers) re-chunked into pp 2 x v 2
+    storage rows (4 chunks of one layer, row p holding model chunk
+    ``order[p]``, i.e. global layer ``order[p]``): the layout a v 2
+    conversion must write, built from the v 1 tree alone."""
+    lpc = spec.n_layers // 2
+    def row(node, g):
+        if isinstance(node, dict):
+            return {k: row(v, g) for k, v in node.items()}
+        return node[g // lpc]
+    layers = [row(tree["stages"][f"layer_{g % lpc}"], g)
+              for g in range(spec.n_layers)]
+
+    def stack(nodes):
+        if isinstance(nodes[0], dict):
+            return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
+        return np.stack(nodes)
+    out = dict(tree)
+    out["stages"] = {"layer_0": stack([layers[c] for c in order])}
+    flat_w = np.asarray(tree["layer_windows"]).reshape(-1)
+    flat_t = np.asarray(tree["layer_thetas"]).reshape(-1)
+    out["layer_windows"] = flat_w[order].reshape(-1, 1)
+    out["layer_thetas"] = flat_t[order].reshape(-1, 1)
+    return out
+
+
+def ingest_child(device, results):
+    """23a, in a spawned process beside 23b-e (the card and the host share
+    out; this process's launch counters are its own).  INGEST_ARCH cut to
+    INGEST_LAYERS layers at full width: a BF16 fixture (values drawn on
+    the card, bf16-exact; the norms, 1 + 0.01·r, widened as the BF16 file
+    holds them) written by the port's safetensors writer in
+    INGEST_SHARDS shards and an index; ``checkpoint/convert.py``
+    converts it for pp 2 at v 1 and v 2 and exports the v 1 directory,
+    which must equal the fixture bit for bit.  v 1: ``load_converted``
+    (through ``launch/serve.py::load_checkpoint``, ``serve_1f``) equals
+    ``hf_to_params`` bit for bit, and the session's tokens and every
+    step's logits equal a session with the ``hf_to_params`` tree
+    installed in memory, bit for bit.  v 2: the v 1 directory is refused
+    by the ``serve_interleaved`` session (ConvertError, before a chunk is
+    read); the v 2 directory's tree equals the v 1 tree re-chunked into
+    v 2 rows (:func:`to_v2_rows`) bit for bit, and serving it from the
+    directory equals serving that re-chunked tree from memory.  Puts
+    ("ok", record) or ("error", traceback) on ``results``."""
+    import tempfile
+    import traceback
+    import types
+    from concurrent.futures import ThreadPoolExecutor
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        import torch
+        from repro_torch import configs
+        from repro_torch.checkpoint import convert as cv
+        from repro_torch.launch.serve import load_checkpoint
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        cfg = configs.get(INGEST_ARCH)
+        spec = ingest_spec()
+        steps = Steps()
+        rec = {"model": spec.name, "layers": spec.n_layers,
+               "parameters": spec.param_count(), "shards": INGEST_SHARDS,
+               "fixture_dtype": "BF16"}
+        rng = np.random.default_rng(SEED + 3)
+        prompts = rng.integers(0, spec.vocab, (R_SLOTS, ROWS, PREFILL)
+                               ).astype(np.int32)
+        plans = {1: cfg.PLAN.with_(pp=2, tp=1, decode_microbatches=R_SLOTS)}
+        plans[2] = plans[1].with_(schedule="serve_interleaved",
+                                  virtual_stages=2)
+        with tempfile.TemporaryDirectory(prefix="ingest-") as tmp:
+            hf = os.path.join(tmp, "hf")
+            dirs = {v: os.path.join(tmp, f"ck_v{v}") for v in (1, 2)}
+            tensors = steps.timed(
+                "draw (card) to host",
+                lambda t: sum(a.nbytes for a in t.values()),
+                lambda: cv.synthetic_tensors(
+                    spec, draw=card_draw(device, SEED)))
+            tensors = {k: a if a.size > spec.d_model else
+                       torch.from_numpy(a).bfloat16().float().numpy()
+                       for k, a in tensors.items()}
+            steps.timed("write BF16 fixture", lambda _: dir_bytes(hf),
+                        lambda: cv.write_checkpoint(
+                            hf, tensors, shards=INGEST_SHARDS, dtype="BF16"))
+            rec["fixture_gb"] = dir_bytes(hf) / 1e9
+            back = os.path.join(tmp, "back.safetensors")
+
+            def convert(v):
+                return steps.timed(
+                    f"convert pp 2 v {v}", lambda _: dir_bytes(dirs[v]),
+                    lambda: cv.convert(hf, dirs[v], spec, pp=2,
+                                       virtual_stages=v, config=INGEST_ARCH))
+
+            def export():
+                out = steps.timed("export v 1 (F32)",
+                                  lambda _: os.path.getsize(back),
+                                  lambda: cv.export_checkpoint(dirs[1], back,
+                                                               spec))
+                same_arrays("export vs the fixture", out, tensors)
+                os.remove(back)
+
+            # two at a time: the passes are I/O and GIL-free numpy / torch
+            with ThreadPoolExecutor(max_workers=2) as pool:
+                t0 = time.perf_counter()
+                for f in [pool.submit(convert, v) for v in (1, 2)]:
+                    f.result()
+                rec["convert_both_s"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                exported = pool.submit(export)
+                direct = steps.timed("hf_to_params v 1 (in memory)",
+                                     tensor_bytes_np, lambda: cv.hf_to_params(
+                                         tensors, spec, pp=2))
+                exported.result()
+                rec["export_and_hf_to_params_s"] = time.perf_counter() - t0
+            del tensors
+
+            def serve(v, tree=None, ckpt=None):
+                sess = new_session(spec, plans[v], device, None).start(SEED)
+                loaded = None
+                if tree is not None:
+                    sess.load_params(tree)
+                else:
+                    loaded, _ = steps.timed(
+                        f"load_checkpoint v {v}", lambda _: dir_bytes(ckpt),
+                        lambda: load_checkpoint(
+                            sess, spec, types.SimpleNamespace(ckpt=ckpt)))
+                reset_counts()
+                run = serve_logits(sess, prompts, INGEST_DECODE)
+                counts = read_counts()
+                want = spec.n_layers * R_SLOTS * INGEST_DECODE
+                if counts["paged_attention"] != want:
+                    raise AssertionError(f"23a v {v}: paged launches "
+                                         f"{counts}, expected {want}")
+                if v > 1 and tree is None:
+                    # the v 1 directory into this v 2 session
+                    try:
+                        load_checkpoint(sess, spec, types.SimpleNamespace(
+                            ckpt=dirs[1]))
+                    except cv.ConvertError as e:
+                        rec["v1_into_v2"] = str(e)
+                    else:
+                        raise AssertionError("the v 1 directory loaded into "
+                                             "the v 2 session")
+                del sess
+                torch.cuda.empty_cache()
+                return run, loaded
+
+            served = {}
+            for v in (1, 2):
+                (t_dir, l_dir), loaded = serve(v, ckpt=dirs[v])
+                if v == 1:
+                    same_arrays("load_converted v 1 vs hf_to_params", loaded,
+                                direct)
+                    twin = direct
+                else:
+                    twin = to_v2_rows(v1_loaded, spec,
+                                      [int(c) for c in cv.storage_order(2, 2)])
+                    same_arrays("v 2 directory vs the v 1 tree re-chunked",
+                                loaded, twin)
+                (t_mem, l_mem), _ = serve(v, tree=twin)
+                if not (torch.equal(t_dir, t_mem)
+                        and torch.equal(l_dir, l_mem)):
+                    raise AssertionError(f"23a v {v}: served from the "
+                                         "directory differs from the same "
+                                         "tree in memory")
+                if not torch.isfinite(l_dir).all():
+                    raise AssertionError(f"23a v {v}: non-finite logits")
+                served[v] = t_dir.cpu().numpy()
+                if v == 1:
+                    v1_loaded = loaded
+                    del direct
+                del loaded, twin
+                log(f"[ingest] v {v}: tokens and {l_dir.shape[0]} steps' "
+                    f"logits from the directory == from memory, bit for "
+                    f"bit; first tokens {served[v][0, :4].tolist()}")
+        rec["paged_launches"] = 2 * 2 * spec.n_layers * R_SLOTS * INGEST_DECODE
+        rec["tokens_equal_v1_v2"] = bool((served[1] == served[2]).all())
+        rec["steps"] = dict(steps)
+        log(f"[ingest] {spec.name}: export == fixture, load_converted == "
+            f"hf_to_params (v 1) and == the v 1 tree re-chunked (v 2), "
+            f"served from the directories == from memory bit for bit, the "
+            f"v 1 directory refused at v 2 ({rec['v1_into_v2'][:60]}...)")
+        results.put(("ok", rec))
+    except BaseException:
+        results.put(("error", traceback.format_exc()))
+        raise
+
+
+def ingest_spec():
+    from repro_torch import configs
+    from repro_torch.launch.train import cut_layers
+    return cut_layers(configs.get(INGEST_ARCH).full_spec(), INGEST_LAYERS)
+
+
+def tensor_bytes_np(tree) -> int:
+    return sum(np.asarray(a).nbytes for _, a in tree_leaves(tree)
+               if isinstance(a, np.ndarray))
+
+
+def serve_new(device, arch):
+    """23b-d: ``arch`` at full width and depth, bf16, ``serve_1f`` pp 2,
+    phase 3's shape (R_SLOTS x ROWS, prefill PREFILL, cache CACHE_LEN,
+    page PAGE, N_DECODE decodes: every decode's attention through the
+    paged kernel), a profiled decode step; then the reference in bf16:
+    for a dense model ``full_transformer`` over the served sequence (its
+    greedy tokens the served ones at every generated position, up to
+    near-ties of NEW_TIE), for an MoE model per slot over the prompts (a
+    longer pass routes more tokens a call: other capacity, other drops),
+    its greedy token the served first token up to NEW_TIE."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import paged_attention as pa
+    cfg = configs.get(arch)
+    spec = cfg.full_spec()
+    plan = cfg.PLAN.with_(pp=2, tp=1, decode_microbatches=R_SLOTS)
+    t0 = time.perf_counter()
+    session = new_session(spec, plan, device, None).start(SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = tensor_bytes(session.params)
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, spec.vocab, (R_SLOTS, ROWS, PREFILL)
+                           ).astype(np.int32)
+    reset_counts()
+    t0 = time.perf_counter()
+    nxt = session.prefill({"tokens": prompts})
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    toks, step_s = [nxt], []
+    per_step = spec.n_layers * R_SLOTS
+    for i in range(N_DECODE):
+        before = pa.paged_attention.launches
+        t0 = time.perf_counter()
+        nxt = session.decode(nxt)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        if pa.paged_attention.launches - before != per_step:
+            raise AssertionError(f"{spec.name} decode step {i}: paged kernel "
+                                 f"launches {pa.paged_attention.launches - before}"
+                                 f", expected {per_step}")
+        toks.append(nxt)
+    counts = read_counts()
+    if counts != {"paged_attention": per_step * N_DECODE,
+                  "paged_attention_int8": 0, "flash_attention": 0,
+                  "flash_attention_bwd": 0, "wkv6": 0, "mamba_scan": 0}:
+        raise AssertionError(f"launches on {spec.name}'s serve path: {counts}")
+    toks = torch.stack(toks).cpu().numpy()
+    session._alloc.check()
+    ms = 1e3 * float(np.median(step_s))
+    prof = profile_decode_step(session, nxt, ms, kernels=("paged_attention",))
+    reset_counts()
+    t0 = time.perf_counter()
+    if spec.moe is None:
+        logits = reference_logits(session, prompts, toks,
+                                  n_last=toks.shape[0])
+        served = torch.from_numpy(toks.T.astype(np.int64))
+        want_flash = spec.n_layers
+    else:
+        logits = slot_prefill_logits(session, prompts)[:, None]
+        served = torch.from_numpy(toks[:1].T.astype(np.int64))
+        want_flash = spec.n_layers * R_SLOTS
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    ref_counts = read_counts()
+    if ref_counts["flash_attention"] != want_flash or \
+            ref_counts["paged_attention"]:
+        raise AssertionError(f"{spec.name} reference launches {ref_counts}, "
+                             f"expected {want_flash} flash")
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"{spec.name}: non-finite reference logits")
+    served = served.to(logits.device)
+    gap = logits.amax(-1) - logits.gather(-1, served[..., None])[..., 0]
+    agree = logits.argmax(-1) == served
+    if (gap > NEW_TIE).any():
+        raise AssertionError(
+            f"{spec.name}: served tokens are not full_transformer's greedy "
+            f"tokens at {int((gap > NEW_TIE).sum())} of {gap.numel()} "
+            f"positions (logit gap up to {gap.max().item():.4f} > {NEW_TIE})")
+    rec = {"model": spec.name, "layers": spec.n_layers,
+           "parameters": spec.param_count(), "weight_gb": weights / 1e9,
+           "heads": [spec.n_heads, spec.n_kv, spec.d_head], "pp": plan.pp,
+           "slots": R_SLOTS, "rows": ROWS, "prefill": PREFILL,
+           "cache_len": CACHE_LEN, "init_s": init_s,
+           "prefill_s": t_prefill, "decode_ms_per_step": ms,
+           "decode_ms_steps": [1e3 * x for x in step_s],
+           "decode_tokens_per_s": R_SLOTS * ROWS * 1e3 / ms,
+           "moe_capacity": (None if session.statics.moe is None
+                            else session.statics.moe.capacity),
+           "paged_launches": counts["paged_attention"],
+           "reference_flash_launches": ref_counts["flash_attention"],
+           "reference_s": ref_s, "reference_positions": gap.numel(),
+           "reference_agree": int(agree.sum()),
+           "reference_max_gap": gap.max().item(), "tie": NEW_TIE}
+    log(f"[serve-new] {spec.name}: {spec.n_layers} layers, "
+        f"{spec.param_count() / 1e9:.2f} B parameters ({weights / 1e9:.1f} "
+        f"GB), heads {spec.n_heads}/{spec.n_kv}; init {init_s:.1f}s, "
+        f"prefill {t_prefill:.3f}s, decode {ms:.2f} ms/step (median of "
+        f"{N_DECODE}), {rec['decode_tokens_per_s']:.1f} tokens/s; paged "
+        f"launches {counts['paged_attention']}; reference: greedy == served "
+        f"at {rec['reference_agree']}/{gap.numel()} positions, max gap "
+        f"{rec['reference_max_gap']:.4f} (limit {NEW_TIE}); profiled step: "
+        f"device {prof['device_ms']:.2f} ms, idle {prof['idle_share']:.3f}, "
+        f"{prof['kernel_launches']} launches; top (ms, calls) "
+        f"{[(k['name'][:50], round(k['ms'], 3), k['calls']) for k in prof['by_kernel'][:6]]}")
+    del session
+    torch.cuda.empty_cache()
+    return rec, prof
+
+
+def consistency_new(device, arch):
+    """23b-d in fp32 at NEW_CONS_LAYERS layers and full width: the paged
+    engine against the dense-cache engine on the card (tokens; last
+    hidden states and pools against caches within 1e-5), its prefill
+    logits against ``full_transformer``'s (per slot, 1e-3), and the same
+    paged session on the CPU from the card's weights (tokens and
+    positions equal, hidden states within 1e-4)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch.train import cut_layers
+    from repro_torch.models import lm_head
+    cfg = configs.get(arch)
+    spec = cut_layers(cfg.full_spec(), NEW_CONS_LAYERS)
+    plan = cfg.PLAN.with_(pp=2, tp=1, decode_microbatches=NEW_CONS_SLOTS)
+    rng = np.random.default_rng(SEED + 4)
+    prompts = rng.integers(0, spec.vocab, (NEW_CONS_SLOTS, ROWS,
+                                           NEW_CONS_PREFILL)).astype(np.int32)
+    kw = dict(cache_len=NEW_CONS_CACHE, prefill_len=NEW_CONS_PREFILL)
+    f32 = torch.float32
+    paged = new_session(spec, plan, device, f32, **kw).start(SEED)
+    dense = new_session(spec, plan, device, f32, page_size=0,
+                        **kw).reset_state().set_params(paged.params)
+    host = new_session(spec, plan, "cpu", f32, **kw).reset_state()
+    host.set_params(to_device(paged.params, "cpu"))
+    runs, secs = {}, {}
+    for name, s in (("paged", paged), ("dense", dense), ("cpu", host)):
+        t0 = time.perf_counter()
+        nxt = s.prefill({"tokens": prompts})
+        if name == "paged":
+            fn = s.params["final_norm"]
+            eng_logits = lm_head.last_logits(s.params["head"], fn["scale"],
+                                             s.last_hidden, vocab=spec.vocab)
+        hs, ts = [s.last_hidden.cpu()], [nxt.cpu()]
+        for _ in range(NEW_CONS_DECODE):
+            nxt = s.decode(nxt)
+            hs.append(s.last_hidden.cpu())
+            ts.append(nxt.cpu())
+        runs[name] = (torch.stack(ts).numpy(), hs)
+        secs[name] = time.perf_counter() - t0
+    for other in ("dense", "cpu"):
+        if not (runs[other][0] == runs["paged"][0]).all():
+            raise AssertionError(f"{spec.name}: {other} tokens differ from "
+                                 "the paged card session's")
+    if not ((paged._pos == dense._pos).all() and
+            (paged._pos == host._pos).all()):
+        raise AssertionError(f"{spec.name}: positions differ")
+    tol = 1e-5
+    err_d = max(check_close(f"{spec.name} paged vs dense hidden {i}", a, b,
+                            tol, tol)
+                for i, (a, b) in enumerate(zip(runs["paged"][1],
+                                               runs["dense"][1])))
+    n_keys = NEW_CONS_PREFILL + NEW_CONS_DECODE
+    err_kv = 0.0
+    for name, (kp, vp) in paged.pages.items():
+        for pool, cache in zip((kp, vp), dense.cache[name]["kv"]):
+            for m in range(NEW_CONS_SLOTS):
+                ids = torch.from_numpy(paged._alloc.tables[m]).long()
+                ids = ids[ids >= 0].to(device)
+                got = pool[:, ids].transpose(1, 2).reshape(
+                    pool.shape[0], ROWS, -1, *pool.shape[-2:])[:, :, :n_keys]
+                err_kv = max(err_kv, check_close(
+                    f"{spec.name} {name} pool", got, cache[:, m, :, :n_keys],
+                    tol, tol))
+    err_c = max(check_close(f"{spec.name} card vs CPU hidden {i}", a, b,
+                            1e-4, 1e-4)
+                for i, (a, b) in enumerate(zip(runs["paged"][1],
+                                               runs["cpu"][1])))
+    ref_logits = slot_prefill_logits(paged, prompts)
+    err_l = check_close(f"{spec.name} full_transformer vs engine logits",
+                        eng_logits, ref_logits, 1e-3, 1e-3)
+    rec = {"layers": spec.n_layers, "paged_vs_dense_hidden": err_d,
+           "pools_vs_caches": err_kv, "card_vs_cpu_hidden": err_c,
+           "engine_vs_full_transformer_logits": err_l, "seconds": secs}
+    log(f"[consistency-new] {spec.name} fp32 {spec.n_layers} layers at full "
+        f"width, {NEW_CONS_SLOTS} x {ROWS} rows, prefill {NEW_CONS_PREFILL} "
+        f"+ {NEW_CONS_DECODE} decodes: paged == dense tokens, hidden "
+        f"{err_d:.3e}, pools {err_kv:.3e} (atol/rtol {tol}); card == CPU "
+        f"tokens and positions, hidden {err_c:.3e} (1e-4); engine vs "
+        f"full_transformer prefill logits {err_l:.3e} (1e-3); seconds "
+        f"{json.dumps({k: round(v, 2) for k, v in secs.items()})}")
+    del paged, dense, host
+    torch.cuda.empty_cache()
+    return rec
+
+
+def new_serve_train(device, out, profs, launches, seconds):
+    """23b-d (NEW_SERVE through :func:`serve_new` and
+    :func:`consistency_new`) and 23e (NEW_TRAIN through :func:`train_cut`
+    at phase 13's shape, 1f1b / stash pp 2, then each at NEW_CONS_LAYERS
+    layers in fp32: executor == oracle bit for bit), into ``out``,
+    ``profs``, ``launches`` and ``seconds``."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch.train import cut_layers
+    from repro_torch.optim import SGDM
+    for arch in NEW_SERVE:
+        t0 = time.perf_counter()
+        rec, prof = serve_new(device, arch)
+        rec["consistency"] = consistency_new(device, arch)
+        key = arch.split("-")[0]
+        launches[f"{key}_serve"] = {"paged_attention": rec["paged_launches"]}
+        launches[f"{key}_reference"] = {
+            "flash_attention": rec["reference_flash_launches"]}
+        out["serve"][arch] = rec
+        profs.append({**prof, "phase": "decode"})
+        seconds[arch] = time.perf_counter() - t0
+    for arch, layers in NEW_TRAIN:
+        t0 = time.perf_counter()
+        rec, prof = train_cut(device, arch, layers, 2, "1f1b", "stash",
+                              FLASH_KERNELS)
+        out["train"][arch] = rec
+        profs.append(prof)
+        launches[f"{arch.split('-')[0]}_train"] = rec["launches"]
+        seconds[f"train {arch}"] = time.perf_counter() - t0
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    out["exact"] = {}
+    try:
+        for arch, _ in NEW_TRAIN:
+            t0 = time.perf_counter()
+            cfg = configs.get(arch)
+            spec = cut_layers(cfg.full_spec(), NEW_CONS_LAYERS)
+            plan = cfg.PLAN.with_(tp=1, pp=2, microbatches=CONS_R,
+                                  schedule="1f1b", stash_mode="stash")
+            reset_counts()
+            with plain_versions_refused():
+                out["exact"][arch] = executor_equals_oracle(
+                    device, "1f1b/stash", spec, plan, SGDM(lr=0.01),
+                    donate=True)
+            counts = read_all_counts()
+            want = train_launches(spec, 2 * CONS_ROUNDS, CONS_R)
+            if {k: counts[k] for k in want} != want:
+                raise AssertionError(f"23e {spec.name} launches {counts}, "
+                                     f"expected {want} (executor + oracle)")
+            out["exact"][arch]["launches"] = counts
+            launches[f"{arch.split('-')[0]}_train_exact"] = counts
+            seconds[f"exact {arch}"] = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def phase_new_configs(device):
+    """Phase 23: 23a (:func:`ingest_child`) in a spawned process beside
+    23b-e (:func:`new_serve_train`), which run here.  Returns (records,
+    profiles, launches by path, seconds)."""
+    import multiprocessing
+    out, profs, launches, seconds = {"serve": {}, "train": {}}, [], {}, {}
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    child = ctx.Process(target=ingest_child, args=(device, results))
+    t_child = time.perf_counter()
+    child.start()
+    try:
+        new_serve_train(device, out, profs, launches, seconds)
+        t0 = time.perf_counter()
+        status, got = results.get(timeout=INGEST_S)
+        child.join(60)
+        seconds["23a wait after 23b-e"] = time.perf_counter() - t0
+        seconds["23a (spawned with 23b)"] = time.perf_counter() - t_child
+        if status != "ok":
+            raise AssertionError(f"23a failed:\n{got}")
+        out["ingest"] = got
+    finally:
+        if child.is_alive():
+            child.kill()
+            child.join(5)
+    launches["olmoe_ingest_serve"] = {
+        "paged_attention": out["ingest"]["paged_launches"]}
+    log(f"[phases] 23 seconds: {json.dumps(seconds)}")
+    return out, profs, launches, seconds
+
+
+def new_config_launches(launches):
+    """Phase 23's launches by kernel and layout for the kernels line:
+    {kernel: {layout: {path: count}}}, and by kernel over every layout."""
+    out = {k: {name: {} for name in LAYOUTS}
+           for k in ("paged_attention", "paged_attention_verify",
+                     "flash_attention", "flash_attention_bwd")}
+    for path, counts in launches.items():
+        layout = next(n for n, archs in LAYOUT_ARCHS.items()
+                      if path.split("_")[0] in archs)
+        for k in ("paged_attention", "flash_attention",
+                  "flash_attention_bwd"):
+            if counts.get(k):
+                out[k][layout][path] = counts[k]
+    return out
 
 
 class PhaseSeconds(dict):
@@ -5754,6 +6567,7 @@ def main() -> int:
     errs["paged_attention_int8"] = phase_paged_int8_kernel(device)
     errs["flash_attention_bwd"] = phase_flash_bwd_kernel(device)
     errs["dh120"] = phase_dh120_kernels(device)
+    errs["layouts"] = phase_layout_kernels(device)
     errs["wkv6_bwd"] = phase_wkv6_bwd_kernel(device)
     errs["mamba_scan_bwd"] = phase_mamba_bwd_kernel(device)
     phase_s["2 kernels"] = time.perf_counter() - t0
@@ -5854,7 +6668,9 @@ def main() -> int:
     phase_s["18 ckpt dist"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    batch_rec, batch_counts, tile_err = phase_batching(device, qwen_full,
+    from repro_torch.launch.train import cut_layers
+    batch_rec, batch_counts, tile_err = phase_batching(
+        device, cut_layers(qwen_full, BATCH_LAYERS),
                                                        qwen_plan)
     phase_s["19 batching"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
@@ -5870,6 +6686,15 @@ def main() -> int:
     recur_out, prof_recur, recur_launches, recur_s = phase_train_recurrent(
         device)
     phase_s["22 train recurrent"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    new_out, prof_new, new_launches, new_s = phase_new_configs(device)
+    phase_s["23 new configs"] = time.perf_counter() - t0
+    by_layout = new_config_launches(new_launches)
+
+    def new_paths(kernel):
+        return {path: n for layout in by_layout[kernel].values()
+                for path, n in layout.items()}
 
     def recur_paths(arch, kernel):
         return {k: c[kernel] for k, c in recur_launches.items()
@@ -5881,7 +6706,8 @@ def main() -> int:
                             "qwen3_batching": batch_counts["decode_q1"],
                             "qwen3_planned_serve":
                                 planned_counts["qwen3_planned_serve"],
-                            "danube3_serve": planned_counts["danube3_serve"]},
+                            "danube3_serve": planned_counts["danube3_serve"],
+                            **new_paths("paged_attention")},
         "paged_attention_int8": {"qwen3_quant_serve": int8_launches,
                                  "danube3_int8_serve":
                                      planned_counts["danube3_int8_serve"]},
@@ -5900,7 +6726,8 @@ def main() -> int:
                 planned_counts["qwen3_planned_serve_reference"],
             "danube3_full_transformer":
                 planned_counts["danube3_full_transformer"],
-            **{k: c["flash_attention"] for k, c in tp_counts.items()}},
+            **{k: c["flash_attention"] for k, c in tp_counts.items()},
+            **new_paths("flash_attention")},
         "flash_attention_bwd": {
             "qwen3_train": train_bwd,
             **{f"qwen3_train_{n}": c["flash_attention_bwd"]
@@ -5909,7 +6736,8 @@ def main() -> int:
             "qwen3_train_two_ranks": dist_counts["flash_attention_bwd"],
             "qwen3_driver_two_ranks": ckpt_counts["flash_attention_bwd"],
             **{k: c["flash_attention_bwd"]
-               for k, c in tp_counts.items()}},
+               for k, c in tp_counts.items()},
+            **new_paths("flash_attention_bwd")},
         "wkv6": {"serve": wkv_serve, "full_transformer": wkv_ref,
                  **recur_paths("rwkv6", "wkv6")},
         "wkv6_by_design": {
@@ -5933,16 +6761,22 @@ def main() -> int:
                             planned_counts["danube3_serve"]},
         "paged_attention_int8": {"danube3_int8_serve":
                                  planned_counts["danube3_int8_serve"]}})
+    layouts = layout_records(device, errs["layouts"], by_layout)
     for rec in records:
         if rec["name"] in dh120:
             rec["dh120"] = dh120[rec["name"]]
+        at = {name: layouts[name][rec["name"]] for name in LAYOUTS
+              if rec["name"] in layouts[name]}
+        if at:
+            rec["layouts"] = at
     log(f"[phases] seconds: {json.dumps(phase_s)}")
     log(f"[done] {time.perf_counter() - t_start:.1f}s; serve qwen3 {serve}; "
         f"serve rwkv6 {serve_rwkv}; serve jamba {serve_jamba}; serve qwen3 "
         f"int8/int8 {serve_quant}; consistency int8/int8 "
         f"{consistency_quant}; consistency train {consistency_train}; "
         f"dist {json.dumps(dist_s)}; ckpt dist {json.dumps(ckpt_s)}; "
-        f"tp {json.dumps(tp_s)}; train recurrent {json.dumps(recur_s)}")
+        f"tp {json.dumps(tp_s)}; train recurrent {json.dumps(recur_s)}; "
+        f"new configs {json.dumps(new_s)}")
     print(json.dumps({"profile": prof_qwen}))
     print(json.dumps({"profile": prof}))
     print(json.dumps({"profile": prof_rwkv_prefill}))
@@ -5952,7 +6786,7 @@ def main() -> int:
     print(json.dumps({"profile": prof_train}))
     for prof_v in prof_virtual:
         print(json.dumps({"profile": prof_v}))
-    for prof_r in prof_recur:
+    for prof_r in prof_recur + prof_new:
         print(json.dumps({"profile": prof_r}))
     print(json.dumps({"train": train_out}))
     for name in virtual:
@@ -5977,6 +6811,13 @@ def main() -> int:
                                               "card": card}}))
     print(json.dumps({"train_recurrent_exact": {**recur_out["22c"],
                                                 "card": card}}))
+    print(json.dumps({"ingest": {**new_out["ingest"], "card": card}}))
+    for arch, rec in new_out["serve"].items():
+        print(json.dumps({"serve_new": {**rec, "card": card}}))
+    for arch, rec in new_out["train"].items():
+        print(json.dumps({"train_new": {**rec, "card": card}}))
+    print(json.dumps({"train_new_exact": {**new_out["exact"],
+                                          "card": card}}))
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -194,10 +194,10 @@ def _tp_key_dim(key: str, spec, tp: int) -> int:
         return -1
     parts = key.split("/")
     lead = 2 if key.startswith(("stash/", "opt_stages/")) else 0
-    layer = parts[lead:]
-    if len(layer) != 3:
+    layer = parts[lead:]               # layer_i / block[/ block] / leaf
+    if len(layer) < 3:
         return -1
-    ax = tp_dim(layer[1], layer[2], spec, tp)
+    ax = tp_dim("/".join(layer[1:-1]), layer[-1], spec, tp)
     return ax + (1 if key.startswith("stash/ring/") else 0) if ax >= 0 else -1
 
 

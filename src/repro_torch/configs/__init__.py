@@ -1,15 +1,16 @@
 """Architecture registry (port of ``repro/configs``).
 
 Every config module exposes ``full_spec()``, ``smoke_spec()``, ``PLAN``
-and ``SMOKE_PLAN``.  Ported so far: qwen3-14b, rwkv6-1.6b, jamba-v0.1-52b
-and h2o-danube3-4b; the other six architectures of the JAX registry
-follow with their block kinds.
+and ``SMOKE_PLAN``.  Ported so far: qwen3-14b, rwkv6-1.6b, jamba-v0.1-52b,
+h2o-danube3-4b, olmoe-1b-7b, chatglm3-6b and deepseek-moe-16b; gemma3-4b,
+whisper-medium and llava-next-34b follow with their block kinds.
 """
 from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ("qwen3_14b", "h2o_danube3_4b", "rwkv6_1b6", "jamba_v01_52b")
+ARCH_IDS = ("qwen3_14b", "chatglm3_6b", "h2o_danube3_4b", "olmoe_1b_7b",
+            "deepseek_moe_16b", "rwkv6_1b6", "jamba_v01_52b")
 
 # CLI ids (dashes) -> module names, as in the JAX registry
 _ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}

@@ -28,6 +28,16 @@ capacity).
       --device cpu --page-size 16 --trace-out /tmp/t.json \\
       --metrics-out /tmp/m.json
 
+``--ckpt DIR`` serves the weights of a converted checkpoint
+(``python -m repro_torch.checkpoint.convert``, converted for this
+session's ``--pp`` / ``--virtual-stages``) in place of the seeded ones;
+``--weight-dtype int8`` / ``fp8`` quantizes them as they are installed:
+
+  python -m repro_torch.checkpoint.convert --src hf_dir --dest ck \
+      --config olmoe_1b_7b --smoke --pp 2
+  python -m repro_torch.launch.serve --arch olmoe-1b-7b --smoke \
+      --device cpu --page-size 16 --ckpt ck
+
 ``--trace-out`` / ``--metrics-out`` write the session's Chrome trace (one
 track per stage) and metrics snapshot (``repro_torch.obs``); the run
 then prints the decode (and verify) rounds' ``reconcile`` lines.
@@ -93,6 +103,37 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def load_checkpoint(session, spec, args):
+    """Install a converted checkpoint (``checkpoint/convert.py``) into
+    the started session, after checking that it was converted for this
+    schedule's chunks and storage order; ``ConvertError`` names the
+    ``--pp`` / ``--virtual-stages`` to reconvert with otherwise.  Returns
+    the loaded numpy tree and the manifest."""
+    from repro_torch.checkpoint.convert import (ConvertError,
+                                                load_converted,
+                                                read_manifest)
+    manifest = read_manifest(args.ckpt, spec)     # refused before reading
+    sched = session.sched
+    want = (list(int(c) for c in sched.storage_chunk_order())
+            if sched.virtual_stages > 1 else list(range(sched.n_chunks)))
+    if (manifest["n_chunks"] != sched.n_chunks
+            or list(manifest["storage_order"]) != want):
+        raise ConvertError(
+            f"checkpoint at '{args.ckpt}' was converted for "
+            f"pp={manifest['pp']} v={manifest['virtual_stages']} "
+            f"(storage order {manifest['storage_order']}); this session "
+            f"runs {sched.n_chunks} chunks in order {want} — reconvert "
+            f"with --pp {sched.n_stages} --virtual-stages "
+            f"{sched.virtual_stages}")
+    params, manifest = load_converted(args.ckpt, spec)
+    session.load_params(params)
+    quantized = session.weight_dtype in ("int8", "fp8")
+    print(f"loaded checkpoint {args.ckpt} (family={manifest['family']}, "
+          f"{manifest['n_chunks']} chunks"
+          f"{f', weights quantized to {session.weight_dtype}' if quantized else ''})")
+    return params, manifest
+
+
 def serve_arrivals(session, spec, args) -> None:
     """Continuous batching over a request trace (``--arrivals``)."""
     from repro_torch.serving.batcher import ContinuousBatchingSession, Request
@@ -104,6 +145,8 @@ def serve_arrivals(session, spec, args) -> None:
                      max_new_tokens=args.tokens, arrival=int(t))
              for i, t in enumerate(sorted(arrivals))]
     session.start(args.seed)
+    if args.ckpt:
+        load_checkpoint(session, spec, args)
     server = ContinuousBatchingSession(session, policy=args.policy)
     t0 = time.perf_counter()
     report = server.run(trace)
@@ -142,6 +185,8 @@ def serve_batch(session, spec, args) -> None:
     rounds."""
     device = session.device
     session.start(args.seed)
+    if args.ckpt:
+        load_checkpoint(session, spec, args)
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, spec.vocab, (session.n_slots, session.rows,
                                            args.prefill)).astype(np.int32)
@@ -201,6 +246,10 @@ def main(argv=None):
                     help="liveness-aware bucketed execution: each round "
                          "walks the smallest compacted table variant "
                          "covering its slots")
+    ap.add_argument("--ckpt", type=str, default=None,
+                    help="converted checkpoint directory (see "
+                         "repro_torch.checkpoint.convert: HF safetensors -> "
+                         "per-chunk files in this plan's storage order)")
     ap.add_argument("--weight-dtype", type=str, default=None,
                     choices=[None, "fp32", "bf16", "int8", "fp8"],
                     help="weight storage dtype: int8/fp8 store matmul "

@@ -7,7 +7,8 @@ sit outside the pipeline.  ``layer_windows`` / ``layer_thetas`` are
 [pp][lps] Python lists: static per layer, read on the host.  So a JAX
 tree carries over leaf for leaf (:func:`params_from_numpy`).  Ported
 block kinds: attention, RWKV6 time-mix or Mamba as the mixer; a dense
-FFN, RWKV6 channel-mix or MoE (without shared experts) as the FFN.
+FFN, RWKV6 channel-mix or MoE (with shared experts, ``moe.shared``) as
+the FFN.
 Cross-attention blocks come later.
 
 A stage cut over tp tensor ranks holds rank t's shard of every sharded
@@ -85,13 +86,16 @@ def rwkv_static(spec: spec_lib.ModelSpec, tp: int) -> RWKVStatic:
 
 # the dim of each stage-stacked leaf ([L, ...]) that the tensor axis cuts,
 # by (block, leaf): JAX ``models/init.py``'s PartitionSpecs (``"kv"``:
-# the KV heads when tp divides them, else whole).  Every leaf not named
+# the KV heads when tp divides them, else whole; a block inside a block,
+# the MoE's shared experts, by its path ``"moe/shared"``: cut as ``mlp``,
+# since JAX draws it through ``_mlp_init``).  Every leaf not named
 # (norms, qk-norm scales, the router, RWKV's lerps and LoRAs, the
 # channel-mix gate) and the embedding, head and final norm stay whole.
 _TP_DIMS = {
     "attn": {"wq": 2, "wk": "kv", "wv": "kv", "wo": 1},
     "mlp": {"w1": 2, "w3": 2, "w2": 1},
     "moe": {"w1": 1, "w2": 1, "w3": 1},
+    "moe/shared": {"w1": 2, "w3": 2, "w2": 1},
     "mamba": {"in_x": 2, "in_z": 2, "conv_w": 1, "x_proj": 1, "dt_proj": 2,
               "dt_bias": 1, "A_log": 1, "D": 1, "out_proj": 1},
     "tmix": {"wr": 2, "wk": 2, "wv": 2, "wg": 2, "wo": 1, "w0": 1,
@@ -102,16 +106,23 @@ _TP_DIMS = {
 
 def tp_dim(block: str, leaf: str, spec: spec_lib.ModelSpec, tp: int) -> int:
     """The dim of a stage-stacked ``block`` / ``leaf`` weight that the
-    tensor axis cuts at ``tp`` ranks; -1 for a leaf held whole."""
+    tensor axis cuts at ``tp`` ranks; -1 for a leaf held whole.  A
+    nested block is named by its path (``"moe/shared"``)."""
     ax = _TP_DIMS.get(block, {}).get(leaf, -1)
     if ax == "kv":
         ax = 2 if spec.n_kv % tp == 0 else -1
     return ax if tp > 1 else -1
 
 
+def _block_tp_axes(block: str, sub, spec, tp: int) -> Dict:
+    return {leaf: (_block_tp_axes(f"{block}/{leaf}", v, spec, tp)
+                   if isinstance(v, dict) else tp_dim(block, leaf, spec, tp))
+            for leaf, v in sub.items()}
+
+
 def _layer_tp_axes(layer, spec: spec_lib.ModelSpec, tp: int) -> Dict:
     """:func:`tp_axes` of one ``stages["layer_i"]`` dict."""
-    return {block: {leaf: tp_dim(block, leaf, spec, tp) for leaf in sub}
+    return {block: _block_tp_axes(block, sub, spec, tp)
             for block, sub in layer.items()}
 
 
@@ -199,19 +210,28 @@ def _rwkv_cmix_init(spec, pp, gen, dtype, out_scale, take):
     }
 
 
+def _mlp_init(spec, pp, gen, dtype, out_scale, take, ff):
+    d = spec.d_model
+    mlp = {"w1": take(_dense(gen, (pp, d, ff), dtype)),
+           "w2": take(_dense(gen, (pp, ff, d), dtype, out_scale))}
+    if spec.act == "silu":
+        mlp["w3"] = take(_dense(gen, (pp, d, ff), dtype))
+    return mlp
+
+
 def _moe_init(spec, pp, gen, dtype, out_scale, take):
     d, m = spec.d_model, spec.moe
-    if m.n_shared:
-        raise NotImplementedError(
-            "shared experts (deepseek) come with the deepseek slice of the "
-            "port")
-    return {
+    p = {
         "router": take(_dense(gen, (pp, d, m.n_experts), dtype)),
         "w1": take(_dense(gen, (pp, m.n_experts, d, m.d_expert), dtype)),
         "w2": take(_dense(gen, (pp, m.n_experts, m.d_expert, d), dtype,
                           out_scale)),
         "w3": take(_dense(gen, (pp, m.n_experts, d, m.d_expert), dtype)),
     }
+    if m.n_shared:              # one MLP of n_shared x d_shared, as JAX's
+        p["shared"] = _mlp_init(spec, pp, gen, dtype, out_scale, take,
+                                m.n_shared * m.d_shared)
+    return p
 
 
 def _mamba_init(spec, pp, gen, dtype, out_scale, take):
@@ -348,11 +368,7 @@ def _draw(spec, plan, gen, dtype, rows, embed: bool, head: bool,
         lp["norm2"] = tree_map(take, _norm_init((pp, d), spec.norm, dtype,
                                                 dev))
         if blk.ffn == "dense":
-            mlp = {"w1": take(_dense(gen, (pp, d, ff), dtype)),
-                   "w2": take(_dense(gen, (pp, ff, d), dtype, out_scale))}
-            if spec.act == "silu":
-                mlp["w3"] = take(_dense(gen, (pp, d, ff), dtype))
-            lp["mlp"] = mlp
+            lp["mlp"] = _mlp_init(spec, pp, gen, dtype, out_scale, take, ff)
         elif blk.ffn == "moe":
             lp["moe"] = _moe_init(spec, pp, gen, dtype, out_scale, take)
         else:

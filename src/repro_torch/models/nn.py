@@ -482,11 +482,12 @@ def moe(p, x, ms: MoEStatic, act: str, tp=None):
     from, so its cotangent, each rank's experts' share, is summed; on
     ``x`` it would also sum the router's cotangent, which every rank
     already holds whole.
+
+    Shared experts (``ms.n_shared``, deepseek) are one MLP of width
+    ``n_shared · d_shared`` over every token, ``p["shared"]``, added to
+    the routed output (JAX ``:621-622``): :func:`mlp`, with its own
+    tensor sums.
     """
-    if ms.n_shared:
-        raise NotImplementedError(
-            "shared experts (deepseek) come with the deepseek slice of the "
-            "port")
     b, s, d = x.shape
     n, k, e = b * s, ms.top_k, ms.n_experts
     xf = x.reshape(n, d)
@@ -520,7 +521,10 @@ def moe(p, x, ms: MoEStatic, act: str, tp=None):
     out = gathered[:, 0]
     for j in range(1, k):
         out = out + gathered[:, j]
-    return out.view(b, s, d), aux
+    out = out.view(b, s, d)
+    if ms.n_shared:
+        out = out + mlp(p["shared"], x, act, tp)
+    return out, aux
 
 
 # --------------------------------------------------------------------------

@@ -54,10 +54,6 @@ def make_statics(spec: spec_lib.ModelSpec, plan: ParallelismPlan,
             "not ported yet (cross-attention and mixer- or FFN-less blocks "
             "are still to port)")
     has = lambda kind: any(kind in (b.mixer, b.ffn) for b in program)
-    if has("moe") and spec.moe.n_shared:
-        raise NotImplementedError(
-            f"{spec.name}: shared experts (deepseek) come with the deepseek "
-            "slice of the port")
     if has("moe") and tokens_per_mb is None:
         raise ValueError(f"{spec.name} has MoE FFNs: make_statics needs "
                          "tokens_per_mb to size the expert capacity")

@@ -35,9 +35,9 @@ PARAM_TOL = (2e-5, 1e-3)
 
 
 def run_both(mode, pp, opt="sgdm", lr=0.05, arch="qwen3-14b",
-             spec_fn=None):
+             spec_fn=None, rounds=ROUNDS):
     """({"losses", "state"} numpy for JAX, the same for the port) after
-    ROUNDS rounds of the arch's smoke spec (qwen3's by default), fp32;
+    ``rounds`` rounds of the arch's smoke spec (qwen3's by default), fp32;
     ``spec_fn`` maps each package's smoke spec to the spec trained."""
     kw = dict(pp=pp, microbatches=R, stash_mode=mode)
     spec_fn = spec_fn or (lambda spec: spec)
@@ -56,7 +56,7 @@ def run_both(mode, pp, opt="sgdm", lr=0.05, arch="qwen3-14b",
                                 torch.float32)
     src = SyntheticLM(tspec.vocab, SEQ, seed=1)
     jl, tl = [], []
-    for r in range(ROUNDS):
+    for r in range(rounds):
         b = src.round_batch(r, R, BMB)
         js, jm = jround(js, {k: jnp.asarray(v) for k, v in b.items()})
         ts, tm = t_step(tspec, tplan, ts,

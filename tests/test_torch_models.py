@@ -109,8 +109,9 @@ def test_full_transformer_matches_jax(pp):
 
 
 def test_make_statics_rejects_unported_block_kinds():
-    """Cross-attention blocks and shared experts are not ported yet; MoE
-    blocks (ported) need the tokens per microbatch that size capacity."""
+    """Cross-attention blocks are not ported yet; MoE blocks (ported,
+    with shared experts since the deepseek slice) need the tokens per
+    microbatch that size capacity."""
     spec = tconfigs.get("qwen3-14b").smoke_spec()
     xattn = dataclasses.replace(spec, blocks=tuple(
         BlockSpec(mixer="attn", ffn="dense", cross_attn=True)
@@ -122,8 +123,8 @@ def test_make_statics_rejects_unported_block_kinds():
         tstage.make_statics(jamba, TPlan(pp=1, tp=1))
     shared = dataclasses.replace(jamba, moe=dataclasses.replace(
         jamba.moe, n_shared=1, d_shared=32))
-    with pytest.raises(NotImplementedError, match="deepseek"):
-        tstage.make_statics(shared, TPlan(pp=1, tp=1), tokens_per_mb=8)
+    st = tstage.make_statics(shared, TPlan(pp=1, tp=1), tokens_per_mb=8)
+    assert st.moe.n_shared == 1
 
 
 @pytest.mark.parametrize("rows", [1, 2, 3])

@@ -9,6 +9,7 @@ slot of their expert's last kept pair (ROADMAP Queue 3).  There the port
 is held against an independent per-pair loop written here, and one
 test records the JAX fault.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -148,8 +149,19 @@ def test_jax_moe_scatter_fault_is_not_copied():
 
 
 def test_moe_rejects_shared_experts():
-    p = {n: torch.from_numpy(v) for n, v in
-         _params(np.random.default_rng(1), 8, 4, 16).items()}
-    ms = tnn.MoEStatic(**{**_static(4, 2, 4), "n_shared": 1})
-    with pytest.raises(NotImplementedError, match="deepseek"):
-        tnn.moe(p, torch.zeros((1, 2, 8)), ms, "silu")
+    """Shared experts were refused until the deepseek slice; now they are
+    one MLP (``p["shared"]``) over every token added to the routed
+    output, as JAX's ``nn.moe`` adds it."""
+    rng = np.random.default_rng(1)
+    p = _params(rng, 8, 4, 16)
+    p["shared"] = {n: (0.3 * rng.standard_normal(s)).astype(np.float32)
+                   for n, s in (("w1", (8, 32)), ("w2", (32, 8)),
+                                ("w3", (8, 32)))}
+    x = rng.standard_normal((1, 6, 8)).astype(np.float32)
+    st = {**_static(4, 2, 12), "n_shared": 2}
+    jout, _ = jnn.moe(jax.tree.map(jnp.asarray, p), jnp.asarray(x),
+                      jnn.MoEStatic(**st), "silu", None)
+    tout, _ = tnn.moe(jax.tree.map(torch.from_numpy, p),
+                      torch.from_numpy(x), tnn.MoEStatic(**st), "silu")
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), atol=ATOL,
+                               rtol=RTOL)

@@ -33,7 +33,8 @@ from repro_torch.optim.optimizers import tree_map
 from repro_torch.parallel.dist import ProcessGrid
 from repro_torch.parallel.plan import ParallelismPlan
 
-ARCHS = ["qwen3-14b", "rwkv6-1.6b", "jamba-v0.1-52b", "h2o-danube3-4b"]
+ARCHS = ["qwen3-14b", "rwkv6-1.6b", "jamba-v0.1-52b", "h2o-danube3-4b",
+         "olmoe-1b-7b", "chatglm3-6b", "deepseek-moe-16b"]
 
 
 # --------------------------------------------------------------------------
