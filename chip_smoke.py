@@ -240,14 +240,39 @@ Phases (any failure raises and the script exits non-zero):
    trained at phase 13's shape (1f1b / stash pp 2, the config's Adam,
    remat): finite losses, every attention forward and backward on the
    flash kernels; at NEW_CONS_LAYERS layers in fp32 the executor equals
-   the oracle bit for bit.
+   the oracle bit for bit;
+24. frontends (while 23a's process finishes) — whisper-medium (an
+   encoder of 24 layers before the
+   pipeline over 1500 stub frames, cross-attention in each of 24 decoder
+   layers, 16 / 16 heads of 64) and llava-next-34b (576 stub patch
+   embeddings before the text, 56 / 8 heads of 128), bf16 on the card.
+   24a: whisper at full size, ``serve_1f`` pp 2, R_SLOTS x ROWS rows, a
+   prompt of 64 tokens and the frames, cache_len 448 (its published
+   decoder context), page PAGE, N_DECODE decodes through the paged
+   kernel (cross-attention K / V recomputed from each slot's
+   ``enc_out``), a profiled decode step; ``full_transformer`` over the
+   served sequences with the same encoder output: its greedy tokens the
+   served ones up to near-ties of FRONT_TIE.  24b: llava at full width
+   cut to 8 of 60 layers, the same with a prompt of 576 patches and 64
+   tokens, cache_len 1024.  24c: whisper at full depth (1f1b / stash, 2
+   rows a microbatch, 128 tokens and 1500 frames) and llava cut to 4
+   layers (its plan's flush, 576 patches and 128 tokens) trained R
+   FRONT_R x FRONT_ROUNDS rounds through the launcher's build and loader,
+   the config's Adam: finite losses, whisper's encoder leaves moved,
+   every decoder self-attention forward and backward on the flash
+   kernels, the peak GB.  24d: whisper at 2 + 2 layers in fp32: the paged
+   engine equals the dense one (tokens, positions, enc_out; hidden and
+   pools 1e-5) and ``full_transformer``'s prefill logits (1e-3); the
+   executor equals the oracle bit for bit.
 
-Phase 2 also holds the flash forward (bf16 and f32) and backward (bf16)
-and the paged walk (bf16 and f32 pools) at the head layouts of phase
-23's configs (LAYOUTS: 16 / 16 heads, G 1; 32 / 2, G 16, with the verify
-tile at Q SPEC_K + 1, 80 query rows a KV head) against their plain
-versions; the kernels line gives each record a ``layouts`` entry a
-layout (time, bound, plain and library time, launches by path).
+Phase 2 also holds the flash forward with its rows' log-sum-exp and its
+backward (bf16 and f32) and the paged walk (bf16 and f32 pools) at the
+head layouts of phase 23's and 24's configs (LAYOUTS: 16 / 16 heads, G
+1; 32 / 2, G 16, with the verify tile at Q SPEC_K + 1, 80 query rows a
+KV head; 16 / 16 at Dh 64; 56 / 8, G 7) against their plain versions;
+the kernels line gives each record a ``layouts`` entry a layout (time,
+bound, plain and library time, launches by path), and the script fails
+if a kernel ran no time on phase 24's paths at its two layouts.
 Phase 2 also holds the int8-pool paged kernel and the flash backward
 kernel (bf16 and f32; with its log-sum-exp, and determinism) against
 their plain versions, and at h2o-danube3-4b's heads (32 / 8, Dh 120)
@@ -260,7 +285,8 @@ strong decay and with decays of exactly 0; mamba_scan (1, 4096, 8192,
 counters are zeroed before and read after each main path (phases 3, 5,
 6, 8, 9, 11, 13, 15, 16, 17d, 18b, whose two ranks count their own,
 19a, each run of 19b, 20a-b, 21a-b, whose ranks count their own, and
-22a-c, which also read the backward kernels' counters, and 23a-e).
+22a-c, which also read the backward kernels' counters, 23a-e and
+24a-d).
 Prints a
 ``profile`` JSON line for qwen3 bf16, rwkv6 (decode, then prefill),
 jamba (decode, then prefill), quantized qwen3 and the training rounds
@@ -287,6 +313,9 @@ round seconds, tokens/s, peak GB, losses, aux and launches; 22c),
 profiles of 22a's and 22b's rounds, of 23b-d's decode steps and 23e's
 rounds, an ``ingest`` JSON line (23a), three ``serve_new`` lines
 (23b-d), two ``train_new`` lines and a ``train_new_exact`` line (23e),
+two ``serve_front`` lines, two ``train_front`` lines and a
+``front_consistency`` line (phase 24) with their decode and round
+profiles,
 one ``kernels`` JSON line
 (launches, by path and for wkv6 by
 design, errors, times, bounds, a ``layouts`` entry for the new head
@@ -2389,8 +2418,9 @@ def phase_train_consistency(device):
 
 
 def executor_equals_oracle(device, label, spec, plan, opt, donate=False):
-    """CONS_ROUNDS fp32 rounds of R = CONS_R x 1 row x CONS_SEQ through the
-    executor (core/pipeline.py), its state moved to the host, then
+    """CONS_ROUNDS fp32 rounds of R = CONS_R x 1 row x CONS_SEQ text tokens
+    (and a frontend's patches or frames) through the executor
+    (core/pipeline.py), its state moved to the host, then
     through the sequential oracle (core/reference.py, consuming its
     input with ``donate``) from the same seed: losses and every state
     tensor bit for bit.  Returns the case's record."""
@@ -2398,13 +2428,14 @@ def executor_equals_oracle(device, label, spec, plan, opt, donate=False):
     from repro_torch.core.pipeline import build_pipeline
     from repro_torch.core.reference import (reference_init_state,
                                             reference_train_step)
-    from repro_torch.data.pipeline import Loader, SyntheticLM
+    from repro_torch.launch.train import make_loader
     t0 = time.perf_counter()
-    bundle = build_pipeline(spec, plan, seq_len=CONS_SEQ,
+    n_patch = spec.n_patches if spec.frontend == "vision" else 0
+    bundle = build_pipeline(spec, plan, seq_len=n_patch + CONS_SEQ,
                             global_batch=CONS_R, optimizer=opt,
                             compute_dtype=torch.float32, device=device)
-    loader = Loader(SyntheticLM(spec.vocab, CONS_SEQ, seed=SEED), CONS_R, 1,
-                    device)
+    # the SyntheticLM stream from SEED (and a frontend's stub inputs)
+    loader = make_loader(spec, bundle, SEED)
     batches = [loader.get(r) for r in range(CONS_ROUNDS)]
     state = bundle.init_state(torch.Generator(device).manual_seed(SEED))
     e_loss = []
@@ -5777,10 +5808,14 @@ def phase_train_recurrent(device):
 # deepseek-moe-16b and chatglm3-6b
 # --------------------------------------------------------------------------
 
-# (H, KV, Dh) of the attention layouts phase 23's configs run: MHA (G 1,
-# olmoe and deepseek) and a group of 16 (chatglm3)
-LAYOUTS = {"g1": (16, 16, 128), "g16": (32, 2, 128)}
-LAYOUT_ARCHS = {"g1": ("olmoe", "deepseek"), "g16": ("chatglm3",)}
+# (H, KV, Dh) of the attention layouts phase 23's and 24's configs run:
+# MHA (G 1, olmoe and deepseek), a group of 16 (chatglm3), MHA at Dh 64
+# (whisper: 64-column tiles, 128-byte bf16 page rows) and a group of 7, not
+# a power of two (llava)
+LAYOUTS = {"g1": (16, 16, 128), "g16": (32, 2, 128),
+           "whisper": (16, 16, 64), "llava": (56, 8, 128)}
+LAYOUT_ARCHS = {"g1": ("olmoe", "deepseek"), "g16": ("chatglm3",),
+                "whisper": ("whisper",), "llava": ("llava",)}
 # 23a: olmoe-1b-7b at full width cut to INGEST_LAYERS of 16 layers (full
 # depth would write ~41 GB of files), a BF16 fixture in INGEST_SHARDS
 # shards and an index, converted for pp 2 at v 1 and v 2, each served
@@ -5803,28 +5838,35 @@ INGEST_S = 900
 
 
 def phase_layout_kernels(device):
-    """Phase 2 at the head layouts of LAYOUTS: the flash forward at (8,
-    PREFILL + N_DECODE) and its backward at (1, TRAIN_SEQ) (causal; bf16
-    and f32 forward, bf16 backward, two identical backward calls
-    bit-equal), and the paged walk at a decode call (Q 1) and, at G 16, a
-    verify tile (Q SPEC_K + 1: Q·G = 80 query rows a KV head), bf16 and
-    f32 pools, each against its plain version within TOL."""
+    """Phase 2 at the head layouts of LAYOUTS: the flash forward and its
+    rows' log-sum-exp at (8, PREFILL + N_DECODE) and its backward at (1,
+    TRAIN_SEQ) (causal; bf16 and f32, dK / dV summed over each KV head's
+    query heads, two identical backward calls bit-equal), and the paged
+    walk at a decode call (Q 1) and, at G 16, a verify tile (Q SPEC_K +
+    1: Q·G = 80 query rows a KV head), bf16 and f32 pools, each against
+    its plain version within TOL."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     errs = {}
     for name, heads in LAYOUTS.items():
-        e = {"flash_attention": 0.0, "flash_attention_bwd": 0.0,
-             "paged_attention": 0.0, "paged_attention_verify": 0.0}
+        e = {"flash_attention": 0.0, "flash_attention_lse": 0.0,
+             "flash_attention_bwd": 0.0, "paged_attention": 0.0,
+             "paged_attention_verify": 0.0}
         for dtype in (torch.bfloat16, torch.float32):
             atol, rtol = TOL[str(dtype).split(".")[-1]]
             q, k, v, _ = flash_inputs(dtype, device, R_SLOTS * ROWS,
                                       PREFILL + N_DECODE, 41, heads)
-            got = fa.flash_attention(q, k, v, causal=True)
-            want = fa.flash_attention_plain(q, k, v, causal=True)
+            got, lse = fa.flash_attention(q, k, v, causal=True,
+                                          return_lse=True)
+            want, lse_plain = fa.flash_attention_plain(q, k, v, causal=True,
+                                                       return_lse=True)
             e["flash_attention"] = max(e["flash_attention"], check_close(
                 f"flash {name} {dtype}", got, want, atol, rtol))
-            del q, k, v, got, want
+            e["flash_attention_lse"] = max(
+                e["flash_attention_lse"], check_close(
+                    f"flash {name} {dtype} lse", lse, lse_plain, atol, rtol))
+            del q, k, v, got, want, lse, lse_plain
             q_lens = (1, SPEC_K + 1) if name == "g16" else (1,)
             for q_len in q_lens:
                 key = "paged_attention" if q_len == 1 else \
@@ -5838,21 +5880,24 @@ def phase_layout_kernels(device):
                 e[key] = max(e[key], check_close(
                     f"paged {name} Q={q_len} {dtype}", got, want, atol, rtol))
                 del sets
-        atol, rtol = TOL["bfloat16"]
-        q, k, v, do = flash_inputs(torch.bfloat16, device, 1, TRAIN_SEQ,
-                                   42, heads)
-        out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
-        got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
-        again = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
-        want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do,
-                                            causal=True)
-        if not all(torch.equal(a, b) for a, b in zip(got, again)):
-            raise AssertionError(f"flash bwd {name}: two identical calls "
-                                 "differ")
-        e["flash_attention_bwd"] = max(
-            check_close(f"flash bwd {name} {n}", g_, w_, atol, rtol)
-            for n, g_, w_ in zip(("dq", "dk", "dv"), got, want))
-        del q, k, v, do, out, lse, got, again, want
+            q, k, v, do = flash_inputs(dtype, device, 1, TRAIN_SEQ, 42,
+                                       heads)
+            out, lse = fa.flash_attention(q, k, v, causal=True,
+                                          return_lse=True)
+            got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+            again = fa.flash_attention_bwd(q, k, v, out, lse, do,
+                                           causal=True)
+            want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                                causal=True)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"flash bwd {name} {dtype}: two "
+                                     "identical calls differ")
+            e["flash_attention_bwd"] = max(e["flash_attention_bwd"], *(
+                check_close(f"flash bwd {name} {dtype} {n}", g_, w_, atol,
+                            rtol)
+                for n, g_, w_ in zip(("dq", "dk", "dv"), got, want)))
+            del q, k, v, do, out, lse, got, again, want
+            torch.cuda.empty_cache()
         log(f"[kernels] layout {name} (H/KV/Dh {heads}): max|err| "
             f"{json.dumps(e)} (bf16 atol/rtol {TOL['bfloat16']}, f32 "
             f"{TOL['float32']}); the backward bit-equal twice")
@@ -6489,11 +6534,13 @@ def new_serve_train(device, out, profs, launches, seconds):
         torch.use_deterministic_algorithms(False)
 
 
-def phase_new_configs(device):
+def phase_new_configs(device, alongside=None):
     """Phase 23: 23a (:func:`ingest_child`) in a spawned process beside
-    23b-e (:func:`new_serve_train`), which run here.  Returns (records,
-    profiles, launches by path, seconds)."""
+    23b-e (:func:`new_serve_train`), which run here, then ``alongside()``
+    (phase 24) while 23a finishes.  Returns (records, profiles, launches
+    by path, seconds)."""
     import multiprocessing
+    import torch
     out, profs, launches, seconds = {"serve": {}, "train": {}}, [], {}, {}
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
@@ -6502,10 +6549,15 @@ def phase_new_configs(device):
     child.start()
     try:
         new_serve_train(device, out, profs, launches, seconds)
+        if alongside is not None:
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            alongside()
+            seconds["24 beside 23a"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         status, got = results.get(timeout=INGEST_S)
         child.join(60)
-        seconds["23a wait after 23b-e"] = time.perf_counter() - t0
+        seconds["23a wait after 23b-e and 24"] = time.perf_counter() - t0
         seconds["23a (spawned with 23b)"] = time.perf_counter() - t_child
         if status != "ok":
             raise AssertionError(f"23a failed:\n{got}")
@@ -6521,7 +6573,8 @@ def phase_new_configs(device):
 
 
 def new_config_launches(launches):
-    """Phase 23's launches by kernel and layout for the kernels line:
+    """Phase 23's and 24's launches by kernel and layout for the kernels
+    line:
     {kernel: {layout: {path: count}}}, and by kernel over every layout."""
     out = {k: {name: {} for name in LAYOUTS}
            for k in ("paged_attention", "paged_attention_verify",
@@ -6534,6 +6587,438 @@ def new_config_launches(launches):
             if counts.get(k):
                 out[k][layout][path] = counts[k]
     return out
+
+
+# --------------------------------------------------------------------------
+# phase 24: whisper-medium (an encoder, cross-attention) and llava-next-34b
+# (a patch prefix), served and trained
+# --------------------------------------------------------------------------
+
+# 24a-b: (arch, decoder layers kept (None: all), text tokens a prompt,
+# cache_len): whisper's cache is its published decoder context
+# (max_target_positions 448); llava is cut to 8 of 60 layers (~10.6 GB of
+# bf16 weights) and its prompt is its 576 patches and the text
+FRONT_SERVE = (("whisper-medium", None, 64, 448),
+               ("llava-next-34b", 8, 64, 1024))
+# 24c: (arch, decoder layers kept, schedule, stash mode, rows a
+# microbatch, text tokens a row), R FRONT_R microbatches, FRONT_ROUNDS
+# rounds, the config's Adam
+FRONT_TRAIN = (("whisper-medium", None, "1f1b", "stash", 2, 128),
+               ("llava-next-34b", 4, None, "flush", 1, 128))
+FRONT_R, FRONT_ROUNDS = 4, 2
+# 24d: whisper at 2 decoder + 2 encoder layers in fp32: one slot of ROWS
+# rows, a prompt of FRONT_CONS_TEXT tokens and NEW_CONS_DECODE decodes
+FRONT_CONS_LAYERS, FRONT_CONS_TEXT, FRONT_CONS_CACHE = 2, 40, 128
+FRONT_TIE = RWKV_TIE
+
+
+def front_spec(arch, layers=None, enc_layers=None):
+    """``arch``'s full spec, its decoder cut to ``layers`` and its
+    encoder (where it has one) to ``enc_layers``."""
+    from repro_torch import configs
+    from repro_torch.launch.train import cut_layers
+    spec = configs.get(arch).full_spec()
+    if layers:
+        spec = cut_layers(spec, layers)
+    if enc_layers and spec.encoder is not None:
+        spec = dataclasses.replace(spec, encoder=dataclasses.replace(
+            spec.encoder, n_layers=enc_layers))
+    return spec
+
+
+def front_session(spec, arch, device, dtype, text, cache_len, slots, **kw):
+    """A ``serve_1f`` pp 2 session of ``slots`` x ROWS rows whose prompt
+    is the patch prefix (VLMs) and ``text`` tokens."""
+    from repro_torch import configs
+    from repro_torch.serving.engine import build_serving
+    plan = configs.get(arch).PLAN.with_(pp=2, tp=1,
+                                         decode_microbatches=slots)
+    n_patch = spec.n_patches if spec.frontend == "vision" else 0
+    return build_serving(spec, plan, cache_len=cache_len,
+                         global_batch=slots * ROWS, compute_dtype=dtype,
+                         prefill_len=n_patch + text,
+                         page_size=kw.pop("page_size", PAGE), device=device,
+                         **kw)
+
+
+def front_logits(session, batch, toks, n_last):
+    """``full_transformer`` over the served sequences — a VLM's patches,
+    the prompt's text and the fed tokens — cross-attending into the
+    session's own ``enc_out`` (the same encoder output the engine used);
+    f32 logits at the last ``n_last`` positions, (rows, n_last, Vpad)."""
+    import torch
+    from repro_torch.models import lm_head
+    from repro_torch.models.stage import full_transformer
+    p, dev, spec = session.params, session.device, session.spec
+    text = batch["tokens"].reshape(-1, batch["tokens"].shape[-1])
+    seq = np.concatenate([text, toks[:-1].T], axis=1) if len(toks) > 1 \
+        else text
+    x = lm_head.embed_tokens(p["embed"], torch.from_numpy(seq).to(dev),
+                             session.compute_dtype)
+    if session.prefix_len:
+        patches = torch.from_numpy(batch["patches"]).to(dev)
+        x = torch.cat([patches.flatten(0, 1).to(x.dtype), x], dim=1)
+    cross = (None if session.enc_out is None
+             else session.enc_out.flatten(0, 1))
+    pos = torch.arange(x.shape[1], device=dev).expand(x.shape[0], -1)
+    h = full_transformer(p, x, session.statics, positions=pos,
+                         cross_x=cross)
+    fn = p["final_norm"]
+    return torch.stack([
+        lm_head.last_logits(p["head"], fn["scale"], h[:, t:t + 1],
+                            norm_kind=spec.norm, norm_bias=fn.get("bias"),
+                            vocab=spec.vocab)
+        for t in range(x.shape[1] - n_last, x.shape[1])], dim=1)
+
+
+def serve_front(device, arch, layers, text, cache_len):
+    """24a / 24b: ``arch`` at full width, bf16, seeded weights, ``serve_1f``
+    pp 2, R_SLOTS x ROWS rows: the entry point's prefill batch
+    (launch/serve.py::prefill_batch: tokens, and the patches or frames),
+    N_DECODE decodes with every decoder self-attention through the paged
+    kernel (cross-attention K / V recomputed from ``enc_out``), a
+    profiled decode step; then ``full_transformer`` over the served
+    sequences with the same encoder output: its greedy tokens the served
+    ones at every generated position, up to near-ties of FRONT_TIE."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch.serve import prefill_batch
+    spec = front_spec(arch, layers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    session = front_session(spec, arch, device, torch.bfloat16, text,
+                            cache_len, R_SLOTS).start(SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = tensor_bytes(session.params)
+    batch = prefill_batch(session, SEED)
+    reset_counts()
+    t0 = time.perf_counter()
+    nxt = session.prefill(batch)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    toks, step_s = [nxt], []
+    per_step = spec.n_layers * R_SLOTS
+    for i in range(N_DECODE):
+        before = pa.paged_attention.launches
+        t0 = time.perf_counter()
+        nxt = session.decode(nxt)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        if pa.paged_attention.launches - before != per_step:
+            raise AssertionError(
+                f"{spec.name} decode step {i}: paged kernel launches "
+                f"{pa.paged_attention.launches - before}, expected {per_step}")
+        toks.append(nxt)
+    counts = read_counts()
+    if counts != {"paged_attention": per_step * N_DECODE,
+                  "paged_attention_int8": 0, "flash_attention": 0,
+                  "flash_attention_bwd": 0, "wkv6": 0, "mamba_scan": 0}:
+        raise AssertionError(f"launches on {spec.name}'s serve path: {counts}")
+    toks = torch.stack(toks).cpu().numpy()
+    session._alloc.check()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if session.enc_out is not None and not (
+            torch.isfinite(session.enc_out).all()
+            and session.enc_out.abs().amax() > 0):
+        raise AssertionError(f"{spec.name}: enc_out not finite or all zero")
+    ms = 1e3 * float(np.median(step_s))
+    prof = profile_decode_step(session, nxt, ms, kernels=("paged_attention",))
+    reset_counts()
+    t0 = time.perf_counter()
+    logits = front_logits(session, batch, toks, toks.shape[0])
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    ref_counts = read_counts()
+    if ref_counts["flash_attention"] != spec.n_layers or \
+            ref_counts["paged_attention"]:
+        raise AssertionError(f"{spec.name} reference launches {ref_counts}, "
+                             f"expected {spec.n_layers} flash")
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"{spec.name}: non-finite reference logits")
+    served = torch.from_numpy(toks.T.astype(np.int64)).to(logits.device)
+    gap = logits.amax(-1) - logits.gather(-1, served[..., None])[..., 0]
+    agree = logits.argmax(-1) == served
+    if (gap > FRONT_TIE).any():
+        raise AssertionError(
+            f"{spec.name}: served tokens are not full_transformer's greedy "
+            f"tokens at {int((gap > FRONT_TIE).sum())} of {gap.numel()} "
+            f"positions (logit gap up to {gap.max().item():.4f} > "
+            f"{FRONT_TIE})")
+    enc = spec.encoder
+    rec = {"model": spec.name, "layers": spec.n_layers,
+           "encoder_layers": None if enc is None else enc.n_layers,
+           "source_len": None if enc is None else enc.source_len,
+           "patches": session.prefix_len,
+           "parameters": spec.param_count(), "weight_gb": weights / 1e9,
+           "heads": [spec.n_heads, spec.n_kv, spec.d_head], "pp": 2,
+           "slots": R_SLOTS, "rows": ROWS, "text": text,
+           "prefill": session.prefill_len, "cache_len": cache_len,
+           "init_s": init_s, "prefill_s": t_prefill,
+           "decode_ms_per_step": ms,
+           "decode_ms_steps": [1e3 * x for x in step_s],
+           "decode_tokens_per_s": R_SLOTS * ROWS * 1e3 / ms,
+           "peak_allocated_gb": peak,
+           "paged_launches": counts["paged_attention"],
+           "reference_flash_launches": ref_counts["flash_attention"],
+           "reference_s": ref_s, "reference_positions": gap.numel(),
+           "reference_agree": int(agree.sum()),
+           "reference_max_gap": gap.max().item(), "tie": FRONT_TIE}
+    log(f"[serve-front] {spec.name}: {spec.n_layers} decoder layers"
+        f"{'' if enc is None else f' + {enc.n_layers} encoder layers over {enc.source_len} frames'}"
+        f", {session.prefix_len} patches, {spec.param_count() / 1e9:.2f} B "
+        f"parameters ({weights / 1e9:.1f} GB), heads {spec.n_heads}/"
+        f"{spec.n_kv} of {spec.d_head}; init {init_s:.1f}s, prefill "
+        f"{t_prefill:.3f}s, decode {ms:.2f} ms/step (median of {N_DECODE}), "
+        f"{rec['decode_tokens_per_s']:.1f} tokens/s, peak {peak:.1f} GB; "
+        f"paged launches {counts['paged_attention']}; reference: greedy == "
+        f"served at {rec['reference_agree']}/{gap.numel()} positions, max "
+        f"gap {rec['reference_max_gap']:.4f} (limit {FRONT_TIE}); profiled "
+        f"step: device {prof['device_ms']:.2f} ms, idle "
+        f"{prof['idle_share']:.3f}, {prof['kernel_launches']} launches; top "
+        f"(ms, calls) {[(k['name'][:50], round(k['ms'], 3), k['calls']) for k in prof['by_kernel'][:6]]}")
+    del session
+    torch.cuda.empty_cache()
+    return rec, prof
+
+
+def train_front(device, arch, layers, schedule, mode, rows, text):
+    """24c: ``arch`` at full width (its decoder cut to ``layers``) through
+    the launcher's build and loader (launch/train.py: the stubs' frames
+    or patches beside the text), FRONT_R microbatches of ``rows`` rows x
+    (patches +) ``text`` tokens, pp 2, the config's Adam, FRONT_ROUNDS
+    rounds, the last under torch.profiler, the plain attention versions
+    refused: finite losses, the encoder's leaves moved, every decoder
+    self-attention forward and backward on the flash kernels (the
+    encoder's attention and cross-attention take the plain path, as in
+    JAX); the peak GB."""
+    import torch
+    from repro_torch.launch.train import make_loader
+    spec = front_spec(arch, layers)
+    n_patch = spec.n_patches if spec.frontend == "vision" else 0
+    extra = ["--pp", "2", "--microbatches", str(FRONT_R), "--global-batch",
+             str(FRONT_R * rows), "--seq-len", str(n_patch + text),
+             "--stash-mode", mode]
+    if layers:
+        extra += ["--layers", str(layers)]
+    if schedule:
+        extra += ["--schedule", schedule]
+    spec, bundle = build_train(train_args(extra, arch=arch))
+    plan = bundle.plan
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = bundle.init_state(torch.Generator(device).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in tree_leaves(state["params"])
+                   if torch.is_tensor(t))
+    enc0 = (None if spec.encoder is None else
+            {k: v.clone() for k, v in state["params"]["encoder"].items()
+             if k in ("wq", "w2", "pos")})
+    loader = make_loader(spec, bundle, SEED)
+    batches = [loader.get(r) for r in range(FRONT_ROUNDS)]
+    reset_counts()
+    losses, round_s, prof = [], [], None
+    with plain_attention_refused():
+        for r, batch in enumerate(batches):
+            if r == len(batches) - 1:
+                state, m, prof = profile_round(bundle, state, batch,
+                                               round_s[-1])
+            else:
+                t1 = time.perf_counter()
+                state, m = bundle.train_step(state, batch)
+                torch.cuda.synchronize()
+                round_s.append(time.perf_counter() - t1)
+            losses.append(float(m["loss"]))
+    counts = read_all_counts()
+    want = {"paged_attention": 0, "paged_attention_int8": 0,
+            **train_launches(spec, FRONT_ROUNDS, plan.microbatches)}
+    if counts != want:
+        raise AssertionError(f"launches on {spec.name}'s training path: "
+                             f"{counts}, expected {want}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{spec.name}: non-finite loss: {losses}")
+    moved = None
+    if enc0 is not None:
+        enc = state["params"]["encoder"]
+        moved = {k: float((enc[k].float() - v.float()).abs().max())
+                 for k, v in enc0.items()}
+        if not all(x > 0 for x in moved.values()):
+            raise AssertionError(f"{spec.name}: encoder leaves did not move "
+                                 f"({moved})")
+    tokens = plan.microbatches * bundle.microbatch_size * bundle.seq_len
+    enc = spec.encoder
+    out = {"model": spec.name, "layers": spec.n_layers,
+           "encoder_layers": None if enc is None else enc.n_layers,
+           "source_len": None if enc is None else enc.source_len,
+           "patches": n_patch, "text": text, "parameters": n_params,
+           "schedule": f"{bundle.sched.name}/{plan.stash_mode}",
+           "pp": plan.pp, "microbatches": plan.microbatches,
+           "rows": bundle.microbatch_size, "seq_len": bundle.seq_len,
+           "init_s": init_s, "round_s": round_s,
+           "round_s_warm": round_s[-1], "tokens_per_s": tokens / round_s[-1],
+           "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "loss_per_round": losses, "encoder_moved_max_abs": moved,
+           "launches": counts}
+    log(f"[train-front] {spec.name}: {spec.n_layers} decoder layers"
+        f"{'' if enc is None else f' + {enc.n_layers} encoder layers over {enc.source_len} frames'}"
+        f", {n_patch} patches + {text} text tokens, {n_params / 1e9:.3f} B "
+        f"parameters, {out['schedule']} pp={plan.pp} R={plan.microbatches} x "
+        f"{bundle.microbatch_size}: init {init_s:.1f}s, rounds "
+        f"{[round(x, 3) for x in round_s]} s, peak "
+        f"{out['peak_allocated_gb']:.1f} GB; loss per round "
+        f"{[round(x, 4) for x in losses]}; encoder moved {moved}; launches "
+        f"{counts}")
+    log(f"[profile] {spec.name} train round: {prof['device_ms']:.1f} ms of "
+        f"device kernels in a {1e3 * round_s[-1]:.1f} ms round, idle share "
+        f"{prof['idle_share']:.3f}, {prof['kernel_launches']} launches; "
+        f"flash fwd {prof['flash_fwd_ms']:.1f} ms in "
+        f"{prof['flash_fwd_launches']}, bwd {prof['flash_bwd_ms']:.1f} ms in "
+        f"{prof['flash_bwd_launches']}; top kernels (ms, calls): "
+        f"{[(k['name'][:50], round(k['ms'], 1), k['calls']) for k in prof['by_kernel']]}")
+    del state, bundle, batches
+    torch.cuda.empty_cache()
+    return out, prof
+
+
+def consistency_front(device):
+    """24d: whisper at FRONT_CONS_LAYERS decoder and encoder layers in
+    fp32 at full width: the paged engine against the dense-cache engine
+    (tokens, positions, enc_out bit for bit; last hidden states and pools
+    against caches within 1e-5) and its prefill logits against
+    ``full_transformer``'s with the same encoder output (1e-3)."""
+    import torch
+    from repro_torch.launch.serve import prefill_batch
+    from repro_torch.models import lm_head
+    arch = "whisper-medium"
+    spec = front_spec(arch, FRONT_CONS_LAYERS, FRONT_CONS_LAYERS)
+    f32 = torch.float32
+    kw = dict(text=FRONT_CONS_TEXT, cache_len=FRONT_CONS_CACHE,
+              slots=NEW_CONS_SLOTS)
+    paged = front_session(spec, arch, device, f32, **kw).start(SEED)
+    dense = front_session(spec, arch, device, f32, page_size=0,
+                          **kw).reset_state().set_params(paged.params)
+    batch = prefill_batch(paged, SEED + 4)
+    runs, secs = {}, {}
+    for name, s in (("paged", paged), ("dense", dense)):
+        t0 = time.perf_counter()
+        nxt = s.prefill(batch)
+        if name == "paged":
+            fn = s.params["final_norm"]
+            eng_logits = lm_head.last_logits(
+                s.params["head"], fn["scale"], s.last_hidden,
+                norm_kind=spec.norm, norm_bias=fn.get("bias"),
+                vocab=spec.vocab)
+        hs, ts = [s.last_hidden.cpu()], [nxt.cpu()]
+        for _ in range(NEW_CONS_DECODE):
+            nxt = s.decode(nxt)
+            hs.append(s.last_hidden.cpu())
+            ts.append(nxt.cpu())
+        runs[name] = (torch.stack(ts).numpy(), hs)
+        secs[name] = time.perf_counter() - t0
+    if not (runs["dense"][0] == runs["paged"][0]).all():
+        raise AssertionError(f"{spec.name}: dense tokens differ from the "
+                             "paged session's")
+    if not (paged._pos == dense._pos).all():
+        raise AssertionError(f"{spec.name}: positions differ")
+    if not torch.equal(paged.enc_out, dense.enc_out):
+        raise AssertionError(f"{spec.name}: enc_out differs between the "
+                             "paged and the dense session")
+    tol = 1e-5
+    err_d = max(check_close(f"{spec.name} paged vs dense hidden {i}", a, b,
+                            tol, tol)
+                for i, (a, b) in enumerate(zip(runs["paged"][1],
+                                               runs["dense"][1])))
+    n_keys = paged.prefill_len + NEW_CONS_DECODE
+    err_kv = 0.0
+    for name, (kp, vp) in paged.pages.items():
+        for pool, cache in zip((kp, vp), dense.cache[name]["kv"]):
+            for m in range(NEW_CONS_SLOTS):
+                ids = torch.from_numpy(paged._alloc.tables[m]).long()
+                ids = ids[ids >= 0].to(device)
+                got = pool[:, ids].transpose(1, 2).reshape(
+                    pool.shape[0], ROWS, -1, *pool.shape[-2:])[:, :, :n_keys]
+                err_kv = max(err_kv, check_close(
+                    f"{spec.name} {name} pool", got, cache[:, m, :, :n_keys],
+                    tol, tol))
+    ref = front_logits(paged, batch, np.zeros((1, 0)), 1)[:, 0]
+    err_l = check_close(f"{spec.name} full_transformer vs engine logits",
+                        eng_logits, ref, 1e-3, 1e-3)
+    rec = {"layers": spec.n_layers, "encoder_layers": spec.encoder.n_layers,
+           "paged_vs_dense_hidden": err_d, "pools_vs_caches": err_kv,
+           "enc_out_equal": True, "engine_vs_full_transformer_logits": err_l,
+           "seconds": secs}
+    log(f"[consistency-front] {spec.name} fp32 {spec.n_layers} + "
+        f"{spec.encoder.n_layers} layers at full width, {NEW_CONS_SLOTS} x "
+        f"{ROWS} rows, {FRONT_CONS_TEXT} tokens + {spec.encoder.source_len} "
+        f"frames + {NEW_CONS_DECODE} decodes: paged == dense tokens, "
+        f"positions and enc_out, hidden {err_d:.3e}, pools {err_kv:.3e} "
+        f"(atol/rtol {tol}); engine vs full_transformer prefill logits "
+        f"{err_l:.3e} (1e-3); seconds "
+        f"{json.dumps({k: round(v, 2) for k, v in secs.items()})}")
+    del paged, dense
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_frontends(device):
+    """Phase 24: 24a-b (:func:`serve_front`), 24c (:func:`train_front`),
+    24d (:func:`consistency_front`, then whisper's executor against its
+    oracle at FRONT_CONS_LAYERS + FRONT_CONS_LAYERS layers in fp32, bit for
+    bit, under deterministic algorithms).  Returns (records, profiles,
+    launches by path, seconds)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.optim import SGDM
+    out = {"serve": {}, "train": {}}
+    profs, launches, seconds = [], {}, {}
+    for arch, layers, text, cache_len in FRONT_SERVE:
+        t0 = time.perf_counter()
+        rec, prof = serve_front(device, arch, layers, text, cache_len)
+        key = arch.split("-")[0]
+        launches[f"{key}_serve"] = {"paged_attention": rec["paged_launches"]}
+        launches[f"{key}_reference"] = {
+            "flash_attention": rec["reference_flash_launches"]}
+        out["serve"][arch] = rec
+        profs.append({**prof, "phase": "decode"})
+        seconds[f"serve {arch}"] = time.perf_counter() - t0
+    for arch, layers, schedule, mode, rows, text in FRONT_TRAIN:
+        t0 = time.perf_counter()
+        rec, prof = train_front(device, arch, layers, schedule, mode, rows,
+                                text)
+        out["train"][arch] = rec
+        profs.append(prof)
+        launches[f"{arch.split('-')[0]}_train"] = rec["launches"]
+        seconds[f"train {arch}"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["consistency"] = consistency_front(device)
+    seconds["24d consistency"] = time.perf_counter() - t0
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        t0 = time.perf_counter()
+        arch = "whisper-medium"
+        spec = front_spec(arch, FRONT_CONS_LAYERS, FRONT_CONS_LAYERS)
+        plan = configs.get(arch).PLAN.with_(
+            tp=1, pp=2, microbatches=CONS_R, schedule="1f1b",
+            stash_mode="stash")
+        reset_counts()
+        with plain_attention_refused():
+            out["exact"] = executor_equals_oracle(
+                device, "1f1b/stash", spec, plan, SGDM(lr=0.01),
+                donate=True)
+        counts = read_all_counts()
+        want = train_launches(spec, 2 * CONS_ROUNDS, CONS_R)
+        if {k: counts[k] for k in want} != want:
+            raise AssertionError(f"24d {spec.name} launches {counts}, "
+                                 f"expected {want} (executor + oracle)")
+        out["exact"]["launches"] = counts
+        launches["whisper_train_exact"] = counts
+        seconds["24d exact"] = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    log(f"[phases] 24 seconds: {json.dumps(seconds)}")
+    return out, profs, launches, seconds
 
 
 class PhaseSeconds(dict):
@@ -6688,9 +7173,22 @@ def main() -> int:
     phase_s["22 train recurrent"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    new_out, prof_new, new_launches, new_s = phase_new_configs(device)
-    phase_s["23 new configs"] = time.perf_counter() - t0
-    by_layout = new_config_launches(new_launches)
+    # phase 24 runs while 23a's spawned process finishes
+    front = {}
+
+    def frontends():
+        front["all"] = phase_frontends(device)
+    new_out, prof_new, new_launches, new_s = phase_new_configs(
+        device, alongside=frontends)
+    front_out, prof_front, front_launches, front_s = front["all"]
+    phase_s["23-24 new configs and frontends"] = time.perf_counter() - t0
+    by_layout = new_config_launches({**new_launches, **front_launches})
+    for name in ("whisper", "llava"):
+        ran = {k: sum(by_layout[k][name].values()) for k in (
+            "flash_attention", "flash_attention_bwd", "paged_attention")}
+        if not all(ran.values()):
+            raise AssertionError(f"phase 24 at layout {name}: a kernel ran "
+                                 f"no time on its paths: {ran}")
 
     def new_paths(kernel):
         return {path: n for layout in by_layout[kernel].values()
@@ -6776,7 +7274,7 @@ def main() -> int:
         f"{consistency_quant}; consistency train {consistency_train}; "
         f"dist {json.dumps(dist_s)}; ckpt dist {json.dumps(ckpt_s)}; "
         f"tp {json.dumps(tp_s)}; train recurrent {json.dumps(recur_s)}; "
-        f"new configs {json.dumps(new_s)}")
+        f"new configs {json.dumps(new_s)}; frontends {json.dumps(front_s)}")
     print(json.dumps({"profile": prof_qwen}))
     print(json.dumps({"profile": prof}))
     print(json.dumps({"profile": prof_rwkv_prefill}))
@@ -6786,7 +7284,7 @@ def main() -> int:
     print(json.dumps({"profile": prof_train}))
     for prof_v in prof_virtual:
         print(json.dumps({"profile": prof_v}))
-    for prof_r in prof_recur + prof_new:
+    for prof_r in prof_recur + prof_new + prof_front:
         print(json.dumps({"profile": prof_r}))
     print(json.dumps({"train": train_out}))
     for name in virtual:
@@ -6818,6 +7316,13 @@ def main() -> int:
         print(json.dumps({"train_new": {**rec, "card": card}}))
     print(json.dumps({"train_new_exact": {**new_out["exact"],
                                           "card": card}}))
+    for arch, rec in front_out["serve"].items():
+        print(json.dumps({"serve_front": {**rec, "card": card}}))
+    for arch, rec in front_out["train"].items():
+        print(json.dumps({"train_front": {**rec, "card": card}}))
+    print(json.dumps({"front_consistency": {
+        **front_out["consistency"], "exact": front_out["exact"],
+        "card": card}}))
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -80,7 +80,8 @@ from typing import Callable
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.reference import check_trainable, model_plan
+from repro_torch.core.reference import (encoder_grads, model_plan,
+                                        run_encoder, with_patches)
 from repro_torch.core.schedule import (B_CHUNK, B_FROM_HEAD, B_MB,
                                        B_RESID_READ, B_VERSION, F_CHUNK,
                                        F_FROM_EMBEDS, F_MB, F_RESID_WRITE,
@@ -110,13 +111,22 @@ class PipelineBundle:
     sched: PipelineSchedule
     train_step: Callable            # (state, batch) -> (state, metrics)
     init_state: Callable            # (torch.Generator) -> state
-    seq_len: int
+    seq_len: int                    # positions a row: patches + text
     microbatch_size: int            # rows of a microbatch on one replica
     device: torch.device
     grid: object = None             # this rank's RankGrid, None: one process
     # observability (repro_torch.obs.Observability or None = off): the
     # driver reports one on_round("train", sched, ...) per executed round
     obs: object = None
+    # a round's batch over every replica, key -> shape (JAX's
+    # ``batch_shapes``): tokens / labels (R, rows, text_len), and the
+    # frontends' patches (R, rows, n_patches, d) / frames (R, rows,
+    # T_src, d_enc)
+    batch_shapes: dict = None
+
+    @property
+    def text_len(self) -> int:
+        return self.batch_shapes["tokens"][2]
 
 
 def handoffs(tabs, tick: int):
@@ -173,7 +183,6 @@ def build_pipeline(spec: spec_lib.ModelSpec, plan, *, seq_len: int,
     if sched.is_serving:
         raise ValueError(f"schedule {sched.name!r} is forward-only: it has "
                          "no backward slots to train with")
-    check_trainable(spec, sched)
     sched.validate()
     vs = sched.virtual_stages               # local chunks per stage
     Vr = sched.resid_slots
@@ -185,6 +194,21 @@ def build_pipeline(spec: spec_lib.ModelSpec, plan, *, seq_len: int,
     moves = [handoffs(tabs, t) for t in range(sched.n_ticks)]
     # the model is cut into S·v chunks: init and statics see them as stages
     mplan = model_plan(plan, sched)
+    # the frontends: a VLM's patch prefix, an encoder before the pipeline
+    n_patch = spec.n_patches if spec.frontend == "vision" else 0
+    has_enc = spec.encoder is not None
+    if seq_len <= n_patch:
+        raise ValueError(f"seq_len={seq_len} leaves no text after "
+                         f"{n_patch} patches")
+    batch_shapes = {k: (R, global_batch // R, seq_len - n_patch)
+                    for k in ("tokens", "labels")}
+    if n_patch:
+        batch_shapes["patches"] = (R, global_batch // R, n_patch,
+                                   spec.d_model)
+    if has_enc:
+        e = spec.encoder
+        batch_shapes["frames"] = (R, global_batch // R, e.source_len,
+                                  e.d_model)
     statics = make_statics(spec, mplan, tokens_per_mb=mb * seq_len)
     d = spec.d_model
     # the stages this process runs, and its storage rows: (s - s0)·v + j
@@ -243,6 +267,15 @@ def build_pipeline(spec: spec_lib.ModelSpec, plan, *, seq_len: int,
         params = state["params"]
         tokens, labels = batch["tokens"], batch["labels"]   # (R, mb, S)
         step = state["step"]
+        _, labels = with_patches(spec, None, labels, batch)
+        if has_enc:
+            # every rank runs the encoder on its replica's frames; each
+            # stage writes its d(encoder output) a microbatch, and the
+            # stages' shares meet once the round ends
+            enc_ring, enc_pull = run_encoder(spec, params["encoder"],
+                                             batch["frames"], compute_dtype)
+            denc = torch.zeros((len(mine),) + tuple(enc_ring.shape),
+                               dtype=compute_dtype, device=dev)
         pos = torch.arange(seq_len, device=dev).expand(mb, seq_len)
         n_rows = len(mine) * vs
         kw = [dict(positions=pos, windows=params["layer_windows"][q],
@@ -271,8 +304,8 @@ def build_pipeline(spec: spec_lib.ModelSpec, plan, *, seq_len: int,
         f32 = lambda a: torch.zeros(a.shape, dtype=torch.float32,  # noqa
                                     device=dev)
         if embed_here:
-            embeds = lm_head.embed_tokens(params["embed"], tokens,
-                                          compute_dtype)
+            embeds, _ = with_patches(spec, lm_head.embed_tokens(
+                params["embed"], tokens, compute_dtype), None, batch)
             d_embeds = torch.zeros((R, mb, seq_len, d), dtype=compute_dtype,
                                    device=dev)
         elif first:
@@ -310,9 +343,10 @@ def build_pipeline(spec: spec_lib.ModelSpec, plan, *, seq_len: int,
                 w_f = (tree_chunk_ring_read(ring, row[F_VERSION], q)
                        if sched.fwd_from_stash else w_at[q])
                 with torch.no_grad():
-                    h_out[s], aux = stage_fwd(w_f, x_in, statics,
-                                              return_aux=True, tp=tensor,
-                                              **kw[q])
+                    h_out[s], aux = stage_fwd(
+                        w_f, x_in, statics, return_aux=True, tp=tensor,
+                        cross_x=enc_ring[row[F_MB]] if has_enc else None,
+                        **kw[q])
                 resid[row[F_RESID_WRITE], s - s0].copy_(x_in)
                 aux_sum += aux
             recv_f = pass_on(f_moves, h_out, down, up)
@@ -355,8 +389,17 @@ def build_pipeline(spec: spec_lib.ModelSpec, plan, *, seq_len: int,
                 w_used = (tree_chunk_ring_read(ring, row[B_VERSION], q)
                           if use_ring else w_at[q])
                 x_saved = resid[row[B_RESID_READ], s - s0]
-                dW, dx_out[s] = stage_vjp(w_used, x_saved, statics, g_in,
-                                          aux_ct, tp=tensor, **kw[q])
+                if has_enc:
+                    b = row[B_MB]
+                    dW, dx_out[s], dcx = stage_vjp(
+                        w_used, x_saved, statics, g_in, aux_ct, tp=tensor,
+                        cross_x=enc_ring[b], **kw[q])
+                    # a stage's chunks add into its share (v > 1)
+                    denc[s - s0, b].add_(dcx)
+                else:
+                    dW, dx_out[s] = stage_vjp(w_used, x_saved, statics,
+                                              g_in, aux_ct, tp=tensor,
+                                              **kw[q])
                 if accumulate:
                     tree_chunk_add(gacc, dW, q)
                 else:
@@ -376,8 +419,20 @@ def build_pipeline(spec: spec_lib.ModelSpec, plan, *, seq_len: int,
                        state["opt_head"], {"h": head, "f": fnorm}, None)
         if embed_here:
             d_table = lm_head.embed_bwd(params["embed"], tokens,
-                                        d_embeds.float()).div_(R)
+                                        d_embeds[:, :, n_patch:].float()
+                                        ).div_(R)
             update(d_table, state["opt_embed"], params["embed"], None)
+        if has_enc:
+            if grid is not None and S > 1:
+                # every stage's share, gathered over the replica's stages
+                # (at this tensor index) and summed in stage order
+                every = torch.empty((S,) + tuple(denc.shape[1:]),
+                                    dtype=denc.dtype, device=dev)
+                grid.pipe_group.all_gather_(denc, every, 0)
+                denc = every
+            g_enc = encoder_grads(enc_pull, list(denc), R)
+            del denc, enc_ring, enc_pull
+            update(g_enc, state["opt_encoder"], params["encoder"], None)
         state["step"] = step + 1
         if grid is not None:
             # the replicas' and stages' parts of the round's metrics
@@ -392,4 +447,5 @@ def build_pipeline(spec: spec_lib.ModelSpec, plan, *, seq_len: int,
     return PipelineBundle(
         spec=spec, plan=plan, statics=statics, sched=sched,
         train_step=train_step, init_state=init_state, seq_len=seq_len,
-        microbatch_size=mb, device=dev, grid=grid, obs=obs)
+        microbatch_size=mb, device=dev, grid=grid, obs=obs,
+        batch_shapes=batch_shapes)

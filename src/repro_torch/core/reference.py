@@ -13,8 +13,12 @@ per-microbatch updates.  Bit-exact (fp32) against the executor; held
 against the JAX package's oracle by tests/test_torch_train_oracle*.py
 and tests/test_torch_interleaved.py.
 
-Ported for decoder-only text models; the encoder (whisper) and VLM
-(llava) branches raise.  Also ``staleness_formula_run``: the paper's
+The frontends run as in JAX's oracle: a VLM's patch embeddings are
+prepended to the text embeddings with labels of −1 and their rows of
+d(embeddings) dropped; an encoder-decoder model's encoder runs once a
+round before the pipeline, every stage's backward returns its share of
+d(encoder output), and the round's sum goes through one encoder
+backward into the encoder's own update.  Also ``staleness_formula_run``: the paper's
 §3.4 update rule applied directly, a third implementation that 1F1B +
 weight stashing must meet:
     w^(t+1) = w^(t) − ν·∇f(w_1^(t−n+1), …, w_n^(t))
@@ -32,16 +36,9 @@ from repro_torch.core.schedule import (B_CHUNK, B_FROM_HEAD, B_MB,
 from repro_torch.core.versioning import make_train_state, tree_add
 from repro_torch.models import lm_head
 from repro_torch.models.init import init_params
-from repro_torch.models.stage import make_statics, stage_fwd, stage_vjp
+from repro_torch.models.stage import (encoder_vjp, make_statics, stage_fwd,
+                                     stage_vjp)
 from repro_torch.optim.optimizers import tree_map
-
-
-def check_trainable(spec, sched) -> None:
-    """Raise for what the port's training round does not run yet."""
-    if spec.encoder is not None or spec.frontend == "vision":
-        raise NotImplementedError(
-            f"{spec.name}: training of encoder (whisper) and VLM (llava) "
-            "models is not ported yet")
 
 
 def model_plan(plan, sched):
@@ -71,7 +68,6 @@ def reference_init_state(spec, plan, optimizer, gen: torch.Generator,
     """Single-device state matching core/pipeline.py's ``init_state``
     (stage rows in storage order)."""
     sched = make_schedule(plan)
-    check_trainable(spec, sched)
     params = init_params(spec, model_plan(plan, sched), gen, dtype)
     return make_train_state(to_storage_order(params, sched), sched,
                             optimizer)
@@ -138,6 +134,44 @@ def _update_leafwise(optimizer, grads, state, params, step):
     return new_p, dict(zip(optimizer.slots, new_s))
 
 
+def with_patches(spec, embeds, labels, batch):
+    """A VLM's round as JAX's train step builds it (``pipeline.py:
+    395-405``): the patch embeddings (R, bmb, n_patches, d) prepended to
+    the text embeddings, labels of −1 prepended to the text labels; the
+    inputs as they are for other models.  Either may be None (a rank
+    that holds no embedding or no head)."""
+    if spec.frontend != "vision":
+        return embeds, labels
+    if embeds is not None:
+        embeds = torch.cat([batch["patches"].to(embeds.dtype), embeds],
+                           dim=2)
+    if labels is not None:
+        labels = torch.cat([labels.new_full(
+            tuple(labels.shape[:2]) + (spec.n_patches,), -1), labels], dim=2)
+    return embeds, labels
+
+
+def run_encoder(spec, encoder, frames, dtype):
+    """(enc_out (R, bmb, T_src, d), pull) of a round's frames (R, bmb,
+    T_src, d_enc), run in ``dtype`` through :func:`~repro_torch.models.
+    stage.encoder_vjp` (JAX ``pipeline.py:410-417``)."""
+    lead = tuple(frames.shape[:2])
+    enc, pull = encoder_vjp(encoder, frames.flatten(0, 1).to(dtype), spec)
+    return enc.view(lead + tuple(enc.shape[1:])), pull
+
+
+def encoder_grads(pull, denc, R: int):
+    """The encoder's gradient from the stages' d(encoder output)
+    ``denc`` (by stage, each (R, bmb, T_src, d) in the compute dtype):
+    summed over the stages in f32 in stage order, pulled back once in
+    the compute dtype, divided by R in f32 (JAX ``pipeline.py:552-571``)."""
+    total = denc[0].float()
+    for part in denc[1:]:
+        total = total + part.float()
+    grads = pull(total.flatten(0, 1).to(denc[0].dtype))
+    return tree_map(lambda a: a.float() / R, grads)
+
+
 def reference_train_step(spec, plan, state, batch, optimizer,
                          aux_weight: float = 0.01, *, donate: bool = False):
     """Mirror of core/pipeline.py's ``train_step``, sequential, one data
@@ -153,7 +187,6 @@ def reference_train_step(spec, plan, state, batch, optimizer,
     rows).  The caller must not use ``state`` afterwards."""
     S, R = plan.pp, plan.microbatches
     sched = make_schedule(plan)
-    check_trainable(spec, sched)
     v = sched.virtual_stages
     L = sched.n_chunks                  # storage rows (S·v)
     tabs = sched.tables()
@@ -164,11 +197,22 @@ def reference_train_step(spec, plan, state, batch, optimizer,
     params = take(state, "params")
     tokens, labels = batch["tokens"], batch["labels"]   # (R, Bmb, S_text)
     step = state["step"]
-    bmb, seq_len = tokens.shape[1], tokens.shape[2]
+    bmb = tokens.shape[1]
+    seq_len = tokens.shape[2] + (spec.n_patches if spec.frontend == "vision"
+                                 else 0)
     statics = make_statics(spec, model_plan(plan.with_(tp=1), sched),
                            tokens_per_mb=bmb * seq_len)
     embed = take(params, "embed")
-    embeds = lm_head.embed_tokens(embed, tokens)
+    has_enc = spec.encoder is not None
+    encoder = take(params, "encoder") if has_enc else None
+    embeds, labels = with_patches(spec, lm_head.embed_tokens(embed, tokens),
+                                  labels, batch)
+    if has_enc:
+        enc_ring, enc_pull = run_encoder(spec, encoder, batch["frames"],
+                                         embeds.dtype)
+    # each stage's d(encoder output), its chunks' shares added (v > 1)
+    denc = [torch.zeros_like(enc_ring) for _ in range(S)] if has_enc \
+        else None
     pos = torch.arange(seq_len, device=tokens.device).expand(bmb, seq_len)
     stage_kw = lambda p: dict(positions=pos,                    # noqa: E731
                               windows=params["layer_windows"][p],
@@ -216,6 +260,7 @@ def reference_train_step(spec, plan, state, batch, optimizer,
                    else weights[p])
             with torch.no_grad():
                 h, aux = stage_fwd(w_f, x_in, statics, return_aux=True,
+                                   cross_x=enc_ring[f] if has_enc else None,
                                    **stage_kw(p))
             aux_sum = aux_sum + aux
             resid[s][int(row[F_RESID_WRITE])] = x_in
@@ -259,8 +304,14 @@ def reference_train_step(spec, plan, state, batch, optimizer,
             w_used = (stash[p][int(row[B_VERSION])] if use_ring
                       else weights[p])
             x_saved = resid[s][int(row[B_RESID_READ])]
-            dW, dx = stage_vjp(w_used, x_saved, statics, g_in, aux_weight,
-                               **stage_kw(p))
+            if has_enc:
+                dW, dx, dcx = stage_vjp(w_used, x_saved, statics, g_in,
+                                        aux_weight, cross_x=enc_ring[b],
+                                        **stage_kw(p))
+                denc[s][b] += dcx
+            else:
+                dW, dx = stage_vjp(w_used, x_saved, statics, g_in,
+                                   aux_weight, **stage_kw(p))
             if accumulate:
                 gacc[p] = dW if gacc[p] is None else tree_add(gacc[p], dW)
             else:
@@ -287,9 +338,17 @@ def reference_train_step(spec, plan, state, batch, optimizer,
         head, fnorm = hf_new["h"], hf_new["f"]
 
     demb = torch.stack([d.float() for d in d_embeds])
+    if spec.frontend == "vision":
+        demb = demb[:, :, spec.n_patches:]
     d_table = lm_head.embed_bwd(embed, tokens, demb) / R
     emb2, eopt2 = optimizer.update(d_table, embed_opt, embed, step)
     del d_table, demb, d_embeds, embed, embed_opt
+    if has_enc:
+        g_enc = encoder_grads(enc_pull, denc, R)
+        del denc, enc_ring, enc_pull
+        enc2, encopt2 = optimizer.update(g_enc, take(state, "opt_encoder"),
+                                         encoder, step)
+        del g_enc
 
     # the round's rows stacked leaf by leaf; with donate each leaf leaves
     # its rows once copied.  A stash cell may hold the very tree that was
@@ -309,6 +368,9 @@ def reference_train_step(spec, plan, state, batch, optimizer,
     new_state = {"params": new_params, "stash": {"current": stages_full},
                  "opt_stages": opt_full, "opt_head": head_opt,
                  "opt_embed": eopt2, "step": step + 1}
+    if has_enc:
+        new_params["encoder"] = enc2
+        new_state["opt_encoder"] = encopt2
     if use_ring:
         new_state["stash"]["ring"] = ring
     return new_state, {"loss": loss_sum / R, "aux": aux_sum / R}

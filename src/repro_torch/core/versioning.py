@@ -156,7 +156,7 @@ def rank_params(params, sched, s: int, *, tensor=None):
     stacked stages, windows and thetas — with ``tensor = (tp_axes, t,
     tp)`` tensor shard t of them (:func:`tensor_cut`) —; the embedding on
     stage 0; the head and final norm on the last stage (on tensor rank 0:
-    the executor keeps them there)."""
+    the executor keeps them there); the whole encoder on every rank."""
     rows = rank_rows(sched, s)
     t = 0 if tensor is None else tensor[1]
     out = {"stages": tensor_cut(tree_map(lambda a: a[rows],
@@ -167,6 +167,8 @@ def rank_params(params, sched, s: int, *, tensor=None):
         out["embed"] = params["embed"]
     if s == sched.n_stages - 1 and t == 0:
         out["head"], out["final_norm"] = params["head"], params["final_norm"]
+    if "encoder" in params:
+        out["encoder"] = params["encoder"]
     return out
 
 
@@ -198,6 +200,8 @@ def rank_state(state, sched, s: int, *, zero1=None, tensor=None):
         out["opt_head"] = state["opt_head"]
     if "embed" in params:
         out["opt_embed"] = state["opt_embed"]
+    if "encoder" in params:
+        out["opt_encoder"] = state["opt_encoder"]
     return out
 
 
@@ -207,8 +211,9 @@ def make_train_state(params, sched, optimizer, *, zero1=None):
     ``params["stages"]`` itself (one set of tensors), ``stash["ring"]``
     a ``[V, L, ...]`` copy of it when the schedule keeps a ring (chunk-
     major for ``interleaved_async``: L = S·v storage rows), the
-    optimizer states of the stages, of head + final norm and of the
-    embedding, and the round counter.  ``params`` may be one rank's
+    optimizer states of the stages, of head + final norm, of the
+    embedding and of the encoder (where the model has one), and the
+    round counter.  ``params`` may be one rank's
     (:func:`rank_params`): the head's and the embedding's states exist
     where those do, and with ``zero1 = (axes, index, dp)`` the stage
     optimizer state covers replica ``index``'s shard only."""
@@ -230,4 +235,6 @@ def make_train_state(params, sched, optimizer, *, zero1=None):
                                             "f": params["final_norm"]})
     if "embed" in params:
         state["opt_embed"] = optimizer.init(params["embed"])
+    if "encoder" in params:
+        state["opt_encoder"] = optimizer.init(params["encoder"])
     return state

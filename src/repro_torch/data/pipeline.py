@@ -5,11 +5,14 @@ packages train on the same tokens.  :class:`Loader` puts one round on
 the training device; over data replicas each replica gets its
 contiguous block of every microbatch's rows, as JAX's ``ShardedLoader``
 shards the batch dim over the data axis
-(``repro/core/pipeline.py``: ``P(None, data, None)``).
+(``repro/core/pipeline.py``: ``P(None, data, None)``).  The batch keys
+the stream does not give — the frontends' ``patches`` and ``frames`` —
+come from an ``extra_fn`` such as :func:`frontend_stub`.
 """
 from __future__ import annotations
 
-from typing import Dict
+import zlib
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,22 +45,66 @@ class SyntheticLM:
 
 
 class Loader:
-    """One round of ``source`` as int32 tensors on ``device``: of the
-    ``bmb`` rows a microbatch has over all ``replicas``, replica
-    ``replica``'s block of ``bmb / replicas``."""
+    """One round of ``source`` as tensors on ``device``: of the ``bmb``
+    rows a microbatch has over all ``replicas``, replica ``replica``'s
+    block of ``bmb / replicas``.  ``extra_shapes`` names the batch keys
+    the stream does not give, each with its whole round's shape (R,
+    bmb, ...); ``extra_fn(step, {key: shape})`` gives those arrays (f32),
+    and every replica keeps its rows of them."""
 
     def __init__(self, source: SyntheticLM, r_microbatches: int, bmb: int,
-                 device, *, replica: int = 0, replicas: int = 1):
+                 device, *, replica: int = 0, replicas: int = 1,
+                 extra_fn: Optional[Callable] = None,
+                 extra_shapes: Optional[Dict[str, Tuple[int, ...]]] = None):
         if bmb % replicas:
             raise ValueError(f"{bmb} rows a microbatch do not split over "
                              f"{replicas} replicas")
+        extra_shapes = dict(extra_shapes or {})
+        if extra_shapes and extra_fn is None:
+            raise ValueError(f"batch keys {sorted(extra_shapes)} need an "
+                             "extra_fn to give them (the frontend stubs)")
         self.source = source
         self.r, self.bmb = r_microbatches, bmb
         self.device = torch.device(device)
         mb = bmb // replicas
         self.rows = slice(replica * mb, (replica + 1) * mb)
+        self.extra_fn, self.extra_shapes = extra_fn, extra_shapes
 
     def get(self, step: int) -> Dict[str, torch.Tensor]:
         host = self.source.round_batch(step, self.r, self.bmb)
+        for k, shape in self.extra_shapes.items():
+            if k not in host:
+                host[k] = self.extra_fn(step, {k: shape})[k]
         return {k: torch.from_numpy(np.ascontiguousarray(v[:, self.rows]))
                 .to(self.device) for k, v in host.items()}
+
+
+def frontend_stub(seed: int = 0):
+    """The frontends' stub inputs: ``fn(step, {key: shape})`` gives, for
+    each key, deterministic f32 values 0.02 x a standard normal in
+    (seed, step, key); a shape may be a tuple or carry ``.shape`` (as
+    JAX's ``ShapeDtypeStruct``).  JAX's ``vlm_patch_stub`` seeds with
+    ``hash(key)``, which Python salts per process; the port takes the
+    key's CRC-32, the same in every process."""
+    def fn(step: int, shapes: Dict[str, Tuple[int, ...]]):
+        out = {}
+        for k, shape in shapes.items():
+            rng = np.random.default_rng((seed, step, zlib.crc32(k.encode())))
+            shape = tuple(getattr(shape, "shape", shape))
+            out[k] = rng.standard_normal(shape).astype(np.float32) * 0.02
+        return out
+    return fn
+
+
+def vlm_patch_stub(d_model: int, seed: int = 0):
+    """The vision frontend's stub (JAX's ``vlm_patch_stub``): patch
+    embeddings of width ``d_model``, which the shapes asked for carry."""
+    del d_model
+    return frontend_stub(seed)
+
+
+def frames_stub(d_enc: int, seed: int = 0):
+    """The audio frontend's stub, of :func:`vlm_patch_stub`'s form: the
+    encoder's input frames (..., source_len, ``d_enc``)."""
+    del d_enc
+    return frontend_stub(seed)

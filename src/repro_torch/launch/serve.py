@@ -10,7 +10,9 @@ plan on one device.
 
 ``--prefill`` is the prompt width the session is sized for
 (``prefill_len``: the batcher's prompt width, and the MoE expert
-capacity).
+capacity); a VLM's prompt holds its patch prefix and at least 8 text
+tokens.  The frontends' inputs (patches, frames) are drawn beside the
+tokens.
 
   python -m repro_torch.launch.serve --arch qwen3-14b --page-size 16
   python -m repro_torch.launch.serve --arch qwen3-14b --smoke --device cpu
@@ -27,6 +29,10 @@ capacity).
   python -m repro_torch.launch.serve --arch qwen3-14b --smoke \\
       --device cpu --page-size 16 --trace-out /tmp/t.json \\
       --metrics-out /tmp/m.json
+  python -m repro_torch.launch.serve --arch whisper-medium --smoke \\
+      --device cpu --page-size 16
+  python -m repro_torch.launch.serve --arch llava-next-34b --smoke \\
+      --device cpu --page-size 16 --arrivals 0,0,2
 
 ``--ckpt DIR`` serves the weights of a converted checkpoint
 (``python -m repro_torch.checkpoint.convert``, converted for this
@@ -139,10 +145,14 @@ def serve_arrivals(session, spec, args) -> None:
     from repro_torch.serving.batcher import ContinuousBatchingSession, Request
     arrivals = parse_arrivals(args.arrivals, seed=args.seed)
     rng = np.random.default_rng(args.seed)
+    inputs = {k: v.shape[2:] for k, v in session.prefill_specs.items()
+              if k != "tokens"}
     trace = [Request(rid=i,
-                     prompt=rng.integers(1, spec.vocab, session.prefill_len)
+                     prompt=rng.integers(1, spec.vocab, session.text_len)
                      .astype(np.int32),
-                     max_new_tokens=args.tokens, arrival=int(t))
+                     max_new_tokens=args.tokens, arrival=int(t),
+                     inputs={k: rng.standard_normal(shape).astype(np.float32)
+                             * 0.02 for k, shape in inputs.items()} or None)
              for i, t in enumerate(sorted(arrivals))]
     session.start(args.seed)
     if args.ckpt:
@@ -180,6 +190,18 @@ def serve_arrivals(session, spec, args) -> None:
               f"tokens {r.tokens[:6]}{'...' if len(r.tokens) > 6 else ''}")
 
 
+def prefill_batch(session, seed: int):
+    """A prefill batch of every key of ``session.prefill_specs``, drawn
+    in their order from one ``np.random.default_rng(seed)``: tokens in
+    [0, vocab), a frontend's floats 0.02 x a standard normal (JAX
+    ``launch/serve.py:295-300``)."""
+    rng = np.random.default_rng(seed)
+    return {k: (rng.integers(0, session.spec.vocab, v.shape).astype(np.int32)
+                if v.dtype == torch.int32 else
+                rng.standard_normal(v.shape).astype(np.float32) * 0.02)
+            for k, v in session.prefill_specs.items()}
+
+
 def serve_batch(session, spec, args) -> None:
     """One-shot batch: prefill, then decode steps or draft–verify
     rounds."""
@@ -187,11 +209,8 @@ def serve_batch(session, spec, args) -> None:
     session.start(args.seed)
     if args.ckpt:
         load_checkpoint(session, spec, args)
-    rng = np.random.default_rng(args.seed)
-    prompts = rng.integers(0, spec.vocab, (session.n_slots, session.rows,
-                                           args.prefill)).astype(np.int32)
     t0 = time.perf_counter()
-    nxt = session.prefill({"tokens": prompts})
+    nxt = session.prefill(prefill_batch(session, args.seed))
     _sync(device)
     print(f"prefill[{args.prefill}] batch={args.batch}: "
           f"{time.perf_counter() - t0:.3f}s first tokens "
@@ -307,6 +326,9 @@ def main(argv=None):
     else:
         spec, plan, dtype = cfg.full_spec(), cfg.PLAN, torch.bfloat16
     plan = plan.with_(tp=1)
+    if spec.frontend == "vision":
+        # the prompt holds the patch prefix and some text
+        args.prefill = max(args.prefill, spec.n_patches + 8)
     if args.schedule or args.virtual_stages or args.spec_k:
         v2 = (args.virtual_stages or 1) > 1
         name = args.schedule or (

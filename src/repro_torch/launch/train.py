@@ -36,12 +36,19 @@ cards per replica, with ``--data`` replicas, under an H100's memory; as
 in the JAX launcher there is no ``--tp``: tp is the plan's (the full
 specs' plans cut stages over 2-8 tensor ranks) or the planner's.
 Prints the plan line with the predicted bubble, then ``loss a -> b``.
+A model with a frontend trains on the stubs' patches or frames beside
+the text (``data/pipeline.py``); a VLM's ``--seq-len`` is at least its
+patch prefix and 16 text tokens.
 
   python -m repro_torch.launch.train --arch qwen3-14b --smoke --steps 3 \
       --device cpu
   python -m repro_torch.launch.train --arch qwen3-14b --smoke --steps 4 \
       --device cpu --schedule interleaved_async --virtual-stages 2 \
       --microbatches 4 --ckpt /tmp/ckpt --ckpt-every 2
+  python -m repro_torch.launch.train --arch whisper-medium --smoke \
+      --steps 3 --device cpu
+  python -m repro_torch.launch.train --arch llava-next-34b --smoke \
+      --steps 3 --device cpu
   torchrun --nproc-per-node 4 -m repro_torch.launch.train \
       --arch qwen3-14b --pp 2 --layers 4 --seq-len 4096 --microbatches 4 \
       --global-batch 4 --plan-search     # a pp x tp plan of 4 ranks
@@ -73,7 +80,7 @@ from repro_torch.core.schedule import (SCHEDULES, make_schedule,
                                        plan_kwargs_for_schedule,
                                        virtual_stages_error,
                                        weighted_round_time)
-from repro_torch.data.pipeline import Loader, SyntheticLM
+from repro_torch.data.pipeline import Loader, SyntheticLM, frontend_stub
 from repro_torch.obs import Observability, reconcile, stage_seconds
 from repro_torch.optim.optimizers import by_name
 from repro_torch.parallel.dist import ProcessGrid, close_grid, init_grid
@@ -111,6 +118,9 @@ def make_plan(args):
         plan = plan.with_(**plan_kwargs_for_schedule(
             args.schedule, virtual_stages=args.virtual_stages,
             stash_mode=plan.stash_mode))
+    if spec.frontend == "vision":
+        # a row holds the patch prefix and some text (JAX train.py:56-57)
+        args.seq_len = max(args.seq_len, spec.n_patches + 16)
     if args.plan_search:
         plan = plan_search_report(spec, plan, seq_len=args.seq_len,
                                   global_batch=args.global_batch,
@@ -130,16 +140,26 @@ def build(args, grid=None, made=None, obs=None):
     return spec, bundle
 
 
-def make_driver(args, spec, bundle, ckpt_dir: str, failure_hook=None):
-    """The TrainDriver for the parsed arguments: the SyntheticLM stream
-    from ``--seed`` (on a grid, this replica's rows of it), checkpoints
-    every ``--ckpt-every`` rounds."""
+def make_loader(spec, bundle, seed: int) -> Loader:
+    """The round's batches: the SyntheticLM text stream from ``seed``
+    and, for a model with a frontend, its patches or frames from the
+    stubs (``data/pipeline.py``); on a grid, this replica's rows."""
     grid = bundle.grid
     replica, replicas = (0, 1) if grid is None else (grid.d, grid.topo.data)
-    loader = Loader(SyntheticLM(spec.vocab, bundle.seq_len, seed=args.seed),
-                    bundle.plan.microbatches,
-                    bundle.microbatch_size * replicas, bundle.device,
-                    replica=replica, replicas=replicas)
+    extra = {k: v for k, v in bundle.batch_shapes.items()
+             if k not in ("tokens", "labels")}
+    return Loader(SyntheticLM(spec.vocab, bundle.text_len, seed=seed),
+                  bundle.plan.microbatches,
+                  bundle.microbatch_size * replicas, bundle.device,
+                  replica=replica, replicas=replicas,
+                  extra_fn=frontend_stub(seed), extra_shapes=extra)
+
+
+def make_driver(args, spec, bundle, ckpt_dir: str, failure_hook=None):
+    """The TrainDriver for the parsed arguments: :func:`make_loader`'s
+    batches from ``--seed``, checkpoints every ``--ckpt-every``
+    rounds."""
+    loader = make_loader(spec, bundle, args.seed)
     return TrainDriver(bundle, loader, ckpt_dir,
                        DriverConfig(checkpoint_every=args.ckpt_every),
                        failure_hook=failure_hook, seed=args.seed)

@@ -8,8 +8,10 @@ sit outside the pipeline.  ``layer_windows`` / ``layer_thetas`` are
 tree carries over leaf for leaf (:func:`params_from_numpy`).  Ported
 block kinds: attention, RWKV6 time-mix or Mamba as the mixer; a dense
 FFN, RWKV6 channel-mix or MoE (with shared experts, ``moe.shared``) as
-the FFN.
-Cross-attention blocks come later.
+the FFN; cross-attention (``xattn`` and its norm ``norm_x``) after
+self-attention in an encoder-decoder block; and whisper's encoder
+(``params["encoder"]``: stacked ``[n_layers, ...]`` leaves and a learned
+``pos`` of (source_len, d)), which every rank holds whole.
 
 A stage cut over tp tensor ranks holds rank t's shard of every sharded
 leaf: :func:`tp_axes` is the port's copy of the JAX init's
@@ -93,6 +95,7 @@ def rwkv_static(spec: spec_lib.ModelSpec, tp: int) -> RWKVStatic:
 # channel-mix gate) and the embedding, head and final norm stay whole.
 _TP_DIMS = {
     "attn": {"wq": 2, "wk": "kv", "wv": "kv", "wo": 1},
+    "xattn": {"wq": 2, "wk": "kv", "wv": "kv", "wo": 1},
     "mlp": {"w1": 2, "w3": 2, "w2": 1},
     "moe": {"w1": 1, "w2": 1, "w3": 1},
     "moe/shared": {"w1": 2, "w3": 2, "w2": 1},
@@ -210,6 +213,40 @@ def _rwkv_cmix_init(spec, pp, gen, dtype, out_scale, take):
     }
 
 
+def _attn_init(spec, pp, gen, dtype, out_scale, take, cross=False):
+    """Self-attention, or with ``cross`` cross-attention (no qk-norm, as
+    JAX's ``_attn_init(cross=True)``)."""
+    d, h, kv, dh, dev = (spec.d_model, spec.n_heads, spec.n_kv, spec.d_head,
+                         gen.device)
+    attn = {"wq": take(_dense(gen, (pp, d, h, dh), dtype)),
+            "wk": take(_dense(gen, (pp, d, kv, dh), dtype)),
+            "wv": take(_dense(gen, (pp, d, kv, dh), dtype)),
+            "wo": take(_dense(gen, (pp, h * dh, d), dtype, out_scale))}
+    if spec.qk_norm and not cross:
+        attn["q_norm"] = take(torch.ones((pp, dh), dtype=dtype, device=dev))
+        attn["k_norm"] = take(torch.ones((pp, dh), dtype=dtype, device=dev))
+    return attn
+
+
+def _encoder_init(spec, gen, dtype) -> Dict:
+    """Whisper's encoder, JAX's ``_encoder_init``: per-layer leaves
+    stacked ``[n_layers, ...]``, norms without a bias (the encoder's
+    layernorms take zero bias), the final norm and the learned positions
+    ``pos`` (source_len, d)."""
+    e, dev = spec.encoder, gen.device
+    n, d, dh = e.n_layers, e.d_model, e.d_model // e.n_heads
+    p = {k: _dense(gen, (n, d, e.n_heads, dh), dtype)
+         for k in ("wq", "wk", "wv")}
+    p["wo"] = _dense(gen, (n, e.n_heads * dh, d), dtype)
+    p["w1"] = _dense(gen, (n, d, e.d_ff), dtype)
+    p["w2"] = _dense(gen, (n, e.d_ff, d), dtype)
+    p["norm1"] = torch.ones((n, d), dtype=dtype, device=dev)
+    p["norm2"] = torch.ones((n, d), dtype=dtype, device=dev)
+    p["final_norm"] = torch.ones((d,), dtype=dtype, device=dev)
+    p["pos"] = _dense(gen, (e.source_len, d), dtype)
+    return p
+
+
 def _mlp_init(spec, pp, gen, dtype, out_scale, take, ff):
     d = spec.d_model
     mlp = {"w1": take(_dense(gen, (pp, d, ff), dtype)),
@@ -265,7 +302,9 @@ def init_params(spec: spec_lib.ModelSpec, plan, gen: torch.Generator,
     projections 0.02/√(2L), RWKV decay bias w0 ~ -3.9 + 0.2·N in f32,
     Mamba conv 0.1, dt_proj dt_rank^-½ and f32 dt_bias / A_log / D);
     the random numbers differ from JAX's, so a
-    test that compares the two packages hands both one numpy tree.
+    test that compares the two packages hands both one numpy tree.  The
+    encoder, where the spec has one, is drawn last, from the same
+    stream.
     """
     return _draw(spec, plan, gen, dtype, None, True, True)
 
@@ -290,7 +329,8 @@ def init_rank_params(spec: spec_lib.ModelSpec, plan, gen: torch.Generator,
     At ``plan.tp`` > 1 the rank keeps tensor shard ``t`` of every
     sharded leaf (:func:`tp_shard`): each layer is drawn at full width
     for the rank's rows and cut before the next layer is drawn; the
-    embedding and the head stay on tensor rank 0."""
+    embedding and the head stay on tensor rank 0.  Every rank keeps the
+    whole encoder (it runs before the pipeline, on every rank)."""
     if stage is None:
         rows = list(range(sched.n_chunks))
     else:
@@ -310,14 +350,13 @@ def _draw(spec, plan, gen, dtype, rows, embed: bool, head: bool,
     """The parameter draw: ``rows`` (model chunks, in the order to keep
     them) of every stage-stacked leaf, or all of them for None; the
     embedding with ``embed``, head and final norm with ``head``; tensor
-    shard ``t`` of each layer at ``plan.tp`` > 1.  A leaf not kept is
-    drawn all the same: the generator's stream stays the whole
-    model's."""
+    shard ``t`` of each layer at ``plan.tp`` > 1; the whole encoder.  A
+    leaf not kept is drawn all the same: the generator's stream stays
+    the whole model's."""
     pp = plan.pp
     program = spec.stage_program(pp)
     dev = gen.device
-    d, h, kv, dh, ff = (spec.d_model, spec.n_heads, spec.n_kv, spec.d_head,
-                        spec.d_ff)
+    d, ff = spec.d_model, spec.d_ff
     out_scale = 0.02 / math.sqrt(2 * spec.n_layers)
     vpad = padded_vocab(spec.vocab)
     if rows is None:
@@ -341,27 +380,22 @@ def _draw(spec, plan, gen, dtype, rows, embed: bool, head: bool,
     del w
     stages: Dict = {}
     for i, blk in enumerate(program):
-        if (blk.mixer not in ("attn", "rwkv", "mamba") or blk.cross_attn
+        if (blk.mixer not in ("attn", "rwkv", "mamba")
                 or blk.ffn not in ("dense", "rwkv_cmix", "moe")):
             raise NotImplementedError(
-                f"block {blk} is not ported yet (cross-attention and "
-                "mixer- or FFN-less blocks are still to port)")
+                f"block {blk} is not ported yet (mixer- or FFN-less "
+                "blocks are still to port)")
         lp: Dict = {"norm1": tree_map(take, _norm_init((pp, d), spec.norm,
                                                        dtype, dev))}
         if blk.mixer == "mamba":
             lp["mamba"] = _mamba_init(spec, pp, gen, dtype, out_scale, take)
         elif blk.mixer == "attn":
-            attn = {"wq": take(_dense(gen, (pp, d, h, dh), dtype)),
-                    "wk": take(_dense(gen, (pp, d, kv, dh), dtype)),
-                    "wv": take(_dense(gen, (pp, d, kv, dh), dtype)),
-                    "wo": take(_dense(gen, (pp, h * dh, d), dtype,
-                                      out_scale))}
-            if spec.qk_norm:
-                attn["q_norm"] = take(torch.ones((pp, dh), dtype=dtype,
-                                                 device=dev))
-                attn["k_norm"] = take(torch.ones((pp, dh), dtype=dtype,
-                                                 device=dev))
-            lp["attn"] = attn
+            lp["attn"] = _attn_init(spec, pp, gen, dtype, out_scale, take)
+            if blk.cross_attn:
+                lp["xattn"] = _attn_init(spec, pp, gen, dtype, out_scale,
+                                         take, cross=True)
+                lp["norm_x"] = tree_map(take, _norm_init(
+                    (pp, d), spec.norm, dtype, dev))
         else:
             lp["tmix"] = _rwkv_tmix_init(spec, pp, gen, dtype, out_scale,
                                          take)
@@ -384,6 +418,8 @@ def _draw(spec, plan, gen, dtype, rows, embed: bool, head: bool,
         windows, thetas = [windows[r] for r in rows], [thetas[r] for r in rows]
     params["layer_windows"] = windows
     params["layer_thetas"] = thetas
+    if spec.encoder is not None:
+        params["encoder"] = _encoder_init(spec, gen, dtype)
     return params
 
 
@@ -439,7 +475,7 @@ def train_state_from_numpy(tree, device, dtype, *, sched=None, stage=None,
                                           dtype)
     out = {"params": params, "stash": stash,
            "step": int(np.asarray(tree["step"]))}
-    for key in ("opt_stages", "opt_head", "opt_embed"):
+    for key in ("opt_stages", "opt_head", "opt_embed", "opt_encoder"):
         if key in tree:
             out[key] = params_from_numpy(tree[key], device, torch.float32)
     return out

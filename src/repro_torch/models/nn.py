@@ -225,8 +225,15 @@ def _project_kv_weights(p, x, st: AttnStatic, tp):
 
 def attention(p, x, st: AttnStatic, *, positions, window: int, theta: float,
               kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-              cache_pos: int = 0, paged_kv=None, tp=None):
-    """Self-attention of x (B, S, d); returns (B, S, d).
+              cache_pos: int = 0, paged_kv=None, cross_x=None, tp=None):
+    """Self-attention of x (B, S, d), or with ``cross_x`` (B, T_src, d)
+    cross-attention into it; returns (B, S, d).
+
+    ``cross_x``: K and V are projected from it, neither side is rotated,
+    its keys sit at positions 0 .. T_src − 1 and every query sees every
+    key (JAX ``nn.py:241-244, :485``); it takes no cache.  It goes
+    through the plain path below, never the flash kernel, as in JAX
+    (``:492-493``).
 
     ``kv_cache``: this slot's dense (k, v) cache views (B, L, KV, Dh),
     written in place; a cache of another dtype than x is read as JAX
@@ -259,19 +266,26 @@ def attention(p, x, st: AttnStatic, *, positions, window: int, theta: float,
     x = tp_enter(x, tp)
     wq = maybe_dequant(p["wq"], x.dtype).reshape(d, hd)
     q = (x @ wq).view(b, s, st.n_heads_local, st.d_head)
-    wk, wv = _project_kv_weights(p, x, st, tp)
-    k = (x @ wk.reshape(d, kvd)).view(b, s, st.n_kv_local, st.d_head)
-    v = (x @ wv.reshape(d, kvd)).view(b, s, st.n_kv_local, st.d_head)
+    kv_src = x if cross_x is None else tp_enter(cross_x, tp)
+    sk = kv_src.shape[1]
+    wk, wv = _project_kv_weights(p, kv_src, st, tp)
+    k = (kv_src @ wk.reshape(d, kvd)).view(b, sk, st.n_kv_local, st.d_head)
+    v = (kv_src @ wv.reshape(d, kvd)).view(b, sk, st.n_kv_local, st.d_head)
     if st.qk_norm:
         q = rmsnorm(q, tp_enter(p["q_norm"], tp))
         k = rmsnorm(k, tp_enter(p["k_norm"], tp))
-    q, k = apply_rope(q, k, positions, theta, rope_2d=st.rope_2d)
+    if cross_x is None:
+        q, k = apply_rope(q, k, positions, theta, rope_2d=st.rope_2d)
 
     def project_out(o):
         return tp_exit(o.reshape(b, s, hd).to(x.dtype)
                        @ maybe_dequant(p["wo"], x.dtype), tp)
 
-    if paged_kv is not None:
+    causal = st.causal and cross_x is None
+    if cross_x is not None:
+        assert kv_cache is None and paged_kv is None
+        k_pos = torch.arange(sk, device=x.device)
+    elif paged_kv is not None:
         assert kv_cache is None
         *pools, row = paged_kv
         kq = len(pools) == 4          # int8 pools carry scale planes
@@ -359,7 +373,7 @@ def attention(p, x, st: AttnStatic, *, positions, window: int, theta: float,
         # p cast to the cache's dtype for the PV product
         ct = torch.promote_types(q.dtype, ck.dtype)
         q, k, v = q.to(ct), ck.to(ct), cv
-    elif st.causal:
+    elif causal:
         # cache-less causal forward: the flash kernel (GQA inside)
         out = kernel_ops.flash_attention(q, k, v, causal=True, window=window)
         return project_out(out)
@@ -371,10 +385,10 @@ def attention(p, x, st: AttnStatic, *, positions, window: int, theta: float,
     v = v.repeat_interleave(groups, dim=2)
     q_pos = positions[0]
     if s * k.shape[1] <= _FLASH_THRESHOLD:
-        mask = _attn_mask(q_pos, k_pos, window, st.causal)
+        mask = _attn_mask(q_pos, k_pos, window, causal)
         out = _sdpa_naive(q, k, v, mask[None, None])
     else:
-        out = _sdpa_flash(q, k, v, q_pos, k_pos, window, st.causal)
+        out = _sdpa_flash(q, k, v, q_pos, k_pos, window, causal)
     return project_out(out)
 
 

@@ -3,8 +3,11 @@
 A stage runs ``layers_per_stage`` blocks (the validated stage program).
 :func:`stage_fwd` takes one stage's parameters — the stage-stacked tree
 already indexed at that stage — and the ported block kinds with pre-norm
-residuals: attention, RWKV6 time-mix or Mamba as the mixer; a dense FFN,
-RWKV6 channel-mix or MoE as the FFN.  A stage cut over a tensor group
+residuals: attention (with cross-attention into an encoder's output
+after it in an encoder-decoder block), RWKV6 time-mix or Mamba as the
+mixer; a dense FFN, RWKV6 channel-mix or MoE as the FFN.
+:func:`encoder_fwd` is whisper's encoder, which runs before the
+pipeline.  A stage cut over a tensor group
 (``tp``) runs every block on this rank's shard with the group's
 collectives (``models/nn.py``); its input and output are whole on every
 rank of the group.
@@ -16,6 +19,7 @@ import functools
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import nn
@@ -33,6 +37,7 @@ class StageStatics:
     plan: ParallelismPlan
     program: Tuple[spec_lib.BlockSpec, ...]
     attn: Optional[nn.AttnStatic]
+    xattn: Optional[nn.AttnStatic]
     rwkv: Optional[nn.RWKVStatic]
     moe: Optional[nn.MoEStatic]
     mamba: Optional[nn.MambaStatic]
@@ -46,13 +51,12 @@ def make_statics(spec: spec_lib.ModelSpec, plan: ParallelismPlan,
     as the JAX package."""
     program = spec.stage_program(plan.pp)
     bad = [b for b in program if b.mixer not in ("attn", "rwkv", "mamba")
-           or b.ffn not in ("dense", "rwkv_cmix", "moe") or b.cross_attn]
+           or b.ffn not in ("dense", "rwkv_cmix", "moe")]
     if bad:
         raise NotImplementedError(
             f"{spec.name}: block kinds "
-            f"{sorted(set((b.mixer, b.ffn, b.cross_attn) for b in bad))} are "
-            "not ported yet (cross-attention and mixer- or FFN-less blocks "
-            "are still to port)")
+            f"{sorted(set((b.mixer, b.ffn) for b in bad))} are not ported "
+            "yet (mixer- or FFN-less blocks are still to port)")
     has = lambda kind: any(kind in (b.mixer, b.ffn) for b in program)
     if has("moe") and tokens_per_mb is None:
         raise ValueError(f"{spec.name} has MoE FFNs: make_statics needs "
@@ -60,6 +64,8 @@ def make_statics(spec: spec_lib.ModelSpec, plan: ParallelismPlan,
     return StageStatics(
         spec=spec, plan=plan, program=program,
         attn=attn_static(spec, plan.tp) if has("attn") else None,
+        xattn=(attn_static(spec, plan.tp, causal=False)
+               if any(b.cross_attn for b in program) else None),
         rwkv=rwkv_static(spec, plan.tp) if has("rwkv") else None,
         moe=(moe_static(spec, plan.tp, tokens_per_mb) if has("moe")
              else None),
@@ -76,10 +82,12 @@ def stage_params(params, s: int):
     return take(params["stages"])
 
 
-def _block(st: StageStatics, blk, lp, ls, x, *, positions, window, theta,
-           cache_pos, pg, tp):
+def _block(st: StageStatics, blk, lp, ls, x, cross_x=None, *, positions,
+           window, theta, cache_pos, pg, tp):
     """One block, mixer then FFN with pre-norm residuals; returns
-    (x, aux) with the MoE auxiliary loss (None for other FFNs)."""
+    (x, aux) with the MoE auxiliary loss (None for other FFNs).  A
+    cross-attention block attends into ``cross_x`` after its
+    self-attention (JAX ``stage.py:95-105``)."""
     aux = None
     h = nn.apply_norm(lp["norm1"], x, st.spec.norm)
     if blk.mixer == "attn":
@@ -87,6 +95,11 @@ def _block(st: StageStatics, blk, lp, ls, x, *, positions, window, theta,
                              window=window, theta=theta,
                              kv_cache=ls.get("kv"), cache_pos=cache_pos,
                              paged_kv=pg, tp=tp)
+        if blk.cross_attn:
+            h = nn.apply_norm(lp["norm_x"], x, st.spec.norm)
+            x = x + nn.attention(lp["xattn"], h, st.xattn,
+                                 positions=positions, window=-1,
+                                 theta=theta, cross_x=cross_x, tp=tp)
     elif blk.mixer == "mamba":
         x = x + nn.mamba_block(lp["mamba"], h, st.mamba, state=ls.get("ssm"),
                                tp=tp)
@@ -107,7 +120,7 @@ def _block(st: StageStatics, blk, lp, ls, x, *, positions, window, theta,
 
 def stage_fwd(sp, x, st: StageStatics, *, positions, windows, thetas,
               state=None, cache_pos: int = 0, paged=None,
-              return_aux: bool = False, tp=None):
+              return_aux: bool = False, cross_x=None, tp=None):
     """Run one stage over its blocks; returns the stage's output, or
     (output, aux) with ``return_aux``: the blocks' summed MoE auxiliary
     loss, an f32 scalar (0 without MoE FFNs), as JAX's ``stage_fwd``
@@ -131,6 +144,9 @@ def stage_fwd(sp, x, st: StageStatics, *, positions, windows, thetas,
     group's sums included: every rank of the group re-runs the same
     blocks, so the ranks issue the same collectives in the same order.
 
+    cross_x: the encoder's output (B, T_src, d) that the cross-attention
+    blocks attend into (encoder-decoder models), else None.
+
     tp: the stage's tensor group (``RankGrid.tensor_group``) when ``sp``
     is this rank's shard (``models/init.py::tp_shard``), else None.
     """
@@ -147,9 +163,9 @@ def stage_fwd(sp, x, st: StageStatics, *, positions, windows, thetas,
             else {}, positions=positions, window=windows[i],
             theta=thetas[i], cache_pos=cache_pos, pg=pg, tp=tp)
         if remat:
-            x, aux = checkpoint(fn, x, use_reentrant=False)
+            x, aux = checkpoint(fn, x, cross_x, use_reentrant=False)
         else:
-            x, aux = fn(x)
+            x, aux = fn(x, cross_x)
         if aux is not None:
             aux_total = aux_total + aux
     return (x, aux_total) if return_aux else x
@@ -169,11 +185,13 @@ def _grad_leaves(node, prefix, names, leaves):
 
 
 def stage_vjp(sp, x, st: StageStatics, g, aux_ct: float, *, positions,
-              windows, thetas, tp=None):
+              windows, thetas, cross_x=None, tp=None):
     """Re-run one stage's forward under autograd and pull back the
     cotangents (g on the output, ``aux_ct`` on the MoE auxiliary loss):
     returns (dW tree keyed like ``sp``, dx), as ``jax.vjp`` of JAX's
-    ``stage_fwd`` gives them (zeros for weights the stage does not use).
+    ``stage_fwd`` gives them (zeros for weights the stage does not use);
+    with ``cross_x`` (dW, dx, d(cross_x)), the stage's share of the
+    encoder output's cotangent.
 
     ``sp`` and ``x`` may be views into rings that are written in place
     later: the backward completes inside this call, before any such
@@ -188,23 +206,27 @@ def stage_vjp(sp, x, st: StageStatics, g, aux_ct: float, *, positions,
     with torch.enable_grad():
         w = _grad_leaves(sp, (), names, leaves)
         xl = x.detach().requires_grad_()
+        inputs = [xl]
+        cl = None
+        if cross_x is not None:
+            cl = cross_x.detach().requires_grad_()
+            inputs.append(cl)
         h, aux = stage_fwd(w, xl, st, positions=positions, windows=windows,
-                           thetas=thetas, return_aux=True, tp=tp)
+                           thetas=thetas, return_aux=True, cross_x=cl, tp=tp)
         outs, cts = [h], [g.to(h.dtype)]
         if aux.requires_grad:
             outs.append(aux)
             cts.append(torch.tensor(aux_ct, dtype=aux.dtype,
                                     device=aux.device))
-        grads = torch.autograd.grad(outs, [xl] + leaves, cts,
+        grads = torch.autograd.grad(outs, inputs + leaves, cts,
                                     allow_unused=True)
-    dx = grads[0]
     dW: Dict = {}
-    for path, leaf, gw in zip(names, leaves, grads[1:]):
+    for path, leaf, gw in zip(names, leaves, grads[len(inputs):]):
         node = dW
         for k in path[:-1]:
             node = node.setdefault(k, {})
         node[path[-1]] = torch.zeros_like(leaf) if gw is None else gw
-    return dW, dx
+    return (dW, grads[0]) if cl is None else (dW, grads[0], grads[1])
 
 
 def init_stage_state(st: StageStatics, batch_local: int, cache_lens,
@@ -245,9 +267,11 @@ def init_stage_state(st: StageStatics, batch_local: int, cache_lens,
     return out
 
 
-def full_transformer(params, x, st: StageStatics, *, positions):
+def full_transformer(params, x, st: StageStatics, *, positions,
+                     cross_x=None):
     """Run all pp stages sequentially on one device, with no state: every
-    attention layer runs the flash kernel, every RWKV time-mix the WKV6
+    (causal self-)attention layer runs the flash kernel, cross-attention
+    into ``cross_x`` the plain path, every RWKV time-mix the WKV6
     kernel and every Mamba mixer the selective-scan kernel from a zero
     state.  MoE capacity is ``st.moe``'s: pass the statics whose
     ``tokens_per_mb`` is this call's B·S to see the same drops as one
@@ -255,5 +279,69 @@ def full_transformer(params, x, st: StageStatics, *, positions):
     for s in range(st.plan.pp):
         x = stage_fwd(stage_params(params, s), x, st, positions=positions,
                       windows=params["layer_windows"][s],
-                      thetas=params["layer_thetas"][s])
+                      thetas=params["layer_thetas"][s], cross_x=cross_x)
     return x
+
+
+def _encoder_layer(lp, x, est: nn.AttnStatic, positions):
+    """One encoder layer (JAX ``encoder_fwd``'s ``layer``): layernorms
+    with zero bias, non-causal self-attention rotated at θ 1e4 (JAX's
+    ``nn.attention`` rotates whenever it has no ``cross_x``), a tanh-GELU
+    MLP."""
+    zero = lambda a: torch.zeros_like(a)              # noqa: E731
+    h = nn.layernorm(x, lp["norm1"], zero(lp["norm1"]))
+    x = x + nn.attention({k: lp[k] for k in ("wq", "wk", "wv", "wo")}, h,
+                         est, positions=positions, window=-1, theta=1e4)
+    h = nn.layernorm(x, lp["norm2"], zero(lp["norm2"]))
+    return x + F.gelu(h @ lp["w1"], approximate="tanh") @ lp["w2"]
+
+
+def encoder_fwd(enc_params, frames, spec: spec_lib.ModelSpec):
+    """Whisper's encoder over the stubbed frontend's frames (B, T_src,
+    d_enc): the learned positions added, the stacked layers in turn,
+    the final layernorm (JAX ``stage.py:235-275``).  Under autograd each
+    layer runs under ``torch.utils.checkpoint``: only its input is kept,
+    and the layer is re-run in the backward (the activations of 24
+    layers of 1500-frame attention would not fit the card beside the
+    pipeline)."""
+    e = spec.encoder
+    x = frames + enc_params["pos"][:frames.shape[1]]
+    est = nn.AttnStatic(
+        n_heads_local=e.n_heads, n_kv_local=e.n_heads,
+        d_head=e.d_model // e.n_heads, kv_sharded=True,
+        kv_groups_per_device=0, qk_norm=False, rope_2d=False, causal=False)
+    positions = torch.arange(frames.shape[1], device=frames.device).expand(
+        frames.shape[0], frames.shape[1])
+    remat = torch.is_grad_enabled() and any(
+        v.requires_grad for v in enc_params.values())
+    for i in range(e.n_layers):
+        lp = {k: v[i] for k, v in enc_params.items()
+              if k not in ("pos", "final_norm")}
+        if remat:
+            x = checkpoint(_encoder_layer, lp, x, est, positions,
+                           use_reentrant=False)
+        else:
+            x = _encoder_layer(lp, x, est, positions)
+    fn = enc_params["final_norm"]
+    return nn.layernorm(x, fn, torch.zeros_like(fn))
+
+
+def encoder_vjp(enc_params, frames, spec: spec_lib.ModelSpec):
+    """(enc_out, pull): the encoder's output on ``frames``, and the
+    function that pulls a cotangent of it back to the encoder's
+    parameters, a tree keyed like ``enc_params`` — the counterpart of
+    JAX's ``jax.vjp`` of ``encoder_fwd`` in a training round.  The
+    forward is recorded once, layer by layer under checkpoint, and
+    ``pull`` is called once."""
+    leaves = {k: v.detach().requires_grad_() for k, v in enc_params.items()}
+    with torch.enable_grad():
+        out = encoder_fwd(leaves, frames, spec)
+
+    def pull(ct):
+        names = list(leaves)
+        grads = torch.autograd.grad([out], [leaves[k] for k in names],
+                                    [ct.to(out.dtype)], allow_unused=True)
+        return {k: torch.zeros_like(leaves[k]) if g is None else g
+                for k, g in zip(names, grads)}
+
+    return out.detach(), pull

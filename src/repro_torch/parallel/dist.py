@@ -96,6 +96,12 @@ class ProcessGrid:
         themselves, in tensor order."""
         return [self.rank_of(d, s, t) for t in range(self.tp)]
 
+    def pipe_group_ranks(self, d: int, t: int = 0) -> List[int]:
+        """The ranks of replica ``d``'s stages at tensor index ``t``, in
+        stage order: the group that meets the stages' shares of the
+        encoder output's cotangent."""
+        return [self.rank_of(d, s, t) for s in range(self.pp)]
+
     def downstream(self, rank: int, wrap: bool = False) -> Optional[int]:
         """The rank of the next stage of ``rank``'s replica at the same
         tensor index (each tensor rank hands its copy of the activation
@@ -293,8 +299,9 @@ class TransportStats:
 class RankGrid:
     """This rank's place in a :class:`ProcessGrid`: its coordinates, its
     device, its data group (the replicas of its stage's tensor shard),
-    its tensor group (the ranks that cut its stage) and the transport
-    (p2p hand-offs and collectives).  Built by :func:`init_grid`.
+    its tensor group (the ranks that cut its stage), its pipe group (its
+    replica's stages at its tensor index) and the transport (p2p
+    hand-offs and collectives).  Built by :func:`init_grid`.
 
     ``world_group`` and ``ckpt_group`` both span the world: the first
     has the grid's timeout, the second the checkpoint's, for the waits
@@ -302,7 +309,8 @@ class RankGrid:
 
     def __init__(self, topo: ProcessGrid, rank: int, backend: str,
                  device: torch.device, device_policy: str,
-                 data_groups: List, tensor_groups: List, world_pg, ckpt_pg):
+                 data_groups: List, tensor_groups: List, world_pg, ckpt_pg,
+                 pipe_groups: Optional[List] = None):
         self.topo, self.rank, self.backend = topo, rank, backend
         self.device, self.device_policy = device, device_policy
         self.d, self.s, self.t = topo.coords(rank)
@@ -314,6 +322,10 @@ class RankGrid:
         self.tensor_group = Group(
             self, topo.tensor_group_ranks(self.d, self.s),
             tensor_groups[self.d * topo.pp + self.s], kind="tensor")
+        self.pipe_group = Group(
+            self, topo.pipe_group_ranks(self.d, self.t),
+            (pipe_groups or [None] * (topo.data * topo.tp))[
+                self.d * topo.tp + self.t])
         self.world_group = Group(self, range(topo.world), world_pg)
         self.ckpt_group = Group(self, range(topo.world), ckpt_pg)
 
@@ -512,17 +524,21 @@ def init_grid(topo: ProcessGrid, backend: str, *,
     dist.init_process_group(backend, init_method=init_method or "env://",
                             rank=rank, world_size=world_size, timeout=wait)
     # every rank creates every group, in the same order: the data groups
-    # by (stage, tensor index), the tensor groups by (replica, stage)
+    # by (stage, tensor index), the tensor groups by (replica, stage),
+    # the pipe groups by (replica, tensor index)
     data_groups = [dist.new_group(topo.data_group_ranks(s, t), timeout=wait)
                    if topo.data > 1 else None
                    for s in range(topo.pp) for t in range(topo.tp)]
     tensor_groups = [dist.new_group(topo.tensor_group_ranks(d, s),
                                     timeout=wait) if topo.tp > 1 else None
                      for d in range(topo.data) for s in range(topo.pp)]
+    pipe_groups = [dist.new_group(topo.pipe_group_ranks(d, t), timeout=wait)
+                   if topo.pp > 1 else None
+                   for d in range(topo.data) for t in range(topo.tp)]
     ckpt_pg = dist.new_group(list(range(world_size)),
                              timeout=datetime.timedelta(seconds=CKPT_TIMEOUT_S))
     grid = RankGrid(topo, rank, backend, dev, policy, data_groups,
-                    tensor_groups, dist.group.WORLD, ckpt_pg)
+                    tensor_groups, dist.group.WORLD, ckpt_pg, pipe_groups)
     grid.world_group.all_reduce_(torch.ones(1, device=dev))
     grid.stats = TransportStats()
     return grid

@@ -19,7 +19,10 @@ microbatch *slots* instead of whole batches:
 Prompts up to the session's ``prefill_len`` admit directly: shorter
 prompts are right-padded, and a per-slot ``lens`` vector says where
 each slot's prompt ends (its first token is read at ``lens - 1``).
-Models with recurrent state need exact-length prompts.  On a paged
+Models with recurrent state or a frontend need exact-length prompts; a
+frontend's request carries its ``inputs`` (a VLM's ``patches``, an
+encoder-decoder model's ``frames``), which admission passes on for the
+admitted lanes.  On a paged
 session admission reserves ``ceil(len / page_size)`` pages a slot and
 queues the request when the pool cannot cover them, retrying after the
 next eviction; a decode or verify round the pool or the capacity cannot
@@ -38,7 +41,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -64,6 +67,9 @@ class Request:
     max_new_tokens: int
     arrival: int = 0               # scheduler step of arrival
     eos_id: Optional[int] = None   # per-request override of the session's
+    # the frontend's inputs of this request: "patches" (n_patches, d),
+    # "frames" (T_src, d_enc)
+    inputs: Optional[Dict[str, np.ndarray]] = None
 
     state: str = "waiting"         # waiting|prefilling|decoding|finished
     # finished early because its slot ran out of KV room (CacheExhausted)
@@ -287,7 +293,13 @@ class ContinuousBatchingSession:
                          else getattr(session, "draft", None))
         self.R = int(sched.n_microbatches)
         self.rows = int(session.rows)
-        self.text_len = int(session.prefill_len)
+        self.text_len = int(session.text_len)
+        # positions before the text (a VLM's patches), and the prompt
+        # batch's frontend keys with their (R, rows, ...) shapes
+        self.prefix = int(getattr(session, "prefix_len", 0))
+        self.inputs = {k: tuple(v.shape) for k, v in
+                       (getattr(session, "prefill_specs", None) or {}).items()
+                       if k != "tokens"}
         self.slots = [Slot(i, self.rows) for i in range(self.R)]
         self.queue = RequestQueue()
         self.steps = 0
@@ -342,12 +354,18 @@ class ContinuousBatchingSession:
                         "carries recurrent (mamba/rwkv) state — ragged "
                         "admission would absorb the padding; pad on the "
                         "client or build per-length sessions")
+                missing = [k for k in self.inputs
+                           if req.inputs is None or k not in req.inputs]
+                if missing:
+                    raise ValueError(
+                        f"request {req.rid}: the model's prompts need "
+                        f"inputs {missing} beside the tokens")
                 if slot.index in slot_lens and slot_lens[slot.index] != plen:
                     # lanes of a slot share one cache position; leave the
                     # mismatched request for the next free slot
                     break
                 if alloc is not None and slot.index not in slot_lens:
-                    need = alloc.pages_needed(plen)
+                    need = alloc.pages_needed(self.prefix + plen)
                     if need > alloc.free_pages - reserved:
                         # page pool dry: the request waits for the next
                         # eviction to return pages
@@ -377,6 +395,12 @@ class ContinuousBatchingSession:
                 if req is not None:
                     tokens[slot.index, lane, :len(req.prompt)] = req.prompt
         batch = {"tokens": tokens}
+        for key, shape in self.inputs.items():
+            batch[key] = np.zeros(shape, np.float32)
+            for slot in slots:
+                for lane, req in enumerate(slot.requests):
+                    if req is not None:
+                        batch[key][slot.index, lane] = req.inputs[key]
         if any(slot_lens[s.index] != self.text_len for s in slots):
             batch["lens"] = lens
         first = self.session.write_prefill_into_slots(batch, mask)

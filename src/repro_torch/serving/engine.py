@@ -56,9 +56,21 @@ to fp32 / bf16.  Each cell gets its slot's views (``[p, m]``), fixed at
 ``start``, and everything is written in place.  A prefill reads the
 recurrent state the slot holds, as the JAX engine's does: ``start`` and
 ``reset_slots`` zero it.
+
+The frontends (JAX ``engine.py:1326-1356``): a VLM's prompt is its
+patch embeddings (``n_patches`` of them, ``batch["patches"]`` (R, rows,
+n_patches, d)) followed by ``prefill_len − n_patches`` text tokens; an
+encoder-decoder model's prefill runs the encoder on the admitted slots'
+``batch["frames"]`` (R, rows, T_src, d_enc) and each slot keeps its
+output in ``enc_out`` (R, rows, T_src, d), which every later round of
+the slot cross-attends into (its K and V recomputed each round, as JAX
+does), ``reset_slots`` zeroes and ``compact_slots`` permutes.
+``prefill_specs`` names a prefill batch's keys and shapes.  Neither
+admits ragged prompts, and neither speculates.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -76,12 +88,16 @@ from repro_torch.models import lm_head
 from repro_torch.models import spec as spec_lib
 from repro_torch.models.init import init_params, params_from_numpy
 from repro_torch.models.nn import page_row
-from repro_torch.models.stage import (StageStatics, init_stage_state,
-                                      make_statics, stage_fwd, stage_params)
+from repro_torch.models.stage import (StageStatics, encoder_fwd,
+                                      init_stage_state, make_statics,
+                                      stage_fwd, stage_params)
 from repro_torch.parallel.plan import ParallelismPlan
 from repro_torch.serving.allocator import CacheExhausted, PageAllocator
 
 __all__ = ["CacheExhausted", "EngineSession", "build_serving", "host_array"]
+
+#: one key of a prefill batch (JAX's ``jax.ShapeDtypeStruct``)
+InputSpec = collections.namedtuple("InputSpec", "shape dtype")
 
 
 @dataclasses.dataclass
@@ -131,6 +147,8 @@ class EngineSession:
     cache: Optional[Dict] = None
     # paged KV, {'layer_i': (k_pool, v_pool)}, int8: (k, v, k_scale, v_scale)
     pages: Optional[Dict] = None
+    # each slot's encoder output (R, rows, T_src, d): encoder-decoder only
+    enc_out: Optional[torch.Tensor] = None
     last_hidden: Optional[torch.Tensor] = None
     _stage_params: List[Dict] = dataclasses.field(default_factory=list)
     _views: List[List[Dict]] = dataclasses.field(default_factory=list)
@@ -158,6 +176,42 @@ class EngineSession:
     @property
     def speculative(self) -> bool:
         return self.sched.is_speculative
+
+    @property
+    def prefix_len(self) -> int:
+        """Positions a prompt's patch prefix takes (VLMs), else 0."""
+        return self.spec.n_patches if self.spec.frontend == "vision" else 0
+
+    @property
+    def text_len(self) -> int:
+        """Text tokens a prompt of the session's ``prefill_len`` holds."""
+        return self.prefill_len - self.prefix_len
+
+    @property
+    def prefill_specs(self) -> Dict[str, InputSpec]:
+        """A prefill batch's keys (JAX ``engine.py:1425-1434``): tokens
+        (R, rows, text_len) int32; a VLM's ``patches`` (R, rows,
+        n_patches, d) and an encoder-decoder model's ``frames`` (R,
+        rows, T_src, d_enc) in the compute dtype.  None on a session
+        built without ``prefill_len``."""
+        if not self.prefill_len:
+            return None
+        out = {"tokens": InputSpec((self.n_slots, self.rows, self.text_len),
+                                   torch.int32)}
+        out.update({k: InputSpec(shape, self.compute_dtype)
+                    for k, shape in self._frontend_shapes().items()})
+        return out
+
+    def _frontend_shapes(self) -> Dict[str, Tuple[int, ...]]:
+        """The frontends' keys of a prompt batch and their shapes."""
+        lead = (self.n_slots, self.rows)
+        out = {}
+        if self.prefix_len:
+            out["patches"] = lead + (self.prefix_len, self.spec.d_model)
+        if self.spec.encoder is not None:
+            e = self.spec.encoder
+            out["frames"] = lead + (e.source_len, e.d_model)
+        return out
 
     @property
     def cache_dtype(self) -> torch.dtype:
@@ -221,6 +275,11 @@ class EngineSession:
             self._alloc = PageAllocator(self.paged["pool_pages"], R,
                                         self.paged["max_pages"],
                                         self.paged["page_size"])
+        if self.spec.encoder is not None:
+            e = self.spec.encoder
+            self.enc_out = torch.zeros(
+                (R, self.rows, e.source_len, e.d_model),
+                dtype=self.compute_dtype, device=self.device)
         self._pos = np.zeros(R, np.int64)
         self._live = np.ones(R, np.int64)
         self._prompt_len = np.zeros(R, np.int64)
@@ -253,16 +312,24 @@ class EngineSession:
 
     def _prompt(self, batch):
         """(tokens (R, rows, W) on the device, lens (R,)) of a prompt
-        batch: W is the session's ``prefill_len`` (any width up to
-        ``cache_len`` on a session built without one), ``batch["lens"]``
-        the per-slot prompt lengths (default W)."""
+        batch: W text tokens, the session's ``text_len`` (any width up to
+        ``cache_len`` on a session built without ``prefill_len``),
+        ``batch["lens"]`` the per-slot prompt lengths (default the
+        prompt's width: a VLM's patch prefix and its W tokens)."""
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
-        R, width = self.n_slots, tokens.shape[2]
+        R, width = self.n_slots, tokens.shape[2] + self.prefix_len
+        for key, want in self._frontend_shapes().items():
+            got = tuple(batch[key].shape) if key in batch else None
+            if got != want:
+                raise ValueError(f"{self.spec.name}'s prompts need "
+                                 f"batch[{key!r}] of shape {want}, got {got}")
         if self.prefill_len:
-            if tuple(tokens.shape) != (R, self.rows, self.prefill_len):
+            if tuple(tokens.shape) != (R, self.rows, self.text_len):
                 raise ValueError(
                     f"tokens {tuple(tokens.shape)} must be (R={R}, rows="
-                    f"{self.rows}, prefill_len={self.prefill_len})")
+                    f"{self.rows}, prefill_len={self.prefill_len}"
+                    + (f" - {self.prefix_len} patches" if self.prefix_len
+                       else "") + ")")
         elif tokens.shape[:2] != (R, self.rows) or width > self.cache_len:
             raise ValueError(
                 f"tokens {tuple(tokens.shape)} must be (R={R}, rows="
@@ -285,8 +352,9 @@ class EngineSession:
             raise ValueError(
                 "ragged admission (per-slot prompt lengths) is not "
                 "supported for models with recurrent (mamba/rwkv) "
-                "state: prefill would absorb the padding tokens; pad "
-                "prompts to the session prefill_len instead")
+                "state or a frontend (patches, an encoder): prefill would "
+                "absorb the padding tokens; pad prompts to the session "
+                "prefill_len instead")
         lens = np.asarray(lens).reshape(-1)
         if lens.shape[0] != R:
             raise ValueError(
@@ -307,7 +375,7 @@ class EngineSession:
             self.start()
         tokens, lens = self._prompt(batch)
         return self._admit(tokens, lens, np.ones(self.n_slots, bool),
-                           self.n_slots, "prefill")
+                           self.n_slots, "prefill", batch)
 
     def write_prefill_into_slots(self, batch, slot_mask, bucket=None):
         """Masked prefill: admit new requests into the masked slots.
@@ -339,17 +407,31 @@ class EngineSession:
                 f"{(np.flatnonzero(occupied[b:]) + b).tolist()}; "
                 "compact_slots or admit into lower slots first")
         tokens, lens = self._prompt(batch)
-        return self._admit(tokens, lens, mask, b, "admit")
+        return self._admit(tokens, lens, mask, b, "admit", batch)
 
-    def _admit(self, tokens, lens, mask, b: int, kind: str):
+    def _admit(self, tokens, lens, mask, b: int, kind: str, batch):
         """Prefill the masked slots from position 0 over bucket ``b``'s
-        tables: pages for ``lens`` tokens, the first token read at
+        tables: pages for ``lens`` positions, a VLM's patches before the
+        text, an encoder-decoder model's encoder run on the masked
+        slots' frames into their ``enc_out``, the first token read at
         ``lens - 1``, and the slots live at ``pos = lens``."""
         if self._alloc is not None:
             for r in np.flatnonzero(mask):
                 self._alloc.alloc_slot(int(r), int(lens[r]))
         embeds = lm_head.embed_tokens(self.params["embed"], tokens,
                                       self.compute_dtype)
+        if self.prefix_len:
+            embeds = torch.cat([torch.as_tensor(
+                batch["patches"], device=self.device).to(embeds.dtype),
+                embeds], dim=2)
+        if self.enc_out is not None and mask.any():
+            idx = torch.from_numpy(np.flatnonzero(mask)).to(self.device)
+            frames = torch.as_tensor(batch["frames"], device=self.device)
+            frames = frames.index_select(0, idx).to(self.compute_dtype)
+            enc = encoder_fwd(self.params["encoder"], frames.flatten(0, 1),
+                              self.spec)
+            self.enc_out.index_copy_(0, idx, enc.view(frames.shape[:2]
+                                                      + enc.shape[1:]))
         t0 = self._obs_t0()
         ex = self._round(embeds, np.zeros(self.n_slots, np.int64), mask, b)
         h = torch.stack([ex[m, :, int(lens[m]) - 1]
@@ -596,6 +678,8 @@ class EngineSession:
             idx = torch.from_numpy(np.flatnonzero(m)).to(self.device)
             for leaf in _leaves(self.cache):
                 leaf.index_fill_(1, idx, 0)
+            if self.enc_out is not None:
+                self.enc_out.index_fill_(0, idx, 0)
         if self.obs is not None:
             self.obs.counter("slot_resets_total").inc(int(m.sum()))
             if self._alloc is not None:
@@ -619,6 +703,8 @@ class EngineSession:
             idx = torch.from_numpy(perm).to(self.device)
             for leaf in _leaves(self.cache):
                 leaf.copy_(leaf.index_select(1, idx))
+            if self.enc_out is not None:
+                self.enc_out.copy_(self.enc_out.index_select(0, idx))
         self._pos = self._pos[perm]
         self._live = self._live[perm]
         self._prompt_len = self._prompt_len[perm]
@@ -727,7 +813,9 @@ class EngineSession:
                     positions=positions,
                     windows=self.params["layer_windows"][p],
                     thetas=self.params["layer_thetas"][p],
-                    state=self._views[p][m], cache_pos=pos, paged=paged)
+                    state=self._views[p][m], cache_pos=pos, paged=paged,
+                    cross_x=None if self.enc_out is None
+                    else self.enc_out[m])
             m_exit = int(tabs.exit_mb[t])
             if m_exit >= 0 and gate[m_exit]:
                 exits[m_exit] = sent[S - 1]
@@ -823,6 +911,10 @@ def build_serving(spec: spec_lib.ModelSpec, plan: ParallelismPlan, *,
     if plan.tp != 1:
         raise ValueError(f"tp={plan.tp}: the port runs one device per "
                          "stage group (tp=1) in this slice")
+    if spec.frontend == "vision" and prefill_len \
+            and prefill_len <= spec.n_patches:
+        raise ValueError(f"prefill_len={prefill_len} leaves no text after "
+                         f"{spec.n_patches} patches")
     if page_size and cache_len % page_size:
         raise ValueError(f"cache_len={cache_len} must be a multiple of "
                          f"page_size={page_size}")

@@ -1,4 +1,5 @@
-"""Shared by tests/test_torch_{olmoe,deepseek,chatglm3}.py: one config of
+"""Shared by tests/test_torch_{olmoe,deepseek,chatglm3,whisper,llava}.py:
+one config of
 the port held against the JAX package's on the CPU in fp32 at its smoke
 spec — the config itself, ``full_transformer`` (every stage's forward),
 the served tokens against the JAX engine's, one training round against
@@ -9,8 +10,9 @@ MoE specs route every token to every expert (``top_k = n_experts``):
 the capacity rule (ceil(1.25·T·k / E)) then holds every pair, so JAX's
 MoE scatter fault at overflow (ROADMAP Queue 3) cannot show.  The engine
 weights are JAX's init rescaled as tests/test_torch_engine.py does
-(embedding x0.05, attention output x40, FFN outputs x10), so that tokens
-depend on attention."""
+(embedding x0.05, attention and cross-attention outputs x40, FFN
+outputs x10), so that tokens depend on attention.  A frontend's inputs
+(patches, frames) come from numpy seeds and go to both packages."""
 import dataclasses
 import functools
 
@@ -20,7 +22,7 @@ import numpy as np
 import torch
 
 from _torch_train_jax import (LOSS_ATOL, PARAM_TOL, assert_trees_close,
-                              leaves, run_both)
+                              frontend_batch, leaves, run_both)
 from repro import configs as jconfigs
 from repro.launch.mesh import make_host_mesh
 from repro.models import init as jinit
@@ -40,6 +42,7 @@ from repro_torch.models import init as tinit
 from repro_torch.models import stage as tstage
 from repro_torch.optim.optimizers import SGDM
 from repro_torch.parallel.plan import ParallelismPlan as TPlan
+from repro_torch.serving.batcher import ContinuousBatchingSession, Request
 from repro_torch.serving.engine import build_serving
 
 R, ROWS, PREFILL, N_DEC, CACHE, PAGE = 2, 2, 12, 6, 32, 16
@@ -86,6 +89,8 @@ def jax_params(arch, pp=1, seed=7):
     params["embed"] *= 0.05
     for lp in params["stages"].values():
         lp["attn"]["wo"] *= 40.0
+        if "xattn" in lp:
+            lp["xattn"]["wo"] *= 40.0
         ffn = lp.get("mlp") or lp["moe"]
         ffn["w2"] *= 10.0
         if "shared" in ffn:
@@ -93,29 +98,53 @@ def jax_params(arch, pp=1, seed=7):
     return params
 
 
+def cross_input(spec, b, seed):
+    """An encoder output (b, T_src, d) for an encoder-decoder spec, from
+    a numpy seed; None for other specs."""
+    if spec.encoder is None:
+        return None
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((b, spec.encoder.source_len, spec.d_model)
+                               ).astype(np.float32)
+
+
 def full_transformer_pair(arch, pp):
     """(port, JAX) ``full_transformer`` hidden states of a (2, 24) input
-    through every stage of the smoke spec at ``pp``."""
+    through every stage of the smoke spec at ``pp`` (cross-attending
+    into one numpy encoder output where the spec has an encoder)."""
     jspec, tspec = specs(arch)
     params = jax_params(arch, pp)
     b, s = 2, 24
     rng = np.random.default_rng(pp)
     x = rng.standard_normal((b, s, jspec.d_model)).astype(np.float32)
+    cx = cross_input(tspec, b, 10 + pp)
     pos = np.broadcast_to(np.arange(s), (b, s)).astype(np.int32)
     jst = jstage.make_statics(jspec, JPlan(pp=pp, tp=1), tokens_per_mb=b * s)
-    want = jax.jit(lambda w, x_: jstage.full_transformer(
-        w, x_, jst, positions=jnp.asarray(pos))[0])(
-            jax.tree.map(jnp.asarray, params), jnp.asarray(x))
+    want = jax.jit(lambda w, x_, c_: jstage.full_transformer(
+        w, x_, jst, positions=jnp.asarray(pos), cross_x=c_)[0])(
+            jax.tree.map(jnp.asarray, params), jnp.asarray(x),
+            None if cx is None else jnp.asarray(cx))
     tst = tstage.make_statics(tspec, TPlan(pp=pp, tp=1), tokens_per_mb=b * s)
     tp = tinit.params_from_numpy(params, "cpu", torch.float32)
-    got = tstage.full_transformer(tp, torch.from_numpy(x), tst,
-                                  positions=torch.from_numpy(pos))
+    got = tstage.full_transformer(
+        tp, torch.from_numpy(x), tst, positions=torch.from_numpy(pos),
+        cross_x=None if cx is None else torch.from_numpy(cx))
     return got.numpy(), np.asarray(want)
 
 
-def prompts(vocab, seed=0):
+def prompts(vocab, seed=0, width=PREFILL):
     return np.random.default_rng(seed).integers(
-        1, vocab, (R, ROWS, PREFILL)).astype(np.int32)
+        1, vocab, (R, ROWS, width)).astype(np.int32)
+
+
+def prompt_batch(spec, seed=0):
+    """A prefill batch of R slots: PREFILL positions a row (a VLM's patch
+    prefix, then text), tokens and the frontend's inputs from numpy
+    seeds."""
+    text = PREFILL - (spec.n_patches if spec.frontend == "vision" else 0)
+    out = {"tokens": prompts(spec.vocab, seed, text)}
+    out.update(frontend_batch(spec, seed, R, ROWS, seed=seed + 3))
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -131,12 +160,13 @@ def jax_engine(arch, page_size):
                            compute_dtype=jnp.float32, page_size=page_size)
     js.start(jax.random.key(0))
     js.load_params(jax_params(arch))
-    nxt = js.prefill({"tokens": jnp.asarray(prompts(jspec.vocab))})
+    batch = {k: jnp.asarray(v) for k, v in prompt_batch(specs(arch)[1]).items()}
+    nxt = js.prefill(batch)
     toks = [np.asarray(nxt)]
     for _ in range(N_DEC):
         nxt = js.decode(nxt)
         toks.append(np.asarray(nxt))
-    return np.stack(toks), np.asarray(js.state["pos"])
+    return np.stack(toks), np.asarray(js.state["pos"]), js
 
 
 def port_engine(arch, params, page_size, pp=1, v=1):
@@ -151,7 +181,7 @@ def port_engine(arch, params, page_size, pp=1, v=1):
                          page_size=page_size, prefill_len=PREFILL,
                          device="cpu").start()
     sess.load_params(params)
-    nxt = sess.prefill({"tokens": prompts(tspec.vocab)})
+    nxt = sess.prefill(prompt_batch(tspec))
     toks = [nxt.numpy()]
     for _ in range(N_DEC):
         nxt = sess.decode(nxt)
@@ -160,10 +190,11 @@ def port_engine(arch, params, page_size, pp=1, v=1):
 
 
 def check_engine(arch, page_size):
-    want, pos = jax_engine(arch, page_size)
+    want, pos, _ = jax_engine(arch, page_size)
     got, sess = port_engine(arch, jax_params(arch), page_size)
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(sess._pos, pos)
+    return sess
 
 
 def check_tokens_depend_on_attention(arch):
@@ -188,8 +219,10 @@ def check_round_tracks_jax(arch, pp):
         assert abs(a - b) <= LOSS_ATOL, (t["losses"], j["losses"])
     assert_trees_close(t["state"]["params"], j["state"]["params"],
                        *PARAM_TOL)
-    for key in ("opt_stages", "opt_head", "opt_embed"):
-        assert_trees_close(t["state"][key], j["state"][key], *PARAM_TOL)
+    for key in ("opt_stages", "opt_head", "opt_embed", "opt_encoder"):
+        assert (key in t["state"]) == (key in j["state"]), key
+        if key in j["state"]:
+            assert_trees_close(t["state"][key], j["state"][key], *PARAM_TOL)
     if "ring" in j["state"]["stash"]:
         assert_trees_close(t["state"]["stash"]["ring"],
                            j["state"]["stash"]["ring"], *PARAM_TOL)
@@ -204,7 +237,8 @@ def check_executor_equals_oracle(arch, pp, schedule="1f1b", mode="stash",
         pp=pp, microbatches=4, schedule=schedule, stash_mode=mode,
         virtual_stages=v)
     opt = SGDM(lr=0.05)
-    bundle = build_pipeline(spec, plan, seq_len=12, global_batch=8,
+    n_patch = spec.n_patches if spec.frontend == "vision" else 0
+    bundle = build_pipeline(spec, plan, seq_len=12 + n_patch, global_batch=8,
                             optimizer=opt, compute_dtype=torch.float32,
                             device="cpu")
     state = bundle.init_state(torch.Generator().manual_seed(0))
@@ -212,8 +246,9 @@ def check_executor_equals_oracle(arch, pp, schedule="1f1b", mode="stash",
                                torch.Generator().manual_seed(0))
     src = SyntheticLM(spec.vocab, 12, seed=5)
     for r in range(2):
-        batch = {k: torch.from_numpy(a)
-                 for k, a in src.round_batch(r, 4, 2).items()}
+        host = src.round_batch(r, 4, 2)
+        host.update(frontend_batch(spec, r, 4, 2))
+        batch = {k: torch.from_numpy(a) for k, a in host.items()}
         state, em = bundle.train_step(state, batch)
         ref, om = reference_train_step(spec, plan, ref, batch, opt)
         assert torch.equal(em["loss"], om["loss"])
@@ -247,3 +282,34 @@ def check_rank_draw(arch, pp, v):
             assert (torch.equal(a, b) if torch.is_tensor(a) else a == b), \
                 (s, name)
     return whole
+
+
+def check_batcher_passes_inputs(arch):
+    """The batcher over R x ROWS requests that carry the frontend's
+    inputs (patches or frames) serves each request the tokens of the
+    one-shot prefill and decodes of the same batch; a request without
+    them is refused."""
+    _, tspec = specs(arch)
+    params = jax_params(arch)
+    want, _ = port_engine(arch, params, PAGE)
+    batch = prompt_batch(tspec)
+    extra = [k for k in batch if k != "tokens"]
+    reqs = [Request(rid=m * ROWS + lane, prompt=batch["tokens"][m, lane],
+                    max_new_tokens=N_DEC + 1,
+                    inputs={k: batch[k][m, lane] for k in extra})
+            for m in range(R) for lane in range(ROWS)]
+    sess = build_serving(tspec, TPlan(pp=1, tp=1, decode_microbatches=R),
+                         cache_len=CACHE, global_batch=R * ROWS,
+                         compute_dtype=torch.float32, page_size=PAGE,
+                         prefill_len=PREFILL, device="cpu").start()
+    sess.load_params(params)
+    report = ContinuousBatchingSession(sess).run(reqs)
+    for r in report.requests:
+        assert r.tokens == want[:, r.rid].tolist(), r.rid
+    bare = Request(rid=0, prompt=batch["tokens"][0, 0], max_new_tokens=2)
+    try:
+        ContinuousBatchingSession(sess.reset_state()).run([bare])
+    except ValueError as e:
+        assert "inputs" in str(e)
+    else:
+        raise AssertionError("a request without the frontend's inputs ran")

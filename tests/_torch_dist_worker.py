@@ -157,6 +157,28 @@ def job_tp_train(grid, spec, plan, npz: str, rounds: int):
             "stats": dataclasses.asdict(grid.stats)}
 
 
+def job_frontend_train(grid, arch: str, plan, rounds: int):
+    """``rounds`` rounds of ``arch``'s smoke spec with a frontend (fp32,
+    SGD with momentum 0.05 and 0.9), this rank's part of the state drawn
+    row-wise from seed 0, this replica's rows of the launcher's loader
+    (text, and the stubs' patches or frames) from seed 1: (losses, the
+    rank's state)."""
+    from repro_torch.launch.train import make_loader
+    spec = configs.get(arch).smoke_spec()
+    n_patch = spec.n_patches if spec.frontend == "vision" else 0
+    bundle = build_pipeline(spec, plan, seq_len=SEQ + n_patch,
+                            global_batch=grid.topo.data * R * MB,
+                            optimizer=topt.SGDM(lr=0.05, momentum=0.9),
+                            compute_dtype=torch.float32, grid=grid)
+    state = bundle.init_state(torch.Generator().manual_seed(0))
+    loader = make_loader(spec, bundle, 1)
+    losses = []
+    for r in range(rounds):
+        state, m = bundle.train_step(state, loader.get(r))
+        losses.append(float(m["loss"]))
+    return {"losses": losses, "state": state}
+
+
 def job_tp_autograd(grid, seed: int):
     """tp_enter / tp_exit / tp_all_gather over the tensor group on a
     two-layer product cut over the ranks: this rank's output and the

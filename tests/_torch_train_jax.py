@@ -15,7 +15,7 @@ from repro.core.reference import reference_train_step as j_step
 from repro.optim import optimizers as jopt
 from repro_torch import configs as tconfigs
 from repro_torch.core.reference import reference_train_step as t_step
-from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.data.pipeline import SyntheticLM, frontend_stub
 from repro_torch.models.init import train_state_from_numpy
 from repro_torch.optim import optimizers as topt
 
@@ -34,11 +34,25 @@ LOSS_ATOL = 5e-5
 PARAM_TOL = (2e-5, 1e-3)
 
 
+def frontend_batch(spec, step, r, bmb, seed=2):
+    """A round's frontend keys (numpy f32, the port's stubs): a VLM's
+    patches (r, bmb, n_patches, d), an encoder-decoder model's frames
+    (r, bmb, T_src, d_enc); {} for other models."""
+    shapes = {}
+    if spec.frontend == "vision":
+        shapes["patches"] = (r, bmb, spec.n_patches, spec.d_model)
+    if spec.encoder is not None:
+        shapes["frames"] = (r, bmb, spec.encoder.source_len,
+                            spec.encoder.d_model)
+    return frontend_stub(seed)(step, shapes) if shapes else {}
+
+
 def run_both(mode, pp, opt="sgdm", lr=0.05, arch="qwen3-14b",
              spec_fn=None, rounds=ROUNDS):
     """({"losses", "state"} numpy for JAX, the same for the port) after
     ``rounds`` rounds of the arch's smoke spec (qwen3's by default), fp32;
-    ``spec_fn`` maps each package's smoke spec to the spec trained."""
+    ``spec_fn`` maps each package's smoke spec to the spec trained.  A
+    frontend's patches or frames (:func:`frontend_batch`) go to both."""
     kw = dict(pp=pp, microbatches=R, stash_mode=mode)
     spec_fn = spec_fn or (lambda spec: spec)
     jspec = spec_fn(jconfigs.get(arch).smoke_spec())
@@ -58,6 +72,7 @@ def run_both(mode, pp, opt="sgdm", lr=0.05, arch="qwen3-14b",
     jl, tl = [], []
     for r in range(rounds):
         b = src.round_batch(r, R, BMB)
+        b.update(frontend_batch(tspec, r, R, BMB))
         js, jm = jround(js, {k: jnp.asarray(v) for k, v in b.items()})
         ts, tm = t_step(tspec, tplan, ts,
                         {k: torch.from_numpy(v) for k, v in b.items()}, to)

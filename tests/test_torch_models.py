@@ -109,15 +109,20 @@ def test_full_transformer_matches_jax(pp):
 
 
 def test_make_statics_rejects_unported_block_kinds():
-    """Cross-attention blocks are not ported yet; MoE blocks (ported,
-    with shared experts since the deepseek slice) need the tokens per
-    microbatch that size capacity."""
+    """Mixer-less blocks are not ported yet; cross-attention blocks
+    (ported with whisper) get non-causal statics of their own; MoE
+    blocks (ported, with shared experts since the deepseek slice) need
+    the tokens per microbatch that size capacity."""
     spec = tconfigs.get("qwen3-14b").smoke_spec()
+    bare = dataclasses.replace(spec, blocks=tuple(
+        BlockSpec(mixer="none", ffn="dense") for _ in spec.blocks))
+    with pytest.raises(NotImplementedError):
+        tstage.make_statics(bare, TPlan(pp=1, tp=1))
     xattn = dataclasses.replace(spec, blocks=tuple(
         BlockSpec(mixer="attn", ffn="dense", cross_attn=True)
         for _ in spec.blocks))
-    with pytest.raises(NotImplementedError):
-        tstage.make_statics(xattn, TPlan(pp=1, tp=1))
+    st = tstage.make_statics(xattn, TPlan(pp=1, tp=1))
+    assert st.attn.causal and not st.xattn.causal
     jamba = tconfigs.get("jamba-v0.1-52b").smoke_spec()
     with pytest.raises(ValueError, match="tokens_per_mb"):
         tstage.make_statics(jamba, TPlan(pp=1, tp=1))
