@@ -80,8 +80,9 @@ Phases (any failure raises and the script exits non-zero):
    ``interleaved_async`` (pp = 2, v = 2): the executor
    (core/pipeline.py) against the sequential oracle (core/reference.py),
    losses and every state tensor bit for bit, under deterministic
-   algorithms (at 4 layers the executor's state goes to the host before
-   the oracle runs, and the oracle consumes its input as it goes);
+   algorithms (the executor's state is reduced to 64-bit digests on the
+   card and freed before the oracle runs, and at 4 layers the oracle
+   consumes its input as it goes);
 15. plan — PipeDream's profiling step on the card: one qwen3-14b block's
    forward at full width (1 row x 4096 tokens, bf16, the flash kernel)
    and the head timed through ``core/profiler.py::profile_measured``,
@@ -184,13 +185,15 @@ Phases (any failure raises and the script exits non-zero):
    1 x tp TP_DEGREE on two ranks against the one-process tp 1 executor
    from the same seed: losses and parameters within TP_LOSS_TOL /
    TP_PARAM_TOL, the replicated stage leaves bit-identical across the
-   tensor ranks (the embedding and head on tensor rank 0 alone), the
-   tensor group's calls and bytes equal to the analytic count
-   (``tp_sums``).  21b: phase 13's model and shape at pp 2 x tp
-   TP_DEGREE on four ranks through launch/train.py's build, one round:
-   its loss within 2e-2 of phase 13's first round, the flash launches
-   tp times phase 13's a round, a ``tp`` line a rank (round seconds, the
-   tensor group's calls / bytes / seconds, hand-off wait, peak GB).
+   tensor ranks, each rank holding its own columns of the embedding and
+   of the head (``models/lm_head.py``'s sharded tables), the tensor
+   group's calls and bytes equal to the analytic count (``tp_sums``).
+   21b: phase 13's model and shape at pp 2 x tp TP_DEGREE on four ranks
+   through launch/train.py's build, one round: its loss within 2e-2 of
+   phase 13's first round, the flash launches tp times phase 13's a
+   round, a ``tp`` line a rank (round seconds, the tensor group's calls
+   / bytes / seconds, hand-off wait, peak GB); the last stage's tensor
+   ranks' peaks less than TP_PEAK_GAP_GB apart.
    21c: 21a's checkpoint, written by the ranks in JAX's full layout,
    restored by one tp 1 process in host memory while 21b runs: every
    rank's state equals its tensor shard of the restored one bit for
@@ -264,6 +267,27 @@ Phases (any failure raises and the script exits non-zero):
    engine equals the dense one (tokens, positions, enc_out; hidden and
    pools 1e-5) and ``full_transformer``'s prefill logits (1e-3); the
    executor equals the oracle bit for bit.
+25. gemma3 — gemma3-4b (34 layers, d 2560, 8 / 4 heads of 256, vocab
+   262144, five layers of a 1024-token window to one global layer), bf16
+   on the card.  25a: full_spec served at phase 3's shape (pp 2, R_SLOTS
+   x ROWS rows, prefill PREFILL, N_DECODE decodes) with a cache of
+   GEMMA_CACHE, dense and paged: the windowed stage positions keep rings
+   of the window, the others full-length caches; ``full_transformer``'s
+   greedy tokens the served ones up to near-ties of GEMMA_TIE.  25b: its
+   first GEMMA_TRAIN_LAYERS layers trained GEMMA_TRAIN_ROUNDS rounds at
+   phase 13's shape (1f1b / stash pp 2, the config's Adam, remat), the
+   last profiled: finite losses, every attention forward and backward on
+   the flash kernels at Dh 256.  25c: layers GEMMA_CONS_BLOCKS (one
+   windowed, one global) in fp32: the paged engine equals the dense one
+   and the CPU's, int8 paged KV on the card equals the CPU, the verify
+   tile, and the executor equals the oracle bit for bit.
+
+Phase 2 also holds the flash forward and backward (bf16 and f32, causal
+and a 1024-token window) at 25b's training call and the paged walk
+(float and int8 pools, and the verify tile) at 25a's decode call, all at
+Dh 256 and gemma3's 8 / 4 heads, against their plain versions (a
+``dh256`` entry on each record of the kernels line, with its launches
+on phase 25's paths).
 
 Phase 2 also holds the flash forward with its rows' log-sum-exp and its
 backward (bf16 and f32) and the paged walk (bf16 and f32 pools) at the
@@ -285,8 +309,8 @@ strong decay and with decays of exactly 0; mamba_scan (1, 4096, 8192,
 counters are zeroed before and read after each main path (phases 3, 5,
 6, 8, 9, 11, 13, 15, 16, 17d, 18b, whose two ranks count their own,
 19a, each run of 19b, 20a-b, 21a-b, whose ranks count their own, and
-22a-c, which also read the backward kernels' counters, 23a-e and
-24a-d).
+22a-c, which also read the backward kernels' counters, 23a-e,
+24a-d and 25a-c).
 Prints a
 ``profile`` JSON line for qwen3 bf16, rwkv6 (decode, then prefill),
 jamba (decode, then prefill), quantized qwen3 and the training rounds
@@ -319,10 +343,11 @@ profiles,
 one ``kernels`` JSON line
 (launches, by path and for wkv6 by
 design, errors, times, bounds, a ``layouts`` entry for the new head
-layouts, each kernel's design and what ``ptxas
--v`` reported; the flash, backward, paged and int8 paged records carry a
-``dh120`` entry at Dh 120), the card's name and power limit, and last ``{"ok":
-true, "device": ...}``.  Exits non-zero without a CUDA device.
+layouts, each kernel's design and what ``ptxas -v`` reported; the
+flash, backward, paged and int8 paged records carry a ``dh120`` entry at
+Dh 120 and a ``dh256`` entry at Dh 256), the card's name and power
+limit, and last ``{"ok": true, "device": ...}``.  Exits non-zero without
+a CUDA device.
 """
 from __future__ import annotations
 
@@ -442,6 +467,10 @@ DIST_GROUP_S, DIST_JOIN_S = 120, 600
 # and shape at pp 2 x tp TP_DEGREE; 21c's restore at tp 1 runs in host
 # memory while 21b's ranks hold the card
 TP_DEGREE = 2
+# 21b: the last stage's tensor ranks, each with its slice of the head,
+# peak within half of the 20.6 GB gap measured when tensor rank 0 held
+# the whole head (28.30 against 7.70 GB on an H100 80GB HBM3)
+TP_PEAK_GAP_GB = 10.3
 TP_LOSS_TOL = dict(atol=5e-5, rtol=1e-4)
 TP_PARAM_TOL = (5e-5, 2e-3)
 # elements a digest weighs at a time (its weights: 128 MB on the card)
@@ -2384,12 +2413,12 @@ def phase_train_consistency(device):
     virtual-stage schedules (pp = 2, v = V_STAGES): the executor
     (core/pipeline.py) against the sequential oracle (core/reference.py)
     over CONS_ROUNDS rounds from one seed, losses and every state tensor
-    bit for bit.  SGD with momentum.  The executor's state goes to the
-    host before the oracle runs; at 4 layers the oracle also consumes
-    its input round by round (``donate``): a full-width fp32 state with
-    the async schedule's ring is 49 GB, and a round's input and output
-    do not fit the card side by side.  Deterministic algorithms for the
-    phase (the embedding's scatter-add)."""
+    bit for bit.  SGD with momentum.  The executor's state is reduced to
+    digests and freed before the oracle runs; at 4 layers the oracle
+    also consumes its input round by round (``donate``): a full-width
+    fp32 state with the async schedule's ring is 49 GB, and a round's
+    input and output do not fit the card side by side.  Deterministic
+    algorithms for the phase (the embedding's scatter-add)."""
     import os
     import torch
     from repro_torch.launch.train import cut_layers
@@ -2420,10 +2449,12 @@ def phase_train_consistency(device):
 def executor_equals_oracle(device, label, spec, plan, opt, donate=False):
     """CONS_ROUNDS fp32 rounds of R = CONS_R x 1 row x CONS_SEQ text tokens
     (and a frontend's patches or frames) through the executor
-    (core/pipeline.py), its state moved to the host, then
-    through the sequential oracle (core/reference.py, consuming its
-    input with ``donate``) from the same seed: losses and every state
-    tensor bit for bit.  Returns the case's record."""
+    (core/pipeline.py), its state reduced to :func:`digest`s on the card
+    and freed, then through the sequential oracle (core/reference.py,
+    consuming its input with ``donate``) from the same seed: losses and
+    every state tensor bit for bit (their 64-bit digests, as 17b, 18 and
+    21c compare states; a single element that differs changes its
+    tensor's).  Returns the case's record."""
     import torch
     from repro_torch.core.pipeline import build_pipeline
     from repro_torch.core.reference import (reference_init_state,
@@ -2442,8 +2473,7 @@ def executor_equals_oracle(device, label, spec, plan, opt, donate=False):
     for batch in batches:
         state, m = bundle.train_step(state, batch)
         e_loss.append(m["loss"].item())
-    executor = [(n, t.cpu() if torch.is_tensor(t) else t)
-                for n, t in tree_leaves(state)]
+    executor = state_digests(state)
     del state, bundle
     torch.cuda.empty_cache()
     ref = reference_init_state(spec, plan, opt,
@@ -2455,21 +2485,20 @@ def executor_equals_oracle(device, label, spec, plan, opt, donate=False):
                                       donate=donate)
         o_loss.append(m["loss"].item())
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    oracle = tree_leaves(ref)
+    oracle = state_digests(ref)
+    n_bytes = sum(t.numel() * t.element_size()
+                  for _, t in tree_leaves(ref) if torch.is_tensor(t))
+    del ref
+    torch.cuda.empty_cache()
     if e_loss != o_loss:
         raise AssertionError(f"{label}: executor losses {e_loss} != oracle "
                              f"{o_loss}")
-    if [n for n, _ in executor] != [n for n, _ in oracle]:
+    if list(executor) != list(oracle):
         raise AssertionError(f"{label}: state trees differ")
-    n_bytes = 0
-    for (name, e), (_, o) in zip(executor, oracle):
-        same = torch.equal(e.to(device), o) if torch.is_tensor(o) else e == o
-        if not same:
-            raise AssertionError(f"{label}: {name} differs between executor "
-                                 "and oracle")
-        n_bytes += o.numel() * o.element_size() if torch.is_tensor(o) else 0
-    del ref, oracle, executor
-    torch.cuda.empty_cache()
+    bad = [name for name in oracle if executor[name] != oracle[name]]
+    if bad:
+        raise AssertionError(f"{label}: {bad[:6]} differ between executor "
+                             "and oracle")
     rec = {"layers": spec.n_layers, "losses": e_loss,
            "state_gb": n_bytes / 1e9, "seconds": time.perf_counter() - t0}
     log(f"[consistency-train] fp32 {spec.n_layers} layers at full width "
@@ -5273,8 +5302,9 @@ def _dh120_entry(shape, window, err, launches, ms, plain, flops, nbytes,
 def tp_replicated(state, spec, tp) -> list:
     """Leaf names of a rank's state that every tensor rank holds whole:
     the replicated stage leaves (norms, qk-norm scales) with their ring
-    rows and optimizer slots (the embedding, head and final norm, on
-    tensor rank 0 alone, are not among them)."""
+    rows and optimizer slots, and the final norm with its optimizer
+    slots (each tensor rank holds its own columns of the embedding and
+    the head, which are not among them)."""
     from repro_torch.models.init import tp_axes
     whole = {n for n, ax in tree_leaves(tp_axes(
         state["params"]["stages"], spec, tp)) if ax < 0}
@@ -5288,7 +5318,9 @@ def tp_replicated(state, spec, tp) -> list:
                 tail = name[len("/stash" + pre):]
         if name.startswith("/opt_stages/"):
             tail = "/" + name.split("/", 3)[3]
-        if tail is not None and tail in whole:
+        if (tail is not None and tail in whole) or name.startswith(
+                "/params/final_norm/") or (name.startswith("/opt_head/")
+                                           and "/f/" in name):
             out.append(name)
     return out
 
@@ -5375,9 +5407,11 @@ def tp_sums(spec, lps, r, rows, seq, esz, tp, first, last):
     needs, before the FFN's sum), the two inputs' cotangents backward
     (2), each rows x seq x d_model; the qk-norm scales' cotangents (2 x
     Dh) and, with KV replicated over the ranks, the KV weights' (2 x d x
-    n_kv x Dh); on the ``first`` stage t = 0's embeddings (one broadcast
-    of r microbatches), on the ``last`` each microbatch's d(loss)/d(h).
-    (calls, bytes)."""
+    n_kv x Dh); on the ``first`` stage the all-gather of the round's
+    embeddings (each rank's d_model / tp columns of r microbatches); on
+    the ``last`` per microbatch the sharded loss's row max and two sums
+    (f32, rows x seq each) forward and the normalized hidden state's
+    cotangent backward.  (calls, bytes)."""
     act = rows * seq * spec.d_model * esz
     calls, nbytes = 7, 7 * act
     if spec.qk_norm:
@@ -5387,9 +5421,9 @@ def tp_sums(spec, lps, r, rows, seq, esz, tp, first, last):
         nbytes += 2 * spec.d_model * spec.n_kv * spec.d_head * esz
     calls, nbytes = lps * r * calls, lps * r * nbytes
     if first:
-        calls, nbytes = calls + 1, nbytes + r * act
+        calls, nbytes = calls + 1, nbytes + r * act // tp
     if last:
-        calls, nbytes = calls + r, nbytes + r * act
+        calls, nbytes = calls + 4 * r, nbytes + r * (act + 3 * rows * seq * 4)
     return calls, nbytes
 
 
@@ -5455,12 +5489,12 @@ def phase_tp(device, first_round_loss):
             if bad or res["replicated"] != rep:
                 raise AssertionError(f"21a: replicated leaves differ across "
                                      f"the tensor ranks: {bad[:6]}")
-            held = [n for n in res["digests"] if n.startswith((
-                "/params/embed", "/params/head", "/params/final_norm",
-                "/opt_head", "/opt_embed"))]
-            if held:
+            tables = [n for n in ("/params/embed", "/params/head")
+                      if res["digests"][n] == ranks[0]["digests"][n]]
+            if tables:
                 raise AssertionError(f"21a: tensor rank {res['grid']['tensor']}"
-                                     f" holds {held[:3]} (tensor rank 0's)")
+                                     f" holds tensor rank 0's {tables}, not "
+                                     "its own columns")
         # the card goes to 21b: tp 1's parameters and a restore template
         # wait in host memory
         state = host_zeros(ref)
@@ -5562,8 +5596,12 @@ def phase_tp(device, first_round_loss):
             raise AssertionError(f"21b tensor sums {st['tensor_calls']} / "
                                  f"{st['tensor_bytes']} B, analytic "
                                  f"{want_s[0]} / {want_s[1]}")
+    peaks = {r["grid"]["rank"]: r["peak_gb"] for r in ranks}
+    last = [r["peak_gb"] for r in ranks if r["grid"]["stage"] == 1]
+    gap = max(last) - min(last)
     out["21b"] = {"loss": losses[0], "phase13_first_round_loss":
-                  first_round_loss, "seq": TRAIN_SEQ, "ranks": ranks}
+                  first_round_loss, "seq": TRAIN_SEQ, "ranks": ranks,
+                  "peak_gb_by_rank": peaks, "last_stage_peak_gap_gb": gap}
     for res in ranks:
         st = res["stats"]
         log(f"[tp] 21b rank {res['grid']['rank']} (stage "
@@ -5575,7 +5613,13 @@ def phase_tp(device, first_round_loss):
             f"peak {res['peak_gb']:.2f} GB")
     log(f"[tp] 21b qwen3-14b {TRAIN_LAYERS} layers bf16 Adam 1f1b/stash pp 2 "
         f"x tp {tp} (four ranks, gloo, one card), seq {TRAIN_SEQ}: loss "
-        f"{losses[0]:.4f} (phase 13's first round {first_round_loss:.4f})")
+        f"{losses[0]:.4f} (phase 13's first round {first_round_loss:.4f}); "
+        f"peak GB by rank {json.dumps(peaks)}, the last stage's tensor "
+        f"ranks {gap:.2f} GB apart (limit {TP_PEAK_GAP_GB})")
+    if gap >= TP_PEAK_GAP_GB:
+        raise AssertionError(f"21b: the last stage's tensor ranks peak "
+                             f"{last} GB, {gap:.2f} GB apart: the head is "
+                             "not evenly cut")
     log(f"[phases] 21 seconds: {json.dumps(seconds)}")
     return out, seconds, {"qwen3_tp_exact": counts_a, "qwen3_train_tp":
                           counts_b}
@@ -5665,10 +5709,12 @@ def train_launches(spec, rounds, r):
             "mamba_scan_bwd": per * n["mamba"]}
 
 
-def train_cut(device, arch, layers, pp, schedule, mode, kernels):
-    """22a / 22b / 23e: ``arch`` at full width, its first ``layers``
-    layers, trained through the launcher's build (launch/train.py) at
-    phase 13's shape, the last round under torch.profiler (``kernels``:
+def train_cut(device, arch, layers, pp, schedule, mode, kernels,
+              rounds=TRAIN_ROUNDS):
+    """22a / 22b / 23e / 25b: ``arch`` at full width, its first ``layers``
+    layers, trained ``rounds`` rounds through the launcher's build
+    (launch/train.py) at phase 13's shape, the last round under
+    torch.profiler (``kernels``:
     profile_round's labels of the mixer's kernels), with every plain
     version refused.  Every attention, WKV or selective-scan forward and
     backward on its kernel; finite losses; for MoE models a finite aux
@@ -5692,7 +5738,7 @@ def train_cut(device, arch, layers, pp, schedule, mode, kernels):
                    if torch.is_tensor(t))
     loader = Loader(SyntheticLM(spec.vocab, TRAIN_SEQ, seed=SEED),
                     plan.microbatches, bundle.microbatch_size, device)
-    batches = [loader.get(r) for r in range(TRAIN_ROUNDS)]
+    batches = [loader.get(r) for r in range(rounds)]
     reset_counts()
     losses, auxes, round_s, prof = [], [], [], None
     with plain_versions_refused():
@@ -5709,7 +5755,7 @@ def train_cut(device, arch, layers, pp, schedule, mode, kernels):
             auxes.append(float(m["aux"]))
     counts = read_all_counts()
     want = {"paged_attention": 0, "paged_attention_int8": 0,
-            **train_launches(spec, TRAIN_ROUNDS, plan.microbatches)}
+            **train_launches(spec, rounds, plan.microbatches)}
     if counts != want:
         raise AssertionError(f"launches on {spec.name}'s training path: "
                              f"{counts}, expected {want}")
@@ -6393,8 +6439,9 @@ def serve_new(device, arch):
     return rec, prof
 
 
-def consistency_new(device, arch):
-    """23b-d in fp32 at NEW_CONS_LAYERS layers and full width: the paged
+def consistency_new(device, arch, spec=None):
+    """23b-d (25c: ``spec``, a cut of the arch) in fp32 at
+    NEW_CONS_LAYERS layers and full width: the paged
     engine against the dense-cache engine on the card (tokens; last
     hidden states and pools against caches within 1e-5), its prefill
     logits against ``full_transformer``'s (per slot, 1e-3), and the same
@@ -6405,7 +6452,8 @@ def consistency_new(device, arch):
     from repro_torch.launch.train import cut_layers
     from repro_torch.models import lm_head
     cfg = configs.get(arch)
-    spec = cut_layers(cfg.full_spec(), NEW_CONS_LAYERS)
+    if spec is None:
+        spec = cut_layers(cfg.full_spec(), NEW_CONS_LAYERS)
     plan = cfg.PLAN.with_(pp=2, tp=1, decode_microbatches=NEW_CONS_SLOTS)
     rng = np.random.default_rng(SEED + 4)
     prompts = rng.integers(0, spec.vocab, (NEW_CONS_SLOTS, ROWS,
@@ -7021,6 +7069,546 @@ def phase_frontends(device):
     return out, profs, launches, seconds
 
 
+# --------------------------------------------------------------------------
+# phase 2 at Dh 256 and phase 25: gemma3-4b served and trained
+# --------------------------------------------------------------------------
+
+# gemma3-4b: 34 layers, 8 / 4 heads of 256, vocab 262144, five layers of
+# a 1024-token window to one global layer.  25a serves its full_spec at
+# phase 3's shape with a cache of GEMMA_CACHE, built without prefill_len:
+# the stage positions that hold only windowed layers keep rings of the
+# window, the others (a global layer on either stage) full-length caches,
+# paged with a page size; 25b trains its first GEMMA_TRAIN_LAYERS layers
+# (five windowed, one global) at phase 13's shape for GEMMA_TRAIN_ROUNDS
+# rounds (the last profiled); 25c runs its layers
+# GEMMA_CONS_BLOCKS (one windowed, one global: one a stage at pp 2) in
+# fp32.  Phase 2's Dh 256 calls: the flash kernels at 25b's training call
+# (1, TRAIN_SEQ, 8 / 4, 256), global and windowed; the paged walk at 25a's
+# decode call (ROWS lanes of PREFILL + N_DECODE keys of a GEMMA_CACHE
+# slot), float and int8 pools, and the verify tile (Q SPEC_K + 1).
+GEMMA_ARCH = "gemma3-4b"
+DH256_HEADS = (8, 4, 256)
+GEMMA_WINDOW, GEMMA_CACHE = 1024, 2048
+GEMMA_TRAIN_LAYERS, GEMMA_TRAIN_ROUNDS = 6, 2
+GEMMA_CONS_BLOCKS = (4, 6)
+GEMMA_SPEC_DECODE = 12
+GEMMA_TIE = RWKV_TIE
+
+
+def dh256_flash_inputs(dtype, device, seed):
+    """q, k, v, dO of gemma3-4b's attention at 25b's training call."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    h, kv, dh = DH256_HEADS
+    shapes = ((1, TRAIN_SEQ, h, dh), (1, TRAIN_SEQ, kv, dh),
+              (1, TRAIN_SEQ, kv, dh), (1, TRAIN_SEQ, h, dh))
+    return [torch.randn(sh, generator=g, device=device).to(dtype)
+            for sh in shapes]
+
+
+def dh256_paged_lengths(q_len):
+    """25a's decode call (Q 1) or a verify round from mid-page (Q 5)."""
+    return [PREFILL + N_DECODE] * ROWS if q_len == 1 else [PREFILL + 37] * ROWS
+
+
+def phase_dh256_kernels(device):
+    """Phase 2 at Dh 256 (gemma3-4b's heads, G 2): the flash forward (with
+    its rows' log-sum-exp) and backward in bf16 and f32 at (1, TRAIN_SEQ,
+    8 / 4, 256), global and with the 1024 window (two identical backward
+    calls bit-equal), and the paged walk at 25a's decode call and at the
+    verify tile over float pools (bf16 and f32) and int8 pools (the int8
+    walk also against the unquantized pools within 0.05), each against
+    its plain version within TOL."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    errs = {"flash_attention": 0.0, "flash_attention_lse": 0.0,
+            "flash_attention_bwd": 0.0, "paged_attention": 0.0,
+            "paged_attention_verify": 0.0, "paged_attention_int8": (0.0, 0.0)}
+    for dtype in (torch.bfloat16, torch.float32):
+        atol, rtol = TOL[str(dtype).split(".")[-1]]
+        tag = str(dtype)[6:]
+        q, k, v, do = dh256_flash_inputs(dtype, device, 61)
+        for w in (-1, GEMMA_WINDOW):
+            out, lse = fa.flash_attention(q, k, v, window=w, return_lse=True)
+            want, lse_plain = fa.flash_attention_plain(q, k, v, window=w,
+                                                       return_lse=True)
+            errs["flash_attention"] = max(errs["flash_attention"], check_close(
+                f"flash Dh 256 {tag} window {w}", out, want, atol, rtol))
+            errs["flash_attention_lse"] = max(
+                errs["flash_attention_lse"], check_close(
+                    f"flash Dh 256 {tag} window {w} lse", lse, lse_plain,
+                    atol, rtol))
+            del want, lse_plain
+            got = fa.flash_attention_bwd(q, k, v, out, lse, do, window=w)
+            again = fa.flash_attention_bwd(q, k, v, out, lse, do, window=w)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"flash bwd Dh 256 {tag} window {w}: two "
+                                     "identical calls differ")
+            want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                                window=w)
+            errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], *(
+                check_close(f"flash bwd Dh 256 {tag} window {w} {n}", g_, w_,
+                            atol, rtol)
+                for n, g_, w_ in zip(("dq", "dk", "dv"), got, want)))
+            del out, lse, got, again, want
+            torch.cuda.empty_cache()
+        del q, k, v, do
+        for q_len in (1, SPEC_K + 1):
+            key = "paged_attention" if q_len == 1 else "paged_attention_verify"
+            sets, tab, lens = paged_inputs(
+                dtype, device, q_len, dh256_paged_lengths(q_len), seed=62,
+                heads=DH256_HEADS, cache_len=GEMMA_CACHE)
+            qp, kp, vp = sets[0]
+            for w in (-1, GEMMA_WINDOW // 2):
+                got = pa.paged_attention(qp, kp, vp, tab, lens, window=w)
+                want = pa.paged_attention_plain(qp, kp, vp, tab, lens,
+                                                window=w)
+                errs[key] = max(errs[key], check_close(
+                    f"paged Dh 256 Q={q_len} {tag} window {w}", got, want,
+                    atol, rtol))
+            del sets
+        sets, tab, lens, (kp, vp) = paged_int8_inputs(
+            dtype, device, 1, dh256_paged_lengths(1), 63, heads=DH256_HEADS,
+            cache_len=GEMMA_CACHE)
+        qi, kq, vq, ks, vs = sets[0]
+        got = pa.paged_attention(qi, kq, vq, tab, lens, k_scale=ks,
+                                 v_scale=vs)
+        want = pa.paged_attention_plain(qi, kq, vq, tab, lens, k_scale=ks,
+                                        v_scale=vs)
+        full = pa.paged_attention_plain(qi, kp, vp, tab, lens)
+        ei = check_close(f"paged int8 Dh 256 {tag}", got, want, atol, rtol)
+        ef = check_close(f"paged int8 Dh 256 {tag} vs unquantized", got,
+                         full, 0.05, 0.05)
+        errs["paged_attention_int8"] = tuple(
+            max(a, b) for a, b in zip(errs["paged_attention_int8"], (ei, ef)))
+        del sets, got, want, full
+        torch.cuda.empty_cache()
+    log(f"[kernels] Dh 256 (8/4 heads, G 2): max|err| {json.dumps(errs)} "
+        f"(bf16 atol/rtol {TOL['bfloat16']}, f32 {TOL['float32']}); the "
+        "backward bit-equal twice")
+    return errs
+
+
+def dh256_records(device, errs, launches):
+    """Times at Dh 256 beside bounds, plain versions and the library: the
+    flash forward and backward at (1, TRAIN_SEQ, 8 / 4, 256) global and
+    windowed, bf16 (on the tensor cores) and f32 (CUDA cores; SDPA with
+    TF32 off), the paged walk at 25a's decode call and the verify tile,
+    the int8 walk at the decode call.  {record name: {case: entry}};
+    ``launches`` maps a record name to {path: count}."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    bf16 = torch.bfloat16
+    h, kv, dh = DH256_HEADS
+    s = TRAIN_SEQ
+    out = {"flash_attention": {}, "flash_attention_bwd": {}}
+    idx = torch.arange(s, device=device)
+    dist = idx[:, None] - idx[None, :]
+    for dtype, w in ((bf16, -1), (bf16, GEMMA_WINDOW), (torch.float32, -1),
+                     (torch.float32, GEMMA_WINDOW)):
+        q, k, v, do = dh256_flash_inputs(dtype, device, 64)
+        f32 = dtype == torch.float32
+        esz, peak, reps = (4, "float32", 5) if f32 else (2, "bfloat16", 30)
+        case = ("causal" if w < 0 else f"window_{w}") + ("_f32" if f32
+                                                         else "")
+        # 25c's exact check runs in f32, 25a-b in bf16
+        paths = {k: {p: n for p, n in launches[k].items()
+                     if ("exact" in p) == f32}
+                 for k in ("flash_attention", "flash_attention_bwd")}
+        pairs = sum(min(i + 1, w) if w > 0 else i + 1 for i in range(s))
+        mask = None if w < 0 else (dist >= 0) & (dist < w)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def sdpa(*a):
+            if mask is None:
+                return F.scaled_dot_product_attention(*a, is_causal=True,
+                                                      enable_gqa=True)
+            return F.scaled_dot_product_attention(*a, attn_mask=mask,
+                                                  enable_gqa=True)
+        ms = time_ms(lambda: fa.flash_attention(q, k, v, window=w), reps)
+        plain = time_ms(lambda: fa.flash_attention_plain(q, k, v, window=w),
+                        3, 1)
+        lib = time_ms(lambda: sdpa(qt, kt, vt), 5, 1)
+        out["flash_attention"][case] = _dh120_entry(
+            [1, s, h, kv, dh], w, errs["flash_attention"],
+            paths["flash_attention"], ms, plain, 4 * h * dh * pairs,
+            (2 * q.numel() + k.numel() + v.numel()) * esz, lib,
+            "F.scaled_dot_product_attention (is_causal or the window's "
+            "boolean mask; enable_gqa)", peak=peak)
+        out["flash_attention"][case]["dtype"] = peak
+        o, lse = fa.flash_attention(q, k, v, window=w, return_lse=True)
+        ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                    window=w), reps)
+        plain = time_ms(lambda: fa.flash_attention_bwd_plain(
+            q, k, v, o, lse, do, window=w), 3, 1)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
+        ref = sdpa(qg, kg, vg)
+        dot = do.transpose(1, 2)
+        lib = time_ms(lambda: torch.autograd.grad(ref, (qg, kg, vg), dot,
+                                                  retain_graph=True), 10, 2)
+        out["flash_attention_bwd"][case] = _dh120_entry(
+            [1, s, h, kv, dh], w, errs["flash_attention_bwd"],
+            paths["flash_attention_bwd"], ms, plain,
+            5 * 2 * h * dh * pairs,
+            (4 * s * h * dh + 4 * s * kv * dh) * esz + h * s * 4, lib,
+            "autograd of F.scaled_dot_product_attention (is_causal or the "
+            "window's mask; enable_gqa), backward alone", peak=peak)
+        out["flash_attention_bwd"][case]["dtype"] = peak
+        del o, lse, qg, kg, vg, ref, qt, kt, vt, q, k, v, do
+        torch.cuda.empty_cache()
+    n_sm = pa._sm_count(device.index or 0)
+    for q_len in (1, SPEC_K + 1):
+        key = "paged_attention" if q_len == 1 else "paged_attention_verify"
+        lengths = dh256_paged_lengths(q_len)
+        live = 2 * sum(-(-n // PAGE) for n in lengths) * PAGE * kv * dh * 2
+        n_sets = -(-4 * L2_BYTES // live)
+        sets, tab, lens = paged_inputs(bf16, device, q_len, lengths, seed=65,
+                                       n_copies=n_sets, heads=DH256_HEADS,
+                                       cache_len=GEMMA_CACHE)
+        it = {"i": 0}
+
+        def run(fn):
+            def call():
+                qp, kp, vp = sets[it["i"] % n_sets]
+                it["i"] += 1
+                fn(qp, kp, vp, tab, lens)
+            return call
+
+        ms = device_ms(run(pa.paged_attention), 2 * n_sets, "paged_attention")
+        plain = time_ms(run(pa.paged_attention_plain))
+        nbytes, flops = paged_bytes_flops(sets[0][0], sets[0][1], tab,
+                                          lengths, -1)
+        splits, per = pa.plan_splits(tab.shape[1], tab.shape[0], kv, n_sm)
+        entry = _dh120_entry(
+            [len(lengths), q_len, h, kv, dh], -1, errs[key], launches[key],
+            ms, plain, flops, nbytes, None, "none (no single PyTorch call)")
+        entry.update(keys=lengths, ms_by=PAGED_MS_BY,
+                     query_rows=q_len * h // kv, splits=splits,
+                     pages_a_split=per, smem_dynamic_bytes={
+                         dt: pa._bind().paged_attention_smem_bytes(
+                             q_len, h // kv, dh, PAGE, esz)
+                         for dt, esz in (("bfloat16", 2), ("float32", 4))})
+        out[key] = {"decode" if q_len == 1 else "verify": entry}
+        del sets
+    lengths = dh256_paged_lengths(1)
+    live = 2 * sum(-(-n // PAGE) for n in lengths) * PAGE * kv * dh
+    n_sets = -(-4 * L2_BYTES // live)
+    sets, tab, lens, _ = paged_int8_inputs(bf16, device, 1, lengths, 66,
+                                           n_copies=n_sets, heads=DH256_HEADS,
+                                           cache_len=GEMMA_CACHE)
+    it = {"i": 0}
+
+    def run8(fn):
+        def call():
+            qp, kq, vq, ks, vs = sets[it["i"] % n_sets]
+            it["i"] += 1
+            fn(qp, kq, vq, tab, lens, k_scale=ks, v_scale=vs)
+        return call
+
+    ms = device_ms(run8(pa.paged_attention), 2 * n_sets, "paged_attention")
+    plain = time_ms(run8(pa.paged_attention_plain))
+    nbytes, flops = paged_bytes_flops(sets[0][0], sets[0][1], tab, lengths,
+                                      -1, scales=True)
+    entry = _dh120_entry(
+        [len(lengths), 1, h, kv, dh], -1, errs["paged_attention_int8"][0],
+        launches["paged_attention_int8"], ms, plain, flops, nbytes, None,
+        "none (no single PyTorch call)", peak="float32")
+    entry.update(keys=lengths, ms_by=PAGED_MS_BY, pool_dtype="int8",
+                 max_abs_err_vs_unquantized=errs["paged_attention_int8"][1])
+    out["paged_attention_int8"] = {"decode": entry}
+    del sets
+    torch.cuda.empty_cache()
+    log("[kernels] Dh 256 records: " + json.dumps(
+        {name: {case: {f: e[f] for f in ("ms", "bound_ms", "plain_ms",
+                                         "library_ms", "launches")}
+                for case, e in cases.items()}
+         for name, cases in out.items()}))
+    return out
+
+
+def gemma_cut(blocks):
+    """gemma3-4b at full width, its layers ``blocks`` = (first, end)."""
+    import dataclasses as dc
+    from repro_torch import configs
+    full = configs.get(GEMMA_ARCH).full_spec()
+    lo, hi = blocks
+    return dc.replace(full, name=f"{full.name}-l{lo}-{hi - 1}",
+                      n_layers=hi - lo, blocks=full.blocks[lo:hi])
+
+
+def serve_gemma(device):
+    """25a: gemma3-4b's full_spec in bf16, ``serve_1f`` pp 2, R_SLOTS x
+    ROWS rows, PREFILL-token prompts, cache GEMMA_CACHE, N_DECODE decodes,
+    sessions built without ``prefill_len``: rings of the window at the
+    stage positions that hold only windowed layers, full-length caches at
+    the others (``default_cache_lens``).  The paged session pages those
+    (every decode's attention there through the paged kernel at Dh 256;
+    the rings' through the plain path, as JAX's), the dense one keeps
+    them dense; a profiled decode step of the paged one.  Each one's
+    served tokens are ``full_transformer``'s (the flash kernel at Dh 256,
+    windowed and global) greedy tokens up to near-ties of GEMMA_TIE.
+    (record, profile, launches by path)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.schedule import default_cache_lens
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.serving.engine import build_serving
+    cfg = configs.get(GEMMA_ARCH)
+    spec = cfg.full_spec()
+    plan = cfg.PLAN.with_(pp=2, tp=1, decode_microbatches=R_SLOTS)
+    kw = dict(cache_len=GEMMA_CACHE, global_batch=R_SLOTS * ROWS,
+              compute_dtype=torch.bfloat16, device=device)
+    t0 = time.perf_counter()
+    paged = build_serving(spec, plan, page_size=PAGE, **kw).start(SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    dense = build_serving(spec, plan, page_size=0, **kw).reset_state()
+    dense.set_params(paged.params)
+    lens = default_cache_lens(spec, plan.pp, GEMMA_CACHE)
+    full_pos = tuple(i for i, n in enumerate(lens) if n == GEMMA_CACHE)
+    if not (paged.cache_lens == dense.cache_lens == lens
+            and set(lens) == {GEMMA_WINDOW, GEMMA_CACHE}
+            and tuple(paged.paged_layers) == full_pos
+            and dense.pages is None):
+        raise AssertionError(f"25a: cache lengths {paged.cache_lens} / "
+                             f"{dense.cache_lens}, paged positions "
+                             f"{paged.paged_layers}; expected rings of "
+                             f"{GEMMA_WINDOW} beside full-length {full_pos}")
+    rng = np.random.default_rng(SEED + 25)
+    prompts = rng.integers(0, spec.vocab, (R_SLOTS, ROWS, PREFILL)
+                           ).astype(np.int32)
+    rec, prof, launches = {"model": spec.name, "layers": spec.n_layers,
+                           "parameters": spec.param_count(),
+                           "weight_gb": tensor_bytes(paged.params) / 1e9,
+                           "heads": [spec.n_heads, spec.n_kv, spec.d_head],
+                           "pp": plan.pp, "slots": R_SLOTS, "rows": ROWS,
+                           "prefill": PREFILL, "cache_len": GEMMA_CACHE,
+                           "cache_lens": lens, "paged_positions": full_pos,
+                           "init_s": init_s}, None, {}
+    for name, sess in (("paged", paged), ("dense", dense)):
+        reset_counts()
+        t0 = time.perf_counter()
+        nxt = sess.prefill({"tokens": prompts})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        toks, step_s = [nxt], []
+        for _ in range(N_DECODE):
+            t0 = time.perf_counter()
+            nxt = sess.decode(nxt)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            toks.append(nxt)
+        counts = read_counts()
+        per_step = len(full_pos) * plan.pp * R_SLOTS if sess.pages else 0
+        want = {"paged_attention": per_step * N_DECODE,
+                "paged_attention_int8": 0, "flash_attention": 0,
+                "flash_attention_bwd": 0, "wkv6": 0, "mamba_scan": 0}
+        if counts != want or (per_step and pa.paged_attention.launches_by_q
+                              != {1: per_step * N_DECODE}):
+            raise AssertionError(f"25a {name} launches {counts}, expected "
+                                 f"{want}")
+        toks = torch.stack(toks).cpu().numpy()
+        ms = 1e3 * float(np.median(step_s))
+        if sess.pages:
+            sess._alloc.check()
+            prof = profile_decode_step(sess, nxt, ms,
+                                       kernels=("paged_attention",))
+            launches["gemma3_serve"] = {"paged_attention":
+                                        counts["paged_attention"]}
+        reset_counts()
+        t0 = time.perf_counter()
+        logits = reference_logits(sess, prompts, toks, n_last=toks.shape[0])
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        ref_counts = read_counts()
+        if ref_counts["flash_attention"] != spec.n_layers or \
+                sum(ref_counts.values()) != spec.n_layers:
+            raise AssertionError(f"25a {name} reference launches {ref_counts}")
+        launches[f"gemma3_{name}_full_transformer"] = {
+            "flash_attention": ref_counts["flash_attention"]}
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"25a {name}: non-finite reference logits")
+        served = torch.from_numpy(toks.T.astype(np.int64)).to(logits.device)
+        gap = logits.amax(-1) - logits.gather(-1, served[..., None])[..., 0]
+        agree = logits.argmax(-1) == served
+        rec[name] = {"prefill_s": prefill_s, "decode_ms_per_step": ms,
+                     "decode_ms_steps": [1e3 * x for x in step_s],
+                     "decode_tokens_per_s": R_SLOTS * ROWS * 1e3 / ms,
+                     "paged_launches": counts["paged_attention"],
+                     "reference_flash_launches": ref_counts["flash_attention"],
+                     "reference_s": ref_s, "reference_positions": gap.numel(),
+                     "reference_agree": int(agree.sum()),
+                     "reference_max_gap": gap.max().item(),
+                     "cache_gb": tensor_bytes(sess.cache) / 1e9,
+                     "pool_gb": (tensor_bytes(sess.pages) / 1e9
+                                 if sess.pages else 0.0)}
+        log(f"[gemma3] 25a {name}: {spec.n_layers} layers, "
+            f"{spec.param_count() / 1e9:.2f} B parameters, cache lengths "
+            f"{lens} (paged positions {full_pos if sess.pages else ()}); "
+            f"prefill {prefill_s:.3f}s, decode {ms:.2f} ms/step, paged "
+            f"launches {counts['paged_attention']}; full_transformer "
+            f"{ref_s:.2f}s, greedy == served at {int(agree.sum())}/"
+            f"{gap.numel()}, max gap {gap.max().item():.4f} (limit "
+            f"{GEMMA_TIE})")
+        if (gap > GEMMA_TIE).any():
+            raise AssertionError(
+                f"25a {name}: served tokens are not full_transformer's "
+                f"greedy tokens at {int((gap > GEMMA_TIE).sum())} positions "
+                f"(gap up to {gap.max().item():.4f} > {GEMMA_TIE})")
+    top = [(k["name"][:50], round(k["ms"], 3), k["calls"])
+           for k in prof["by_kernel"][:6]]
+    log(f"[profile] gemma3 paged decode step: device {prof['device_ms']:.2f} "
+        f"ms, idle {prof['idle_share']:.3f}, {prof['kernel_launches']} "
+        f"launches; top (ms, calls) {top}")
+    del paged, dense
+    torch.cuda.empty_cache()
+    return rec, prof, launches
+
+
+def gemma_verify(device, spec, plan):
+    """25c's verify tile: ``spec`` in fp32 on ``serve_spec_1f`` (spec_k
+    SPEC_K, page PAGE) from the weights of a plain ``serve_1f`` session:
+    rounds of self-drafts, then one of the plain stream's own tokens as
+    drafts; every emitted token equals the plain session's greedy stream
+    at its position, and every verify round runs the paged kernel at Q =
+    SPEC_K + 1 alone."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.serving.engine import build_serving
+    rows = NEW_CONS_SLOTS * ROWS
+    kw = dict(cache_len=NEW_CONS_CACHE, global_batch=rows,
+              compute_dtype=torch.float32, page_size=PAGE,
+              prefill_len=NEW_CONS_PREFILL, device=device)
+    plain = build_serving(spec, plan, **kw).start(SEED)
+    rng = np.random.default_rng(SEED + 26)
+    prompts = rng.integers(0, spec.vocab, (NEW_CONS_SLOTS, ROWS,
+                                           NEW_CONS_PREFILL)).astype(np.int32)
+    nxt = plain.prefill({"tokens": prompts})
+    stream = [nxt.cpu().numpy()]
+    for _ in range(GEMMA_SPEC_DECODE + SPEC_K + 1):
+        nxt = plain.decode(nxt)
+        stream.append(nxt.cpu().numpy())
+    stream = np.stack(stream, axis=1)                   # (rows, steps)
+    spec_s = build_serving(spec, plan.with_(schedule="serve_spec_1f"),
+                           spec_k=SPEC_K, **kw).reset_state()
+    spec_s.set_params(plain.params)
+    reset_counts()
+    last = spec_s.prefill({"tokens": prompts}).cpu().numpy()
+    if not (last == stream[:, 0]).all():
+        raise AssertionError("25c verify: the speculative prefill differs")
+    emitted, rounds, accepted = 1, 0, []
+    while emitted <= GEMMA_SPEC_DECODE:
+        drafts = (spec_s.draft(last) if rounds % 2 == 0 else
+                  stream[:, emitted:emitted + SPEC_K])
+        scores, acc = spec_s.verify(np.concatenate([last[:, None], drafts],
+                                                   1))
+        n = int(acc.min()) + 1
+        if not (acc == acc[0]).all() or not (
+                scores[:, :n] == stream[:, emitted:emitted + n]).all():
+            raise AssertionError(f"25c verify round {rounds}: emitted tokens "
+                                 "differ from the plain stream")
+        last = scores[:, n - 1]
+        emitted += n
+        rounds += 1
+        accepted.append(int(acc[0]))
+    counts = read_counts()
+    by_q = dict(pa.paged_attention.launches_by_q)
+    want = spec.n_layers * NEW_CONS_SLOTS * rounds
+    if by_q != {SPEC_K + 1: want} or counts["paged_attention"] != want:
+        raise AssertionError(f"25c verify: launches {counts}, by query count "
+                             f"{by_q}, expected {want} at Q {SPEC_K + 1}")
+    log(f"[gemma3] 25c verify tile (Q {SPEC_K + 1}, fp32, {spec.n_layers} "
+        f"layers): {rounds} rounds, accepted {accepted}, every emitted token "
+        f"the plain stream's; paged launches {want} at Q {SPEC_K + 1}")
+    del plain, spec_s
+    torch.cuda.empty_cache()
+    return {"rounds": rounds, "accepted": accepted, "launches_q5": want}
+
+
+def phase_gemma(device):
+    """Phase 25: 25a (:func:`serve_gemma`), 25b (:func:`train_cut` of
+    GEMMA_TRAIN_LAYERS layers at phase 13's shape for GEMMA_TRAIN_ROUNDS
+    rounds, 1f1b / stash pp 2, the config's Adam), 25c at the layers
+    GEMMA_CONS_BLOCKS in fp32: the
+    paged engine against the dense one and the same session on the CPU
+    (:func:`consistency_new`), int8 paged KV on the card against the CPU
+    (:func:`phase_consistency_quant`), the verify tile
+    (:func:`gemma_verify`), and the executor against the oracle bit for
+    bit.  (records, profiles, launches by path, seconds)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.optim import SGDM
+    out, profs, launches, seconds = {}, [], {}, {}
+    t0 = time.perf_counter()
+    out["serve"], prof, served = serve_gemma(device)
+    profs.append({**prof, "phase": "decode"})
+    launches.update(served)
+    seconds["25a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["train"], prof = train_cut(device, GEMMA_ARCH, GEMMA_TRAIN_LAYERS, 2,
+                                   "1f1b", "stash", FLASH_KERNELS,
+                                   rounds=GEMMA_TRAIN_ROUNDS)
+    profs.append(prof)
+    launches["gemma3_train"] = out["train"]["launches"]
+    seconds["25b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cfg = configs.get(GEMMA_ARCH)
+    spec = gemma_cut(GEMMA_CONS_BLOCKS)
+    if sorted(b.window for b in spec.blocks) != [-1, GEMMA_WINDOW]:
+        raise AssertionError(f"25c: layers {GEMMA_CONS_BLOCKS} are not one "
+                             "windowed and one global layer")
+    cons = consistency_new(device, GEMMA_ARCH, spec=spec)
+    plan = cfg.PLAN.with_(pp=2, tp=1, decode_microbatches=NEW_CONS_SLOTS)
+    cons["int8_kv"] = phase_consistency_quant(
+        device, spec, plan.with_(pp=1), n_decode=4, weight_dtype="fp32",
+        tag="gemma3-int8")
+    launches["gemma3_int8_serve"] = {
+        "paged_attention_int8": cons["int8_kv"]["int8_launches"]}
+    cons["verify"] = gemma_verify(device, spec, plan)
+    launches["gemma3_speculative_serve"] = {
+        "paged_attention_verify": cons["verify"]["launches_q5"]}
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        tplan = cfg.PLAN.with_(tp=1, pp=2, microbatches=CONS_R,
+                               schedule="1f1b", stash_mode="stash")
+        reset_counts()
+        with plain_versions_refused():
+            out["exact"] = executor_equals_oracle(
+                device, "1f1b/stash", spec, tplan, SGDM(lr=0.01),
+                donate=True)
+        counts = read_all_counts()
+        want = train_launches(spec, 2 * CONS_ROUNDS, CONS_R)
+        if {k: counts[k] for k in want} != want:
+            raise AssertionError(f"25c {spec.name} launches {counts}, "
+                                 f"expected {want} (executor + oracle)")
+        out["exact"]["launches"] = counts
+        launches["gemma3_train_exact"] = counts
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out["consistency"] = cons
+    seconds["25c"] = time.perf_counter() - t0
+    log(f"[phases] 25 seconds: {json.dumps(seconds)}")
+    torch.cuda.empty_cache()
+    return out, profs, launches, seconds
+
+
+def gemma_launches(launches):
+    """Phase 25's launches by kernel record and path, for the kernels line
+    and the Dh 256 entries."""
+    by = {k: {} for k in ("flash_attention", "flash_attention_bwd",
+                          "paged_attention", "paged_attention_verify",
+                          "paged_attention_int8")}
+    for path, counts in launches.items():
+        for k in by:
+            if counts.get(k):
+                by[k][path] = counts[k]
+    return by
+
+
 class PhaseSeconds(dict):
     """Each phase's seconds, logged as it is recorded: a run cut short
     still shows where its time went."""
@@ -7052,6 +7640,7 @@ def main() -> int:
     errs["paged_attention_int8"] = phase_paged_int8_kernel(device)
     errs["flash_attention_bwd"] = phase_flash_bwd_kernel(device)
     errs["dh120"] = phase_dh120_kernels(device)
+    errs["dh256"] = phase_dh256_kernels(device)
     errs["layouts"] = phase_layout_kernels(device)
     errs["wkv6_bwd"] = phase_wkv6_bwd_kernel(device)
     errs["mamba_scan_bwd"] = phase_mamba_bwd_kernel(device)
@@ -7182,6 +7771,14 @@ def main() -> int:
         device, alongside=frontends)
     front_out, prof_front, front_launches, front_s = front["all"]
     phase_s["23-24 new configs and frontends"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gemma_out, prof_gemma, gemma_paths, gemma_s = phase_gemma(device)
+    phase_s["25 gemma3"] = time.perf_counter() - t0
+    by_gemma = gemma_launches(gemma_paths)
+    for kernel, paths in by_gemma.items():
+        if not sum(paths.values()):
+            raise AssertionError(f"phase 25: {kernel} ran no time on "
+                                 f"gemma3-4b's paths: {gemma_paths}")
     by_layout = new_config_launches({**new_launches, **front_launches})
     for name in ("whisper", "llava"):
         ran = {k: sum(by_layout[k][name].values()) for k in (
@@ -7205,10 +7802,12 @@ def main() -> int:
                             "qwen3_planned_serve":
                                 planned_counts["qwen3_planned_serve"],
                             "danube3_serve": planned_counts["danube3_serve"],
-                            **new_paths("paged_attention")},
+                            **new_paths("paged_attention"),
+                            **by_gemma["paged_attention"]},
         "paged_attention_int8": {"qwen3_quant_serve": int8_launches,
                                  "danube3_int8_serve":
-                                     planned_counts["danube3_int8_serve"]},
+                                     planned_counts["danube3_int8_serve"],
+                                 **by_gemma["paged_attention_int8"]},
         "flash_attention": {
             "qwen3_full_transformer": flash_launches,
             "jamba_full_transformer": jamba_ref["flash_attention"],
@@ -7225,7 +7824,8 @@ def main() -> int:
             "danube3_full_transformer":
                 planned_counts["danube3_full_transformer"],
             **{k: c["flash_attention"] for k, c in tp_counts.items()},
-            **new_paths("flash_attention")},
+            **new_paths("flash_attention"),
+            **by_gemma["flash_attention"]},
         "flash_attention_bwd": {
             "qwen3_train": train_bwd,
             **{f"qwen3_train_{n}": c["flash_attention_bwd"]
@@ -7235,7 +7835,8 @@ def main() -> int:
             "qwen3_driver_two_ranks": ckpt_counts["flash_attention_bwd"],
             **{k: c["flash_attention_bwd"]
                for k, c in tp_counts.items()},
-            **new_paths("flash_attention_bwd")},
+            **new_paths("flash_attention_bwd"),
+            **by_gemma["flash_attention_bwd"]},
         "wkv6": {"serve": wkv_serve, "full_transformer": wkv_ref,
                  **recur_paths("rwkv6", "wkv6")},
         "wkv6_by_design": {
@@ -7260,9 +7861,12 @@ def main() -> int:
         "paged_attention_int8": {"danube3_int8_serve":
                                  planned_counts["danube3_int8_serve"]}})
     layouts = layout_records(device, errs["layouts"], by_layout)
+    dh256 = dh256_records(device, errs["dh256"], by_gemma)
     for rec in records:
         if rec["name"] in dh120:
             rec["dh120"] = dh120[rec["name"]]
+        if rec["name"] in dh256:
+            rec["dh256"] = dh256[rec["name"]]
         at = {name: layouts[name][rec["name"]] for name in LAYOUTS
               if rec["name"] in layouts[name]}
         if at:
@@ -7274,7 +7878,8 @@ def main() -> int:
         f"{consistency_quant}; consistency train {consistency_train}; "
         f"dist {json.dumps(dist_s)}; ckpt dist {json.dumps(ckpt_s)}; "
         f"tp {json.dumps(tp_s)}; train recurrent {json.dumps(recur_s)}; "
-        f"new configs {json.dumps(new_s)}; frontends {json.dumps(front_s)}")
+        f"new configs {json.dumps(new_s)}; frontends {json.dumps(front_s)}; "
+        f"gemma3 {json.dumps(gemma_s)}")
     print(json.dumps({"profile": prof_qwen}))
     print(json.dumps({"profile": prof}))
     print(json.dumps({"profile": prof_rwkv_prefill}))
@@ -7284,7 +7889,7 @@ def main() -> int:
     print(json.dumps({"profile": prof_train}))
     for prof_v in prof_virtual:
         print(json.dumps({"profile": prof_v}))
-    for prof_r in prof_recur + prof_new + prof_front:
+    for prof_r in prof_recur + prof_new + prof_front + prof_gemma:
         print(json.dumps({"profile": prof_r}))
     print(json.dumps({"train": train_out}))
     for name in virtual:
@@ -7322,6 +7927,11 @@ def main() -> int:
         print(json.dumps({"train_front": {**rec, "card": card}}))
     print(json.dumps({"front_consistency": {
         **front_out["consistency"], "exact": front_out["exact"],
+        "card": card}}))
+    print(json.dumps({"serve_gemma": {**gemma_out["serve"], "card": card}}))
+    print(json.dumps({"train_gemma": {**gemma_out["train"], "card": card}}))
+    print(json.dumps({"gemma_consistency": {
+        **gemma_out["consistency"], "exact": gemma_out["exact"],
         "card": card}}))
     print(json.dumps({"kernels": records}))
     print(card)

@@ -60,9 +60,13 @@ model's ``spec`` to know which dim each leaf is cut along,
 a stage's row, or a piece of a stage-stacked leaf, leaves its stage, the
 tensor ranks of replica 0 send their shards to tensor rank 0, which
 joins them (after the data group's ZeRO-1 gather) and does what replica
-0 does at tp 1.  On restore each rank reads the full rows and keeps its
-tensor shard.  So a checkpoint written at one tp restores at any other
-(tp 2 at tp 1 and back, bit for bit).
+0 does at tp 1.  The embedding and the head, and their optimizer
+slots, cut over the tensor group of the first and last stage
+(``models/lm_head.py``), are joined the same way on that group's rank 0
+before it sends them to rank 0.  On restore each rank reads the full
+rows (and the full tables) and keeps its tensor shard.  So a checkpoint
+written at one tp restores at any other (tp 2 at tp 1 and back, bit for
+bit).
 
 ``reshard_stages`` re-groups stage-stacked leaves when the pipeline depth
 changes (elastic scaling): parameters are keyed by global layer index, so
@@ -78,7 +82,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.versioning import zero1_shard
+from repro_torch.core.versioning import TABLE_TP_DIM, table_leaf, zero1_shard
 from repro_torch.models.init import tp_dim
 from repro_torch.optim.optimizers import tree_map
 from repro_torch.parallel.dist import ProcessGrid
@@ -189,9 +193,11 @@ def _full_rows(key: str, state):
 def _tp_key_dim(key: str, spec, tp: int) -> int:
     """The dim of ``key``'s leaf (as the files hold it) that the tensor
     axis cuts, -1 for none: a stage-stacked leaf's own dim, one more in
-    the ``[V, L, ...]`` ring."""
-    if tp == 1 or _row_axis(key) is None:
+    the ``[V, L, ...]`` ring; the tables' columns."""
+    if tp == 1:
         return -1
+    if _row_axis(key) is None:
+        return TABLE_TP_DIM if table_leaf(key) else -1
     parts = key.split("/")
     lead = 2 if key.startswith(("stash/", "opt_stages/")) else 0
     layer = parts[lead:]               # layer_i / block[/ block] / leaf
@@ -410,6 +416,9 @@ class CheckpointManager:
                     full = _full_rows(key, state)
                     shape = list((full if full is not None else leaf).shape)
                     ax = _tp_key_dim(key, self.spec, self.tp)
+                    if ax >= 0 and _row_axis(key) is None and g.t:
+                        # a table's slice: its tensor rank 0 joins them
+                        continue
                     if ax >= 0:
                         shape[ax] *= self.tp
                     meta[name, key] = (tuple(shape), leaf.dtype, None)
@@ -442,7 +451,8 @@ class CheckpointManager:
         from the metadata; a leaf one stage holds whole from its lowest
         rank; a stage-stacked leaf stage by stage (version slot by slot
         for the ring), ZeRO-1 shards all-gathered over the data group
-        first, then tensor shards joined on tensor rank 0."""
+        first, then tensor shards joined on tensor rank 0 (a table's
+        slices too, on the stage's replica 0)."""
         g = self.grid
         owners = [r for r, m in enumerate(every) if (name, key) in m]
         shape, dt, host = every[owners[0]][name, key]
@@ -455,6 +465,11 @@ class CheckpointManager:
             return
         if axis is None:
             full_shape, srcs, lead = shape, [owners[0]], [()]
+            if (leaf is not None and g.d == 0
+                    and _tp_key_dim(key, self.spec, self.tp) >= 0):
+                # the tensor group's slices of a table (its owner is
+                # the group's rank 0, which lists the joined shape)
+                leaf = self._tp_join(key, leaf)
         else:
             S = g.topo.pp
             full_shape = (shape[:axis] + (shape[axis] * S,)
@@ -535,7 +550,8 @@ class CheckpointManager:
                     axis = _row_axis(key)
                     if axis is None:
                         with zf.open(f"{key}.npy") as f:
-                            flat[key] = np.lib.format.read_array(f)
+                            flat[key] = self._tp_cut(
+                                key, np.lib.format.read_array(f))
                         continue
                     arr = self._tp_cut(key, _read_rows(zf, key, axis, start,
                                                        v))

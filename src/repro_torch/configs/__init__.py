@@ -3,15 +3,16 @@
 Every config module exposes ``full_spec()``, ``smoke_spec()``, ``PLAN``
 and ``SMOKE_PLAN``.  Ported so far: qwen3-14b, rwkv6-1.6b, jamba-v0.1-52b,
 h2o-danube3-4b, olmoe-1b-7b, chatglm3-6b, deepseek-moe-16b, whisper-medium
-(an encoder and cross-attention) and llava-next-34b (a patch prefix);
-gemma3-4b follows.
+(an encoder and cross-attention), llava-next-34b (a patch prefix) and
+gemma3-4b (Dh 256, 5:1 local:global windows): every config of the JAX
+registry.
 """
 from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ("qwen3_14b", "chatglm3_6b", "h2o_danube3_4b", "olmoe_1b_7b",
-            "deepseek_moe_16b", "rwkv6_1b6", "jamba_v01_52b",
+ARCH_IDS = ("qwen3_14b", "gemma3_4b", "chatglm3_6b", "h2o_danube3_4b",
+            "olmoe_1b_7b", "deepseek_moe_16b", "rwkv6_1b6", "jamba_v01_52b",
             "whisper_medium", "llava_next_34b")
 
 # CLI ids (dashes) -> module names, as in the JAX registry

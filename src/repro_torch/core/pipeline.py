@@ -59,14 +59,16 @@ stage's sharded leaves (``models/init.py::tp_shard``) — and of their
 ring and optimizer state — and runs its blocks with the group's
 collectives (``models/nn.py``); the activations and their hand-offs
 are whole on every tensor rank (rank (d, s, t) hands to (d, s ± 1, t)).
-The embedding (stage 0) and the head and final norm (the last stage)
-live on tensor rank 0 alone, with their optimizer state: t = 0 embeds
-a round's tokens and broadcasts the embeddings over its tensor group,
-and computes an exiting microbatch's loss and broadcasts d(loss)/d(h);
-the metrics are t = 0's.  (Held on every tensor rank, the head's Adam
-state and f32 logits did not fit four ranks of phase 13's model on one
-card.)  Data sums and ZeRO-1 run over the data group of each (stage,
-tensor index).  A replicated leaf that a rank uses in part (the qk-norm
+The embedding (stage 0) and the head (the last stage) are cut over the
+tensor group as JAX cuts them (``models/lm_head.py``): rank t holds the
+embedding's columns t·d/tp … and the head's vocabulary slice t·V/tp …,
+and the optimizer state of its slice only; the final norm is every
+rank's.  Every rank of stage 0 gathers its columns of a round's tokens
+and the group joins them (an all-gather); every rank of the last stage
+forms its slice of an exiting microbatch's logits, and the loss and
+d(loss)/d(h) come out of the group's sums whole on every rank
+(``lm_head.head_loss_sharded``); the metrics are t = 0's.  Data sums
+and ZeRO-1 run over the data group of each (stage, tensor index).  A replicated leaf that a rank uses in part (the qk-norm
 scales, KV weights replicated at n_kv < tp) has its ranks' shares
 summed by its ``tp_enter`` inside B, so every replicated leaf gets one
 gradient on every tensor rank and stays equal across them.  One process
@@ -220,8 +222,9 @@ def build_pipeline(spec: spec_lib.ModelSpec, plan, *, seq_len: int,
     group = grid.data_group if dp > 1 else None
     tensor = grid.tensor_group if tp > 1 else None
     t_index = 0 if grid is None else grid.t
-    # the embedding and the head live on tensor rank 0
-    embed_here, head_here = first and t_index == 0, last and t_index == 0
+    # every tensor rank of the first stage holds its columns of the
+    # embedding, every one of the last stage its slice of the head
+    embed_here, head_here = first, last
     zero1 = plan.zero1 and dp > 1
     aux_ct = aux_weight / dp
 
@@ -304,15 +307,14 @@ def build_pipeline(spec: spec_lib.ModelSpec, plan, *, seq_len: int,
         f32 = lambda a: torch.zeros(a.shape, dtype=torch.float32,  # noqa
                                     device=dev)
         if embed_here:
-            embeds, _ = with_patches(spec, lm_head.embed_tokens(
-                params["embed"], tokens, compute_dtype), None, batch)
+            text = (lm_head.embed_tokens(params["embed"], tokens,
+                                         compute_dtype) if tensor is None
+                    else lm_head.embed_tokens_sharded(
+                        params["embed"], tokens, tensor, compute_dtype))
+            embeds, _ = with_patches(spec, text, None, batch)
+            del text
             d_embeds = torch.zeros((R, mb, seq_len, d), dtype=compute_dtype,
                                    device=dev)
-        elif first:
-            embeds = torch.empty((R, mb, seq_len, d), dtype=compute_dtype,
-                                 device=dev)
-        if first and tensor is not None:
-            tensor.broadcast_(embeds)
         if head_here:
             head, fnorm = params["head"], params["final_norm"]
             # the valid tokens of each microbatch over all replicas
@@ -360,7 +362,8 @@ def build_pipeline(spec: spec_lib.ModelSpec, plan, *, seq_len: int,
                     head, fnorm, h_out[S - 1], lab.clamp_min(0),
                     norm_kind=spec.norm, valid_mask=(lab >= 0).float(),
                     vocab=spec.vocab,
-                    n_valid=None if n_valid is None else n_valid[m_exit])
+                    n_valid=None if n_valid is None else n_valid[m_exit],
+                    tensor=tensor)
                 loss_sum += loss
                 g_exit = dh.to(compute_dtype)
                 if accumulate:
@@ -369,14 +372,6 @@ def build_pipeline(spec: spec_lib.ModelSpec, plan, *, seq_len: int,
                 else:
                     update({"h": dhead, "f": dfnorm}, state["opt_head"],
                            {"h": head, "f": fnorm}, None)
-            if m_exit >= 0 and last and tensor is not None:
-                # the other tensor ranks start their backward from t = 0's
-                if head_here:
-                    g_exit = g_exit.contiguous()
-                else:
-                    g_exit = torch.empty((mb, seq_len, d),
-                                         dtype=compute_dtype, device=dev)
-                tensor.broadcast_(g_exit)
 
             # ---- B phase ----------------------------------------------
             dx_out = {}
@@ -418,9 +413,9 @@ def build_pipeline(spec: spec_lib.ModelSpec, plan, *, seq_len: int,
                         "f": tree_map(lambda a: a / R, dfnorm_acc)},
                        state["opt_head"], {"h": head, "f": fnorm}, None)
         if embed_here:
-            d_table = lm_head.embed_bwd(params["embed"], tokens,
-                                        d_embeds[:, :, n_patch:].float()
-                                        ).div_(R)
+            d_table = lm_head.embed_bwd(
+                params["embed"], tokens, lm_head.embed_columns(
+                    d_embeds[:, :, n_patch:], tensor).float()).div_(R)
             update(d_table, state["opt_embed"], params["embed"], None)
         if has_enc:
             if grid is not None and S > 1:

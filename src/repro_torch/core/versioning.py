@@ -150,23 +150,73 @@ def tensor_cut(stages, tensor, lead: int = 0):
                     stages, axes)
 
 
+# The dim of the embedding (Vpad, d) and of the head (d, Vpad) that the
+# tensor axis cuts at tp > 1, as JAX's init cuts both: d_model and the
+# vocabulary.
+TABLE_TP_DIM = 1
+
+
+def table_leaf(path: str) -> bool:
+    """Whether the leaf at ``path`` of a rank's tree ("embed", "head",
+    "opt_embed/<slot>", "opt_head/<slot>/h"; a checkpoint's flat key) is
+    one of the two tables or an optimizer slot of one: what
+    :func:`table_cut` cuts at tp > 1.  The final norm's slots
+    ("opt_head/<slot>/f...") stay whole."""
+    parts = path.split("/")
+    if parts[0] == "opt_head":
+        return parts[-1] == "h"
+    return parts[0] in ("embed", "head", "opt_embed")
+
+
+def table_columns(n: int, t: int, tp: int) -> slice:
+    """Tensor rank ``t``'s block of a table's ``n`` columns
+    (:data:`TABLE_TP_DIM`: d_model of the embedding, the padded
+    vocabulary of the head) over ``tp`` ranks."""
+    size = n // tp
+    return slice(t * size, (t + 1) * size)
+
+
+def table_cut(a, tensor):
+    """Tensor shard ``t`` (a view) of the embedding, the head or an
+    optimizer slot of either, ``tensor = (tp_axes, t, tp)``: its block
+    of columns (:func:`table_columns`).  ``a`` itself for None."""
+    if tensor is None:
+        return a
+    _, t, tp = tensor
+    cols = table_columns(a.shape[TABLE_TP_DIM], t, tp)
+    return a[(slice(None),) * TABLE_TP_DIM + (cols,)]
+
+
+def _cut_tables(tree, tensor, path: str):
+    """``tree`` (the leaf or subtree at ``path``) with its table leaves
+    (:func:`table_leaf`) cut by :func:`table_cut`; ``tree`` itself for
+    ``tensor`` None."""
+    if tensor is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: _cut_tables(v, tensor, f"{path}/{k}")
+                for k, v in tree.items()}
+    return table_cut(tree, tensor) if table_leaf(path) else tree
+
+
 def rank_params(params, sched, s: int, *, tensor=None):
     """What stage ``s`` of ``sched`` holds of a whole-model parameter tree
     (torch or numpy leaves, stage rows in storage order): its rows of the
     stacked stages, windows and thetas — with ``tensor = (tp_axes, t,
     tp)`` tensor shard t of them (:func:`tensor_cut`) —; the embedding on
-    stage 0; the head and final norm on the last stage (on tensor rank 0:
-    the executor keeps them there); the whole encoder on every rank."""
+    stage 0; the head and final norm on the last stage (at tp > 1 each
+    tensor rank's columns of the two tables, :func:`table_cut`, and the
+    whole final norm); the whole encoder on every rank."""
     rows = rank_rows(sched, s)
-    t = 0 if tensor is None else tensor[1]
     out = {"stages": tensor_cut(tree_map(lambda a: a[rows],
                                          params["stages"]), tensor),
            "layer_windows": list(params["layer_windows"][rows]),
            "layer_thetas": list(params["layer_thetas"][rows])}
-    if s == 0 and t == 0:
-        out["embed"] = params["embed"]
-    if s == sched.n_stages - 1 and t == 0:
-        out["head"], out["final_norm"] = params["head"], params["final_norm"]
+    if s == 0:
+        out["embed"] = _cut_tables(params["embed"], tensor, "embed")
+    if s == sched.n_stages - 1:
+        out["head"] = _cut_tables(params["head"], tensor, "head")
+        out["final_norm"] = params["final_norm"]
     if "encoder" in params:
         out["encoder"] = params["encoder"]
     return out
@@ -180,7 +230,7 @@ def rank_state(state, sched, s: int, *, zero1=None, tensor=None):
     ``zero1 = (axes, index, dp)`` only replica ``index``'s shard of the
     optimizer state, ``axes`` the dims of the tensor shard
     (:func:`zero1_axes`) — and the head's / embedding's optimizer states
-    where it holds them."""
+    where it holds them (of its columns, with ``tensor``)."""
     rows = rank_rows(sched, s)
     params = rank_params(state["params"], sched, s, tensor=tensor)
     stash = {"current": params["stages"]}
@@ -196,10 +246,9 @@ def rank_state(state, sched, s: int, *, zero1=None, tensor=None):
                            axes) for k, v in opt.items()}
     out = {"params": params, "stash": stash, "opt_stages": opt,
            "step": state["step"]}
-    if "head" in params:
-        out["opt_head"] = state["opt_head"]
-    if "embed" in params:
-        out["opt_embed"] = state["opt_embed"]
+    for key, table in (("opt_head", "head"), ("opt_embed", "embed")):
+        if table in params:
+            out[key] = _cut_tables(state[key], tensor, key)
     if "encoder" in params:
         out["opt_encoder"] = state["opt_encoder"]
     return out

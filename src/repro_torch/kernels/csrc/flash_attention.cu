@@ -34,10 +34,22 @@
 //   apply the elementwise mask, as two column limits a row;
 // - CTAs run longest causal rows first (reverse q-tile order), so the
 //   last wave is short;
-// - Dh below 128 is zero-padded inside shared memory to 64 or 128
-//   columns (the copies zero-fill the missing chunks), which changes
-//   neither QKᵀ nor the kept output columns: any Dh that is a multiple
-//   of 8 up to 128 is taken; the wrapper raises for any other.
+// - Dh is zero-padded inside shared memory to 64, 128 or 256 columns
+//   (the copies zero-fill the missing chunks), which changes neither
+//   QKᵀ nor the kept output columns: any Dh that is a multiple of 8 up
+//   to 256 is taken; the wrapper raises for any other;
+// - past 128 columns (gemma3's Dh 256) the O accumulator of a 64-row
+//   warpgroup would be 128 f32 registers a thread beside the S tile and
+//   the P fragments, and the K/V ring 128 KB beside a 64 KB Q tile.  So
+//   each CTA owns one 128-column half of O: it forms the whole S = QKᵀ
+//   (Q and K at their full width) but streams and multiplies only its
+//   half of V, and the two CTAs of a (q tile, batch, head) sit next to
+//   each other in the grid, so the second reads Q and K from L2.  The
+//   two compute the same S, P and row statistics by the same
+//   instructions, so their halves agree as one CTA's would; QKᵀ is done
+//   twice (1.5x the products of one CTA), and the accumulator stays at
+//   64 registers a thread, as at Dh 128.  Shared memory: Q 64 KB, the
+//   K ring 64 KB, the V ring 32 KB, one CTA an SM.
 // The ragged edge (queries past Sq, keys past Sk) is masked in the
 // kernel, so the wrapper makes no padding copies.  Copies use cp.async
 // rather than TMA: no tensor map has to be encoded on the host
@@ -235,15 +247,25 @@ constexpr int kBQ = 64 * kWarpgroups;   // query rows per CTA
 constexpr int kBK = 64;                 // keys per K/V tile
 constexpr int kThreadsBF = 128 * kWarpgroups;
 constexpr int kStages = 2;
-constexpr int kMinBlocks = 2;   // two CTAs an SM: at most 128 registers
-
-constexpr size_t smem_bf16(int dp) {
-  return 2 * (static_cast<size_t>(kBQ) * dp + 2 * kStages * kBK * dp) + 1024;
+// Two CTAs an SM (at most 128 registers a thread) where their shared
+// memory fits, else one.
+constexpr int min_blocks(int dp) { return dp > 128 ? 1 : 2; }
+// The columns of O (and of V) one CTA owns: all of them up to 128, one
+// 128-column half past that.
+__host__ __device__ constexpr int out_cols(int dp) {
+  return dp > 128 ? 128 : dp;
 }
 
-// Accumulator fragments as hopper_mma.cuh lays them out.
+constexpr size_t smem_bf16(int dp) {
+  return 2 * (static_cast<size_t>(kBQ) * dp
+              + kStages * kBK * (static_cast<size_t>(dp) + out_cols(dp)))
+         + 1024;
+}
+
+// Accumulator fragments as hopper_mma.cuh lays them out.  DP: the padded
+// width of Q and K; DV = out_cols(DP): the CTA's columns of V and O.
 template <int DP>
-__global__ void __launch_bounds__(kThreadsBF, kMinBlocks)
+__global__ void __launch_bounds__(kThreadsBF, min_blocks(DP))
 flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
                             const __nv_bfloat16* __restrict__ v,
@@ -256,15 +278,22 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const uint32_t s_q =
       (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023)
       & ~1023u;
+  constexpr int DV = out_cols(DP);
+  constexpr int kHalves = DP / DV;
   const uint32_t s_k = s_q + kBQ * DP * 2;             // kStages × BK × DP
-  const uint32_t s_v = s_k + kStages * kBK * DP * 2;   // kStages × BK × DP
+  const uint32_t s_v = s_k + kStages * kBK * DP * 2;   // kStages × BK × DV
   constexpr uint32_t kStageBytes = kBK * DP * 2;
+  constexpr uint32_t kStageBytesV = kBK * DV * 2;
 
-  // longest causal rows first: the q tile varies slowest, last first
+  // longest causal rows first: the q tile varies slowest, last first;
+  // the column halves of one (q tile, batch, head) are neighbours
   const int heads = n_heads * batch;
-  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / heads;
-  const int h = static_cast<int>(blockIdx.x) % heads % n_heads;
-  const int b = static_cast<int>(blockIdx.x) % heads / n_heads;
+  const int cta = static_cast<int>(blockIdx.x) / kHalves;
+  const int half = static_cast<int>(blockIdx.x) % kHalves;
+  const int col0 = half * DV;                  // the CTA's first column of O
+  const int qt = n_qt - 1 - cta / heads;
+  const int h = cta % heads % n_heads;
+  const int b = cta % heads / n_heads;
   const int kvh = h / (n_heads / n_kv);
   const int q_lo = qt * kBQ;
   const int q_hi = min(q_lo + kBQ, sq) - 1;
@@ -273,7 +302,8 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* kb = k + static_cast<int64_t>(b) * sk * kv_stride
                             + kvh * d_head;
   const __nv_bfloat16* vb = v + static_cast<int64_t>(b) * sk * kv_stride
-                            + kvh * d_head;
+                            + kvh * d_head + col0;
+  const int v_cols = d_head - col0;   // V's columns in the CTA's half
 
   // the CTA's key tiles, as the TPU kernel's pl.when: keys up to its
   // newest query, and tiles whose newest key is inside its oldest
@@ -289,8 +319,8 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     const int k0 = kt_begin * kBK;
     load_tile<DP, kBK, kThreadsBF>(s_k, kb + k0 * kv_stride, kv_stride,
                                    sk - k0, d_head, k);
-    load_tile<DP, kBK, kThreadsBF>(s_v, vb + k0 * kv_stride, kv_stride,
-                                   sk - k0, d_head, v);
+    load_tile<DV, kBK, kThreadsBF>(s_v, vb + k0 * kv_stride, kv_stride,
+                                   sk - k0, v_cols, v);
   }
   cp_async_commit();
 
@@ -301,13 +331,14 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int wq_hi = min(wq_lo + 63, sq - 1);  // < wq_lo: no rows
   const int row0 = wq_lo + 16 * warp + lane / 4;   // and row0 + 8
 
-  float o[DP / 2];
+  float o[DV / 2];
 #pragma unroll
-  for (int j = 0; j < DP / 2; ++j) o[j] = 0.f;
+  for (int j = 0; j < DV / 2; ++j) o[j] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const uint32_t stage = ((kt - kt_begin) & 1) * kStageBytes;
+    const uint32_t stage_v = ((kt - kt_begin) & 1) * kStageBytesV;
     cp_async_wait_all();
     fence_proxy_async();   // the copies' writes, seen by wgmma's reads
     __syncthreads();
@@ -316,8 +347,9 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       const uint32_t next = kStageBytes - stage;
       load_tile<DP, kBK, kThreadsBF>(s_k + next, kb + k1 * kv_stride,
                                      kv_stride, sk - k1, d_head, k);
-      load_tile<DP, kBK, kThreadsBF>(s_v + next, vb + k1 * kv_stride,
-                                     kv_stride, sk - k1, d_head, v);
+      load_tile<DV, kBK, kThreadsBF>(s_v + kStageBytesV - stage_v,
+                                     vb + k1 * kv_stride, kv_stride, sk - k1,
+                                     v_cols, v);
     }
     cp_async_commit();
 
@@ -397,13 +429,13 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     l0 = l0 * a0 + sum0;   // this thread's share; the quad sums at the end
     l1 = l1 * a1 + sum1;
 #pragma unroll
-    for (int j = 0; j < DP / 2; ++j) o[j] *= ((j >> 1) & 1) ? a1 : a0;
+    for (int j = 0; j < DV / 2; ++j) o[j] *= ((j >> 1) & 1) ? a1 : a0;
 
     fence_regs(o);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk)
-      wgmma_rs(o, pa + 4 * kk, mnmajor_desc(s_v + stage, kBK, kk));
+      wgmma_rs(o, pa + 4 * kk, mnmajor_desc(s_v + stage_v, kBK, kk));
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(o);
@@ -414,16 +446,16 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-  if (lse != nullptr && (lane & 3) == 0) {
+  if (lse != nullptr && half == 0 && (lane & 3) == 0) {
     const int64_t base = (static_cast<int64_t>(b) * n_heads + h) * sq;
     if (row0 < sq) lse[base + row0] = row_lse2(m0 * scale_log2, l0);
     if (row0 + 8 < sq) lse[base + row0 + 8] = row_lse2(m1 * scale_log2, l1);
   }
 #pragma unroll
-  for (int j = 0; j < DP / 2; j += 2) {
+  for (int j = 0; j < DV / 2; j += 2) {
     const int hi = (j >> 1) & 1;
     const int row = row0 + 8 * hi;
-    const int col = 8 * (j >> 2) + 2 * (lane & 3);
+    const int col = col0 + 8 * (j >> 2) + 2 * (lane & 3);
     if (row < sq && col < d_head) {
       const float dd = hi ? d1 : d0;
       *reinterpret_cast<__nv_bfloat162*>(
@@ -434,8 +466,8 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 int bf16_padded(int d_head) {
-  if (d_head <= 0 || d_head % 8 || d_head > 128) return 0;
-  return d_head <= 64 ? 64 : 128;
+  if (d_head <= 0 || d_head % 8 || d_head > 256) return 0;
+  return d_head <= 64 ? 64 : d_head <= 128 ? 128 : 256;
 }
 
 template <int DP>
@@ -450,7 +482,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_qt = (sq + kBQ - 1) / kBQ;
-  kernel<<<n_qt * n_heads * batch, kThreadsBF, smem, stream>>>(
+  kernel<<<n_qt * n_heads * batch * (DP / out_cols(DP)), kThreadsBF, smem,
+           stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
@@ -502,6 +535,9 @@ int flash_attention_launch(int dtype, const void* q, const void* k,
                                n_kv, d_head, causal, window, scale, s);
       case 128:
         return launch_bf16<128>(q, k, v, out, lse, batch, sq, sk, n_heads,
+                                n_kv, d_head, causal, window, scale, s);
+      case 256:
+        return launch_bf16<256>(q, k, v, out, lse, batch, sq, sk, n_heads,
                                 n_kv, d_head, causal, window, scale, s);
     }
   }

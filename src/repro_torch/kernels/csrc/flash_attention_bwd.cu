@@ -234,6 +234,16 @@ __device__ __forceinline__ void load_row_stats(float* lse_s, float* delta_s,
   }
 }
 
+// Past 128 columns the four f32 tiles of a step (K, V, Q, dO at 64 rows
+// of Dh + 4 floats) would need 266 KB at Dh 256.  So the f32 kernels
+// take Dh in NH column passes of DP columns each (NH = 2 at Dh 256): a
+// CTA owns one DP-column slice of its output (dK and dV, or dQ) and, for
+// each tile of its walk, loads the four tiles' other slice, forms the
+// partial S and dP, then loads its own slice and adds that slice's
+// partials: two partial sums added once, which is the same number in
+// both CTAs whichever slice each loads first.  The slice it loaded last
+// feeds its own output's products.  At NH = 1 the kernels load K and V
+// (dK / dV) or Q and dO (dQ) once, as tiles of the whole Dh.
 template <int DP>
 constexpr size_t smem_dkdv() {
   return sizeof(float) * (4 * kBT * (DP + kPad) + 2 * kBT * kLdS + 2 * kBT);
@@ -243,7 +253,30 @@ constexpr size_t smem_dq() {
   return sizeof(float) * (4 * kBT * (DP + kPad) + kBT * kLdS + 2 * kBT);
 }
 
+// s and dp of the thread's 4 × 4 block, one column pass: the first pass
+// sets them, a second adds its own partials (formed from zero) to them.
 template <int DP>
+__device__ __forceinline__ void pass_dots(const float* A, const float* B,
+                                          const float* C, const float* E,
+                                          int tr, int tc, int pass,
+                                          float (&s)[4][4],
+                                          float (&dp)[4][4]) {
+  if (pass == 0) {
+    tile_dots<DP>(A, B, C, E, tr, tc, s, dp);
+    return;
+  }
+  float s2[4][4], dp2[4][4];
+  tile_dots<DP>(A, B, C, E, tr, tc, s2, dp2);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      s[i][j] += s2[i][j];
+      dp[i][j] += dp2[i][j];
+    }
+}
+
+template <int DP, int NH>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
@@ -267,19 +300,24 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
   float* lse_s = dss + kBT * kLdS;
   float* delta_s = lse_s + kBT;
 
-  // key tile 0 has the most query tiles under a causal mask: it runs first
+  // key tile 0 has the most query tiles under a causal mask: it runs
+  // first; the column slices of one key tile are neighbours
   const int heads = n_kv * batch;
-  const int kt = static_cast<int>(blockIdx.x) / heads;
-  const int kvh = static_cast<int>(blockIdx.x) % heads % n_kv;
-  const int b = static_cast<int>(blockIdx.x) % heads / n_kv;
+  const int cta = static_cast<int>(blockIdx.x) / NH;
+  const int own = static_cast<int>(blockIdx.x) % NH;   // the output slice
+  const int kt = cta / heads;
+  const int kvh = cta % heads % n_kv;
+  const int b = cta % heads / n_kv;
   const int k0 = kt * kBT;
   const int group = n_heads / n_kv;
   const int64_t kv_stride = static_cast<int64_t>(n_kv) * d_head;
   const int64_t q_stride = static_cast<int64_t>(n_heads) * d_head;
   const int64_t kv_off = (static_cast<int64_t>(b) * sk + k0) * kv_stride
                          + static_cast<int64_t>(kvh) * d_head;
-  load_rows<DP>(ks, k + kv_off, kv_stride, sk - k0, d_head);
-  load_rows<DP>(vs, v + kv_off, kv_stride, sk - k0, d_head);
+  if (NH == 1) {
+    load_rows<DP>(ks, k + kv_off, kv_stride, sk - k0, d_head);
+    load_rows<DP>(vs, v + kv_off, kv_stride, sk - k0, d_head);
+  }
 
   // the query tiles that see a key of this tile
   const int k_last = min(k0 + kBT, sk) - 1;
@@ -300,16 +338,26 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
     const int64_t stat_base = (static_cast<int64_t>(b) * n_heads + h) * sq;
     for (int qt = qt_begin; qt < qt_end; ++qt) {
       const int q0 = qt * kBT;
-      __syncthreads();   // the previous tile's readers are done
       const int64_t q_off = (static_cast<int64_t>(b) * sq + q0) * q_stride
                             + static_cast<int64_t>(h) * d_head;
-      load_rows<DP>(qs, q + q_off, q_stride, sq - q0, d_head);
-      load_rows<DP>(gs, dout + q_off, q_stride, sq - q0, d_head);
-      load_row_stats(lse_s, delta_s, lse, delta, stat_base, q0, sq);
-      __syncthreads();
-
       float s[4][4], dp[4][4];
-      tile_dots<DP>(qs, ks, gs, vs, tr, tc, s, dp);
+#pragma unroll
+      for (int pass = 0; pass < NH; ++pass) {
+        // the other slice first, the CTA's own last
+        const int c = (NH - 1 - pass + own) % NH * DP;
+        const int cols = d_head - c;
+        __syncthreads();   // the previous readers are done
+        if (NH > 1) {
+          load_rows<DP>(ks, k + kv_off + c, kv_stride, sk - k0, cols);
+          load_rows<DP>(vs, v + kv_off + c, kv_stride, sk - k0, cols);
+        }
+        load_rows<DP>(qs, q + q_off + c, q_stride, sq - q0, cols);
+        load_rows<DP>(gs, dout + q_off + c, q_stride, sq - q0, cols);
+        if (pass == 0)
+          load_row_stats(lse_s, delta_s, lse, delta, stat_base, q0, sq);
+        __syncthreads();
+        pass_dots<DP>(qs, ks, gs, vs, tr, tc, pass, s, dp);
+      }
       tile_probs(s, dp, lse_s, delta_s, q0, k0, tr, tc, sq, sk, causal,
                  window, scale_log2);
 #pragma unroll
@@ -361,7 +409,7 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
     for (int c = 0; c < kC; ++c)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int d = 64 * c + 4 * dg + e;
+        const int d = own * DP + 64 * c + 4 * dg + e;
         if (d < d_head) {
           dk[off + d] = dk_acc[i][4 * c + e] * scale;
           dv[off + d] = dv_acc[i][4 * c + e];
@@ -370,7 +418,7 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
   }
 }
 
-template <int DP>
+template <int DP, int NH>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_f32_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
@@ -393,19 +441,24 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
   float* lse_s = dst + kBT * kLdS;
   float* delta_s = lse_s + kBT;
 
-  // longest causal rows first: the q tile varies slowest, last first
+  // longest causal rows first: the q tile varies slowest, last first;
+  // the column slices of one q tile are neighbours
   const int heads = n_heads * batch;
-  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / heads;
-  const int h = static_cast<int>(blockIdx.x) % heads % n_heads;
-  const int b = static_cast<int>(blockIdx.x) % heads / n_heads;
+  const int cta = static_cast<int>(blockIdx.x) / NH;
+  const int own = static_cast<int>(blockIdx.x) % NH;   // the output slice
+  const int qt = n_qt - 1 - cta / heads;
+  const int h = cta % heads % n_heads;
+  const int b = cta % heads / n_heads;
   const int kvh = h / (n_heads / n_kv);
   const int q0 = qt * kBT;
   const int64_t kv_stride = static_cast<int64_t>(n_kv) * d_head;
   const int64_t q_stride = static_cast<int64_t>(n_heads) * d_head;
   const int64_t q_off = (static_cast<int64_t>(b) * sq + q0) * q_stride
                         + static_cast<int64_t>(h) * d_head;
-  load_rows<DP>(qs, q + q_off, q_stride, sq - q0, d_head);
-  load_rows<DP>(gs, dout + q_off, q_stride, sq - q0, d_head);
+  if (NH == 1) {
+    load_rows<DP>(qs, q + q_off, q_stride, sq - q0, d_head);
+    load_rows<DP>(gs, dout + q_off, q_stride, sq - q0, d_head);
+  }
   load_row_stats(lse_s, delta_s, lse, delta,
                  (static_cast<int64_t>(b) * n_heads + h) * sq, q0, sq);
 
@@ -425,15 +478,24 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * kBT;
-    __syncthreads();     // the previous tile's readers are done
     const int64_t kv_off = (static_cast<int64_t>(b) * sk + k0) * kv_stride
                            + static_cast<int64_t>(kvh) * d_head;
-    load_rows<DP>(ks, k + kv_off, kv_stride, sk - k0, d_head);
-    load_rows<DP>(vs, v + kv_off, kv_stride, sk - k0, d_head);
-    __syncthreads();
-
     float s[4][4], dp[4][4];
-    tile_dots<DP>(qs, ks, gs, vs, tr, tc, s, dp);
+#pragma unroll
+    for (int pass = 0; pass < NH; ++pass) {
+      // the other slice first, the CTA's own last
+      const int c = (NH - 1 - pass + own) % NH * DP;
+      const int cols = d_head - c;
+      __syncthreads();   // the previous readers are done
+      if (NH > 1) {
+        load_rows<DP>(qs, q + q_off + c, q_stride, sq - q0, cols);
+        load_rows<DP>(gs, dout + q_off + c, q_stride, sq - q0, cols);
+      }
+      load_rows<DP>(ks, k + kv_off + c, kv_stride, sk - k0, cols);
+      load_rows<DP>(vs, v + kv_off + c, kv_stride, sk - k0, cols);
+      __syncthreads();
+      pass_dots<DP>(qs, ks, gs, vs, tr, tc, pass, s, dp);
+    }
     tile_probs(s, dp, lse_s, delta_s, q0, k0, tr, tc, sq, sk, causal, window,
                scale_log2);
 #pragma unroll
@@ -474,7 +536,7 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
     for (int c = 0; c < kC; ++c)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int d = 64 * c + 4 * dg + e;
+        const int d = own * DP + 64 * c + 4 * dg + e;
         if (d < d_head)
           dq[off + d] = dq_acc[i][4 * c + e] * scale;
       }
@@ -488,26 +550,47 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
 constexpr int kWarpgroups = 2;
 constexpr int kThreadsMMA = 128 * kWarpgroups;
 constexpr int kTile = 64;                    // rows of a warpgroup's tile
-constexpr int kRows = kTile * kWarpgroups;   // keys (dK/dV), queries (dQ)
-// dK / dV waits for a step's products at its end: two ring stages.  dQ
-// leaves a step's dQ products running under the next step's S and dP,
-// so a stage is read while the next computes and the one after loads:
-// three.
 constexpr int kStagesKV = 2;
-constexpr int kStagesQ = 3;
+
+// How a CTA of the bf16 kernels splits its work between its two
+// warpgroups, by the padded Dh:
+// - up to 128 columns, by rows: each warpgroup owns 64 keys (dK / dV) or
+//   64 queries (dQ) and every column of their gradients, so a CTA owns
+//   128 rows.  dK / dV waits for a step's products at its end: two ring
+//   stages.  dQ keeps Q and dO in registers and leaves a step's dQ
+//   products running under the next step's S and dP, so a stage is read
+//   while the next computes and the one after loads: three.
+// - past 128 (Dh 256), by columns ("split"): both warpgroups share the
+//   CTA's 64 rows, each forms the same S and dP over the full width and
+//   owns one 128-column half of dK and dV (or of dQ), so the
+//   accumulators stay at 64 + 64 (or 64) f32 registers a thread, as at
+//   Dh 128; S and dP are formed twice (1.5x the products of one warp-
+//   group doing all of it).  The dQ kernel reads Q and dO from shared
+//   memory (as register fragments they would be 128 registers a thread
+//   at Dh 256) and waits for a step's dQ products at its end: two ring
+//   stages.
+template <int DP>
+struct Geom {
+  static constexpr bool kSplit = DP > 128;
+  static constexpr int kRows = kSplit ? kTile : kTile * kWarpgroups;
+  static constexpr int kCols = kSplit ? DP / 2 : DP;   // a warpgroup's
+  static constexpr int kStagesQ = kSplit ? 2 : 3;
+};
 
 // dK / dV: K and V (kRows × DP each), a ring of Q and dO tiles (64 × DP)
 // with each stage's lse2 and D (2 × 64 f32); dQ: a ring of K and V tiles
-// (Q and dO sit in registers).  Plus 1024 bytes of alignment slack.
+// (Q and dO sit in registers, or in split mode in shared memory, 64 × DP
+// each).  Plus 1024 bytes of alignment slack.
 template <int DP>
 constexpr size_t smem_dkdv_mma() {
-  return 2 * (2 * static_cast<size_t>(kRows) * DP
+  return 2 * (2 * static_cast<size_t>(Geom<DP>::kRows) * DP
               + 2 * kStagesKV * kTile * DP)
          + kStagesKV * 2 * kTile * sizeof(float) + 1024;
 }
 template <int DP>
 constexpr size_t smem_dq_mma() {
-  return 2 * (2 * static_cast<size_t>(kStagesQ) * kTile * DP) + 1024;
+  return 2 * (2 * static_cast<size_t>(Geom<DP>::kStagesQ) * kTile * DP
+              + (Geom<DP>::kSplit ? 2 * kTile * DP : 0)) + 1024;
 }
 
 // Warpgroup turns on two named barriers (ids 1 and 2; 0 is
@@ -550,6 +633,9 @@ flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
                       int sk, int n_heads, int n_kv, int d_head, int causal,
                       int window, float scale, float scale_log2) {
   extern __shared__ uint8_t smem_raw[];
+  constexpr bool kSplit = Geom<DP>::kSplit;
+  constexpr int kRows = Geom<DP>::kRows;
+  constexpr int kCols = Geom<DP>::kCols;
   const uint32_t raw =
       static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
   constexpr uint32_t kStageBytes = kTile * DP * 2;
@@ -615,14 +701,16 @@ flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
   const int wg = threadIdx.x / 128;
   const int warp = (threadIdx.x % 128) / 32;
   const int lane = threadIdx.x % 32;
-  const int kw_lo = k0 + kTile * wg;            // this warpgroup's keys
+  const int wr = kSplit ? 0 : wg;               // the warpgroup's row tile
+  const int col_blk = kSplit ? wg * kCols / 64 : 0;   // its first 64 columns
+  const int kw_lo = k0 + kTile * wr;            // this warpgroup's keys
   const int kw_hi = min(kw_lo + kTile - 1, sk - 1);   // < kw_lo: none
   const int key0 = kw_lo + 16 * warp + lane / 4;      // and key0 + 8
   const int c0 = 2 * (lane & 3);   // a thread's accumulator columns: c0 + 8t
 
-  float dv_acc[DP / 2], dk_acc[DP / 2];
+  float dv_acc[kCols / 2], dk_acc[kCols / 2];
 #pragma unroll
-  for (int j = 0; j < DP / 2; ++j) dv_acc[j] = dk_acc[j] = 0.f;
+  for (int j = 0; j < kCols / 2; ++j) dv_acc[j] = dk_acc[j] = 0.f;
 
   if (wg == 1) turn_pass(wg);
   for (int it = 0; it < n_steps; ++it) {
@@ -653,12 +741,12 @@ flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk)
-      wgmma_ss_n64(s, kmajor_desc(s_k + wg * kTile * 128, kRows, kk),
+      wgmma_ss_n64(s, kmajor_desc(s_k + wr * kTile * 128, kRows, kk),
                    kmajor_desc(tq, kTile, kk), kk > 0);
     wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk)
-      wgmma_ss_n64(dp, kmajor_desc(s_v + wg * kTile * 128, kRows, kk),
+      wgmma_ss_n64(dp, kmajor_desc(s_v + wr * kTile * 128, kRows, kk),
                    kmajor_desc(tg, kTile, kk), kk > 0);
     wgmma_commit();
     turn_pass(wg);
@@ -696,7 +784,8 @@ flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk)
-      wgmma_rs(dv_acc, pa + 4 * kk, mnmajor_desc(tg, kTile, kk));
+      wgmma_rs(dv_acc, pa + 4 * kk,
+               mnmajor_desc(tg + col_blk * kTile * 128, kTile, kk));
     wgmma_commit();
 
     wgmma_wait<1>();   // dP done, dV runs on
@@ -715,7 +804,8 @@ flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk)
-      wgmma_rs(dk_acc, dsa + 4 * kk, mnmajor_desc(tq, kTile, kk));
+      wgmma_rs(dk_acc, dsa + 4 * kk,
+               mnmajor_desc(tq + col_blk * kTile * 128, kTile, kk));
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(pa);   // read by the register-A products until here
@@ -726,9 +816,9 @@ flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
   if (wg == 0) turn_wait(wg);
 
 #pragma unroll
-  for (int j = 0; j < DP / 2; j += 2) {
+  for (int j = 0; j < kCols / 2; j += 2) {
     const int key = key0 + 8 * ((j >> 1) & 1);
-    const int col = 8 * (j >> 2) + c0;
+    const int col = col_blk * 64 + 8 * (j >> 2) + c0;
     if (key < sk && col < d_head) {
       const int64_t off = (static_cast<int64_t>(b) * sk + key) * kv_stride
                           + static_cast<int64_t>(kvh) * d_head + col;
@@ -752,11 +842,17 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                     int sk, int n_heads, int n_kv, int d_head, int causal,
                     int window, float scale, float scale_log2, int n_qb) {
   extern __shared__ uint8_t smem_raw[];
+  constexpr bool kSplit = Geom<DP>::kSplit;
+  constexpr int kRows = Geom<DP>::kRows;
+  constexpr int kCols = Geom<DP>::kCols;
+  constexpr int kStagesQ = Geom<DP>::kStagesQ;
   constexpr uint32_t kStageBytes = kTile * DP * 2;
   const uint32_t s_k =
       (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023)
       & ~1023u;                                        // kStagesQ × 64 × DP
   const uint32_t s_v = s_k + kStagesQ * kStageBytes;   // the same
+  const uint32_t s_q = s_v + kStagesQ * kStageBytes;   // split: 64 × DP
+  const uint32_t s_g = s_q + kStageBytes;              // split: dO, the same
 
   // longest causal rows first: the query block varies slowest, last first
   const int heads = n_heads * batch;
@@ -786,13 +882,23 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                                       kv_stride, sk - k1, d_head, v);
   };
 
+  if constexpr (kSplit) {   // Q and dO once, with the first K / V tile
+    const int64_t q_off = (static_cast<int64_t>(b) * sq + q_lo) * q_stride
+                          + static_cast<int64_t>(h) * d_head;
+    load_tile<DP, kTile, kThreadsMMA>(s_q, q + q_off, q_stride, sq - q_lo,
+                                      d_head, q);
+    load_tile<DP, kTile, kThreadsMMA>(s_g, dout + q_off, q_stride,
+                                      sq - q_lo, d_head, dout);
+  }
   if (kt_begin < kt_end) load_kv(kt_begin);
   cp_async_commit();
 
   const int wg = threadIdx.x / 128;
   const int warp = (threadIdx.x % 128) / 32;
   const int lane = threadIdx.x % 32;
-  const int wq_lo = q_lo + kTile * wg;          // this warpgroup's rows
+  const int wr = kSplit ? 0 : wg;               // the warpgroup's row tile
+  const int col_blk = kSplit ? wg * kCols / 64 : 0;   // its first 64 columns
+  const int wq_lo = q_lo + kTile * wr;          // this warpgroup's rows
   const int wq_hi = min(wq_lo + kTile - 1, sq - 1);   // < wq_lo: none
   const int row0 = wq_lo + 16 * warp + lane / 4;      // and row0 + 8
   const int c0 = 2 * (lane & 3);
@@ -811,9 +917,11 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
   // whole walk (a quad of lanes reads 16 contiguous bytes): k-step kk,
   // word i is row row0 + 8·(i % 2), columns 16kk + 8·(i / 2) + c0, +1;
   // zero past Sq and Dh
-  uint32_t qa[DP / 4], ga[DP / 4];
+  // (split mode: Q and dO stay in shared memory)
+  constexpr int kFrag = kSplit ? 4 : DP / 4;
+  uint32_t qa[kFrag], ga[kFrag];
 #pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk)
+  for (int kk = 0; kk < (kSplit ? 0 : DP / 16); ++kk)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = row0 + 8 * (i & 1);
@@ -826,9 +934,9 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
           ok ? *reinterpret_cast<const uint32_t*>(dout + off) : 0u;
     }
 
-  float dq_acc[DP / 2];
+  float dq_acc[kCols / 2];
 #pragma unroll
-  for (int j = 0; j < DP / 2; ++j) dq_acc[j] = 0.f;
+  for (int j = 0; j < kCols / 2; ++j) dq_acc[j] = 0.f;
   // dS in bf16 as the A fragments of the four k-steps over a tile's keys:
   // accumulator register j = 4t + 2hh + e is row row0 + 8hh, key
   // k0 + 8t + c0 + e, and goes to fragment word j / 2
@@ -864,16 +972,29 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
     fence_regs(dp);
     turn_wait(wg);
     wgmma_fence();
+    if constexpr (kSplit) {
 #pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk)
-      wgmma_rs_kmajor(s, qa + 4 * kk, kmajor_desc(s_k + stage, kTile, kk),
-                      kk > 0);
-    wgmma_commit();
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_ss_n64(s, kmajor_desc(s_q, kTile, kk),
+                     kmajor_desc(s_k + stage, kTile, kk), kk > 0);
+      wgmma_commit();
 #pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk)
-      wgmma_rs_kmajor(dp, ga + 4 * kk, kmajor_desc(s_v + stage, kTile, kk),
-                      kk > 0);
-    wgmma_commit();
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_ss_n64(dp, kmajor_desc(s_g, kTile, kk),
+                     kmajor_desc(s_v + stage, kTile, kk), kk > 0);
+      wgmma_commit();
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_rs_kmajor(s, qa + 4 * kk, kmajor_desc(s_k + stage, kTile, kk),
+                        kk > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_rs_kmajor(dp, ga + 4 * kk,
+                        kmajor_desc(s_v + stage, kTile, kk), kk > 0);
+      wgmma_commit();
+    }
     turn_pass(wg);
     wgmma_wait<1>();   // the last tile's dQ products and S done
     fence_regs(s);
@@ -907,18 +1028,26 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk)
-      wgmma_rs(dq_acc, dsa + 4 * kk, mnmajor_desc(s_k + stage, kTile, kk));
+      wgmma_rs(dq_acc, dsa + 4 * kk,
+               mnmajor_desc(s_k + stage + col_blk * kTile * 128, kTile, kk));
     wgmma_commit();   // not waited: runs under the next tile's S and dP
+    if constexpr (kSplit) {
+      // two stages: the next step's load refills this one
+      wgmma_wait_all();
+      fence_regs(dsa);
+      fence_regs(dq_acc);
+    }
   }
+  cp_async_wait_all();   // split: Q and dO are in flight with no key tile
   wgmma_wait_all();
   fence_regs(dsa);
   fence_regs(dq_acc);
   if (wg == 0) turn_wait(wg);
 
 #pragma unroll
-  for (int j = 0; j < DP / 2; j += 2) {
+  for (int j = 0; j < kCols / 2; j += 2) {
     const int row = row0 + 8 * ((j >> 1) & 1);
-    const int col = 8 * (j >> 2) + c0;
+    const int col = col_blk * 64 + 8 * (j >> 2) + c0;
     if (row < sq && col < d_head) {
       *reinterpret_cast<__nv_bfloat162*>(
           dq + (static_cast<int64_t>(b) * sq + row) * q_stride
@@ -945,7 +1074,7 @@ cudaError_t launch_delta(const void* o, const void* dout, float* delta,
   return cudaGetLastError();
 }
 
-template <int DP>
+template <int DP, int NH>
 int launch_f32(const float* q, const float* k, const float* v,
                const float* o, const float* lse, const float* dout,
                float* dq, float* dk, float* dv, float* delta, int batch,
@@ -955,23 +1084,23 @@ int launch_f32(const float* q, const float* k, const float* v,
                                         d_head, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   const float scale_log2 = scale * kLog2e;
-  auto dkdv = flash_bwd_dkdv_f32_kernel<DP>;
+  auto dkdv = flash_bwd_dkdv_f32_kernel<DP, NH>;
   err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem_dkdv<DP>()));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_kt = (sk + kBT - 1) / kBT;
-  dkdv<<<n_kt * n_kv * batch, kThreads, smem_dkdv<DP>(), stream>>>(
+  dkdv<<<n_kt * n_kv * batch * NH, kThreads, smem_dkdv<DP>(), stream>>>(
       q, k, v, dout, lse, delta, dk, dv, batch, sq, sk, n_heads, n_kv,
       d_head, causal, window, scale, scale_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  auto dqk = flash_bwd_dq_f32_kernel<DP>;
+  auto dqk = flash_bwd_dq_f32_kernel<DP, NH>;
   err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem_dq<DP>()));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_qt = (sq + kBT - 1) / kBT;
-  dqk<<<n_qt * n_heads * batch, kThreads, smem_dq<DP>(), stream>>>(
+  dqk<<<n_qt * n_heads * batch * NH, kThreads, smem_dq<DP>(), stream>>>(
       q, k, v, dout, lse, delta, dq, batch, sq, sk, n_heads, n_kv, d_head,
       causal, window, scale, scale_log2, n_qt);
   return static_cast<int>(cudaGetLastError());
@@ -993,7 +1122,7 @@ int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
   err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem_dkdv_mma<DP>()));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_kb = (sk + kRows - 1) / kRows;
+  const int n_kb = (sk + Geom<DP>::kRows - 1) / Geom<DP>::kRows;
   dkdv<<<n_kb * n_kv * batch, kThreadsMMA, smem_dkdv_mma<DP>(), stream>>>(
       q, k, v, dout, lse, delta, dk, dv, batch, sq, sk, n_heads, n_kv,
       d_head, causal, window, scale, scale_log2);
@@ -1004,17 +1133,17 @@ int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
   err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem_dq_mma<DP>()));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_qb = (sq + kRows - 1) / kRows;
+  const int n_qb = (sq + Geom<DP>::kRows - 1) / Geom<DP>::kRows;
   dqk<<<n_qb * n_heads * batch, kThreadsMMA, smem_dq_mma<DP>(), stream>>>(
       q, k, v, dout, lse, delta, dq, batch, sq, sk, n_heads, n_kv, d_head,
       causal, window, scale, scale_log2, n_qb);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The bf16 kernels' padded Dh (0: not taken): a multiple of 8 up to 128.
+// The bf16 kernels' padded Dh (0: not taken): a multiple of 8 up to 256.
 int bf16_padded(int d_head) {
-  if (d_head <= 0 || d_head % 8 || d_head > 128) return 0;
-  return d_head <= 64 ? 64 : 128;
+  if (d_head <= 0 || d_head % 8 || d_head > 256) return 0;
+  return d_head <= 64 ? 64 : d_head <= 128 ? 128 : 256;
 }
 
 }  // namespace
@@ -1025,19 +1154,22 @@ extern "C" {
 // dtype 0 = float32, 1 = bfloat16 (0: the backward does not take this Dh).
 size_t flash_attention_bwd_smem_bytes(int dtype, int d_head) {
   if (dtype == 1) {
-    const int dp = bf16_padded(d_head);
-    return dp == 64 ? smem_dkdv_mma<64>() : dp == 128 ? smem_dkdv_mma<128>()
-                                                      : 0;
+    switch (bf16_padded(d_head)) {
+      case 64: return smem_dkdv_mma<64>();
+      case 128: return smem_dkdv_mma<128>();
+      case 256: return smem_dkdv_mma<256>();
+    }
+    return 0;
   }
-  if (dtype != 0 || d_head <= 0 || d_head > 128) return 0;
+  if (dtype != 0 || d_head <= 0 || d_head > 256) return 0;
   return d_head <= 64 ? smem_dkdv<64>() : smem_dkdv<128>();
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  q (B, Sq, H, Dh); k, v (B, Sk, KV,
 // Dh); o, dout, dq like q; dk, dv like k; lse (B, H, Sq) f32 from the
 // forward; delta: (B, H, Sq) f32 scratch.  All contiguous, on one
-// device.  float32: Dh up to 128; bfloat16: Dh a multiple of 8 up to
-// 128, 16-byte aligned tensors.  Three launches on `stream`; returns a
+// device.  float32: Dh up to 256 (past 128 in two column passes);
+// bfloat16: Dh a multiple of 8 up to 256, 16-byte aligned tensors.  Three launches on `stream`; returns a
 // cudaError_t (0 = success).
 int flash_attention_bwd_launch(int dtype, const void* q, const void* k,
                                const void* v, const void* o, const float* lse,
@@ -1058,12 +1190,16 @@ int flash_attention_bwd_launch(int dtype, const void* q, const void* k,
     float* dkf = static_cast<float*>(dk);
     float* dvf = static_cast<float*>(dv);
     if (d_head <= 64)
-      return launch_f32<64>(qf, kf, vf, of, lse, gf, dqf, dkf, dvf, delta,
-                            batch, sq, sk, n_heads, n_kv, d_head, causal,
-                            window, scale, s);
-    return launch_f32<128>(qf, kf, vf, of, lse, gf, dqf, dkf, dvf, delta,
-                           batch, sq, sk, n_heads, n_kv, d_head, causal,
-                           window, scale, s);
+      return launch_f32<64, 1>(qf, kf, vf, of, lse, gf, dqf, dkf, dvf, delta,
+                               batch, sq, sk, n_heads, n_kv, d_head, causal,
+                               window, scale, s);
+    if (d_head <= 128)
+      return launch_f32<128, 1>(qf, kf, vf, of, lse, gf, dqf, dkf, dvf,
+                                delta, batch, sq, sk, n_heads, n_kv, d_head,
+                                causal, window, scale, s);
+    return launch_f32<128, 2>(qf, kf, vf, of, lse, gf, dqf, dkf, dvf, delta,
+                              batch, sq, sk, n_heads, n_kv, d_head, causal,
+                              window, scale, s);
   }
   using bf = __nv_bfloat16;
   const bf* qb = static_cast<const bf*>(q);
@@ -1074,11 +1210,17 @@ int flash_attention_bwd_launch(int dtype, const void* q, const void* k,
   bf* dqb = static_cast<bf*>(dq);
   bf* dkb = static_cast<bf*>(dk);
   bf* dvb = static_cast<bf*>(dv);
-  if (bf16_padded(d_head) == 64)
-    return launch_bf16<64>(qb, kb, vb, ob, lse, gb, dqb, dkb, dvb, delta,
-                           batch, sq, sk, n_heads, n_kv, d_head, causal,
-                           window, scale, s);
-  return launch_bf16<128>(qb, kb, vb, ob, lse, gb, dqb, dkb, dvb, delta,
+  switch (bf16_padded(d_head)) {
+    case 64:
+      return launch_bf16<64>(qb, kb, vb, ob, lse, gb, dqb, dkb, dvb, delta,
+                             batch, sq, sk, n_heads, n_kv, d_head, causal,
+                             window, scale, s);
+    case 128:
+      return launch_bf16<128>(qb, kb, vb, ob, lse, gb, dqb, dkb, dvb, delta,
+                              batch, sq, sk, n_heads, n_kv, d_head, causal,
+                              window, scale, s);
+  }
+  return launch_bf16<256>(qb, kb, vb, ob, lse, gb, dqb, dkb, dvb, delta,
                           batch, sq, sk, n_heads, n_kv, d_head, causal,
                           window, scale, s);
 }

@@ -30,6 +30,7 @@ NEG_INF = -1e30
 LOG2E = 1.4426950408889634
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232448          # bytes of shared memory a Hopper block can use
+_MAX_DH = 256                 # the bf16 kernels' and the f32 backward's
 
 
 def _mask(sq, sk, causal, window, device):
@@ -150,18 +151,19 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = -1,
     q: (B, Sq, H, Dh); k, v: (B, Sk, KV, Dh); float32 or bfloat16, one
     dtype, contiguous, 16-byte aligned, on one CUDA device (anything
     else raises); H % KV == 0.  bfloat16 runs on the tensor cores and
-    takes Dh a multiple of 8 up to 128 (zero-padded inside the kernel);
-    float32 runs on CUDA cores and takes any Dh whose tiles fit in
-    shared memory.  window: Python int.  Returns (B, Sq, H, Dh) in q's
+    takes Dh a multiple of 8 up to 256 (zero-padded inside the kernel to
+    64, 128 or 256 columns; past 128 each CTA owns a 128-column half of
+    the output); float32 runs on CUDA cores and takes any Dh whose tiles
+    fit in shared memory.  window: Python int.  Returns (B, Sq, H, Dh) in q's
     dtype, and with ``return_lse`` also the rows' log-sum-exp (B, H, Sq)
     f32 that the backward needs (otherwise the kernel skips it).
     """
     _check(q, k, v, "flash_attention")
     b, sq, h, dh = q.shape
     _, sk, kv, _ = k.shape
-    if q.dtype == torch.bfloat16 and (dh % 8 or dh > 128):
+    if q.dtype == torch.bfloat16 and (dh % 8 or dh > _MAX_DH):
         raise ValueError(f"the bf16 kernel takes Dh a multiple of 8 up to "
-                         f"128, got {dh}")
+                         f"{_MAX_DH}, got {dh}")
     lib = _bind()
     smem = lib.flash_attention_smem_bytes(_DTYPES[q.dtype], dh)
     if smem > _SMEM_LIMIT:
@@ -207,9 +209,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     from :func:`flash_attention` with ``return_lse``.  float32 or
     bfloat16, contiguous, on one CUDA device; q, k, v and do 16-byte
     aligned.  bfloat16 runs on the tensor cores and takes Dh a multiple
-    of 8 up to 128 (zero-padded inside the kernels), as the forward does;
-    float32 runs on CUDA cores and takes any Dh up to 128.  Returns (dq,
-    dk, dv) in the inputs' dtype.
+    of 8 up to 256 (zero-padded inside the kernels; past 128 the two
+    warpgroups of a CTA each own a 128-column half of the gradients), as
+    the forward does; float32 runs on CUDA cores and takes any Dh up to
+    256 (past 128 in two column passes).  Returns (dq, dk, dv) in the
+    inputs' dtype.
     """
     _check(q, k, v, "flash_attention_bwd")
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
@@ -225,11 +229,12 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                for t in (o, do, lse)) or do.data_ptr() % 16:
         raise ValueError("o, lse and do must be contiguous on q's device, "
                          "do 16-byte aligned")
-    if q.dtype == torch.bfloat16 and (dh % 8 or dh > 128):
+    if q.dtype == torch.bfloat16 and (dh % 8 or dh > _MAX_DH):
         raise ValueError(f"the bf16 backward kernel takes Dh a multiple of "
-                         f"8 up to 128, got {dh}")
-    if dh > 128:
-        raise ValueError(f"the backward kernel takes Dh up to 128, got {dh}")
+                         f"8 up to {_MAX_DH}, got {dh}")
+    if dh > _MAX_DH:
+        raise ValueError(f"the backward kernel takes Dh up to {_MAX_DH}, "
+                         f"got {dh}")
     lib = _bind_bwd()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)

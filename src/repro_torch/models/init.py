@@ -18,7 +18,10 @@ leaf: :func:`tp_axes` is the port's copy of the JAX init's
 ``PartitionSpec`` table (which dim of each stage-stacked leaf the
 ``"tensor"`` axis cuts), :func:`tp_shard` cuts a whole tree to rank t's
 shard, and :func:`init_rank_params` draws a rank's shard layer by
-layer.
+layer.  The embedding and the head are cut too, as the JAX init cuts
+them (``P(None, "tensor")`` both: the embedding (Vpad, d) on d_model,
+the head (d, Vpad) on the vocabulary, ``core/versioning.py::
+table_cut``); the final norm is every rank's.
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.versioning import rank_rows, rank_state
+from repro_torch.core.versioning import rank_rows, rank_state, table_cut
 from repro_torch.models import spec as spec_lib
 from repro_torch.models.nn import (AttnStatic, MambaStatic, MoEStatic,
                                    RWKVStatic)
@@ -107,6 +110,14 @@ _TP_DIMS = {
 }
 
 
+def check_table_cut(spec: spec_lib.ModelSpec, tp: int) -> None:
+    """Raise unless d_model and the padded vocabulary divide by ``tp``."""
+    vpad = padded_vocab(spec.vocab)
+    if spec.d_model % tp or vpad % tp:
+        raise ValueError(f"{spec.name}: d_model {spec.d_model} and the "
+                         f"padded vocabulary {vpad} must divide by tp={tp}")
+
+
 def tp_dim(block: str, leaf: str, spec: spec_lib.ModelSpec, tp: int) -> int:
     """The dim of a stage-stacked ``block`` / ``leaf`` weight that the
     tensor axis cuts at ``tp`` ranks; -1 for a leaf held whole.  A
@@ -164,7 +175,23 @@ def tp_shard(tree, spec: spec_lib.ModelSpec, plan, t: int) -> Dict:
     out = dict(tree)
     out["stages"] = tree_map(lambda a, ax: _copy_cut(a, ax, t, plan.tp),
                              tree["stages"], axes)
+    for key in ("embed", "head"):
+        if key in tree:
+            check_table_cut(spec, plan.tp)
+            out[key] = _table_copy(tree[key], t, plan.tp)
     return out
+
+
+def _table_copy(a, t: int, tp: int):
+    """Tensor rank ``t``'s columns of a table (``core/versioning.py::
+    table_cut``) as a tensor (or array) of its own, so the whole table
+    can be freed; ``a`` at tp 1."""
+    if tp == 1:
+        return a
+    part = table_cut(a, (None, t, tp))
+    if torch.is_tensor(part):
+        return part.clone(memory_format=torch.contiguous_format)
+    return np.ascontiguousarray(part)
 
 
 def _dense(gen: torch.Generator, shape, dtype, scale=0.02):
@@ -328,9 +355,11 @@ def init_rank_params(spec: spec_lib.ModelSpec, plan, gen: torch.Generator,
 
     At ``plan.tp`` > 1 the rank keeps tensor shard ``t`` of every
     sharded leaf (:func:`tp_shard`): each layer is drawn at full width
-    for the rank's rows and cut before the next layer is drawn; the
-    embedding and the head stay on tensor rank 0.  Every rank keeps the
-    whole encoder (it runs before the pipeline, on every rank)."""
+    for the rank's rows and cut before the next layer is drawn; so are
+    the embedding (every rank of stage 0 its columns) and the head
+    (every rank of the last stage its vocabulary slice, beside the whole
+    final norm).  Every rank keeps the whole encoder (it runs before the
+    pipeline, on every rank)."""
     if stage is None:
         rows = list(range(sched.n_chunks))
     else:
@@ -341,8 +370,8 @@ def init_rank_params(spec: spec_lib.ModelSpec, plan, gen: torch.Generator,
         rows = [order[r] for r in rows]
     elif stage is None:
         rows = None                 # model order already: no copies
-    return _draw(spec, plan, gen, dtype, rows, stage in (None, 0) and t == 0,
-                 stage in (None, sched.n_stages - 1) and t == 0, t)
+    return _draw(spec, plan, gen, dtype, rows, stage in (None, 0),
+                 stage in (None, sched.n_stages - 1), t)
 
 
 def _draw(spec, plan, gen, dtype, rows, embed: bool, head: bool,
@@ -350,9 +379,9 @@ def _draw(spec, plan, gen, dtype, rows, embed: bool, head: bool,
     """The parameter draw: ``rows`` (model chunks, in the order to keep
     them) of every stage-stacked leaf, or all of them for None; the
     embedding with ``embed``, head and final norm with ``head``; tensor
-    shard ``t`` of each layer at ``plan.tp`` > 1; the whole encoder.  A
-    leaf not kept is drawn all the same: the generator's stream stays
-    the whole model's."""
+    shard ``t`` of each layer and of the two tables at ``plan.tp`` > 1;
+    the whole encoder.  A leaf not kept is drawn all the same: the
+    generator's stream stays the whole model's."""
     pp = plan.pp
     program = spec.stage_program(pp)
     dev = gen.device
@@ -369,13 +398,15 @@ def _draw(spec, plan, gen, dtype, rows, embed: bool, head: bool,
             return a.index_select(0, idx)
 
     params: Dict = {}
+    if plan.tp > 1:
+        check_table_cut(spec, plan.tp)
     e = _dense(gen, (vpad, d), dtype, 1.0)
     if embed:
-        params["embed"] = e
+        params["embed"] = _table_copy(e, t, plan.tp)
     del e
     w = _dense(gen, (d, vpad), dtype)
     if head:
-        params["head"] = w
+        params["head"] = _table_copy(w, t, plan.tp)
         params["final_norm"] = _norm_init((d,), spec.norm, dtype, dev)
     del w
     stages: Dict = {}

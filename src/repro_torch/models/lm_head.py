@@ -1,5 +1,15 @@
 """Embedding lookup, the loss head and the greedy head (port of
-``repro/models/lm_head.py``)."""
+``repro/models/lm_head.py``).
+
+At tp > 1 training shards both tables over the tensor group, as the JAX
+init does (``repro/models/init.py``: the embedding on d_model, the head
+on the vocabulary): tensor rank t of the first stage holds the columns
+``embed[:, t·d/tp : (t+1)·d/tp]`` and gathers its columns of the
+tokens' rows, joined by an all-gather (:func:`embed_tokens_sharded`);
+rank t of the last stage holds ``head[:, t·V/tp : (t+1)·V/tp]`` of the
+padded vocabulary and forms only its own logits (:func:`head_loss_
+sharded`).  The final norm is every rank's.  Serving keeps both tables
+whole.  At tp 1 the functions below without a group run as before."""
 from __future__ import annotations
 
 from typing import Optional
@@ -7,7 +17,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.versioning import table_columns
 from repro_torch.models import nn
+from repro_torch.parallel.dist import tp_all_gather, tp_enter, tp_exit
 from repro_torch.quant import is_quantized, maybe_dequant
 
 NEG_INF = -1e30
@@ -29,14 +41,52 @@ def embed_tokens(embed, tokens, dtype=None):
     return out if dtype is None else out.to(dtype)
 
 
-def _padded_vocab_mask(logits, vocab: Optional[int]):
-    """JAX's additive mask: 0 on the vocab, -1e30 on the padded ids."""
-    if vocab is None or vocab >= logits.shape[-1]:
+def embed_tokens_sharded(embed, tokens, group, dtype=None):
+    """This tensor rank's columns of the tokens' rows (``embed`` (Vpad,
+    d/tp), rank t's slice of d), joined over ``group`` in rank order:
+    (..., S, d), the same on every rank.  The all-gather is autograd's
+    (``tp_all_gather``): a cotangent of the joined rows gives back this
+    rank's columns."""
+    return tp_all_gather(embed_tokens(embed, tokens, dtype), group,
+                         tokens.dim())
+
+
+def embed_columns(d_embeds, group):
+    """This tensor rank's columns of d(embeds) (..., S, d): what its
+    slice of the table is scattered from (:func:`embed_bwd`).  All of
+    them without a group."""
+    if group is None:
+        return d_embeds
+    return d_embeds[..., table_columns(d_embeds.shape[-1], group.index,
+                                       group.size)]
+
+
+def _final_norm(h, scale, norm_kind: str, norm_bias):
+    """The final norm of the hidden states exiting the pipeline."""
+    if norm_kind == "rmsnorm":
+        return nn.rmsnorm(h, scale)
+    return nn.layernorm(h, scale, norm_bias)
+
+
+def _padded_vocab_mask(logits, vocab: Optional[int], v0: int = 0):
+    """JAX's additive mask: 0 on the vocab, -1e30 on the padded ids, for
+    logits of the ids ``v0``, ``v0`` + 1, ... (a vocabulary slice)."""
+    n = logits.shape[-1]
+    if vocab is None or vocab >= v0 + n:
         return logits
-    mask = torch.zeros(logits.shape[-1], dtype=torch.float32,
-                       device=logits.device)
-    mask[vocab:] = NEG_INF
+    mask = torch.zeros(n, dtype=torch.float32, device=logits.device)
+    mask[max(vocab - v0, 0):] = NEG_INF
     return logits + mask
+
+
+def _valid_mean(nll, labels, valid_mask, n_valid):
+    """(mean of ``nll`` over ``valid_mask``, the divisor): all ones when
+    the mask is None, ``n_valid`` in place of its count, at least 1."""
+    if valid_mask is None:
+        valid_mask = torch.ones(labels.shape, dtype=torch.float32,
+                                device=nll.device)
+    n = (valid_mask.sum() if n_valid is None else n_valid).clamp_min(1.0)
+    return (nll * valid_mask).sum() / n, n
 
 
 def head_loss(head, final_norm_scale, h, labels, *, norm_kind: str = "rmsnorm",
@@ -52,20 +102,50 @@ def head_loss(head, final_norm_scale, h, labels, *, norm_kind: str = "rmsnorm",
     microbatch's count, as JAX's head over the global microbatch does.
     Returns (mean_loss, n_tokens).
     """
-    if norm_kind == "rmsnorm":
-        h = nn.rmsnorm(h, final_norm_scale)
-    else:
-        h = nn.layernorm(h, final_norm_scale, norm_bias)
+    h = _final_norm(h, final_norm_scale, norm_kind, norm_bias)
     logits = _padded_vocab_mask((h @ maybe_dequant(head, h.dtype)).float(),
                                 vocab)
     lse = torch.logsumexp(logits, dim=-1)
     picked = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = lse - picked
-    if valid_mask is None:
-        valid_mask = torch.ones(labels.shape, dtype=torch.float32,
-                                device=h.device)
-    n = (valid_mask.sum() if n_valid is None else n_valid).clamp_min(1.0)
-    return (nll * valid_mask).sum() / n, n
+    return _valid_mean(lse - picked, labels, valid_mask, n_valid)
+
+
+def head_loss_sharded(head, final_norm_scale, h, labels, *, group,
+                      norm_kind: str = "rmsnorm", norm_bias=None,
+                      valid_mask=None, vocab: Optional[int] = None,
+                      n_valid=None):
+    """:func:`head_loss` over a head cut on the vocabulary: ``head`` is
+    this rank's (d, Vpad/tp) slice, ids [t·Vpad/tp, (t+1)·Vpad/tp) of
+    ``group``'s rank t; ``h`` and the final norm are every rank's.
+
+    Each rank forms its own logits in f32 (the padded ids that fall in
+    its slice masked to -1e30); the row's max over the group (a max
+    all-reduce, a constant under autograd) and the sum of its exps (a
+    sum over the group, ``tp_exit``) give the log-sum-exp, and the
+    label's logit comes from the rank that owns the label (the others
+    add 0).  The mean over the valid tokens is :func:`head_loss`'s.
+    Every rank returns the same loss.  Backward, through the same
+    collectives' transposes: each rank's logits get softmax minus
+    one-hot on its slice, its head slice its own gradient, and the
+    normalized hidden state, which enters the sharded product through
+    ``tp_enter``, the sum of the ranks' cotangents, so d(h) and d(final
+    norm) are whole and equal on every rank.  Returns (mean_loss,
+    n_tokens)."""
+    hn = tp_enter(_final_norm(h, final_norm_scale, norm_kind, norm_bias),
+                  group)
+    w = maybe_dequant(head, hn.dtype)                        # (d, V/tp)
+    n_local = w.shape[-1]
+    v0 = table_columns(n_local * group.size, group.index, group.size).start
+    logits = _padded_vocab_mask((hn @ w).float(), vocab, v0)
+    m = group.all_reduce_(logits.detach().amax(dim=-1), op="max")
+    sum_exp = tp_exit(torch.exp(logits - m[..., None]).sum(dim=-1), group)
+    lse = m + torch.log(sum_exp)
+    local = labels.long() - v0
+    inside = (local >= 0) & (local < n_local)
+    picked = torch.gather(logits, -1,
+                          local.clamp(0, n_local - 1)[..., None])[..., 0]
+    picked = tp_exit(torch.where(inside, picked, 0.0), group)
+    return _valid_mean(lse - picked, labels, valid_mask, n_valid)
 
 
 def head_loss_and_grad(head, final_norm_scale, h, labels, *,
@@ -82,20 +162,28 @@ def head_loss_and_grad(head, final_norm_scale, h, labels, *,
 
 def loss_and_grads(head, final_norm, h, labels, *, norm_kind: str,
                    valid_mask=None, vocab: Optional[int] = None,
-                   n_valid=None):
+                   n_valid=None, tensor=None):
     """:func:`head_loss_and_grad` over the whole final-norm tree (scale,
     and bias for a layernorm): (loss, dh, dhead, dfinal_norm), the
     gradient tree keyed like ``final_norm``, as the JAX executor takes
-    ``jax.value_and_grad`` over ``(head, final_norm, h)``."""
+    ``jax.value_and_grad`` over ``(head, final_norm, h)``.  With a
+    ``tensor`` group of several ranks, ``head`` is this rank's vocabulary
+    slice and the loss :func:`head_loss_sharded`: ``dhead`` is the
+    slice's gradient, the rest whole and the same on every rank."""
     keys = sorted(final_norm)
+    sharded = tensor is not None and tensor.size > 1
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_()
                   for t in (head, h, *(final_norm[k] for k in keys))]
         fn = dict(zip(keys, leaves[2:]))
-        loss, _ = head_loss(leaves[0], fn["scale"], leaves[1], labels,
-                            norm_kind=norm_kind, norm_bias=fn.get("bias"),
-                            valid_mask=valid_mask, vocab=vocab,
-                            n_valid=n_valid)
+        kw = dict(norm_kind=norm_kind, norm_bias=fn.get("bias"),
+                  valid_mask=valid_mask, vocab=vocab, n_valid=n_valid)
+        if sharded:
+            loss, _ = head_loss_sharded(leaves[0], fn["scale"], leaves[1],
+                                        labels, group=tensor, **kw)
+        else:
+            loss, _ = head_loss(leaves[0], fn["scale"], leaves[1], labels,
+                                **kw)
         dhead, dh, *dfn = torch.autograd.grad(loss, leaves)
     return loss.detach(), dh, dhead, dict(zip(keys, dfn))
 
@@ -118,10 +206,7 @@ def logits(head, final_norm_scale, h, *, norm_kind: str = "rmsnorm",
 
     Padded vocab ids get -1e30, so they never win an argmax.
     """
-    if norm_kind == "rmsnorm":
-        h = nn.rmsnorm(h, final_norm_scale)
-    else:
-        h = nn.layernorm(h, final_norm_scale, norm_bias)
+    h = _final_norm(h, final_norm_scale, norm_kind, norm_bias)
     out = (h @ maybe_dequant(head, h.dtype)).float()
     if vocab is not None and vocab < out.shape[-1]:
         out[..., vocab:] = NEG_INF

@@ -28,7 +28,7 @@ CUDA tensor is staged through host memory in one place,
 :meth:`RankGrid._transport`, which counts the bytes it stages: p2p
 moves copy bf16 / fp16 as their int16 bits, exact whatever gloo
 supports; collectives (gloo's take no int16) take them to f32 on the
-host: exact for a gather or a broadcast, one rounding for a sum.  That
+host: exact for a gather or a max, one rounding for a sum.  That
 mode lets several ranks share one card.  Every process group has a
 timeout, so a rank that dies makes the others raise instead of waiting
 forever.
@@ -175,23 +175,16 @@ class Group:
         if self.kind == "tensor":
             self.grid.stats.tensor_s += time.perf_counter() - t0
 
-    def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum ``t`` over the group, in place; returns ``t``.  A group of
-        one rank has no process group and returns at once; the world's
-        always calls the backend."""
+    def all_reduce_(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """Sum (or with ``op="max"`` the elementwise max of) ``t`` over
+        the group, in place; returns ``t``.  A group of one rank has no
+        process group and returns at once; the world's always calls the
+        backend."""
         if self.pg is not None:
+            rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
             self._count(t)
-            self._run(lambda x, y: dist.all_reduce(x[0], group=self.pg),
-                      [t], [t], collective=True)
-        return t
-
-    def broadcast_(self, t: torch.Tensor) -> torch.Tensor:
-        """The group's first rank's ``t`` into every rank's ``t``, in
-        place; returns ``t``."""
-        if self.pg is not None:
-            self._count(t)
-            self._run(lambda x, y: dist.broadcast(y[0], self.ranks[0],
-                                                  group=self.pg),
+            self._run(lambda x, y: dist.all_reduce(x[0], op=rop,
+                                                   group=self.pg),
                       [t], [t], collective=True)
         return t
 

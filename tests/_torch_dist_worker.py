@@ -27,6 +27,9 @@ from repro_torch.parallel.dist import ProcessGrid, close_grid, init_grid
 SEQ, R, MB = 12, 4, 2          # sequence, microbatches, rows a replica
 GROUP_TIMEOUT_S = 60.0
 JOIN_TIMEOUT_S = 150.0
+# after a rank fails, how long the others get to exit before the spawn
+# reports which ranks failed (and kills the rest)
+FAIL_GRACE_S = 10.0
 
 
 def smoke_spec():
@@ -158,10 +161,10 @@ def job_tp_train(grid, spec, plan, npz: str, rounds: int):
 
 
 def job_frontend_train(grid, arch: str, plan, rounds: int):
-    """``rounds`` rounds of ``arch``'s smoke spec with a frontend (fp32,
-    SGD with momentum 0.05 and 0.9), this rank's part of the state drawn
-    row-wise from seed 0, this replica's rows of the launcher's loader
-    (text, and the stubs' patches or frames) from seed 1: (losses, the
+    """``rounds`` rounds of ``arch``'s smoke spec (fp32, SGD with
+    momentum 0.05 and 0.9), this rank's part of the state drawn row-wise
+    from seed 0, this replica's rows of the launcher's loader (text, and
+    a frontend's stubs' patches or frames) from seed 1: (losses, the
     rank's state)."""
     from repro_torch.launch.train import make_loader
     spec = configs.get(arch).smoke_spec()
@@ -177,6 +180,44 @@ def job_frontend_train(grid, arch: str, plan, rounds: int):
         state, m = bundle.train_step(state, loader.get(r))
         losses.append(float(m["loss"]))
     return {"losses": losses, "state": state}
+
+
+def job_train_archs(grid, archs, pp: int, rounds: int, ckpt_dir=None):
+    """:func:`job_frontend_train` for each of ``archs`` on this grid (the
+    arch's SMOKE_PLAN at the grid's pp and tp, R microbatches): {arch:
+    (losses, the rank's state)}; with ``ckpt_dir`` each arch's state is
+    also checkpointed there after the rounds (``<ckpt_dir>/<arch>``)."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    out = {}
+    for arch in archs:
+        plan = configs.get(arch).SMOKE_PLAN.with_(pp=pp, tp=grid.topo.tp,
+                                                  microbatches=R)
+        out[arch] = job_frontend_train(grid, arch, plan, rounds)
+        if ckpt_dir is not None:
+            spec = configs.get(arch).smoke_spec()
+            CheckpointManager(os.path.join(ckpt_dir, arch), grid=grid,
+                              spec=spec).save(rounds, out[arch]["state"],
+                                              pp * plan.virtual_stages)
+    return out
+
+
+def job_tp_head(grid, npz: str, vocab: int):
+    """``lm_head.loss_and_grads`` over this rank's vocabulary slice of
+    the head in ``npz`` (h, labels, valid, head, scale; fp32): the loss,
+    d(h), the slice's d(head) and d(final-norm scale), and the tensor
+    group's counters."""
+    from repro_torch.models import lm_head
+    a = dict(np.load(npz))
+    tp, t = grid.topo.tp, grid.t
+    n = a["head"].shape[1] // tp
+    loss, dh, dhead, dfn = lm_head.loss_and_grads(
+        torch.from_numpy(a["head"][:, t * n:(t + 1) * n].copy()),
+        {"scale": torch.from_numpy(a["scale"])}, torch.from_numpy(a["h"]),
+        torch.from_numpy(a["labels"]), norm_kind="rmsnorm",
+        valid_mask=torch.from_numpy(a["valid"]), vocab=vocab,
+        tensor=grid.tensor_group)
+    return {"loss": float(loss), "dh": dh, "dhead": dhead,
+            "dscale": dfn["scale"], "stats": dataclasses.asdict(grid.stats)}
 
 
 def job_tp_autograd(grid, seed: int):
@@ -535,8 +576,9 @@ def run_ranks(tmp_path, data: int, pp: int, jobs,
               group_timeout: float = GROUP_TIMEOUT_S, tp: int = 1):
     """Run ``jobs`` (``{name: kwargs}`` of the ``job_<name>`` functions,
     in order) on a ``data × pp × tp`` grid of spawned ranks; the results
-    by rank, each ``{name: result}``.  Raises as soon as a rank fails (the
-    others are killed) or when the deadline passes."""
+    by rank, each ``{name: result}``.  Raises once a rank fails, naming
+    every rank that has failed after FAIL_GRACE_S more (the others are
+    killed), or when the deadline passes."""
     world = data * pp * tp
     ctx = multiprocessing.get_context("spawn")
     init_file = tmp_path / "rendezvous"
@@ -552,6 +594,16 @@ def run_ranks(tmp_path, data: int, pp: int, jobs,
             failed = [r for r, p in enumerate(procs)
                       if p.exitcode not in (None, 0)]
             if failed:
+                # a rank that raises takes its peers down with it: they
+                # fail on the closed connection, and one of them may exit
+                # before the rank that raised has.  Let the ranks finish
+                # exiting for a moment, then name every one that failed.
+                grace = time.monotonic() + FAIL_GRACE_S
+                while (any(p.is_alive() for p in procs)
+                       and time.monotonic() < grace):
+                    time.sleep(0.05)
+                failed = [r for r, p in enumerate(procs)
+                          if p.exitcode not in (None, 0)]
                 raise RuntimeError(f"{list(jobs)}: rank(s) {failed} failed")
             if time.monotonic() > deadline:
                 raise TimeoutError(f"{list(jobs)}: ranks still running "

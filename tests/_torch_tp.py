@@ -16,7 +16,7 @@ from _torch_train_jax import leaves
 from repro_torch.core.schedule import make_schedule
 from repro_torch.core.versioning import rank_state, tensor_cut, zero1_axes
 from repro_torch.models import spec as tspec
-from repro_torch.models.init import tp_axes
+from repro_torch.models.init import padded_vocab, tp_axes
 from repro_torch.parallel.plan import ParallelismPlan
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -132,8 +132,10 @@ def assert_replicated_equal_across_t(spec, plan, data, ranks):
     """The stage leaves every tensor rank holds whole (norms, qk-norm
     scales, KV weights replicated at n_kv < tp), their ring rows and
     optimizer slots are bit-identical across the tensor ranks of each
-    (replica, stage); the embedding and the head live on tensor rank 0
-    alone."""
+    (replica, stage), and so are the final norm and its optimizer
+    slots; every tensor rank of the first and last stage holds its own
+    columns of the embedding and the head and of their optimizer
+    slots."""
     from repro_torch.parallel.dist import ProcessGrid
     grid = ProcessGrid(data, plan.pp, plan.tp)
     n = 0
@@ -154,8 +156,21 @@ def assert_replicated_equal_across_t(spec, plan, data, ranks):
                             assert torch.equal(base[name], b), (d, s, part,
                                                                 name)
                             n += 1
-            for other in group[1:]:
-                assert not {"embed", "head", "final_norm"} & set(
-                    other["params"]), "only tensor rank 0 holds them"
-                assert "opt_head" not in other and "opt_embed" not in other
+            first, last = s == 0, s == plan.pp - 1
+            for t, other in enumerate(group):
+                p = other["params"]
+                assert ("embed" in p, "opt_embed" in other) == (first, first)
+                assert ("head" in p, "opt_head" in other) == (last, last)
+                if first:
+                    assert p["embed"].shape[1] == spec.d_model // plan.tp
+                if last:
+                    assert p["head"].shape[1] * plan.tp == \
+                        padded_vocab(spec.vocab)
+                    for name, b in leaves({"p": p["final_norm"], "o": {
+                            k: v["f"] for k, v in other["opt_head"].items()}}):
+                        base = dict(leaves({"p": group[0]["params"][
+                            "final_norm"], "o": {k: v["f"] for k, v in group[
+                                0]["opt_head"].items()}}))
+                        assert torch.equal(base[name], b), (d, s, t, name)
+                        n += 1
     assert n

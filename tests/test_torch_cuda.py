@@ -30,7 +30,10 @@ PAGED = [  # b, h, kv, dh, page, n_pages, window
     (2, 4, 2, 64, 16, 8, 20), (1, 2, 2, 16, 64, 2, 48),
     (2, 40, 8, 128, 16, 64, -1),                       # qwen3-14b decode
     (2, 40, 8, 128, 16, 256, -1),       # 2 x 4096 keys: many pages a split
-    (1, 32, 8, 120, 16, 512, 4096)]     # h2o-danube3-4b decode, Dh 120
+    (1, 32, 8, 120, 16, 512, 4096),     # h2o-danube3-4b decode, Dh 120
+    # gemma3-4b's heads (G 2, Dh 256: two 128-column strides), global and
+    # with its 1024-token window over 2048 keys
+    (2, 8, 4, 256, 16, 16, -1), (2, 8, 4, 256, 16, 128, 1024)]
 FLASH = [  # b, sq, sk, h, kv, dh, causal, window
     (2, 256, 256, 4, 2, 64, True, -1), (1, 128, 128, 4, 4, 64, True, 32),
     (2, 100, 100, 2, 1, 32, True, -1), (1, 256, 256, 8, 2, 128, False, -1),
@@ -46,14 +49,23 @@ FLASH = [  # b, sq, sk, h, kv, dh, causal, window
     # window that crosses key tiles
     (1, 700, 700, 32, 8, 120, True, 300),
     # qwen3-14b's heads on a tensor rank at tp 2 and tp 8 (training)
-    (1, 256, 256, 20, 4, 128, True, -1), (1, 256, 256, 5, 1, 128, True, -1)]
+    (1, 256, 256, 20, 4, 128, True, -1), (1, 256, 256, 5, 1, 128, True, -1),
+    # gemma3-4b's heads (8 / 4, Dh 256: each CTA one 128-column half of
+    # O), global and windowed, off the tiles; Dh 200 and 136 zero-padded
+    # to 256; the windowed training call
+    (1, 300, 300, 8, 4, 256, True, -1), (1, 333, 333, 8, 4, 256, True, 64),
+    (2, 77, 130, 2, 2, 256, False, -1), (2, 200, 200, 4, 2, 200, True, -1),
+    (1, 129, 129, 2, 1, 136, True, 50),
+    (1, 4096, 4096, 8, 4, 256, True, 1024)]
 PAGED_INT8 = [  # b, h, kv, dh, page, n_pages, window: tests/test_quant.py's
                # int8 matrix, then qwen3-14b decode, global and windowed,
                # then h2o-danube3-4b's heads (120-byte rows: 8-byte chunks)
     (2, 4, 2, 64, 16, 8, -1), (2, 8, 2, 64, 64, 4, -1),
     (2, 4, 2, 64, 16, 8, 20), (2, 40, 8, 128, 16, 64, -1),
     (2, 40, 8, 128, 16, 64, 100), (2, 32, 8, 120, 16, 64, -1),
-    (2, 32, 8, 120, 16, 64, 100)]
+    (2, 32, 8, 120, 16, 64, 100),
+    # gemma3-4b's heads (256-byte int8 rows), global and windowed
+    (2, 8, 4, 256, 16, 16, -1), (2, 8, 4, 256, 16, 128, 1024)]
 WKV = [  # b, s, h, dh
     (2, 64, 2, 16), (1, 128, 4, 32), (2, 100, 2, 8), (1, 64, 2, 64),
     (1, 32, 1, 4), (2, 17, 2, 32), (8, 1, 32, 64),       # rwkv6 decode
@@ -77,7 +89,13 @@ FLASH_BWD = [  # b, s, h, kv, dh, window (causal; Sq = Sk)
     (2, 300, 10, 2, 120, -1), (1, 333, 6, 2, 120, 100),
     (1, 4096, 40, 8, 128, -1),
     # qwen3-14b's heads on a tensor rank at tp 2 and tp 8 (training)
-    (1, 256, 20, 4, 128, -1), (1, 256, 5, 1, 128, -1)]
+    (1, 256, 20, 4, 128, -1), (1, 256, 5, 1, 128, -1),
+    # gemma3-4b's heads (8 / 4, Dh 256: the column-split bf16 kernels,
+    # the f32 kernels' two column passes), global and windowed, ragged;
+    # Dh 136 and 200 zero-padded to 256; the training calls
+    (1, 300, 8, 4, 256, -1), (1, 333, 8, 4, 256, 100),
+    (2, 130, 4, 2, 136, -1), (1, 200, 4, 1, 200, 64),
+    (1, 4096, 8, 4, 256, -1), (1, 4096, 8, 4, 256, 1024)]
 WKV_BWD = [  # b, s, h, dh: every head size, ragged chunks, the training call
     (2, 37, 3, 4), (2, 37, 3, 8), (1, 50, 2, 16), (2, 33, 2, 32),
     (1, 100, 3, 64), (2, 16, 2, 64), (1, 1, 2, 64), (1, 4096, 32, 64),
@@ -317,7 +335,7 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         tfa.flash_attention(q, q[:, :, :3].contiguous(),
                             q[:, :, :3].contiguous())
-    for dh in (12, 136):   # the bf16 kernel: Dh a multiple of 8 up to 128
+    for dh in (12, 264):   # the bf16 kernel: Dh a multiple of 8 up to 256
         q = torch.zeros(1, 8, 2, dh, device=cuda, dtype=torch.bfloat16)
         with pytest.raises(ValueError):
             tfa.flash_attention(q, q, q)
@@ -631,12 +649,30 @@ def test_flash_bwd_kernel_matches_plain(cuda, b, s, h, kv, dh, window,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_bwd_kernel_is_deterministic(cuda, dtype):
-    q, k, v, do = _flash_bwd_args(1, 1000, 40, 8, 128, dtype, cuda, 7)
+@pytest.mark.parametrize("h,kv,dh", [(40, 8, 128), (8, 4, 256)])
+def test_flash_bwd_kernel_is_deterministic(cuda, h, kv, dh, dtype):
+    q, k, v, do = _flash_bwd_args(1, 1000, h, kv, dh, dtype, cuda, 7)
     out, lse = tfa.flash_attention(q, k, v, window=256, return_lse=True)
     runs = [tfa.flash_attention_bwd(q, k, v, out, lse, do, window=256)
             for _ in range(2)]
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+def test_flash_kernels_refuse_dh_past_256(cuda):
+    """Past Dh 256 the bf16 forward and both backwards raise before any
+    launch; the f32 forward takes any Dh whose tiles fit."""
+    args = _flash_bwd_args(1, 64, 2, 1, 264, torch.float32, cuda, 9)
+    out, lse = tfa.flash_attention(*args[:3], return_lse=True)
+    f0, b0 = tfa.flash_attention.launches, tfa.flash_attention_bwd.launches
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = (t.to(dtype) for t in args)
+        with pytest.raises(ValueError, match="up to 256"):
+            tfa.flash_attention_bwd(q, k, v, out.to(dtype), lse, do)
+    with pytest.raises(ValueError, match="up to 256"):
+        tfa.flash_attention(*(t.to(torch.bfloat16) for t in args[:3]))
+    assert (tfa.flash_attention.launches, tfa.flash_attention_bwd.launches) \
+        == (f0, b0)
 
 
 @pytest.mark.cuda

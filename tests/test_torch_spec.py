@@ -50,7 +50,7 @@ def test_qwen3_config_matches_jax():
             dataclasses.asdict(getattr(j, plan))
     assert tconfigs.get("qwen3_14b") is t
     with pytest.raises(KeyError):
-        tconfigs.get("gemma3-4b")
+        tconfigs.get("gemma3-27b")
 
 
 def test_rwkv6_config_matches_jax():

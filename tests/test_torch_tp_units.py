@@ -26,7 +26,8 @@ from repro.parallel import mesh as jmesh
 from repro_torch import configs as tconfigs
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core.pipeline import build_pipeline
-from repro_torch.core.versioning import rank_state, zero1_axes
+from repro_torch.core.versioning import (TABLE_TP_DIM, rank_state,
+                                         zero1_axes)
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.models.init import tp_axes, tp_shard
 from repro_torch.optim.optimizers import tree_map
@@ -113,7 +114,10 @@ def _tps(spec):
 def test_tp_axes_are_the_jax_partition_specs(arch):
     """For every stage leaf of the smoke spec, at every tp its statics
     take: the dim the port cuts is the one JAX's PartitionSpec names
-    "tensor", and ``tp_shard`` of a numpy tree is that block."""
+    "tensor", and ``tp_shard`` of a numpy tree is that block; so for the
+    embedding and the head (JAX cuts their columns over ("stage",
+    "tensor"), the port over the stage's tensor group), while every rank
+    keeps the whole final norm."""
     jspec = jconfigs.get(arch).smoke_spec()
     tspec = tconfigs.get(arch).smoke_spec()
     tps = _tps(jspec)
@@ -129,6 +133,9 @@ def test_tp_axes_are_the_jax_partition_specs(arch):
                 x, jax.sharding.PartitionSpec))[0]
         got = dict(leaves(axes))
         assert len(got) == len(spec_leaves)
+        for key in ("embed", "head"):
+            assert [i for i, e in enumerate(pspecs[key])
+                    if e is not None and "tensor" in e] == [TABLE_TP_DIM]
         for path, ps in spec_leaves:
             name = "".join(f"/{p.key}" for p in path)
             want = [i for i, e in enumerate(ps) if e == "tensor"]
@@ -140,7 +147,10 @@ def test_tp_axes_are_the_jax_partition_specs(arch):
                 whole = dict(leaves(tree["stages"]))[name]
                 want = whole if ax < 0 else np.split(whole, tp, ax)[t]
                 np.testing.assert_array_equal(a, want)
-            assert cut["embed"] is tree["embed"]
+            for key in ("embed", "head"):
+                np.testing.assert_array_equal(
+                    cut[key], np.split(tree[key], tp, TABLE_TP_DIM)[t])
+            assert cut["final_norm"] is tree["final_norm"]
 
 
 @pytest.mark.parametrize("dp", [2, 4])
