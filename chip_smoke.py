@@ -63,11 +63,13 @@ Phases (any failure raises and the script exits non-zero):
 13. train — qwen3-14b at full width cut to its first 4 of 40 layers,
    bf16 parameters with f32 Adam moments, ``1f1b`` / ``stash`` with pp =
    2 (a V = 3 weight-version ring), remat, R = 4 microbatches of 1 row x
-   4096 tokens, 3 rounds on the SyntheticLM stream through the training
-   entry point's builder (launch/train.py); every attention forward
+   4096 tokens, 3 rounds on the SyntheticLM stream, built as a train_4k
+   cell (launch/cell.py::build_cell); every attention forward
    through the flash kernel (with its log-sum-exp) and every attention
    backward through the backward kernel; finite losses; the last round
-   under ``torch.profiler``;
+   through ``launch/profile_cell.py::profile_step``, one more round's op
+   count (launch/op_analysis.py) and its roofline terms beside the model
+   FLOPs and the measured ``mfu`` (launch/roofline.py);
    then the same shape through the virtual-stage schedules,
    ``interleaved`` (flush) and ``interleaved_async`` (per-chunk
    weight-version rings), pp = 2 x v = 2 (4 chunks of one layer): round
@@ -126,7 +128,8 @@ Phases (any failure raises and the script exits non-zero):
    traces; the last rank fails before round DRIVER_FAIL and crashes in
    round DRIVER_TORN's save.  Each rank's final state equals phase 16's
    rows bit for bit (digests), the last complete checkpoint restores in
-   one process to the digests of what the ranks saved, the torn round
+   one process (spawned beside phases 19-20, joined after 20) to the digests
+   of what the ranks saved, the torn round
    is skipped, ``rounds_total{kind=train}`` counts every executed round,
    rank 0's registry holds every stage's measured
    ``stage_round_seconds``, and the trace has a span per busy table cell;
@@ -281,6 +284,17 @@ Phases (any failure raises and the script exits non-zero):
    windowed, one global) in fp32: the paged engine equals the dense one
    and the CPU's, int8 paged KV on the card equals the CPU, the verify
    tile, and the executor equals the oracle bit for bit.
+26. launch tools — 26a: one fp32 step of a qwen3-14b train_4k cell at
+   TOOLS_LAYERS layers (1 x 4096, SGD) counted by launch/op_analysis.py
+   on the card and on the CPU: equal FLOPs and kernel calls, bytes
+   within TOOLS_BYTES_RTOL, the gap named by op.  26b: launch/dryrun.py
+   on qwen3-14b's train_4k, prefill_32k and decode_32k cells at 256
+   cards, on ``meta`` (26b and 26a's CPU count run in a process spawned
+   beside phases 22-25, on the host's CPU only).  26c: two fp32 rounds of
+   a TOOLS_LAYERS-layer cell fed by data/pipeline.py::Prefetcher equal
+   the in-line Loader's bit for bit.  26d: ``serve --data 2`` on two gloo
+   ranks sharing the card equals ``serve --data 1`` (qwen3-14b,
+   TOOLS_LAYERS layers, bf16) token for token.
 
 Phase 2 also holds the flash forward and backward (bf16 and f32, causal
 and a 1024-token window) at 25b's training call and the paged walk
@@ -339,7 +353,8 @@ rounds, an ``ingest`` JSON line (23a), three ``serve_new`` lines
 (23b-d), two ``train_new`` lines and a ``train_new_exact`` line (23e),
 two ``serve_front`` lines, two ``train_front`` lines and a
 ``front_consistency`` line (phase 24) with their decode and round
-profiles,
+profiles, ``op_count``, ``dryrun``, ``prefetch`` and ``serve_data``
+lines (phase 26),
 one ``kernels`` JSON line
 (launches, by path and for wkv6 by
 design, errors, times, bounds, a ``layouts`` entry for the new head
@@ -371,10 +386,10 @@ sys.path.insert(0, str(ROOT / "src"))
 # at 700 W)
 os.environ.setdefault("TEARDOWN_CUPTI", "1")
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): the bound of a
-# kernel is the larger of bytes / HBM rate and operations / peak rate.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# a kernel's bound is the larger of the bytes it must move over the HBM
+# rate and its operations over the peak of their type (and, for the
+# scans, its exps over the SFU rate): the counts of kernels/cost.py on
+# the H100 SXM's data-sheet rates of core/profiler.py::H100_SXM
 L2_BYTES = 50 * 2**20          # H100 SXM L2 cache (data sheet)
 
 SEED = 0
@@ -527,10 +542,6 @@ DANUBE_TIE = RWKV_TIE
 # widths cut to RING_LAYERS layers of window RING_WINDOW
 RING_LAYERS, RING_WINDOW, RING_CACHE = 2, 64, 512
 RING_PROMPT, RING_DECODE = 32, 160
-# H100 SXM exp rate, the SFU floor in mamba_scan's bound: 16 ex2 results
-# per clock per SM (CUDA C++ Programming Guide, arithmetic instruction
-# throughput, compute capability 9.0) x 132 SMs x the 1.98 GHz boost clock
-SFU_EXP_PER_S = 16 * 132 * 1.98e9
 # phase 2's backward checks at the training calls of phase 22: wkv6 at
 # (B, S, H, Dh) and mamba_scan at (B, S, Ci, N), f32 (the model casts the
 # scan's inputs to f32).  Tolerance (rel, rtol): |err| <= rel · max|plain|
@@ -793,26 +804,23 @@ def paged_inputs(dtype, device, q_len, lengths, seed, n_copies=1,
     return sets, tab, lens
 
 
-def paged_bytes_flops(q, kp, tables, lengths, window, scales=False):
-    """Bytes the call must move (q, live K/V pages and, for int8 pools,
-    their (page, KV head) f32 scales, tables, lengths, out) and the
-    operations it does on the keys this run's data makes visible."""
-    b, ql, h, dh = q.shape
-    page, kv = kp.shape[1], kp.shape[2]
-    esz = q.element_size()
-    pages, pairs = 0, 0
-    for r in range(b):
-        ln = int(lengths[r])
-        lo = max(0, ln - ql - window + 1) if window > 0 else 0
-        pages += len(range(lo // page, -(-ln // page)))
-        for qi in range(ql):
-            qpos = ln - ql + qi
-            pairs += qpos + 1 - (max(0, qpos - window + 1) if window > 0 else 0)
-    kv_bytes = 2 * pages * page * kv * dh * kp.element_size()
-    if scales:
-        kv_bytes += 2 * pages * kv * 4
-    nbytes = 2 * q.numel() * esz + kv_bytes + tables.numel() * 4 + b * 4
-    return nbytes, 4 * pairs * h * dh
+def paged_cost(q, kp, tables, lengths, window, k_scale=None):
+    """kernels/cost.py's count of one paged call on this run's
+    ``lengths`` (a list): bytes the call must move (q, live K/V pages
+    and, for int8 pools, their (page, KV head) f32 scales, tables,
+    lengths, out) and the operations it does on the keys the data makes
+    visible."""
+    import torch
+    from repro_torch.kernels import cost
+    return cost.paged(q, kp, None, tables, torch.tensor(lengths),
+                      window=window, k_scale=k_scale)
+
+
+def bound_fields(kc) -> dict:
+    """A record's bound from a kernels/cost.py count."""
+    seconds, by, unit = kc.bound()
+    return {"bound_ms": 1e3 * seconds, "bound_by": by, "bound_unit": unit,
+            "bytes": kc.bytes, "flops": kc.flops}
 
 
 def phase_kernels(device):
@@ -1408,90 +1416,68 @@ def tensor_bytes(tree) -> int:
 
 
 def profile_decode_step(session, nxt, step_ms, kernels=("wkv6",)):
-    """torch.profiler over one decode step: device time by kernel (calls
-    and time per call of each of ``kernels``), the device's idle share
-    against the unprofiled step time, and two byte bounds of the step
-    over the HBM rate: the schedule as run (``serve_1f`` walks the R
-    microbatches one after another, each reading every stage weight) and
-    the weight-once floor; both add the head and the recurrent state
-    read and written once."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    # the card's activity only (as profile_round): host operators add
-    # events a launch that only slow the reduction
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        session.decode(nxt)
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if str(getattr(e, "device_type", "")).endswith("CUDA")
-              and e.self_device_time_total > 0]
-    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
-    if dev_ms <= 0:
-        raise AssertionError("the profiler saw no device time")
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
+    """One decode step through ``launch/profile_cell.py::profile_step``:
+    device time by kernel (calls and time per call of each of
+    ``kernels``), the device's idle share against the unprofiled step
+    time, and two byte bounds of the step over the HBM rate: the
+    schedule as run (``serve_1f`` walks the R microbatches one after
+    another, each reading every stage weight) and the weight-once floor;
+    both add the head and the recurrent state read and written once."""
+    from repro_torch.core.profiler import H100_SXM
+    from repro_torch.launch.profile_cell import profile_step
+    # calls of the kernel proper; time of every kernel of the wrapper
+    # (the paged wrapper launches a split walk and a merge)
+    labels = {}
+    for name in kernels:
+        labels[name], labels[f"{name}_kernel"] = name, f"{name}_kernel"
+    _, rec = profile_step(session.decode, (nxt,), wall_s=step_ms / 1e3,
+                          kernels=labels, top=10)
     weights = tensor_bytes(session._stage_params)
     rest = tensor_bytes(session.params["head"]) + 2 * tensor_bytes(
         session.cache)
     out = {"model": session.spec.name, "step_ms_unprofiled": step_ms,
-           "device_ms": dev_ms, "idle_share": 1 - dev_ms / step_ms,
+           "device_ms": rec["device_ms"], "idle_share": rec["idle_share"],
            "stage_weight_gb": weights / 1e9, "head_and_state_gb": rest / 1e9,
            "bound_as_run_ms": 1e3 * (session.n_slots * weights + rest)
-           / HBM_BYTES_PER_S,
-           "bound_weight_once_ms": 1e3 * (weights + rest) / HBM_BYTES_PER_S,
-           "kernel_launches": sum(e.count for e in events)}
+           / H100_SXM.hbm_bw,
+           "bound_weight_once_ms": 1e3 * (weights + rest) / H100_SXM.hbm_bw,
+           "kernel_launches": rec["kernel_launches"]}
     for name in kernels:
-        # calls of the kernel proper; time of every kernel of the wrapper
-        # (the paged wrapper launches a split walk and a merge)
-        calls = sum(e.count for e in events if f"{name}_kernel" in e.key)
-        ms = sum(e.self_device_time_total for e in events
-                 if name in e.key) / 1e3
+        calls = rec[f"{name}_kernel_launches"]
         out[f"{name}_calls"] = calls
-        out[f"{name}_ms"] = ms
-        out[f"{name}_ms_per_call"] = ms / max(1, calls)
-    out["by_kernel"] = [{"name": e.key[:80],
-                         "ms": e.self_device_time_total / 1e3,
-                         "calls": e.count} for e in top]
+        out[f"{name}_ms"] = rec[f"{name}_ms"]
+        out[f"{name}_ms_per_call"] = rec[f"{name}_ms"] / max(1, calls)
+    out["by_kernel"] = rec["by_kernel"]
     return out
 
 
 def profile_prefill(session, prompts, kernel):
     """The prefill's breakdown: one more prefill of the same prompts timed
     unprofiled (warm: the first prefill also loads every kernel), then one
-    under torch.profiler: device time by kernel, the idle share against
-    the warm wall time, ``kernel``'s calls, time, share and time per call,
-    and the top kernels.  A prefill continues each slot's recurrent state
-    and re-allocates its pages, so nothing after depends on these two."""
+    through ``profile_step``: device time by kernel, the idle share
+    against the warm wall time, ``kernel``'s calls, time, share and time
+    per call, and the top kernels.  A prefill continues each slot's
+    recurrent state and re-allocates its pages, so nothing after depends
+    on these two."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.profile_cell import profile_step
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     session.prefill({"tokens": prompts})
     torch.cuda.synchronize()
     warm_ms = 1e3 * (time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        session.prefill({"tokens": prompts})
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if str(getattr(e, "device_type", "")).endswith("CUDA")
-              and e.self_device_time_total > 0]
-    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
-    if dev_ms <= 0:
-        raise AssertionError("the profiler saw no device time")
-    mine = [e for e in events if kernel in e.key]
-    k_ms = sum(e.self_device_time_total for e in mine) / 1e3
-    calls = sum(e.count for e in mine)
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
+    _, rec = profile_step(session.prefill, ({"tokens": prompts},),
+                          wall_s=warm_ms / 1e3, kernels={kernel: kernel},
+                          top=10)
+    calls = rec[f"{kernel}_launches"]
     return {"model": session.spec.name, "phase": "prefill",
-            "prefill_ms_warm_unprofiled": warm_ms, "device_ms": dev_ms,
-            "idle_share": 1 - dev_ms / warm_ms,
-            "kernel_launches": sum(e.count for e in events),
-            f"{kernel}_calls": calls, f"{kernel}_ms": k_ms,
-            f"{kernel}_share": k_ms / dev_ms,
-            f"{kernel}_us_per_call": 1e3 * k_ms / max(1, calls),
-            "by_kernel": [{"name": e.key[:80],
-                           "ms": e.self_device_time_total / 1e3,
-                           "calls": e.count} for e in top]}
+            "prefill_ms_warm_unprofiled": warm_ms,
+            "device_ms": rec["device_ms"], "idle_share": rec["idle_share"],
+            "kernel_launches": rec["kernel_launches"],
+            f"{kernel}_calls": calls, f"{kernel}_ms": rec[f"{kernel}_ms"],
+            f"{kernel}_share": rec[f"{kernel}_share"],
+            f"{kernel}_us_per_call": 1e3 * rec[f"{kernel}_ms"] / max(1, calls),
+            "by_kernel": rec["by_kernel"]}
 
 
 def phase_serve_rwkv(device, spec, plan):
@@ -2130,42 +2116,17 @@ FLASH_KERNELS = (("flash_fwd", "flash_attention_bf16_kernel"),
 
 
 def profile_round(bundle, state, batch, round_s, kernels=FLASH_KERNELS):
-    """One round under torch.profiler: device time by kernel, the idle
-    share against an unprofiled warm round's time, and the calls and
-    time of each of ``kernels`` ((label, substring of the kernel names)):
-    by default the flash kernels."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    # the card's activity only: host operators add ~5 events a launch,
-    # and reducing them took ~50 s of 22a's 90k-launch round
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        state, metrics = bundle.train_step(state, batch)
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if str(getattr(e, "device_type", "")).endswith("CUDA")
-              and e.self_device_time_total > 0]
-    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
-    if dev_ms <= 0:
-        raise AssertionError("the profiler saw no device time")
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
-    copies = [e for e in events if "Memcpy DtoD" in e.key]
+    """One round through ``launch/profile_cell.py::profile_step``: device
+    time by kernel, the idle share against an unprofiled warm round's
+    time, and the calls and time of each of ``kernels`` ((label,
+    substring of the kernel names)): by default the flash kernels."""
+    from repro_torch.launch.profile_cell import profile_step
+    (state, metrics), rec = profile_step(bundle.train_step, (state, batch),
+                                         wall_s=round_s,
+                                         kernels=dict(kernels))
     out = {"model": bundle.spec.name, "phase": "train_round",
            "schedule": f"{bundle.sched.name}/{bundle.plan.stash_mode}",
-           "round_ms_warm_unprofiled": 1e3 * round_s, "device_ms": dev_ms,
-           "idle_share": 1 - dev_ms / (1e3 * round_s),
-           "kernel_launches": sum(e.count for e in events),
-           "memcpy_dtod_ms": sum(e.self_device_time_total
-                                 for e in copies) / 1e3,
-           "memcpy_dtod_calls": sum(e.count for e in copies)}
-    for name, key in kernels:
-        mine = [e for e in events if key in e.key]
-        out[f"{name}_ms"] = sum(e.self_device_time_total for e in mine) / 1e3
-        out[f"{name}_share"] = out[f"{name}_ms"] / dev_ms
-        out[f"{name}_launches"] = sum(e.count for e in mine)
-    out["by_kernel"] = [{"name": e.key[:80],
-                         "ms": e.self_device_time_total / 1e3,
-                         "calls": e.count} for e in top]
+           "round_ms_warm_unprofiled": 1e3 * round_s, **rec}
     return state, metrics, out
 
 
@@ -2223,23 +2184,33 @@ def plain_attention_refused():
 
 
 def phase_train(device):
-    """qwen3-14b at full width, its first TRAIN_LAYERS layers, trained
-    through the entry point's builder (launch/train.py): bf16, Adam,
-    1f1b / stash, pp = 2, R = TRAIN_R microbatches of TRAIN_ROWS x
+    """qwen3-14b at full width, its first TRAIN_LAYERS layers, trained as
+    a train_4k cell (``launch/cell.py::build_cell``): bf16, the config's
+    Adam, 1f1b / stash, pp = 2, R = TRAIN_R microbatches of TRAIN_ROWS x
     TRAIN_SEQ, TRAIN_ROUNDS rounds on the SyntheticLM stream; the last
-    round under torch.profiler.  Every attention layer's forward through
-    the flash kernel (three times a microbatch with remat: F, the B
-    recompute and the checkpoint's recompute) and its backward through
-    the backward kernel.  Then the TRAIN_WITNESSES runs."""
+    round through ``profile_step``.  Every attention layer's forward
+    through the flash kernel (three times a microbatch with remat: F,
+    the B recompute and the checkpoint's recompute) and its backward
+    through the backward kernel.  Then one more round's op count
+    (``launch/op_analysis.py``) and its roofline terms beside the model
+    FLOPs and the measured ``mfu`` (``launch/roofline.py``), and the
+    TRAIN_WITNESSES runs."""
     import torch
-    from repro_torch.data.pipeline import Loader, SyntheticLM
-    from repro_torch.launch import train
-    spec, bundle = build_train(train_args(phase_train_flags(
-        ["--schedule", "1f1b", "--stash-mode", "stash"])))
-    plan = bundle.plan
+    from repro_torch import configs
+    from repro_torch.core.schedule import plan_kwargs_for_schedule
+    from repro_torch.launch import roofline as RL
+    from repro_torch.launch.cell import build_cell
+    from repro_torch.launch.op_analysis import count
+    from repro_torch.launch.train import make_loader
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    state = bundle.init_state(torch.Generator(device).manual_seed(SEED))
+    cfg = configs.get("qwen3-14b")
+    cell = build_cell("qwen3-14b", "train_4k", plan=cfg.PLAN.with_(
+        **plan_kwargs_for_schedule("1f1b", stash_mode="stash")),
+        layers=TRAIN_LAYERS, global_batch=TRAIN_R * TRAIN_ROWS,
+        device=device, seed=SEED)
+    spec, bundle, state = cell.spec, cell.bundle, cell.args[0]
+    plan = bundle.plan
     torch.cuda.synchronize()
     log(f"[train] {spec.name}: d {spec.d_model}, heads {spec.n_heads}/"
         f"{spec.n_kv}, Dh {spec.d_head}, d_ff {spec.d_ff}, vocab "
@@ -2248,13 +2219,24 @@ def phase_train(device):
         f"{plan.remat}; state initialized "
         f"in {time.perf_counter() - t0:.2f}s, "
         f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated")
-    loader = Loader(SyntheticLM(spec.vocab, TRAIN_SEQ, seed=SEED),
-                    plan.microbatches, bundle.microbatch_size, device)
-    batches = [loader.get(r) for r in range(TRAIN_ROUNDS)]
+    loader = make_loader(spec, bundle, SEED)
+    batches = [cell.args[1]] + [loader.get(r)
+                                for r in range(1, TRAIN_ROUNDS)]
     # finite losses; the falling loss is asked of the one_batch witness
     # below (at the config's constant Adam lr the loss on fresh data rises)
     state, losses, round_s, prof, counts = train_rounds(bundle, state,
                                                         batches)
+    # one more round counted: its work against the warm round's time
+    t_count = time.perf_counter()
+    op = count(bundle.train_step, state, batches[0])
+    t_count = time.perf_counter() - t_count
+    shape = configs.Shape("train_4k", "train", TRAIN_SEQ,
+                          TRAIN_R * TRAIN_ROWS)
+    roof = RL.from_counts(
+        op, arch="qwen3-14b", shape="train_4k", cards="1",
+        plan=f"pp{plan.pp}xtp1", model_flops_per_device=(
+            RL.model_flops_per_device(spec, shape, 1)),
+        step_seconds_measured=round_s[1])
     tokens = plan.microbatches * bundle.microbatch_size * TRAIN_SEQ
     out = {"model": spec.name, "layers": spec.n_layers,
            "schedule": f"{bundle.sched.name}/{plan.stash_mode}",
@@ -2266,7 +2248,24 @@ def phase_train(device):
            "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
            "loss_per_round": losses,
            "flash_attention_launches": counts["flash_attention"],
-           "flash_attention_bwd_launches": counts["flash_attention_bwd"]}
+           "flash_attention_bwd_launches": counts["flash_attention_bwd"],
+           "model_flops": roof.model_flops, "mfu": roof.mfu,
+           "op_count": {"flops": op.flops, "hbm_bytes": op.hbm_bytes,
+                        "compute_ms": 1e3 * roof.compute_s,
+                        "memory_ms": 1e3 * roof.memory_s,
+                        "dominant": roof.dominant,
+                        "useful_ratio": roof.useful_ratio,
+                        "roofline_fraction": roof.roofline_fraction,
+                        "kernel_calls": op.kernel_calls,
+                        "kernel_flops": op.kernel_flops,
+                        "kernel_bytes": op.kernel_bytes,
+                        "aten_ops": op.aten_ops, "count_s": t_count}}
+    log(f"[train] op count of a round ({t_count:.1f}s): "
+        f"{op.flops:.4e} FLOPs, {op.hbm_bytes:.4e} B; compute "
+        f"{1e3 * roof.compute_s:.1f} ms, memory {1e3 * roof.memory_s:.1f} "
+        f"ms ({roof.dominant}); model FLOPs {roof.model_flops:.4e}, mfu "
+        f"{roof.mfu:.4f} at the warm round's {round_s[1]:.3f}s; kernel "
+        f"calls {op.kernel_calls}")
     log(f"[train] {TRAIN_ROUNDS} rounds of {tokens} tokens: first "
         f"{round_s[0]:.3f}s, warm {round_s[1]:.3f}s "
         f"({out['tokens_per_s']:.0f} tokens/s), peak "
@@ -2281,7 +2280,7 @@ def phase_train(device):
         f"flash fwd {prof['flash_fwd_ms']:.1f} ms, bwd "
         f"{prof['flash_bwd_ms']:.1f} ms; top kernels (ms, calls): "
         f"{[(k['name'][:50], round(k['ms'], 1), k['calls']) for k in prof['by_kernel']]}")
-    del state, bundle, batches
+    del state, bundle, batches, cell
     torch.cuda.empty_cache()
     out["witnesses"] = {}
     for name, flags, one_batch in TRAIN_WITNESSES:
@@ -3393,11 +3392,9 @@ def phase_ckpt_dist(device, driver_rows):
     import tempfile
     import torch
     from repro_torch import configs
-    from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.core.reference import model_plan, to_storage_order
     from repro_torch.core.schedule import B_MB, F_MB, make_schedule
-    from repro_torch.core.versioning import rank_params, rank_state
-    from repro_torch.launch import train
+    from repro_torch.core.versioning import rank_params
     from repro_torch.models.init import init_params
     seconds = {}
 
@@ -3491,27 +3488,12 @@ def phase_ckpt_dist(device, driver_rows):
                 "flash_attention_bwd": per_round * len(losses)}
         if counts != want:
             raise AssertionError(f"18b launches {counts}, expected {want}")
-        # the last complete checkpoint restores in one process
-        t1 = time.perf_counter()
-        args = train_args(driver_flags(tmp))
-        _, bundle = build_train(args)
-        state = bundle.init_state(torch.Generator(device).manual_seed(SEED))
-        rnd, saved = ranks[0]["saved"]
-        t2 = time.perf_counter()
-        CheckpointManager(tmp).restore(rnd, state)
-        torch.cuda.synchronize()
-        restore_one_s = time.perf_counter() - t2
-        for s, res in enumerate(ranks):
-            got = state_digests(rank_state(state, bundle.sched, s))
-            if res["saved"][0] != rnd or got != res["saved"][1]:
-                raise AssertionError(f"18b: round {rnd} restored in one "
-                                     f"process differs from rank {s}'s "
-                                     "saved state")
-        del state, bundle
-        torch.cuda.empty_cache()
-        one_s = time.perf_counter() - t1
-    finally:
+        # the last complete checkpoint restores in one process: a spawned
+        # process beside phases 19-20 (finish_restore_one joins it)
+        restore = start_restore_one(tmp, ranks)
+    except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
+        raise
     seconds["18b driver on two ranks"] = time.perf_counter() - t0
     recs = []
     for res in ranks:
@@ -3528,8 +3510,6 @@ def phase_ckpt_dist(device, driver_rows):
                                            res["stage_seconds"])
                      / sum(res["round_s"]),
                      "peak_gb": res["peak_gb"], "launches": res["counts"]})
-    recs.append({"phase": "18b one process", "restore_s": restore_one_s,
-                 "round": rnd, "seconds_with_init": one_s})
     for res in inits:
         recs.append({"phase": "18a", **res["grid"], "init_s": res["init_s"],
                      "peak_gb": res["peak_gb"], "kept_gb": res["kept_gb"],
@@ -3543,11 +3523,85 @@ def phase_ckpt_dist(device, driver_rows):
         f"{[[round(x, 2) for x in r['save_s']] for r in ranks]} s, restores "
         f"{[[round(x, 2) for x in r['restore_s']] for r in ranks]} s, "
         f"written {[round(r['written_gb'], 2) for r in ranks]} GB a save; "
-        f"round {rnd} restored in one process in {restore_one_s:.2f} s, "
-        f"equal; torn round {DRIVER_TORN} skipped; "
+        f"torn round {DRIVER_TORN} skipped; "
         f"{obs_rec['reconcile_line']}; replan {obs_rec['replan']}")
     log(f"[phases] 18 seconds: {json.dumps(seconds)}")
-    return recs, obs_rec, seconds, counts
+    return recs, obs_rec, seconds, counts, restore
+
+
+def restore_one_child(ckpt, rnd, results):
+    """18b's one-process restore in a spawned process: phase 16's state
+    built through the launcher's builder on the card, round ``rnd`` of
+    the ranks' checkpoint at ``ckpt`` restored into it, and each stage's
+    rows' digests (:func:`rank_state`, :func:`state_digests`) on the
+    queue with the seconds."""
+    import traceback
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        import torch
+        from repro_torch.checkpoint.manager import CheckpointManager
+        from repro_torch.core.versioning import rank_state
+        device = torch.device("cuda")
+        t1 = time.perf_counter()
+        _, bundle = build_train(train_args(driver_flags(ckpt)))
+        state = bundle.init_state(torch.Generator(device).manual_seed(SEED))
+        t2 = time.perf_counter()
+        CheckpointManager(ckpt).restore(rnd, state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t2
+        digests = [state_digests(rank_state(state, bundle.sched, s))
+                   for s in range(bundle.plan.pp)]
+        results.put(("ok", {"restore_s": restore_s, "digests": digests,
+                            "seconds_with_init": time.perf_counter() - t1}))
+    except BaseException:
+        results.put(("error", traceback.format_exc()))
+        raise
+
+
+def start_restore_one(ckpt, ranks):
+    """:func:`restore_one_child` started on the ranks' last complete
+    checkpoint; the handle :func:`finish_restore_one` takes."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    rnd = ranks[0]["saved"][0]
+    child = ctx.Process(target=restore_one_child, args=(ckpt, rnd, results),
+                        daemon=True)
+    child.start()
+    return child, results, ckpt, ranks, rnd, time.perf_counter()
+
+
+def finish_restore_one(handle):
+    """Join 18b's one-process restore: every stage's restored rows equal
+    what its rank saved, bit for bit (64-bit digests); the checkpoint is
+    then removed.  The ``ckpt_dist`` record of the restore."""
+    import shutil
+    child, results, ckpt, ranks, rnd, t_start = handle
+    try:
+        t0 = time.perf_counter()
+        status, got = results.get(timeout=DIST_JOIN_S)
+        child.join(60)
+        wait_s = time.perf_counter() - t0
+        if status != "ok":
+            raise AssertionError(f"18b's one-process restore failed:\n{got}")
+        for s, res in enumerate(ranks):
+            if res["saved"][0] != rnd or got["digests"][s] != res["saved"][1]:
+                raise AssertionError(f"18b: round {rnd} restored in one "
+                                     f"process differs from rank {s}'s "
+                                     "saved state")
+    finally:
+        if child.is_alive():
+            child.kill()
+            child.join(5)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    log(f"[ckpt_dist] 18b: round {rnd} restored in one process in "
+        f"{got['restore_s']:.2f} s (spawned beside phases 19-20, "
+        f"{time.perf_counter() - t_start:.1f} s from its start, "
+        f"{wait_s:.1f} s waited after phase 20), equal to every rank's "
+        "saved state")
+    return {"phase": "18b one process", "restore_s": got["restore_s"],
+            "round": rnd, "seconds_with_init": got["seconds_with_init"],
+            "beside": "phases 19-20", "wait_after_phase_20_s": wait_s}
 
 
 # --------------------------------------------------------------------------
@@ -4134,10 +4188,7 @@ def verify_record(device, err, launches):
     ms = float(np.median(ms_repeats))
     ms_events = time_ms(run(pa.paged_attention))
     plain = time_ms(run(pa.paged_attention_plain))
-    nbytes, flops = paged_bytes_flops(sets[0][0], sets[0][1], tab, lengths,
-                                      -1)
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS["bfloat16"]
+    kc = paged_cost(sets[0][0], sets[0][1], tab, lengths, -1)
     return {"name": "paged_attention_verify", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
             "replaces": "src/repro/kernels/paged_attention.py:51",
@@ -4146,9 +4197,7 @@ def verify_record(device, err, launches):
             "max_abs_err": err, "tolerance": TOL, "ms": ms,
             "ms_repeats": ms_repeats,
             "ms_events": ms_events, "ms_by": PAGED_MS_BY,
-            "plain_ms": plain, "bound_ms": 1e3 * max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "bytes": nbytes, "flops": flops,
+            "plain_ms": plain, **bound_fields(kc), "library_ms": None,
             "shape": {"q": list(sets[0][0].shape),
                       "pool": list(sets[0][1].shape), "lengths": lengths}}
 
@@ -4156,6 +4205,7 @@ def verify_record(device, err, launches):
 def kernel_records(device, errs, launches):
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import cost
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     bf16 = torch.bfloat16
@@ -4192,8 +4242,7 @@ def kernel_records(device, errs, launches):
         "ptxas": ptxas_report("paged_attention", "paged_attention"),
         "smem_dynamic_bytes": pa._bind().paged_attention_smem_bytes(
             1, 5, 128, PAGE, 2)}
-    nbytes, flops = paged_bytes_flops(sets[0][0], sets[0][1], tab, lengths, -1)
-    p_bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["bfloat16"])
+    p_cost = paged_cost(sets[0][0], sets[0][1], tab, lengths, -1)
     del sets
     p8 = paged_int8_record(device, errs["paged_attention_int8"],
                            launches["paged_attention_int8"], lengths)
@@ -4210,10 +4259,7 @@ def kernel_records(device, errs, launches):
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     f_lib = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True))
-    f_flops = 4 * b * 40 * 128 * s * (s + 1) / 2
-    f_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    f_bound = 1e3 * max(f_flops / PEAK_FLOPS["bfloat16"],
-                        f_bytes / HBM_BYTES_PER_S)
+    f_cost = cost.flash_fwd(q, k, v, causal=True)
     fb = flash_bwd_record(device, errs["flash_attention_bwd"],
                           launches["flash_attention_bwd"])
     w = wkv6_record(device, errs["wkv6"], launches["wkv6"],
@@ -4227,9 +4273,7 @@ def kernel_records(device, errs, launches):
          "launches_by_path": launches["paged_attention"],
          "max_abs_err": errs["paged_attention"], "tolerance": TOL, "ms": p_ms,
          "ms_events": p_events, "ms_by": PAGED_MS_BY,
-         "plain_ms": p_plain, "bound_ms": p_bound,
-         "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                      >= flops / PEAK_FLOPS["bfloat16"] else "operations"),
+         "plain_ms": p_plain, **bound_fields(p_cost),
          "library_ms": None, **paged_design},
         p8,
         {"name": "flash_attention", "route": "cuda",
@@ -4238,9 +4282,7 @@ def kernel_records(device, errs, launches):
          "launches": sum(launches["flash_attention"].values()),
          "launches_by_path": launches["flash_attention"],
          "max_abs_err": errs["flash_attention"], "tolerance": TOL, "ms": f_ms,
-         "plain_ms": f_plain, "bound_ms": f_bound,
-         "bound_by": ("operations" if f_flops / PEAK_FLOPS["bfloat16"]
-                      >= f_bytes / HBM_BYTES_PER_S else "bytes"),
+         "plain_ms": f_plain, **bound_fields(f_cost),
          "library_ms": f_lib,
          "design": "wgmma+cp.async ring: 128 query rows a CTA (two "
                    "warpgroups, two CTAs an SM), 64-key K/V tiles in a "
@@ -4261,6 +4303,7 @@ def flash_bwd_record(device, err, launches):
     one recorded graph) as the yardstick."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import cost
     from repro_torch.kernels import flash_attention as fa
     bf16 = torch.bfloat16
     b, s = TRAIN_ROWS, TRAIN_SEQ
@@ -4298,13 +4341,7 @@ def flash_bwd_record(device, err, launches):
                for who, grads in (("kernel", mine), ("library", theirs))}
     del exact, mine, theirs
     h, kv, dh = 40, 8, 128
-    pairs = s * (s + 1) // 2
-    # the FA-2 backward's five products over the visible pairs: S = QKᵀ
-    # (recomputed from lse), dP = dO Vᵀ, dV = Pᵀ dO, dK = dSᵀ Q, dQ = dS K
-    flops = 5 * 2 * b * h * dh * pairs
-    nbytes = (4 * b * s * h * dh + 4 * b * s * kv * dh) * 2 + b * h * s * 4
-    bound = 1e3 * max(flops / PEAK_FLOPS["bfloat16"],
-                      nbytes / HBM_BYTES_PER_S)
+    kc = cost.flash_bwd(q, k, v, causal=True)
     return {"name": "flash_attention_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
             "replaces": "src/repro/kernels/flash_attention.py:39 (its "
@@ -4315,9 +4352,7 @@ def flash_bwd_record(device, err, launches):
             "ms_by_kernel": by_kernel,
             "ms_by_kernel_by": "torch.profiler device time, mean of a "
                                "launch",
-            "plain_ms": plain, "bound_ms": bound,
-            "bound_by": ("operations" if flops / PEAK_FLOPS["bfloat16"]
-                         >= nbytes / HBM_BYTES_PER_S else "bytes"),
+            "plain_ms": plain, **bound_fields(kc),
             "library_ms": lib,
             "library": "autograd of F.scaled_dot_product_attention "
                        "(is_causal, enable_gqa), backward alone",
@@ -4363,10 +4398,8 @@ def paged_int8_record(device, err, launches, lengths):
     ms = device_ms(run(pa.paged_attention), 2 * n_sets, "paged_attention")
     ms_events = time_ms(run(pa.paged_attention))
     plain = time_ms(run(pa.paged_attention_plain))
-    nbytes, flops = paged_bytes_flops(sets[0][0], sets[0][1], tab, lengths,
-                                      -1, scales=True)
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS["float32"]
+    kc = paged_cost(sets[0][0], sets[0][1], tab, lengths, -1,
+                    k_scale=sets[0][3])
     return {"name": "paged_attention_int8", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
             "replaces": "src/repro/kernels/paged_attention.py:51",
@@ -4374,24 +4407,9 @@ def paged_int8_record(device, err, launches, lengths):
             "launches_by_path": launches, "max_abs_err": err[0],
             "max_abs_err_vs_unquantized": err[1], "tolerance": TOL,
             "ms": ms, "ms_events": ms_events, "ms_by": PAGED_MS_BY,
-            "plain_ms": plain, "bound_ms": 1e3 * max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "bytes": nbytes, "flops": flops,
+            "plain_ms": plain, **bound_fields(kc), "library_ms": None,
             "shape": {"q": list(sets[0][0].shape),
                       "pool": list(sets[0][1].shape), "lengths": lengths}}
-
-
-def wkv6_bytes_flops(args, s0):
-    """Bytes the call must move (r, k, v, w, u read, y written, the state
-    read and written, or only written from a zero start) and its 4·Dh²
-    operations per token and head."""
-    r = args[0]
-    b, s, h, dh = r.shape
-    esz = r.element_size()
-    state = b * h * dh * dh * 4
-    nbytes = (5 * r.numel() + args[4].numel()) * esz + state * (
-        1 if s0 is None else 2)
-    return nbytes, 4 * b * s * h * dh * dh
 
 
 def wkv6_record(device, err, launches, by_design):
@@ -4403,6 +4421,7 @@ def wkv6_record(device, err, launches, by_design):
     (:func:`device_ms`): its few microseconds are less than the wrapper's
     host time.  ``launches_by_design`` splits the main paths' launches."""
     import torch
+    from repro_torch.kernels import cost
     from repro_torch.kernels import wkv6 as wk
     bf16 = torch.bfloat16
     args, s0 = wkv6_inputs(bf16, device, RWKV_ROWS, RWKV_PREFILL, seed=11)
@@ -4411,9 +4430,7 @@ def wkv6_record(device, err, launches, by_design):
         raise AssertionError("wkv6 prefill / decode designs changed")
     ms = time_ms(lambda: wk.wkv6(*args, s0), iters=20)
     plain = time_ms(lambda: wk.wkv6_plain(*args, s0), iters=3, warmup=1)
-    nbytes, flops = wkv6_bytes_flops(args, s0)
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS["bfloat16"]
+    kc = cost.wkv6(*args, s0)
     dargs, _ = wkv6_inputs(bf16, device, RWKV_ROWS, 1, seed=12,
                            with_state=False)
     state_bytes = RWKV_ROWS * RWKV_H * RWKV_DH * RWKV_DH * 4
@@ -4430,9 +4447,7 @@ def wkv6_record(device, err, launches, by_design):
 
     d_ms = device_ms(run(wk.wkv6), 4 * n_sets, "wkv6_kernel")
     d_plain = device_ms(run(wk.wkv6_plain), n_sets)
-    d_bytes, d_flops = wkv6_bytes_flops(dargs, states[0])
-    d_bound = 1e3 * max(d_bytes / HBM_BYTES_PER_S,
-                        d_flops / PEAK_FLOPS["bfloat16"])
+    d_bound = cost.wkv6(*dargs, states[0]).bound()
     ptxas = ptxas_report("wkv6", "wkv6")
     return {"name": "wkv6", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/wkv6.cu",
@@ -4441,9 +4456,7 @@ def wkv6_record(device, err, launches, by_design):
             "launches_by_path": launches,
             "launches_by_design": by_design,
             "max_abs_err": err, "tolerance": TOL, "ms": ms,
-            "plain_ms": plain, "bound_ms": 1e3 * max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None,
+            "plain_ms": plain, **bound_fields(kc), "library_ms": None,
             "shape": [RWKV_ROWS, RWKV_PREFILL, RWKV_H, RWKV_DH],
             "design": "prefill (bf16, S >= 16): chunked, 16-token chunks on "
                       "mma.sync m16n8k16 with hi/lo bf16 splits, the state "
@@ -4456,26 +4469,8 @@ def wkv6_record(device, err, launches, by_design):
             "smem_dynamic_bytes": wk._bind().wkv6_chunked_smem_bytes(RWKV_DH),
             "decode_design": "stepwise",
             "decode_ms": d_ms, "decode_plain_ms": d_plain,
-            "decode_bound_ms": d_bound,
-            "decode_bound_by": ("bytes" if d_bytes / HBM_BYTES_PER_S
-                                >= d_flops / PEAK_FLOPS["bfloat16"]
-                                else "operations")}
-
-
-def mamba_bytes_flops(args, h0):
-    """Bytes the call must move (u, dt, B, C, A, D read, y written, the
-    state read and written, or only written from a zero start), its f32
-    operations (6 per state entry and token: dt·A, the decay FMA,
-    dt·u·B, the C FMA; 3 per channel and token: dt·u and the D FMA) and
-    its exps (one per state entry and token)."""
-    u, _, a = args[:3]
-    b, s, ci = u.shape
-    n = a.shape[1]
-    esz = u.element_size()
-    state = b * ci * n * 4
-    nbytes = (3 * u.numel() + 2 * b * s * n) * esz + (ci * n + ci) * 4 \
-        + state * (1 if h0 is None else 2)
-    return nbytes, b * s * ci * (6 * n + 3), b * s * ci * n
+            "decode_bound_ms": 1e3 * d_bound[0],
+            "decode_bound_by": d_bound[1]}
 
 
 def mamba_record(device, err, launches):
@@ -4486,15 +4481,15 @@ def mamba_record(device, err, launches):
     states (1 MB each) to fill L2 four times, as the step finds each
     slot's state cold, timed as device time (:func:`device_ms`)."""
     import torch
+    from repro_torch.core.profiler import H100_SXM
+    from repro_torch.kernels import cost
     from repro_torch.kernels import mamba_scan as ms
     f32 = torch.float32
     args, h0 = mamba_inputs(f32, device, JAMBA_ROWS, JAMBA_PREFILL, seed=41)
     t_ms = time_ms(lambda: ms.mamba_scan(*args, h0), iters=20)
     plain = time_ms(lambda: ms.mamba_scan_plain(*args, h0), iters=3,
                     warmup=1)
-    nbytes, flops, exps = mamba_bytes_flops(args, h0)
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS["float32"]
+    kc = cost.mamba_scan(*args, h0)
     dargs, _ = mamba_inputs(f32, device, JAMBA_ROWS, 1, seed=42,
                             with_state=False)
     state_bytes = JAMBA_ROWS * MAMBA_CI * MAMBA_N * 4
@@ -4511,15 +4506,10 @@ def mamba_record(device, err, launches):
 
     d_ms = device_ms(run(ms.mamba_scan), 4 * n_sets, "mamba_scan_kernel")
     d_plain = device_ms(run(ms.mamba_scan_plain), n_sets)
-    d_bytes, d_flops, d_exps = mamba_bytes_flops(dargs, states[0])
     # operations: f32 arithmetic at the CUDA-core rate and the exps at the
     # SFU rate; the bound is the largest of the three times
-    t_sfu = exps / SFU_EXP_PER_S
-    bound = max((t_bytes, "bytes", "bytes"), (t_ops, "operations", "fp32"),
-                (t_sfu, "operations", "sfu_exp"))
-    d_tb, d_to = d_bytes / HBM_BYTES_PER_S, d_flops / PEAK_FLOPS["float32"]
-    d_bound = max((d_tb, "bytes", "bytes"), (d_to, "operations", "fp32"),
-                  (d_exps / SFU_EXP_PER_S, "operations", "sfu_exp"))
+    d_cost = cost.mamba_scan(*dargs, states[0])
+    d_bound = d_cost.bound()
     return {"name": "mamba_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
             "replaces": "src/repro/kernels/mamba_scan.py:31",
@@ -4527,13 +4517,13 @@ def mamba_record(device, err, launches):
             "launches_by_path": launches,
             "max_abs_err": err[0], "max_abs_err_by_case": err[1],
             "tolerance": TOL, "ms": t_ms, "plain_ms": plain,
-            "bound_ms": 1e3 * bound[0], "bound_by": bound[1],
-            "bound_unit": bound[2],
-            "library_ms": None,
+            **bound_fields(kc), "library_ms": None,
             "shape": [JAMBA_ROWS, JAMBA_PREFILL, MAMBA_CI, MAMBA_N],
-            "dtype": "float32", "bytes": nbytes, "flops": flops,
-            "bytes_bound_ms": 1e3 * t_bytes, "flops_bound_ms": 1e3 * t_ops,
-            "exps": exps, "exp_ms_at_sfu_rate": 1e3 * t_sfu,
+            "dtype": "float32",
+            "bytes_bound_ms": 1e3 * kc.bytes / H100_SXM.hbm_bw,
+            "flops_bound_ms": 1e3 * kc.flops / H100_SXM.flops_peak_f32,
+            "exps": kc.exps,
+            "exp_ms_at_sfu_rate": 1e3 * kc.exps / H100_SXM.exp_rate,
             "design": f"state split over lanes: {MAMBA_N // 8} lanes a "
                       f"channel, 8 entries a lane (ex2.approx on A·log2 e, "
                       f"shuffle sum of y), 64 channels a block; u, dt, B, C "
@@ -4546,18 +4536,7 @@ def mamba_record(device, err, launches):
             "decode_ms": d_ms, "decode_plain_ms": d_plain,
             "decode_bound_ms": 1e3 * d_bound[0],
             "decode_bound_by": d_bound[1], "decode_bound_unit": d_bound[2],
-            "decode_exps": d_exps}
-
-
-def wkv6_bwd_bytes_flops(args):
-    """Bytes the backward must move (r, k, v, w, dy and u read; dr, dk,
-    dv, dw and du written) and its f32 operations: 12 a (token, d, e) of
-    a head (the state's forward update, G's update, and one multiply-add
-    each of dr, dk, dv and dw; 2 a multiply-add)."""
-    r, u = args[0], args[4]
-    dh = r.shape[-1]
-    return (9 * r.numel() + 2 * u.numel()) * r.element_size(), \
-        12 * r.numel() * dh
+            "decode_exps": d_cost.exps}
 
 
 def scaling_probe(fn, shapes) -> dict:
@@ -4573,14 +4552,14 @@ def wkv6_bwd_record(device, errs, plain_ms, launches):
     22a runs it), timed with CUDA events (its 151 MB of inputs and
     outputs exceed L2); the scaling probe at half S and half H."""
     import torch
+    from repro_torch.kernels import cost
     from repro_torch.kernels import wkv6 as wk
     args = wkv6_bwd_inputs(torch.bfloat16, device, 60)
     ms = time_ms(lambda: wk.wkv6_bwd(*args), iters=10)
     by_kernel = per_launch_ms(lambda: wk.wkv6_bwd(*args), 5,
                               ("wkv6_bwd_local<", "wkv6_bwd_combine<",
                                "wkv6_bwd_chunk<", "wkv6_bwd_du<"))
-    nbytes, flops = wkv6_bwd_bytes_flops(args)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["float32"]
+    kc = cost.wkv6_bwd(*args[:5])
     b, s, h, dh = TRAIN_WKV
     scratch = 4 * wk._bind_bwd().wkv6_bwd_scratch_floats(b, s, h, dh)
     probe = scaling_probe(wk.wkv6_bwd, {
@@ -4604,10 +4583,7 @@ def wkv6_bwd_record(device, errs, plain_ms, launches):
             "ms_by_kernel_by": "torch.profiler device time, mean of a "
                                "launch",
             "plain_ms": plain_ms["bf16 w=0"], "plain_ms_by_case": plain_ms,
-            "bound_ms": 1e3 * max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bound_unit": "bytes" if t_bytes >= t_ops else "fp32",
-            "bytes": nbytes, "flops": flops, "library_ms": None,
+            **bound_fields(kc), "library_ms": None,
             "library": "none", "shape": list(TRAIN_WKV), "dtype": "bfloat16",
             "scratch_bytes": scratch, "scaling_ms": probe,
             "design": "split the sequence, find the boundary states, "
@@ -4637,6 +4613,7 @@ def mamba_bwd_record(device, errs, plain_ms, launches):
     (token, channel, entry) (the state's recompute 4, dh 2, du 2, ddt 4,
     dA 3, dB 2, dC 4, the two decays 2, the sums 1) and one exp at the
     SFU rate; the bound is the largest time."""
+    from repro_torch.kernels import cost
     from repro_torch.kernels import mamba_scan as ms
     args = mamba_bwd_inputs(device, 70)
     t_ms = time_ms(lambda: ms.mamba_scan_bwd(*args), iters=10)
@@ -4646,12 +4623,7 @@ def mamba_bwd_record(device, errs, plain_ms, launches):
     u, A = args[0], args[2]
     b, s, ci = u.shape
     n = A.shape[1]
-    nbytes = (5 * u.numel() + 4 * b * s * n) * u.element_size() \
-        + (2 * ci * n + 2 * ci) * 4
-    flops, exps = 24 * b * s * ci * n, b * s * ci * n
-    bound = max((nbytes / HBM_BYTES_PER_S, "bytes", "bytes"),
-                (flops / PEAK_FLOPS["float32"], "operations", "fp32"),
-                (exps / SFU_EXP_PER_S, "operations", "sfu_exp"))
+    kc = cost.mamba_scan_bwd(*args[:6])
     scratch = 4 * ms._bind_bwd().mamba_scan_bwd_scratch_floats(b, s, ci, n)
     half_s = [a if i in (2, 5) else a[:, :s // 2].contiguous()
               for i, a in enumerate(args)]
@@ -4673,9 +4645,8 @@ def mamba_bwd_record(device, errs, plain_ms, launches):
             "ms_by_kernel": by_kernel,
             "ms_by_kernel_by": "torch.profiler device time, mean of a "
                                "launch",
-            "plain_ms": plain_ms, "bound_ms": 1e3 * bound[0],
-            "bound_by": bound[1], "bound_unit": bound[2], "bytes": nbytes,
-            "flops": flops, "exps": exps, "library_ms": None,
+            "plain_ms": plain_ms, **bound_fields(kc), "exps": kc.exps,
+            "library_ms": None,
             "library": "none", "shape": list(TRAIN_MAMBA),
             "dtype": "float32", "scratch_bytes": scratch,
             "scaling_ms": probe,
@@ -5175,6 +5146,7 @@ def dh120_records(device, errs, launches):
     backward at (1, TRAIN_SEQ, 32 / 8, 120)."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import cost
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     bf16 = torch.bfloat16
@@ -5193,14 +5165,12 @@ def dh120_records(device, errs, launches):
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     lib = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask, enable_gqa=True), 5, 1)
-    pairs = sum(min(i + 1, w) for i in range(s))
-    flops = 4 * h * dh * pairs
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
     out["flash_attention"] = _dh120_entry(
         [1, s, h, kv, dh], w, errs["flash_attention"],
-        launches["flash_attention"], ms, plain, flops, nbytes,
-        lib, "F.scaled_dot_product_attention with the window's boolean "
-             "mask (enable_gqa)")
+        launches["flash_attention"], ms, plain,
+        cost.flash_fwd(q, k, v, causal=True, window=w), lib,
+        "F.scaled_dot_product_attention with the window's boolean mask "
+        "(enable_gqa)")
     del q, k, v, qt, kt, vt, mask
     # the backward, causal
     q, k, v, do = dh120_flash_inputs(bf16, device, TRAIN_SEQ, 35)
@@ -5216,13 +5186,10 @@ def dh120_records(device, errs, launches):
     dot = do.transpose(1, 2)
     lib = time_ms(lambda: torch.autograd.grad(ref, (qt, kt, vt), dot,
                                               retain_graph=True))
-    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
-    flops = 5 * 2 * h * dh * pairs
-    nbytes = (4 * TRAIN_SEQ * h * dh + 4 * TRAIN_SEQ * kv * dh) * 2 \
-        + h * TRAIN_SEQ * 4
     out["flash_attention_bwd"] = _dh120_entry(
         [1, TRAIN_SEQ, h, kv, dh], -1, errs["flash_attention_bwd"],
-        launches["flash_attention_bwd"], ms, plain, flops, nbytes, lib,
+        launches["flash_attention_bwd"], ms, plain,
+        cost.flash_bwd(q, k, v, causal=True), lib,
         "autograd of F.scaled_dot_product_attention (is_causal, "
         "enable_gqa), backward alone")
     del q, k, v, do, o, lse, qt, kt, vt, ref
@@ -5242,11 +5209,10 @@ def dh120_records(device, errs, launches):
 
     ms = device_ms(run(pa.paged_attention), 2 * n_sets, "paged_attention")
     plain = time_ms(run(pa.paged_attention_plain))
-    nbytes, flops = paged_bytes_flops(sets[0][0], sets[0][1], tab, [n_keys],
-                                      DANUBE_WINDOW)
+    kc = paged_cost(sets[0][0], sets[0][1], tab, [n_keys], DANUBE_WINDOW)
     out["paged_attention"] = _dh120_entry(
         [1, 1, h, kv, dh], DANUBE_WINDOW, errs["paged_attention"],
-        launches["paged_attention"], ms, plain, flops, nbytes, None,
+        launches["paged_attention"], ms, plain, kc, None,
         "none (no single PyTorch call)")
     out["paged_attention"].update(keys=n_keys, ms_by=PAGED_MS_BY)
     del sets
@@ -5267,12 +5233,12 @@ def dh120_records(device, errs, launches):
 
     ms = device_ms(run8(pa.paged_attention), 2 * n_sets, "paged_attention")
     plain = time_ms(run8(pa.paged_attention_plain))
-    nbytes, flops = paged_bytes_flops(sets[0][0], sets[0][1], tab, [n_keys],
-                                      DANUBE_WINDOW, scales=True)
+    kc = paged_cost(sets[0][0], sets[0][1], tab, [n_keys], DANUBE_WINDOW,
+                    k_scale=sets[0][3])
     entry = _dh120_entry(
         [1, 1, h, kv, dh], DANUBE_WINDOW, errs["paged_attention_int8"][0],
-        launches["paged_attention_int8"], ms, plain, flops, nbytes, None,
-        "none (no single PyTorch call)", peak="float32")
+        launches["paged_attention_int8"], ms, plain, kc, None,
+        "none (no single PyTorch call)")
     entry.update(keys=n_keys, ms_by=PAGED_MS_BY, pool_dtype="int8",
                  chunk_bytes=8,
                  max_abs_err_vs_unquantized=errs["paged_attention_int8"][1])
@@ -5282,17 +5248,13 @@ def dh120_records(device, errs, launches):
     return out
 
 
-def _dh120_entry(shape, window, err, launches, ms, plain, flops, nbytes,
-                 lib, lib_what, peak="bfloat16"):
-    t_ops = flops / PEAK_FLOPS[peak]
-    t_bytes = nbytes / HBM_BYTES_PER_S
+def _dh120_entry(shape, window, err, launches, ms, plain, kc, lib,
+                 lib_what):
+    """A record's entry at one shape: ``kc`` its kernels/cost.py count."""
     return {"shape": shape, "window": window, "dtype": "bfloat16",
             "launches": sum(launches.values()), "launches_by_path": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": lib, "library": lib_what, "flops": flops,
-            "bytes": nbytes}
+            **bound_fields(kc), "library_ms": lib, "library": lib_what}
 
 
 # --------------------------------------------------------------------------
@@ -5960,6 +5922,7 @@ def layout_records(device, errs, launches):
     {layout: {path: count}}."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import cost
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     bf16 = torch.bfloat16
@@ -5976,11 +5939,10 @@ def layout_records(device, errs, launches):
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         lib = time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True))
-        flops = 4 * b * h * dh * s * (s + 1) / 2
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
         rec["flash_attention"] = _dh120_entry(
             [b, s, h, kv, dh], -1, errs[name]["flash_attention"],
-            launches["flash_attention"][name], ms, plain, flops, nbytes, lib,
+            launches["flash_attention"][name], ms, plain,
+            cost.flash_fwd(q, k, v, causal=True), lib,
             "F.scaled_dot_product_attention (is_causal, enable_gqa)")
         del q, k, v, qt, kt, vt
         s = TRAIN_SEQ
@@ -5997,13 +5959,12 @@ def layout_records(device, errs, launches):
         dot = do.transpose(1, 2)
         lib = time_ms(lambda: torch.autograd.grad(ref, (qt, kt, vt), dot,
                                                   retain_graph=True))
-        flops = 5 * 2 * h * dh * s * (s + 1) // 2
-        nbytes = (4 * s * h * dh + 4 * s * kv * dh) * 2 + h * s * 4
         rec["flash_attention_bwd"] = _dh120_entry(
             [1, s, h, kv, dh], -1, errs[name]["flash_attention_bwd"],
-            launches["flash_attention_bwd"][name], ms, plain, flops, nbytes,
-            lib, "autograd of F.scaled_dot_product_attention (is_causal, "
-                 "enable_gqa), backward alone")
+            launches["flash_attention_bwd"][name], ms, plain,
+            cost.flash_bwd(q, k, v, causal=True), lib,
+            "autograd of F.scaled_dot_product_attention (is_causal, "
+            "enable_gqa), backward alone")
         del q, k, v, do, o, lse, qt, kt, vt, ref
         q_lens = (1, SPEC_K + 1) if name == "g16" else (1,)
         for q_len in q_lens:
@@ -6026,13 +5987,12 @@ def layout_records(device, errs, launches):
             ms = device_ms(run(pa.paged_attention), 2 * n_sets,
                            "paged_attention")
             plain = time_ms(run(pa.paged_attention_plain))
-            nbytes, flops = paged_bytes_flops(sets[0][0], sets[0][1], tab,
-                                              lengths, -1)
+            kc = paged_cost(sets[0][0], sets[0][1], tab, lengths, -1)
             splits, per = pa.plan_splits(tab.shape[1], tab.shape[0], kv,
                                          n_sm)
             entry = _dh120_entry(
                 [len(lengths), q_len, h, kv, dh], -1, errs[name][key],
-                launches[key][name], ms, plain, flops, nbytes, None,
+                launches[key][name], ms, plain, kc, None,
                 "none (no single PyTorch call)")
             entry.update(
                 keys=lengths, ms_by=PAGED_MS_BY, query_rows=q_len * h // kv,
@@ -7199,6 +7159,7 @@ def dh256_records(device, errs, launches):
     ``launches`` maps a record name to {path: count}."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import cost
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     bf16 = torch.bfloat16
@@ -7211,14 +7172,13 @@ def dh256_records(device, errs, launches):
                      (torch.float32, GEMMA_WINDOW)):
         q, k, v, do = dh256_flash_inputs(dtype, device, 64)
         f32 = dtype == torch.float32
-        esz, peak, reps = (4, "float32", 5) if f32 else (2, "bfloat16", 30)
+        peak, reps = ("float32", 5) if f32 else ("bfloat16", 30)
         case = ("causal" if w < 0 else f"window_{w}") + ("_f32" if f32
                                                          else "")
         # 25c's exact check runs in f32, 25a-b in bf16
         paths = {k: {p: n for p, n in launches[k].items()
                      if ("exact" in p) == f32}
                  for k in ("flash_attention", "flash_attention_bwd")}
-        pairs = sum(min(i + 1, w) if w > 0 else i + 1 for i in range(s))
         mask = None if w < 0 else (dist >= 0) & (dist < w)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
@@ -7234,10 +7194,10 @@ def dh256_records(device, errs, launches):
         lib = time_ms(lambda: sdpa(qt, kt, vt), 5, 1)
         out["flash_attention"][case] = _dh120_entry(
             [1, s, h, kv, dh], w, errs["flash_attention"],
-            paths["flash_attention"], ms, plain, 4 * h * dh * pairs,
-            (2 * q.numel() + k.numel() + v.numel()) * esz, lib,
+            paths["flash_attention"], ms, plain,
+            cost.flash_fwd(q, k, v, causal=True, window=w), lib,
             "F.scaled_dot_product_attention (is_causal or the window's "
-            "boolean mask; enable_gqa)", peak=peak)
+            "boolean mask; enable_gqa)")
         out["flash_attention"][case]["dtype"] = peak
         o, lse = fa.flash_attention(q, k, v, window=w, return_lse=True)
         ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
@@ -7252,10 +7212,9 @@ def dh256_records(device, errs, launches):
         out["flash_attention_bwd"][case] = _dh120_entry(
             [1, s, h, kv, dh], w, errs["flash_attention_bwd"],
             paths["flash_attention_bwd"], ms, plain,
-            5 * 2 * h * dh * pairs,
-            (4 * s * h * dh + 4 * s * kv * dh) * esz + h * s * 4, lib,
+            cost.flash_bwd(q, k, v, causal=True, window=w), lib,
             "autograd of F.scaled_dot_product_attention (is_causal or the "
-            "window's mask; enable_gqa), backward alone", peak=peak)
+            "window's mask; enable_gqa), backward alone")
         out["flash_attention_bwd"][case]["dtype"] = peak
         del o, lse, qg, kg, vg, ref, qt, kt, vt, q, k, v, do
         torch.cuda.empty_cache()
@@ -7279,12 +7238,11 @@ def dh256_records(device, errs, launches):
 
         ms = device_ms(run(pa.paged_attention), 2 * n_sets, "paged_attention")
         plain = time_ms(run(pa.paged_attention_plain))
-        nbytes, flops = paged_bytes_flops(sets[0][0], sets[0][1], tab,
-                                          lengths, -1)
+        kc = paged_cost(sets[0][0], sets[0][1], tab, lengths, -1)
         splits, per = pa.plan_splits(tab.shape[1], tab.shape[0], kv, n_sm)
         entry = _dh120_entry(
             [len(lengths), q_len, h, kv, dh], -1, errs[key], launches[key],
-            ms, plain, flops, nbytes, None, "none (no single PyTorch call)")
+            ms, plain, kc, None, "none (no single PyTorch call)")
         entry.update(keys=lengths, ms_by=PAGED_MS_BY,
                      query_rows=q_len * h // kv, splits=splits,
                      pages_a_split=per, smem_dynamic_bytes={
@@ -7310,12 +7268,12 @@ def dh256_records(device, errs, launches):
 
     ms = device_ms(run8(pa.paged_attention), 2 * n_sets, "paged_attention")
     plain = time_ms(run8(pa.paged_attention_plain))
-    nbytes, flops = paged_bytes_flops(sets[0][0], sets[0][1], tab, lengths,
-                                      -1, scales=True)
+    kc = paged_cost(sets[0][0], sets[0][1], tab, lengths, -1,
+                    k_scale=sets[0][3])
     entry = _dh120_entry(
         [len(lengths), 1, h, kv, dh], -1, errs["paged_attention_int8"][0],
-        launches["paged_attention_int8"], ms, plain, flops, nbytes, None,
-        "none (no single PyTorch call)", peak="float32")
+        launches["paged_attention_int8"], ms, plain, kc, None,
+        "none (no single PyTorch call)")
     entry.update(keys=lengths, ms_by=PAGED_MS_BY, pool_dtype="int8",
                  max_abs_err_vs_unquantized=errs["paged_attention_int8"][1])
     out["paged_attention_int8"] = {"decode": entry}
@@ -7609,6 +7567,303 @@ def gemma_launches(launches):
     return by
 
 
+# --------------------------------------------------------------------------
+# phase 26: the launch tools (cells, op counts, roofline, the dry run, the
+# Prefetcher, serve --data)
+# --------------------------------------------------------------------------
+
+TOOLS_LAYERS = 2
+TOOLS_DRY_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+# 26b and 26a's CPU count run in a spawned process on the host's CPU
+# beside phases 22-25 (the host has 8 cores): its torch threads and its
+# deadline
+TOOLS_CPU_THREADS = 6
+TOOLS_CHILD_S = 900
+# 26a: card = CPU in FLOPs and kernel calls, bytes within this share
+TOOLS_BYTES_RTOL = 0.01
+# 26c: rows of the Prefetcher-fed round (R 2 x 1 row x 4096)
+TOOLS_PREFETCH_ROWS, TOOLS_PREFETCH_ROUNDS = 2, 2
+# 26d: serve --data 2 against --data 1, bf16, gloo ranks sharing the card
+TOOLS_SERVE = ["--arch", "qwen3-14b", "--layers", str(TOOLS_LAYERS),
+               "--batch", "8", "--prefill", "64", "--tokens", "8",
+               "--cache-len", "128", "--seed", str(SEED), "--device", "cuda"]
+
+
+def tools_count_cell(device):
+    """26a's cell: qwen3-14b's train_4k at full width, its first
+    TOOLS_LAYERS layers, one row (R 1 x 4096), fp32, SGD with momentum
+    (half Adam's host memory on the CPU side)."""
+    import torch
+    from repro_torch.launch.cell import build_cell
+    from repro_torch.optim import SGDM
+    return build_cell("qwen3-14b", "train_4k", layers=TOOLS_LAYERS,
+                      global_batch=1, dtype=torch.float32,
+                      optimizer=SGDM(lr=0.01), device=device, seed=SEED)
+
+
+def count_record(op) -> dict:
+    return {"flops": op.flops, "hbm_bytes": op.hbm_bytes,
+            "kernel_flops": op.kernel_flops,
+            "kernel_bytes": op.kernel_bytes,
+            "kernel_calls": op.kernel_calls, "aten_ops": op.aten_ops,
+            "flops_by_op": op.flops_by_op, "bytes_by_op": op.bytes_by_op}
+
+
+def tools_child(results):
+    """26b and 26a's CPU side in a spawned process that never touches the
+    card: the dry run of qwen3-14b's three cells on ``meta``
+    (``launch/dryrun.py::run_cell`` at 256 cards), then the op count of
+    26a's cell on the CPU."""
+    import tempfile
+    import traceback
+    try:
+        import torch
+        from repro_torch.launch import dryrun
+        from repro_torch.launch.op_analysis import count
+        torch.set_num_threads(1)
+        out = {"dryrun": {}, "seconds": {}}
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_dry_") as tmp:
+            for shape in TOOLS_DRY_SHAPES:
+                t0 = time.perf_counter()
+                rec = dryrun.run_cell("qwen3-14b", shape, out_dir=tmp)
+                out["dryrun"][shape] = {
+                    k: rec[k] for k in (
+                        "plan", "fits", "state_bytes_per_rank",
+                        "data_replicas", "replica_batch", "flops",
+                        "hbm_bytes", "coll_operand_bytes", "compute_s",
+                        "memory_s", "collective_s", "dominant",
+                        "model_flops", "useful_ratio", "roofline_fraction",
+                        "kernel_calls", "cuts")}
+                out["dryrun"][shape]["memory_model_gb"] = \
+                    rec["memory_model"]["total_bytes"] / 1e9
+                out["dryrun"][shape]["seconds"] = time.perf_counter() - t0
+        torch.set_num_threads(TOOLS_CPU_THREADS)
+        t0 = time.perf_counter()
+        cell = tools_count_cell("cpu")
+        out["seconds"]["26a cpu build"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["cpu_count"] = count_record(count(cell.run))
+        out["seconds"]["26a cpu count"] = time.perf_counter() - t0
+        results.put(("ok", out))
+    except BaseException:
+        results.put(("error", traceback.format_exc()))
+        raise
+
+
+def start_tools_child():
+    """:func:`tools_child` started in a spawned process: (process, its
+    queue, its start time)."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    child = ctx.Process(target=tools_child, args=(results,), daemon=True)
+    child.start()
+    return child, results, time.perf_counter()
+
+
+def serve_replica(rank, world, init_file, argv, results):
+    """A spawned data replica of 26d: ``launch/serve.py`` under a world of
+    ``world`` gloo ranks sharing the card; rank 0's gathered tokens on
+    the queue."""
+    import traceback
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        from repro_torch.launch import serve
+        toks = serve.main(argv + ["--data", str(world), "--backend", "gloo",
+                                  "--init-method", f"file://{init_file}"])
+        results.put((rank, None if toks is None else toks.tolist()))
+    except BaseException:
+        results.put((rank, {"error": traceback.format_exc()}))
+        raise
+
+
+def tools_prefetch(device):
+    """26c: TOOLS_PREFETCH_ROUNDS fp32 rounds of a TOOLS_LAYERS-layer
+    train_4k cell fed in line by its Loader, then from a fresh state fed
+    by the Prefetcher (pinned host rounds copied on a side stream); under
+    deterministic algorithms the losses and the states' digests must be
+    equal bit for bit."""
+    import torch
+    from repro_torch.data.pipeline import Prefetcher
+    from repro_torch.launch.cell import build_cell
+    from repro_torch.launch.train import make_loader
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    runs = {}
+    try:
+        for how in ("inline", "prefetch"):
+            cell = build_cell("qwen3-14b", "train_4k", layers=TOOLS_LAYERS,
+                              global_batch=TOOLS_PREFETCH_ROWS,
+                              dtype=torch.float32, device=device, seed=SEED)
+            loader = make_loader(cell.spec, cell.bundle, SEED)
+            feed = Prefetcher(loader) if how == "prefetch" else None
+            state, losses, round_s = cell.args[0], [], []
+            try:
+                for r in range(TOOLS_PREFETCH_ROUNDS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    batch = next(feed) if feed else loader.get(r)
+                    state, m = cell.bundle.train_step(state, batch)
+                    losses.append(float(m["loss"]))
+                    round_s.append(time.perf_counter() - t0)
+            finally:
+                if feed is not None:
+                    feed.stop()
+            runs[how] = {"losses": losses, "round_s": round_s,
+                         "digests": state_digests(state)}
+            del cell, state, batch, loader, feed
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    a, b = runs["inline"], runs["prefetch"]
+    if a["losses"] != b["losses"] or a["digests"] != b["digests"]:
+        bad = [k for k in a["digests"] if b["digests"].get(k)
+               != a["digests"][k]]
+        raise AssertionError(f"26c: Prefetcher-fed rounds differ from the "
+                             f"in-line Loader's: losses {b['losses']} / "
+                             f"{a['losses']}, leaves {bad[:6]}")
+    return {"rounds": TOOLS_PREFETCH_ROUNDS, "rows": TOOLS_PREFETCH_ROWS,
+            "layers": TOOLS_LAYERS, "dtype": "float32",
+            "losses": a["losses"], "leaves_equal": len(a["digests"]),
+            "round_s_inline": a["round_s"],
+            "round_s_prefetch": b["round_s"]}
+
+
+def tools_serve_data(device):
+    """26d: ``serve --data 2`` on two spawned gloo ranks sharing the card
+    against ``serve --data 1`` here: rank 0's gathered tokens must equal
+    the one-process tokens."""
+    import multiprocessing
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+    one = serve.main(list(TOOLS_SERVE))
+    one_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    procs = [ctx.Process(target=serve_replica,
+                         args=(r, 2, f"{tmp}/rendezvous", TOOLS_SERVE,
+                               results)) for r in range(2)]
+    t0 = time.perf_counter()
+    got = {}
+    try:
+        for p in procs:
+            p.start()
+        while len(got) < 2:
+            rank, res = results.get(timeout=DIST_JOIN_S)
+            if isinstance(res, dict):
+                raise AssertionError(f"26d rank {rank}:\n{res['error']}")
+            got[rank] = res
+        for p in procs:
+            p.join(60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(5)
+        shutil.rmtree(tmp, ignore_errors=True)
+    two_s = time.perf_counter() - t0
+    two = np.asarray(got[0])
+    if got[1] is not None or two.shape != one.shape or \
+            not np.array_equal(two, one):
+        raise AssertionError(f"26d: --data 2's tokens {got[0]} differ from "
+                             f"--data 1's {one.tolist()}")
+    return {"argv": TOOLS_SERVE, "replicas": 2, "backend": "gloo",
+            "tokens_equal": int(one.size), "tokens_first_row":
+                one[:, 0].tolist(), "data1_s": one_s, "data2_s": two_s}
+
+
+def count_gaps(card, cpu, k=5):
+    """The ops whose counted bytes differ most between the two counts."""
+    keys = set(card["bytes_by_op"]) | set(cpu["bytes_by_op"])
+    gaps = {op: card["bytes_by_op"].get(op, 0.0) - cpu["bytes_by_op"].get(
+        op, 0.0) for op in keys}
+    return sorted(((op, g) for op, g in gaps.items() if g),
+                  key=lambda kv: -abs(kv[1]))[:k]
+
+
+def phase_tools(device, child):
+    """26a (the card's count against the child's CPU count), 26c, 26d, then
+    the child's 26b and CPU count (see the module docstring)."""
+    import torch
+    from repro_torch.launch.op_analysis import count
+    proc, results, t_child = child
+    seconds, out = {}, {}
+    try:
+        t0 = time.perf_counter()
+        cell = tools_count_cell(device)
+        card = count_record(count(cell.run))
+        del cell
+        torch.cuda.empty_cache()
+        seconds["26a card count"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["prefetch"] = tools_prefetch(device)
+        seconds["26c prefetch"] = time.perf_counter() - t0
+        log(f"[tools] 26c ({seconds['26c prefetch']:.1f}s): "
+            f"{TOOLS_PREFETCH_ROUNDS} Prefetcher-fed fp32 rounds equal the "
+            f"in-line rounds bit for bit: losses {out['prefetch']['losses']}"
+            f", {out['prefetch']['leaves_equal']} leaves; round seconds "
+            f"in line {out['prefetch']['round_s_inline']}, prefetched "
+            f"{out['prefetch']['round_s_prefetch']}")
+        t0 = time.perf_counter()
+        out["serve_data"] = tools_serve_data(device)
+        seconds["26d serve --data 2"] = time.perf_counter() - t0
+        log(f"[tools] 26d ({seconds['26d serve --data 2']:.1f}s): serve "
+            f"--data 2 on two gloo ranks equals --data 1, "
+            f"{out['serve_data']['tokens_equal']} tokens")
+        t0 = time.perf_counter()
+        status, got = results.get(timeout=TOOLS_CHILD_S)
+        proc.join(60)
+        seconds["26 child wait"] = time.perf_counter() - t0
+        seconds["26 child (spawned with 22)"] = time.perf_counter() - t_child
+        if status != "ok":
+            raise AssertionError(f"26b / 26a's CPU count failed:\n{got}")
+    finally:
+        if proc.is_alive():
+            proc.kill()
+            proc.join(5)
+    cpu = got["cpu_count"]
+    gap = abs(card["hbm_bytes"] - cpu["hbm_bytes"]) / cpu["hbm_bytes"]
+    out["op_count"] = {
+        "cell": f"qwen3-14b train_4k, {TOOLS_LAYERS} layers, 1 x 4096, "
+                "fp32, SGDM",
+        **{f"{side}_{k}": rec[k] for side, rec in (("card", card),
+                                                   ("cpu", cpu))
+           for k in ("flops", "hbm_bytes", "kernel_flops", "kernel_bytes",
+                     "kernel_calls", "aten_ops")},
+        "flops_equal": card["flops"] == cpu["flops"],
+        "kernel_calls_equal": card["kernel_calls"] == cpu["kernel_calls"],
+        "bytes_rel_gap": gap, "byte_gaps_by_op": count_gaps(card, cpu),
+        "seconds": {**got["seconds"], "26a card": seconds["26a card count"]}}
+    out["dryrun"] = got["dryrun"]
+    oc = out["op_count"]
+    log(f"[tools] 26a: card {card['flops']:.6e} FLOPs / "
+        f"{card['hbm_bytes']:.6e} B, CPU {cpu['flops']:.6e} / "
+        f"{cpu['hbm_bytes']:.6e} B (gap {gap:.2e}; by op "
+        f"{oc['byte_gaps_by_op']}); kernel calls {card['kernel_calls']} / "
+        f"{cpu['kernel_calls']}")
+    if not (oc["flops_equal"] and oc["kernel_calls_equal"]
+            and gap <= TOOLS_BYTES_RTOL):
+        raise AssertionError(f"26a: the card's count differs from the "
+                             f"CPU's: {json.dumps(oc)}")
+    for shape, rec in out["dryrun"].items():
+        log(f"[tools] 26b dry run qwen3-14b x {shape} ({rec['seconds']:.1f}"
+            f"s): {rec['plan']}, state {rec['state_bytes_per_rank'] / 1e9:.2f}"
+            f" GB a rank, model {rec['memory_model_gb']:.2f} GB -> "
+            f"{'fits' if rec['fits'] else 'OVER'}; compute "
+            f"{1e3 * rec['compute_s']:.1f} ms, memory "
+            f"{1e3 * rec['memory_s']:.1f} ms, collective "
+            f"{1e3 * rec['collective_s']:.1f} ms ({rec['dominant']})")
+    log(f"[phases] 26 seconds: {json.dumps(seconds)}")
+    return out, seconds
+
+
 class PhaseSeconds(dict):
     """Each phase's seconds, logged as it is recorded: a run cut short
     still shows where its time went."""
@@ -7737,25 +7992,29 @@ def main() -> int:
     phase_s["17 dist"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ckpt_recs, obs_rec, ckpt_s, ckpt_counts = phase_ckpt_dist(device,
-                                                              driver_rows)
+    ckpt_recs, obs_rec, ckpt_s, ckpt_counts, restore = phase_ckpt_dist(
+        device, driver_rows)
     phase_s["18 ckpt dist"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     from repro_torch.launch.train import cut_layers
     batch_rec, batch_counts, tile_err = phase_batching(
-        device, cut_layers(qwen_full, BATCH_LAYERS),
-                                                       qwen_plan)
+        device, cut_layers(qwen_full, BATCH_LAYERS), qwen_plan)
     phase_s["19 batching"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     planned_rec, planned_counts = phase_planned_serving(device)
     phase_s["20 planned serving"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    ckpt_recs.append(finish_restore_one(restore))
+    phase_s["18b restore after 20"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     tp_out, tp_s, tp_counts = phase_tp(device,
                                        train_out["loss_per_round"][0])
     phase_s["21 tensor parallel"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
+    # 26b and 26a's CPU count run on the host's CPU beside phases 22-25
+    tools_child_proc = start_tools_child()
     t0 = time.perf_counter()
     recur_out, prof_recur, recur_launches, recur_s = phase_train_recurrent(
         device)
@@ -7774,6 +8033,10 @@ def main() -> int:
     t0 = time.perf_counter()
     gemma_out, prof_gemma, gemma_paths, gemma_s = phase_gemma(device)
     phase_s["25 gemma3"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tools_out, tools_s = phase_tools(device, tools_child_proc)
+    phase_s["26 launch tools"] = time.perf_counter() - t0
     by_gemma = gemma_launches(gemma_paths)
     for kernel, paths in by_gemma.items():
         if not sum(paths.values()):
@@ -7879,7 +8142,7 @@ def main() -> int:
         f"dist {json.dumps(dist_s)}; ckpt dist {json.dumps(ckpt_s)}; "
         f"tp {json.dumps(tp_s)}; train recurrent {json.dumps(recur_s)}; "
         f"new configs {json.dumps(new_s)}; frontends {json.dumps(front_s)}; "
-        f"gemma3 {json.dumps(gemma_s)}")
+        f"gemma3 {json.dumps(gemma_s)}; launch tools {json.dumps(tools_s)}")
     print(json.dumps({"profile": prof_qwen}))
     print(json.dumps({"profile": prof}))
     print(json.dumps({"profile": prof_rwkv_prefill}))
@@ -7933,6 +8196,8 @@ def main() -> int:
     print(json.dumps({"gemma_consistency": {
         **gemma_out["consistency"], "exact": gemma_out["exact"],
         "card": card}}))
+    for key in ("op_count", "dryrun", "prefetch", "serve_data"):
+        print(json.dumps({key: {**tools_out[key], "card": card}}))
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

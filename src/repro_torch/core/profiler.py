@@ -49,12 +49,31 @@ class Hardware:
 #: activation element size assumed by the analytic memory/comm models
 ACT_BYTES = 2.0   # bf16
 
-#: NVIDIA H100 SXM data sheet: dense bf16 peak, HBM3 rate, NVLink 4
-#: (900 GB/s in all, 450 GB/s each way), 80 GB; bf16 weights synced by a
-#: ring all-reduce
-H100_SXM = Hardware("h100-sxm", flops_peak=989e12, hbm_bw=3.35e12,
-                    link_bw=450e9, param_bytes=2.0, ps_factor=2.0,
-                    hbm_bytes=80e9)
+class H100(Hardware):
+    """An H100's :class:`Hardware`, with the rates a kernel's bound needs
+    beside the dense bf16 peak (``kernels/cost.py``, the roofline).  They
+    are class attributes, not fields: the planner's fields stay JAX's."""
+
+    #: dense fp32 on the CUDA cores (data sheet)
+    flops_peak_f32 = 67e12
+    #: SFU exps a second: 16 ex2 results per clock per SM (CUDA C++
+    #: Programming Guide, arithmetic instruction throughput, compute
+    #: capability 9.0) x 132 SMs x the 1.98 GHz boost clock
+    exp_rate = 16 * 132 * 1.98e9
+
+    def peak(self, dtype: str) -> float:
+        """The dense peak for operands of ``dtype`` ("bfloat16" or
+        "float32")."""
+        return {"bfloat16": self.flops_peak,
+                "float32": self.flops_peak_f32}[dtype]
+
+
+#: NVIDIA H100 SXM data sheet: dense bf16 peak (989 TFLOP/s; fp32 67),
+#: HBM3 rate, NVLink 4 (900 GB/s in all, 450 GB/s each way), 80 GB; bf16
+#: weights synced by a ring all-reduce
+H100_SXM = H100("h100-sxm", flops_peak=989e12, hbm_bw=3.35e12,
+                link_bw=450e9, param_bytes=2.0, ps_factor=2.0,
+                hbm_bytes=80e9)
 
 
 def _host_chain(nic_bw: float, host_bw: float = 3e9) -> float:

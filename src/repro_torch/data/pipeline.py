@@ -8,11 +8,15 @@ shards the batch dim over the data axis
 (``repro/core/pipeline.py``: ``P(None, data, None)``).  The batch keys
 the stream does not give — the frontends' ``patches`` and ``frames`` —
 come from an ``extra_fn`` such as :func:`frontend_stub`.
+:class:`Prefetcher` keeps ``prefetch`` rounds in flight on a background
+thread (the input stage's reads in paper Figure 9).
 """
 from __future__ import annotations
 
+import queue
+import threading
 import zlib
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -70,13 +74,104 @@ class Loader:
         self.rows = slice(replica * mb, (replica + 1) * mb)
         self.extra_fn, self.extra_shapes = extra_fn, extra_shapes
 
-    def get(self, step: int) -> Dict[str, torch.Tensor]:
+    def host(self, step: int, pin: bool = False) -> Dict[str, torch.Tensor]:
+        """Round ``step``'s rows of this replica in host memory (pinned
+        with ``pin``)."""
         host = self.source.round_batch(step, self.r, self.bmb)
         for k, shape in self.extra_shapes.items():
             if k not in host:
                 host[k] = self.extra_fn(step, {k: shape})[k]
-        return {k: torch.from_numpy(np.ascontiguousarray(v[:, self.rows]))
-                .to(self.device) for k, v in host.items()}
+        out = {k: torch.from_numpy(np.ascontiguousarray(v[:, self.rows]))
+               for k, v in host.items()}
+        return {k: v.pin_memory() for k, v in out.items()} if pin else out
+
+    def get(self, step: int) -> Dict[str, torch.Tensor]:
+        return {k: v.to(self.device) for k, v in self.host(step).items()}
+
+
+class _Failed:
+    """A loader's error, carried through the queue to the consumer."""
+
+    def __init__(self, exc: BaseException):
+        self.exc = exc
+
+
+class Prefetcher:
+    """Background-thread prefetch of upcoming rounds of a :class:`Loader`
+    (JAX's ``Prefetcher``): ``prefetch`` rounds in flight, rounds
+    ``start_step``, ``start_step + 1``, ... in order, each drawn once.
+
+    On the card each round is made in pinned host memory and copied on a
+    side stream; the consumer's stream waits on the copy's event, and
+    ``record_stream`` keeps the round's buffers from being reused before
+    the consumer's work on them is done.  On the CPU a round is the
+    loader's ``get``.  An error in the loader is raised again by
+    ``next()`` (JAX's thread dies with it and ``next()`` blocks for
+    ever); the thread then ends.  ``stop()`` joins the thread."""
+
+    def __init__(self, loader: Loader, start_step: int = 0,
+                 prefetch: int = 2):
+        self.loader = loader
+        self.device = loader.device
+        self.q: "queue.Queue" = queue.Queue(maxsize=prefetch)
+        self._step = start_step
+        self._stop = threading.Event()
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _draw(self, step: int):
+        if self._stream is None:
+            return self.loader.get(step), None
+        host = self.loader.host(step, pin=True)
+        with torch.cuda.stream(self._stream):
+            dev = {k: v.to(self.device, non_blocking=True)
+                   for k, v in host.items()}
+            done = torch.cuda.Event()
+            done.record(self._stream)
+        return dev, done
+
+    def _run(self):
+        step = self._step
+        while not self._stop.is_set():
+            try:
+                item = self._draw(step)
+            except BaseException as e:       # raised again by next()
+                item = (_Failed(e), None)
+            while not self._stop.is_set():
+                try:
+                    self.q.put(item, timeout=0.5)
+                    break
+                except queue.Full:
+                    continue
+            if isinstance(item[0], _Failed):
+                return
+            step += 1
+
+    def __iter__(self) -> Iterator:
+        return self
+
+    def __next__(self) -> Dict[str, torch.Tensor]:
+        while True:
+            try:
+                batch, done = self.q.get(timeout=0.5)
+                break
+            except queue.Empty:
+                if not self._thread.is_alive() and self.q.empty():
+                    raise RuntimeError("the prefetch thread has stopped")
+        if isinstance(batch, _Failed):
+            raise batch.exc
+        if done is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(done)
+            for t in batch.values():
+                t.record_stream(stream)
+        return batch
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=5)
 
 
 def frontend_stub(seed: int = 0):

@@ -25,6 +25,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import cost as _cost
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
@@ -272,6 +273,10 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         bwd = flash_attention_bwd if do.is_cuda else flash_attention_bwd_plain
-        dq, dk, dv = bwd(q, k, v, out, lse, do.contiguous(),
-                         causal=ctx.causal, window=ctx.window)
+        dq, dk, dv = _cost.counted(
+            "flash_attention_bwd",
+            lambda: _cost.flash_bwd(q, k, v, causal=ctx.causal,
+                                    window=ctx.window),
+            lambda: bwd(q, k, v, out, lse, do.contiguous(),
+                        causal=ctx.causal, window=ctx.window))
         return dq, dk, dv, None, None

@@ -36,6 +36,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import cost as _cost
 from repro_torch.kernels import ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -46,7 +47,13 @@ BWD_SEG, BWD_SUB = 128, 8   # the backward kernel's segment, sub-chunk
 def mamba_scan_plain(u, dt, A, B, C, D, h0=None):
     """The kernel's arithmetic in plain PyTorch (CPU tests, card checks):
     the stepwise oracle.  Same arguments and result as
-    :func:`mamba_scan`, ``h0`` advanced in place included."""
+    :func:`mamba_scan`, ``h0`` advanced in place included.  On ``meta``
+    (the dry run's counts) the result's shapes alone: the walk would be S
+    steps of ops that compute nothing."""
+    if u.is_meta:
+        b, _, ci = u.shape
+        return torch.empty_like(u), (h0 if h0 is not None else torch.empty(
+            (b, ci, A.shape[-1]), dtype=torch.float32, device="meta"))
     y, h_last = ref.mamba_scan_ref(u, dt, A, B, C, D, h0)
     if h0 is None:
         return y, h_last
@@ -68,7 +75,10 @@ def mamba_scan_bwd_plain(u, dt, A, B, C, D, dy):
         dD = Σ_{b,t} dy_t u_t
 
     h_{t-1} comes from the forward recurrence, never from dividing h_t
-    by a_t.  Returns (du, ddt, dA, dB, dC, dD) in the inputs' dtypes."""
+    by a_t.  Returns (du, ddt, dA, dB, dC, dD) in the inputs' dtypes (on
+    ``meta``, their shapes alone, as :func:`mamba_scan_plain`)."""
+    if u.is_meta:
+        return tuple(torch.empty_like(t) for t in (u, dt, A, B, C, D))
     b, s, ci = u.shape
     uf, dtf, bf, cf, dyf = (t.float() for t in (u, dt, B, C, dy))
     af, df = A.float(), D.float()
@@ -365,4 +375,7 @@ class MambaScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, _dh_last):
         bwd = mamba_scan_bwd if dy.is_cuda else mamba_scan_bwd_plain
-        return bwd(*ctx.saved_tensors, dy.contiguous())
+        saved = ctx.saved_tensors
+        return _cost.counted("mamba_scan_bwd",
+                             lambda: _cost.mamba_scan_bwd(*saved),
+                             lambda: bwd(*saved, dy.contiguous()))

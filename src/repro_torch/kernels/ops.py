@@ -13,11 +13,16 @@ WKV6 and the selective scan go through their autograd Functions: on the
 card the forward kernel and the backward kernel, on the CPU the plain
 forward and the plain backward.  The paged kernel has no backward (no
 path trains through decode).
+
+Each entry point (and each autograd Function's backward) is a kernel
+region of ``kernels/cost.py``: under ``launch/op_analysis.py``'s counter
+it counts as its kernel's work, whichever version runs.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import cost as _cost
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import mamba_scan as _mamba
 from repro_torch.kernels import paged_attention as _paged
@@ -37,6 +42,7 @@ def _under_grad(name, state, *tensors) -> bool:
     return True
 
 
+@_cost.kernel_region("flash_attention", _cost.flash_fwd)
 def flash_attention(q, k, v, *, causal: bool = True, window: int = -1):
     """q: (B, Sq, H, Dh); k, v: (B, Sk, KV, Dh) -> (B, Sq, H, Dh).
 
@@ -53,6 +59,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = -1):
     return _flash.flash_attention_plain(q, k, v, causal=causal, window=window)
 
 
+@_cost.kernel_region("paged_attention", _cost.paged)
 def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
                     window: int = -1, k_scale=None, v_scale=None):
     """Decode (q (B, H, Dh)) or verify (q (B, Q, H, Dh)) attention over a
@@ -68,6 +75,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
                                         k_scale=k_scale, v_scale=v_scale)
 
 
+@_cost.kernel_region("wkv6", _cost.wkv6)
 def wkv6(r, k, v, w, u, s0=None):
     """RWKV6 WKV, r/k/v/w (B, S, H, Dh), u (H, Dh); with ``s0`` the state
     advances in place.  See :func:`repro_torch.kernels.wkv6.wkv6`.  Under
@@ -80,6 +88,7 @@ def wkv6(r, k, v, w, u, s0=None):
     return _wkv6.wkv6_plain(r, k, v, w, u, s0)
 
 
+@_cost.kernel_region("mamba_scan", _cost.mamba_scan)
 def mamba_scan(u, dt, A, B, C, D, h0=None):
     """Mamba-1 selective scan, u/dt (B, S, Ci), A (Ci, N), B/C (B, S, N),
     D (Ci,); with ``h0`` (B, Ci, N) f32 the state advances in place.  See

@@ -44,6 +44,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import cost as _cost
 from repro_torch.kernels import ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -56,7 +57,13 @@ BWD_CHUNK, BWD_SUB = 64, 8         # the backward kernel's chunk, sub-chunk
 def wkv6_plain(r, k, v, w, u, s0=None):
     """The kernel's arithmetic in plain PyTorch (CPU tests, card checks):
     the stepwise oracle on w clipped to [1e-8, 1] in f32.  Same arguments
-    and result as :func:`wkv6`, ``s0`` advanced in place included."""
+    and result as :func:`wkv6`, ``s0`` advanced in place included.  On
+    ``meta`` (the dry run's counts) the result's shapes alone: the walk
+    would be S steps of ops that compute nothing."""
+    if r.is_meta:
+        b, _, h, dh = r.shape
+        return torch.empty_like(r), (s0 if s0 is not None else torch.empty(
+            (b, h, dh, dh), dtype=torch.float32, device="meta"))
     y, s_last = ref.wkv6_ref(r, k, v, w.float().clamp(1e-8, 1.0), u, s0)
     if s0 is None:
         return y, s_last
@@ -82,7 +89,9 @@ def wkv6_bwd_plain(r, k, v, w, u, dy):
     (at w = 0 it is the derivative at w = 1e-8, finite).  dw is formed
     from the states themselves, never as d(log w) / w, which is 0 / 0
     where w underflows.  Returns (dr, dk, dv, dw, du) in the inputs'
-    dtypes."""
+    dtypes (on ``meta``, their shapes alone, as :func:`wkv6_plain`)."""
+    if r.is_meta:
+        return tuple(torch.empty_like(t) for t in (r, k, v, w, u))
     b, s, h, dh = r.shape
     rf, kf, vf, dyf = (t.float() for t in (r, k, v, dy))
     wf = w.float().clamp(1e-8, 1.0)
@@ -439,4 +448,6 @@ class WKV6(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, _ds_last):
         bwd = wkv6_bwd if dy.is_cuda else wkv6_bwd_plain
-        return bwd(*ctx.saved_tensors, dy.contiguous())
+        saved = ctx.saved_tensors
+        return _cost.counted("wkv6_bwd", lambda: _cost.wkv6_bwd(*saved),
+                             lambda: bwd(*saved, dy.contiguous()))

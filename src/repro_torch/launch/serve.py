@@ -5,8 +5,8 @@ draft–verify rounds), or a request trace through the continuous batcher
 
 Runs on the card by default (``--device cpu`` runs the plain PyTorch
 versions of the kernels).  ``--smoke`` serves the architecture's small
-smoke spec in fp32; otherwise the full spec in bf16, every stage of the
-plan on one device.
+smoke spec in fp32; otherwise the full spec in bf16 (``--layers N``
+keeps its first N layers), every stage of the plan on one device.
 
 ``--prefill`` is the prompt width the session is sized for
 (``prefill_len``: the batcher's prompt width, and the MoE expert
@@ -47,10 +47,25 @@ session's ``--pp`` / ``--virtual-stages``) in place of the seeded ones;
 ``--trace-out`` / ``--metrics-out`` write the session's Chrome trace (one
 track per stage) and metrics snapshot (``repro_torch.obs``); the run
 then prints the decode (and verify) rounds' ``reconcile`` lines.
+
+``--data D`` serves the one-shot batch on D data replicas, one process
+each under torchrun (or ranks given ``--init-method``, with torchrun's
+RANK / WORLD_SIZE): R is fitted to the batch over D replicas (as JAX's
+engine fits it over its data axis), each replica serves its block of
+every microbatch's rows, split as ``data/pipeline.py::Loader`` splits
+them, and rank 0 gathers the tokens and prints them, the tokens of
+``--data 1``.  ``--data`` > 1 without a process group is refused, and so
+are ``--arrivals`` and ``--spec-k`` on several replicas (each replica's
+rounds would run apart).  ``--backend gloo`` lets replicas share one
+card:
+
+  torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve \
+      --arch qwen3-14b --smoke --device cpu --data 2 --batch 4
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from collections import Counter
 
@@ -58,7 +73,8 @@ import numpy as np
 import torch
 
 from repro_torch import configs, resolve_device
-from repro_torch.core.schedule import SCHEDULES, plan_kwargs_for_schedule
+from repro_torch.core.schedule import (SCHEDULES, fit_serving_microbatches,
+                                       plan_kwargs_for_schedule)
 from repro_torch.obs import Observability, reconcile
 from repro_torch.serving.engine import build_serving
 
@@ -190,31 +206,44 @@ def serve_arrivals(session, spec, args) -> None:
               f"tokens {r.tokens[:6]}{'...' if len(r.tokens) > 6 else ''}")
 
 
-def prefill_batch(session, seed: int):
+def prefill_batch(session, seed: int, replica: int = 0, replicas: int = 1):
     """A prefill batch of every key of ``session.prefill_specs``, drawn
     in their order from one ``np.random.default_rng(seed)``: tokens in
     [0, vocab), a frontend's floats 0.02 x a standard normal (JAX
-    ``launch/serve.py:295-300``)."""
+    ``launch/serve.py:295-300``).  On ``replicas`` data replicas the
+    batch of all of them is drawn and replica ``replica`` keeps its
+    block of each microbatch's rows."""
     rng = np.random.default_rng(seed)
-    return {k: (rng.integers(0, session.spec.vocab, v.shape).astype(np.int32)
-                if v.dtype == torch.int32 else
-                rng.standard_normal(v.shape).astype(np.float32) * 0.02)
-            for k, v in session.prefill_specs.items()}
+    out = {}
+    for k, v in session.prefill_specs.items():
+        shape = (v.shape[0], v.shape[1] * replicas) + tuple(v.shape[2:])
+        a = (rng.integers(0, session.spec.vocab, shape).astype(np.int32)
+             if v.dtype == torch.int32 else
+             rng.standard_normal(shape).astype(np.float32) * 0.02)
+        rows = v.shape[1]
+        out[k] = np.ascontiguousarray(a[:, replica * rows:(replica + 1)
+                                        * rows])
+    return out
 
 
-def serve_batch(session, spec, args) -> None:
+def serve_batch(session, spec, args, replica: int = 0, replicas: int = 1,
+                gather=None):
     """One-shot batch: prefill, then decode steps or draft–verify
-    rounds."""
+    rounds.  Returns the decode path's tokens, (1 + steps, batch) of
+    every row (from ``gather`` over data replicas: rank 0's, None on the
+    others)."""
     device = session.device
     session.start(args.seed)
     if args.ckpt:
         load_checkpoint(session, spec, args)
     t0 = time.perf_counter()
-    nxt = session.prefill(prefill_batch(session, args.seed))
+    nxt = session.prefill(prefill_batch(session, args.seed, replica,
+                                        replicas))
     _sync(device)
-    print(f"prefill[{args.prefill}] batch={args.batch}: "
-          f"{time.perf_counter() - t0:.3f}s first tokens "
-          f"{nxt[:8].tolist()}")
+    t_prefill = time.perf_counter() - t0
+    if gather is None:
+        print(f"prefill[{args.prefill}] batch={args.batch}: "
+              f"{t_prefill:.3f}s first tokens {nxt[:8].tolist()}")
     if session.speculative:
         # draft–verify rounds: each commits 1..spec_k+1 tokens a slot
         last = nxt.cpu().numpy().astype(np.int32)
@@ -237,16 +266,25 @@ def serve_batch(session, spec, args) -> None:
               f"{dt:.3f}s ({emitted / max(dt, 1e-9):.1f} tok/s)")
         print("sample (first emitted/round):", sample[:args.tokens])
         return
-    outs = []
+    outs = [nxt]
     t0 = time.perf_counter()
     for _ in range(args.tokens):
         nxt = session.decode(nxt)
         outs.append(nxt)
     _sync(device)
     dt = time.perf_counter() - t0
+    toks = torch.stack(outs).cpu().numpy()
+    if gather is not None:
+        toks = gather(toks)
+        if toks is None:
+            return None
+        print(f"prefill[{args.prefill}] batch={args.batch} on {replicas} "
+              f"data replicas: {t_prefill:.3f}s first tokens "
+              f"{toks[0, :8].tolist()}")
     print(f"decoded {args.tokens} steps x {args.batch} seqs in {dt:.3f}s "
           f"({args.tokens * args.batch / max(dt, 1e-9):.1f} tok/s)")
-    print("sample:", torch.stack(outs)[:, 0].tolist())
+    print("sample:", toks[1:, 0].tolist())
+    return toks
 
 
 def main(argv=None):
@@ -254,6 +292,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", type=str, required=True)
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="keep the full spec's first N layers (0 = all)")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prefill", type=int, default=32)
     ap.add_argument("--tokens", type=int, default=16)
@@ -293,6 +333,17 @@ def main(argv=None):
                     choices=["continuous", "synchronized"],
                     help="slot scheduler policy under --arrivals")
     ap.add_argument("--device", type=str, default="cuda")
+    ap.add_argument("--data", type=int, default=1,
+                    help="data replicas of the one-shot batch, one process "
+                         "each (torchrun)")
+    ap.add_argument("--backend", type=str, default=None,
+                    choices=[None, "nccl", "gloo"],
+                    help="torch.distributed backend on several replicas "
+                         "(default: nccl on the card, gloo on the CPU); "
+                         "gloo lets replicas share one card")
+    ap.add_argument("--init-method", type=str, default=None,
+                    help="the process group's rendezvous (default "
+                         "torchrun's env://)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds the weights, the prompts and a poisson "
                          "trace")
@@ -319,12 +370,27 @@ def main(argv=None):
     if args.trace_out or args.metrics_out:
         obs = Observability(trace=bool(args.trace_out))
 
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if args.data > 1 or world > 1:
+        if "WORLD_SIZE" not in os.environ:
+            raise SystemExit(f"--data {args.data}: data replicas run one "
+                             f"process each; launch with torchrun "
+                             f"--nproc-per-node {args.data}")
+        if world != args.data:
+            raise SystemExit(f"--data {args.data} needs {args.data} ranks; "
+                             f"the world has {world}")
+        if args.arrivals or args.spec_k is not None:
+            raise SystemExit("--arrivals and --spec-k run on one replica: "
+                             "each replica's rounds would run apart")
     device = resolve_device(args.device)
     cfg = configs.get(args.arch)
     if args.smoke:
         spec, plan, dtype = cfg.smoke_spec(), cfg.SMOKE_PLAN, torch.float32
     else:
         spec, plan, dtype = cfg.full_spec(), cfg.PLAN, torch.bfloat16
+        if args.layers:
+            from repro_torch.launch.train import cut_layers
+            spec = cut_layers(spec, args.layers)
     plan = plan.with_(tp=1)
     if spec.frontend == "vision":
         # the prompt holds the patch prefix and some text
@@ -338,33 +404,70 @@ def main(argv=None):
         plan = plan.with_(**plan_kwargs_for_schedule(
             name, virtual_stages=args.virtual_stages,
             stash_mode=plan.stash_mode))
+    if world == 1:
+        return serve(args, spec, plan, dtype, device, obs)
+    from repro_torch.parallel.dist import ProcessGrid, close_grid, init_grid
+    backend = args.backend or ("gloo" if device.type == "cpu" else "nccl")
+    grid = init_grid(ProcessGrid(args.data, 1), backend,
+                     init_method=args.init_method, device=args.device)
+    try:
+        print(f"grid: {grid.describe()}", flush=True)
+        # R fitted to the batch over the replicas; each replica a block
+        # of every microbatch's rows
+        R = fit_serving_microbatches(plan.decode_microbatches, args.batch,
+                                     args.data)
+        return serve(args, spec, plan.with_(decode_microbatches=R), dtype,
+                     grid.device, obs, grid=grid)
+    finally:
+        close_grid()
+
+
+def serve(args, spec, plan, dtype, device, obs, grid=None):
+    """Build the session of the parsed arguments and serve: the one-shot
+    batch's tokens (rank 0's on several replicas), or None under
+    ``--arrivals``."""
+    replica, replicas = (0, 1) if grid is None else (grid.d, args.data)
+    lead = grid is None or grid.rank == 0
     session = build_serving(spec, plan, cache_len=args.cache_len,
-                            global_batch=args.batch, compute_dtype=dtype,
-                            page_size=args.page_size,
+                            global_batch=args.batch // replicas,
+                            compute_dtype=dtype, page_size=args.page_size,
                             prefill_len=args.prefill, buckets=args.buckets,
                             spec_k=args.spec_k,
                             weight_dtype=args.weight_dtype,
                             kv_dtype=args.kv_dtype, device=device,
                             obs=obs)
     sched = session.sched
-    print(f"serve schedule: {sched.name} (S={sched.n_stages} "
-          f"R={session.n_slots}"
-          f"{f' v={sched.virtual_stages}' if sched.virtual_stages > 1 else ''}"
-          f"{f' spec_k={sched.spec_k}' if session.speculative else ''}"
-          f", {sched.n_ticks} ticks/pass) on {device}")
-    if session.paged:
-        print(f"paged KV: page_size={session.paged['page_size']} "
-              f"max_pages/slot={session.paged['max_pages']} "
-              f"pool_pages={session.paged['pool_pages']}")
-    if session.buckets:
-        print(f"bucket lattice: {session.buckets}")
-    if args.weight_dtype or args.kv_dtype:
-        print(f"storage dtypes: weights={args.weight_dtype or 'compute'} "
-              f"kv={args.kv_dtype or 'compute'}")
+    if lead:
+        print(f"serve schedule: {sched.name} (S={sched.n_stages} "
+              f"R={session.n_slots}"
+              f"{f' v={sched.virtual_stages}' if sched.virtual_stages > 1 else ''}"
+              f"{f' spec_k={sched.spec_k}' if session.speculative else ''}"
+              f", {sched.n_ticks} ticks/pass) on {device}"
+              + (f", {replicas} data replicas of {session.rows} rows a slot"
+                 if replicas > 1 else ""))
+        if session.paged:
+            print(f"paged KV: page_size={session.paged['page_size']} "
+                  f"max_pages/slot={session.paged['max_pages']} "
+                  f"pool_pages={session.paged['pool_pages']}")
+        if session.buckets:
+            print(f"bucket lattice: {session.buckets}")
+        if args.weight_dtype or args.kv_dtype:
+            print(f"storage dtypes: weights={args.weight_dtype or 'compute'} "
+                  f"kv={args.kv_dtype or 'compute'}")
+    toks = None
     if args.arrivals:
         serve_arrivals(session, spec, args)
+    elif grid is None:
+        toks = serve_batch(session, spec, args)
     else:
-        serve_batch(session, spec, args)
+        def gather(t):
+            # every replica's (steps, R, rows) block, joined on the rows
+            parts = grid.world_group.all_gather_object(
+                t.reshape(t.shape[0], session.n_slots, session.rows))
+            if not lead:
+                return None
+            return np.concatenate(parts, axis=2).reshape(t.shape[0], -1)
+        toks = serve_batch(session, spec, args, replica, replicas, gather)
     if obs is not None:
         for kind in ("decode", "verify"):
             if obs.registry.counter("rounds_total").value(kind=kind):
@@ -375,7 +478,7 @@ def main(argv=None):
                            ("metrics snapshot", args.metrics_out)):
             if path:
                 print(f"wrote {what} to {path}")
-
+    return toks
 
 if __name__ == "__main__":
     main()

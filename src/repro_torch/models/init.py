@@ -194,7 +194,31 @@ def _table_copy(a, t: int, tp: int):
     return np.ascontiguousarray(part)
 
 
+class MetaGenerator:
+    """A generator on ``meta``: the draw makes every leaf's shape and
+    dtype and draws nothing (``torch.Generator`` cannot run on ``meta``).
+    The dry run counts a state's bytes and a step's work with it."""
+
+    device = torch.device("meta")
+
+
+def generator(device, seed: int):
+    """A generator on ``device`` seeded with ``seed``, or on ``meta`` a
+    :class:`MetaGenerator`."""
+    if torch.device(device).type == "meta":
+        return MetaGenerator()
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def _rand(gen, shape, **kw):
+    if gen.device.type == "meta":
+        return torch.empty(shape, device="meta", **kw)
+    return torch.rand(shape, generator=gen, device=gen.device, **kw)
+
+
 def _dense(gen: torch.Generator, shape, dtype, scale=0.02):
+    if gen.device.type == "meta":
+        return torch.empty(shape, device="meta", dtype=dtype)
     x = torch.randn(shape, generator=gen, device=gen.device,
                     dtype=torch.float32)
     return x.mul_(scale).to(dtype)
@@ -304,7 +328,7 @@ def _mamba_init(spec, pp, gen, dtype, out_scale, take):
     dt_rank = ms.dt_rank or -(-d // 16)
     a = torch.arange(1, ms.d_state + 1, dtype=torch.float32, device=dev)
     lo, hi = math.log(1e-3), math.log(1e-1)
-    dt0 = torch.rand((pp, ci), generator=gen, device=dev) * (hi - lo) + lo
+    dt0 = _rand(gen, (pp, ci)) * (hi - lo) + lo
     return {
         "in_x": take(_dense(gen, (pp, d, ci), dtype)),
         "in_z": take(_dense(gen, (pp, d, ci), dtype)),

@@ -62,11 +62,13 @@ class _Optimizer:
         """:meth:`update`, written into ``params`` and ``state`` in place,
         leaf by leaf and :data:`CHUNK` elements at a time (the arithmetic
         is elementwise, so the result is the functional update's, bit for
-        bit, with temporaries of one chunk)."""
+        bit, with temporaries of one chunk).  A leaf on ``meta`` (the dry
+        run's, which allocates nothing) is one chunk."""
         def leaf(g, p, *s):
             flat = [g.reshape(-1), p.view(-1), *(x.view(-1) for x in s)]
-            for i in range(0, p.numel(), CHUNK):
-                gc, pc, *sc = (t[i:i + CHUNK] for t in flat)
+            size = max(p.numel(), 1) if p.is_meta else CHUNK
+            for i in range(0, p.numel(), size):
+                gc, pc, *sc = (t[i:i + size] for t in flat)
                 new_p, *new_s = self._leaf(gc, sc, pc, step)
                 pc.copy_(new_p)
                 for dst, src in zip(sc, new_s):

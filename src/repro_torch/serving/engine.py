@@ -86,7 +86,7 @@ from repro_torch.core.schedule import (F_CHUNK, F_FROM_EMBEDS, F_MB,
                                        make_serving_schedule, pick_bucket)
 from repro_torch.models import lm_head
 from repro_torch.models import spec as spec_lib
-from repro_torch.models.init import init_params, params_from_numpy
+from repro_torch.models.init import generator, init_params, params_from_numpy
 from repro_torch.models.nn import page_row
 from repro_torch.models.stage import (StageStatics, encoder_fwd,
                                       init_stage_state, make_statics,
@@ -232,7 +232,7 @@ class EngineSession:
         them in the schedule's storage chunk order, and quantize them
         leaf by leaf (``weight_dtype``), so the largest transient is one
         leaf's f32 copy."""
-        gen = torch.Generator(device=self.device).manual_seed(seed)
+        gen = generator(self.device, seed)
         params = init_params(self.spec, model_plan(self.plan, self.sched),
                              gen, self.compute_dtype)
         return self.set_params(quant.quantize_params(
