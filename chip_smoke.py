@@ -290,11 +290,30 @@ Phases (any failure raises and the script exits non-zero):
    within TOOLS_BYTES_RTOL, the gap named by op.  26b: launch/dryrun.py
    on qwen3-14b's train_4k, prefill_32k and decode_32k cells at 256
    cards, on ``meta`` (26b and 26a's CPU count run in a process spawned
-   beside phases 22-25, on the host's CPU only).  26c: two fp32 rounds of
+   beside phases 22-25 and 27, on the host's CPU only).  26c: two fp32 rounds of
    a TOOLS_LAYERS-layer cell fed by data/pipeline.py::Prefetcher equal
    the in-line Loader's bit for bit.  26d: ``serve --data 2`` on two gloo
    ranks sharing the card equals ``serve --data 1`` (qwen3-14b,
-   TOOLS_LAYERS layers, bf16) token for token.
+   TOOLS_LAYERS layers, bf16) token for token.  Phases 24 and 25 run in
+   turn while 23a's spawned process finishes; phase 26 runs last, once
+   its child has ended.
+27. serving grid — the serving engine on a rank grid
+   (``build_serving(grid=)``), gloo ranks sharing the card, each world
+   spawned once, 27a's and 27b's side by side.  27a: phase 3's cell on
+   pp 2 ranks, its weights drawn rank by rank: tokens and the 64-bit
+   digests of every step's last hidden states equal phase 3's.  27b: the
+   same cell on pp 2 x tp GRID_TP ranks (20 / 4 heads a rank, the head's
+   vocabulary cut): tokens phase 3's up to near-ties of GRID_TIE (phase
+   3's logits at a row's first difference), each rank's weights and
+   pages within MEM_RTOL of the serving planner's price for the rank.
+   27c, on 27b's ranks once 27a's have ended, fp32 at GRID_LAYERS
+   layers: qwen3 under GRID_TRACE with spec_k SPEC_K, paged and bucketed,
+   ``wo`` and ``w2`` scaled by GRID_SPEC_DAMP so drafts are accepted:
+   each request's tokens, every round's drafts, the steps, verify rounds
+   and acceptance (> 0) and the allocator equal one process's; jamba's
+   blocks 1 and 3 (Mamba at Ci / 2, experts cut) one shot, hidden states
+   within GRID_JAMBA_TOL of one process's.  The paged walk at 20 / 4
+   heads and mamba_scan at Ci / 2 against their plain versions.
 
 Phase 2 also holds the flash forward and backward (bf16 and f32, causal
 and a 1024-token window) at 25b's training call and the paged walk
@@ -324,7 +343,7 @@ counters are zeroed before and read after each main path (phases 3, 5,
 6, 8, 9, 11, 13, 15, 16, 17d, 18b, whose two ranks count their own,
 19a, each run of 19b, 20a-b, 21a-b, whose ranks count their own, and
 22a-c, which also read the backward kernels' counters, 23a-e,
-24a-d and 25a-c).
+24a-d, 25a-c and 27a-c, whose ranks count their own).
 Prints a
 ``profile`` JSON line for qwen3 bf16, rwkv6 (decode, then prefill),
 jamba (decode, then prefill), quantized qwen3 and the training rounds
@@ -354,20 +373,25 @@ rounds, an ``ingest`` JSON line (23a), three ``serve_new`` lines
 two ``serve_front`` lines, two ``train_front`` lines and a
 ``front_consistency`` line (phase 24) with their decode and round
 profiles, ``op_count``, ``dryrun``, ``prefetch`` and ``serve_data``
-lines (phase 26),
+lines (phase 26), a ``serving_grid`` line (phase 27: each world's
+decode ms a step, prefill seconds, peak GB, hand-off and tensor-group
+traffic, 27b's bytes against the planner, 27c's runs, seconds),
 one ``kernels`` JSON line
 (launches, by path and for wkv6 by
 design, errors, times, bounds, a ``layouts`` entry for the new head
 layouts, each kernel's design and what ``ptxas -v`` reported; the
 flash, backward, paged and int8 paged records carry a ``dh120`` entry at
 Dh 120 and a ``dh256`` entry at Dh 256), the card's name and power
-limit, and last ``{"ok": true, "device": ...}``.  Exits non-zero without
+limit, and last ``{"ok": true, "device": ...}``.  The paged record's
+``grid_tp2`` entry is the walk at 27b's 20 / 4 heads (time, bound, plain,
+launches), mamba_scan's the scan at Ci / 2.  Exits non-zero without
 a CUDA device.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import json
 import os
 import subprocess
@@ -1205,9 +1229,13 @@ def phase_mamba_bwd_kernel(device):
 # phase 3: full-width serving
 # --------------------------------------------------------------------------
 
-def phase_serve(device, spec, plan):
+def phase_serve(device, spec, plan, grid_ref=None):
     """Serve ``spec`` in bf16 through the paged engine; returns the
-    session, the prompts and the generated tokens (N_DECODE + 1, B)."""
+    session, the prompts and the generated tokens (N_DECODE + 1, B).
+    ``grid_ref`` (a dict) gets what phase 27 holds its ranks to: the
+    64-bit digest of the hidden state each step's head read, and its f32
+    logits (on the host), after the prefill and each decode (outside the
+    timed steps)."""
     import torch
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.serving.engine import build_serving
@@ -1232,6 +1260,9 @@ def phase_serve(device, spec, plan):
     nxt = session.prefill({"tokens": prompts})
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
+    if grid_ref is not None:
+        grid_ref.update(digests=[], logits=[])
+        keep_grid_ref(session, grid_ref)
     toks = [nxt]
     step_s = []
     per_step = spec.n_layers * session.n_slots
@@ -1246,6 +1277,8 @@ def phase_serve(device, spec, plan):
             raise AssertionError(f"decode step {i}: paged kernel launched "
                                  f"{grew} times, expected {per_step}")
         toks.append(nxt)
+        if grid_ref is not None:
+            keep_grid_ref(session, grid_ref)
     counts = read_counts()
     launches = counts["paged_attention"]
     if counts != {"paged_attention": per_step * N_DECODE,
@@ -1277,6 +1310,18 @@ def phase_serve(device, spec, plan):
         "decode_tokens_per_s": R_SLOTS * ROWS * 1e3 / ms,
         "weight_bytes": tensor_bytes(session.params),
         "pool_bytes": tensor_bytes(session.pages)}
+
+
+def keep_grid_ref(session, ref) -> None:
+    """The digest of the hidden state the session's head just read, and
+    its f32 logits on the host (phase 27's near-tie rule reads them)."""
+    from repro_torch.models import lm_head
+    h = session.last_hidden
+    ref["digests"].append(digest(h))
+    fn = session.params["final_norm"]
+    ref["logits"].append(lm_head.last_logits(
+        session.params["head"], fn["scale"], h, norm_kind=session.spec.norm,
+        norm_bias=fn.get("bias"), vocab=session.spec.vocab).cpu().numpy())
 
 
 def reference_logits(session, prompts, toks, n_last: int = 1):
@@ -2778,18 +2823,24 @@ def dist_fp32_run(spec, plan, device, dp=1, grid=None, rounds=DIST_ROUNDS):
     return losses, state, bundle, seconds
 
 
-def rank_child(rank, world, data, pp, init_file, job, kw, results, tp=1):
-    """A spawned rank: deterministic algorithms and no TF32 before CUDA
-    starts, the grid under gloo on the one card, ``job``'s result on the
-    queue.  An exception goes to the queue and fails the rank."""
+def rank_child(rank, world, data, pp, init_file, job, kw, results, tp=1,
+               deterministic=True):
+    """A spawned rank: deterministic algorithms (or, without
+    ``deterministic``, the settings phase 3 served under: cuBLAS's own
+    workspace, nondeterministic algorithms allowed) and no TF32 before
+    CUDA starts, the grid under gloo on the one card, ``job``'s result on
+    the queue.  An exception goes to the queue and fails the rank."""
     import os
     import traceback
-    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    if deterministic:
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    else:
+        os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
     # up to four processes share the card: hand back what a process frees
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     import torch
     from repro_torch.parallel.dist import ProcessGrid, close_grid, init_grid
-    torch.use_deterministic_algorithms(True)
+    torch.use_deterministic_algorithms(deterministic)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
@@ -2806,14 +2857,15 @@ def rank_child(rank, world, data, pp, init_file, job, kw, results, tp=1):
 
 
 def spawn_ranks(data, pp, job, tp=1, **kw):
-    """``job`` on a ``data x pp x tp`` grid of processes started with ``spawn``
-    (the parent holds a CUDA context) on the one card under gloo; the
+    """``job`` on a ``data x pp x tp`` grid of processes forked from a
+    ``forkserver`` (the parent holds a CUDA context; the server, which
+    imported torch once, holds none) on the one card under gloo; the
     results by rank.  A rank that fails, or a deadline of DIST_JOIN_S,
     fails the phase; every child is ended before this returns."""
     return join_ranks(start_ranks(data, pp, job, tp, **kw))
 
 
-def start_ranks(data, pp, job, tp=1, **kw):
+def start_ranks(data, pp, job, tp=1, deterministic=True, **kw):
     """:func:`spawn_ranks`' processes, started; the handle
     :func:`join_ranks` takes (the parent may work meanwhile, and must
     join them whatever happens)."""
@@ -2821,13 +2873,17 @@ def start_ranks(data, pp, job, tp=1, **kw):
     import tempfile
     import torch
     torch.cuda.empty_cache()
-    ctx = multiprocessing.get_context("spawn")
+    # forked from a server that imported torch once (it holds no CUDA
+    # context): a rank starts without importing torch anew
+    ctx = multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload(["torch", "numpy"])
     results = ctx.Queue()
     world = data * pp * tp
     tmp = tempfile.mkdtemp(prefix="chip_smoke_rdv_")
     procs = [ctx.Process(target=rank_child,
                          args=(r, world, data, pp, f"{tmp}/rendezvous", job,
-                               kw, results, tp)) for r in range(world)]
+                               kw, results, tp, deterministic))
+             for r in range(world)]
     for p in procs:
         p.start()
     return job, procs, results, tmp
@@ -6545,8 +6601,8 @@ def new_serve_train(device, out, profs, launches, seconds):
 def phase_new_configs(device, alongside=None):
     """Phase 23: 23a (:func:`ingest_child`) in a spawned process beside
     23b-e (:func:`new_serve_train`), which run here, then ``alongside()``
-    (phase 24) while 23a finishes.  Returns (records, profiles, launches
-    by path, seconds)."""
+    (phases 24 and 25) while 23a finishes.  Returns (records, profiles,
+    launches by path, seconds)."""
     import multiprocessing
     import torch
     out, profs, launches, seconds = {"serve": {}, "train": {}}, [], {}, {}
@@ -6561,11 +6617,11 @@ def phase_new_configs(device, alongside=None):
             torch.cuda.empty_cache()
             t0 = time.perf_counter()
             alongside()
-            seconds["24 beside 23a"] = time.perf_counter() - t0
+            seconds["24-25 beside 23a"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         status, got = results.get(timeout=INGEST_S)
         child.join(60)
-        seconds["23a wait after 23b-e and 24"] = time.perf_counter() - t0
+        seconds["23a wait after 23b-e and 24-25"] = time.perf_counter() - t0
         seconds["23a (spawned with 23b)"] = time.perf_counter() - t_child
         if status != "ok":
             raise AssertionError(f"23a failed:\n{got}")
@@ -7575,7 +7631,7 @@ def gemma_launches(launches):
 TOOLS_LAYERS = 2
 TOOLS_DRY_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
 # 26b and 26a's CPU count run in a spawned process on the host's CPU
-# beside phases 22-25 (the host has 8 cores): its torch threads and its
+# beside phases 22-25 and 27 (the host has 8 cores): its torch threads and its
 # deadline
 TOOLS_CPU_THREADS = 6
 TOOLS_CHILD_S = 900
@@ -7873,6 +7929,495 @@ class PhaseSeconds(dict):
         log(f"[phases] {name}: {seconds:.1f}s")
 
 
+# --------------------------------------------------------------------------
+# phase 27: serving on a rank grid, gloo ranks sharing the card
+# --------------------------------------------------------------------------
+
+# 27a: phase 3's cell (qwen3-14b full_spec, bf16, serve_1f pp 2, R_SLOTS x
+# ROWS rows, prompts of PREFILL, CACHE_LEN, PAGE, N_DECODE decodes, SEED)
+# on pp 2 ranks; 27b: the same cell on pp 2 x tp GRID_TP ranks (20 / 4
+# heads a rank); 27c on 27b's ranks, fp32 at GRID_LAYERS layers: qwen3
+# under GRID_TRACE with spec_k SPEC_K, paged and bucketed, and jamba's
+# Mamba + MoE blocks (layers 1 and 3: Mamba at Ci / tp, experts cut) one
+# shot, each against one process here
+GRID_TP, GRID_LAYERS = 2, 2
+GRID_TIE = BATCH_TIE            # 27b against phase 3, 40 layers in bf16
+GRID_JAMBA_TOL = 5e-5
+# 27c: qwen3's wo and w2 scaled by this (the same bits cut or whole), so
+# the head-only drafts are often accepted: at the init scale the layers
+# move the head's argmax and no draft is (acceptance 0.0), which a wrong
+# draft would not change
+GRID_SPEC_DAMP = 0.05
+# 27c's request trace: (arrival step, prompt length, new tokens), one lane
+# a slot
+GRID_TRACE = ((0, 48, 12), (0, 40, 10), (1, 64, 8), (2, 24, 12),
+              (4, 56, 6), (5, 32, 10))
+GRID_SLOTS, GRID_PREFILL, GRID_CACHE = 4, 64, 128
+GRID_JAMBA_SLOTS, GRID_JAMBA_ROWS, GRID_JAMBA_DECODE = 2, 2, 4
+
+
+def grid_job_cell(grid):
+    """27a / 27b on a rank: phase 3's cell through ``build_serving(grid=)``
+    with its weights drawn rank by rank (``init_rank_params``, phase 3's
+    bits): every step's tokens (the same on every rank), the last stage's
+    digest of the hidden state each step's head read, the seconds, the
+    kernel counts, the bytes the rank's weights and pages took against
+    the serving planner's price for the rank, and the hand-off traffic."""
+    import dataclasses as dc
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.profiler import H100_SXM
+    from repro_torch.serving.engine import build_serving
+    dev = grid.device
+    cfg = configs.get("qwen3-14b")
+    spec = cfg.full_spec()
+    plan = cfg.PLAN.with_(tp=grid.topo.tp, decode_microbatches=R_SLOTS)
+    session = build_serving(spec, plan, cache_len=CACHE_LEN,
+                            global_batch=R_SLOTS * ROWS,
+                            compute_dtype=torch.bfloat16, page_size=PAGE,
+                            grid=grid)
+    m0 = allocated(dev)
+    t0 = time.perf_counter()
+    session.init_weights(SEED)
+    m1 = allocated(dev)
+    init_s = time.perf_counter() - t0
+    session.reset_state()
+    m2 = allocated(dev)
+    # the price plan_search(workload="decode") puts on a rank of the plan
+    mm = session.sched.memory_model(
+        spec, plan, H100_SXM, microbatch_tokens=ROWS, data_replicas=1,
+        cache_len=CACHE_LEN, global_batch=R_SLOTS * ROWS, sp=False,
+        prefill=False, page_size=PAGE, kv_occupancy=1.0)
+    measured = {"weight_bytes": m1 - m0, "cache_bytes": m2 - m1}
+    predicted = {"weight_bytes": mm.weight_bytes,
+                 "cache_bytes": mm.cache_bytes}
+    prompts = np.random.default_rng(SEED).integers(
+        0, spec.vocab, (R_SLOTS, ROWS, PREFILL)).astype(np.int32)
+    grid.stats = type(grid.stats)()
+    reset_counts()
+    t0 = time.perf_counter()
+    nxt = session.prefill({"tokens": prompts})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    toks, digests, step_s = [nxt.cpu().numpy()], [], []
+    if session.last_here:
+        digests.append(digest(session.last_hidden))
+    for _ in range(N_DECODE):
+        t0 = time.perf_counter()
+        nxt = session.decode(nxt)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        toks.append(nxt.cpu().numpy())
+        if session.last_here:
+            digests.append(digest(session.last_hidden))
+    counts = read_counts()
+    session._alloc.check()
+    # the round's last collectives are subgroups': no rank tears its
+    # groups down while a peer still uses them
+    grid.world_group.barrier()
+    return {**rank_info(grid), "tensor": grid.t, "tokens": np.stack(toks),
+            "digests": digests, "init_s": init_s, "prefill_s": prefill_s,
+            "decode_ms": [1e3 * x for x in step_s], "counts": counts,
+            "measured": measured, "predicted": predicted,
+            "heads": [session.statics.attn.n_heads_local,
+                      session.statics.attn.n_kv_local],
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "alloc_digest": session.host_digest(),
+            "stats": dc.asdict(grid.stats)}
+
+
+def grid_requests(vocab):
+    """27c's trace, prompts drawn from SEED + 27."""
+    from repro_torch.serving.batcher import Request
+    rng = np.random.default_rng(SEED + 27)
+    return [Request(rid=i, prompt=rng.integers(0, vocab, plen).astype(
+                np.int32), max_new_tokens=new, arrival=t)
+            for i, (t, plen, new) in enumerate(GRID_TRACE)]
+
+
+def grid_batcher(device, tp=1, grid=None):
+    """27c's qwen3 run: GRID_LAYERS layers at full width, fp32,
+    ``serve_spec_1f`` (spec_k SPEC_K), paged, bucketed, GRID_SLOTS slots
+    of one lane under :func:`grid_requests`, with wo and w2 scaled by
+    GRID_SPEC_DAMP: (each request's tokens, the steps, the verify
+    rounds, the acceptance, a digest of every round's drafts, the
+    allocator's digest, the counts)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.schedule import plan_kwargs_for_schedule
+    from repro_torch.launch.train import cut_layers
+    from repro_torch.serving.batcher import ContinuousBatchingSession
+    from repro_torch.serving.engine import build_serving
+    cfg = configs.get("qwen3-14b")
+    spec = cut_layers(cfg.full_spec(), GRID_LAYERS)
+    plan = cfg.PLAN.with_(tp=tp, decode_microbatches=GRID_SLOTS,
+                          **plan_kwargs_for_schedule("serve_spec_1f"))
+    session = build_serving(spec, plan, cache_len=GRID_CACHE,
+                            global_batch=GRID_SLOTS,
+                            compute_dtype=torch.float32, page_size=PAGE,
+                            prefill_len=GRID_PREFILL, buckets=True,
+                            spec_k=SPEC_K, device=device, grid=grid)
+    session.start(SEED)
+    for lp in session.params["stages"].values():
+        lp["attn"]["wo"].mul_(GRID_SPEC_DAMP)
+        lp["mlp"]["w2"].mul_(GRID_SPEC_DAMP)
+    session.set_params(session.params)
+    drafts = hashlib.sha256()
+
+    def draft(tokens):
+        got = session.draft(tokens)
+        drafts.update(np.ascontiguousarray(got).tobytes())
+        return got
+    reset_counts()
+    t0 = time.perf_counter()
+    report = ContinuousBatchingSession(session, draft_fn=draft).run(
+        grid_requests(spec.vocab))
+    torch.cuda.synchronize()
+    return {"tokens": {r.rid: [int(t) for t in r.tokens]
+                       for r in report.requests},
+            "steps": report.steps, "verify_rounds": report.spec_rounds,
+            "acceptance": report.summary()["acceptance_rate"],
+            "drafts": drafts.hexdigest(),
+            "seconds": time.perf_counter() - t0, "counts": read_counts(),
+            "alloc_digest": session.host_digest()}
+
+
+def grid_jamba(device, tp=1, grid=None):
+    """27c's jamba run: its blocks 1 and 3 (Mamba + MoE) at full width,
+    fp32, pp 2 (one block a stage), GRID_JAMBA_SLOTS slots of
+    GRID_JAMBA_ROWS rows, a prompt of GRID_PREFILL tokens and
+    GRID_JAMBA_DECODE decodes: (the tokens, the hidden states the head
+    read on the host (last stage), the counts)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.serving.engine import build_serving
+    cfg = configs.get("jamba-v0.1-52b")
+    full = cfg.full_spec()
+    spec = jamba_cut(full, (full.blocks[1], full.blocks[3]),
+                     "jamba-v0.1-52b-mamba-moe-2l")
+    plan = cfg.PLAN.with_(pp=2, tp=tp, decode_microbatches=GRID_JAMBA_SLOTS)
+    batch = GRID_JAMBA_SLOTS * GRID_JAMBA_ROWS
+    session = build_serving(spec, plan, cache_len=GRID_CACHE,
+                            global_batch=batch, compute_dtype=torch.float32,
+                            page_size=PAGE, prefill_len=GRID_PREFILL,
+                            device=device, grid=grid)
+    # a rank draws each layer's 3.5 GB expert leaves whole for its rows
+    # before it cuts them (~19 GB at the peak): ranks sharing the card
+    # draw in turn
+    for turn in range(1 if grid is None else grid.topo.world):
+        if grid is None or grid.rank == turn:
+            session.init_weights(SEED)
+            torch.cuda.empty_cache()
+        if grid is not None:
+            grid.world_group.barrier()
+    session.reset_state()
+    prompts = np.random.default_rng(SEED + 28).integers(
+        0, spec.vocab, (GRID_JAMBA_SLOTS, GRID_JAMBA_ROWS, GRID_PREFILL)
+    ).astype(np.int32)
+    def head_input():
+        if session.last_here:
+            hidden.append(session.last_hidden.float().cpu().numpy())
+
+    reset_counts()
+    nxt = session.prefill({"tokens": prompts})
+    toks, hidden = [nxt.cpu().numpy()], []
+    head_input()
+    for _ in range(GRID_JAMBA_DECODE):
+        nxt = session.decode(nxt)
+        toks.append(nxt.cpu().numpy())
+        head_input()
+    return {"tokens": np.stack(toks), "hidden": hidden,
+            "counts": read_counts(),
+            "ci_local": session.statics.mamba.d_inner_local,
+            "experts_local": session.statics.moe.n_local}
+
+
+def grid_job_27bc(grid, go_file):
+    """27b, then 27c's two runs, on one rank of the pp 2 x tp 2 world;
+    27c starts once ``go_file`` exists (27a's ranks and 27c's one-process
+    runs have ended: they would not fit the card beside 27c's)."""
+    import torch
+    out = {"27b": grid_job_cell(grid)}
+    torch.cuda.empty_cache()
+    deadline = time.monotonic() + DIST_JOIN_S
+    while not os.path.exists(go_file):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"27c: no {go_file} after {DIST_JOIN_S} s")
+        time.sleep(0.05)
+    t0 = time.perf_counter()
+    out["27c_batcher"] = grid_batcher(grid.device, grid.topo.tp, grid)
+    torch.cuda.empty_cache()
+    out["27c_jamba"] = grid_jamba(grid.device, grid.topo.tp, grid)
+    out["27c_s"] = time.perf_counter() - t0
+    grid.world_group.barrier()
+    torch.cuda.reset_peak_memory_stats(grid.device)
+    return out
+
+
+def grid_kernel_checks(device):
+    """The kernels of phase 27's paths at the shapes its ranks give them
+    that phase 2 does not check: the paged walk at a tp 2 rank's 20 / 4
+    heads (a decode call of phase 3's rows and lengths, bf16 and f32),
+    and the Mamba scan at jamba's Ci / 2 (f32, a prompt and a decode
+    step, from a state), each against its plain version within TOL."""
+    import torch
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import paged_attention as pa
+    full = (40, 8, 128)
+    heads = (full[0] // GRID_TP, full[1] // GRID_TP, full[2])
+    errs = {"paged_attention": 0.0, "mamba_scan": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        atol, rtol = TOL[str(dtype).split(".")[-1]]
+        sets, tab, lens = paged_inputs(dtype, device, 1,
+                                       [PREFILL + N_DECODE, PREFILL + 37],
+                                       seed=71, heads=heads)
+        qp, kp, vp = sets[0]
+        errs["paged_attention"] = max(errs["paged_attention"], check_close(
+            f"paged 20/4 {dtype}", pa.paged_attention(qp, kp, vp, tab, lens),
+            pa.paged_attention_plain(qp, kp, vp, tab, lens), atol, rtol))
+        del sets
+    atol, rtol = TOL["float32"]
+    g = torch.Generator(device=device).manual_seed(72)
+    ci = MAMBA_CI // GRID_TP
+    for s in (GRID_PREFILL, 1):
+        rnd = lambda *sh: torch.randn(sh, generator=g, device=device)  # noqa
+        a = -torch.exp(torch.log(torch.arange(
+            1, MAMBA_N + 1, dtype=torch.float32, device=device)).expand(
+                ci, MAMBA_N)).contiguous()
+        args = [rnd(GRID_JAMBA_ROWS, s, ci),
+                torch.nn.functional.softplus(rnd(GRID_JAMBA_ROWS, s, ci)),
+                a, rnd(GRID_JAMBA_ROWS, s, MAMBA_N),
+                rnd(GRID_JAMBA_ROWS, s, MAMBA_N), rnd(ci)]
+        h0 = rnd(GRID_JAMBA_ROWS, ci, MAMBA_N)
+        got = ms.mamba_scan(*args, h0.clone())
+        want = ms.mamba_scan_plain(*args, h0.clone())
+        errs["mamba_scan"] = max(errs["mamba_scan"], *(
+            check_close(f"mamba_scan Ci={ci} S={s} {n}", x, y, atol, rtol)
+            for n, x, y in zip(("y", "state"), got, want)))
+    log(f"[grid] kernels at the ranks' shapes: paged at {heads} heads, "
+        f"mamba_scan at Ci {ci}: max|err| {json.dumps(errs)}")
+    return errs, heads
+
+
+def grid_paged_entry(device, heads, err, launches):
+    """The paged walk's record at a tp 2 rank's heads (phase 27b's decode
+    calls): device time, bound, plain and launches, as a layout's."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    h, kv, dh = heads
+    lengths = [PREFILL + N_DECODE, PREFILL + N_DECODE]
+    live = 2 * sum(-(-n // PAGE) for n in lengths) * PAGE * kv * dh * 2
+    n_sets = -(-4 * L2_BYTES // live)
+    sets, tab, lens = paged_inputs(torch.bfloat16, device, 1, lengths,
+                                   seed=73, n_copies=n_sets, heads=heads)
+    it = {"i": 0}
+
+    def run(fn):
+        def call():
+            qp, kp, vp = sets[it["i"] % n_sets]
+            it["i"] += 1
+            fn(qp, kp, vp, tab, lens)
+        return call
+
+    ms_ = device_ms(run(pa.paged_attention), 2 * n_sets, "paged_attention")
+    plain = time_ms(run(pa.paged_attention_plain))
+    kc = paged_cost(sets[0][0], sets[0][1], tab, lengths, -1)
+    entry = _dh120_entry([len(lengths), 1, h, kv, dh], -1, err, launches,
+                         ms_, plain, kc, None,
+                         "none (no single PyTorch call)")
+    entry.update(keys=lengths, ms_by=PAGED_MS_BY)
+    del sets
+    torch.cuda.empty_cache()
+    return entry
+
+
+def near_tie_divergences(got, want, logits, tie, what):
+    """Rows of ``got`` (steps, rows) equal to ``want``'s, or first
+    differing at a step where both tokens sit within ``tie`` of the
+    reference's largest logit there (``logits[step][row]``); after a
+    row's first difference its streams are fed other tokens and are not
+    compared.  The count of such rows."""
+    n = 0
+    for r in range(want.shape[1]):
+        diff = np.flatnonzero(got[:, r] != want[:, r])
+        if not diff.size:
+            continue
+        j = int(diff[0])
+        lg = logits[j][r]
+        gaps = [float(lg.max() - lg[t]) for t in (got[j, r], want[j, r])]
+        if max(gaps) > tie:
+            raise AssertionError(f"{what}: row {r} differs at step {j} "
+                                 f"({got[j, r]} vs {want[j, r]}), not a "
+                                 f"near-tie: logit gaps {gaps} (limit {tie})")
+        n += 1
+    return n
+
+
+def phase_grid(device, ref_toks, grid_ref):
+    """Phase 27: serving on a rank grid (module docstring).  27a's tokens
+    and hidden-state digests must equal phase 3's (``ref_toks``,
+    ``grid_ref``) exactly; 27b's tokens phase 3's up to its near-tie rule
+    (GRID_TIE), each rank's weights and pages within MEM_RTOL of the
+    serving planner's price; 27c's batcher tokens one process's, and
+    jamba's hidden states within GRID_JAMBA_TOL of one process's.  Every
+    rank's allocator digest equal.  Returns (record, launches by path,
+    seconds)."""
+    import shutil
+    import tempfile
+    import torch
+    secs = {}
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_grid_")
+    go = f"{tmp}/27c"
+    t_all = time.perf_counter()
+    # the two worlds side by side (27a: ~32 GB, 27b: ~35 GB); 27c on 27b's
+    # ranks once 27a's have ended and 27c's one-process runs are done
+    a_handle = start_ranks(1, 2, "grid_job_cell", deterministic=False)
+    bc_handle = start_ranks(1, 2, "grid_job_27bc", tp=GRID_TP,
+                            deterministic=False, go_file=go)
+    try:
+        # meanwhile: the kernels at the ranks' shapes
+        errs, heads = grid_kernel_checks(device)
+        a = join_ranks(a_handle)
+        secs["27a pp 2"] = time.perf_counter() - t_all
+        # 27c's one-process runs, beside 27b's ranks (~30 GB at a time:
+        # beside 27c's ranks, which draw jamba's 3.5 GB expert leaves
+        # whole, they would not fit)
+        t0 = time.perf_counter()
+        one_jamba = grid_jamba(device)
+        torch.cuda.empty_cache()
+        one_batch = grid_batcher(device)
+        torch.cuda.empty_cache()
+        secs["27c one process"] = time.perf_counter() - t0
+        open(go, "w").close()
+        bc = join_ranks(bc_handle)
+        secs["27b-c pp 2 x tp 2"] = time.perf_counter() - t_all
+    finally:
+        # every child ended whatever happened
+        for handle in (a_handle, bc_handle):
+            for p in handle[1]:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+        shutil.rmtree(tmp, ignore_errors=True)
+    # 27a: phase 3 bit for bit
+    for res in a:
+        if not np.array_equal(res["tokens"], ref_toks):
+            raise AssertionError(f"27a rank {res['rank']}: tokens differ "
+                                 f"from phase 3's")
+    last = a[-1]
+    if last["digests"] != grid_ref["digests"]:
+        steps = [i for i, (x, y) in enumerate(zip(last["digests"],
+                                                  grid_ref["digests"]))
+                 if x != y]
+        raise AssertionError(f"27a: the last stage's hidden states differ "
+                             f"from phase 3's at steps {steps}")
+    if len({r["alloc_digest"] for r in a}) != 1:
+        raise AssertionError("27a: the ranks' allocators differ")
+    # 27b: phase 3 up to near-ties; each rank at the planner's price
+    b = [r["27b"] for r in bc]
+    diverged = 0
+    for res in b:
+        diverged = max(diverged, near_tie_divergences(
+            res["tokens"], ref_toks, grid_ref["logits"], GRID_TIE, "27b"))
+        if not np.array_equal(res["tokens"], b[0]["tokens"]):
+            raise AssertionError("27b: the ranks saw other tokens")
+        rel = {k: res["measured"][k] / res["predicted"][k] - 1
+               for k in res["measured"]}
+        res["relative"] = rel
+        if any(abs(x) > MEM_RTOL for x in rel.values()):
+            raise AssertionError(f"27b rank {res['rank']}: measured "
+                                 f"{res['measured']} vs the planner's "
+                                 f"{res['predicted']}")
+        if res["heads"] != list(heads[:2]):
+            raise AssertionError(f"27b: a rank runs {res['heads']} heads")
+    if len({r["alloc_digest"] for r in b}) != 1:
+        raise AssertionError("27b: the ranks' allocators differ")
+    # 27c
+    for r in bc:
+        got = r["27c_batcher"]
+        for key in ("tokens", "alloc_digest", "drafts", "steps",
+                    "verify_rounds", "acceptance"):
+            if got[key] != one_batch[key]:
+                raise AssertionError(f"27c rank {r['27b']['rank']}: the "
+                                     f"batcher's {key} differ from one "
+                                     "process's")
+        if not np.array_equal(r["27c_jamba"]["tokens"],
+                              one_jamba["tokens"]):
+            raise AssertionError("27c: jamba's tokens differ")
+    jamba_err = 0.0
+    for r in bc:
+        for x, y in zip(r["27c_jamba"]["hidden"], one_jamba["hidden"]):
+            if not np.isfinite(x).all():
+                raise AssertionError("27c: non-finite jamba hidden states")
+            jamba_err = max(jamba_err, float(np.abs(x - y).max()))
+    if jamba_err > GRID_JAMBA_TOL:
+        raise AssertionError(f"27c: jamba's hidden states {jamba_err:.3e} "
+                             f"from one process's (limit {GRID_JAMBA_TOL})")
+    if not one_batch["verify_rounds"] or not one_batch["acceptance"] > 0:
+        raise AssertionError(f"27c: {one_batch['verify_rounds']} verify "
+                             f"rounds, acceptance {one_batch['acceptance']}")
+    secs["27"] = time.perf_counter() - t_all
+
+    def total(rows, key, kernel):
+        return sum(r[key]["counts"][kernel] if key else r["counts"][kernel]
+                   for r in rows)
+    launches = {
+        "paged_attention": {"qwen3_grid_pp2": total(a, None,
+                                                    "paged_attention")},
+        "paged_attention_20_4": {
+            "qwen3_grid_pp2_tp2": total(b, None, "paged_attention"),
+            "qwen3_grid_batcher_tp2": total(bc, "27c_batcher",
+                                            "paged_attention")},
+        "mamba_scan": {"jamba_grid_tp2": total(bc, "27c_jamba",
+                                               "mamba_scan")}}
+    for kernel, paths in launches.items():
+        if not all(paths.values()):
+            raise AssertionError(f"27: {kernel} ran no time on a grid "
+                                 f"path: {paths}")
+    step = lambda rows: max(float(np.mean(r["decode_ms"]))  # noqa: E731
+                            for r in rows)
+    rec = {
+        "27a": {"ranks": 2, "tokens_equal": int(ref_toks.size),
+                "hidden_digests_equal": len(last["digests"]),
+                "decode_ms_per_step": step(a),
+                "prefill_s": max(r["prefill_s"] for r in a),
+                "init_s": max(r["init_s"] for r in a),
+                "peak_gb": [r["peak_gb"] for r in a],
+                "handoff_bytes": [r["stats"]["handoff_bytes"] for r in a],
+                "handoff_s": [r["stats"]["handoff_s"] for r in a],
+                "staged_bytes": [r["stats"]["staged_bytes"] for r in a]},
+        "27b": {"ranks": 4, "heads_a_rank": list(heads[:2]),
+                "rows_diverged_at_near_ties": diverged,
+                "decode_ms_per_step": step(b),
+                "prefill_s": max(r["prefill_s"] for r in b),
+                "measured": [r["measured"] for r in b],
+                "predicted": [r["predicted"] for r in b],
+                "relative": [r["relative"] for r in b],
+                "peak_gb": [r["peak_gb"] for r in b],
+                "tensor_s": [r["stats"]["tensor_s"] for r in b],
+                "tensor_bytes": [r["stats"]["tensor_bytes"] for r in b],
+                "handoff_s": [r["stats"]["handoff_s"] for r in b]},
+        "27c": {"requests": len(GRID_TRACE), "steps": one_batch["steps"],
+                "verify_rounds": one_batch["verify_rounds"],
+                "acceptance": one_batch["acceptance"],
+                "grid_s": max(r["27c_s"] for r in bc),
+                "one_process_s": one_batch["seconds"],
+                "jamba_hidden_err": jamba_err,
+                "jamba_ci_local": bc[0]["27c_jamba"]["ci_local"],
+                "jamba_experts_local": bc[0]["27c_jamba"]["experts_local"]},
+        "kernel_errs": errs, "seconds": secs}
+    log(f"[grid] 27a: tokens and {len(last['digests'])} hidden-state digests "
+        f"equal phase 3's; decode {rec['27a']['decode_ms_per_step']:.2f} "
+        f"ms/step on 2 ranks; 27b: {diverged} rows diverged at near-ties, "
+        f"decode {rec['27b']['decode_ms_per_step']:.2f} ms/step on 4 ranks, "
+        f"bytes against the planner {rec['27b']['relative']}; 27c: the "
+        f"batcher's {len(GRID_TRACE)} requests equal one process's "
+        f"({one_batch['verify_rounds']} verify rounds), jamba hidden "
+        f"{jamba_err:.3e}; seconds {json.dumps(secs)}")
+    return rec, launches, heads
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7906,8 +8451,9 @@ def main() -> int:
     full = cfg.full_spec()
     plan = cfg.PLAN.with_(tp=1, decode_microbatches=R_SLOTS)
     qwen_full, qwen_plan = full, plan
+    grid_ref = {}
     session, prompts, toks, paged_launches, prof_qwen, serve = phase_serve(
-        device, full, plan)
+        device, full, plan, grid_ref)
     flash_launches = phase_reference(session, prompts, toks)
     qwen_toks = toks
     del session
@@ -8014,6 +8560,7 @@ def main() -> int:
     phase_s["21 tensor parallel"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     # 26b and 26a's CPU count run on the host's CPU beside phases 22-25
+    # and 27
     tools_child_proc = start_tools_child()
     t0 = time.perf_counter()
     recur_out, prof_recur, recur_launches, recur_s = phase_train_recurrent(
@@ -8021,19 +8568,28 @@ def main() -> int:
     phase_s["22 train recurrent"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    # phase 24 runs while 23a's spawned process finishes
+    # phases 24, 25 and 26 run while 23a's spawned process finishes
     front = {}
 
-    def frontends():
+    def beside_23a():
         front["all"] = phase_frontends(device)
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        front["gemma"] = phase_gemma(device)
+        phase_s["25 gemma3 (beside 23a)"] = time.perf_counter() - t
     new_out, prof_new, new_launches, new_s = phase_new_configs(
-        device, alongside=frontends)
+        device, alongside=beside_23a)
     front_out, prof_front, front_launches, front_s = front["all"]
-    phase_s["23-24 new configs and frontends"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    gemma_out, prof_gemma, gemma_paths, gemma_s = phase_gemma(device)
-    phase_s["25 gemma3"] = time.perf_counter() - t0
+    gemma_out, prof_gemma, gemma_paths, gemma_s = front["gemma"]
+    phase_s["23-25 new configs, frontends, gemma3"] = \
+        time.perf_counter() - t0
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    grid_out, grid_launches, grid_heads = phase_grid(device, qwen_toks,
+                                                     grid_ref)
+    phase_s["27 serving grid"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    # last: its child (spawned with 22) has ended by now
     t0 = time.perf_counter()
     tools_out, tools_s = phase_tools(device, tools_child_proc)
     phase_s["26 launch tools"] = time.perf_counter() - t0
@@ -8066,7 +8622,8 @@ def main() -> int:
                                 planned_counts["qwen3_planned_serve"],
                             "danube3_serve": planned_counts["danube3_serve"],
                             **new_paths("paged_attention"),
-                            **by_gemma["paged_attention"]},
+                            **by_gemma["paged_attention"],
+                            **grid_launches["paged_attention"]},
         "paged_attention_int8": {"qwen3_quant_serve": int8_launches,
                                  "danube3_int8_serve":
                                      planned_counts["danube3_int8_serve"],
@@ -8108,7 +8665,8 @@ def main() -> int:
             for design in ("chunked", "stepwise")},
         "mamba_scan": {"serve": jamba_counts["mamba_scan"],
                        "full_transformer": jamba_ref["mamba_scan"],
-                       **recur_paths("jamba", "mamba_scan")}})
+                       **recur_paths("jamba", "mamba_scan"),
+                       **grid_launches["mamba_scan"]}})
     records += [wkv6_bwd_record(device, *errs["wkv6_bwd"],
                                 recur_paths("rwkv6", "wkv6_bwd")),
                 mamba_bwd_record(device, *errs["mamba_scan_bwd"],
@@ -8134,6 +8692,16 @@ def main() -> int:
               if rec["name"] in layouts[name]}
         if at:
             rec["layouts"] = at
+        if rec["name"] == "paged_attention":
+            # phase 27b's decode calls on a tp 2 rank
+            rec["grid_tp2"] = grid_paged_entry(
+                device, grid_heads, grid_out["kernel_errs"]["paged_attention"],
+                grid_launches["paged_attention_20_4"])
+        if rec["name"] == "mamba_scan":
+            rec["grid_tp2"] = {
+                "shape": f"Ci {MAMBA_CI // GRID_TP} (jamba at tp 2), f32",
+                "max_abs_err": grid_out["kernel_errs"]["mamba_scan"],
+                "launches": grid_launches["mamba_scan"]}
     log(f"[phases] seconds: {json.dumps(phase_s)}")
     log(f"[done] {time.perf_counter() - t_start:.1f}s; serve qwen3 {serve}; "
         f"serve rwkv6 {serve_rwkv}; serve jamba {serve_jamba}; serve qwen3 "
@@ -8198,6 +8766,7 @@ def main() -> int:
         "card": card}}))
     for key in ("op_count", "dryrun", "prefetch", "serve_data"):
         print(json.dumps({key: {**tools_out[key], "card": card}}))
+    print(json.dumps({"serving_grid": {**grid_out, "card": card}}))
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -573,24 +573,51 @@ def load_converted(ckpt_dir: str, spec: spec_lib.ModelSpec
     """A converted checkpoint directory as the engine's numpy parameter
     tree (storage chunk order, full width: ``EngineSession.load_params``
     takes it).  Returns (params, manifest)."""
+    return load_converted_rows(ckpt_dir, spec)
+
+
+def load_converted_rows(ckpt_dir: str, spec: spec_lib.ModelSpec,
+                        rows=None, *, embed: bool = True, head: bool = True
+                        ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """The storage rows ``rows`` of a converted directory (every row for
+    None), read without the rest: their ``chunk_<row>.npz`` files only,
+    stacked in that order, with their window / theta scalars; from
+    ``shared.npz``, which is opened only when one is asked for, the
+    embedding with ``embed`` and the head and final norm with ``head``.
+    One rank of a serving grid reads its own rows and tables, at full
+    width: the rank cuts its tensor shard
+    (``EngineSession.load_rank_params``).  Returns (params, manifest)."""
     manifest = read_manifest(ckpt_dir, spec)
-    paths = [os.path.join(ckpt_dir, f"chunk_{row:04d}.npz")
-             for row in range(manifest["n_chunks"])]
+    n_chunks = manifest["n_chunks"]
+    rows = [int(r) for r in (range(n_chunks) if rows is None else rows)]
+    paths = [os.path.join(ckpt_dir, f"chunk_{row:04d}.npz") for row in rows]
     for path in paths:
         if not os.path.exists(path):
             raise ConvertError(f"missing chunk file {path!r} (manifest "
-                               f"lists {manifest['n_chunks']} chunks)")
+                               f"lists {n_chunks} chunks)")
+    keys = (("embed",) if embed else ()) + (("head", "final_norm/scale")
+                                            if head else ())
 
     def read(path):
         with np.load(path) as z:
             return _unflatten(dict(z))
 
+    def read_shared():
+        with np.load(os.path.join(ckpt_dir, "shared.npz")) as z:
+            return _unflatten({k: z[k] for k in keys})
+
     # the files are read side by side (file reads and zip CRCs release
     # the GIL)
     with ThreadPoolExecutor(max_workers=min(8, len(paths) + 1)) as pool:
-        got = pool.map(read, paths + [os.path.join(ckpt_dir, "shared.npz")])
-        *rows, shared = list(got)
-    params = _finalize_params(rows, shared, spec, manifest["storage_order"])
+        shared = pool.submit(read_shared) if keys else None
+        trees = list(pool.map(read, paths))
+        params: Dict[str, Any] = shared.result() if keys else {}
+    windows, thetas = spec_lib.stage_varying_scalars(spec, n_chunks)
+    order = manifest["storage_order"]
+    params.update({
+        "stages": _stack(trees),
+        "layer_windows": np.asarray(windows, np.int32)[order][rows],
+        "layer_thetas": np.asarray(thetas, np.float32)[order][rows]})
     return params, manifest
 
 

@@ -6,7 +6,8 @@ draft–verify rounds), or a request trace through the continuous batcher
 Runs on the card by default (``--device cpu`` runs the plain PyTorch
 versions of the kernels).  ``--smoke`` serves the architecture's small
 smoke spec in fp32; otherwise the full spec in bf16 (``--layers N``
-keeps its first N layers), every stage of the plan on one device.
+keeps its first N layers).  One process runs every stage of the plan on
+one device, at tp 1.
 
 ``--prefill`` is the prompt width the session is sized for
 (``prefill_len``: the batcher's prompt width, and the MoE expert
@@ -48,17 +49,23 @@ session's ``--pp`` / ``--virtual-stages``) in place of the seeded ones;
 track per stage) and metrics snapshot (``repro_torch.obs``); the run
 then prints the decode (and verify) rounds' ``reconcile`` lines.
 
-``--data D`` serves the one-shot batch on D data replicas, one process
-each under torchrun (or ranks given ``--init-method``, with torchrun's
-RANK / WORLD_SIZE): R is fitted to the batch over D replicas (as JAX's
-engine fits it over its data axis), each replica serves its block of
-every microbatch's rows, split as ``data/pipeline.py::Loader`` splits
-them, and rank 0 gathers the tokens and prints them, the tokens of
-``--data 1``.  ``--data`` > 1 without a process group is refused, and so
-are ``--arrivals`` and ``--spec-k`` on several replicas (each replica's
-rounds would run apart).  ``--backend gloo`` lets replicas share one
+Several ranks (torchrun, or ranks given ``--init-method`` with
+torchrun's RANK / WORLD_SIZE) serve on the grid of the plan, as JAX's
+launcher builds its mesh from it: a world of ``--data`` x pp x tp ranks
+puts each stage and tensor shard of each replica on its own rank
+(``build_serving(grid=)``); a world of ``--data`` ranks runs each
+replica's stages in its process.  R is fitted to the batch over the
+replicas (as JAX's engine fits it over its data axis), each replica
+serves its block of every slot's rows, split as ``data/pipeline.py::
+Loader`` splits them, and every rank sees every row of a round: the
+one-shot batch, ``--arrivals`` and ``--spec-k`` run on any grid, and
+rank 0 prints, the tokens of one process.  ``--ckpt`` makes each rank
+read its own chunk files only.  ``--backend gloo`` lets ranks share one
 card:
 
+  torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve \
+      --arch qwen3-14b --smoke --device cpu --backend gloo --batch 4 \
+      --arrivals 0,0,2,4 --spec-k 2 --page-size 16
   torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve \
       --arch qwen3-14b --smoke --device cpu --data 2 --batch 4
 """
@@ -73,8 +80,7 @@ import numpy as np
 import torch
 
 from repro_torch import configs, resolve_device
-from repro_torch.core.schedule import (SCHEDULES, fit_serving_microbatches,
-                                       plan_kwargs_for_schedule)
+from repro_torch.core.schedule import SCHEDULES, plan_kwargs_for_schedule
 from repro_torch.obs import Observability, reconcile
 from repro_torch.serving.engine import build_serving
 
@@ -132,7 +138,7 @@ def load_checkpoint(session, spec, args):
     ``--pp`` / ``--virtual-stages`` to reconvert with otherwise.  Returns
     the loaded numpy tree and the manifest."""
     from repro_torch.checkpoint.convert import (ConvertError,
-                                                load_converted,
+                                                load_converted_rows,
                                                 read_manifest)
     manifest = read_manifest(args.ckpt, spec)     # refused before reading
     sched = session.sched
@@ -147,17 +153,26 @@ def load_checkpoint(session, spec, args):
             f"runs {sched.n_chunks} chunks in order {want} — reconvert "
             f"with --pp {sched.n_stages} --virtual-stages "
             f"{sched.virtual_stages}")
-    params, manifest = load_converted(args.ckpt, spec)
-    session.load_params(params)
+    # this rank's chunk files, and the tables it holds, only (one
+    # process: every row and both tables)
+    s = session.stages_here
+    v = sched.virtual_stages
+    params, manifest = load_converted_rows(
+        args.ckpt, spec, range(s[0] * v, (s[-1] + 1) * v),
+        embed=session.first_here or session.speculative,
+        head=session.last_here)
+    session.load_rank_params(params)
     quantized = session.weight_dtype in ("int8", "fp8")
-    print(f"loaded checkpoint {args.ckpt} (family={manifest['family']}, "
-          f"{manifest['n_chunks']} chunks"
-          f"{f', weights quantized to {session.weight_dtype}' if quantized else ''})")
+    if session.grid is None or session.grid.rank == 0:
+        print(f"loaded checkpoint {args.ckpt} (family={manifest['family']}, "
+              f"{manifest['n_chunks']} chunks"
+              f"{f', weights quantized to {session.weight_dtype}' if quantized else ''})")
     return params, manifest
 
 
 def serve_arrivals(session, spec, args) -> None:
-    """Continuous batching over a request trace (``--arrivals``)."""
+    """Continuous batching over a request trace (``--arrivals``); on a
+    grid every rank runs the same batcher, and rank 0 prints."""
     from repro_torch.serving.batcher import ContinuousBatchingSession, Request
     arrivals = parse_arrivals(args.arrivals, seed=args.seed)
     rng = np.random.default_rng(args.seed)
@@ -178,6 +193,8 @@ def serve_arrivals(session, spec, args) -> None:
     report = server.run(trace)
     _sync(session.device)
     dt = time.perf_counter() - t0
+    if session.grid is not None and session.grid.rank != 0:
+        return report
     s = report.summary()
     print(f"{args.policy} batching: {s['requests']} requests over "
           f"{session.n_slots} slots, {s['steps']} steps "
@@ -204,46 +221,39 @@ def serve_arrivals(session, spec, args) -> None:
         print(f"  request {r.rid}: arrival step {r.arrival}, admitted "
               f"{r.step_admitted}, done {r.step_done}, "
               f"tokens {r.tokens[:6]}{'...' if len(r.tokens) > 6 else ''}")
+    return report
 
 
-def prefill_batch(session, seed: int, replica: int = 0, replicas: int = 1):
-    """A prefill batch of every key of ``session.prefill_specs``, drawn
-    in their order from one ``np.random.default_rng(seed)``: tokens in
-    [0, vocab), a frontend's floats 0.02 x a standard normal (JAX
-    ``launch/serve.py:295-300``).  On ``replicas`` data replicas the
-    batch of all of them is drawn and replica ``replica`` keeps its
-    block of each microbatch's rows."""
+def prefill_batch(session, seed: int):
+    """A prefill batch of every key of ``session.prefill_specs`` (every
+    replica's rows), drawn in their order from one
+    ``np.random.default_rng(seed)``: tokens in [0, vocab), a frontend's
+    floats 0.02 x a standard normal (JAX ``launch/serve.py:295-300``)."""
     rng = np.random.default_rng(seed)
-    out = {}
-    for k, v in session.prefill_specs.items():
-        shape = (v.shape[0], v.shape[1] * replicas) + tuple(v.shape[2:])
-        a = (rng.integers(0, session.spec.vocab, shape).astype(np.int32)
-             if v.dtype == torch.int32 else
-             rng.standard_normal(shape).astype(np.float32) * 0.02)
-        rows = v.shape[1]
-        out[k] = np.ascontiguousarray(a[:, replica * rows:(replica + 1)
-                                        * rows])
-    return out
+    return {k: (rng.integers(0, session.spec.vocab, v.shape).astype(np.int32)
+                if v.dtype == torch.int32 else
+                rng.standard_normal(v.shape).astype(np.float32) * 0.02)
+            for k, v in session.prefill_specs.items()}
 
 
-def serve_batch(session, spec, args, replica: int = 0, replicas: int = 1,
-                gather=None):
+def serve_batch(session, spec, args):
     """One-shot batch: prefill, then decode steps or draft–verify
     rounds.  Returns the decode path's tokens, (1 + steps, batch) of
-    every row (from ``gather`` over data replicas: rank 0's, None on the
-    others)."""
+    every row (on a grid rank 0's, None on the other ranks, which print
+    nothing)."""
     device = session.device
+    lead = session.grid is None or session.grid.rank == 0
+    say = print if lead else (lambda *a, **k: None)
     session.start(args.seed)
     if args.ckpt:
         load_checkpoint(session, spec, args)
     t0 = time.perf_counter()
-    nxt = session.prefill(prefill_batch(session, args.seed, replica,
-                                        replicas))
+    nxt = session.prefill(prefill_batch(session, args.seed))
     _sync(device)
     t_prefill = time.perf_counter() - t0
-    if gather is None:
-        print(f"prefill[{args.prefill}] batch={args.batch}: "
-              f"{t_prefill:.3f}s first tokens {nxt[:8].tolist()}")
+    say(f"prefill[{args.prefill}] batch={args.batch}"
+        + (f" on {session.replicas} data replicas" if session.replicas > 1
+           else "") + f": {t_prefill:.3f}s first tokens {nxt[:8].tolist()}")
     if session.speculative:
         # draft–verify rounds: each commits 1..spec_k+1 tokens a slot
         last = nxt.cpu().numpy().astype(np.int32)
@@ -260,11 +270,11 @@ def serve_batch(session, spec, args, replica: int = 0, replicas: int = 1,
             last = scores[np.arange(scores.shape[0]),
                           acc.repeat(session.rows)].astype(np.int32)
         dt = time.perf_counter() - t0
-        print(f"spec-decoded {emitted} tokens in {rounds} verify rounds "
-              f"(k={session.sched.spec_k}, mean accepted/round "
-              f"{acc_total / max(rounds * session.n_slots, 1):.2f}) in "
-              f"{dt:.3f}s ({emitted / max(dt, 1e-9):.1f} tok/s)")
-        print("sample (first emitted/round):", sample[:args.tokens])
+        say(f"spec-decoded {emitted} tokens in {rounds} verify rounds "
+            f"(k={session.sched.spec_k}, mean accepted/round "
+            f"{acc_total / max(rounds * session.n_slots, 1):.2f}) in "
+            f"{dt:.3f}s ({emitted / max(dt, 1e-9):.1f} tok/s)")
+        say("sample (first emitted/round):", sample[:args.tokens])
         return
     outs = [nxt]
     t0 = time.perf_counter()
@@ -274,13 +284,8 @@ def serve_batch(session, spec, args, replica: int = 0, replicas: int = 1,
     _sync(device)
     dt = time.perf_counter() - t0
     toks = torch.stack(outs).cpu().numpy()
-    if gather is not None:
-        toks = gather(toks)
-        if toks is None:
-            return None
-        print(f"prefill[{args.prefill}] batch={args.batch} on {replicas} "
-              f"data replicas: {t_prefill:.3f}s first tokens "
-              f"{toks[0, :8].tolist()}")
+    if not lead:
+        return None
     print(f"decoded {args.tokens} steps x {args.batch} seqs in {dt:.3f}s "
           f"({args.tokens * args.batch / max(dt, 1e-9):.1f} tok/s)")
     print("sample:", toks[1:, 0].tolist())
@@ -334,13 +339,13 @@ def main(argv=None):
                     help="slot scheduler policy under --arrivals")
     ap.add_argument("--device", type=str, default="cuda")
     ap.add_argument("--data", type=int, default=1,
-                    help="data replicas of the one-shot batch, one process "
-                         "each (torchrun)")
+                    help="data replicas (torchrun: a world of data x pp x "
+                         "tp ranks, or of data ranks)")
     ap.add_argument("--backend", type=str, default=None,
                     choices=[None, "nccl", "gloo"],
-                    help="torch.distributed backend on several replicas "
+                    help="torch.distributed backend on several ranks "
                          "(default: nccl on the card, gloo on the CPU); "
-                         "gloo lets replicas share one card")
+                         "gloo lets ranks share one card")
     ap.add_argument("--init-method", type=str, default=None,
                     help="the process group's rendezvous (default "
                          "torchrun's env://)")
@@ -371,17 +376,10 @@ def main(argv=None):
         obs = Observability(trace=bool(args.trace_out))
 
     world = int(os.environ.get("WORLD_SIZE", "1"))
-    if args.data > 1 or world > 1:
-        if "WORLD_SIZE" not in os.environ:
-            raise SystemExit(f"--data {args.data}: data replicas run one "
-                             f"process each; launch with torchrun "
-                             f"--nproc-per-node {args.data}")
-        if world != args.data:
-            raise SystemExit(f"--data {args.data} needs {args.data} ranks; "
-                             f"the world has {world}")
-        if args.arrivals or args.spec_k is not None:
-            raise SystemExit("--arrivals and --spec-k run on one replica: "
-                             "each replica's rounds would run apart")
+    if args.data > 1 and "WORLD_SIZE" not in os.environ:
+        raise SystemExit(f"--data {args.data}: data replicas run one "
+                         f"process each or more; launch with torchrun "
+                         f"--nproc-per-node {args.data} (x pp x tp)")
     device = resolve_device(args.device)
     cfg = configs.get(args.arch)
     if args.smoke:
@@ -391,7 +389,6 @@ def main(argv=None):
         if args.layers:
             from repro_torch.launch.train import cut_layers
             spec = cut_layers(spec, args.layers)
-    plan = plan.with_(tp=1)
     if spec.frontend == "vision":
         # the prompt holds the patch prefix and some text
         args.prefill = max(args.prefill, spec.n_patches + 8)
@@ -405,37 +402,48 @@ def main(argv=None):
             name, virtual_stages=args.virtual_stages,
             stash_mode=plan.stash_mode))
     if world == 1:
-        return serve(args, spec, plan, dtype, device, obs)
+        return serve(args, spec, plan.with_(tp=1), dtype, device, obs)
     from repro_torch.parallel.dist import ProcessGrid, close_grid, init_grid
+    if world == args.data * plan.pp * plan.tp:
+        topo = ProcessGrid(args.data, plan.pp, plan.tp)
+    elif world == args.data:
+        # a replica a rank, each running its stages in its process
+        plan = plan.with_(tp=1)
+        topo = ProcessGrid(args.data, 1)
+    else:
+        raise SystemExit(
+            f"a world of {world} ranks: --data {args.data} x pp {plan.pp} x "
+            f"tp {plan.tp} (the plan's) needs "
+            f"{args.data * plan.pp * plan.tp}, or {args.data} to run each "
+            "replica's stages in one process")
     backend = args.backend or ("gloo" if device.type == "cpu" else "nccl")
-    grid = init_grid(ProcessGrid(args.data, 1), backend,
-                     init_method=args.init_method, device=args.device)
+    grid = init_grid(topo, backend, init_method=args.init_method,
+                     device=args.device)
     try:
         print(f"grid: {grid.describe()}", flush=True)
-        # R fitted to the batch over the replicas; each replica a block
-        # of every microbatch's rows
-        R = fit_serving_microbatches(plan.decode_microbatches, args.batch,
-                                     args.data)
-        return serve(args, spec, plan.with_(decode_microbatches=R), dtype,
-                     grid.device, obs, grid=grid)
+        # rank 0 keeps the session's trace and metrics
+        out = serve(args, spec, plan, dtype, grid.device,
+                    obs if grid.rank == 0 else None, grid=grid)
+        # no rank tears its groups down while a peer still uses them
+        grid.world_group.barrier()
+        return out
     finally:
         close_grid()
 
 
 def serve(args, spec, plan, dtype, device, obs, grid=None):
     """Build the session of the parsed arguments and serve: the one-shot
-    batch's tokens (rank 0's on several replicas), or None under
-    ``--arrivals``."""
-    replica, replicas = (0, 1) if grid is None else (grid.d, args.data)
+    batch's tokens, or under ``--arrivals`` each request's tokens by
+    request id (on several ranks rank 0's, None on the others)."""
     lead = grid is None or grid.rank == 0
     session = build_serving(spec, plan, cache_len=args.cache_len,
-                            global_batch=args.batch // replicas,
+                            global_batch=args.batch,
                             compute_dtype=dtype, page_size=args.page_size,
                             prefill_len=args.prefill, buckets=args.buckets,
                             spec_k=args.spec_k,
                             weight_dtype=args.weight_dtype,
                             kv_dtype=args.kv_dtype, device=device,
-                            obs=obs)
+                            obs=obs, grid=grid)
     sched = session.sched
     if lead:
         print(f"serve schedule: {sched.name} (S={sched.n_stages} "
@@ -443,8 +451,9 @@ def serve(args, spec, plan, dtype, device, obs, grid=None):
               f"{f' v={sched.virtual_stages}' if sched.virtual_stages > 1 else ''}"
               f"{f' spec_k={sched.spec_k}' if session.speculative else ''}"
               f", {sched.n_ticks} ticks/pass) on {device}"
-              + (f", {replicas} data replicas of {session.rows} rows a slot"
-                 if replicas > 1 else ""))
+              + (f", {session.replicas} data replicas of "
+                 f"{session.local_rows} rows a slot"
+                 if session.replicas > 1 else ""))
         if session.paged:
             print(f"paged KV: page_size={session.paged['page_size']} "
                   f"max_pages/slot={session.paged['max_pages']} "
@@ -454,20 +463,12 @@ def serve(args, spec, plan, dtype, device, obs, grid=None):
         if args.weight_dtype or args.kv_dtype:
             print(f"storage dtypes: weights={args.weight_dtype or 'compute'} "
                   f"kv={args.kv_dtype or 'compute'}")
-    toks = None
     if args.arrivals:
-        serve_arrivals(session, spec, args)
-    elif grid is None:
-        toks = serve_batch(session, spec, args)
+        report = serve_arrivals(session, spec, args)
+        toks = {r.rid: list(r.tokens) for r in report.requests} if lead \
+            else None
     else:
-        def gather(t):
-            # every replica's (steps, R, rows) block, joined on the rows
-            parts = grid.world_group.all_gather_object(
-                t.reshape(t.shape[0], session.n_slots, session.rows))
-            if not lead:
-                return None
-            return np.concatenate(parts, axis=2).reshape(t.shape[0], -1)
-        toks = serve_batch(session, spec, args, replica, replicas, gather)
+        toks = serve_batch(session, spec, args)
     if obs is not None:
         for kind in ("decode", "verify"):
             if obs.registry.counter("rounds_total").value(kind=kind):

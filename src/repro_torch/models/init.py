@@ -36,6 +36,7 @@ from repro_torch.models import spec as spec_lib
 from repro_torch.models.nn import (AttnStatic, MambaStatic, MoEStatic,
                                    RWKVStatic)
 from repro_torch.optim.optimizers import tree_map
+from repro_torch.quant import is_quantized, quantize_params
 
 _STATIC_KEYS = ("layer_windows", "layer_thetas")
 # leaves the JAX init keeps in f32 whatever the compute dtype
@@ -130,7 +131,8 @@ def tp_dim(block: str, leaf: str, spec: spec_lib.ModelSpec, tp: int) -> int:
 
 def _block_tp_axes(block: str, sub, spec, tp: int) -> Dict:
     return {leaf: (_block_tp_axes(f"{block}/{leaf}", v, spec, tp)
-                   if isinstance(v, dict) else tp_dim(block, leaf, spec, tp))
+                   if isinstance(v, dict) and not is_quantized(v)
+                   else tp_dim(block, leaf, spec, tp))
             for leaf, v in sub.items()}
 
 
@@ -143,16 +145,34 @@ def _layer_tp_axes(layer, spec: spec_lib.ModelSpec, tp: int) -> Dict:
 def tp_axes(stages, spec: spec_lib.ModelSpec, tp: int) -> Dict:
     """Tree of ints over ``stages`` (stage-stacked leaves): the dim the
     tensor axis cuts at ``tp`` ranks, -1 for a leaf every rank holds
-    whole (every leaf at tp 1)."""
+    whole (every leaf at tp 1).  A quantized ``{"q", "scale"}`` leaf
+    gets one int, its payload's."""
     return {name: _layer_tp_axes(layer, spec, tp)
             for name, layer in stages.items()}
 
 
+def _cut_tree(node, axes, t: int, tp: int):
+    """:func:`_copy_cut` over a tree and its :func:`tp_axes`, a quantized
+    leaf taken as one leaf."""
+    if isinstance(axes, dict):
+        return {k: _cut_tree(node[k], axes[k], t, tp) for k in axes}
+    return _copy_cut(node, axes, t, tp)
+
+
 def _copy_cut(a, ax: int, t: int, tp: int):
     """Shard ``t`` of ``a`` along ``ax`` as a tensor (or array) of its
-    own, so the whole leaf can be freed; ``a`` for ax < 0."""
+    own, so the whole leaf can be freed; ``a`` for ax < 0.  A quantized
+    leaf, quantized at full width, cuts its payload and, where the cut
+    dim is not its contraction axis (the scale keeps it whole), its
+    scale: a leaf cut along its input (``wo``, ``w2``) keeps the whole
+    weight's scales, which a slice's own absmax would not give."""
     if ax < 0:
         return a
+    if is_quantized(a):
+        sc = a["scale"]
+        return {"q": _copy_cut(a["q"], ax, t, tp),
+                "scale": _copy_cut(sc, ax if sc.shape[ax] > 1 else -1, t,
+                                   tp)}
     n = a.shape[ax] // tp
     if torch.is_tensor(a):
         return a.narrow(ax, t * n, n).clone(
@@ -173,8 +193,7 @@ def tp_shard(tree, spec: spec_lib.ModelSpec, plan, t: int) -> Dict:
         raise ValueError(f"tensor index {t} outside tp={plan.tp}")
     axes = tp_axes(tree["stages"], spec, plan.tp)
     out = dict(tree)
-    out["stages"] = tree_map(lambda a, ax: _copy_cut(a, ax, t, plan.tp),
-                             tree["stages"], axes)
+    out["stages"] = _cut_tree(tree["stages"], axes, t, plan.tp)
     for key in ("embed", "head"):
         if key in tree:
             check_table_cut(spec, plan.tp)
@@ -185,9 +204,15 @@ def tp_shard(tree, spec: spec_lib.ModelSpec, plan, t: int) -> Dict:
 def _table_copy(a, t: int, tp: int):
     """Tensor rank ``t``'s columns of a table (``core/versioning.py::
     table_cut``) as a tensor (or array) of its own, so the whole table
-    can be freed; ``a`` at tp 1."""
+    can be freed; ``a`` at tp 1.  A quantized table cuts its payload,
+    and its scales where they have the columns (the head's per-id
+    scales; the embedding's per-row scales stay whole)."""
     if tp == 1:
         return a
+    if is_quantized(a):
+        sc = a["scale"]
+        return {"q": _table_copy(a["q"], t, tp),
+                "scale": _table_copy(sc, t, tp) if sc.shape[-1] > 1 else sc}
     part = table_cut(a, (None, t, tp))
     if torch.is_tensor(part):
         return part.clone(memory_format=torch.contiguous_format)
@@ -362,7 +387,9 @@ def init_params(spec: spec_lib.ModelSpec, plan, gen: torch.Generator,
 
 def init_rank_params(spec: spec_lib.ModelSpec, plan, gen: torch.Generator,
                      sched, stage: Optional[int],
-                     dtype=torch.bfloat16, t: int = 0) -> Dict:
+                     dtype=torch.bfloat16, t: int = 0, *,
+                     weight_dtype: Optional[str] = None,
+                     keep_embed: bool = False) -> Dict:
     """What stage ``stage`` of ``sched`` holds of :func:`init_params`,
     drawn without the rest (the paper's workers hold their stage only).
 
@@ -383,7 +410,13 @@ def init_rank_params(spec: spec_lib.ModelSpec, plan, gen: torch.Generator,
     the embedding (every rank of stage 0 its columns) and the head
     (every rank of the last stage its vocabulary slice, beside the whole
     final norm).  Every rank keeps the whole encoder (it runs before the
-    pipeline, on every rank)."""
+    pipeline, on every rank).
+
+    Serving: ``weight_dtype`` ("int8" / "fp8") quantizes each kept leaf
+    (``quant.quantize_params``' rules) at full width before it is cut,
+    as JAX quantizes the whole tree and then shards it; ``keep_embed``
+    keeps the embedding on this stage too (a speculative session's last
+    stage drafts with it)."""
     if stage is None:
         rows = list(range(sched.n_chunks))
     else:
@@ -394,18 +427,20 @@ def init_rank_params(spec: spec_lib.ModelSpec, plan, gen: torch.Generator,
         rows = [order[r] for r in rows]
     elif stage is None:
         rows = None                 # model order already: no copies
-    return _draw(spec, plan, gen, dtype, rows, stage in (None, 0),
-                 stage in (None, sched.n_stages - 1), t)
+    return _draw(spec, plan, gen, dtype, rows,
+                 keep_embed or stage in (None, 0),
+                 stage in (None, sched.n_stages - 1), t, weight_dtype)
 
 
 def _draw(spec, plan, gen, dtype, rows, embed: bool, head: bool,
-          t: int = 0) -> Dict:
+          t: int = 0, weight_dtype: Optional[str] = None) -> Dict:
     """The parameter draw: ``rows`` (model chunks, in the order to keep
     them) of every stage-stacked leaf, or all of them for None; the
     embedding with ``embed``, head and final norm with ``head``; tensor
-    shard ``t`` of each layer and of the two tables at ``plan.tp`` > 1;
-    the whole encoder.  A leaf not kept is drawn all the same: the
-    generator's stream stays the whole model's."""
+    shard ``t`` of each layer and of the two tables at ``plan.tp`` > 1,
+    each quantized at full width first with ``weight_dtype``; the whole
+    encoder.  A leaf not kept is drawn all the same: the generator's
+    stream stays the whole model's."""
     pp = plan.pp
     program = spec.stage_program(pp)
     dev = gen.device
@@ -424,13 +459,17 @@ def _draw(spec, plan, gen, dtype, rows, embed: bool, head: bool,
     params: Dict = {}
     if plan.tp > 1:
         check_table_cut(spec, plan.tp)
+    def table(a, name):
+        tree = quantize_params({"stages": {}, name: a}, weight_dtype)
+        return _table_copy(tree[name], t, plan.tp)
+
     e = _dense(gen, (vpad, d), dtype, 1.0)
     if embed:
-        params["embed"] = _table_copy(e, t, plan.tp)
+        params["embed"] = table(e, "embed")
     del e
     w = _dense(gen, (d, vpad), dtype)
     if head:
-        params["head"] = _table_copy(w, t, plan.tp)
+        params["head"] = table(w, "head")
         params["final_norm"] = _norm_init((d,), spec.norm, dtype, dev)
     del w
     stages: Dict = {}
@@ -463,9 +502,10 @@ def _draw(spec, plan, gen, dtype, rows, embed: bool, head: bool,
         else:
             lp["cmix"] = _rwkv_cmix_init(spec, pp, gen, dtype, out_scale,
                                          take)
+        lp = quantize_params({"stages": lp}, weight_dtype)["stages"]
         if plan.tp > 1:
-            lp = tree_map(lambda a, ax: _copy_cut(a, ax, t, plan.tp), lp,
-                          _layer_tp_axes(lp, spec, plan.tp))
+            lp = _cut_tree(lp, _layer_tp_axes(lp, spec, plan.tp), t,
+                           plan.tp)
         stages[f"layer_{i}"] = lp
     params["stages"] = stages
     windows, thetas = spec_lib.stage_varying_scalars(spec, pp)

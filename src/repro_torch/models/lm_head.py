@@ -8,8 +8,11 @@ on the vocabulary): tensor rank t of the first stage holds the columns
 tokens' rows, joined by an all-gather (:func:`embed_tokens_sharded`);
 rank t of the last stage holds ``head[:, t·V/tp : (t+1)·V/tp]`` of the
 padded vocabulary and forms only its own logits (:func:`head_loss_
-sharded`).  The final norm is every rank's.  Serving keeps both tables
-whole.  At tp 1 the functions below without a group run as before."""
+sharded`).  The final norm is every rank's.  Serving cuts them the
+same way: the greedy head over a vocabulary slice takes the group's
+largest logit, the lowest id on ties (:func:`greedy_tokens_sharded`),
+which is ``torch.argmax`` over the whole row.  At tp 1 the functions
+below without a group run as before."""
 from __future__ import annotations
 
 from typing import Optional
@@ -236,3 +239,48 @@ def greedy_tokens(head, final_norm_scale, h, *, norm_kind: str = "rmsnorm",
     return logits(head, final_norm_scale, h, norm_kind=norm_kind,
                   norm_bias=norm_bias, vocab=vocab
                   ).argmax(dim=-1).to(torch.int32)
+
+
+def greedy_tokens_sharded(head, final_norm_scale, h, *, group,
+                          norm_kind: str = "rmsnorm", norm_bias=None,
+                          vocab: Optional[int] = None):
+    """:func:`greedy_tokens` with ``head`` this rank's (d, Vpad/tp)
+    vocabulary slice over ``group`` (ids [t·Vpad/tp, (t+1)·Vpad/tp) on
+    rank t), ``h`` (B, S, d) every rank's: (B, S) int32, the same on
+    every rank.  Each rank takes the argmax of its f32 logits (its
+    padded ids masked to -1e30, as :func:`_padded_vocab_mask` masks
+    them) and its value; the group's (value, id) pairs are gathered in
+    rank order and the largest value wins, the lowest rank on ties, and
+    a rank's own argmax is its lowest id among its ties: the lowest id
+    of the row's maxima, as ``torch.argmax`` over the whole row picks
+    it.  Without a group of several ranks, :func:`greedy_tokens`."""
+    if group is None or group.size == 1:
+        return greedy_tokens(head, final_norm_scale, h, norm_kind=norm_kind,
+                             norm_bias=norm_bias, vocab=vocab)
+    hn = _final_norm(h, final_norm_scale, norm_kind, norm_bias)
+    w = maybe_dequant(head, hn.dtype)
+    n_local = w.shape[-1]
+    v0 = table_columns(n_local * group.size, group.index, group.size).start
+    logits = _padded_vocab_mask((hn @ w).float(), vocab, v0)
+    idx = logits.argmax(dim=-1)
+    val = logits.gather(-1, idx[..., None])[..., 0]
+    vals = val.new_empty((group.size,) + tuple(val.shape))
+    ids = idx.new_empty((group.size,) + tuple(idx.shape))
+    group.all_gather_(val[None], vals, 0)
+    group.all_gather_((idx + v0)[None], ids, 0)
+    win = vals.argmax(dim=0, keepdim=True)
+    return ids.gather(0, win)[0].to(torch.int32)
+
+
+def sample_greedy_sharded(head, final_norm_scale, h, *, group,
+                          norm_kind: str = "rmsnorm", norm_bias=None,
+                          vocab: Optional[int] = None):
+    """:func:`sample_greedy` over a head cut on the vocabulary
+    (:func:`greedy_tokens_sharded` at the last position): (B,) int32.
+    Without a group of several ranks, :func:`sample_greedy`."""
+    if group is None or group.size == 1:
+        return sample_greedy(head, final_norm_scale, h, norm_kind=norm_kind,
+                             norm_bias=norm_bias, vocab=vocab)
+    return greedy_tokens_sharded(head, final_norm_scale, h[:, -1:],
+                                 group=group, norm_kind=norm_kind,
+                                 norm_bias=norm_bias, vocab=vocab)[:, 0]

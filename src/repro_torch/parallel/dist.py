@@ -206,6 +206,9 @@ class Group:
                     dim: int) -> None:
         """Write every rank's ``shard`` into its block of ``out`` along
         ``dim``, in rank order."""
+        if self.size == 1:
+            out.copy_(shard)
+            return
         x = shard.movedim(dim, 0).contiguous()
         full = torch.empty((x.shape[0] * self.size,) + tuple(x.shape[1:]),
                            dtype=x.dtype, device=x.device)
@@ -214,6 +217,18 @@ class Group:
                                                            group=self.pg),
                   [x], [full], collective=True)
         out.copy_(full.movedim(0, dim))
+
+    def broadcast_(self, t: torch.Tensor, root: int) -> torch.Tensor:
+        """Overwrite ``t`` in place with the group member ``root``'s (an
+        index into the group's ranks), on every rank; returns ``t``.  A
+        group of one rank returns at once.  Serving broadcasts a round's
+        sampled tokens from the last stage over the pipe group."""
+        if self.pg is not None:
+            src = self.ranks[root]
+            self._count(t)
+            self._run(lambda x, y: dist.broadcast(x[0], src, group=self.pg),
+                      [t], [t], collective=True)
+        return t
 
     # ---- the small collectives of checkpoints and telemetry, on a group
     # ---- that spans the world (its first rank is the root) -------------

@@ -5,11 +5,32 @@ speculative verify as clients of the serving schedules (port of
 The engine walks a schedule's forward and exit tables tick by tick
 (``serve_1f``, ``serve_interleaved`` with v chunks per stage, or their
 speculative ``serve_spec_*`` twins); no tick/stage index arithmetic
-lives here.  Every stage runs on one device, stage after stage within a
-tick.  The JAX engine hands hidden states downstream with a
-``ppermute`` (wrapping from the last stage to stage 0 between a stage's
-chunks at v > 1), so the stage after s at tick t reads what s sent at
-tick t − 1; the sequential loop double-buffers that hand-off.  A cell
+lives here.  In one process every stage runs on one device, stage
+after stage within a tick.  The JAX engine hands hidden states
+downstream with a ``ppermute`` (wrapping from the last stage to stage 0
+between a stage's chunks at v > 1), so the stage after s at tick t
+reads what s sent at tick t − 1; the sequential loop double-buffers
+that hand-off.
+
+On a process grid (``build_serving(grid=)``, ``parallel/dist.py::
+RankGrid``) each process is one rank (replica d, stage s, tensor shard
+t) of the plan's ``data × pp × tp`` grid, as in training: it holds only
+its stage's storage rows s·v + j, cut to its tensor shard (weights,
+caches, page pools, scale planes, Mamba channels, RWKV heads, experts),
+with the embedding on stage 0 (and, to draft, on the last stage of a
+speculative session) and the head's vocabulary slice on the last stage;
+every rank keeps the whole encoder.  A tick's hand-off goes to the next
+stage's rank (the last stage's to stage 0 at v > 1) in one
+``RankGrid.exchange``; both sides read from the tables whether the
+receiving cell runs, so no rank waits for a send that never comes.
+The last stage samples (the greedy head over its vocabulary slice, the
+tensor group keeping the largest logit), broadcasts the tokens over
+the pipe group and gathers the replicas' rows over the data group, so
+every rank sees every row of the round, as JAX's single host program
+does: positions, liveness, prompt lengths, the page allocator and a
+batcher driving the session stay identical on every rank.  Callers
+pass and get the rows of every replica (``rows``); a rank's tensors
+hold its replica's block of them (``local_rows``).  A cell
 runs only when its slot is gated: bubbles (``F_MB < 0``), slots that are
 not live in a decode or verify round and slots not admitted in an
 admission round are skipped (JAX computes them and never writes the
@@ -78,7 +99,7 @@ import numpy as np
 import torch
 
 from repro_torch import quant, resolve_device
-from repro_torch.core.reference import model_plan, to_storage_order
+from repro_torch.core.reference import model_plan
 from repro_torch.core.schedule import (F_CHUNK, F_FROM_EMBEDS, F_MB,
                                        ServingSchedule, bucket_lattice,
                                        default_cache_lens,
@@ -86,7 +107,9 @@ from repro_torch.core.schedule import (F_CHUNK, F_FROM_EMBEDS, F_MB,
                                        make_serving_schedule, pick_bucket)
 from repro_torch.models import lm_head
 from repro_torch.models import spec as spec_lib
-from repro_torch.models.init import generator, init_params, params_from_numpy
+from repro_torch.core.versioning import rank_params
+from repro_torch.models.init import (generator, init_rank_params,
+                                     params_from_numpy, tp_shard)
 from repro_torch.models.nn import page_row
 from repro_torch.models.stage import (StageStatics, encoder_fwd,
                                       init_stage_state, make_statics,
@@ -124,7 +147,7 @@ class EngineSession:
     device: torch.device
     compute_dtype: torch.dtype
     cache_len: int
-    rows: int                      # rows per microbatch slot
+    rows: int                      # rows per microbatch slot (all replicas)
     # the session's prompt width (0: a one-shot prefill takes any width
     # up to cache_len, or up to the shortest ring, and there is no
     # per-slot admission)
@@ -164,6 +187,50 @@ class EngineSession:
     # on_round per executed round, the allocator's page gauges after it,
     # and the slot ops' and CacheExhausted counters
     obs: Any = None
+    # this rank's parallel/dist.py::RankGrid (None: every stage here)
+    grid: Any = None
+
+    @property
+    def stages_here(self) -> List[int]:
+        """The stages this process runs: all of them (one process, or a
+        grid of data replicas only), or its rank's."""
+        if self._stage is None:
+            return list(range(self.sched.n_stages))
+        return [self._stage]
+
+    @property
+    def _stage(self) -> Optional[int]:
+        """This rank's stage on a grid of pipeline ranks, else None."""
+        if self.grid is None or self.grid.topo.pp == 1:
+            return None
+        return self.grid.s
+
+    @property
+    def _t(self) -> int:
+        """This rank's tensor shard (0 without a grid)."""
+        return 0 if self.grid is None else self.grid.t
+
+    @property
+    def first_here(self) -> bool:
+        return self.stages_here[0] == 0
+
+    @property
+    def last_here(self) -> bool:
+        return self.stages_here[-1] == self.sched.n_stages - 1
+
+    @property
+    def replicas(self) -> int:
+        return 1 if self.grid is None else self.grid.topo.data
+
+    @property
+    def local_rows(self) -> int:
+        """Rows a slot holds on this rank: its replica's block."""
+        return self.rows // self.replicas
+
+    @property
+    def _tensor(self):
+        """The stage's tensor group (None at tp 1)."""
+        return self.grid.tensor_group if self.plan.tp > 1 else None
 
     @property
     def n_slots(self) -> int:
@@ -228,15 +295,17 @@ class EngineSession:
         return self.init_weights(seed).reset_state()
 
     def init_weights(self, seed: int = 0) -> "EngineSession":
-        """Draw the parameters from ``seed`` at the compute dtype, put
-        them in the schedule's storage chunk order, and quantize them
-        leaf by leaf (``weight_dtype``), so the largest transient is one
-        leaf's f32 copy."""
-        gen = generator(self.device, seed)
-        params = init_params(self.spec, model_plan(self.plan, self.sched),
-                             gen, self.compute_dtype)
-        return self.set_params(quant.quantize_params(
-            to_storage_order(params, self.sched), self.weight_dtype))
+        """Draw the parameters from ``seed`` at the compute dtype in the
+        schedule's storage chunk order, each leaf quantized
+        (``weight_dtype``) at full width as it is drawn, so the largest
+        transient is one leaf's f32 copy (``init_rank_params``).  On a
+        grid the rank keeps its rows and tensor shard only, the same
+        bits as the one-process draw's."""
+        return self.set_params(init_rank_params(
+            self.spec, model_plan(self.plan, self.sched),
+            generator(self.device, seed), self.sched, self._stage,
+            self.compute_dtype, t=self._t, weight_dtype=self.weight_dtype,
+            keep_embed=self.speculative))
 
     def reset_state(self) -> "EngineSession":
         """Zero the per-slot state (KV caches or pools, recurrent state),
@@ -244,16 +313,18 @@ class EngineSession:
         one-shot flows); the parameters stay.  int8 pools start at zero
         with scale planes of 1, so an untouched page dequantizes to
         exact zeros."""
-        R, n_chunks = self.n_slots, self.sched.n_chunks
+        R = self.n_slots
+        n_chunks = len(self.stages_here) * self.sched.virtual_stages
+        rows = self.local_rows
         st = self.statics
         self.cache = init_stage_state(
-            st, self.rows, self.cache_lens, self.cache_dtype, self.device,
+            st, rows, self.cache_lens, self.cache_dtype, self.device,
             lead=(n_chunks, R), paged_layers=self.paged_layers)
         self._views = [[_slot_view(self.cache, p, m) for m in range(R)]
                        for p in range(n_chunks)]
         if self.paged is not None:
             kv8 = self.kv_dtype == "int8"
-            shape = (n_chunks, self.paged["pool_pages"], self.rows,
+            shape = (n_chunks, self.paged["pool_pages"], rows,
                      self.paged["page_size"], st.attn.n_kv_local,
                      st.attn.d_head)
 
@@ -278,7 +349,7 @@ class EngineSession:
         if self.spec.encoder is not None:
             e = self.spec.encoder
             self.enc_out = torch.zeros(
-                (R, self.rows, e.source_len, e.d_model),
+                (R, rows, e.source_len, e.d_model),
                 dtype=self.compute_dtype, device=self.device)
         self._pos = np.zeros(R, np.int64)
         self._live = np.ones(R, np.int64)
@@ -290,29 +361,68 @@ class EngineSession:
         """Install a numpy parameter tree in the JAX package's layout
         (``jax.tree.map(np.asarray, params)``), already in this
         schedule's storage chunk order (as the JAX engine's
-        ``load_params`` takes it): cast to the compute dtype (the f32
-        leaves stay f32), then quantized when the session was built with
-        ``weight_dtype``, as the JAX engine does."""
+        ``load_params`` takes it): what this rank holds of it
+        (:meth:`load_rank_params`; one process holds the whole tree)."""
         if self._pos is None:
             raise RuntimeError("call start() before load_params()")
-        return self.set_params(quant.quantize_params(
-            params_from_numpy(params_host, self.device, self.compute_dtype),
-            self.weight_dtype))
+        return self.load_rank_params(self._rank_tree(params_host))
+
+    def _rank_tree(self, params_host):
+        """What this rank loads of a whole numpy tree in storage order
+        (``core/versioning.py::rank_params`` at full width: its rows,
+        the embedding on stage 0 and, to draft, on a speculative
+        session's last stage, the head and final norm on the last)."""
+        if self._stage is None:
+            return params_host
+        tree = rank_params(params_host, self.sched, self._stage)
+        if self.speculative:
+            tree["embed"] = params_host["embed"]
+        return tree
+
+    def load_rank_params(self, tree) -> "EngineSession":
+        """Install this rank's part of a numpy tree at full width (as
+        :meth:`_rank_tree` gives it, or as ``checkpoint/convert.py::
+        load_converted_rows`` reads it): cast to the compute dtype (the
+        f32 leaves stay f32), quantized at full width (``weight_dtype``),
+        as the JAX engine does, then cut to the rank's tensor shard
+        (``models/init.py::tp_shard``: a quantized leaf cut along its
+        input keeps the whole weight's scales)."""
+        params = quant.quantize_params(
+            params_from_numpy(tree, self.device, self.compute_dtype),
+            self.weight_dtype)
+        return self.set_params(tp_shard(params, self.spec,
+                                        model_plan(self.plan, self.sched),
+                                        self._t))
 
     def set_params(self, params) -> "EngineSession":
         """Install a tree already in the port's layout, storage order,
         dtypes and storage (quantized leaves as they are) and on this
         session's device, such as another session's ``params``."""
         self.params = params
-        self._stage_params = [stage_params(params, p)
-                              for p in range(self.sched.n_chunks)]
+        n_rows = len(self.stages_here) * self.sched.virtual_stages
+        self._stage_params = [stage_params(params, p) for p in range(n_rows)]
         return self
+
+    def host_digest(self) -> str:
+        """A sha256 of the host-side state every rank of a grid keeps
+        alike: positions, liveness, prompt lengths and the page
+        allocator's tables, counts, tokens and free list."""
+        import hashlib
+        h = hashlib.sha256()
+        a = self._alloc
+        parts = [self._pos, self._live, self._prompt_len]
+        if a is not None:
+            parts += [a.tables, a.counts, a.tokens, np.asarray(a.free)]
+        for x in parts:
+            h.update(np.ascontiguousarray(x).tobytes())
+        return h.hexdigest()
 
     # ---- prompts ---------------------------------------------------------
 
     def _prompt(self, batch):
-        """(tokens (R, rows, W) on the device, lens (R,)) of a prompt
-        batch: W text tokens, the session's ``text_len`` (any width up to
+        """(tokens (R, rows, W) on the device, this replica's rows of
+        them, lens (R,)) of a prompt batch: W text tokens, the session's
+        ``text_len`` (any width up to
         ``cache_len`` on a session built without ``prefill_len``),
         ``batch["lens"]`` the per-slot prompt lengths (default the
         prompt's width: a VLM's patch prefix and its W tokens)."""
@@ -345,6 +455,7 @@ class EngineSession:
                         "the session with prefill_len= for full-length "
                         "caches, or send prompts of at most "
                         f"{lens[i]} tokens")
+        tokens = self._local(tokens)
         lens = batch.get("lens") if isinstance(batch, dict) else None
         if lens is None:
             return tokens, np.full(R, width, np.int64)
@@ -418,25 +529,31 @@ class EngineSession:
         if self._alloc is not None:
             for r in np.flatnonzero(mask):
                 self._alloc.alloc_slot(int(r), int(lens[r]))
-        embeds = lm_head.embed_tokens(self.params["embed"], tokens,
-                                      self.compute_dtype)
-        if self.prefix_len:
-            embeds = torch.cat([torch.as_tensor(
-                batch["patches"], device=self.device).to(embeds.dtype),
-                embeds], dim=2)
+        embeds = None
+        if self.first_here:
+            embeds = self._embed(tokens)
+            if self.prefix_len:
+                embeds = torch.cat([self._local(torch.as_tensor(
+                    batch["patches"], device=self.device)).to(embeds.dtype),
+                    embeds], dim=2)
         if self.enc_out is not None and mask.any():
             idx = torch.from_numpy(np.flatnonzero(mask)).to(self.device)
-            frames = torch.as_tensor(batch["frames"], device=self.device)
+            frames = self._local(torch.as_tensor(batch["frames"],
+                                                 device=self.device))
             frames = frames.index_select(0, idx).to(self.compute_dtype)
             enc = encoder_fwd(self.params["encoder"], frames.flatten(0, 1),
                               self.spec)
             self.enc_out.index_copy_(0, idx, enc.view(frames.shape[:2]
                                                       + enc.shape[1:]))
         t0 = self._obs_t0()
-        ex = self._round(embeds, np.zeros(self.n_slots, np.int64), mask, b)
-        h = torch.stack([ex[m, :, int(lens[m]) - 1]
-                         for m in range(self.n_slots)])
-        nxt = self._sample(h.reshape(-1, 1, h.shape[-1]))
+        ex = self._round(embeds, np.zeros(self.n_slots, np.int64), mask, b,
+                         tokens.shape[2] + self.prefix_len)
+        nxt = None
+        if ex is not None:
+            h = torch.stack([ex[m, :, int(lens[m]) - 1]
+                             for m in range(self.n_slots)])
+            nxt = self._sample(h.reshape(-1, 1, h.shape[-1]))
+        nxt = self._share(nxt)
         self._obs_round(kind, b, t0, nxt)
         self._pos[mask] = lens[mask]
         self._live[mask] = 1
@@ -483,12 +600,17 @@ class EngineSession:
             for r in live_r:
                 self._alloc.extend_slot(int(r), int(self._pos[r]) + 1)
         tokens = torch.as_tensor(tokens, device=self.device)
-        embeds = lm_head.embed_tokens(
-            self.params["embed"], tokens.reshape(R, self.rows, 1),
-            self.compute_dtype)
+        embeds = None
+        if self.first_here:
+            embeds = self._embed(self._local(tokens.reshape(R, self.rows,
+                                                            1)))
         t0 = self._obs_t0()
-        ex = self._round(embeds, self._pos, self._live > 0, b)
-        nxt = self._sample(ex[:, :, -1:].reshape(R * self.rows, 1, -1))
+        ex = self._round(embeds, self._pos, self._live > 0, b, 1)
+        nxt = None
+        if ex is not None:
+            nxt = self._sample(ex[:, :, -1:].reshape(R * self.local_rows, 1,
+                                                     -1))
+        nxt = self._share(nxt)
         self._obs_round("decode", b, t0, nxt)
         self._pos += self._live
         if self.buckets is not None:
@@ -535,18 +657,18 @@ class EngineSession:
         pipeline pass).  Any draft source works: ``verify`` keeps the
         output exact whatever the drafts."""
         self._check_spec("draft")
-        fn = self.params["final_norm"]
+        K = self.sched.spec_k
         t = torch.as_tensor(host_array(tokens), device=self.device)
-        out = []
-        for _ in range(self.sched.spec_k):
-            h = lm_head.embed_tokens(self.params["embed"], t[:, None],
-                                     self.compute_dtype)
-            t = lm_head.sample_greedy(self.params["head"], fn["scale"], h,
-                                      norm_kind=self.spec.norm,
-                                      norm_bias=fn.get("bias"),
-                                      vocab=self.spec.vocab)
-            out.append(t)
-        return torch.stack(out, dim=1).cpu().numpy()
+        drafts = None
+        if self.last_here:
+            # every row of every replica: the drafts need no gather
+            out = []
+            for _ in range(K):
+                t = self._sample(self._embed(t[:, None]), keep=False)
+                out.append(t)
+            drafts = torch.stack(out, dim=1)
+        return self._share(drafts, (t.shape[0], K), gather=False
+                           ).cpu().numpy()
 
     def verify(self, tokens, bucket=None):
         """One draft–verify round: score spec_k + 1 positions a slot.
@@ -596,18 +718,17 @@ class EngineSession:
             for r in live_r:
                 self._alloc.extend_slot(int(r), int(self._pos[r]) + Q)
         tok_d = torch.as_tensor(toks, device=self.device)
-        embeds = lm_head.embed_tokens(
-            self.params["embed"], tok_d.reshape(R, self.rows, Q),
-            self.compute_dtype)
+        embeds = None
+        if self.first_here:
+            embeds = self._embed(self._local(tok_d.reshape(R, self.rows, Q)))
         t0 = self._obs_t0()
-        ex = self._round(embeds, self._pos, self._live > 0, b)
-        h = ex.reshape(R * self.rows, Q, -1)
-        self.last_hidden = h
-        fn = self.params["final_norm"]
-        scores = lm_head.greedy_tokens(self.params["head"], fn["scale"], h,
-                                       norm_kind=self.spec.norm,
-                                       norm_bias=fn.get("bias"),
-                                       vocab=self.spec.vocab)
+        ex = self._round(embeds, self._pos, self._live > 0, b, Q)
+        scores = None
+        if ex is not None:
+            h = ex.reshape(R * self.local_rows, Q, -1)
+            self.last_hidden = h
+            scores = self._greedy(h)
+        scores = self._share(scores, (R * self.local_rows, Q))
         self._obs_round("verify", b, t0, scores)
         scores = scores.cpu().numpy()
         # draft i is accepted iff it equals the verifier's token after
@@ -767,44 +888,137 @@ class EngineSession:
 
     # ---- the table walk ---------------------------------------------------
 
-    def _sample(self, h) -> torch.Tensor:
-        self.last_hidden = h
+    def _sample(self, h, keep: bool = True) -> torch.Tensor:
+        """The greedy token after each row's last position of ``h`` (B,
+        S, d): the head over the whole vocabulary, or at tp > 1 the
+        group's over its slices; ``keep`` keeps ``h`` as
+        ``last_hidden``."""
+        if keep:
+            self.last_hidden = h
         fn = self.params["final_norm"]
-        return lm_head.sample_greedy(self.params["head"], fn["scale"], h,
-                                     norm_kind=self.spec.norm,
-                                     norm_bias=fn.get("bias"),
-                                     vocab=self.spec.vocab)
+        return lm_head.sample_greedy_sharded(
+            self.params["head"], fn["scale"], h, group=self._tensor,
+            norm_kind=self.spec.norm, norm_bias=fn.get("bias"),
+            vocab=self.spec.vocab)
 
-    def _round(self, embeds, start, gate, b: int) -> torch.Tensor:
+    def _greedy(self, h) -> torch.Tensor:
+        """The greedy token after every position of ``h`` (B, S, d)."""
+        fn = self.params["final_norm"]
+        return lm_head.greedy_tokens_sharded(
+            self.params["head"], fn["scale"], h, group=self._tensor,
+            norm_kind=self.spec.norm, norm_bias=fn.get("bias"),
+            vocab=self.spec.vocab)
+
+    def _embed(self, tokens) -> torch.Tensor:
+        """(..., S, d) embeddings of ``tokens`` in the compute dtype (at
+        tp > 1 each rank's columns joined over the tensor group)."""
+        if self._tensor is not None:
+            return lm_head.embed_tokens_sharded(
+                self.params["embed"], tokens, self._tensor, self.compute_dtype)
+        return lm_head.embed_tokens(self.params["embed"], tokens,
+                                    self.compute_dtype)
+
+    def _local(self, a):
+        """This replica's block of the rows (dim 1) of an (R, rows, ...)
+        input of every replica's rows."""
+        if self.replicas == 1:
+            return a
+        n = self.local_rows
+        return a[:, self.grid.d * n:(self.grid.d + 1) * n]
+
+    def _share(self, out, shape=None, gather: bool = True):
+        """A round's result on every rank: ``out`` (R · local_rows, ...)
+        exists on the last stage only (None elsewhere, ``shape`` its
+        shape); it is broadcast over the pipe group and, with
+        ``gather``, the replicas' rows are joined over the data group
+        in replica order: (R · rows, ...), the same on every rank."""
+        g = self.grid
+        if g is None:
+            return out
+        if out is None:
+            out = torch.empty(shape if shape is not None
+                              else (self.n_slots * self.local_rows,),
+                              dtype=torch.int32, device=self.device)
+        g.pipe_group.broadcast_(out, self.sched.n_stages - 1)
+        if not gather or self.replicas == 1:
+            return out
+        R = self.n_slots
+        part = out.reshape((R, self.local_rows) + tuple(out.shape[1:]))
+        full = part.new_empty((R, self.rows) + tuple(out.shape[1:]))
+        g.data_group.all_gather_(part, full, 1)
+        return full.reshape((R * self.rows,) + tuple(out.shape[1:]))
+
+    def _hand_on(self, tabs, t: int, gate, sent, qlen: int):
+        """The inputs of tick ``t``'s cells that come from upstream, by
+        stage: a hand-off between two stages of this process by
+        reference, the others sent to and received from the
+        neighbouring ranks in one exchange.  The tables say on both
+        sides which cells run (not a bubble, gated, not fed by the
+        embeddings), so every send has its receive."""
+        if t >= tabs.fwd.shape[0]:
+            return {}
+        S, here = self.sched.n_stages, self.stages_here
+        got, sends, recvs = {}, [], []
+        for dst in range(S):
+            m = int(tabs.fwd[t, dst, F_MB])
+            if m < 0 or not gate[m] or tabs.fwd[t, dst, F_FROM_EMBEDS]:
+                continue
+            src = (dst - 1) % S
+            if src in here and dst in here:
+                got[dst] = sent[src]
+            elif src in here:
+                sends.append((self._down, sent[src].contiguous()))
+            elif dst in here:
+                got[dst] = torch.empty(
+                    (self.local_rows, qlen, self.spec.d_model),
+                    dtype=self.compute_dtype, device=self.device)
+                recvs.append((self._up, got[dst]))
+        if sends or recvs:
+            self.grid.exchange(sends, recvs)
+        return got
+
+    @property
+    def _down(self) -> int:
+        return self.grid.topo.downstream(
+            self.grid.rank, wrap=self.sched.virtual_stages > 1)
+
+    @property
+    def _up(self) -> int:
+        return self.grid.topo.upstream(
+            self.grid.rank, wrap=self.sched.virtual_stages > 1)
+
+    def _round(self, embeds, start, gate, b: int,
+               qlen: int) -> Optional[torch.Tensor]:
         """Walk bucket ``b``'s forward / exit tables over ``embeds`` (R,
-        rows, qlen, d); slot m's queries sit at ``start[m]`` onwards, and
-        only the cells of slots with ``gate[m]`` run.  Returns what
-        exits the last chunk, (R, rows, qlen, d), zeros for the other
-        slots."""
+        local_rows, qlen, d; None where stage 0 is not here); slot m's
+        queries sit at ``start[m]`` onwards, and only the cells of slots
+        with ``gate[m]`` run, of the stages here.  Returns what exits
+        the last chunk, (R, local_rows, qlen, d), zeros for the other
+        slots, or None where the last stage is not here."""
         R, S = self.n_slots, self.sched.n_stages
         v = self.sched.virtual_stages
-        qlen = embeds.shape[2]
+        here = self.stages_here
+        rows = self.local_rows
         sched = self._bucket_sched(b)
         tabs = sched.tables()
         rows_pr = {}
         if self._alloc is not None:
-            rows_pr = {m: page_row(self._alloc.tables[m], self.rows,
+            rows_pr = {m: page_row(self._alloc.tables[m], rows,
                                    int(start[m]) + qlen, self.device)
                        for m in range(b) if gate[m]}
         exits: List[Optional[torch.Tensor]] = [None] * R
-        recv: List[Optional[torch.Tensor]] = [None] * S
+        recv: Dict[int, torch.Tensor] = {}
         for t in range(sched.n_ticks):
-            sent: List[Optional[torch.Tensor]] = [None] * S
-            for s in range(S):
+            sent: Dict[int, torch.Tensor] = {}
+            for s in here:
                 m = int(tabs.fwd[t, s, F_MB])
                 if m < 0 or not gate[m]:
                     continue                       # bubble, or not gated
-                p = s * v + int(tabs.fwd[t, s, F_CHUNK])
-                x = (embeds[m] if tabs.fwd[t, s, F_FROM_EMBEDS]
-                     else recv[(s - 1) % S])
+                p = (s - here[0]) * v + int(tabs.fwd[t, s, F_CHUNK])
+                x = embeds[m] if tabs.fwd[t, s, F_FROM_EMBEDS] else recv[s]
                 pos = int(start[m])
                 positions = torch.arange(pos, pos + qlen, device=self.device
-                                         ).expand(self.rows, qlen)
+                                         ).expand(rows, qlen)
                 paged = None
                 if self.pages is not None:
                     paged = {"pools": self._pools[p], "row": rows_pr[m]}
@@ -815,12 +1029,15 @@ class EngineSession:
                     thetas=self.params["layer_thetas"][p],
                     state=self._views[p][m], cache_pos=pos, paged=paged,
                     cross_x=None if self.enc_out is None
-                    else self.enc_out[m])
+                    else self.enc_out[m], tp=self._tensor)
             m_exit = int(tabs.exit_mb[t])
-            if m_exit >= 0 and gate[m_exit]:
+            if m_exit >= 0 and gate[m_exit] and S - 1 in here:
                 exits[m_exit] = sent[S - 1]
-            recv = sent
-        zero = torch.zeros_like(embeds[0])
+            recv = self._hand_on(tabs, t + 1, gate, sent, qlen)
+        if S - 1 not in here:
+            return None
+        zero = torch.zeros((rows, qlen, self.spec.d_model),
+                           dtype=self.compute_dtype, device=self.device)
         return torch.stack([zero if e is None else e for e in exits])
 
 
@@ -854,12 +1071,16 @@ def build_serving(spec: spec_lib.ModelSpec, plan: ParallelismPlan, *,
                   buckets: bool = False, spec_k: Optional[int] = None,
                   weight_dtype: Optional[str] = None,
                   kv_dtype: Optional[str] = None,
-                  device=None, obs=None) -> EngineSession:
+                  device=None, obs=None, grid=None) -> EngineSession:
     """A serving session for the plan's serving schedule, all stages on
-    ``device`` (default ``cuda``; raises without a card).
+    ``device`` (default ``cuda``; raises without a card), or with
+    ``grid`` (``parallel/dist.py::init_grid`` over ``data × plan.pp ×
+    plan.tp`` ranks) this rank's stage and tensor shard on the grid's
+    device.  A plan with ``tp`` > 1 needs a grid.
 
-    ``global_batch`` rows split into R = fit(plan.decode_microbatches)
-    microbatch slots.  The schedule comes from the registry
+    ``global_batch`` rows (of every data replica) split into R =
+    fit(plan.decode_microbatches) microbatch slots, each replica
+    holding its block of a slot's rows.  The schedule comes from the registry
     (``make_serving_schedule``): ``serve_interleaved`` for a plan with
     ``virtual_stages > 1``, a speculative ``serve_spec_*`` schedule when
     the plan names one (draft depth ``spec_k``, default 4).
@@ -898,7 +1119,6 @@ def build_serving(spec: spec_lib.ModelSpec, plan: ParallelismPlan, *,
     Observability`) gets one ``on_round`` per executed round, the page
     gauges and the slot ops' counters.
     """
-    dev = resolve_device(device)
     if weight_dtype is not None and weight_dtype not in quant.WEIGHT_DTYPES:
         raise ValueError(f"weight_dtype={weight_dtype!r} not in "
                          f"{quant.WEIGHT_DTYPES}")
@@ -908,9 +1128,22 @@ def build_serving(spec: spec_lib.ModelSpec, plan: ParallelismPlan, *,
         raise ValueError(
             "kv_dtype='int8' requires the paged cache (page_size > 0): "
             "the per-page scale planes live alongside the page pools")
-    if plan.tp != 1:
-        raise ValueError(f"tp={plan.tp}: the port runs one device per "
-                         "stage group (tp=1) in this slice")
+    dp = 1
+    if grid is not None:
+        # a rank a (replica, stage, tensor shard), or a rank a replica
+        # that runs every stage
+        if grid.topo.tp != plan.tp or grid.topo.pp not in (1, plan.pp):
+            raise ValueError(f"grid of {grid.topo.pp} stages x "
+                             f"{grid.topo.tp} tensor ranks for a plan of "
+                             f"pp={plan.pp} x tp={plan.tp}")
+        dp, device = grid.topo.data, grid.device
+    elif plan.tp != 1:
+        raise ValueError(
+            f"tp={plan.tp}: a stage cut over {plan.tp} tensor ranks runs on "
+            f"a grid of ranks: launch with torchrun --nproc-per-node "
+            f"{plan.pp * plan.tp} (x data replicas) or pass grid= "
+            "(parallel/dist.py::init_grid)")
+    dev = resolve_device(device)
     if spec.frontend == "vision" and prefill_len \
             and prefill_len <= spec.n_patches:
         raise ValueError(f"prefill_len={prefill_len} leaves no text after "
@@ -922,12 +1155,13 @@ def build_serving(spec: spec_lib.ModelSpec, plan: ParallelismPlan, *,
         # fp32 parity with the JAX reference needs full-precision products
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    R = fit_serving_microbatches(plan.decode_microbatches, global_batch, 1)
+    R = fit_serving_microbatches(plan.decode_microbatches, global_batch, dp)
     sched = make_serving_schedule(plan, R, spec_k=spec_k)
     sched.validate()
     rows = global_batch // R
+    # a rank's call holds its replica's rows: the MoE capacity's tokens
     statics = make_statics(spec, model_plan(plan, sched),
-                           tokens_per_mb=rows * max(prefill_len, 1))
+                           tokens_per_mb=rows // dp * max(prefill_len, 1))
     recurrent = [i for i, blk in enumerate(statics.program)
                  if blk.mixer in ("mamba", "rwkv") or blk.ffn == "rwkv_cmix"]
     if sched.is_speculative:
@@ -965,4 +1199,4 @@ def build_serving(spec: spec_lib.ModelSpec, plan: ParallelismPlan, *,
         buckets=bucket_lattice(R) if buckets else None,
         ragged_ok=(not recurrent and spec.encoder is None
                    and spec.frontend != "vision"),
-        weight_dtype=weight_dtype, kv_dtype=kv_dtype, obs=obs)
+        weight_dtype=weight_dtype, kv_dtype=kv_dtype, obs=obs, grid=grid)

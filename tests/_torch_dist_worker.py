@@ -1,8 +1,12 @@
 """Multi-rank runs of the port for the tests/test_torch_dist*.py files:
 spawned processes, one per rank, under gloo on the CPU.
 
-Imports torch and the port only (no jax): each rank is a fresh process
-that imports this module.  Ranks meet through a file in the test's
+Imports torch and the port only (no jax).  Each rank is a fresh process
+forked from a ``forkserver`` that has imported this module once for the
+test process: a rank starts in a fraction of a second instead of
+importing torch anew (~5 s a four-rank run under ``spawn``), and no
+rank inherits the test process's state (its threads, or jax).  Ranks
+meet through a file in the test's
 temporary directory (never a fixed TCP port: test workers run side by
 side), every process group has a timeout, every rank is joined with a
 deadline, and a rank that fails fails the run at once.
@@ -550,6 +554,206 @@ def unflatten(flat):
 
 
 # --------------------------------------------------------------------------
+# serving on a grid (tests/test_torch_serve_grid.py): one session a case,
+# the same scenario code in one process and on every rank
+# --------------------------------------------------------------------------
+
+def serve_plan(case):
+    """The case's plan: its arch's SMOKE_PLAN with the case's fields."""
+    return configs.get(case["arch"]).SMOKE_PLAN.with_(**case.get("plan", {}))
+
+
+def serve_session(case, grid=None, device="cpu"):
+    """``build_serving`` of ``case`` (fp32), on ``grid`` or in one
+    process, with its weights: drawn from ``case["seed"]``, or the
+    numpy tree saved at ``case["npz"]`` (flattened ``path -> array``)."""
+    from repro_torch.serving.engine import build_serving
+    spec = configs.get(case["arch"]).smoke_spec()
+    kw = {k: case[k] for k in ("page_size", "prefill_len", "buckets",
+                               "spec_k", "weight_dtype", "kv_dtype",
+                               "pool_pages") if k in case}
+    session = build_serving(spec, serve_plan(case),
+                            cache_len=case["cache_len"],
+                            global_batch=case["batch"],
+                            compute_dtype=torch.float32, device=device,
+                            grid=grid, **kw)
+    session.start(case.get("seed", 0))
+    if case.get("npz"):
+        session.load_params(unflatten(dict(np.load(case["npz"]))))
+    if case.get("ckpt"):
+        from repro_torch.launch.serve import load_checkpoint
+        load_checkpoint(session, spec, type("Args", (), {
+            "ckpt": case["ckpt"]})())
+    return session
+
+
+def _hidden(session):
+    h = session.last_hidden
+    return None if h is None else h.detach().cpu().numpy().copy()
+
+
+def serve_prompts(session, case):
+    """A prefill batch of every key of the session's prefill_specs (all
+    replicas' rows), drawn from ``case["seed"]`` as the launcher draws
+    it; with ``case["replica"] = (d, D)`` the batch of D such sessions
+    is drawn and replica d's block of every slot's rows kept."""
+    rng = np.random.default_rng(case.get("seed", 0))
+    d, n = case.get("replica", (0, 1))
+    out = {}
+    for k, v in session.prefill_specs.items():
+        shape = (v.shape[0], v.shape[1] * n) + tuple(v.shape[2:])
+        a = (rng.integers(0, session.spec.vocab, shape).astype(np.int32)
+             if v.dtype == torch.int32 else
+             rng.standard_normal(shape).astype(np.float32) * 0.02)
+        out[k] = np.ascontiguousarray(a[:, d * v.shape[1]:(d + 1)
+                                        * v.shape[1]])
+    return out
+
+
+def serve_case(session, case):
+    """Run ``case["scenario"]`` on ``session``: the tokens every rank
+    sees, this rank's ``last_hidden`` after each round (None off the
+    last stage), the allocator digest after each round, and the bytes
+    the rank holds."""
+    from repro_torch.launch.serve import parse_arrivals
+    from repro_torch.serving.batcher import ContinuousBatchingSession, Request
+    out = {"tokens": [], "hidden": [], "digests": []}
+
+    def after(tokens):
+        out["tokens"].append(np.asarray(tokens.cpu().numpy()
+                                        if torch.is_tensor(tokens)
+                                        else tokens).copy())
+        out["hidden"].append(_hidden(session))
+        out["digests"].append(session.host_digest())
+
+    kind = case["scenario"]
+    if kind == "arrivals":
+        rng = np.random.default_rng(case.get("seed", 0))
+        trace = [Request(rid=i, prompt=rng.integers(
+                     1, session.spec.vocab,
+                     case.get("prompt_len", session.text_len)
+                 ).astype(np.int32),
+                 max_new_tokens=case["decodes"], arrival=int(t))
+                 for i, t in enumerate(parse_arrivals(case["arrivals"]))]
+        server = ContinuousBatchingSession(session)
+        rounds = []
+        orig = session._share
+
+        def share(x, shape=None, gather=True):
+            got = orig(x, shape, gather)
+            rounds.append(session.host_digest())
+            return got
+        session._share = share
+        report = server.run(trace)
+        out["requests"] = {r.rid: list(map(int, r.tokens))
+                           for r in report.requests}
+        out["digests"] = rounds + [session.host_digest()]
+        out["steps"] = report.steps
+        out["spec_rounds"] = report.spec_rounds
+    else:
+        nxt = session.prefill(serve_prompts(session, case))
+        after(nxt)
+        for _ in range(case["decodes"]):
+            if kind == "spec":
+                last = nxt.cpu().numpy().astype(np.int32)
+                drafts = session.draft(last)
+                scores, acc = session.verify(
+                    np.concatenate([last[:, None], drafts], axis=1))
+                after(np.concatenate([scores, acc.repeat(session.rows)[:, None]],
+                                     axis=1))
+                nxt = torch.from_numpy(scores[np.arange(scores.shape[0]),
+                                              acc.repeat(session.rows)]
+                                       .astype(np.int32))
+            else:
+                nxt = session.decode(nxt)
+                after(nxt)
+    from repro_torch.serving.engine import _leaves
+    nbytes = lambda ts: sum(t.numel() * t.element_size()  # noqa: E731
+                            for t in ts)
+    p = session.params
+    out["bytes"] = {
+        "stages": nbytes(_tree_tensors(p["stages"])),
+        "embed": nbytes(_tree_tensors(p.get("embed", {}))),
+        "head": nbytes(_tree_tensors(p.get("head", {}))),
+        "cache": nbytes(_leaves(session.cache)),
+        "pages": nbytes(_tree_tensors(session.pages or {})),
+    }
+    return out
+
+
+def _tree_tensors(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _tree_tensors(v)]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _tree_tensors(v)]
+    return [tree] if torch.is_tensor(tree) else []
+
+
+def job_serve(grid, cases):
+    """Each case of ``cases`` (``{key: case}``) served on this rank:
+    :func:`serve_case`'s results by key, with the files the case's
+    session opened with ``np.load`` (``"opened"``: a converted
+    checkpoint's chunk files)."""
+    out = {}
+    load = np.load
+    for key, case in cases.items():
+        opened = []
+
+        def spy(path, *a, **k):
+            opened.append(os.path.basename(str(path)))
+            return load(path, *a, **k)
+        np.load = spy
+        try:
+            session = serve_session(case, grid)
+        finally:
+            np.load = load
+        out[key] = serve_case(session, case)
+        out[key]["opened"] = opened
+    # a session's last collectives are its subgroups': no rank tears its
+    # groups down while a peer still uses them
+    grid.world_group.barrier()
+    return out
+
+
+def job_greedy_ties(grid, n_vocab: int, vocab: int, seed: int):
+    """The sharded greedy head on this rank's vocabulary slice, over two
+    heads built from one block of positive columns ``base`` (and
+    positive hidden states, so every logit is positive) laid over the
+    vocabulary's four quarters: ``[base, base, base[:, idx], base]``,
+    where every row's maximum ties across the shard boundary (quarters
+    0 and 3) and the lowest id, on rank 0, wins; and ``[base, base,
+    10·base[:, idx], base]``, where the maximum sits in quarter 2, on
+    rank 1, tied with itself there (``idx`` takes each column of the
+    first half twice).  The ids past ``vocab`` copy real ones and must
+    lose.  For each head: the tokens the tensor group agrees on (every
+    position, and the last), the whole row's ``torch.argmax`` and the
+    logits."""
+    from repro_torch.core.versioning import table_columns
+    from repro_torch.models import lm_head
+    g = torch.Generator().manual_seed(seed)
+    d, q = 16, n_vocab // 4
+    base = torch.rand((d, q), generator=g) + 0.1
+    idx = torch.arange(q // 2).repeat(2)
+    h = torch.rand((6, 3, d), generator=g) + 0.1
+    scale = torch.ones(d)
+    grp = grid.tensor_group
+    cols = table_columns(n_vocab, grp.index, grp.size)
+    out = []
+    for mul in (1.0, 10.0):
+        head = torch.cat([base, base, mul * base[:, idx], base], dim=1)
+        head[:, vocab:] = head[:, :n_vocab - vocab]
+        out.append({
+            "got": lm_head.greedy_tokens_sharded(head[:, cols], scale, h,
+                                                 group=grp, vocab=vocab),
+            "last": lm_head.sample_greedy_sharded(head[:, cols], scale, h,
+                                                  group=grp, vocab=vocab),
+            "want": lm_head.greedy_tokens(head, scale, h, vocab=vocab),
+            "logits": lm_head.logits(head, scale, h, vocab=vocab)})
+    grid.world_group.barrier()
+    return out
+
+
+# --------------------------------------------------------------------------
 # spawning
 # --------------------------------------------------------------------------
 
@@ -571,23 +775,16 @@ def _rank_main(rank, world, data, pp, init_file, out_dir, jobs,
         close_grid()
 
 
-def run_ranks(tmp_path, data: int, pp: int, jobs,
-              timeout: float = JOIN_TIMEOUT_S,
-              group_timeout: float = GROUP_TIMEOUT_S, tp: int = 1):
-    """Run ``jobs`` (``{name: kwargs}`` of the ``job_<name>`` functions,
-    in order) on a ``data × pp × tp`` grid of spawned ranks; the results
-    by rank, each ``{name: result}``.  Raises once a rank fails, naming
-    every rank that has failed after FAIL_GRACE_S more (the others are
-    killed), or when the deadline passes."""
-    world = data * pp * tp
-    ctx = multiprocessing.get_context("spawn")
-    init_file = tmp_path / "rendezvous"
-    procs = [ctx.Process(target=_rank_main,
-                         args=(r, world, data, pp, str(init_file),
-                               str(tmp_path), jobs, group_timeout, tp))
-             for r in range(world)]
-    for p in procs:
-        p.start()
+def _forkserver():
+    ctx = multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload([__name__])
+    return ctx
+
+
+def _watch(procs, what, timeout: float) -> None:
+    """Wait for ``procs``; raise once one fails, naming every one that
+    has failed after FAIL_GRACE_S more, or when the deadline passes.
+    Every process is ended before this returns."""
     deadline = time.monotonic() + timeout
     try:
         while any(p.is_alive() for p in procs):
@@ -604,18 +801,67 @@ def run_ranks(tmp_path, data: int, pp: int, jobs,
                     time.sleep(0.05)
                 failed = [r for r, p in enumerate(procs)
                           if p.exitcode not in (None, 0)]
-                raise RuntimeError(f"{list(jobs)}: rank(s) {failed} failed")
+                raise RuntimeError(f"{what}: rank(s) {failed} failed")
             if time.monotonic() > deadline:
-                raise TimeoutError(f"{list(jobs)}: ranks still running "
+                raise TimeoutError(f"{what}: ranks still running "
                                    f"after {timeout} s")
             time.sleep(0.05)
         failed = [r for r, p in enumerate(procs) if p.exitcode != 0]
         if failed:
-            raise RuntimeError(f"{list(jobs)}: rank(s) {failed} failed")
+            raise RuntimeError(f"{what}: rank(s) {failed} failed")
     finally:
         for p in procs:
             if p.is_alive():
                 p.kill()
             p.join(5)
+
+
+def run_ranks(tmp_path, data: int, pp: int, jobs,
+              timeout: float = JOIN_TIMEOUT_S,
+              group_timeout: float = GROUP_TIMEOUT_S, tp: int = 1):
+    """Run ``jobs`` (``{name: kwargs}`` of the ``job_<name>`` functions,
+    in order) on a ``data × pp × tp`` grid of ranks; the results
+    by rank, each ``{name: result}``.  Raises once a rank fails, naming
+    every rank that has failed after FAIL_GRACE_S more (the others are
+    killed), or when the deadline passes."""
+    world = data * pp * tp
+    ctx = _forkserver()
+    init_file = tmp_path / "rendezvous"
+    procs = [ctx.Process(target=_rank_main,
+                         args=(r, world, data, pp, str(init_file),
+                               str(tmp_path), jobs, group_timeout, tp))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    _watch(procs, list(jobs), timeout)
     return [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
             for r in range(world)]
+
+
+def _launch_rank(rank, world, tmp, argvs):
+    """One rank of ``launch/serve.py`` runs: each argv of ``argvs`` in
+    turn under torchrun's environment, rank 0's results saved."""
+    torch.set_num_threads(1)
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    from repro_torch.launch import serve
+    out = [serve.main(list(argv) + ["--init-method",
+                                    f"file://{tmp}/rendezvous{i}"])
+           for i, argv in enumerate(argvs)]
+    if rank == 0:
+        torch.save(out, os.path.join(tmp, "launch.pt"))
+
+
+def run_launcher(tmp_path, world: int, argvs,
+                 timeout: float = JOIN_TIMEOUT_S):
+    """``python -m repro_torch.launch.serve`` on ``world`` ranks, as
+    torchrun starts it, for each argv of ``argvs``: rank 0's return
+    values.  The deadline and the failure rules of :func:`run_ranks`."""
+    ctx = _forkserver()
+    procs = [ctx.Process(target=_launch_rank,
+                         args=(r, world, str(tmp_path), argvs))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    _watch(procs, "launch", timeout)
+    return torch.load(tmp_path / "launch.pt", weights_only=False)
