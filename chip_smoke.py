@@ -294,9 +294,9 @@ Phases (any failure raises and the script exits non-zero):
    a TOOLS_LAYERS-layer cell fed by data/pipeline.py::Prefetcher equal
    the in-line Loader's bit for bit.  26d: ``serve --data 2`` on two gloo
    ranks sharing the card equals ``serve --data 1`` (qwen3-14b,
-   TOOLS_LAYERS layers, bf16) token for token.  Phases 24 and 25 run in
-   turn while 23a's spawned process finishes; phase 26 runs last, once
-   its child has ended.
+   TOOLS_LAYERS layers, bf16) token for token.  Phases 24, 25 and 28 run
+   in turn while 23a's spawned process finishes; phase 26 runs last,
+   once its child has ended.
 27. serving grid — the serving engine on a rank grid
    (``build_serving(grid=)``), gloo ranks sharing the card, each world
    spawned once, 27a's and 27b's side by side.  27a: phase 3's cell on
@@ -314,6 +314,30 @@ Phases (any failure raises and the script exits non-zero):
    blocks 1 and 3 (Mamba at Ci / 2, experts cut) one shot, hidden states
    within GRID_JAMBA_TOL of one process's.  The paged walk at 20 / 4
    heads and mamba_scan at Ci / 2 against their plain versions.
+28. sequence parallel — long_500k's decode (``build_serving(sp=True)``:
+   every full-length KV cache sharded along the sequence over the data
+   ranks, the softmax combined over the data group) on gloo ranks
+   sharing the card, at its uncut shape: cache SP_CACHE (524,288), one
+   row.  Each session's state is seeded as a prefix of SP_P0 positions
+   would leave it (hashed K / V by global index, so a rank's shard holds
+   the bits of the one process's slice: the seeded shards' digests must
+   equal the slices'), then SP_DECODE decodes cross the shard boundary at
+   262,144.  28a: gemma3-4b's full_spec, bf16, data SP_DATA x pp SP_PP
+   (four ranks): tokens those of one process (``sp=False``, whole
+   caches) up to near-ties of SP_TIE, each rank's KV bytes within
+   MEM_RTOL of ``serving_cache_bytes(sp=True, data_replicas=2)``, the
+   host digests equal; the decode ms a step (the ranks and one process),
+   the data group's calls, bytes and seconds a step and the peak GB a
+   rank.  28b, fp32 at full width, against one process: gemma3-4b's
+   layers 4-5 (windowed, global) one a stage on 28a's ranks, and
+   jamba's blocks 3-4 (Mamba + MoE, attention + dense) at data 2 x pp 1
+   (a stage holds a whole block pattern), every decode's Mamba through
+   the mamba_scan kernel on each data rank: tokens equal, the hidden
+   states the head read within SP_TOL.  mamba_scan at that decode call
+   against its plain version.  Prints the card's name and power limit
+   at its start.  Runs after phase 25, beside 23a: its two worlds start
+   up while 28a's one-process reference (whole caches, ~30 GB) runs, then
+   each world runs beside the one process's run of its work.
 
 Phase 2 also holds the flash forward and backward (bf16 and f32, causal
 and a 1024-token window) at 25b's training call and the paged walk
@@ -343,7 +367,7 @@ counters are zeroed before and read after each main path (phases 3, 5,
 6, 8, 9, 11, 13, 15, 16, 17d, 18b, whose two ranks count their own,
 19a, each run of 19b, 20a-b, 21a-b, whose ranks count their own, and
 22a-c, which also read the backward kernels' counters, 23a-e,
-24a-d, 25a-c and 27a-c, whose ranks count their own).
+24a-d, 25a-c, 27a-c and 28, whose ranks count their own).
 Prints a
 ``profile`` JSON line for qwen3 bf16, rwkv6 (decode, then prefill),
 jamba (decode, then prefill), quantized qwen3 and the training rounds
@@ -375,8 +399,8 @@ two ``serve_front`` lines, two ``train_front`` lines and a
 profiles, ``op_count``, ``dryrun``, ``prefetch`` and ``serve_data``
 lines (phase 26), a ``serving_grid`` line (phase 27: each world's
 decode ms a step, prefill seconds, peak GB, hand-off and tensor-group
-traffic, 27b's bytes against the planner, 27c's runs, seconds),
-one ``kernels`` JSON line
+traffic, 27b's bytes against the planner, 27c's runs, seconds), a
+``sequence_parallel`` line (phase 28), one ``kernels`` JSON line
 (launches, by path and for wkv6 by
 design, errors, times, bounds, a ``layouts`` entry for the new head
 layouts, each kernel's design and what ``ptxas -v`` reported; the
@@ -384,7 +408,8 @@ flash, backward, paged and int8 paged records carry a ``dh120`` entry at
 Dh 120 and a ``dh256`` entry at Dh 256), the card's name and power
 limit, and last ``{"ok": true, "device": ...}``.  The paged record's
 ``grid_tp2`` entry is the walk at 27b's 20 / 4 heads (time, bound, plain,
-launches), mamba_scan's the scan at Ci / 2.  Exits non-zero without
+launches), mamba_scan's the scan at Ci / 2, and its ``sp`` entry 28b's
+decode call.  Exits non-zero without
 a CUDA device.
 """
 from __future__ import annotations
@@ -532,8 +557,9 @@ BATCH_TRACE = ((512, 48, 0), (480, 40, 0), (448, 8, 0), (256, 16, 0),
 BATCH_POOL = 100
 SPEC_K = 4
 # 19a-b's depth (bf16 at full width, cut from 40 for the script's time
-# limit) and 19c's (fp32), pp 2 x v 2 chunks of one layer
-BATCH_LAYERS = 20
+# limit, and from 20 to free phase 28's seconds) and 19c's (fp32), pp 2 x
+# v 2 chunks of one layer
+BATCH_LAYERS = 10
 BATCH_CONS_LAYERS = 4
 # bf16 greedy agreement at qwen3-14b's 40 layers: the reference's largest
 # logit is 5.7-7.9 at these random weights (bf16 steps of 1/32), and the
@@ -546,11 +572,11 @@ BATCH_TIE = 0.25
 # one card: cache SPLAN_CACHE, SPLAN_BATCH rows in SPLAN_R slots, bf16 KV,
 # paged at SPLAN_PAGE with SPLAN_OCC of the slots' capacity in the pool;
 # SPLAN_R requests (a slot each) with prompts spread over SPLAN_PROMPTS,
-# SPLAN_DECODE decodes; measured weights and cache within MEM_RTOL of the
-# memory model's
+# SPLAN_DECODE decodes (16 before phase 28 needed the seconds); measured
+# weights and cache within MEM_RTOL of the memory model's
 SPLAN_CACHE, SPLAN_BATCH, SPLAN_R = 32768, 16, 8
 SPLAN_PAGE, SPLAN_OCC = 16, 0.25
-SPLAN_PROMPTS, SPLAN_DECODE = (1024, 2048), 16
+SPLAN_PROMPTS, SPLAN_DECODE = (1024, 2048), 8
 MEM_RTOL = 0.01
 # 20b: h2o-danube3-4b at full width (24 layers, bf16, serve_1f pp 2), R
 # DANUBE_SLOTS x DANUBE_ROWS rows, prompts past its 4096 window; its
@@ -6601,7 +6627,7 @@ def new_serve_train(device, out, profs, launches, seconds):
 def phase_new_configs(device, alongside=None):
     """Phase 23: 23a (:func:`ingest_child`) in a spawned process beside
     23b-e (:func:`new_serve_train`), which run here, then ``alongside()``
-    (phases 24 and 25) while 23a finishes.  Returns (records, profiles,
+    (phases 24, 25 and 28) while 23a finishes.  Returns (records, profiles,
     launches by path, seconds)."""
     import multiprocessing
     import torch
@@ -8418,6 +8444,463 @@ def phase_grid(device, ref_toks, grid_ref):
     return rec, launches, heads
 
 
+# --------------------------------------------------------------------------
+# phase 28: sequence-parallel decode (long_500k), gloo ranks sharing the card
+# --------------------------------------------------------------------------
+
+# long_500k's shape, uncut: a cache of SP_CACHE positions, one row; the
+# state of a prefix of SP_P0 positions seeded, then SP_DECODE decodes
+# across the data 2 shard boundary at SP_CACHE / 2
+SP_CACHE, SP_P0, SP_DECODE = 524288, 262136, 16
+SP_DATA, SP_PP = 2, 2
+SP_TIE = GRID_TIE               # 28a against one process, bf16 at 34 layers
+SP_TOL = 1e-5                   # 28b: the hidden states the head read, fp32
+SP_JAMBA_BLOCKS = (3, 5)        # Mamba + MoE, attention + dense
+SP_SEED_ELEMS = 1 << 24         # hashed at a time while seeding
+
+
+def sp_hash(idx, salt: int):
+    """Values in [-1, 1) of int64 indices ``idx`` (a counter hash on the
+    device): an index gives the same bits wherever it is computed, so a
+    shard and the whole cache seed alike."""
+    mix = (salt * 1442695040888963407) % 2 ** 64
+    h = (idx + (mix - 2 ** 64 if mix >= 2 ** 63 else mix)) \
+        * 6364136223846793005
+    h = h ^ (h >> 29)
+    h = h * 2862933555777941757
+    h = h ^ (h >> 32)
+    return ((h >> 8) & 0xFFFFFF).float() * (2.0 / 2 ** 24) - 1.0
+
+
+def sp_seed_state(session, salt: int, shards: int = 1) -> dict:
+    """Write ``session``'s state as a prefix of SP_P0 positions would
+    leave it, the host positions too (R 1): every full-length KV cache
+    holds hashed K / V at positions 0 .. SP_P0 - 1 (this rank's shard of
+    them under sp), every ring its window, every recurrent state hashed
+    values (x0.1).  A value is the hash of its global index (storage
+    row, row, position, head, column), so a rank's shard holds the bits
+    of the one-process cache's slice.  Returns the 64-bit digests of the
+    full-length caches by (storage row, layer, k | v, shard): this rank's
+    shard, or with ``shards`` each of that many slices of a whole
+    cache."""
+    import torch
+    v = session.sched.virtual_stages
+    row0 = session.stages_here[0] * v
+    dev = session.device
+    digests = {}
+    for name, state in session.cache.items():
+        i = int(name.split("_")[1])
+        group = session.seq_groups[i] if session.sp else None
+        for kind, leaves in state.items():
+            for li, leaf in enumerate(leaves if isinstance(leaves, tuple)
+                                      else (leaves,)):
+                tag = (i * 8 + li * 2 + (kind == "kv")) * 1000 + salt
+                for p in range(leaf.shape[0]):
+                    dst = leaf[p, 0]
+                    if kind == "kv":
+                        digests.update(sp_seed_kv(
+                            dst, row0 + p, i, li, tag, group, shards))
+                        continue
+                    n = dst.numel()
+                    base = (row0 + p) * n
+                    idx = torch.arange(base, base + n, device=dev)
+                    dst.copy_((0.1 * sp_hash(idx, tag)).view(dst.shape))
+    session._pos[:] = SP_P0
+    torch.cuda.synchronize(dev)
+    return digests
+
+
+def sp_seed_kv(dst, row: int, layer: int, li: int, tag: int, group,
+               shards: int) -> dict:
+    """One storage row's K or V cache ``dst`` (rows, L, KV, Dh): a
+    full-length cache (``group``'s shard, or the whole) at positions
+    below SP_P0, a ring at its window (slot t % L holds position t),
+    written a run of contiguous slots at a time."""
+    import torch
+    rows, L, kv, dh = dst.shape
+    per_pos = kv * dh
+    step = max(SP_SEED_ELEMS // (rows * per_pos), 1)
+    full = group is not None or L == SP_CACHE
+    if full:
+        off = group.index * L if group is not None else 0
+        segs = [(off, 0, min(L, max(SP_P0 - off, 0)))]
+    else:
+        # the window's positions SP_P0 - L .. SP_P0 - 1: two runs of slots
+        first = SP_P0 - L
+        cut = L - first % L
+        segs = [(first, first % L, cut), (first + cut, 0, L - cut)]
+    col = torch.arange(per_pos, device=dst.device)
+    for pos0, slot0, n in segs:
+        for lo in range(0, n, step):
+            m = min(step, n - lo)
+            ps = torch.arange(pos0 + lo, pos0 + lo + m, device=dst.device)
+            for r in range(rows):
+                idx = (((row * rows + r) * SP_CACHE + ps[:, None]) * per_pos
+                       + col[None, :])
+                dst[r, slot0 + lo:slot0 + lo + m] = sp_hash(idx, tag).view(
+                    m, kv, dh).to(dst.dtype)
+    if not full:
+        return {}
+    if group is not None:
+        return {f"{row}/{layer}/{li}/{group.index}": digest(dst)}
+    n = L // shards
+    return {f"{row}/{layer}/{li}/{d}": digest(dst[:, d * n:(d + 1) * n])
+            for d in range(shards)}
+
+
+def sp_session(spec, plan, dtype, device, grid=None, sp=True):
+    """``build_serving`` at long_500k's shape (SP_CACHE, one row) with
+    the weights drawn from SEED, its state seeded (:func:`sp_seed_state`):
+    (session, the seeded digests, the measured weight and state bytes,
+    the serving planner's price for a rank)."""
+    from repro_torch.core.profiler import H100_SXM
+    from repro_torch.serving.engine import build_serving
+    session = build_serving(spec, plan, cache_len=SP_CACHE, global_batch=1,
+                            compute_dtype=dtype, grid=grid, sp=sp,
+                            device=device)
+    dev = session.device
+    m0 = allocated(dev)
+    session.init_weights(SEED)
+    m1 = allocated(dev)
+    session.reset_state()
+    m2 = allocated(dev)
+    digests = sp_seed_state(session, SEED + 28,
+                            shards=1 if sp else SP_DATA)
+    data = grid.topo.data if grid is not None else 1
+    mm = session.sched.memory_model(
+        spec, plan, H100_SXM, microbatch_tokens=1, data_replicas=data,
+        cache_len=SP_CACHE, global_batch=1, sp=sp, prefill=False,
+        page_size=0, kv_dtype={"torch.float32": "fp32"}.get(str(dtype)))
+    return session, digests, {"weight_bytes": m1 - m0,
+                              "cache_bytes": m2 - m1}, {
+        "weight_bytes": mm.weight_bytes, "cache_bytes": mm.cache_bytes}
+
+
+def sp_decode(session, grid=None, logits=False) -> dict:
+    """SP_DECODE decode steps from SP_P0, the first fed token drawn from
+    SEED + 28: the tokens, the hidden states the head read (host f32,
+    last stage), with ``logits`` their f32 logits, the step seconds, the
+    host digests, the data group's traffic a step and the counts."""
+    import torch
+    from repro_torch.models import lm_head
+    dev = session.device
+    nxt = torch.from_numpy(np.random.default_rng(SEED + 28).integers(
+        0, session.spec.vocab, (1,)).astype(np.int32))
+    out = {"tokens": [nxt.numpy()], "hidden": [], "logits": [],
+           "step_s": [], "host": []}
+    if grid is not None:
+        grid.stats = type(grid.stats)()
+    reset_counts()
+    base = allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(SP_DECODE):
+        t0 = time.perf_counter()
+        nxt = session.decode(nxt)
+        torch.cuda.synchronize(dev)
+        out["step_s"].append(time.perf_counter() - t0)
+        out["tokens"].append(nxt.cpu().numpy())
+        out["host"].append(session.host_digest())
+        if session.last_here:
+            h = session.last_hidden
+            out["hidden"].append(h.float().cpu().numpy())
+            if logits:
+                fn = session.params["final_norm"]
+                out["logits"].append(lm_head.last_logits(
+                    session.params["head"], fn["scale"], h,
+                    norm_kind=session.spec.norm, norm_bias=fn.get("bias"),
+                    vocab=session.spec.vocab).cpu().numpy())
+        nxt = nxt.cpu()
+    out["tokens"] = np.stack(out["tokens"])
+    out["counts"] = read_counts()
+    # what a step holds beyond the state (no copy of a K or V shard)
+    out["decode_transient_bytes"] = torch.cuda.max_memory_allocated(dev) \
+        - base
+    if grid is not None:
+        s, n = grid.stats, SP_DECODE
+        out["data_group"] = {"calls_per_step": s.data_calls / n,
+                             "bytes_per_step": s.data_bytes / n,
+                             "seconds_per_step": s.data_s / n,
+                             "staged_bytes": s.staged_bytes,
+                             "handoff_s": s.handoff_s}
+    return out
+
+
+def sp_specs():
+    """(28a spec and plan, 28b gemma3's, 28b jamba's): gemma3-4b's
+    full_spec at data SP_DATA x pp SP_PP; its layers 4-5 (windowed,
+    global) one a stage; jamba's blocks 3-4 (Mamba + MoE, attention +
+    dense) at pp 1 (a stage holds a whole block pattern)."""
+    from repro_torch import configs
+    g = configs.get(GEMMA_ARCH)
+    plan = g.PLAN.with_(pp=SP_PP, tp=1, decode_microbatches=1)
+    j = configs.get("jamba-v0.1-52b")
+    full = j.full_spec()
+    jspec = jamba_cut(full, full.blocks[slice(*SP_JAMBA_BLOCKS)],
+                      "jamba-v0.1-52b-sp-2l")
+    return ((g.full_spec(), plan), (gemma_cut(GEMMA_CONS_BLOCKS), plan),
+            (jspec, j.PLAN.with_(pp=1, tp=1, decode_microbatches=1)))
+
+
+def sp_rank_run(grid, spec, plan, dtype, logits=False):
+    """One SP session on this rank: build, seed, decode; the record."""
+    import torch
+    dev = grid.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    session, digests, measured, predicted = sp_session(spec, plan, dtype,
+                                                       dev, grid)
+    setup_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    out = sp_decode(session, grid, logits)
+    out.update(rank_info(grid), digests=digests, measured=measured,
+               predicted=predicted, setup_s=setup_s,
+               cache_lens=list(session.cache_lens),
+               peak_gb=max(peak, torch.cuda.max_memory_allocated(dev)) / 1e9,
+               kv_shard_bytes=max(
+                   t.numel() * t.element_size()
+                   for i, g in enumerate(session.seq_groups) if g is not None
+                   for t in session.cache[f"layer_{i}"]["kv"]) // (
+                       session.sched.virtual_stages))
+    del session
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_wait(go_file) -> None:
+    """Block until ``go_file`` exists: the parent's signal that the card
+    has room for this world's sessions."""
+    deadline = time.monotonic() + DIST_JOIN_S
+    while not os.path.exists(go_file):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"28: no {go_file} after {DIST_JOIN_S} s")
+        time.sleep(0.05)
+
+
+def sp_job_gemma(grid, go_file):
+    """28a, then 28b's gemma3 layers, on a rank of the data x pp world,
+    once ``go_file`` exists."""
+    import torch
+    sp_wait(go_file)
+    (spec_a, plan_a), (spec_b, plan_b), _ = sp_specs()
+    out = {"28a": sp_rank_run(grid, spec_a, plan_a, torch.bfloat16)}
+    out["28b"] = sp_rank_run(grid, spec_b, plan_b, torch.float32)
+    grid.world_group.barrier()
+    return out
+
+
+def sp_job_jamba(grid, go_file):
+    """28b's jamba blocks on a rank of the data x 1 world, once
+    ``go_file`` exists."""
+    import torch
+    sp_wait(go_file)
+    _, _, (spec, plan) = sp_specs()
+    out = sp_rank_run(grid, spec, plan, torch.float32)
+    grid.world_group.barrier()
+    return out
+
+
+def start_sp() -> dict:
+    """Phase 28's two worlds, started: their ranks start up (CUDA, the
+    process groups) while the parent works on, and each world waits for
+    its go file (:func:`phase_sp` writes them).  The handle
+    :func:`phase_sp` and :func:`stop_sp` take."""
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sp_")
+    handle = {"tmp": tmp, "worlds": []}
+    try:
+        for name, pp in (("gemma", SP_PP), ("jamba", 1)):
+            handle[name] = start_ranks(
+                SP_DATA, pp, f"sp_job_{name}", deterministic=False,
+                go_file=f"{tmp}/{name}")
+            handle["worlds"].append(handle[name])
+    except BaseException:
+        stop_sp(handle)
+        raise
+    return handle
+
+
+def stop_sp(handle) -> None:
+    """End every rank :func:`start_sp` started and remove its files."""
+    import shutil
+    for world in handle["worlds"]:
+        for p in world[1]:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    shutil.rmtree(handle["tmp"], ignore_errors=True)
+
+
+def sp_one_process(device, spec, plan, dtype, logits=False):
+    """The one-process reference (``sp=False``, whole caches) of an SP
+    run."""
+    import torch
+    t0 = time.perf_counter()
+    session, digests, measured, _ = sp_session(spec, plan, dtype, device,
+                                               sp=False)
+    setup_s = time.perf_counter() - t0
+    out = sp_decode(session, logits=logits)
+    out.update(digests=digests, measured=measured, setup_s=setup_s)
+    del session
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_kernel_check(device):
+    """The mamba_scan decode call of 28b's jamba ranks (one row, one
+    token, Ci MAMBA_CI, N MAMBA_N, f32, from a state) against its plain
+    version: the max error."""
+    import torch
+    from repro_torch.kernels import mamba_scan as ms
+    atol, rtol = TOL["float32"]
+    g = torch.Generator(device=device).manual_seed(74)
+    rnd = lambda *sh: torch.randn(sh, generator=g, device=device)  # noqa
+    a = -torch.exp(torch.log(torch.arange(
+        1, MAMBA_N + 1, dtype=torch.float32, device=device)).expand(
+            MAMBA_CI, MAMBA_N)).contiguous()
+    args = [rnd(1, 1, MAMBA_CI),
+            torch.nn.functional.softplus(rnd(1, 1, MAMBA_CI)), a,
+            rnd(1, 1, MAMBA_N), rnd(1, 1, MAMBA_N), rnd(MAMBA_CI)]
+    h0 = rnd(1, MAMBA_CI, MAMBA_N)
+    got = ms.mamba_scan(*args, h0.clone())
+    want = ms.mamba_scan_plain(*args, h0.clone())
+    return max(check_close(f"mamba_scan sp decode {n}", x, y, atol, rtol)
+               for n, x, y in zip(("y", "h"), got, want))
+
+
+def sp_same_seeds(label, ranks, one) -> None:
+    """Each rank's seeded shards hold the bits of the one process's
+    slices."""
+    got = {}
+    for r in ranks:
+        got.update(r["digests"])
+    if got != one["digests"]:
+        bad = sorted(k for k in one["digests"]
+                     if got.get(k) != one["digests"][k])
+        raise AssertionError(f"{label}: seeded shards differ from the one "
+                             f"process's slices at {bad[:6]}")
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_sp(device, handle):
+    """Phase 28 (module docstring) on :func:`start_sp`'s ranks, which
+    start up meanwhile: 28a's one-process reference first (its whole
+    caches, ~30 GB, beside nothing else of the phase), then each world's
+    go file with the one process's run of the same work beside it; every
+    rank is ended on the way out.  Returns (record, launches by path,
+    the mamba_scan check's error)."""
+    import torch
+    secs = {}
+    t_all = time.perf_counter()
+    try:
+        log(f"[sp] card: {card_line()}")
+        (spec_a, plan_a), (spec_b, plan_b), (spec_j, plan_j) = sp_specs()
+        err = sp_kernel_check(device)
+        one_a = sp_one_process(device, spec_a, plan_a, torch.bfloat16,
+                               logits=True)
+        secs["28a one process"] = time.perf_counter() - t_all
+        open(f"{handle['tmp']}/gemma", "w").close()
+        one_b = sp_one_process(device, spec_b, plan_b, torch.float32)
+        ranks = join_ranks(handle["gemma"])
+        secs["28a-b gemma3 ranks"] = time.perf_counter() - t_all
+        t0 = time.perf_counter()
+        open(f"{handle['tmp']}/jamba", "w").close()
+        one_j = sp_one_process(device, spec_j, plan_j, torch.float32)
+        ranks_j = join_ranks(handle["jamba"])
+        secs["28b jamba"] = time.perf_counter() - t0
+    finally:
+        stop_sp(handle)
+    a = [r["28a"] for r in ranks]
+    b = [r["28b"] for r in ranks]
+    # 28a: one process's tokens up to near-ties; seeded bits; bytes; hosts
+    sp_same_seeds("28a", a, one_a)
+    want = one_a["tokens"]
+    diverged = 0
+    for res in a:
+        if not np.array_equal(res["tokens"], a[0]["tokens"]):
+            raise AssertionError("28a: the ranks saw other tokens")
+        if res["host"] != a[0]["host"]:
+            raise AssertionError("28a: the ranks' host digests differ")
+        diverged = max(diverged, near_tie_divergences(
+            res["tokens"][1:], want[1:], one_a["logits"], SP_TIE, "28a"))
+        if res["decode_transient_bytes"] >= res["kv_shard_bytes"]:
+            raise AssertionError(
+                f"28a rank {res['rank']}: a decode step held "
+                f"{res['decode_transient_bytes']} bytes beyond the state, a "
+                f"layer's K shard is {res['kv_shard_bytes']}: a shard copied")
+        rel = res["measured"]["cache_bytes"] / \
+            res["predicted"]["cache_bytes"] - 1
+        res["cache_relative"] = rel
+        if abs(rel) > MEM_RTOL:
+            raise AssertionError(f"28a rank {res['rank']}: KV bytes "
+                                 f"{res['measured']} vs the planner's "
+                                 f"{res['predicted']}")
+    # 28b: one process's tokens and hidden states (fp32)
+    errs_b = {}
+    for label, rr, one in (("28b gemma3", b, one_b),
+                           ("28b jamba", ranks_j, one_j)):
+        sp_same_seeds(label, rr, one)
+        worst = 0.0
+        for res in rr:
+            if not np.array_equal(res["tokens"], one["tokens"]):
+                raise AssertionError(f"{label}: tokens differ from one "
+                                     "process's")
+            if res["host"] != rr[0]["host"]:
+                raise AssertionError(f"{label}: host digests differ")
+            for x, y in zip(res["hidden"], one["hidden"]):
+                if not np.isfinite(x).all():
+                    raise AssertionError(f"{label}: non-finite hidden")
+                worst = max(worst, float(np.abs(x - y).max()))
+        if worst > SP_TOL:
+            raise AssertionError(f"{label}: hidden states {worst:.3e} from "
+                                 f"one process's (limit {SP_TOL})")
+        errs_b[label] = worst
+    launches = {"mamba_scan": {"jamba_sp_ranks": sum(
+        r["counts"]["mamba_scan"] for r in ranks_j)}}
+    if not launches["mamba_scan"]["jamba_sp_ranks"]:
+        raise AssertionError("28b: mamba_scan ran no time on the SP ranks")
+    secs["28"] = time.perf_counter() - t_all
+    step_ms = lambda res: 1e3 * float(np.mean(res["step_s"]))  # noqa: E731
+    rec = {
+        "28a": {"ranks": len(a), "cache_len": SP_CACHE, "p0": SP_P0,
+                "decodes": SP_DECODE, "tokens": a[0]["tokens"].ravel().tolist(),
+                "rows_diverged_at_near_ties": diverged,
+                "decode_ms_per_step": max(step_ms(r) for r in a),
+                "one_process_decode_ms_per_step": step_ms(one_a),
+                "data_group": [r["data_group"] for r in a],
+                "peak_gb": [r["peak_gb"] for r in a],
+                "decode_transient_bytes": [r["decode_transient_bytes"]
+                                           for r in a],
+                "kv_shard_bytes": a[0]["kv_shard_bytes"],
+                "one_process_decode_transient_bytes":
+                    one_a["decode_transient_bytes"],
+                "one_process_cache_bytes": one_a["measured"]["cache_bytes"],
+                "measured": [r["measured"] for r in a],
+                "predicted": [r["predicted"] for r in a],
+                "cache_relative": [r["cache_relative"] for r in a],
+                "cache_lens": a[0]["cache_lens"],
+                "setup_s": max(r["setup_s"] for r in a)},
+        "28b": {"gemma3_hidden_err": errs_b["28b gemma3"],
+                "jamba_hidden_err": errs_b["28b jamba"],
+                "gemma3_decode_ms_per_step": max(step_ms(r) for r in b),
+                "jamba_decode_ms_per_step": max(step_ms(r) for r in ranks_j),
+                "jamba_ranks": len(ranks_j)},
+        "mamba_scan_err": err, "seconds": secs}
+    log(f"[sp] 28a: {len(a)} ranks, {diverged} rows diverged at near-ties, "
+        f"decode {rec['28a']['decode_ms_per_step']:.2f} ms/step "
+        f"(one process {rec['28a']['one_process_decode_ms_per_step']:.2f}), "
+        f"KV a rank against the planner {rec['28a']['cache_relative']}; "
+        f"28b: gemma3 {errs_b['28b gemma3']:.3e}, jamba "
+        f"{errs_b['28b jamba']:.3e}; seconds {json.dumps(secs)}")
+    return rec, launches, err
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8568,7 +9051,7 @@ def main() -> int:
     phase_s["22 train recurrent"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    # phases 24, 25 and 26 run while 23a's spawned process finishes
+    # phases 24, 25 and 28 run while 23a's spawned process finishes
     front = {}
 
     def beside_23a():
@@ -8577,12 +9060,18 @@ def main() -> int:
         t = time.perf_counter()
         front["gemma"] = phase_gemma(device)
         phase_s["25 gemma3 (beside 23a)"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        front["sp"] = phase_sp(device, start_sp())
+        phase_s["28 sequence parallel (beside 23a)"] = \
+            time.perf_counter() - t
     new_out, prof_new, new_launches, new_s = phase_new_configs(
         device, alongside=beside_23a)
     front_out, prof_front, front_launches, front_s = front["all"]
     gemma_out, prof_gemma, gemma_paths, gemma_s = front["gemma"]
-    phase_s["23-25 new configs, frontends, gemma3"] = \
-        time.perf_counter() - t0
+    sp_out, sp_launches, sp_err = front["sp"]
+    phase_s["23-25, 28 new configs, frontends, gemma3, sequence parallel"] \
+        = time.perf_counter() - t0
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     grid_out, grid_launches, grid_heads = phase_grid(device, qwen_toks,
@@ -8666,7 +9155,8 @@ def main() -> int:
         "mamba_scan": {"serve": jamba_counts["mamba_scan"],
                        "full_transformer": jamba_ref["mamba_scan"],
                        **recur_paths("jamba", "mamba_scan"),
-                       **grid_launches["mamba_scan"]}})
+                       **grid_launches["mamba_scan"],
+                       **sp_launches["mamba_scan"]}})
     records += [wkv6_bwd_record(device, *errs["wkv6_bwd"],
                                 recur_paths("rwkv6", "wkv6_bwd")),
                 mamba_bwd_record(device, *errs["mamba_scan_bwd"],
@@ -8702,6 +9192,11 @@ def main() -> int:
                 "shape": f"Ci {MAMBA_CI // GRID_TP} (jamba at tp 2), f32",
                 "max_abs_err": grid_out["kernel_errs"]["mamba_scan"],
                 "launches": grid_launches["mamba_scan"]}
+            # phase 28b's decode call on each data rank
+            rec["sp"] = {"shape": f"(1, 1, {MAMBA_CI}), N {MAMBA_N}, f32, "
+                                  "from a state",
+                         "max_abs_err": sp_err,
+                         "launches": sp_launches["mamba_scan"]}
     log(f"[phases] seconds: {json.dumps(phase_s)}")
     log(f"[done] {time.perf_counter() - t_start:.1f}s; serve qwen3 {serve}; "
         f"serve rwkv6 {serve_rwkv}; serve jamba {serve_jamba}; serve qwen3 "
@@ -8727,10 +9222,7 @@ def main() -> int:
         print(json.dumps({"train": virtual[name]}))
     print(json.dumps({"plan": plan_out}))
     print(json.dumps({"driver": driver_out}))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True)
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_line()
     for rec in dist_records(dist_out, card):
         print(json.dumps({"dist": rec}))
     for rec in ckpt_recs:
@@ -8767,6 +9259,7 @@ def main() -> int:
     for key in ("op_count", "dryrun", "prefetch", "serve_data"):
         print(json.dumps({key: {**tools_out[key], "card": card}}))
     print(json.dumps({"serving_grid": {**grid_out, "card": card}}))
+    print(json.dumps({"sequence_parallel": {**sp_out, "card": card}}))
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -16,6 +16,11 @@ and engine do, so a cell is built at a plan's pp with tp cut to 1:
   decode   ``EngineSession.decode`` (``bucket=``: the compacted
            variant, with the slots above the bucket reset), after every
            slot took a prompt of DECODE_PROMPT tokens;
+  long_decode  ``EngineSession.decode`` of a sequence-parallel session
+           (``build_serving(sp=True)``, JAX ``cell.py:144``) from
+           position 0: it has no prefill; ``data_replicas=`` builds one
+           data rank's shard of its full-length caches (on ``meta``,
+           for the dry run's count of a rank);
   verify   ``EngineSession.verify`` of spec_k drafts a row
            (``spec_k=``), after the same prompts.
 
@@ -51,7 +56,8 @@ DECODE_PROMPT = 16
 class Cell:
     arch: str
     shape: configs.Shape          # the registry's shape
-    kind: str                     # train | prefill | admit | decode | verify
+    kind: str                     # train | prefill | admit | decode |
+                                  # verify | long_decode
     plan: ParallelismPlan         # as run: tp 1, R fitted
     spec: Any
     fn: Callable
@@ -116,14 +122,17 @@ def build_cell(arch: str, shape_name: str, *,
                serve_op: str = "auto", page_size: int = 0,
                bucket: Optional[int] = None, spec_k: Optional[int] = None,
                seed: int = 0, smoke: bool = False,
-               seq_len: Optional[int] = None) -> Cell:
+               seq_len: Optional[int] = None,
+               data_replicas: Optional[int] = None) -> Cell:
     """Build one (arch x shape) cell on ``device`` (see the module
     docstring): ``plan`` (default the config's) at tp 1, ``layers`` of the
     spec's first layers, ``global_batch`` rows (default the shape's),
     ``cache_len`` (decode shapes; default the shape's sequence length),
     ``dtype`` (default bf16; fp32 with ``smoke``), the config's optimizer
     unless ``optimizer`` is given.  ``serve_op``, ``page_size``,
-    ``bucket`` and ``spec_k`` as JAX's ``build_cell`` takes them."""
+    ``bucket`` and ``spec_k`` as JAX's ``build_cell`` takes them.
+    ``data_replicas``: a long_decode cell's data ranks, of which the cell
+    is one rank's shard (``build_serving(sp_shards=)``, ``meta`` only)."""
     from repro_torch.launch.train import cut_layers, make_loader
     if serve_op not in ("auto", "admit"):
         raise ValueError(f"serve_op={serve_op!r}: 'auto' or 'admit'")
@@ -192,12 +201,26 @@ def build_cell(arch: str, shape_name: str, *,
                                     if plan.virtual_stages > 1
                                     else "serve_spec_1f"))
     prefill = shape.kind == "prefill"
+    sp = shape.kind == "long_decode"
+    if data_replicas is not None and not sp:
+        raise ValueError("data_replicas= shards a long_decode cell's caches")
     session = build_serving(
         spec, plan, cache_len=cache, global_batch=gb, compute_dtype=dtype,
         page_size=page_size, prefill_len=seq if prefill else 0,
-        buckets=bucket is not None, spec_k=spec_k, device=dev)
+        buckets=bucket is not None, spec_k=spec_k, device=dev, sp=sp,
+        sp_shards=data_replicas)
     session.start(seed)
     common.update(plan=plan, bundle=session, cache_len=cache)
+    if sp:
+        # decode-only: from position 0, a token a row
+        tokens = np.random.default_rng(seed).integers(
+            0, spec.vocab, (gb,)).astype(np.int32)
+        step = session.decode
+        if bucket is not None:
+            def step(tokens):
+                return session.decode(tokens, bucket=bucket)
+        return _done(Cell(kind="long_decode", fn=step, args=(tokens,),
+                          seq_len=0, **common))
     if prefill:
         batch = _prompts(session, seed, None)
         if serve_op == "admit":

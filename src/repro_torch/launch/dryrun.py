@@ -13,7 +13,9 @@ two-pod mesh), of which pp x tp hold one replica, it reports
     drawing): a training rank's stage (tensor shard 0 of the first or
     the last stage, whichever is larger) with its version ring and
     optimizer state, as ``core/pipeline.py`` builds it on a grid; a
-    serving replica's weights and caches over its pp x tp cards.  Beside
+    serving replica's weights and caches over its pp x tp cards (for
+    long_500k, sequence-parallel decode, one data rank's shard of the
+    full-length caches: ``launch/cell.py``'s ``data_replicas=``).  Beside
     them the analytic ``memory_model`` of ``core/schedule.py`` and the
     verdict against an H100's 80 GB;
   * work: the op counts (``launch/op_analysis.py``) of one step of one
@@ -21,9 +23,11 @@ two-pod mesh), of which pp x tp hold one replica, it reports
     pp x tp cards; the collective bytes from the planner's own analytic
     counts: the schedule tables' hand-offs of the busiest stage, the
     data group's weight sync (``ps_factor``·(dp−1)/dp of a stage's
-    weights, each microbatch or each round) and the tensor group's
+    weights, each microbatch or each round), the tensor group's
     all-reduces (2(tp−1)/tp of a block's activations, twice a block and
-    pass);
+    pass) and sequence-parallel decode's softmax sums over the data
+    group (2(dp−1)/dp of B·H_local·(Dh + 2) f32 a full-length attention
+    layer);
   * the roofline row (``launch/roofline.py``) with JAX's model FLOPs.
 
 A cell whose step reads data on the host (a data-dependent shape: the
@@ -92,6 +96,24 @@ def train_rank_bytes(spec, plan, *, seq_len: int, global_batch: int,
     return worst
 
 
+def serve_rank_bytes(session, spec, plan) -> int:
+    """One serving rank's bytes from a replica built at tp 1: its weights
+    and recurrent state over the replica's pp x tp cards, and its KV
+    (dense caches and page pools) over pp, times the share of the KV
+    heads a tensor rank holds (``n_kv_local / n_kv``: 1/tp, or at n_kv <
+    tp its KV group's one head).  Under sequence-parallel decode the
+    full-length caches are already one data rank's shard
+    (``launch/cell.py``'s ``data_replicas=``)."""
+    from repro_torch.models.init import attn_static
+    kv = tree_bytes(session.pages) + sum(
+        tree_bytes(layer.get("kv")) for layer in session.cache.values())
+    rest = tree_bytes(session.params) + tree_bytes(session.cache) - (
+        kv - tree_bytes(session.pages))
+    heads = (attn_static(spec, plan.tp).n_kv_local / spec.n_kv
+             if kv else 0.0)
+    return int(rest // (plan.pp * plan.tp) + kv * heads / plan.pp)
+
+
 def analytic_collectives(cell, plan, dp: int, hw) -> dict:
     """A card's collective bytes a step from the planner's counts."""
     from repro_torch.core.pipeline import handoffs
@@ -129,8 +151,17 @@ def analytic_collectives(cell, plan, dp: int, hw) -> dict:
         blocks = spec.n_layers / plan.pp
         tensor = (2 * passes * blocks * sched.n_microbatches
                   * 2 * (plan.tp - 1) / plan.tp * a_bytes)
+    seq = 0.0
+    groups = getattr(cell.bundle, "seq_groups", None)
+    if groups and dp > 1:
+        # the max, and the row sums with the outputs, of every full-length
+        # attention layer of a stage (each position of each chunk)
+        layers = sum(g is not None for g in groups) * sched.virtual_stages
+        h_local = spec.n_heads // plan.tp
+        seq = (layers * sched.n_microbatches * rows * h_local
+               * (spec.d_head + 2) * 4.0 * 2 * (dp - 1) / dp)
     return {"handoff": float(handoff), "data_sync": float(sync),
-            "tensor": float(tensor)}
+            "tensor": float(tensor), "sequence": float(seq)}
 
 
 def _data_replicas(cards: int, plan) -> int:
@@ -170,7 +201,9 @@ def run_cell(arch: str, shape: str, *, cards: int = 256,
     if sh.kind == "train":
         weight_dtype = kv_dtype = None
     dp = _data_replicas(cards, base)
-    gb = max(sh.global_batch // dp, 1)
+    sp = sh.kind == "long_decode"
+    # under sequence-parallel decode every data rank holds every row
+    gb = sh.global_batch if sp else max(sh.global_batch // dp, 1)
     t0 = time.perf_counter()
     # memory: one rank's state, and the analytic model
     if sh.kind == "train":
@@ -180,7 +213,8 @@ def run_cell(arch: str, shape: str, *, cards: int = 256,
                                  optimizer=by_name(*cfg.OPTIMIZER),
                                  dtype=torch.bfloat16)
     cell = build_cell(arch, shape, plan=base, global_batch=gb,
-                      device="meta", page_size=page_size, spec_k=spec_k)
+                      device="meta", page_size=page_size, spec_k=spec_k,
+                      data_replicas=dp if sp else None)
     sched = cell.bundle.sched
     if cell.kind == "train":
         label = "schedule"
@@ -189,7 +223,6 @@ def run_cell(arch: str, shape: str, *, cards: int = 256,
             * cell.seq_len, data_replicas=dp)
     else:
         label = "serve"
-        sp = sh.kind == "long_decode"
         mm = sched.memory_model(
             spec, base, hw,
             microbatch_tokens=cell.bundle.rows * (
@@ -199,9 +232,7 @@ def run_cell(arch: str, shape: str, *, cards: int = 256,
             prefill=sh.kind == "prefill",
             page_size=0 if sp else page_size, weight_dtype=weight_dtype,
             kv_dtype=kv_dtype)
-        s = cell.bundle
-        state = (tree_bytes(s.params) + tree_bytes(s.cache)
-                 + tree_bytes(s.pages)) // (base.pp * base.tp)
+        state = serve_rank_bytes(cell.bundle, spec, base)
     fits = mm.fits(hw.hbm_bytes) and state <= hw.hbm_bytes
     # work: one replica's step on meta, split over its cards
     _, cost = count_call(cell.run)

@@ -207,6 +207,31 @@ def _sdpa_flash(q, k, v, q_pos, k_pos, window: int, causal: bool,
     return out.transpose(1, 2).to(q.dtype)
 
 
+def _sdpa_decode_seq_sharded(q, k, v, q_pos, k_pos, window: int, group):
+    """Decode attention over a sequence-sharded KV cache (SP decode; JAX
+    ``nn.py:203-222``): each rank of ``group`` holds a shard of the keys,
+    and the partial softmax statistics combine over the group, a max of
+    the scores' row maxima, then one sum of the row sums and the
+    unnormalized outputs together.  q (B, 1, H, Dh); k / v (B, L_local,
+    KV, Dh), this rank's shard, at key positions ``k_pos`` (L_local,).
+    GQA on grouped views: a KV head's G query heads meet its keys in one
+    product, and no key is copied (at B 1)."""
+    b, _, h, dh = q.shape
+    n_kv = k.shape[2]
+    qg = q.reshape(b, n_kv, h // n_kv, dh)
+    scale = 1.0 / math.sqrt(dh)
+    s = torch.matmul(qg, k.permute(0, 2, 3, 1)).float() * scale
+    mask = _attn_mask(q_pos, k_pos, window, causal=True)[0]
+    s = torch.where(mask, s, NEG_INF)                   # (B, KV, G, L)
+    m = group.all_reduce_(s.amax(dim=-1), op="max")
+    p = torch.exp(s - m[..., None])
+    acc = torch.matmul(p.to(v.dtype), v.permute(0, 2, 1, 3)).float()
+    stats = group.all_reduce_(torch.cat([p.sum(dim=-1)[..., None], acc],
+                                        dim=-1))
+    out = stats[..., 1:] / stats[..., :1].clamp_min(1e-30)
+    return out.reshape(b, 1, h, dh).to(q.dtype)
+
+
 def _project_kv_weights(p, x, st: AttnStatic, tp):
     """``wk`` / ``wv`` as this rank uses them: its shard, or with KV heads
     replicated over the tensor group (n_kv < tp) its KV group's slice of
@@ -225,7 +250,8 @@ def _project_kv_weights(p, x, st: AttnStatic, tp):
 
 def attention(p, x, st: AttnStatic, *, positions, window: int, theta: float,
               kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-              cache_pos: int = 0, paged_kv=None, cross_x=None, tp=None):
+              cache_pos: int = 0, paged_kv=None, cross_x=None, tp=None,
+              seq_group=None):
     """Self-attention of x (B, S, d), or with ``cross_x`` (B, T_src, d)
     cross-attention into it; returns (B, S, d).
 
@@ -252,6 +278,14 @@ def attention(p, x, st: AttnStatic, *, positions, window: int, theta: float,
     runs only valid (microbatch, stage) cells — bubbles are skipped — so
     the JAX ``valid`` write gate is the engine's skip, and writes here
     are gated by page liveness only.
+
+    ``seq_group``: sequence-parallel decode (JAX ``:259-280``): the
+    ``kv_cache`` views are this rank's shard of a cache sharded along the
+    sequence over the group (rank d of the group holds positions [d·L,
+    (d + 1)·L) of a shard of L); the new key is written on the shard that
+    owns ``cache_pos`` only, and :func:`_sdpa_decode_seq_sharded`
+    combines the shards' softmax statistics.  One token a row (s = 1)
+    only.
 
     ``tp``: the stage's tensor group: this rank runs its ``n_heads_local``
     query heads and their KV heads, and the output projection's partial
@@ -354,6 +388,22 @@ def attention(p, x, st: AttnStatic, *, positions, window: int, theta: float,
         j = torch.arange(L, device=x.device)
         alive = (ids >= 0).repeat_interleave(ps)
         k_pos = torch.where((j < cache_pos + s) & alive, j, _INVALID_POS)
+    elif kv_cache is not None and seq_group is not None:
+        if s != 1:
+            raise ValueError(
+                f"a sequence-sharded cache takes decode only (one token a "
+                f"row), got {s} tokens")
+        ck, cv = kv_cache
+        L = ck.shape[1]
+        off = seq_group.index * L
+        if off <= cache_pos < off + L:
+            ck[:, cache_pos - off] = k[:, 0]
+            cv[:, cache_pos - off] = v[:, 0]
+        j = off + torch.arange(L, device=x.device)
+        k_pos = torch.where(j <= cache_pos, j, _INVALID_POS)
+        ct = torch.promote_types(q.dtype, ck.dtype)
+        return project_out(_sdpa_decode_seq_sharded(
+            q.to(ct), ck.to(ct), cv, positions[0], k_pos, window, seq_group))
     elif kv_cache is not None:
         ck, cv = kv_cache
         L = ck.shape[1]
@@ -457,19 +507,21 @@ def moe_dispatch_indices(gate_idx, n_experts: int, capacity: int):
     pairs in flat (token·K + choice) order, kept while the position is
     below ``capacity``.  Returns (slot_id, keep) with slot_id =
     expert·capacity + position, clipped to the expert's last slot for a
-    dropped pair (which must then write and read nothing)."""
+    dropped pair (which must then write and read nothing).  Every shape
+    is fixed by the input's (the per-expert counts a ``scatter_add_``
+    into ``zeros(E)``), so the dispatch also runs on ``meta``."""
     nk = gate_idx.shape[0]
     order = torch.argsort(gate_idx, stable=True)
     sorted_e = gate_idx[order]
-    counts = torch.bincount(gate_idx, minlength=n_experts)
+    counts = torch.zeros(n_experts, dtype=gate_idx.dtype,
+                         device=gate_idx.device).scatter_add_(
+        0, gate_idx, torch.ones_like(gate_idx))
     starts = torch.cumsum(counts, 0) - counts
     pos_in_e = torch.arange(nk, device=gate_idx.device) - starts[sorted_e]
     keep_sorted = pos_in_e < capacity
     slot_sorted = sorted_e * capacity + pos_in_e.clamp(max=capacity - 1)
-    slot = torch.empty_like(slot_sorted)
-    keep = torch.empty_like(keep_sorted)
-    slot[order] = slot_sorted
-    keep[order] = keep_sorted
+    slot = torch.empty_like(slot_sorted).scatter_(0, order, slot_sorted)
+    keep = torch.empty_like(keep_sorted).scatter_(0, order, keep_sorted)
     return slot, keep
 
 
@@ -517,9 +569,12 @@ def moe(p, x, ms: MoEStatic, act: str, tp=None):
 
     slot, keep = moe_dispatch_indices(top_i.reshape(-1), e, ms.capacity)
     token_of = torch.arange(n, device=x.device).repeat_interleave(k)
-    buf = x.new_zeros((e * ms.capacity, d))
-    buf[slot[keep]] = xf[token_of[keep]]
-    buf = tp_enter(buf, tp).view(e, ms.capacity, d)
+    # a fixed-shape write: a dropped pair lands on one spare row past the
+    # buffer, cut off below, so only kept pairs fill the experts' slots
+    spare = e * ms.capacity
+    buf = x.new_zeros((spare + 1, d))
+    buf[torch.where(keep, slot, spare)] = xf[token_of]
+    buf = tp_enter(buf[:spare], tp).view(e, ms.capacity, d)
     local = buf.narrow(0, tensor_index(tp) * ms.n_local, ms.n_local)
     w1 = maybe_dequant(p["w1"], x.dtype)
     if act == "silu":

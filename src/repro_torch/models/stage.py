@@ -83,7 +83,7 @@ def stage_params(params, s: int):
 
 
 def _block(st: StageStatics, blk, lp, ls, x, cross_x=None, *, positions,
-           window, theta, cache_pos, pg, tp):
+           window, theta, cache_pos, pg, tp, seq_group=None):
     """One block, mixer then FFN with pre-norm residuals; returns
     (x, aux) with the MoE auxiliary loss (None for other FFNs).  A
     cross-attention block attends into ``cross_x`` after its
@@ -94,7 +94,7 @@ def _block(st: StageStatics, blk, lp, ls, x, cross_x=None, *, positions,
         x = x + nn.attention(lp["attn"], h, st.attn, positions=positions,
                              window=window, theta=theta,
                              kv_cache=ls.get("kv"), cache_pos=cache_pos,
-                             paged_kv=pg, tp=tp)
+                             paged_kv=pg, tp=tp, seq_group=seq_group)
         if blk.cross_attn:
             h = nn.apply_norm(lp["norm_x"], x, st.spec.norm)
             x = x + nn.attention(lp["xattn"], h, st.xattn,
@@ -120,7 +120,8 @@ def _block(st: StageStatics, blk, lp, ls, x, cross_x=None, *, positions,
 
 def stage_fwd(sp, x, st: StageStatics, *, positions, windows, thetas,
               state=None, cache_pos: int = 0, paged=None,
-              return_aux: bool = False, cross_x=None, tp=None):
+              return_aux: bool = False, cross_x=None, tp=None,
+              seq_groups=None):
     """Run one stage over its blocks; returns the stage's output, or
     (output, aux) with ``return_aux``: the blocks' summed MoE auxiliary
     loss, an f32 scalar (0 without MoE FFNs), as JAX's ``stage_fwd``
@@ -149,6 +150,12 @@ def stage_fwd(sp, x, st: StageStatics, *, positions, windows, thetas,
 
     tp: the stage's tensor group (``RankGrid.tensor_group``) when ``sp``
     is this rank's shard (``models/init.py::tp_shard``), else None.
+
+    seq_groups: sequence-parallel decode (JAX ``stage.py:141-174``, a
+    ``seq_axis`` per stage-program position): one entry a position, the
+    group over which that position's dense KV cache is sharded along the
+    sequence (``nn.attention(seq_group=)``), or None where it is whole;
+    None for every position.
     """
     remat = (st.plan.remat and state is None and paged is None
              and torch.is_grad_enabled())
@@ -161,7 +168,8 @@ def stage_fwd(sp, x, st: StageStatics, *, positions, windows, thetas,
         fn = functools.partial(
             _block, st, blk, sp[name], state[name] if state is not None
             else {}, positions=positions, window=windows[i],
-            theta=thetas[i], cache_pos=cache_pos, pg=pg, tp=tp)
+            theta=thetas[i], cache_pos=cache_pos, pg=pg, tp=tp,
+            seq_group=None if seq_groups is None else seq_groups[i])
         if remat:
             x, aux = checkpoint(fn, x, cross_x, use_reentrant=False)
         else:

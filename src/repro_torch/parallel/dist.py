@@ -150,7 +150,8 @@ class Group:
     stage's data replicas, a stage's tensor ranks, or the whole world),
     in rank order; every call goes through the grid's transport.  The
     tensor group's calls are counted apart (``TransportStats.tensor_*``):
-    calls, bytes and host seconds."""
+    calls, bytes and host seconds, and so are the data group's
+    (``data_*``: under sequence-parallel decode, its softmax sums)."""
 
     def __init__(self, grid: "RankGrid", ranks: Sequence[int], pg,
                  kind: str = "data"):
@@ -161,19 +162,28 @@ class Group:
 
     def _count(self, t: torch.Tensor) -> None:
         n = t.numel() * t.element_size()
+        stats = self.grid.stats
         if self.kind == "tensor":
-            self.grid.stats.tensor_calls += 1
-            self.grid.stats.tensor_bytes += n
-        else:
-            self.grid.stats.collective_bytes += n
+            stats.tensor_calls += 1
+            stats.tensor_bytes += n
+            return
+        stats.collective_bytes += n
+        if self.kind == "data":
+            stats.data_calls += 1
+            stats.data_bytes += n
 
     def _run(self, run, reads, writes, *, collective: bool) -> None:
-        """``grid._transport``, timed into ``stats.tensor_s`` for the
-        tensor group (host seconds from the call to its return)."""
+        """``grid._transport``, timed into ``stats.tensor_s`` /
+        ``stats.data_s`` for the tensor / data group (host seconds from
+        the call to its return)."""
         t0 = time.perf_counter()
         self.grid._transport(run, reads, writes, collective=collective)
-        if self.kind == "tensor":
-            self.grid.stats.tensor_s += time.perf_counter() - t0
+        if self.kind in ("tensor", "data"):
+            dt = time.perf_counter() - t0
+            if self.kind == "tensor":
+                self.grid.stats.tensor_s += dt
+            else:
+                self.grid.stats.data_s += dt
 
     def all_reduce_(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """Sum (or with ``op="max"`` the elementwise max of) ``t`` over
@@ -302,6 +312,9 @@ class TransportStats:
     tensor_calls: int = 0       # the tensor group's collectives
     tensor_bytes: int = 0       # bytes this rank put into them
     tensor_s: float = 0.0       # host seconds in them
+    data_calls: int = 0         # the data group's collectives
+    data_bytes: int = 0         # bytes this rank put into them
+    data_s: float = 0.0         # host seconds in them
 
 
 class RankGrid:
@@ -333,9 +346,11 @@ class RankGrid:
         self.pipe_group = Group(
             self, topo.pipe_group_ranks(self.d, self.t),
             (pipe_groups or [None] * (topo.data * topo.tp))[
-                self.d * topo.tp + self.t])
-        self.world_group = Group(self, range(topo.world), world_pg)
-        self.ckpt_group = Group(self, range(topo.world), ckpt_pg)
+                self.d * topo.tp + self.t], kind="pipe")
+        self.world_group = Group(self, range(topo.world), world_pg,
+                                 kind="world")
+        self.ckpt_group = Group(self, range(topo.world), ckpt_pg,
+                                kind="world")
 
     def describe(self) -> str:
         return (f"rank {self.rank} of {self.topo.world}: replica {self.d} "

@@ -78,6 +78,16 @@ to fp32 / bf16.  Each cell gets its slot's views (``[p, m]``), fixed at
 recurrent state the slot holds, as the JAX engine's does: ``start`` and
 ``reset_slots`` zero it.
 
+Sequence-parallel decode (``build_serving(sp=True)``, long_500k's mode,
+JAX ``engine.py:16-20``): R is 1 and every data replica holds every row,
+while each full-length attention cache is sharded along the sequence
+over the data ranks, ``max(ceil(L / dp), 8)`` positions a rank; ring
+caches and recurrent state stay whole on every data rank.  A decode
+writes the new key on the rank whose shard owns its position, and each
+shard's softmax statistics combine over the data group
+(``models/nn.py::_sdpa_decode_seq_sharded``).  It decodes only: paging,
+speculative schedules and a prefill raise.
+
 The frontends (JAX ``engine.py:1326-1356``): a VLM's prompt is its
 patch embeddings (``n_patches`` of them, ``batch["patches"]`` (R, rows,
 n_patches, d)) followed by ``prefill_len − n_patches`` text tokens; an
@@ -189,6 +199,9 @@ class EngineSession:
     obs: Any = None
     # this rank's parallel/dist.py::RankGrid (None: every stage here)
     grid: Any = None
+    # sequence-parallel decode: the group each stage-program position's
+    # dense KV cache is sharded over (None: whole), None when not sp
+    seq_groups: Optional[List[Any]] = None
 
     @property
     def stages_here(self) -> List[int]:
@@ -219,8 +232,15 @@ class EngineSession:
         return self.stages_here[-1] == self.sched.n_stages - 1
 
     @property
+    def sp(self) -> bool:
+        """Sequence-parallel decode (``build_serving(sp=True)``)."""
+        return self.seq_groups is not None
+
+    @property
     def replicas(self) -> int:
-        return 1 if self.grid is None else self.grid.topo.data
+        """Data replicas that split a slot's rows (1 under sp: each holds
+        them all)."""
+        return 1 if self.grid is None or self.sp else self.grid.topo.data
 
     @property
     def local_rows(self) -> int:
@@ -426,6 +446,11 @@ class EngineSession:
         ``cache_len`` on a session built without ``prefill_len``),
         ``batch["lens"]`` the per-slot prompt lengths (default the
         prompt's width: a VLM's patch prefix and its W tokens)."""
+        if self.sp:
+            raise ValueError(
+                "sequence-parallel decode (sp=True) writes one token a row "
+                "a step into its sequence-sharded caches: it has no prefill "
+                "(the JAX engine asserts S = 1); decode from position 0")
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         R, width = self.n_slots, tokens.shape[2] + self.prefix_len
         for key, want in self._frontend_shapes().items():
@@ -1029,7 +1054,8 @@ class EngineSession:
                     thetas=self.params["layer_thetas"][p],
                     state=self._views[p][m], cache_pos=pos, paged=paged,
                     cross_x=None if self.enc_out is None
-                    else self.enc_out[m], tp=self._tensor)
+                    else self.enc_out[m], tp=self._tensor,
+                    seq_groups=self.seq_groups)
             m_exit = int(tabs.exit_mb[t])
             if m_exit >= 0 and gate[m_exit] and S - 1 in here:
                 exits[m_exit] = sent[S - 1]
@@ -1071,7 +1097,8 @@ def build_serving(spec: spec_lib.ModelSpec, plan: ParallelismPlan, *,
                   buckets: bool = False, spec_k: Optional[int] = None,
                   weight_dtype: Optional[str] = None,
                   kv_dtype: Optional[str] = None,
-                  device=None, obs=None, grid=None) -> EngineSession:
+                  device=None, obs=None, grid=None, sp: bool = False,
+                  sp_shards: Optional[int] = None) -> EngineSession:
     """A serving session for the plan's serving schedule, all stages on
     ``device`` (default ``cuda``; raises without a card), or with
     ``grid`` (``parallel/dist.py::init_grid`` over ``data × plan.pp ×
@@ -1118,7 +1145,18 @@ def build_serving(spec: spec_lib.ModelSpec, plan: ParallelismPlan, *,
     the JAX engine's.  ``obs`` (an :class:`~repro_torch.obs.
     Observability`) gets one ``on_round`` per executed round, the page
     gauges and the slot ops' counters.
+
+    ``sp=True``: sequence-parallel decode (module docstring) over the
+    grid's data ranks, R = 1, ``global_batch`` rows on every data rank;
+    the statics see ``global_batch · max(prefill_len, 1)`` tokens, as
+    JAX's.  Without a grid it is one shard, the plain session at R = 1.
+    ``sp_shards`` builds one data rank's shard of a session over that
+    many data ranks without a grid, on ``meta`` only (the dry run
+    counts a rank).
     """
+    if page_size and sp:
+        raise ValueError("paged KV (page_size > 0) and sequence-"
+                         "sharded caches (sp=True) are exclusive")
     if weight_dtype is not None and weight_dtype not in quant.WEIGHT_DTYPES:
         raise ValueError(f"weight_dtype={weight_dtype!r} not in "
                          f"{quant.WEIGHT_DTYPES}")
@@ -1144,6 +1182,19 @@ def build_serving(spec: spec_lib.ModelSpec, plan: ParallelismPlan, *,
             f"{plan.pp * plan.tp} (x data replicas) or pass grid= "
             "(parallel/dist.py::init_grid)")
     dev = resolve_device(device)
+    shards = dp
+    if sp_shards is not None:
+        if not sp or grid is not None or dev.type != "meta":
+            raise ValueError(
+                "sp_shards= sizes one data rank's shard of a sequence-"
+                "parallel session without a grid, on meta only (the dry "
+                "run's count); a session that runs takes grid=")
+        shards = int(sp_shards)
+    elif sp and grid is not None and dp == 1:
+        raise ValueError(
+            "sp=True shards the full-length caches over the grid's data "
+            "ranks, and this grid has one: build it with data > 1, or "
+            "serve without a grid")
     if spec.frontend == "vision" and prefill_len \
             and prefill_len <= spec.n_patches:
         raise ValueError(f"prefill_len={prefill_len} leaves no text after "
@@ -1155,16 +1206,24 @@ def build_serving(spec: spec_lib.ModelSpec, plan: ParallelismPlan, *,
         # fp32 parity with the JAX reference needs full-precision products
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    R = fit_serving_microbatches(plan.decode_microbatches, global_batch, dp)
+    R = fit_serving_microbatches(plan.decode_microbatches, global_batch, dp,
+                                 sp=sp)
     sched = make_serving_schedule(plan, R, spec_k=spec_k)
     sched.validate()
     rows = global_batch // R
-    # a rank's call holds its replica's rows: the MoE capacity's tokens
+    # a rank's call holds its replica's rows (every row under sp): the
+    # MoE capacity's tokens
     statics = make_statics(spec, model_plan(plan, sched),
-                           tokens_per_mb=rows // dp * max(prefill_len, 1))
+                           tokens_per_mb=(rows if sp else rows // dp)
+                           * max(prefill_len, 1))
     recurrent = [i for i, blk in enumerate(statics.program)
                  if blk.mixer in ("mamba", "rwkv") or blk.ffn == "rwkv_cmix"]
     if sched.is_speculative:
+        if sp:
+            raise ValueError(
+                "speculative decode (serve_spec_*) and sequence-parallel "
+                "decode (sp=True) are exclusive: the SP cache write path "
+                "is single-token")
         if recurrent or spec.encoder is not None \
                 or spec.frontend == "vision":
             raise ValueError(
@@ -1182,6 +1241,17 @@ def build_serving(spec: spec_lib.ModelSpec, plan: ParallelismPlan, *,
     cache_lens = ([cache_len] * spec.layers_per_stage(n_chunks)
                   if prefill_len or sched.is_speculative
                   else default_cache_lens(spec, n_chunks, cache_len))
+    seq_groups = None
+    if sp:
+        # only full-length caches shard (JAX :859-863); rings and recurrent
+        # state stay whole on every data rank
+        flags = [blk.mixer == "attn" and ln >= cache_len
+                 for blk, ln in zip(statics.program, cache_lens)]
+        cache_lens = [max(-(-ln // shards), 8) if f else ln
+                      for ln, f in zip(cache_lens, flags)]
+        group = (grid.data_group if grid is not None
+                 else _ShardOnMeta(shards) if shards > 1 else None)
+        seq_groups = [group if f else None for f in flags]
     paged_layers = tuple(
         i for i, (blk, ln) in enumerate(zip(statics.program, cache_lens))
         if page_size and blk.mixer == "attn" and ln >= cache_len)
@@ -1199,4 +1269,22 @@ def build_serving(spec: spec_lib.ModelSpec, plan: ParallelismPlan, *,
         buckets=bucket_lattice(R) if buckets else None,
         ragged_ok=(not recurrent and spec.encoder is None
                    and spec.frontend != "vision"),
-        weight_dtype=weight_dtype, kv_dtype=kv_dtype, obs=obs, grid=grid)
+        weight_dtype=weight_dtype, kv_dtype=kv_dtype, obs=obs, grid=grid,
+        seq_groups=seq_groups)
+
+
+class _ShardOnMeta:
+    """Stands in for the data group of ``size`` ranks when one rank's
+    shard of a sequence-parallel session is built on ``meta`` without a
+    grid (``build_serving(sp_shards=)``): index 0, and its collectives
+    return their input, on ``meta`` tensors only (the dry run counts the
+    group's bytes analytically)."""
+
+    def __init__(self, size: int):
+        self.size, self.index = size, 0
+
+    def all_reduce_(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        if t.device.type != "meta":
+            raise RuntimeError("a shard built with sp_shards= runs on meta "
+                               "only")
+        return t

@@ -715,6 +715,86 @@ def job_serve(grid, cases):
     return out
 
 
+# --------------------------------------------------------------------------
+# sequence-parallel decode (tests/test_torch_serve_sp.py): one session a
+# case, on a data x pp grid and in one process
+# --------------------------------------------------------------------------
+
+def sp_spec(name):
+    """(arch, spec) of tests/_torch_serve_sp_jax.py::spec_of's names, from
+    the port's configs: ``gemma3``, ``jamba`` and ``gemma3x8`` (gemma3's
+    smoke spec at 8 layers, windowed and global by turns)."""
+    if name == "jamba":
+        return "jamba-v0.1-52b", configs.get("jamba-v0.1-52b").smoke_spec()
+    spec = configs.get("gemma3-4b").smoke_spec()
+    if name == "gemma3x8":
+        blocks = tuple(spec.blocks[0 if i % 2 == 0 else 2]
+                       for i in range(8))
+        spec = dataclasses.replace(spec, name="gemma3-smoke-8l", n_layers=8,
+                                   blocks=blocks)
+    return "gemma3-4b", spec
+
+
+def sp_session(case, grid=None, sp=True, **kw):
+    """``build_serving`` of an SP case (fp32, pp 2, one row) with the
+    weights saved at ``case["npz"]``."""
+    from repro_torch.serving.engine import build_serving
+    arch, spec = sp_spec(case["name"])
+    v = case["v"]
+    plan = configs.get(arch).SMOKE_PLAN.with_(
+        pp=2, tp=1, decode_microbatches=1, virtual_stages=v,
+        schedule="serve_interleaved" if v > 1 else "serve_1f")
+    session = build_serving(spec, plan, cache_len=case["cache_len"],
+                            global_batch=1, compute_dtype=torch.float32,
+                            device="cpu", grid=grid, sp=sp, **kw)
+    session.start(0)
+    session.load_params(unflatten(dict(np.load(case["npz"]))))
+    return session
+
+
+def sp_run(session, decodes: int):
+    """``decodes`` decode steps from position 0, token 1 fed first: the
+    tokens, the hidden state each step's head read (None off the last
+    stage), the host digest after each step, every cache leaf (path ->
+    array) and the cache's bytes."""
+    from repro_torch.serving.engine import _leaves
+    nxt = torch.ones(1, dtype=torch.int32)
+    out = {"tokens": [nxt.numpy().copy()], "hidden": [], "digests": []}
+    for _ in range(decodes):
+        nxt = session.decode(nxt)
+        out["tokens"].append(nxt.numpy().copy())
+        out["hidden"].append(_hidden(session))
+        out["digests"].append(session.host_digest())
+    out["cache"] = {}
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{prefix}{k}/")
+        elif isinstance(node, tuple):
+            for i, v in enumerate(node):
+                walk(v, f"{prefix}{i}/")
+        else:
+            out["cache"][prefix[:-1]] = node.numpy().copy()
+    walk(session.cache, "")
+    out["cache_bytes"] = sum(t.numel() * t.element_size()
+                             for t in _leaves(session.cache))
+    out["cache_lens"] = list(session.cache_lens)
+    return out
+
+
+def job_serve_sp(grid, cases):
+    """Each SP case of ``cases`` (``{key: case}``) decoded on this rank:
+    :func:`sp_run`'s results by key, and the data group's calls."""
+    out = {}
+    for key, case in cases.items():
+        grid.stats = type(grid.stats)()
+        out[key] = sp_run(sp_session(case, grid), case["decodes"])
+        out[key]["data_calls"] = grid.stats.data_calls
+    grid.world_group.barrier()
+    return out
+
+
 def job_greedy_ties(grid, n_vocab: int, vocab: int, seed: int):
     """The sharded greedy head on this rank's vocabulary slice, over two
     heads built from one block of positive columns ``base`` (and

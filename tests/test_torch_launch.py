@@ -306,6 +306,132 @@ def test_dry_run_rank_state_is_the_grid_rank_state():
         torch.float32)) > 0
 
 
+@pytest.mark.parametrize("tp", [4, 8])
+def test_dry_run_counts_a_long_500k_rank(tp, tmp_path, capsys):
+    """gemma3-4b x long_500k at 256 cards (pp 2, dp 256 / (2 tp)): one
+    rank's state, its full-length caches one data rank's shard (sequence-
+    parallel decode), against the serving memory model's SP price.  At
+    tp 4 the KV heads cut evenly and the count is the price within 1%.
+    At the config's tp 8 (4 KV heads) a rank holds its KV group's one
+    head (``attn_static``'s n_kv_local, as JAX's engine allocates it),
+    where ``serving_cache_bytes`` prices all 4 (JAX's rule, copied): the
+    count is the price with the KV term over n_kv / n_kv_local."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models.init import attn_static
+    cfg = tconfigs.get("gemma3-4b")
+    spec = cfg.full_spec()
+    plan = cfg.PLAN.with_(tp=tp)
+    rec = dryrun.run_cell("gemma3-4b", "long_500k", cards=256, plan=plan,
+                          out_dir=tmp_path)
+    dp = 256 // (plan.pp * tp)
+    assert rec["data_replicas"] == dp and rec["replica_batch"] == 1
+    sched = tsched.make_serving_schedule(plan.with_(tp=1), 1)
+    mm = sched.memory_model(spec, plan, dryrun.prof.H100_SXM,
+                            microbatch_tokens=1, data_replicas=dp,
+                            cache_len=524288, global_batch=1, sp=True,
+                            prefill=False, page_size=0)
+    priced = spec.n_kv // tp if spec.n_kv % tp == 0 else spec.n_kv
+    heads = attn_static(spec, tp).n_kv_local / priced
+    want = mm.weight_bytes + mm.cache_bytes * heads
+    assert rec["state_bytes_per_rank"] == pytest.approx(want, rel=0.01)
+    if tp == 4:
+        assert rec["state_bytes_per_rank"] == pytest.approx(
+            mm.total_bytes, rel=0.01)
+    else:
+        assert heads == 0.25
+    # the softmax sums over the data group: 5 full-length positions a
+    # stage, 1 row, 8 / tp query heads of 256, f32
+    want_seq = (5 * (8 // tp) * 258 * 4.0 * 2 * (dp - 1) / dp)
+    assert rec["per_collective"]["sequence"] == pytest.approx(want_seq)
+    assert "long_decode" in capsys.readouterr().out
+
+
+def test_dry_run_counts_jamba_long_500k_on_meta(tmp_path):
+    """jamba-v0.1-52b x long_500k (MoE FFNs, Mamba and attention) counts
+    on meta: the MoE dispatch has fixed shapes."""
+    from repro_torch.launch import dryrun
+    rec = dryrun.run_cell("jamba-v0.1-52b", "long_500k", cards=256,
+                          out_dir=tmp_path)
+    assert rec["state_bytes_per_rank"] > 0 and rec["flops"] > 0
+    assert rec["per_collective"]["sequence"] > 0
+
+
+def _dispatch_previous(gate_idx, n_experts, capacity):
+    """The port's dispatch before its counts had fixed shapes
+    (``torch.bincount``), kept to hold the current one to it."""
+    nk = gate_idx.shape[0]
+    order = torch.argsort(gate_idx, stable=True)
+    sorted_e = gate_idx[order]
+    counts = torch.bincount(gate_idx, minlength=n_experts)
+    starts = torch.cumsum(counts, 0) - counts
+    pos_in_e = torch.arange(nk) - starts[sorted_e]
+    keep_sorted = pos_in_e < capacity
+    slot_sorted = sorted_e * capacity + pos_in_e.clamp(max=capacity - 1)
+    slot = torch.empty_like(slot_sorted)
+    keep = torch.empty_like(keep_sorted)
+    slot[order] = slot_sorted
+    keep[order] = keep_sorted
+    return slot, keep
+
+
+def _moe_previous(p, x, ms, act):
+    """``models/nn.py::moe`` with the previous boolean-indexed buffer
+    write (``buf[slot[keep]] = xf[token_of[keep]]``), tp 1."""
+    b, s, d = x.shape
+    n, k, e = b * s, ms.top_k, ms.n_experts
+    xf = x.reshape(n, d)
+    probs = torch.softmax((xf @ p["router"]).float(), dim=-1)
+    top_p, top_i = torch.topk(probs, k, dim=-1)
+    top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+    slot, keep = _dispatch_previous(top_i.reshape(-1), e, ms.capacity)
+    token_of = torch.arange(n).repeat_interleave(k)
+    buf = x.new_zeros((e * ms.capacity, d))
+    buf[slot[keep]] = xf[token_of[keep]]
+    buf = buf.view(e, ms.capacity, d)
+    h = torch.nn.functional.silu(torch.bmm(buf, p["w1"])) * torch.bmm(
+        buf, p["w3"])
+    y = torch.bmm(h, p["w2"]).reshape(e * ms.capacity, d)
+    w = top_p.reshape(-1).to(x.dtype)[:, None]
+    gathered = torch.where(keep[:, None], y[slot] * w, 0).view(n, k, d)
+    out = gathered[:, 0]
+    for j in range(1, k):
+        out = out + gathered[:, j]
+    return out.view(b, s, d)
+
+
+@pytest.mark.parametrize("seed,n_tokens,capacity",
+                         [(0, 12, 2), (1, 24, 4), (2, 7, 1), (3, 8, 16)])
+def test_moe_fixed_shape_dispatch_equals_the_previous_rule(seed, n_tokens,
+                                                           capacity):
+    """The fixed-shape dispatch (counts by ``scatter_add_``, dropped pairs
+    on a spare row) gives the previous rule's slots, keeps and MoE
+    outputs bit for bit, with and without overflow, and runs on meta."""
+    from repro_torch.models import nn as tnn
+    g = torch.Generator().manual_seed(seed)
+    e, k, d, f = 4, 2, 16, 24
+    ids = torch.randint(0, e, (n_tokens * k,), generator=g)
+    ids[: n_tokens] = 0                   # expert 0 overflows
+    got = tnn.moe_dispatch_indices(ids, e, capacity)
+    want = _dispatch_previous(ids, e, capacity)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    meta = tnn.moe_dispatch_indices(ids.to("meta"), e, capacity)
+    assert meta[0].shape == want[0].shape and meta[1].dtype == torch.bool
+    p = {"router": torch.randn((d, e), generator=g),
+         "w1": torch.randn((e, d, f), generator=g) * 0.1,
+         "w3": torch.randn((e, d, f), generator=g) * 0.1,
+         "w2": torch.randn((e, f, d), generator=g) * 0.1}
+    x = torch.randn((1, n_tokens, d), generator=g)
+    ms = tnn.MoEStatic(n_experts=e, n_local=e, top_k=k, capacity=capacity,
+                       n_shared=0)
+    out, _ = tnn.moe(p, x, ms, "silu")
+    assert torch.equal(out, _moe_previous(p, x, ms, "silu"))
+    # a pair is dropped exactly where expert 0 takes more than capacity
+    assert (not want[1].all()) == (capacity < n_tokens)
+    out_meta, _ = tnn.moe({key: t.to("meta") for key, t in p.items()},
+                          x.to("meta"), ms, "silu")
+    assert out_meta.shape == out.shape
+
+
 def test_entry_points_ask_for_the_card():
     from repro_torch.launch import dryrun, profile_cell, serve
     if torch.cuda.is_available():
